@@ -1,0 +1,94 @@
+"""Carry a stamped circuit across from plain arrays into the port.
+
+The system has no weights; its state is the stamped circuit.  These
+functions take the fields of a netlist, a stamp pattern and a dense or
+ELL state space as plain numpy arrays and scalars — as read off the
+reference's ``Netlist``, ``StampPattern``, ``BatchedStateSpace`` and
+``EllBatchedStateSpace`` — and build the port's objects, the operators
+on a given device.  A test can then feed the identical operator to both
+packages' sweeps and hold a kernel apart from assembly.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.network import Netlist
+from repro_torch.core.specs import CircuitParams
+from repro_torch.device import resolve_device
+
+NETLIST_ARRAYS = ("branch_i", "branch_j", "branch_g", "ground_g", "supply_g",
+                  "supply_v", "cell_i", "cell_j", "cell_w")
+
+
+def netlists_from_arrays(fields: list[Mapping[str, Any]]) -> list[Netlist]:
+    """Netlists from per-system field mappings.
+
+    Each mapping holds ``design``, ``n_unknowns``, ``n_nodes``, the
+    component arrays (:data:`NETLIST_ARRAYS`), ``element_count`` (array
+    or None) and ``params`` (a mapping of :class:`CircuitParams`
+    fields).  Netlists live on the host in both packages.
+    """
+    out = []
+    for f in fields:
+        arrays = {}
+        for name in NETLIST_ARRAYS:
+            dtype = np.int64 if name in ("branch_i", "branch_j", "cell_i", "cell_j") \
+                else np.float64
+            arrays[name] = np.array(f[name], dtype=dtype)
+        elem = f.get("element_count")
+        out.append(Netlist(
+            design=str(f["design"]),
+            n_unknowns=int(f["n_unknowns"]),
+            n_nodes=int(f["n_nodes"]),
+            params=CircuitParams(**dict(f["params"])),
+            element_count=None if elem is None else np.array(elem, dtype=np.float64),
+            **arrays,
+        ))
+    return out
+
+
+def pattern_from_arrays(*, design: str, n_nodes: int, n_unknowns: int, pair_i,
+                        pair_j, gcell_i, states_per_amp: int,
+                        buffers: bool) -> engine.StampPattern:
+    """The port's (cached) stamp pattern from the primary pattern fields."""
+    return engine._cached_pattern(
+        str(design), int(n_nodes), int(n_unknowns), np.asarray(pair_i),
+        np.asarray(pair_j), np.asarray(gcell_i), int(states_per_amp), bool(buffers),
+    )
+
+
+def state_space_from_arrays(m, c, *, pattern: engine.StampPattern, amp_active,
+                            amp_rail: float, slew: float,
+                            device=None) -> engine.BatchedStateSpace:
+    """Dense state space: ``m`` (B, nz, nz) and ``c`` (B, nz) as float64."""
+    dev = resolve_device(device)
+    return engine.BatchedStateSpace(
+        m=torch.as_tensor(np.asarray(m, dtype=np.float64), device=dev),
+        c=torch.as_tensor(np.asarray(c, dtype=np.float64), device=dev),
+        pattern=pattern,
+        amp_active=np.asarray(amp_active, dtype=bool),
+        amp_rail=float(amp_rail),
+        slew=float(slew),
+    )
+
+
+def ell_state_space_from_arrays(indices, weights, c, *, pattern: engine.StampPattern,
+                                amp_active, amp_rail: float, slew: float,
+                                device=None) -> engine.EllBatchedStateSpace:
+    """ELL state space: ``indices`` (B, nz, K) int32, ``weights`` (B, nz, K)
+    and ``c`` (B, nz) float64, in the reference's row-major slot layout."""
+    dev = resolve_device(device)
+    return engine.EllBatchedStateSpace(
+        indices=torch.as_tensor(np.asarray(indices, dtype=np.int32), device=dev),
+        weights=torch.as_tensor(np.asarray(weights, dtype=np.float64), device=dev),
+        c=torch.as_tensor(np.asarray(c, dtype=np.float64), device=dev),
+        pattern=pattern,
+        amp_active=np.asarray(amp_active, dtype=bool),
+        amp_rail=float(amp_rail),
+        slew=float(slew),
+    )

@@ -1,0 +1,49 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes ``device=`` and runs on the CUDA card unless the
+caller asks for the CPU.  Without a CUDA device and without an explicit
+``device="cpu"`` it raises; it never carries on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` means ``"cuda"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on the CUDA device by default and no CUDA "
+            "device is available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@contextlib.contextmanager
+def stage(timings: dict | None, name: str, device: torch.device):
+    """Add the wall time of the block to ``timings[name]``.
+
+    A no-op when ``timings`` is None.  Otherwise the device is
+    synchronized on entry and exit, so the time covers the device work
+    the block enqueued, not just the enqueue.
+    """
+    if timings is None:
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0

@@ -1,0 +1,145 @@
+"""Build and load the hand-written Hopper kernels at first CUDA use.
+
+Route: ``nvcc`` compiles each source of ``csrc/`` for ``sm_90a`` into
+an object file, all of them at once, and links them into one shared
+library with a plain C interface, loaded with ``ctypes``.  No source
+includes PyTorch's headers, so a build takes seconds.  The library
+lands in ``build/repro_torch_kernels/`` at the repository root, named
+by a hash of the sources and flags, so an unchanged checkout loads the
+library an earlier process built.
+
+Nothing here runs at import: the CPU tests import every module, and
+this machine need not have ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("ell_transient.cu", "transient_step.cu")
+HEADERS = ("common.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points of csrc/*.cu: (argtypes, restype)
+_SIGNATURES = {
+    # idx, w, w_is_bf16, z, c, z_out, res, batch, nz, k, n_steps, dt, stream
+    "repro_ell_sweep": ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+    # idx, w, w_is_bf16, z, c, z_out, res, batch, nz, k, dt, stream
+    "repro_ell_step": ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    # mt, z, c, z_out, res, batch, n, n_steps, dt, stream
+    "repro_dense_sweep": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    # m, z, c, z_out, res, batch, n, dt, stream
+    "repro_dense_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
+    "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
+}
+
+
+class KernelLibrary:
+    """The loaded kernel library plus what its build reported."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds   # 0.0 when an earlier build was reused
+        self.log = log                       # nvcc/ptxas output (-Xptxas=-v)
+        self._lib = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+
+    def call(self, name: str, *args) -> None:
+        """Launch through one C entry point; raise on a CUDA error."""
+        err = getattr(self._lib, name)(*args)
+        if err != 0:
+            msg = self._lib.repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+_LIB: KernelLibrary | None = None
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH); the CUDA "
+            "kernels of repro_torch are built at first use on the card's machine"
+        )
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise with their output if any fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
+def _build(target: Path) -> str:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(src).stem + ".o") for src in SOURCES]
+        log = _run([
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            for src, obj in zip(SOURCES, objs)
+        ])
+        tmp_so = Path(tmp) / target.name
+        log += _run([[nvcc, "-shared", "-o", str(tmp_so), *map(str, objs)]])
+        os.replace(tmp_so, target)
+    return log
+
+
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; thread-safe."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            target = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+            t0 = time.perf_counter()
+            log = _build(target) if not target.exists() else ""
+            seconds = time.perf_counter() - t0 if log else 0.0
+            _LIB = KernelLibrary(target, seconds, log)
+        return _LIB

@@ -1,0 +1,232 @@
+"""Wrappers around the settle-sweep kernels: padding, layout, routing.
+
+Counterpart of the sweep half of :mod:`repro.kernels.ops`.
+
+* pad inputs to the 128-row block (zero padding is exact: padded rows
+  carry ``w = 0`` slots pointing at column 0, and zero operator rows and
+  columns are neutral);
+* lay the ELL slots out slot-major for the Hopper kernels;
+* route between the persistent sweeps (K1, K3) and the row-tiled
+  per-step kernels (K2, K4).
+
+The kernels run for CUDA tensors and their plain versions for CPU
+tensors; the routing here is the same for both.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ell_transient as _ell
+from repro_torch.kernels import transient_step as _st
+
+ROW_BLOCK = _ell.ROW_BLOCK        # the row-tiled kernels' block height
+
+# ---------------------------------------------------------------------------
+# Routing limits, re-derived for the Hopper designs
+# ---------------------------------------------------------------------------
+#
+# The reference sizes its limits to TPU VMEM: SWEEP_STATE_LIMIT = 1792
+# (the whole (n^2 + 3n)-f32 dense operator resident) and ELL_VMEM_BUDGET =
+# 12 MiB with ell_sweep_fits_vmem (the whole ELL operator resident).  On
+# an H100 a thread block may use 227 KB (232,448 bytes) of shared memory,
+# which holds a float32 dense operator only up to nz ~ 235.  So the
+# persistent sweeps K1 and K3 keep only the *state* on chip — two f32
+# copies of the padded state (ping-pong) plus a 32-float reduction
+# scratch — and stream the operator from L2/HBM every step.  That gives
+# two limits:
+#
+# * a hard one: the state must fit one block's shared memory
+#   (sweep_state_fits_smem), the same for the dense and the ELL sweep;
+# * a rate one, per pair: a persistent sweep runs each system through ONE
+#   SM, while the row-tiled kernels K2/K4 spread the batch over all 132
+#   SMs but pay a launch and its host call per step.  The persistent
+#   sweep wins while its step takes less than a row-tiled step takes the
+#   host (26-48 us per launch from Python on an H100).  chip_smoke.py
+#   times both routes of each pair on each side of its limit (its
+#   route_times line; PERF.md, "Routing limits"):
+#   - ELL: K1 streams its slots at ~100 GB/s per SM, 20 us per step at
+#     2.1 MB per system and 42 us at 4.3 MB, where the settle loop's K2
+#     launches took 26-44 us each (a tie), so ELL_PERSISTENT_BYTES = 4 MiB;
+#   - dense: K3 walks all nz columns in one dependent chain per thread,
+#     ~66 ns per column, 34 us per step at 1 MiB (K4: 42 us) and 43 us at
+#     1.6 MiB (K4: 24 us), so DENSE_PERSISTENT_BYTES = 1 MiB.
+SMEM_PER_BLOCK = 232_448
+ELL_PERSISTENT_BYTES = 4 << 20
+DENSE_PERSISTENT_BYTES = 1 << 20
+
+
+def sweep_state_fits_smem(nz: int) -> bool:
+    """Whether K1/K3 hold one system's padded state in a block's shared memory.
+
+    Replaces the reference's ``nz <= SWEEP_STATE_LIMIT`` (1792, sized to
+    TPU VMEM); here it holds up to nz = 28,928 states.
+    """
+    nz_p = nz + (-nz) % ROW_BLOCK
+    return 2 * nz_p * 4 + 32 * 4 <= SMEM_PER_BLOCK
+
+
+def ell_sweep_persistent(nz: int, k: int) -> bool:
+    """K1 (persistent) rather than K2 (row-tiled) for an ELL operator of
+    width ``k``; replaces the reference's ``ell_sweep_fits_vmem``."""
+    nz_p = nz + (-nz) % ROW_BLOCK
+    return sweep_state_fits_smem(nz) and nz_p * k * 8 <= ELL_PERSISTENT_BYTES
+
+
+def dense_sweep_persistent(nz: int) -> bool:
+    """K3 (persistent) rather than K4 (row-tiled) for a dense operator."""
+    nz_p = nz + (-nz) % ROW_BLOCK
+    return sweep_state_fits_smem(nz) and nz_p * nz_p * 4 <= DENSE_PERSISTENT_BYTES
+
+
+# Dense <-> ELL crossover: per step the dense sweep reads nz^2 f32
+# weights and the ELL sweep nz*K (weight, index) pairs, twice the bytes
+# per slot, so ELL moves fewer bytes while K < nz / 2 — as in the reference.
+ELL_FILL_CUTOFF = 0.5
+
+
+def pad_rows(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+    """Zero-pad the given dims up to the next multiple of ROW_BLOCK."""
+    pad = [0] * (2 * x.ndim)
+    for d in dims:
+        pad[2 * (x.ndim - 1 - d) + 1] = (-x.shape[d]) % ROW_BLOCK
+    if not any(pad):
+        return x
+    return torch.nn.functional.pad(x, pad)
+
+
+def sweep_backend(nz: int, k: int | None) -> str:
+    """Pick the transient-sweep backend for an operator family.
+
+    ``k`` is the ELL slot width (None for a dense-only caller).
+    Returns ``"ell"`` (K1), ``"ell-step"`` (K2), ``"dense"`` (K3) or
+    ``"dense-step"`` (K4); see the routing limits above.
+    """
+    if k is not None and k < ELL_FILL_CUTOFF * nz:
+        return "ell" if ell_sweep_persistent(nz, k) else "ell-step"
+    return "dense" if dense_sweep_persistent(nz) else "dense-step"
+
+
+def ell_prepare(idx: torch.Tensor, w: torch.Tensor, sweep_dtype: str = "float32"):
+    """Row-major ELL slots (B, nz, K) -> padded slot-major (B, K, nz_p).
+
+    ``w`` is cast to the sweep dtype (bf16 storage halves the weight
+    traffic).  The settle loop calls this once per operator batch.
+    """
+    if sweep_dtype not in _ell.SWEEP_DTYPES:
+        raise ValueError(f"unknown sweep_dtype {sweep_dtype!r}")
+    w_dtype = torch.bfloat16 if sweep_dtype == "bfloat16" else torch.float32
+    idx_t = pad_rows(idx.to(torch.int32), (1,)).transpose(1, 2).contiguous()
+    w_t = pad_rows(w.to(w_dtype), (1,)).transpose(1, 2).contiguous()
+    return idx_t, w_t
+
+
+def ell_transient_sweep(
+    idx: torch.Tensor,
+    w: torch.Tensor,
+    z: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    n_steps: int,
+    dt: float = 1.0,
+    padded: bool = False,
+    sweep_dtype: str = "float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_steps`` fused ELL Euler steps; idx/w (B, nz, K), z/c (B, nz).
+
+    Pads ``nz`` to the row block and routes between the persistent
+    sweep K1 and ``n_steps`` launches of the row-tiled step K2 (plus one
+    ``dt=0`` launch for the residual at the final state) by
+    :func:`ell_sweep_persistent`.  Returns ``(z', res)`` with the
+    per-system residual ``max_i |M z' + c|_i`` at the final state.
+
+    ``padded=True`` says the caller already did the per-operator prep:
+    idx/w are the slot-major ``(B, K, nz_p)`` arrays of
+    :func:`ell_prepare` and z/c are padded to ``nz_p`` — the
+    loop-hoisted path of settle sweeps that launch many chunks over one
+    operator batch.
+
+    ``sweep_dtype="bfloat16"`` runs the bf16-weight / fp32-accumulate
+    variant; state, slot sum and residual stay float32.
+    """
+    if padded:
+        idx_t, w_t = idx, w
+        nz = idx_t.shape[2]
+    else:
+        nz = idx.shape[1]
+        idx_t, w_t = ell_prepare(idx, w, sweep_dtype)
+        z = pad_rows(z.to(torch.float32), (1,))
+        c = pad_rows(c.to(torch.float32), (1,))
+    if ell_sweep_persistent(idx_t.shape[2], idx_t.shape[1]):
+        out, res = _ell.ell_sweep(idx_t, w_t, z, c, n_steps=n_steps, dt=dt)
+        return out[:, :nz], res[:, 0]
+    for _ in range(n_steps):
+        z, _ = _ell.ell_step(idx_t, w_t, z, c, dt)
+    # dt=0 step: state unchanged, residual evaluated at the *final*
+    # state — matching the fused kernel's contract
+    _zf, res = _ell.ell_step(idx_t, w_t, z, c, 0.0)
+    return z[:, :nz], res.amax(dim=1)
+
+
+def transient_sweep(
+    m: torch.Tensor,
+    z: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    n_steps: int,
+    dt: float = 1.0,
+    m_transposed: bool = False,
+    sweep_dtype: str = "float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_steps`` fused batched Euler steps; m (B, n, n), z/c (B, n).
+
+    Runs the persistent sweep K3 where :func:`dense_sweep_persistent`
+    says so, else ``n_steps`` launches of the row-tiled step K4 (plus a
+    ``dt=0`` launch for the final residual).  Returns
+    ``(z', res)`` with ``res`` the per-system ``max_i |M z' + c|_i`` at
+    the final state.
+
+    ``m_transposed=True`` says the caller already padded every operand
+    to the row block and passed ``m[b] = M_b.T`` when K3 applies (the
+    untransposed ``M_b`` when K4 does) — the loop-hoisted path, which
+    expects ``sweep_dtype`` rounding applied to ``m`` already.
+
+    ``sweep_dtype="bfloat16"`` rounds the dense operator through bf16
+    once before the f32 sweep; the kernels themselves are unchanged.
+    """
+    if sweep_dtype not in _ell.SWEEP_DTYPES:
+        raise ValueError(f"unknown sweep_dtype {sweep_dtype!r}")
+    n = m.shape[1]
+    fused = dense_sweep_persistent(n)
+    if not m_transposed:
+        if sweep_dtype == "bfloat16":
+            m = m.to(torch.bfloat16).to(torch.float32)
+        m = pad_rows(m.to(torch.float32), (1, 2))
+        if fused:
+            m = m.transpose(1, 2)
+        m = m.contiguous()
+        z = pad_rows(z.to(torch.float32), (1,))
+        c = pad_rows(c.to(torch.float32), (1,))
+    if fused:
+        out, res = _st.transient_sweep(m, z, c, n_steps=n_steps, dt=dt)
+        return out[:, :n], res[:, 0]
+    for _ in range(n_steps):
+        z, _ = _st.transient_step_batched(m, z, c, dt)
+    _zf, res = _st.transient_step_batched(m, z, c, 0.0)
+    return z[:, :n], res.amax(dim=1)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel since the last reset."""
+    return {
+        "ell_sweep": _ell.ell_sweep.launches,
+        "ell_step": _ell.ell_step.launches,
+        "transient_sweep": _st.transient_sweep.launches,
+        "transient_step_batched": _st.transient_step_batched.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    for fn in (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
+               _st.transient_step_batched):
+        fn.launches = 0
