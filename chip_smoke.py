@@ -27,7 +27,21 @@ non-zero:
    ``transient_batch(method="euler")`` on the ELL and the dense operator
    at n = 256, and ``euler_settle_batch`` on both against one reference
    point (their settle steps must agree within one 50-step chunk);
-4. the kernels line, the nvidia-smi line, and the contract's last line.
+4. kernel_api — the kernel API through the public wrappers, launch
+   counts reset just before and read just after, failing unless K5, K6,
+   K7a and K7b each launched: ``spd_transform_arrays`` (K7a + K7b) on a
+   dense n = 4096 system, ``crosspoint_mvm`` (K6) on its (8192, 8192)
+   crossbar from ``crosspoint_layout`` at the DC node voltages, with 64
+   voltage vectors and in bf16, and 200 ``transient_step`` (K5) steps of
+   one dense n = 1024 circuit (nz = 8192) from 16 start states.  Then
+   the transform against float64, each kernel against its plain version
+   within a bar scaled to its largest output, K5's column 0 against 500
+   launches of K4, each kernel at ragged shapes (K5 and K6 once per tile
+   width), and the times of kernel, plain version and library call;
+5. quickstart — the single-system flow of examples/quickstart.py at
+   n = 24 on the card and on the CPU, which must agree;
+6. the kernels line (K1-K7b), the nvidia-smi line, and the contract's
+   last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA it
 exits with code 2 before printing any result.
@@ -35,11 +49,13 @@ exits with code 2 before printing any result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -47,6 +63,7 @@ import torch
 # published H100 SXM peaks (NVIDIA data sheet), used for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, on the tensor cores
 SEED = 99
 BATCH = 4
 MAX_STEPS = 30_000
@@ -174,13 +191,15 @@ def start_state(c: torch.Tensor) -> torch.Tensor:
     return (torch.rand(c.shape, generator=g) - 0.5).to(c.device)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time of one call: its inputs read once and outputs written
-    once at the HBM rate, or its flops at the f32 peak, the larger.  A
+    once at the HBM rate, or its flops at ``peak`` (the f32 peak unless
+    the inputs are bf16), the larger.  A
     cold call brings its inputs from HBM; where the timing loop keeps
     them in L2 (the ELL operands, small dense ones) the bound is loose."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -265,7 +284,7 @@ def dense_pair(n: int, dev, steps: int) -> dict:
     version, K3 against ``steps`` K4 launches plus the dt=0 launch;
     per-call times of both."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels import transient_step as sk
+    sk = importlib.import_module("repro_torch.kernels.transient_step")
 
     bss, m, m_t, c = dense_operands(n, dev)
     route = ops.sweep_backend(bss.n_states, None)
@@ -453,15 +472,324 @@ def phase_slice(dev, routes: dict) -> dict:
     diff = np.abs(steps["ell"] - steps["dense"])
     check(bool(np.all(diff <= 50)), f"ELL vs dense settle_steps differ by {diff.tolist()}")
 
-    for name, v in launches.items():
-        check(v > 0, f"kernel {name} was not launched on the main path")
+    for name in KERNEL_OF_ROUTE.values():
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     emit(dict(phase="slice", case="launch_totals", launches=launches))
     return launches
 
 
-def kernels_line(pairs: dict, launches: dict) -> list[dict]:
-    """One row per kernel: timed at its main-path shape (MAIN_SHAPE), its
-    error the largest over every shape, its launches from the main path."""
+# ---------------------------------------------------------------------------
+# phase 4: the kernel API (K5, K6, K7a, K7b) and the single-circuit modules
+# ---------------------------------------------------------------------------
+
+N_TRANSFORM = 4096        # K7a/K7b: one dense system; K6: its 8192-node crossbar
+N_CIRCUIT = 1024          # K5: one dense circuit, nz = 8192
+K5_COLUMNS = 16           # the zero state and 15 random start states
+K5_STEPS = 200
+K5_VS_K4_STEPS = 500
+K6_BATCH = 64
+RAGGED_TRANSFORM = 4000
+RAGGED_MVM = ((300, 513, 1), (300, 513, 5), (257, 130, 64))  # each K6 tile width
+RAGGED_STEP = ((137, 1), (137, 17), (130, 33))                # each K5 tile width
+# the reference's kernel-test bars (tests/test_kernels.py:19-23, :84-99),
+# each scaled to the largest output as the CPU parity tests scale theirs:
+# crossbar products 5e-5 in float32 (k <= 8192 sums in another order),
+# 2e-2 in bf16 (a few bf16 ulps of the output); the fused transform within
+# 1e-5 max|K_A| of the float64 one.  K5 after 200 and 500 steps: 1e-5 of
+# max|z| (TOL_Z, the sweeps' bar).
+TOL_MVM_F32, TOL_MVM_BF16, TOL_TRANSFORM = 5e-5, 2e-2, 1e-5
+API_KERNELS = ("transient_step", "crosspoint_mvm", "colabs", "assemble")
+
+
+def hold(errs: dict, key: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> None:
+    """Fail unless max |got - want| <= tol * max |want|.  The bar scales
+    with the output: a crossbar's currents are ~1e-4 A, so a bar absolute
+    in amperes would pass a kernel that returned zeros.  Keeps under
+    ``key`` the largest error and the largest share of its bar."""
+    got, want = got.double(), want.double()
+    err = float((got - want).abs().max())
+    bar = tol * float(want.abs().max())
+    check(err <= bar, f"{key}: max err {err} past {tol} x max|want| = {bar}")
+    old = errs.get(key, dict(max_abs_err=0.0, of_bar=0.0))
+    errs[key] = dict(max_abs_err=max(old["max_abs_err"], err),
+                     of_bar=max(old["of_bar"], err / bar if bar else 0.0))
+
+
+def api_operands(dev) -> dict:
+    """The main-path operands: a dense n = 4096 system (K7), its crossbar
+    G (K6, from crosspoint_layout), one dense n = 1024 circuit's
+    dt-folded state space (K5), all from numpy seeds."""
+    from repro_torch.core import engine
+    from repro_torch.core import transform as T
+    from repro_torch.core.crosspoint import crosspoint_layout
+    from repro_torch.core.network import build_proposed
+    from repro_torch.core.transient import assemble_state_space
+    from repro_torch.data.spd import random_rhs_from_solution, random_spd
+
+    f32 = torch.float32
+    rng = np.random.default_rng(7)
+    a = random_spd(rng, N_TRANSFORM)
+    x, b = random_rhs_from_solution(rng, a)
+    tr64 = T.transform_2n(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
+    g = crosspoint_layout(tr64).g_array.to(f32).contiguous()
+    y = torch.as_tensor(np.concatenate([x, -x]), dtype=f32, device=dev)
+    v = torch.as_tensor(np.random.default_rng(8).uniform(-0.5, 0.5, (g.shape[1], K6_BATCH)),
+                        dtype=f32, device=dev)
+
+    rng = np.random.default_rng(7)
+    ac = random_spd(rng, N_CIRCUIT)
+    _xc, bc = random_rhs_from_solution(rng, ac)
+    ss = assemble_state_space(build_proposed(ac, bc, device=dev), device=dev)
+    dt = float(engine._settle_dt(SimpleNamespace(m=ss.m[None]), 0.5, "diag")[0])
+    nz = ss.n_states
+    m = (ss.m * dt).to(f32).contiguous()
+    c = (ss.c * dt).to(f32)[:, None].expand(nz, K5_COLUMNS).contiguous()
+    z0 = np.random.default_rng(9).uniform(-0.5, 0.5, (nz, K5_COLUMNS))
+    z0[:, 0] = 0.0                       # the paper's step response
+    z = torch.as_tensor(z0, dtype=f32, device=dev)
+    return dict(a=torch.as_tensor(a, dtype=f32, device=dev),
+                b=torch.as_tensor(b, dtype=f32, device=dev), tr64=tr64,
+                g=g, g_bf=g.bfloat16(), y=y, v=v, v_bf=v.bfloat16(), m=m, c=c, z=z,
+                nz=nz, dt=dt)
+
+
+def drive_api(op: dict) -> tuple[dict, dict, float]:
+    """The kernel API's main path, once, with the launch counts reset just
+    before and read just after: the fused transform, the crossbar at its
+    DC voltages, with 64 voltage vectors and in bf16, and 200 steps of one
+    circuit from 16 start states."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dict(transform=ops.spd_transform_arrays(op["a"], op["b"]),
+               i_dc=ops.crosspoint_mvm(op["g"], op["y"]),
+               i_v=ops.crosspoint_mvm(op["g"], op["v"]),
+               i_bf=ops.crosspoint_mvm(op["g_bf"], op["v_bf"]))
+    z = op["z"]
+    for _ in range(K5_STEPS):
+        z = ops.transient_step(op["m"], z, op["c"], 1.0)
+    out["z"] = z
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for name in API_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the kernel-API path")
+    return out, counts, wall
+
+
+def ragged_checks(dev) -> dict:
+    """Each kernel at ragged shapes against its plain version, K5 and K6
+    once per tile width (nb = 1, <= 16, > 16)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spd_transform as tr
+
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+    st = importlib.import_module("repro_torch.kernels.transient_step")
+    rng = np.random.default_rng(10)
+
+    def t(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev).to(dtype)
+
+    errs: dict = {}
+    n = RAGGED_TRANSFORM
+    a = t((n, n)) * 1e-4
+    b = t(n) * 1e-4
+    ka, kb, d, ks = ops.spd_transform_arrays(a, b)
+    hold(errs, "colabs", tr.colabs(a), tr.colabs_plain(a), 1e-5)
+    pa, pb = tr.assemble_plain(a, d, ks)
+    hold(errs, "assemble", ka, pa, 0.0)
+    hold(errs, "assemble", kb, pb, 0.0)
+    for m_, k_, nb in RAGGED_MVM:
+        g, v = t((m_, k_)), t((k_, nb))
+        hold(errs, "crosspoint_mvm", mvm.crosspoint_mvm(g, v), mvm.crosspoint_mvm_plain(g, v),
+             TOL_MVM_F32)
+        gb, vb = g.bfloat16(), v.bfloat16()
+        hold(errs, "crosspoint_mvm_bf16", mvm.crosspoint_mvm(gb, vb),
+             mvm.crosspoint_mvm_plain(gb, vb), TOL_MVM_BF16)
+    for n5, b5 in RAGGED_STEP:
+        m5, z5, c5 = t((n5, n5)) * 0.1, t((n5, b5)), t((n5, b5))
+        hold(errs, "transient_step", st.transient_step(m5, z5, c5, 1e-2),
+             st.transient_step_plain(m5, z5, c5, 1e-2), TOL_MVM_F32)
+    return errs
+
+
+def phase_kernel_api(dev) -> tuple[dict, dict]:
+    """K5, K6, K7a and K7b through the public wrappers at the size sweep's
+    sizes: the counted main-path run, then each kernel against its plain
+    version (and the transform against float64, K5 against K4), the ragged
+    shapes, and the times.  Returns per-kernel rows and the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spd_transform as tr
+
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+    st = importlib.import_module("repro_torch.kernels.transient_step")
+    op = api_operands(dev)
+    out, launches, wall = drive_api(op)
+    emit(dict(phase="kernel_api", case="main_path", launches=launches, wall_s=wall,
+              transform_n=N_TRANSFORM, crossbar=list(op["g"].shape),
+              circuit_n=N_CIRCUIT, circuit_nz=op["nz"], k5_columns=K5_COLUMNS,
+              k5_steps=K5_STEPS, dt=op["dt"]))
+
+    # K7a/K7b: against the float64 transform and against the plain versions
+    ka, kb, d, ks = out["transform"]
+    tr64 = op["tr64"]
+    scale = float(tr64.k_a.abs().max())
+    for name, got, want in (("K_A", ka, tr64.k_a), ("K_B", kb, tr64.k_b), ("D", d, tr64.d),
+                            ("K_s", ks, tr64.k_s)):
+        e = float((got.double() - want).abs().max())
+        check(e <= TOL_TRANSFORM * scale, f"{name} vs float64 transform: {e} > 1e-5 x {scale}")
+    a = op["a"]
+    errs: dict = {}
+    hold(errs, "colabs", tr.colabs(a), tr.colabs_plain(a), 1e-5)
+    pa, pb = tr.assemble_plain(a, d, ks)
+    hold(errs, "assemble", ka, pa, 0.0)
+    hold(errs, "assemble", kb, pb, 0.0)
+    # K6: each product against the plain version on the same inputs, b = 1
+    # (the DC voltages) and b = 64 in float32 and bf16
+    g, y, v = op["g"], op["y"], op["v"]
+    hold(errs, "crosspoint_mvm_b1", out["i_dc"],
+         mvm.crosspoint_mvm_plain(g, y[:, None])[:, 0], TOL_MVM_F32)
+    hold(errs, "crosspoint_mvm", out["i_v"], mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
+    hold(errs, "crosspoint_mvm_bf16", out["i_bf"],
+         mvm.crosspoint_mvm_plain(op["g_bf"], op["v_bf"]), TOL_MVM_BF16)
+    # K5: 200 steps against 200 plain steps; column 0 through 500 steps
+    # of K5 (one column) against 500 launches of K4 (B = 1, padded as the
+    # engine pads)
+    m, c, z0 = op["m"], op["c"], op["z"]
+    zp = z0
+    for _ in range(K5_STEPS):
+        zp = st.transient_step_plain(m, zp, c, 1.0)
+    hold(errs, "transient_step", out["z"], zp, TOL_Z)
+    z5, c5 = z0[:, :1].contiguous(), c[:, :1].contiguous()
+    m4 = ops.pad_rows(m[None], (1, 2)).contiguous()
+    z4 = ops.pad_rows(z0[:, 0][None], (1,)).contiguous()
+    c4 = ops.pad_rows(c[:, 0][None], (1,)).contiguous()
+    for _ in range(K5_VS_K4_STEPS):
+        z5 = ops.transient_step(m, z5, c5, 1.0)
+        z4, _ = st.transient_step_batched(m4, z4, c4, 1.0)
+    hold(errs, "k5_vs_k4", z5[:, 0], z4[0, :op["nz"]], TOL_Z)
+    ragged = ragged_checks(dev)
+    emit(dict(phase="kernel_api", case="vs_plain", main_path=errs, ragged=ragged,
+              k5_max_z=float(zp.abs().max()), k5_vs_k4_max_z=float(z4.abs().max()),
+              i_dc_max=float(out["i_dc"].abs().max()), i_v_max=float(out["i_v"].abs().max())))
+
+    # times at the main-path shapes (each input is larger than the 50 MB L2
+    # except V, Z and C, so every call reads G, M or A from HBM).  Bytes:
+    # inputs read once and outputs written once.
+    rows = {}
+
+    def timed(key, shape, kern, plain, lib, nbytes, flops, err_keys, peak=F32_FLOPS_PER_S):
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        rows[key] = dict(
+            shape=shape, ms=cuda_ms(kern, 20), device_ms=graph_ms(kern, 20),
+            plain_ms=cuda_ms(plain, 10), library_ms=None if lib is None else cuda_ms(lib, 20),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+            max_abs_err=max(e[k]["max_abs_err"] for e in (errs, ragged) for k in err_keys
+                            if k in e))
+
+    nn, nz, gm, w = N_TRANSFORM, op["nz"], g.shape[0], K6_BATCH
+    bf, vbf, y1 = op["g_bf"], op["v_bf"], y[:, None]
+    zc = z0 + 1.0 * c
+    timed("colabs", [nn, nn], lambda: tr.colabs(a), lambda: tr.colabs_plain(a),
+          lambda: torch.linalg.vector_norm(a, ord=1, dim=0),
+          nn * nn * 4 + nn * 4, nn * nn, ("colabs",))
+    timed("assemble", [nn, nn], lambda: tr.assemble(a, d, ks),
+          lambda: tr.assemble_plain(a, d, ks), None,
+          nn * nn * 4 + 2 * nn * 4 + 2 * nn * nn * 4, 4 * nn * nn, ("assemble",))
+    timed("crosspoint_mvm", [gm, gm, 1], lambda: mvm.crosspoint_mvm(g, y1),
+          lambda: mvm.crosspoint_mvm_plain(g, y1), lambda: torch.matmul(g, y1),
+          gm * gm * 4 + 2 * gm * 4, 2 * gm * gm,
+          ("crosspoint_mvm_b1", "crosspoint_mvm"))
+    timed("crosspoint_mvm_b64", [gm, gm, w], lambda: mvm.crosspoint_mvm(g, v),
+          lambda: mvm.crosspoint_mvm_plain(g, v), lambda: torch.matmul(g, v),
+          gm * gm * 4 + 2 * gm * w * 4, 2 * gm * gm * w, ("crosspoint_mvm",))
+    # bf16 inputs: the bound's rate for their type is the bf16 peak
+    timed("crosspoint_mvm_b64_bf16", [gm, gm, w], lambda: mvm.crosspoint_mvm(bf, vbf),
+          lambda: mvm.crosspoint_mvm_plain(bf, vbf), lambda: torch.matmul(bf, vbf),
+          gm * gm * 2 + 2 * gm * w * 2, 2 * gm * gm * w, ("crosspoint_mvm_bf16",),
+          BF16_FLOPS_PER_S)
+    timed("transient_step", [nz, nz, K5_COLUMNS], lambda: st.transient_step(m, z0, c, 1.0),
+          lambda: st.transient_step_plain(m, z0, c, 1.0), lambda: torch.addmm(zc, m, z0),
+          nz * nz * 4 + 3 * nz * K5_COLUMNS * 4, nz * K5_COLUMNS * (2 * nz + 3),
+          ("transient_step",))
+    timed("transient_step_b1", [nz, nz, 1], lambda: st.transient_step(m, z5, c5, 1.0),
+          lambda: st.transient_step_plain(m, z5, c5, 1.0),
+          lambda: torch.addmm(z5 + c5, m, z5),
+          nz * nz * 4 + 3 * nz * 4, nz * (2 * nz + 3), ("k5_vs_k4", "transient_step"))
+    emit(dict(phase="kernel_api", case="times", rows=rows))
+    return rows, launches
+
+
+def quickstart(device: str) -> dict:
+    """The single-system flow of examples/quickstart.py at n = 24 through
+    the port on ``device``."""
+    from repro_torch.core import solve
+    from repro_torch.core import transform as T
+    from repro_torch.core.components import netlist_counts
+    from repro_torch.core.network import build_proposed
+    from repro_torch.core.power import system_power
+    from repro_torch.data.spd import random_rhs_from_solution, random_spd
+
+    op_mod = importlib.import_module("repro_torch.core.operating_point")
+    rng = np.random.default_rng(0)
+    n = 24
+    a = random_spd(rng, n)
+    x, b = random_rhs_from_solution(rng, a)
+    res = solve(a, b, method="analog_2n", x_ref=x, compute_settling=True, device=device)
+    hw = op_mod.NonIdealities(offset_mode="none", pot_bits=10, wiper_ohm=50.0)
+    res_hw = solve(a, b, method="analog_2n", nonideal=hw, x_ref=x, device=device)
+    res_pre = solve(a, b, method="analog_n", x_ref=x, compute_settling=True, device=device)
+    chol = solve(a, b, method="cholesky", device=device)
+    cg = solve(a, b, method="cg", device=device)
+    net = build_proposed(a, b, device=device)
+    counts = netlist_counts(net)
+    k_b = T.transform_2n(torch.as_tensor(a, device=device),
+                         torch.as_tensor(b, device=device)).k_b
+    power = system_power(torch.as_tensor(a, device=device), k_b, torch.as_tensor(x, device=device),
+                         n_amps=net.n_amps, n_switches=counts["analog_switches"])
+    return dict(
+        device=device, x_2n=res.x.tolist(), max_abs_error=float(res.info["max_abs_error"]),
+        settle_time_2n=float(res.settle_time), n_amps_2n=int(res.info["n_amps"]),
+        passive=bool(res.info["is_passive"]), err_fullscale_hw=float(res_hw.info["err_fullscale"]),
+        x_hw=res_hw.x.tolist(), settle_time_n=float(res_pre.settle_time),
+        x_n=res_pre.x.tolist(), n_amps_n=int(res_pre.info["n_amps"]),
+        x_cholesky=chol.x.tolist(), x_cg=cg.x.tolist(), cg_iterations=int(cg.info["iterations"]),
+        counts=counts, power=power, x_ref=x.tolist())
+
+
+def phase_quickstart() -> None:
+    """The quickstart flow on the card and on the CPU: solutions within
+    1e-10, settling times within one step of the eig path's log time grid
+    (3000 points over 1e-10..1 s), counts equal, power within 1e-12."""
+    got, want = quickstart("cuda"), quickstart("cpu")
+    emit(dict(phase="quickstart", **got))
+    emit(dict(phase="quickstart", **want))
+    for key in ("x_2n", "x_hw", "x_n", "x_cholesky", "x_cg"):
+        e = float(np.max(np.abs(np.subtract(got[key], want[key]))))
+        check(e <= 1e-10, f"quickstart {key}: cuda vs cpu {e}")
+    e = float(np.max(np.abs(np.subtract(got["x_2n"], got["x_ref"]))))
+    check(e <= 1e-8, f"quickstart: analog 2n x vs x_ref {e}")
+    grid_step = np.log(1e10) / 2999
+    for key in ("settle_time_2n", "settle_time_n"):
+        check(np.isfinite(got[key]) and abs(np.log(got[key] / want[key])) <= grid_step * 1.001,
+              f"quickstart {key}: {got[key]} vs {want[key]}")
+    for key in ("n_amps_2n", "n_amps_n", "passive", "cg_iterations", "counts"):
+        check(got[key] == want[key], f"quickstart {key}: {got[key]} vs {want[key]}")
+    for key, val in want["power"].items():
+        check(abs(got["power"][key] - val) <= 1e-12 * max(abs(val), 1e-30),
+              f"quickstart power {key}: {got['power'][key]} vs {val}")
+    check(abs(got["err_fullscale_hw"] - want["err_fullscale_hw"])
+          <= 1e-6 * want["err_fullscale_hw"], "quickstart hardware-model error")
+
+
+def kernels_line(pairs: dict, launches: dict, api_rows: dict,
+                 api_launches: dict) -> list[dict]:
+    """One row per kernel: timed at its main-path shape (MAIN_SHAPE for
+    K1-K4), its error the largest over every shape, its launches from the
+    main path that drives it (the slice for K1-K4, the kernel API for
+    K5-K7b)."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -484,6 +812,26 @@ def kernels_line(pairs: dict, launches: dict) -> list[dict]:
             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=k["library_ms"], shape=k["shape"], device_ms=k.get("device_ms"),
         ))
+    api = {
+        "transient_step": ("K5", "src/repro_torch/kernels/csrc/transient_step.cu",
+                           "src/repro/kernels/transient_step.py:99",
+                           ("transient_step_b1",)),
+        "crosspoint_mvm": ("K6", "src/repro_torch/kernels/csrc/crosspoint_mvm.cu",
+                           "src/repro/kernels/crosspoint_mvm.py:48",
+                           ("crosspoint_mvm_b64", "crosspoint_mvm_b64_bf16")),
+        "colabs": ("K7a", "src/repro_torch/kernels/csrc/spd_transform.cu",
+                   "src/repro/kernels/spd_transform.py:48", ()),
+        "assemble": ("K7b", "src/repro_torch/kernels/csrc/spd_transform.cu",
+                     "src/repro/kernels/spd_transform.py:96", ()),
+    }
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape",
+            "max_abs_err")
+    for name, (tag, source, rep, more) in api.items():
+        k = api_rows[name]
+        row = dict(name=f"{tag} {name}", route="cuda", source=source, replaces=rep,
+                   launches=api_launches[name], **{key: k[key] for key in keys})
+        row["other_shapes"] = {m: {key: api_rows[m][key] for key in keys} for m in more}
+        rows.append(row)
     return rows
 
 
@@ -512,8 +860,10 @@ def main() -> int:
     emit(dict(phase="route_times",
               per_step={f"{form}_n{n}": p["per_step"] for (form, n), p in pairs.items()}))
     launches = phase_slice(dev, routes)
+    api_rows, api_launches = phase_kernel_api(dev)
+    phase_quickstart()
 
-    emit({"kernels": kernels_line(pairs, launches)})
+    emit({"kernels": kernels_line(pairs, launches, api_rows, api_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

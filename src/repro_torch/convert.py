@@ -1,11 +1,12 @@
 """Carry a stamped circuit across from plain arrays into the port.
 
 The system has no weights; its state is the stamped circuit.  These
-functions take the fields of a netlist, a stamp pattern and a dense or
-ELL state space as plain numpy arrays and scalars — as read off the
-reference's ``Netlist``, ``StampPattern``, ``BatchedStateSpace`` and
-``EllBatchedStateSpace`` — and build the port's objects, the operators
-on a given device.  A test can then feed the identical operator to both
+functions take the fields of a netlist, a stamp pattern, a dense or ELL
+state space, one circuit's state space and a transformed system as plain
+numpy arrays and scalars — as read off the reference's ``Netlist``,
+``StampPattern``, ``BatchedStateSpace``, ``EllBatchedStateSpace``,
+``StateSpace`` and ``Transformed2N`` — and build the port's objects, the
+operators on a given device.  A test can then feed the identical operator to both
 packages' sweeps and hold a kernel apart from assembly.
 """
 
@@ -19,6 +20,8 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.network import Netlist
 from repro_torch.core.specs import CircuitParams
+from repro_torch.core.transform import Transformed2N
+from repro_torch.core.transient import StateSpace
 from repro_torch.device import resolve_device
 
 NETLIST_ARRAYS = ("branch_i", "branch_j", "branch_g", "ground_g", "supply_g",
@@ -92,3 +95,32 @@ def ell_state_space_from_arrays(indices, weights, c, *, pattern: engine.StampPat
         amp_rail=float(amp_rail),
         slew=float(slew),
     )
+
+
+def single_state_space_from_arrays(m, c, *, n_nodes: int, n_unknowns: int, amp_out_index,
+                                   amp_int_index, amp_rail: float, slew: float,
+                                   device=None) -> StateSpace:
+    """One circuit's state space: ``m`` (nz, nz) and ``c`` (nz,) as float64."""
+    dev = resolve_device(device)
+    return StateSpace(
+        m=torch.as_tensor(np.asarray(m, dtype=np.float64), device=dev),
+        c=torch.as_tensor(np.asarray(c, dtype=np.float64), device=dev),
+        n_nodes=int(n_nodes),
+        n_unknowns=int(n_unknowns),
+        amp_out_index=np.asarray(amp_out_index, dtype=np.int64),
+        amp_int_index=np.asarray(amp_int_index, dtype=np.int64),
+        amp_rail=float(amp_rail),
+        slew=float(slew),
+    )
+
+
+def transformed_from_arrays(k_a, k_b, d, k_s, b_sign, *, supply_v: float,
+                            device=None) -> Transformed2N:
+    """A transformed system (one or a batch) with float64 fields."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x, dtype=np.float64), device=dev)
+
+    return Transformed2N(k_a=t(k_a), k_b=t(k_b), d=t(d), k_s=t(k_s), b_sign=t(b_sign),
+                         supply_v=float(supply_v))

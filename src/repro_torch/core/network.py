@@ -33,6 +33,28 @@ _EMPTY_F = np.zeros(0, dtype=np.float64)
 
 
 @dataclasses.dataclass
+class NegCell:
+    """One negative-resistance cell (Sec. II-B, Fig. 3).
+
+    Pair cell (j >= 0): two op-amps + two buffers realize conductance
+    ``-w`` between nodes i and j.  Ground cell (j == -1): a single
+    op-amp realizes ``-w`` from node i to ground.
+    """
+
+    i: int
+    j: int          # -1 for ground
+    w: float        # magnitude of the (negative) conductance, > 0
+
+    @property
+    def n_amps(self) -> int:
+        return 2 if self.j >= 0 else 1
+
+    @property
+    def n_buffers(self) -> int:
+        return 2 if self.j >= 0 else 1
+
+
+@dataclasses.dataclass
 class Netlist:
     design: str                      # "preliminary" | "proposed" | "passive"
     n_unknowns: int                  # n of the original system
@@ -51,6 +73,14 @@ class Netlist:
     params: CircuitParams = DEFAULT_PARAMS
     # switch-bearing element circuits touching each node (Fig. 6)
     element_count: np.ndarray | None = None
+
+    @property
+    def cells(self) -> list[NegCell]:
+        """Array-of-structures view of the cell arrays."""
+        return [
+            NegCell(i=int(i), j=int(j), w=float(w))
+            for i, j, w in zip(self.cell_i, self.cell_j, self.cell_w)
+        ]
 
     @property
     def n_cells(self) -> int:
@@ -73,6 +103,41 @@ class Netlist:
     def s(self) -> np.ndarray:
         """Norton supply current vector."""
         return self.supply_g * self.supply_v
+
+    def assemble_passive(self) -> np.ndarray:
+        """Dense passive operator (branches + ground legs + supplies)."""
+        n = self.n_nodes
+        m = np.zeros((n, n), dtype=np.float64)
+        bi, bj, bg = self.branch_i, self.branch_j, self.branch_g
+        np.add.at(m, (bi, bj), -bg)
+        np.add.at(m, (bj, bi), -bg)
+        diag = np.zeros(n, dtype=np.float64)
+        np.add.at(diag, bi, bg)
+        np.add.at(diag, bj, bg)
+        diag += self.ground_g + self.supply_g
+        m[np.arange(n), np.arange(n)] += diag
+        return m
+
+    def assemble_dc(self) -> np.ndarray:
+        """Full DC operator including negative-resistance cell stamps.
+
+        Solving ``M v = s`` gives the ideal operating point; for the
+        proposed design ``v = [x; -x]``.
+        """
+        m = self.assemble_passive()
+        pair = self.cell_j >= 0
+        pi, pj, pw = self.cell_i[pair], self.cell_j[pair], self.cell_w[pair]
+        np.add.at(m, (pi, pj), pw)
+        np.add.at(m, (pj, pi), pw)
+        np.add.at(m, (pi, pi), -pw)
+        np.add.at(m, (pj, pj), -pw)
+        gi, gw = self.cell_i[~pair], self.cell_w[~pair]
+        np.add.at(m, (gi, gi), -gw)
+        return m
+
+    def recovered_solution(self, v: np.ndarray) -> np.ndarray:
+        """Read the unknown vector off the node voltages."""
+        return v[..., : self.n_unknowns]
 
     def max_conductance(self) -> float:
         """Largest branch/cell conductance (the Figs. 12-14 regressor)."""

@@ -1,10 +1,10 @@
 """Operating-point (DC) analysis with component non-idealities.
 
-Counterpart of the batched half of :mod:`repro.core.operating_point`:
-solve the steady state of the full state space (finite open-loop gain
-and input offset on the amp rows; digital-pot quantization, tolerance
-and wiper resistance applied to the netlist) and compare the recovered
-unknowns with the mathematical solution.  The error-model draws are
+Counterpart of :mod:`repro.core.operating_point`: solve the steady
+state of the full state space (finite open-loop gain and input offset on
+the amp rows; digital-pot quantization, tolerance and wiper resistance
+applied to the netlist), of one circuit or of a batch, and compare the
+recovered unknowns with the mathematical solution.  The error-model draws are
 host numpy with the reference's seeds, so both packages perturb the
 same circuits identically.
 
@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.network import Netlist
 from repro_torch.core.specs import OpAmpSpec, AD712
+from repro_torch.core.transient import assemble_state_space
 from repro_torch.device import resolve_device, stage
 
 
@@ -74,6 +75,64 @@ def apply_nonidealities(net: Netlist, ni: NonIdealities) -> Netlist:
     if ni.wiper_ohm > 0.0:
         out = out.with_wiper(ni.wiper_ohm)
     return out
+
+
+@dataclasses.dataclass
+class OperatingPoint:
+    x: np.ndarray                 # recovered unknowns
+    v: np.ndarray                 # all node voltages
+    amp_outputs: np.ndarray       # op-amp output voltages
+    amp_saturated: bool           # any |a| beyond the rail -> invalid OP
+    max_rel_error: float | None   # per-entry, floored, vs reference
+    max_abs_error: float | None   # volts
+    err_fullscale: float | None   # max abs error / max |x_ref| (paper metric)
+
+
+def operating_point(
+    net: Netlist,
+    opamp: OpAmpSpec = AD712,
+    *,
+    nonideal: NonIdealities = DEFAULT_NONIDEAL,
+    x_ref: np.ndarray | None = None,
+    device=None,
+) -> OperatingPoint:
+    """DC solve of one (non-ideal) circuit, float64 on ``device``.
+
+    A singular operator (with b_i = 0 on the support node, Eq. 22 puts
+    the only ground leg at k_s1 = |b_1| / 4, so disconnected node pairs
+    float) is solved with a tiny leakage to ground on every state,
+    ``1e-12 max|M|`` — far below the component error floor — as the
+    reference does.
+    """
+    net_ni = apply_nonidealities(net, nonideal)
+    spec = opamp
+    if not nonideal.use_finite_gain:
+        spec = dataclasses.replace(spec, open_loop_gain=1e15)
+    v_os = draw_offsets(spec, net_ni.n_amps, nonideal.offset_mode, nonideal.seed)
+    ss = assemble_state_space(net_ni, spec, v_os=v_os, device=device)
+    z, info = torch.linalg.solve_ex(ss.m, -ss.c)
+    if int(info) != 0 or not bool(torch.isfinite(z).all()):
+        eps = 1e-12 * ss.m.abs().max()
+        eye = torch.eye(ss.n_states, dtype=ss.m.dtype, device=ss.m.device)
+        z = torch.linalg.solve(ss.m - eps * eye, -ss.c)
+    z = z.cpu().numpy()
+    v = z[: ss.n_nodes]
+    a = z[ss.amp_out_index] if ss.amp_out_index.size else np.zeros(0)
+    sat = bool(np.any(np.abs(a) > ss.amp_rail)) if a.size else False
+    x = net.recovered_solution(v)
+
+    max_rel = max_abs = err_fs = None
+    if x_ref is not None:
+        x_ref = np.asarray(x_ref, dtype=np.float64)
+        err = np.abs(x - x_ref)
+        max_abs = float(err.max())
+        scale = np.maximum(np.abs(x_ref), 1e-3)
+        max_rel = float((err / scale).max())
+        err_fs = float(max_abs / max(np.abs(x_ref).max(), 1e-12))
+    return OperatingPoint(
+        x=x, v=v, amp_outputs=a, amp_saturated=sat, max_rel_error=max_rel,
+        max_abs_error=max_abs, err_fullscale=err_fs,
+    )
 
 
 @dataclasses.dataclass

@@ -62,6 +62,10 @@ class Transformed2N(NamedTuple):
     b_sign: torch.Tensor     # (..., n)     sign of b (selects +/- rail; 0 = NC)
     supply_v: float
 
+    @property
+    def n(self) -> int:
+        return self.k_a.shape[-1]
+
     def assembled(self) -> torch.Tensor:
         """The circuit's DC operator  M = [[K_A + K_s, K_B], [K_B, K_A + K_s]]."""
         return assemble_2n(self.k_a + torch.diag_embed(self.k_s), self.k_b)
@@ -70,6 +74,28 @@ class Transformed2N(NamedTuple):
         """{b; -b} = {K_s x_s; -K_s x_s}."""
         b = self.k_s * self.b_sign * self.supply_v
         return torch.cat([b, -b], dim=-1)
+
+    def negative_cell_conductances(self) -> torch.Tensor:
+        """diag(K_B) — positive entries need a negative-resistance cell.
+
+        Eq. 26: K_Bii = -(1/2)(A_ii - K_sii - sum_{j!=i} |A_ji|) is the
+        per-column deviation of (A - K_s) from diagonal dominance.
+        """
+        return torch.diagonal(self.k_b, dim1=-2, dim2=-1)
+
+    def max_conductance(self) -> torch.Tensor:
+        """Max branch conductance of the transformed network (per system).
+
+        Branches are the off-diagonals of K_A/K_B plus |diag(K_B)|; the
+        complexity studies (Figs. 12-14) show this — not n — controls
+        settling time.
+        """
+        def off_max(k):
+            off = k - torch.diag_embed(torch.diagonal(k, dim1=-2, dim2=-1))
+            return off.abs().amax(dim=(-2, -1))
+
+        diag_b = self.negative_cell_conductances().abs().amax(dim=-1)
+        return torch.maximum(torch.maximum(off_max(self.k_a), off_max(self.k_b)), diag_b)
 
 
 def transform_2n(
@@ -113,6 +139,32 @@ def assemble_2n(k_a: torch.Tensor, k_b: torch.Tensor) -> torch.Tensor:
     top = torch.cat([k_a, k_b], dim=-1)
     bot = torch.cat([k_b, k_a], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def eigen_split(tr: Transformed2N) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eqs. 17-19: the transformed spectrum splits into
+
+    spec(K_A - K_B) = spec(A - K_s)   and
+    spec(K_A + K_B) = spec(2D - |A| - K_s).
+
+    Returns the eigenvalues (ascending, float64) of both blocks of the
+    *circuit* operator M, i.e. with the supply conductance K_s on the
+    diagonal, so the first block's spectrum is exactly spec(A).
+    """
+    k_ak = (tr.k_a + torch.diag_embed(tr.k_s)).to(torch.float64)
+    k_b = tr.k_b.to(torch.float64)
+    lam_minus = torch.linalg.eigvalsh(k_ak - k_b)   # = spec(A)
+    lam_plus = torch.linalg.eigvalsh(k_ak + k_b)    # = spec(2D - |A|)
+    return lam_minus, lam_plus
+
+
+def stability_condition(a: torch.Tensor, k_s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Eq. 20 margin per node: D_ii - 0.5[(K_s)_ii + sum_j |A_ji|].
+
+    >= 0 (with equality allowed when another column provides support)
+    keeps (K_A + K_B) diagonally dominant hence PSD.
+    """
+    return d - 0.5 * (k_s + column_abs_sums(a))
 
 
 def scale_system(tr: Transformed2N, alpha: float) -> Transformed2N:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import time
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,20 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_float64(x, device=None) -> torch.Tensor:
+    """``x`` as a float64 tensor.
+
+    A tensor stays on its device unless ``device`` is given (then it
+    moves there); anything else (numpy arrays, lists) goes to
+    :func:`resolve_device`'s device, so it runs on the card unless the
+    caller asks for the CPU.
+    """
+    if isinstance(x, torch.Tensor):
+        dev = x.device if device is None else resolve_device(device)
+        return x.to(device=dev, dtype=torch.float64)
+    return torch.as_tensor(np.array(x, dtype=np.float64), device=resolve_device(device))
 
 
 @contextlib.contextmanager

@@ -24,8 +24,11 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ell_transient.cu", "transient_step.cu")
+SOURCES = ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
+           "spd_transform.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -49,6 +52,14 @@ _SIGNATURES = {
     "repro_dense_sweep": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     # m, z, c, z_out, res, batch, n, dt, stream
     "repro_dense_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
+    # m, z, c, is_bf16, z_out, n, nb, dt, stream
+    "repro_transient_step": ((_P, _P, _P, _I, _P, _I, _I, _F, _P), _I),
+    # g, v, is_bf16, out, m, k, nb, stream
+    "repro_crosspoint_mvm": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
+    # a, a_is_bf16, out, rows, cols, stream
+    "repro_colabs": ((_P, _I, _P, _I, _I, _P), _I),
+    # a, a_is_bf16, d, k_s, k_a, k_b, n, stream
+    "repro_assemble": ((_P, _I, _P, _P, _P, _P, _I, _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -72,6 +83,39 @@ class KernelLibrary:
         if err != 0:
             msg = self._lib.repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+# operand dtypes of K5-K7b: float32, or bfloat16 with float32 arithmetic
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+_INT_MAX = 2**31 - 1
+
+
+def check_tensors(dtypes: tuple[torch.dtype, ...], **tensors: torch.Tensor) -> torch.device:
+    """The device the named tensors share; raise unless the wrappers take them.
+
+    Every tensor must be a strided tensor of one of ``dtypes`` on the
+    one CPU or CUDA device of the first, with dimensions in the kernels'
+    ``int`` range, and contiguous on CUDA (the kernels take row-major
+    operands without strides).
+    """
+    dev = None
+    for name, t in tensors.items():
+        if t.layout != torch.strided:
+            raise ValueError(f"{name} must be a strided (dense) tensor, got {t.layout}")
+        if any(size > _INT_MAX for size in t.shape):
+            raise ValueError(f"{name} has a dimension past the kernels' int range: "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+        if dev is None:
+            dev = t.device
+            if dev.type not in ("cpu", "cuda"):
+                raise ValueError(f"unsupported device {dev}")
+        elif t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the other operands on {dev}")
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on CUDA")
+    return dev
 
 
 _LIB: KernelLibrary | None = None

@@ -1,8 +1,11 @@
-// Device helpers shared by the settle-sweep kernels (K1-K4).
+// Device helpers shared by the Hopper kernels: the reductions of the
+// settle sweeps (K1-K4) and the tiled dense product of K5 and K6.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 
 namespace repro_torch {
 
@@ -43,6 +46,152 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
     v = warp_max(v);
   }
   return v;
+}
+
+// float32 or bfloat16 operands, float32 arithmetic
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// ---------------------------------------------------------------------------
+// Tiled dense product (K5 transient_step, K6 crosspoint_mvm)
+// ---------------------------------------------------------------------------
+//
+// One thread block of 256 threads owns a BM x BN tile of C = A B, for A
+// (m, k) and B (k, nb), both row-major and contiguous.  The contraction
+// runs in BK-deep steps: each step the block copies a BM x BK tile of A
+// and a BK x BN tile of B into shared memory (converted to float32,
+// zero outside the matrix, so ragged edges need no padded copy), and
+// every thread adds its TM x TN outputs' products into float32
+// registers.  The next step's tiles are loaded into registers while the
+// current ones are multiplied (one tile of prefetch).
+//
+// A thread owns rows pr + i * (BM / TM) and columns pc + j * (BN / TN):
+// neighbouring lanes take neighbouring columns (and rows), which keeps
+// the shared-memory reads free of bank conflicts (A's tile rows are
+// padded by one word).  Where the tile has fewer outputs than threads
+// (the single-column case, BN = 1) the threads split each BK step into
+// KSPLIT contiguous chunks, and the chunks' partial sums are added in
+// chunk order at the end, so every block stays fully busy.
+template <int BM_, int BK_, int BN_, int TM_, int TN_>
+struct ProdConfig {
+  static constexpr int BM = BM_, BK = BK_, BN = BN_, TM = TM_, TN = TN_;
+  static constexpr int THREADS = 256;
+  static constexpr int ROWS = BM / TM;        // thread positions along rows
+  static constexpr int COLS = BN / TN;        // ... and along columns
+  static constexpr int SLOTS = ROWS * COLS;
+  static constexpr int KSPLIT = THREADS / SLOTS;
+  static constexpr int KCHUNK = BK / KSPLIT;
+  static constexpr int A_LOADS = BM * BK / THREADS;
+  static constexpr int B_LOADS = (BK * BN + THREADS - 1) / THREADS;
+  static_assert(BM % TM == 0 && BN % TN == 0, "tile must split into thread tiles");
+  static_assert(SLOTS * KSPLIT == THREADS && BK % KSPLIT == 0, "threads must cover the tile");
+  static_assert((BM * BK) % THREADS == 0, "A tile must split evenly over the threads");
+  static_assert(THREADS * TM * TN <= BM * (BK + 1), "chunk partials must fit A's tile");
+};
+
+// b = 1, the crossbar's own operation: 32-row tiles (256 blocks for
+// m = 8192, two per SM), 128-deep steps split over 8 chunks.
+using ProdColumn = ProdConfig<32, 128, 1, 1, 1>;
+// 2 <= b <= 16
+using ProdNarrow = ProdConfig<64, 64, 16, 4, 1>;
+// b > 16
+using ProdWide = ProdConfig<64, 64, 64, 4, 4>;
+
+template <typename C, typename T>
+__device__ __forceinline__ void prod_load(const T* __restrict__ a, const T* __restrict__ b,
+                                          int m, int k, int nb, int row0, int col0, int k0,
+                                          float (&ar)[C::A_LOADS], float (&br)[C::B_LOADS]) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < C::A_LOADS; ++r) {
+    const int e = t + r * C::THREADS;
+    const int gi = row0 + e / C::BK;
+    const int gk = k0 + e % C::BK;
+    ar[r] = (gi < m && gk < k) ? to_f32(a[static_cast<size_t>(gi) * k + gk]) : 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < C::B_LOADS; ++r) {
+    const int e = t + r * C::THREADS;
+    const int gk = k0 + e / C::BN;
+    const int gj = col0 + e % C::BN;
+    br[r] = (e < C::BK * C::BN && gk < k && gj < nb)
+                ? to_f32(b[static_cast<size_t>(gk) * nb + gj]) : 0.0f;
+  }
+}
+
+// acc[i][j] = sum_k A[row0 + pr + i*ROWS, k] * B[k, col0 + pc + j*COLS].
+// Every thread of the block must call it.  Returns false for the threads
+// whose acc holds only a chunk's partial sum (KSPLIT > 1): they write
+// nothing.
+template <typename C, typename T>
+__device__ __forceinline__ bool tile_product(const T* __restrict__ a, const T* __restrict__ b,
+                                             int m, int k, int nb, int row0, int col0,
+                                             float (&acc)[C::TM][C::TN], int& pr, int& pc) {
+  __shared__ float as[C::BM][C::BK + 1];
+  __shared__ float bs[C::BK][C::BN];
+  const int t = threadIdx.x;
+  const int slot = t % C::SLOTS;
+  const int chunk = t / C::SLOTS;
+  pr = slot / C::COLS;
+  pc = slot % C::COLS;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0.0f;
+
+  float ar[C::A_LOADS], br[C::B_LOADS];
+  prod_load<C>(a, b, m, k, nb, row0, col0, 0, ar, br);
+  for (int k0 = 0; k0 < k; k0 += C::BK) {
+    __syncthreads();                       // the previous step's reads are done
+#pragma unroll
+    for (int r = 0; r < C::A_LOADS; ++r) {
+      const int e = t + r * C::THREADS;
+      as[e / C::BK][e % C::BK] = ar[r];
+    }
+#pragma unroll
+    for (int r = 0; r < C::B_LOADS; ++r) {
+      const int e = t + r * C::THREADS;
+      if (e < C::BK * C::BN) bs[e / C::BN][e % C::BN] = br[r];
+    }
+    __syncthreads();
+    if (k0 + C::BK < k) prod_load<C>(a, b, m, k, nb, row0, col0, k0 + C::BK, ar, br);
+#pragma unroll 8
+    for (int s = 0; s < C::KCHUNK; ++s) {
+      const int kk = chunk * C::KCHUNK + s;
+      float av[C::TM], bv[C::TN];
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i) av[i] = as[pr + i * C::ROWS][kk];
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) bv[j] = bs[kk][pc + j * C::COLS];
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  if constexpr (C::KSPLIT > 1) {
+    // add the chunks' partials in chunk order, through A's tile
+    float* part = &as[0][0];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        part[((chunk * C::SLOTS + slot) * C::TM + i) * C::TN + j] = acc[i][j];
+    __syncthreads();
+    if (chunk != 0) return false;
+    for (int g = 1; g < C::KSPLIT; ++g)
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j)
+          acc[i][j] += part[((g * C::SLOTS + slot) * C::TM + i) * C::TN + j];
+  }
+  return true;
 }
 
 }  // namespace repro_torch

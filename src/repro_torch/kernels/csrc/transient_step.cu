@@ -1,10 +1,11 @@
-// K3 and K4: dense batched forward-Euler settle sweeps for Hopper (sm_90a).
+// K3, K4 and K5: dense forward-Euler steps for Hopper (sm_90a).
 //
 // Replace the TPU kernels of src/repro/kernels/transient_step.py:
 //   K3  transient_sweep_pallas         (_sweep_kernel)
 //   K4  transient_step_batched_pallas  (_step_batched_kernel)
+//   K5  transient_step_pallas          (_step_kernel), at the end of this file
 //
-// Both compute, per system b,
+// K3 and K4, the settle sweeps of a batch of systems, compute per system b
 //     dz = M z + c        z' = z + dt * dz        res = max_i |dz_i|
 // in float32 with an f32 accumulator (dt folded into M and c by the
 // caller: dt = 1 in the sweep, dt = 0 evaluates the residual only).
@@ -35,6 +36,7 @@
 //   ping-pongs); each block writes the max |dz| of its rows, and the
 //   wrapper takes the max over blocks.  No atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -152,10 +154,77 @@ dense_step_kernel(const float* __restrict__ m, const float* __restrict__ z,
   if (threadIdx.x == 0) res[b * gridDim.x + blockIdx.x] = mx;
 }
 
+// K5 (transient_step_kernel): one Euler step of ONE operator applied to
+//   nb state columns, Z' = Z + dt (M Z + C), for M (n, n) and Z, C
+//   (n, nb), float32 or bfloat16, a float32 accumulator, the output in
+//   Z's dtype.  The body is K6's tiled product (common.cuh) with the step
+//   as its epilogue: Z is read twice, as the contraction operand and in
+//   the epilogue, and the result goes to a separate buffer, as the
+//   Pallas kernel passes Z twice and writes a new array.  The epilogue
+//   rounds z + dt * (acc + c) step by step, as the plain version does.
+//   Ragged n and nb are masked, never padded.  Bound by bytes at small nb
+//   (M once: 268 MB at n = 8192, 80 us), by float32 operations past
+//   nb ~ 40.
+template <typename C, typename T>
+__global__ void __launch_bounds__(256)
+transient_step_kernel(const T* __restrict__ m, const T* __restrict__ z,
+                      const T* __restrict__ c, T* __restrict__ z_out, int n, int nb,
+                      float dt) {
+  const int row0 = blockIdx.x * C::BM;
+  const int col0 = blockIdx.y * C::BN;
+  float acc[C::TM][C::TN];
+  int pr, pc;
+  if (!tile_product<C>(m, z, n, n, nb, row0, col0, acc, pr, pc)) return;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int r = row0 + pr + i * C::ROWS;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) {
+      const int cj = col0 + pc + j * C::COLS;
+      if (cj >= nb) continue;
+      const size_t e = static_cast<size_t>(r) * nb + cj;
+      const float dz = __fadd_rn(acc[i][j], to_f32(c[e]));
+      store_as(z_out + e, __fadd_rn(to_f32(z[e]), __fmul_rn(dt, dz)));
+    }
+  }
+}
+
+template <typename C, typename T>
+int launch_step(const void* m, const void* z, const void* c, void* z_out, int n, int nb,
+                float dt, cudaStream_t stream) {
+  const dim3 grid((n + C::BM - 1) / C::BM, (nb + C::BN - 1) / C::BN);
+  transient_step_kernel<C, T><<<grid, C::THREADS, 0, stream>>>(
+      static_cast<const T*>(m), static_cast<const T*>(z), static_cast<const T*>(c),
+      static_cast<T*>(z_out), n, nb, dt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_step_for_width(const void* m, const void* z, const void* c, void* z_out, int n,
+                          int nb, float dt, cudaStream_t stream) {
+  if (nb == 1) return launch_step<ProdColumn, T>(m, z, c, z_out, n, nb, dt, stream);
+  if (nb <= ProdNarrow::BN)
+    return launch_step<ProdNarrow, T>(m, z, c, z_out, n, nb, dt, stream);
+  return launch_step<ProdWide, T>(m, z, c, z_out, n, nb, dt, stream);
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// C interface (bound with ctypes).  Pointers are device pointers of
+// K5: m (n, n), z/c/z_out (n, nb), contiguous, one dtype (float32, or
+// bfloat16 when is_bf16); any n and nb.  An empty state launches nothing.
+extern "C" int repro_transient_step(const void* m, const void* z, const void* c,
+                                    int is_bf16, void* z_out, int n, int nb, float dt,
+                                    void* stream) {
+  using namespace repro_torch;
+  if (n == 0 || nb == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_step_for_width<__nv_bfloat16>(m, z, c, z_out, n, nb, dt, s)
+                 : launch_step_for_width<float>(m, z, c, z_out, n, nb, dt, s);
+}
+
+// C interface of K3 and K4 (bound with ctypes).  Pointers are device pointers of
 // contiguous float32 tensors; n is a multiple of 128.  Each returns the
 // CUDA error code of its launch (0 = success).
 extern "C" int repro_dense_sweep(const void* mt, const void* z, const void* c,

@@ -1,13 +1,20 @@
-"""Wrappers around the settle-sweep kernels: padding, layout, routing.
+"""Public wrappers around the Hopper kernels: the kernel API and the
+settle sweeps.
 
-Counterpart of the sweep half of :mod:`repro.kernels.ops`.
+Counterpart of :mod:`repro.kernels.ops`.
 
-* pad inputs to the 128-row block (zero padding is exact: padded rows
-  carry ``w = 0`` slots pointing at column 0, and zero operator rows and
-  columns are neutral);
-* lay the ELL slots out slot-major for the Hopper kernels;
-* route between the persistent sweeps (K1, K3) and the row-tiled
-  per-step kernels (K2, K4).
+* The kernel API — :func:`crosspoint_mvm` (K6), :func:`transient_step`
+  (K5) and :func:`spd_transform_arrays` (K7a + K7b), with the
+  reference's contracts: 1-D or 2-D inputs, the output dtype, and
+  ``(K_A, K_B, D, K_s)`` in that order.  Unlike the reference they pad
+  nothing (the kernels mask ragged edges) and take no ``block=`` or
+  ``interpret=``: tile shapes are the kernels' own, and a CPU tensor
+  runs the plain version.
+* The settle sweeps: pad inputs to the 128-row block (zero padding is
+  exact: padded rows carry ``w = 0`` slots pointing at column 0, and zero
+  operator rows and columns are neutral); lay the ELL slots out
+  slot-major; route between the persistent sweeps (K1, K3) and the
+  row-tiled per-step kernels (K2, K4).
 
 The kernels run for CUDA tensors and their plain versions for CPU
 tensors; the routing here is the same for both.
@@ -17,10 +24,58 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import crosspoint_mvm as _mvm
 from repro_torch.kernels import ell_transient as _ell
+from repro_torch.kernels import spd_transform as _tr
 from repro_torch.kernels import transient_step as _st
 
 ROW_BLOCK = _ell.ROW_BLOCK        # the row-tiled kernels' block height
+
+
+# ---------------------------------------------------------------------------
+# The kernel API
+# ---------------------------------------------------------------------------
+
+
+def crosspoint_mvm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Crossbar currents ``I = G @ V`` (K6).  ``v`` may be (k,) or (k, batch);
+    the result has ``v``'s dtype and rank."""
+    if v.ndim == 1:
+        return _mvm.crosspoint_mvm(g, v[:, None])[:, 0]
+    return _mvm.crosspoint_mvm(g, v)
+
+
+def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+    """One fused Euler step ``z + dt (M z + c)`` (K5); z and c may be (n,)
+    or (n, b); the result has ``z``'s dtype and rank."""
+    if z.ndim == 1:
+        return _st.transient_step(m, z[:, None], c[:, None], dt)[:, 0]
+    return _st.transient_step(m, z, c, dt)
+
+
+def spd_transform_arrays(
+    a: torch.Tensor, b: torch.Tensor, *, supply_v: float = 4.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel-fused proposed transform: returns ``(K_A, K_B, D, K_s)``.
+
+    The semantics of :func:`repro_torch.core.transform.transform_2n` with
+    ``d_policy="proposed"``: the column sums of |A| (K7a), then D of
+    Eq. 22 and K_s of Eq. 13 in float32, then K_A and K_B of Eqs. 15-16
+    (K7b) in ``a``'s dtype.  D and K_s are float32; as in the reference,
+    the assembly reads them rounded to ``a``'s dtype.
+    """
+    n = a.shape[0]
+    if a.shape != (n, n) or b.shape != (n,):
+        raise ValueError(f"need a (n, n) and b (n,), got {tuple(a.shape)}, {tuple(b.shape)}")
+    if b.device != a.device:
+        raise ValueError(f"b is on {b.device}, a on {a.device}")
+    colsum = _tr.colabs(a)                                          # K7a
+    k_s = b.to(torch.float32).abs() / supply_v                      # Eq. 13
+    d = 0.5 * k_s + 0.5 * colsum                                    # Eq. 22
+    d[0] += 0.5 * k_s[0]
+    ka, kb = _tr.assemble(a, d.to(a.dtype).float(), k_s.to(a.dtype).float())  # K7b
+    return ka, kb, d, k_s
 
 # ---------------------------------------------------------------------------
 # Routing limits, re-derived for the Hopper designs
@@ -216,17 +271,16 @@ def transient_sweep(
     return z[:, :n], res.amax(dim=1)
 
 
+_KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
+            _st.transient_step_batched, _st.transient_step, _mvm.crosspoint_mvm,
+            _tr.colabs, _tr.assemble)
+
+
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset."""
-    return {
-        "ell_sweep": _ell.ell_sweep.launches,
-        "ell_step": _ell.ell_step.launches,
-        "transient_sweep": _st.transient_sweep.launches,
-        "transient_step_batched": _st.transient_step_batched.launches,
-    }
+    """Launches of each CUDA kernel (K1-K7b) since the last reset."""
+    return {fn.__name__: fn.launches for fn in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
-               _st.transient_step_batched):
+    for fn in _KERNELS:
         fn.launches = 0

@@ -1,7 +1,7 @@
-"""Dense batched forward-Euler settle kernels K3 and K4.
+"""Dense forward-Euler kernels K3, K4 and K5.
 
-Counterpart of the batched kernels of :mod:`repro.kernels.transient_step`
-(the Hopper sources are ``csrc/transient_step.cu``):
+Counterpart of :mod:`repro.kernels.transient_step` (the Hopper sources
+are ``csrc/transient_step.cu``):
 
 * :func:`transient_sweep` (K3) — ``n_steps`` fused steps
   ``z <- z + dt (M z + c)`` per system on the *pre-transposed* operator
@@ -9,10 +9,14 @@ Counterpart of the batched kernels of :mod:`repro.kernels.transient_step`
 * :func:`transient_step_batched` (K4) — one row-tiled step on the
   untransposed operator, and the max of ``|M z + c|`` at the *input*
   state per 128-row block.
+* :func:`transient_step` (K5) — one step ``Z' = Z + dt (M Z + C)`` of a
+  single operator ``M`` (n, n) on ``nb`` state columns, float32 or
+  bfloat16 operands with a float32 accumulator: K6's tiled product with
+  the step as its epilogue.
 
 Each wrapper launches its kernel for tensors on a CUDA device and runs
-its plain PyTorch version (``*_plain``) for tensors on the CPU.  All in
-float32 with a float32 accumulator.
+its plain PyTorch version (``*_plain``) for tensors on the CPU.  K3 and
+K4 run in float32 with a float32 accumulator.
 """
 
 from __future__ import annotations
@@ -115,6 +119,47 @@ def transient_step_batched(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     return out, res
 
 
+def transient_step_plain(m, z, c, dt: float):
+    """Plain PyTorch version of :func:`transient_step`; matches
+    ``repro.kernels.ref.transient_step_ref`` (float32 product, cast to
+    ``z``'s dtype; TF32 must be off on CUDA, as for
+    ``crosspoint_mvm_plain``)."""
+    mz = torch.matmul(m.float(), z.float())
+    return (z.float() + dt * (mz + c.float())).to(z.dtype)
+
+
+def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+    """K5: ``z + dt * (m @ z + c)`` for m (n, n) and z, c (n, nb), all of
+    one dtype (float32 or bfloat16), accumulated in float32; returns a new
+    (n, nb) tensor in ``z``'s dtype.
+
+    Any n and nb: the kernel masks the ragged edges, nothing is padded.
+    Replaces ``repro/kernels/transient_step.py:transient_step_pallas``.
+    Bound by bytes (M read once) at small nb, by float32 operations past
+    nb ~ 40 (``csrc/transient_step.cu``).
+    """
+    dev = build.check_tensors(build.FLOAT_DTYPES, m=m, z=z, c=c)
+    n = m.shape[0]
+    if (m.ndim != 2 or m.shape != (n, n) or z.ndim != 2 or z.shape[0] != n
+            or c.shape != z.shape or len({m.dtype, z.dtype, c.dtype}) != 1):
+        raise ValueError(f"need m (n, n) and z, c (n, nb) of one dtype, got m "
+                         f"{tuple(m.shape)} {m.dtype}, z {tuple(z.shape)} {z.dtype}, "
+                         f"c {tuple(c.shape)} {c.dtype}")
+    if dev.type == "cpu":
+        return transient_step_plain(m, z, c, dt)
+    nb = z.shape[1]
+    lib = build.load_library()
+    out = torch.empty_like(z)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib.call("repro_transient_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
+                 int(z.dtype == torch.bfloat16), out.data_ptr(), n, nb, float(dt), stream)
+    transient_step.launches += 1
+    return out
+
+
 # launch counts of the CUDA kernels (plain-version calls do not count)
 transient_sweep.launches = 0
 transient_step_batched.launches = 0
+transient_step.launches = 0

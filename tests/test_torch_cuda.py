@@ -1,4 +1,4 @@
-"""On a CUDA device: each Hopper kernel of repro_torch (K1-K4) against
+"""On a CUDA device: each Hopper kernel of repro_torch (K1-K7b) against
 its plain PyTorch version, and the main path through the kernels.
 
 Imports no JAX, so it runs on the card's machine:
@@ -7,6 +7,8 @@ Imports no JAX, so it runs on the card's machine:
 
 Without a CUDA device every test skips.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -19,7 +21,11 @@ from repro_torch.core.network import build_proposed_batch  # noqa: E402
 from repro_torch.data.spd import random_rhs_from_solution, random_spd  # noqa: E402
 from repro_torch.kernels import ell_transient as ell  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels import transient_step as st  # noqa: E402
+from repro_torch.kernels import spd_transform as tr  # noqa: E402
+
+# repro_torch.kernels re-exports functions named like these submodules
+mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+st = importlib.import_module("repro_torch.kernels.transient_step")
 
 # f32 reassociation between the kernels' sequential sums and torch's
 # reductions: 1e-5 of max|z| after 100 steps (as the CPU parity bar)
@@ -91,3 +97,69 @@ def test_main_path_on_the_card_matches_cpu(cuda):
         np.testing.assert_allclose(got.x, want.x, rtol=0.0, atol=1e-10)
         assert np.all(np.abs(got.info["settle_steps"] - want.info["settle_steps"]) <= 50)
         assert np.array_equal(got.stable, want.stable)
+
+
+def _kernel_api_tol(dtype):
+    # the reference's kernel-test tolerances (tests/test_kernels.py:19-23)
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=5e-5,
+                                                                          atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_api_matches_plain_versions(cuda, dtype):
+    """K5, K6, K7a and K7b against their plain versions on the card, at
+    ragged shapes that take every tile configuration (nb = 1, <= 16, > 16)."""
+    rng = np.random.default_rng(29)
+
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, device=cuda).to(dtype)
+
+    def close(got, want):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), **_kernel_api_tol(dtype))
+
+    before = ops.launch_counts()
+    for m, k, nb in ((300, 513, 1), (300, 513, 5), (257, 130, 64), (64, 64, 17)):
+        g, v = t((m, k)), t((k, nb))
+        close(mvm.crosspoint_mvm(g, v), mvm.crosspoint_mvm_plain(g, v))
+    for n, nb in ((137, 1), (137, 17), (200, 3)):
+        m, z, c = t((n, n), 0.1), t((n, nb)), t((n, nb))
+        close(st.transient_step(m, z, c, 1e-2), st.transient_step_plain(m, z, c, 1e-2))
+    a = t((301, 301))
+    d = torch.as_tensor(rng.uniform(1.0, 2.0, 301), dtype=torch.float32, device=cuda)
+    k_s = torch.as_tensor(rng.uniform(0.0, 0.5, 301), dtype=torch.float32, device=cuda)
+    torch.testing.assert_close(tr.colabs(a), tr.colabs_plain(a), rtol=1e-5, atol=1e-5)
+    for got, want in zip(tr.assemble(a, d, k_s), tr.assemble_plain(a, d, k_s)):
+        # elementwise, rounded step by step as the plain version: bit for bit
+        assert torch.equal(got, want)
+    after = ops.launch_counts()
+    assert after["crosspoint_mvm"] - before["crosspoint_mvm"] == 4
+    assert after["transient_step"] - before["transient_step"] == 3
+    assert after["colabs"] - before["colabs"] == 1
+    assert after["assemble"] - before["assemble"] == 1
+
+
+@pytest.mark.cuda
+def test_kernel_api_on_the_card_matches_cpu(cuda):
+    """The public kernel API on a circuit's own operands: the transform of
+    an SPD system (K7a + K7b) and the crossbar product (K6) on the card
+    against the CPU path; 1-D inputs keep their rank."""
+    a, x, b = _systems(31, 40, 1)
+    a32, b32 = torch.as_tensor(a[0], dtype=torch.float32), torch.as_tensor(b[0],
+                                                                           dtype=torch.float32)
+    got = ops.spd_transform_arrays(a32.to(cuda), b32.to(cuda))
+    want = ops.spd_transform_arrays(a32, b32)
+    scale = float(want[0].abs().max())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0.0, atol=1e-6 * scale)
+    y = torch.as_tensor(np.concatenate([x[0], -x[0]]), dtype=torch.float32)
+    g = torch.as_tensor(np.random.default_rng(1).uniform(0, 1e-4, (80, 80)),
+                        dtype=torch.float32)
+    out = ops.crosspoint_mvm(g.to(cuda), y.to(cuda))
+    assert out.shape == (80,)
+    torch.testing.assert_close(out.cpu(), ops.crosspoint_mvm(g, y), rtol=5e-5, atol=1e-12)
+    z = ops.transient_step(g.to(cuda), y.to(cuda), y.to(cuda), 0.5)
+    assert z.shape == (80,)
+    torch.testing.assert_close(z.cpu(), ops.transient_step(g, y, y, 0.5), rtol=5e-5,
+                               atol=1e-6)

@@ -33,10 +33,12 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import baselines as tbase  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
 from repro_torch.core import network as tnet  # noqa: E402
-from repro_torch.core import operating_point as top  # noqa: E402
 from repro_torch.core import transform as ttr  # noqa: E402
 from repro_torch.core.specs import AD712 as TAD712  # noqa: E402
 from repro_torch.data import spd as tspd  # noqa: E402
+
+# repro_torch.core, like repro.core, exports a function named operating_point
+top = importlib.import_module("repro_torch.core.operating_point")
 
 CPU = "cpu"
 

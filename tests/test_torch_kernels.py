@@ -34,7 +34,7 @@ jst = importlib.import_module("repro.kernels.transient_step")
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ell_transient as ell  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels import transient_step as st  # noqa: E402
+st = importlib.import_module("repro_torch.kernels.transient_step")
 
 # f32 state within 1e-5 of max|z| after <= 200 steps; residual within
 # 1e-4 relative (ROADMAP parity contract for float32 sweeps)
@@ -278,4 +278,5 @@ def test_import_builds_nothing():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True)
     assert out.stdout.strip().endswith("build/repro_torch_kernels")
-    assert build.SOURCES == ("ell_transient.cu", "transient_step.cu")
+    assert build.SOURCES == ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
+                             "spd_transform.cu")
