@@ -40,7 +40,23 @@ non-zero:
    width), and the times of kernel, plain version and library call;
 5. quickstart — the single-system flow of examples/quickstart.py at
    n = 24 on the card and on the CPU, which must agree;
-6. the kernels line (K1-K7b), the nvidia-smi line, and the contract's
+6. serve — the language-model serving path.  K8 (flash attention)
+   against its plain version, element by element, at the prefill shape
+   of the path (bf16, B = 1, S = T = 2048, 32 query heads over 8 KV
+   heads, D = 128, causal), a ragged S = 1000, MQA, a window, non-causal
+   cases and every head size in float32 and bf16; two planted faults
+   that the same bar must reject; K8's times beside
+   ``scaled_dot_product_attention``'s; then ``ServeEngine`` on Qwen3-8B
+   at full width and depth (36 layers, bf16, seeded random weights on
+   the card) serving 6 requests of 256-2048 prompt tokens through 4
+   slots, 16 greedy tokens each, failing unless K8 launched 36 times per
+   prefill; then each prompt's prefill again, K8 held element by element
+   against its plain version on every layer's own inputs, and the logits
+   through K8 against the plain attention and against two planted faults
+   (a key tile dropped for late rows, the GQA head order swapped), which
+   the K8 bars and the logit bar must reject; and the SMOKE config on the
+   card against the CPU;
+7. the kernels line (K1-K8), the nvidia-smi line, and the contract's
    last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA it
@@ -784,12 +800,424 @@ def phase_quickstart() -> None:
           <= 1e-6 * want["err_fullscale_hw"], "quickstart hardware-model error")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serve — the language-model serving path, K8 on every prefill
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3_8b"       # full width and depth: 36 layers, d_model 4096
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
+SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
+SERVE_PROMPT_LENS = (256, 2048)   # prompt lengths drawn in [256, 2048]
+# K8 against its plain version, element by element: |got - want| <=
+# atol + rtol |want|, as the reference kernel test holds it
+# (tests/test_kernels.py:171), with tighter bars.  Kernel and plain version
+# round float32 results that differ by a few float32 ulps (sums taken in
+# other orders) to the output dtype, so a sound bf16 pair lies at most one
+# bf16 ulp apart, at most 2^-7 |want|: rtol 1e-2.  atol covers outputs near
+# zero and, with p rounded to bf16, a p whose rounding flips (2^-8 p/l |v|).
+# The planted faults below (K8_FAULTS) show that the bar sees a wrong kernel.
+K8_BARS = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (1e-5, 1e-6)}   # (rtol, atol)
+# a planted fault leaves out key tile 0 from every row from FAULT_ROW on
+FAULT_ROW, FAULT_KEYS = 1024, 64
+# Each prompt's prefill logits through K8 against the same prefill through
+# the plain attention, both on the card in bf16: the two round each
+# layer's attention output to bf16 from float32 sums taken in other
+# orders, so a few outputs per layer land one bf16 ulp apart, and 36
+# layers carry that to the logits.  5e-2 of max|logit| lies between the
+# sound readings (at most 0.024) and those of the planted faults (0.11 and
+# more), which the phase checks on every run.
+TOL_SERVE_LOGITS = 5e-2
+# the SMOKE config on the card against the CPU, float32 throughout
+# (products and attention sums in other orders): 1e-4 of max|logit|
+TOL_SMOKE_LOGITS = 1e-4
+# K8 at the main path's shape and around it:
+# (label, dtype, b, s, t, h, kv, d, causal, window, p_dtype); p_dtype "v"
+# is the reference kernel's contract (p rounded to v's dtype), driven
+# through ops.flash_attention
+BF16, F32 = torch.bfloat16, torch.float32
+K8_MAIN = ("main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
+K8_CASES = (
+    K8_MAIN,
+    ("main_p_bf16", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, BF16),
+    ("ragged_s1000", BF16, 1, 1000, 1000, 32, 8, 128, True, 0, None),
+    ("mqa", BF16, 1, 1024, 1024, 32, 1, 128, True, 0, None),
+    ("window512", BF16, 1, 2048, 2048, 32, 8, 128, True, 512, None),
+    ("non_causal", BF16, 1, 1024, 1024, 32, 8, 128, False, 0, None),
+    ("non_causal_s300_t1000", BF16, 1, 300, 1000, 32, 8, 128, False, 0, None),
+    ("f32_d128", F32, 1, 1024, 1024, 32, 8, 128, True, 0, None),
+    *((f"{'bf16' if dt == BF16 else 'f32'}_d{d}", dt, 2, 515, 515, 8, 2, d, True, 0, "v")
+      for d in (16, 32, 64) for dt in (BF16, F32)),
+)
+
+
+def attn_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves: the work this input needs."""
+    qpos, kpos = np.arange(s)[:, None], np.arange(t)[None, :]
+    ok = np.ones((s, t), dtype=bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    return int(ok.sum())
+
+
+def bar_share(got: torch.Tensor, want: torch.Tensor, rtol: float,
+              atol: float) -> tuple[float, float]:
+    """max |got - want| and the largest share of the element's bar
+    atol + rtol |want| (above 1 fails)."""
+    err = (got.double() - want.double()).abs()
+    return float(err.max()), float((err / (atol + rtol * want.double().abs())).max())
+
+
+def hold_close(errs: dict, key: str, got: torch.Tensor, want: torch.Tensor,
+               rtol: float, atol: float) -> None:
+    """Fail unless every |got - want| <= atol + rtol |want|; keeps under
+    ``key`` the largest error and the largest share of its bar."""
+    err, share = bar_share(got, want, rtol, atol)
+    check(share <= 1, f"{key}: max err {err}, {share} of the bar {atol} + {rtol} |want|")
+    old = errs.get(key, dict(max_abs_err=0.0, of_bar=0.0))
+    errs[key] = dict(max_abs_err=max(old["max_abs_err"], err),
+                     of_bar=max(old["of_bar"], share))
+
+
+def bars_json() -> dict:
+    return {str(dt).removeprefix("torch."): dict(rtol=r, atol=a)
+            for dt, (r, a) in K8_BARS.items()}
+
+
+def attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     keep: torch.Tensor) -> torch.Tensor:
+    """Softmax attention in float32 under an explicit (S, T) mask of the
+    pairs to keep; query head h reads KV head h // G."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / np.sqrt(d)
+    p = torch.softmax(sc.masked_fill(~keep, -np.inf), dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).reshape(b, s, h, d).to(q.dtype)
+
+
+def k8_tile_dropped(q, k, v, **kw):
+    """A planted fault: causal K8 that leaves the first FAULT_KEYS keys out
+    of every row from FAULT_ROW on."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    out = fa.flash_attention(q, k, v, **kw)
+    s, t = q.shape[1], k.shape[1]
+    if s > FAULT_ROW:
+        qpos = torch.arange(FAULT_ROW, s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        out[:, FAULT_ROW:] = attention_masked(q[:, FAULT_ROW:], k, v,
+                                              (kpos <= qpos) & (kpos >= FAULT_KEYS))
+    return out
+
+
+def k8_heads_swapped(q, k, v, **kw):
+    """A planted fault: K8 with query head h reading KV head h % KV
+    instead of h // G (the GQA order every MHA case passes)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    h, kv = q.shape[2], k.shape[2]
+    perm = torch.tensor([(i % kv) * (h // kv) + i // kv for i in range(h)], device=q.device)
+    moved = torch.empty_like(q)
+    moved[:, :, perm] = q
+    return fa.flash_attention(moved, k, v, **kw)[:, :, perm]
+
+
+K8_FAULTS = {"tile_dropped_late_rows": k8_tile_dropped, "gqa_heads_swapped": k8_heads_swapped}
+
+
+def k8_operands(case, gen):
+    _label, dtype, b, s, t, h, kv, d, _causal, _window, _p = case
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+def phase_k8() -> dict:
+    """K8 against its plain version at every case (main-path shape, ragged
+    S, MQA, a window, non-causal, S != T, each head size, float32 and
+    bf16, p rounded or not), then the times at the main-path shape."""
+    from repro_torch.kernels import ops
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs: dict = {}
+    for case in K8_CASES:
+        label, dtype, _b, _s, _t, _h, _kv, _d, causal, window, p_dtype = case
+        q, k, v = k8_operands(case, gen)
+        if p_dtype == "v":
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            p_dtype = BF16 if dtype == BF16 else None
+        else:
+            got = fa.flash_attention(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        check(got.dtype == dtype and got.shape == q.shape, f"K8 {label}: dtype/shape")
+        hold_close(errs, label, got, want, *K8_BARS[dtype])
+    emit(dict(phase="serve", case="k8_vs_plain", bars=bars_json(), errors=errs))
+
+    # the bar must fail a wrong kernel: planted faults at the main-path shape
+    label, dtype, b, s, t, h, kv, d, causal, window, p_dtype = K8_MAIN
+    q, k, v = k8_operands(K8_MAIN, gen)
+    want = fa.flash_attention_plain(q, k, v)
+    planted = {}
+    for name, fault in K8_FAULTS.items():
+        err, share = bar_share(fault(q, k, v), want, *K8_BARS[dtype])
+        planted[name] = dict(max_abs_err=err, of_bar=share)
+        check(share > 1, f"K8's bar passes the planted fault {name}: {share} of it")
+    emit(dict(phase="serve", case="k8_planted_faults", faults=planted))
+
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib_out.float() - fa.flash_attention(q, k, v).float()).abs().max())
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    flops = 4 * b * h * d * attn_pairs(s, t, causal, window)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    row = dict(
+        shape=[b, s, t, h, kv, d], causal=causal, dtype="bfloat16",
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 20),
+        device_ms=graph_ms(lambda: fa.flash_attention(q, k, v), 20),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
+        library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+        bound_peak="bf16 tensor cores, 989 TFLOP/s (the inputs' type)",
+        f32_fma_bound_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops,
+        max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+        library_max_abs_err=lib_err,
+    )
+    emit(dict(phase="serve", case="k8_times", **row))
+    return row
+
+
+def smoke_cross_device() -> dict:
+    """The SMOKE config (float32, 2 layers, head size 16) on the card and
+    on the CPU, one set of weights: prefill and three decode steps at
+    staggered positions, then three requests through ServeEngine."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_smoke_config(SERVE_ARCH)
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    gpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu").to("cuda")
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab, (2, 40))
+    lg_g, c_g = prefill(gpu, {"tokens": toks}, cfg, 64)
+    lg_c, c_c = prefill(cpu, {"tokens": toks}, cfg, 64)
+    pos = np.array([40, 37])                 # the second sequence lags by three
+    worst = 0.0
+    for step in range(4):
+        err = float((lg_g.cpu().double() - lg_c.double()).abs().max())
+        check(err <= TOL_SMOKE_LOGITS * float(lg_c.abs().max()),
+              f"smoke config step {step}: cuda vs cpu logits {err}")
+        worst = max(worst, err / float(lg_c.abs().max()))
+        nxt = lg_c.argmax(dim=-1, keepdim=True).numpy()
+        lg_g, c_g = decode_step(gpu, nxt, pos, c_g, cfg)
+        lg_c, c_c = decode_step(cpu, nxt, pos, c_c, cfg)
+        pos = pos + 1
+    outs = {}
+    for dev, params in (("cuda", gpu), ("cpu", cpu)):
+        eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, device=dev)
+        reqs = [Request(rid=i, prompt=np.arange(3 + 4 * i) % cfg.vocab, max_new=8)
+                for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=100)
+        outs[dev] = [r.out for r in reqs]
+    check(outs["cuda"] == outs["cpu"], f"smoke config tokens: {outs}")
+    return dict(logits_err_of_max=worst, tokens=outs["cuda"])
+
+
+def device_breakdown(fn) -> dict:
+    """Run ``fn()`` under torch.profiler: its wall time, the device time of
+    its kernels by kind (K8, matrix products, the rest) with the largest
+    kernels, and the busy share (kernel time over wall; kernels of one
+    stream do not overlap).  Device times are None where the profiler
+    saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"k8": 0.0, "matmul": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        name = e.key.lower()
+        kind = "k8" if "flash_attention" in name else (
+            "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90"))
+            else "other")
+        kinds[kind] += us / 1e3
+        top.append((us / 1e3, e.count, e.key[:80]))
+    busy = sum(kinds.values())
+    top.sort(reverse=True)
+    return dict(wall_ms=wall * 1e3,
+                device_ms=kinds if busy else None,
+                busy_share=busy / (wall * 1e3) if busy else None,
+                top_kernels=[dict(ms=ms, calls=n, name=k) for ms, n, k in top[:8]])
+
+
+def prefill_checks(params, cfg, prompts, reqs) -> list[dict]:
+    """Every prompt's prefill again, outside the counted run.  K8 is held
+    element by element against its plain version on each layer's own q,
+    k and v (the plain calls launch nothing); its logits against the same
+    prefill through the plain attention on the card, and through each
+    planted fault, all through the model's attention seam and all at
+    max|logit| of the plain prefill.  Fails unless every layer holds,
+    K8's logits are within TOL_SERVE_LOGITS, each planted fault that
+    reaches the prompt is past it, and the greedy token is the
+    engine's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import prefill
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    k8 = attn_mod.flash_attention
+    layers: dict = {}
+
+    def held(q, k, v, **kw):
+        got = k8(q, k, v, **kw)
+        hold_close(layers, "layers", got, fa.flash_attention_plain(q, k, v, **kw),
+                   *K8_BARS[q.dtype])
+        return got
+
+    def logits(attention, tokens):
+        attn_mod.flash_attention = attention
+        try:
+            return prefill(params, tokens, cfg, tokens["tokens"].shape[1])[0].float()
+        finally:
+            attn_mod.flash_attention = k8
+
+    reads = []
+    for prompt, req in zip(prompts, reqs):
+        tokens = {"tokens": prompt[None, :]}
+        ops.reset_launch_counts()
+        got = logits(held, tokens)
+        check(ops.launch_counts()["flash_attention"] == cfg.n_layers, "K8 prefill launches")
+        check(bool(torch.isfinite(got).all()), "non-finite prefill logits")
+        want = logits(fa.flash_attention_plain, tokens)
+        check(ops.launch_counts()["flash_attention"] == cfg.n_layers, "plain prefill launched K8")
+        scale = float(want.abs().max())
+        read = dict(prompt_len=len(prompt), max_logit=scale,
+                    layers_of_bar=layers.pop("layers")["of_bar"],
+                    k8_of_max=float((got - want).abs().max()) / scale)
+        for name, fault in K8_FAULTS.items():
+            read[f"{name}_of_max"] = float((logits(fault, tokens) - want).abs().max()) / scale
+        reads.append(read)
+        check(read["k8_of_max"] <= TOL_SERVE_LOGITS,
+              f"prefill logits K8 vs plain: {read} past {TOL_SERVE_LOGITS}")
+        for name in K8_FAULTS:      # the tile fault touches rows past FAULT_ROW only
+            check(read[f"{name}_of_max"] > TOL_SERVE_LOGITS
+                  or (name == "tile_dropped_late_rows" and len(prompt) <= FAULT_ROW),
+                  f"the logit bar passes the planted fault {name}: {read}")
+        first = int(got.argmax(dim=-1)[0])
+        check(first == req.out[0], f"engine's first token {req.out[0]} vs prefill {first}")
+    return reads
+
+
+def phase_serve(dev) -> int:
+    """ServeEngine on Qwen3-8B at full width and depth, bf16, seeded random
+    weights on the card: 6 requests through 4 slots, greedy, 16 new tokens
+    each, K8's launches counted over the run.  Then every prompt's
+    prefill checked again (:func:`prefill_checks`), the SMOKE config on
+    the card against the CPU, and a profile of one prefill and four
+    decode steps.  Returns K8's launches in the counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    check(any(n % fa.KV_TILE for n in lens), f"no prompt length off the tile: {lens}")
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+    eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+
+    # both methods end in a host copy of the sampled tokens, so a host
+    # clock around them covers their device work
+    prefills, decodes = [], []
+    prefill_slot, decode_active = eng._prefill_slot, eng._decode_active
+
+    def timed_prefill(slot, req):
+        t = time.perf_counter()
+        prefill_slot(slot, req)
+        prefills.append(dict(rid=req.rid, prompt_len=len(req.prompt),
+                             ms=(time.perf_counter() - t) * 1e3))
+
+    def timed_decode():
+        t = time.perf_counter()
+        out = decode_active()
+        decodes.append(dict(active=sum(r is not None for r in eng.active),
+                            ms=(time.perf_counter() - t) * 1e3))
+        return out
+
+    eng._prefill_slot, eng._decode_active = timed_prefill, timed_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(max_steps=200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for r in reqs:
+        check(r.done and r.error is None and len(r.out) == SERVE_MAX_NEW,
+              f"request {r.rid}: done={r.done} error={r.error} tokens={len(r.out)}")
+        check(all(0 <= t < cfg.vocab_padded for t in r.out), f"request {r.rid}: token range")
+    check(len(prefills) == SERVE_REQUESTS, f"{len(prefills)} prefills for {SERVE_REQUESTS}")
+    launches = counts["flash_attention"]
+    check(launches == cfg.n_layers * len(prefills),
+          f"K8 launched {launches} times for {len(prefills)} prefills of {cfg.n_layers} layers")
+    generated = sum(len(r.out) for r in reqs)
+    emit(dict(phase="serve", case="engine", arch=SERVE_ARCH, n_layers=cfg.n_layers,
+              d_model=cfg.d_model, params=count_params(params), param_init_s=init_s,
+              slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, max_new=SERVE_MAX_NEW,
+              wall_s=wall, generated_tokens=generated, tokens_per_s=generated / wall,
+              prefills=prefills, decode_steps=len(decodes),
+              decode_ms_mean=float(np.mean([d["ms"] for d in decodes])),
+              decode_ms=[d["ms"] for d in decodes],
+              peak_memory_allocated_bytes=peak, launches=counts))
+
+    reads = prefill_checks(params, cfg, prompts, reqs)
+    cross = smoke_cross_device()
+    emit(dict(phase="serve", case="logits", bars=bars_json(), logit_bar=TOL_SERVE_LOGITS,
+              prompts=reads, smoke_config_cuda_vs_cpu=cross))
+
+    # where the time goes: the first prompt's prefill into a slot, then
+    # four decode steps with all four slots busy (not counted above)
+    eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
+    for i in range(SERVE_SLOTS):
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new=SERVE_MAX_NEW))
+    prefill_prof = device_breakdown(lambda: eng._prefill_slot(0, eng.queue.pop()))
+    eng._admit()
+    check(all(r is not None for r in eng.active), "profile: slots not all busy")
+    decode_prof = device_breakdown(lambda: [eng.step() for _ in range(4)])
+    emit(dict(phase="serve", case="profile", prefill_len=int(lens[0]), prefill=prefill_prof,
+              decode_steps=4, decode=decode_prof))
+    return launches
+
+
 def kernels_line(pairs: dict, launches: dict, api_rows: dict,
-                 api_launches: dict) -> list[dict]:
+                 api_launches: dict, k8_row: dict, k8_launches: int) -> list[dict]:
     """One row per kernel: timed at its main-path shape (MAIN_SHAPE for
     K1-K4), its error the largest over every shape, its launches from the
     main path that drives it (the slice for K1-K4, the kernel API for
-    K5-K7b)."""
+    K5-K7b, the serving path for K8)."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -832,6 +1260,11 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
                    launches=api_launches[name], **{key: k[key] for key in keys})
         row["other_shapes"] = {m: {key: api_rows[m][key] for key in keys} for m in more}
         rows.append(row)
+    rows.append(dict(name="K8 flash_attention", route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:103",
+                     launches=k8_launches, **{key: k8_row[key] for key in keys},
+                     f32_fma_bound_ms=k8_row["f32_fma_bound_ms"]))
     return rows
 
 
@@ -862,8 +1295,11 @@ def main() -> int:
     launches = phase_slice(dev, routes)
     api_rows, api_launches = phase_kernel_api(dev)
     phase_quickstart()
+    k8_row = phase_k8()
+    k8_launches = phase_serve(dev)
 
-    emit({"kernels": kernels_line(pairs, launches, api_rows, api_launches)})
+    emit({"kernels": kernels_line(pairs, launches, api_rows, api_launches, k8_row,
+                                  k8_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""Carry a stamped circuit across from plain arrays into the port.
+"""Carry a stamped circuit, or a language model's weights, across from
+plain arrays into the port.
 
 The system has no weights; its state is the stamped circuit.  These
 functions take the fields of a netlist, a stamp pattern, a dense or ELL
@@ -8,6 +9,8 @@ numpy arrays and scalars — as read off the reference's ``Netlist``,
 ``StateSpace`` and ``Transformed2N`` — and build the port's objects, the
 operators on a given device.  A test can then feed the identical operator to both
 packages' sweeps and hold a kernel apart from assembly.
+:func:`lm_params_from_arrays` does the same for a dense decoder's
+parameter tree.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from repro_torch.core.specs import CircuitParams
 from repro_torch.core.transform import Transformed2N
 from repro_torch.core.transient import StateSpace
 from repro_torch.device import resolve_device
+from repro_torch.models import blocks as lm_blocks
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import DenseDecoder, _require_dense
 
 NETLIST_ARRAYS = ("branch_i", "branch_j", "branch_g", "ground_g", "supply_g",
                   "supply_v", "cell_i", "cell_j", "cell_w")
@@ -124,3 +130,35 @@ def transformed_from_arrays(k_a, k_b, d, k_s, b_sign, *, supply_v: float,
 
     return Transformed2N(k_a=t(k_a), k_b=t(k_b), d=t(d), k_s=t(k_s), b_sign=t(b_sign),
                          supply_v=float(supply_v))
+
+
+def lm_params_from_arrays(tree: Mapping[str, Any], cfg: ModelConfig,
+                          device=None) -> DenseDecoder:
+    """A dense decoder from the reference's parameter tree as numpy arrays.
+
+    ``tree`` has the reference's layout: ``embed``, ``final_norm``,
+    ``lm_head`` (unless ``tie_embeddings``) and ``blocks`` with a leading
+    layer axis on every leaf (``blocks["attn"]["wq"]`` is
+    (n_layers, d, H, dh)).  Values are cast to ``cfg.p_dtype()`` through
+    float32 (exact for float32 and bfloat16 sources).
+    """
+    _require_dense(cfg)
+    dev = resolve_device(device)
+
+    def t(x) -> torch.Tensor:
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev).to(cfg.p_dtype())
+
+    blocks = tree["blocks"]
+    attn, mlp = blocks["attn"], blocks["mlp"]
+    layers = []
+    for i in range(cfg.n_layers):
+        norms = {name: t(attn[name][i]) for name in ("q_norm", "k_norm") if name in attn}
+        layers.append(lm_blocks.DenseBlock(
+            t(blocks["ln1"][i]),
+            lm_blocks.Attention(*(t(attn[name][i]) for name in ("wq", "wk", "wv", "wo")),
+                                **norms),
+            t(blocks["ln2"][i]),
+            lm_blocks.MLP(*(t(mlp[name][i]) for name in ("w_gate", "w_up", "w_down"))),
+        ))
+    lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
+    return DenseDecoder(t(tree["embed"]), t(tree["final_norm"]), layers, lm_head)

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels K1-K7b and their plain PyTorch versions.
+"""Hand-written Hopper kernels K1-K8 and their plain PyTorch versions.
 
 * :mod:`~repro_torch.kernels.ell_transient` — the matrix-free ELL settle
   sweeps K1 (persistent) and K2 (one row-tiled step).
@@ -9,11 +9,14 @@
   ``I = G V``.
 * :mod:`~repro_torch.kernels.spd_transform` — K7a (column |A| sums) and
   K7b (K_A, K_B of Eqs. 15-16 from one read of A).
+* :mod:`~repro_torch.kernels.flash_attention` — K8, GQA attention with
+  an online softmax (causal, sliding-window and ragged masks), the
+  language-model stack's prefill attention.
 
 :mod:`~repro_torch.kernels.ops` holds the public wrappers: the kernel API
 re-exported here (:func:`crosspoint_mvm`, :func:`transient_step`,
 :func:`spd_transform_arrays`), the settle-sweep routing and the launch
-counters.  As in the reference, the re-exported ``crosspoint_mvm`` and
+counters (K1-K8).  As in the reference, the re-exported ``crosspoint_mvm`` and
 ``transient_step`` functions shadow the submodules of the same names:
 reach those with ``importlib.import_module``.  The CUDA sources are built
 at first CUDA use (:mod:`~repro_torch.kernels.build`).

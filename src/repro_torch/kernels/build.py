@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
-           "spd_transform.cu")
+           "spd_transform.cu", "flash_attention.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -60,6 +60,9 @@ _SIGNATURES = {
     "repro_colabs": ((_P, _I, _P, _I, _I, _P), _I),
     # a, a_is_bf16, d, k_s, k_a, k_b, n, stream
     "repro_assemble": ((_P, _I, _P, _P, _P, _P, _I, _P), _I),
+    # q, k, v, is_bf16, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
+    "repro_flash_attention": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                               _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -85,7 +88,7 @@ class KernelLibrary:
             raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-# operand dtypes of K5-K7b: float32, or bfloat16 with float32 arithmetic
+# operand dtypes of K5-K8: float32, or bfloat16 with float32 arithmetic
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
 

@@ -4,7 +4,8 @@ settle sweeps.
 Counterpart of :mod:`repro.kernels.ops`.
 
 * The kernel API — :func:`crosspoint_mvm` (K6), :func:`transient_step`
-  (K5) and :func:`spd_transform_arrays` (K7a + K7b), with the
+  (K5), :func:`spd_transform_arrays` (K7a + K7b) and
+  :func:`flash_attention` (K8), with the
   reference's contracts: 1-D or 2-D inputs, the output dtype, and
   ``(K_A, K_B, D, K_s)`` in that order.  Unlike the reference they pad
   nothing (the kernels mask ragged edges) and take no ``block=`` or
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.kernels import crosspoint_mvm as _mvm
 from repro_torch.kernels import ell_transient as _ell
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import spd_transform as _tr
 from repro_torch.kernels import transient_step as _st
 
@@ -76,6 +78,19 @@ def spd_transform_arrays(
     d[0] += 0.5 * k_s[0]
     ka, kb = _tr.assemble(a, d.to(a.dtype).float(), k_s.to(a.dtype).float())  # K7b
     return ka, kb, d, k_s
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA flash attention (K8) with the contract of the reference's
+    ``flash_attention_pallas``: q (B, S, H, D), k/v (B, T, KV, D), the
+    probability tile rounded to ``v``'s dtype before the PV product.  The
+    model's attention (:mod:`repro_torch.models.attention`) calls K8 with
+    its own ``p_dtype`` instead.  ``q_block``/``kv_block``/``interpret``
+    are dropped: the tiles are the kernel's own, and a CPU tensor runs
+    the plain version."""
+    p_dtype = torch.bfloat16 if v.dtype == torch.bfloat16 else None
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
 
 # ---------------------------------------------------------------------------
 # Routing limits, re-derived for the Hopper designs
@@ -273,11 +288,11 @@ def transient_sweep(
 
 _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
             _st.transient_step_batched, _st.transient_step, _mvm.crosspoint_mvm,
-            _tr.colabs, _tr.assemble)
+            _tr.colabs, _tr.assemble, _fa.flash_attention)
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel (K1-K7b) since the last reset."""
+    """Launches of each CUDA kernel (K1-K8) since the last reset."""
     return {fn.__name__: fn.launches for fn in _KERNELS}
 
 

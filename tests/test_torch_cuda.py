@@ -1,5 +1,5 @@
-"""On a CUDA device: each Hopper kernel of repro_torch (K1-K7b) against
-its plain PyTorch version, and the main path through the kernels.
+"""On a CUDA device: each Hopper kernel of repro_torch (K1-K8) against
+its plain PyTorch version, and the main paths through the kernels.
 
 Imports no JAX, so it runs on the card's machine:
 
@@ -20,6 +20,7 @@ from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.network import build_proposed_batch  # noqa: E402
 from repro_torch.data.spd import random_rhs_from_solution, random_spd  # noqa: E402
 from repro_torch.kernels import ell_transient as ell  # noqa: E402
+from repro_torch.kernels import flash_attention as k8  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spd_transform as tr  # noqa: E402
 
@@ -163,3 +164,35 @@ def test_kernel_api_on_the_card_matches_cpu(cuda):
     assert z.shape == (80,)
     torch.testing.assert_close(z.cpu(), ops.transient_step(g, y, y, 0.5), rtol=5e-5,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda, dtype):
+    """K8 against its plain version on the card: GQA, MQA, a window, a
+    non-causal case, ragged S and T, every head size, p rounded or not;
+    element by element within atol + rtol |want| (the form of the
+    reference kernel test, tests/test_kernels.py:171): a sound pair of
+    bf16 outputs lies at most one bf16 ulp (2^-7 |want|) apart."""
+    rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    rounded = torch.bfloat16 if dtype == torch.bfloat16 else None
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    before = ops.launch_counts()["flash_attention"]
+    cases = [  # b, s, t, h, kv, d, causal, window, p_dtype
+        (2, 128, 128, 4, 2, 32, True, 0, None),
+        (1, 100, 100, 4, 1, 16, True, 0, rounded),
+        (1, 192, 192, 8, 2, 64, True, 64, None),
+        (2, 77, 130, 6, 3, 128, False, 0, None),
+        (1, 300, 300, 32, 8, 128, True, 0, rounded),
+    ]
+    for b, s, t, h, kv, d, causal, window, p_dtype in cases:
+        q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+        k = torch.randn((b, t, kv, d), generator=gen, device=cuda).to(dtype)
+        v = torch.randn((b, t, kv, d), generator=gen, device=cuda).to(dtype)
+        got = k8.flash_attention(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        want = k8.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        p_dtype=p_dtype)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{(b, s, t, h, kv, d)}: {m}")
+    assert ops.launch_counts()["flash_attention"] - before == len(cases)

@@ -279,4 +279,4 @@ def test_import_builds_nothing():
                          check=True)
     assert out.stdout.strip().endswith("build/repro_torch_kernels")
     assert build.SOURCES == ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
-                             "spd_transform.cu")
+                             "spd_transform.cu", "flash_attention.cu")
