@@ -33,31 +33,38 @@ non-zero:
    dense n = 4096 system, ``crosspoint_mvm`` (K6) on its (8192, 8192)
    crossbar from ``crosspoint_layout`` at the DC node voltages, with 64
    voltage vectors and in bf16, and 200 ``transient_step`` (K5) steps of
-   one dense n = 1024 circuit (nz = 8192) from 16 start states.  Then
-   the transform against float64, each kernel against its plain version
-   within a bar scaled to its largest output, K5's column 0 against 500
-   launches of K4, each kernel at ragged shapes (K5 and K6 once per tile
-   width), and the times of kernel, plain version and library call;
+   one dense n = 1024 circuit (nz = 8192) from 16 start states, failing
+   unless K6's two float32 products took its FMA route and the bf16 one
+   its tensor-core route.  Then the transform against float64, each
+   kernel against its plain version within a bar scaled to its largest
+   output (K6 in bf16 element by element, with two planted faults that
+   the bar must reject), K5's column 0 against 500 launches of K4, each
+   kernel at ragged shapes (K5 once per tile width, K6 once per tile
+   width and bf16 route), and the times of kernel, plain version and
+   library call;
 5. quickstart — the single-system flow of examples/quickstart.py at
    n = 24 on the card and on the CPU, which must agree;
 6. serve — the language-model serving path.  K8 (flash attention)
    against its plain version, element by element, at the prefill shape
    of the path (bf16, B = 1, S = T = 2048, 32 query heads over 8 KV
-   heads, D = 128, causal), a ragged S = 1000, MQA, a window, non-causal
-   cases and every head size in float32 and bf16; two planted faults
-   that the same bar must reject; K8's times beside
+   heads, D = 128, causal), a ragged S = 1000, MQA at G = 32 and 48, a
+   window, non-causal cases and every head size in float32 and bf16 (p
+   rounded or not), each through the route it must take (bf16 on the
+   tensor cores, float32 on FMA); two planted faults that the same bar
+   must reject; K8's times on each route beside
    ``scaled_dot_product_attention``'s; then ``ServeEngine`` on Qwen3-8B
    at full width and depth (36 layers, bf16, seeded random weights on
    the card) serving 6 requests of 256-2048 prompt tokens through 4
    slots, 16 greedy tokens each, failing unless K8 launched 36 times per
-   prefill; then each prompt's prefill again, K8 held element by element
+   prefill, all on its tensor-core route; then each prompt's prefill
+   again, K8 held element by element
    against its plain version on every layer's own inputs, and the logits
    through K8 against the plain attention and against two planted faults
    (a key tile dropped for late rows, the GQA head order swapped), which
-   the K8 bars and the logit bar must reject; and the SMOKE config on the
-   card against the CPU;
-7. the kernels line (K1-K8), the nvidia-smi line, and the contract's
-   last line.
+   the K8 bars and the logit bar must reject; and the SMOKE config
+   (float32, K8's FMA route) on the card against the CPU;
+7. the kernels line (K1-K8; K6 and K8 one row per route), the
+   nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA it
 exits with code 2 before printing any result.
@@ -505,16 +512,34 @@ K5_STEPS = 200
 K5_VS_K4_STEPS = 500
 K6_BATCH = 64
 RAGGED_TRANSFORM = 4000
-RAGGED_MVM = ((300, 513, 1), (300, 513, 5), (257, 130, 64))  # each K6 tile width
+# K6 at ragged shapes, (m, k, nb) and the route each takes in bf16
+# (crosspoint_mvm_route): the column product, the tensor-core product with
+# 16-byte asynchronous copies and m/k tails, and its masked-load variant
+# (k or nb not a multiple of 8).  float32 takes the FMA product at every
+# shape, one tile width each (nb = 1, <= 16, > 16).
+RAGGED_MVM = (((300, 513, 1), "fma"), ((300, 513, 5), "mma_scalar"),
+              ((257, 130, 64), "mma_scalar"), ((1000, 1048, 24), "mma_async"),
+              ((300, 520, 64), "mma_async"))
 RAGGED_STEP = ((137, 1), (137, 17), (130, 33))                # each K5 tile width
 # the reference's kernel-test bars (tests/test_kernels.py:19-23, :84-99),
 # each scaled to the largest output as the CPU parity tests scale theirs:
-# crossbar products 5e-5 in float32 (k <= 8192 sums in another order),
-# 2e-2 in bf16 (a few bf16 ulps of the output); the fused transform within
-# 1e-5 max|K_A| of the float64 one.  K5 after 200 and 500 steps: 1e-5 of
-# max|z| (TOL_Z, the sweeps' bar).
-TOL_MVM_F32, TOL_MVM_BF16, TOL_TRANSFORM = 5e-5, 2e-2, 1e-5
+# crossbar products 5e-5 in float32 (k <= 8192 sums in another order); the
+# fused transform within 1e-5 max|K_A| of the float64 one.  K5 after 200
+# and 500 steps: 1e-5 of max|z| (TOL_Z, the sweeps' bar).
+TOL_MVM_F32, TOL_TRANSFORM = 5e-5, 1e-5
+# bf16 crossbar products element by element: |got - want| <= 1e-2 |want| +
+# 1e-3 max|want|.  Kernel and plain version round float32 sums taken in
+# other orders to bf16, so a sound pair lies at most one bf16 ulp apart,
+# 2^-7 |want|; the atol is scaled to the output, because currents are
+# ~1e-4 A, and covers outputs near zero.  A bar of 2e-2 max|want| would
+# pass a 64-deep k-step left out (an error of ~sqrt(64/8192) = 9 % of a
+# typical output); the planted faults below (K6_FAULTS) show this one
+# does not.
+MVM_BF16_RTOL, MVM_BF16_ATOL_OF_MAX = 1e-2, 1e-3
 API_KERNELS = ("transient_step", "crosspoint_mvm", "colabs", "assemble")
+# a planted K6 fault leaves out this many k (one 64-deep step) from the
+# rows past m / 2
+K6_FAULT_KSTEP = 64
 
 
 def hold(errs: dict, key: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> None:
@@ -529,6 +554,38 @@ def hold(errs: dict, key: str, got: torch.Tensor, want: torch.Tensor, tol: float
     old = errs.get(key, dict(max_abs_err=0.0, of_bar=0.0))
     errs[key] = dict(max_abs_err=max(old["max_abs_err"], err),
                      of_bar=max(old["of_bar"], err / bar if bar else 0.0))
+
+
+def hold_mvm_bf16(errs: dict, key: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """Fail unless every |got - want| <= 1e-2 |want| + 1e-3 max|want|
+    (a bf16 crossbar product, element by element)."""
+    atol = MVM_BF16_ATOL_OF_MAX * float(want.double().abs().max())
+    hold_close(errs, key, got, want, MVM_BF16_RTOL, atol)
+
+
+def k6_kstep_dropped(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A planted fault: K6 that leaves the first 64-deep k-step out of the
+    rows past m / 2."""
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+    out = mvm.crosspoint_mvm(g, v)
+    half = g.shape[0] // 2
+    out[half:] = mvm.crosspoint_mvm(g[half:, K6_FAULT_KSTEP:].contiguous(),
+                                    v[K6_FAULT_KSTEP:].contiguous())
+    return out
+
+
+def k6_column_tile_dropped(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A planted fault: K6 that drops V's last column tile (the 8 columns
+    of one tensor-core product), whose outputs stay zero."""
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+    nb = v.shape[1]
+    out = torch.zeros((g.shape[0], nb), dtype=v.dtype, device=v.device)
+    out[:, :nb - 8] = mvm.crosspoint_mvm(g, v[:, :nb - 8].contiguous())
+    return out
+
+
+K6_FAULTS = {"kstep_dropped_late_rows": k6_kstep_dropped,
+             "last_column_tile_dropped": k6_column_tile_dropped}
 
 
 def api_operands(dev) -> dict:
@@ -590,14 +647,21 @@ def drive_api(op: dict) -> tuple[dict, dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    by_route = ops.launch_counts_by_route()["crosspoint_mvm"]
     for name in API_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched on the kernel-API path")
+    # the b = 1 and b = 64 float32 products take the FMA product, the bf16
+    # one the tensor cores with 16-byte copies
+    check(by_route == dict(mma_async=1, mma_scalar=0, fma=2),
+          f"K6 routes on the kernel-API path: {by_route}")
+    counts["crosspoint_mvm_by_route"] = by_route
     return out, counts, wall
 
 
 def ragged_checks(dev) -> dict:
     """Each kernel at ragged shapes against its plain version, K5 and K6
-    once per tile width (nb = 1, <= 16, > 16)."""
+    once per tile width (nb = 1, <= 16, > 16) and K6 in bf16 once or
+    more per route (RAGGED_MVM), each checked for the route it took."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import spd_transform as tr
 
@@ -617,13 +681,16 @@ def ragged_checks(dev) -> dict:
     pa, pb = tr.assemble_plain(a, d, ks)
     hold(errs, "assemble", ka, pa, 0.0)
     hold(errs, "assemble", kb, pb, 0.0)
-    for m_, k_, nb in RAGGED_MVM:
+    for (m_, k_, nb), route in RAGGED_MVM:
         g, v = t((m_, k_)), t((k_, nb))
         hold(errs, "crosspoint_mvm", mvm.crosspoint_mvm(g, v), mvm.crosspoint_mvm_plain(g, v),
              TOL_MVM_F32)
         gb, vb = g.bfloat16(), v.bfloat16()
-        hold(errs, "crosspoint_mvm_bf16", mvm.crosspoint_mvm(gb, vb),
-             mvm.crosspoint_mvm_plain(gb, vb), TOL_MVM_BF16)
+        before = ops.launch_counts_by_route()["crosspoint_mvm"][route]
+        hold_mvm_bf16(errs, "crosspoint_mvm_bf16", mvm.crosspoint_mvm(gb, vb),
+                      mvm.crosspoint_mvm_plain(gb, vb))
+        check(ops.launch_counts_by_route()["crosspoint_mvm"][route] == before + 1,
+              f"K6 bf16 {(m_, k_, nb)} did not take the {route} route")
     for n5, b5 in RAGGED_STEP:
         m5, z5, c5 = t((n5, n5)) * 0.1, t((n5, b5)), t((n5, b5))
         hold(errs, "transient_step", st.transient_step(m5, z5, c5, 1e-2),
@@ -668,8 +735,15 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
     hold(errs, "crosspoint_mvm_b1", out["i_dc"],
          mvm.crosspoint_mvm_plain(g, y[:, None])[:, 0], TOL_MVM_F32)
     hold(errs, "crosspoint_mvm", out["i_v"], mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
-    hold(errs, "crosspoint_mvm_bf16", out["i_bf"],
-         mvm.crosspoint_mvm_plain(op["g_bf"], op["v_bf"]), TOL_MVM_BF16)
+    want_bf = mvm.crosspoint_mvm_plain(op["g_bf"], op["v_bf"])
+    hold_mvm_bf16(errs, "crosspoint_mvm_bf16", out["i_bf"], want_bf)
+    # the bf16 bar must fail a wrong kernel: planted faults at the main shape
+    k6_planted = {}
+    atol = MVM_BF16_ATOL_OF_MAX * float(want_bf.double().abs().max())
+    for name, fault in K6_FAULTS.items():
+        err, share = bar_share(fault(op["g_bf"], op["v_bf"]), want_bf, MVM_BF16_RTOL, atol)
+        k6_planted[name] = dict(max_abs_err=err, of_bar=share)
+        check(share > 1, f"K6's bf16 bar passes the planted fault {name}: {share} of it")
     # K5: 200 steps against 200 plain steps; column 0 through 500 steps
     # of K5 (one column) against 500 launches of K4 (B = 1, padded as the
     # engine pads)
@@ -688,6 +762,8 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
     hold(errs, "k5_vs_k4", z5[:, 0], z4[0, :op["nz"]], TOL_Z)
     ragged = ragged_checks(dev)
     emit(dict(phase="kernel_api", case="vs_plain", main_path=errs, ragged=ragged,
+              k6_bf16_bar=dict(rtol=MVM_BF16_RTOL, atol_of_max=MVM_BF16_ATOL_OF_MAX),
+              k6_planted_faults=k6_planted,
               k5_max_z=float(zp.abs().max()), k5_vs_k4_max_z=float(z4.abs().max()),
               i_dc_max=float(out["i_dc"].abs().max()), i_v_max=float(out["i_v"].abs().max())))
 
@@ -847,7 +923,13 @@ K8_CASES = (
     ("f32_d128", F32, 1, 1024, 1024, 32, 8, 128, True, 0, None),
     *((f"{'bf16' if dt == BF16 else 'f32'}_d{d}", dt, 2, 515, 515, 8, 2, d, True, 0, "v")
       for d in (16, 32, 64) for dt in (BF16, F32)),
+    # p kept float32 (the tensor cores' p_hi + p_lo split) at every head size
+    *((f"bf16_d{d}_p_f32", BF16, 2, 515, 515, 8, 2, d, True, 0, None) for d in (16, 32, 64)),
+    # Granite-20B's MQA: 48 query heads over one KV head, 64 % 48 != 0
+    ("mqa_g48", BF16, 1, 1000, 1000, 48, 1, 128, True, 0, None),
 )
+# the same shape in float32: the FMA route's row of the kernels line
+K8_MAIN_F32 = ("main_f32", F32, *K8_MAIN[2:])
 
 
 def attn_pairs(s: int, t: int, causal: bool, window: int) -> int:
@@ -933,28 +1015,36 @@ def k8_operands(case, gen):
 
 def phase_k8() -> dict:
     """K8 against its plain version at every case (main-path shape, ragged
-    S, MQA, a window, non-causal, S != T, each head size, float32 and
-    bf16, p rounded or not), then the times at the main-path shape."""
+    S, MQA with G = 32 and 48, a window, non-causal, S != T, each head
+    size, float32 and bf16, p rounded or not), each through the route
+    flash_attention_route names; then the times at the main-path shape on
+    each route (bf16 -> "mma", float32 -> "fma"), keyed by route."""
     from repro_torch.kernels import ops
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs: dict = {}
+    routes: dict = {}
     for case in K8_CASES:
-        label, dtype, _b, _s, _t, _h, _kv, _d, causal, window, p_dtype = case
+        label, dtype, _b, _s, _t, _h, _kv, d, causal, window, p_dtype = case
         q, k, v = k8_operands(case, gen)
+        route = fa.flash_attention_route(dtype, d, True)
+        before = ops.launch_counts_by_route()["flash_attention"][route]
         if p_dtype == "v":
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
             p_dtype = BF16 if dtype == BF16 else None
         else:
             got = fa.flash_attention(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        check(ops.launch_counts_by_route()["flash_attention"][route] == before + 1,
+              f"K8 {label} did not take the {route} route")
+        routes[label] = route
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
         check(got.dtype == dtype and got.shape == q.shape, f"K8 {label}: dtype/shape")
         hold_close(errs, label, got, want, *K8_BARS[dtype])
-    emit(dict(phase="serve", case="k8_vs_plain", bars=bars_json(), errors=errs))
+    emit(dict(phase="serve", case="k8_vs_plain", bars=bars_json(), errors=errs, routes=routes))
 
     # the bar must fail a wrong kernel: planted faults at the main-path shape
-    label, dtype, b, s, t, h, kv, d, causal, window, p_dtype = K8_MAIN
+    dtype = K8_MAIN[1]
     q, k, v = k8_operands(K8_MAIN, gen)
     want = fa.flash_attention_plain(q, k, v)
     planted = {}
@@ -964,34 +1054,54 @@ def phase_k8() -> dict:
         check(share > 1, f"K8's bar passes the planted fault {name}: {share} of it")
     emit(dict(phase="serve", case="k8_planted_faults", faults=planted))
 
+    rows = {"mma": k8_times(q, k, v, errs, routes)}
+    rows["fma"] = k8_times(*k8_operands(K8_MAIN_F32, gen), errs, routes)
+    for row in rows.values():
+        emit(dict(phase="serve", case="k8_times", **row))
+    return rows
+
+
+def k8_times(q, k, v, errs: dict, routes: dict) -> dict:
+    """K8's times at the main path's shape (causal, p float32) in the
+    inputs' dtype, beside the plain version, SDPA (the library call, timed
+    only) and the bound at the peak of the inputs' type."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == BF16
+    route = fa.flash_attention_route(q.dtype, d, True)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
     lib_err = float((lib_out.float() - fa.flash_attention(q, k, v).float()).abs().max())
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
-    flops = 4 * b * h * d * attn_pairs(s, t, causal, window)
-    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    row = dict(
-        shape=[b, s, t, h, kv, d], causal=causal, dtype="bfloat16",
-        ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 20),
-        device_ms=graph_ms(lambda: fa.flash_attention(q, k, v), 20),
+    flops = 4 * b * h * d * attn_pairs(s, t, True, 0)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    return dict(
+        shape=[b, s, t, h, kv, d], causal=True, dtype=str(q.dtype).removeprefix("torch."),
+        route=route, ms=ms, device_ms=graph_ms(lambda: fa.flash_attention(q, k, v), 20),
         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
         library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20),
         bound_ms=bound_ms, bound_by=bound_by,
-        bound_peak="bf16 tensor cores, 989 TFLOP/s (the inputs' type)",
+        bound_peak=("bf16 tensor cores, 989 TFLOP/s" if bf16 else "float32 FMA, 67 TFLOP/s")
+        + " (the inputs' type)",
         f32_fma_bound_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops,
-        max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+        tflop_per_s=flops / (ms * 1e-3) / 1e12,
+        max_abs_err=max(e["max_abs_err"] for label, e in errs.items()
+                        if routes[label] == route),
         library_max_abs_err=lib_err,
     )
-    emit(dict(phase="serve", case="k8_times", **row))
-    return row
 
 
 def smoke_cross_device() -> dict:
     """The SMOKE config (float32, 2 layers, head size 16) on the card and
     on the CPU, one set of weights: prefill and three decode steps at
-    staggered positions, then three requests through ServeEngine."""
+    staggered positions, then three requests through ServeEngine, K8's
+    launches by route counted over the card's engine run (float32: the
+    fma route)."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
     from repro_torch.models.model import decode_step, init_params, prefill
     from repro_torch.serving import Request, ServeEngine
 
@@ -1012,17 +1122,23 @@ def smoke_cross_device() -> dict:
         lg_g, c_g = decode_step(gpu, nxt, pos, c_g, cfg)
         lg_c, c_c = decode_step(cpu, nxt, pos, c_c, cfg)
         pos = pos + 1
-    outs = {}
+    outs, by_route = {}, {}
     for dev, params in (("cuda", gpu), ("cpu", cpu)):
         eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, device=dev)
         reqs = [Request(rid=i, prompt=np.arange(3 + 4 * i) % cfg.vocab, max_new=8)
                 for i in range(3)]
         for r in reqs:
             eng.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
         eng.run(max_steps=100)
+        torch.cuda.synchronize()
+        by_route[dev] = ops.launch_counts_by_route()["flash_attention"]
         outs[dev] = [r.out for r in reqs]
     check(outs["cuda"] == outs["cpu"], f"smoke config tokens: {outs}")
-    return dict(logits_err_of_max=worst, tokens=outs["cuda"])
+    check(not any(by_route["cpu"].values()), f"the CPU run launched K8: {by_route}")
+    return dict(logits_err_of_max=worst, tokens=outs["cuda"],
+                k8_launches_by_route=by_route["cuda"])
 
 
 def device_breakdown(fn) -> dict:
@@ -1117,13 +1233,14 @@ def prefill_checks(params, cfg, prompts, reqs) -> list[dict]:
     return reads
 
 
-def phase_serve(dev) -> int:
+def phase_serve(dev) -> dict:
     """ServeEngine on Qwen3-8B at full width and depth, bf16, seeded random
     weights on the card: 6 requests through 4 slots, greedy, 16 new tokens
     each, K8's launches counted over the run.  Then every prompt's
     prefill checked again (:func:`prefill_checks`), the SMOKE config on
     the card against the CPU, and a profile of one prefill and four
-    decode steps.  Returns K8's launches in the counted run."""
+    decode steps.  Returns K8's launches by route: "mma" in the counted
+    run, "fma" in the SMOKE config's engine run on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import count_params, init_params
@@ -1180,9 +1297,11 @@ def phase_serve(dev) -> int:
               f"request {r.rid}: done={r.done} error={r.error} tokens={len(r.out)}")
         check(all(0 <= t < cfg.vocab_padded for t in r.out), f"request {r.rid}: token range")
     check(len(prefills) == SERVE_REQUESTS, f"{len(prefills)} prefills for {SERVE_REQUESTS}")
+    by_route = ops.launch_counts_by_route()["flash_attention"]
     launches = counts["flash_attention"]
     check(launches == cfg.n_layers * len(prefills),
           f"K8 launched {launches} times for {len(prefills)} prefills of {cfg.n_layers} layers")
+    check(by_route["mma"] == launches, f"K8 routes on the serving path: {by_route}")
     generated = sum(len(r.out) for r in reqs)
     emit(dict(phase="serve", case="engine", arch=SERVE_ARCH, n_layers=cfg.n_layers,
               d_model=cfg.d_model, params=count_params(params), param_init_s=init_s,
@@ -1191,10 +1310,13 @@ def phase_serve(dev) -> int:
               prefills=prefills, decode_steps=len(decodes),
               decode_ms_mean=float(np.mean([d["ms"] for d in decodes])),
               decode_ms=[d["ms"] for d in decodes],
-              peak_memory_allocated_bytes=peak, launches=counts))
+              peak_memory_allocated_bytes=peak, launches=counts,
+              launches_by_route=by_route))
 
     reads = prefill_checks(params, cfg, prompts, reqs)
     cross = smoke_cross_device()
+    check(cross["k8_launches_by_route"]["fma"] > 0,
+          f"the SMOKE config's run did not take K8's fma route: {cross}")
     emit(dict(phase="serve", case="logits", bars=bars_json(), logit_bar=TOL_SERVE_LOGITS,
               prompts=reads, smoke_config_cuda_vs_cpu=cross))
 
@@ -1209,15 +1331,18 @@ def phase_serve(dev) -> int:
     decode_prof = device_breakdown(lambda: [eng.step() for _ in range(4)])
     emit(dict(phase="serve", case="profile", prefill_len=int(lens[0]), prefill=prefill_prof,
               decode_steps=4, decode=decode_prof))
-    return launches
+    return {"mma": by_route["mma"], "fma": cross["k8_launches_by_route"]["fma"]}
 
 
 def kernels_line(pairs: dict, launches: dict, api_rows: dict,
-                 api_launches: dict, k8_row: dict, k8_launches: int) -> list[dict]:
-    """One row per kernel: timed at its main-path shape (MAIN_SHAPE for
-    K1-K4), its error the largest over every shape, its launches from the
-    main path that drives it (the slice for K1-K4, the kernel API for
-    K5-K7b, the serving path for K8)."""
+                 api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
+    """One row per kernel, and for K6 and K8 one per route: timed at its
+    main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
+    every shape, its launches from the main path that drives it (the slice
+    for K1-K4, the kernel API for K5-K7b, the serving path for K8), for K6
+    and K8 those of the row's route (``kernel_route``): K6's two float32
+    rows share the "fma" route's count, and K8's fma row counts the
+    float32 SMOKE config's engine run on the card."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -1244,9 +1369,6 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
         "transient_step": ("K5", "src/repro_torch/kernels/csrc/transient_step.cu",
                            "src/repro/kernels/transient_step.py:99",
                            ("transient_step_b1",)),
-        "crosspoint_mvm": ("K6", "src/repro_torch/kernels/csrc/crosspoint_mvm.cu",
-                           "src/repro/kernels/crosspoint_mvm.py:48",
-                           ("crosspoint_mvm_b64", "crosspoint_mvm_b64_bf16")),
         "colabs": ("K7a", "src/repro_torch/kernels/csrc/spd_transform.cu",
                    "src/repro/kernels/spd_transform.py:48", ()),
         "assemble": ("K7b", "src/repro_torch/kernels/csrc/spd_transform.cu",
@@ -1260,11 +1382,23 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
                    launches=api_launches[name], **{key: k[key] for key in keys})
         row["other_shapes"] = {m: {key: api_rows[m][key] for key in keys} for m in more}
         rows.append(row)
-    rows.append(dict(name="K8 flash_attention", route="cuda",
-                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                     replaces="src/repro/kernels/flash_attention.py:103",
-                     launches=k8_launches, **{key: k8_row[key] for key in keys},
-                     f32_fma_bound_ms=k8_row["f32_fma_bound_ms"]))
+    by_route = api_launches["crosspoint_mvm_by_route"]
+    for key, label, kernel_route in (("crosspoint_mvm", "f32, b = 1", "fma"),
+                                     ("crosspoint_mvm_b64", "f32, b = 64", "fma"),
+                                     ("crosspoint_mvm_b64_bf16", "bf16, b = 64", "mma_async")):
+        rows.append(dict(name=f"K6 crosspoint_mvm ({label})", route="cuda",
+                         source="src/repro_torch/kernels/csrc/crosspoint_mvm.cu",
+                         replaces="src/repro/kernels/crosspoint_mvm.py:48",
+                         launches=by_route[kernel_route], kernel_route=kernel_route,
+                         **{k: api_rows[key][k] for k in keys}))
+    for kernel_route, row in k8_rows.items():
+        rows.append(dict(name=f"K8 flash_attention ({row['dtype']}, D = {row['shape'][-1]})",
+                         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:103",
+                         launches=k8_launches[kernel_route], kernel_route=kernel_route,
+                         **{key: row[key] for key in keys},
+                         f32_fma_bound_ms=row["f32_fma_bound_ms"],
+                         tflop_per_s=row["tflop_per_s"]))
     return rows
 
 
@@ -1295,10 +1429,10 @@ def main() -> int:
     launches = phase_slice(dev, routes)
     api_rows, api_launches = phase_kernel_api(dev)
     phase_quickstart()
-    k8_row = phase_k8()
+    k8_rows = phase_k8()
     k8_launches = phase_serve(dev)
 
-    emit({"kernels": kernels_line(pairs, launches, api_rows, api_launches, k8_row,
+    emit({"kernels": kernels_line(pairs, launches, api_rows, api_launches, k8_rows,
                                   k8_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

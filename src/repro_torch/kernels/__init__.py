@@ -16,7 +16,8 @@
 :mod:`~repro_torch.kernels.ops` holds the public wrappers: the kernel API
 re-exported here (:func:`crosspoint_mvm`, :func:`transient_step`,
 :func:`spd_transform_arrays`), the settle-sweep routing and the launch
-counters (K1-K8).  As in the reference, the re-exported ``crosspoint_mvm`` and
+counters (K1-K8, and K6's and K8's by route: their bf16 products run on
+the tensor cores, float32 on FMA).  As in the reference, the re-exported ``crosspoint_mvm`` and
 ``transient_step`` functions shadow the submodules of the same names:
 reach those with ``importlib.import_module``.  The CUDA sources are built
 at first CUDA use (:mod:`~repro_torch.kernels.build`).

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
            "spd_transform.cu", "flash_attention.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma_bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "repro_transient_step": ((_P, _P, _P, _I, _P, _I, _I, _F, _P), _I),
     # g, v, is_bf16, out, m, k, nb, stream
     "repro_crosspoint_mvm": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
+    # g, v, out, m, k, nb, vec16, stream
+    "repro_crosspoint_mvm_mma": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     # a, a_is_bf16, out, rows, cols, stream
     "repro_colabs": ((_P, _I, _P, _I, _I, _P), _I),
     # a, a_is_bf16, d, k_s, k_a, k_b, n, stream
@@ -63,6 +65,9 @@ _SIGNATURES = {
     # q, k, v, is_bf16, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
     "repro_flash_attention": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                _P), _I),
+    # q, k, v, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
+    "repro_flash_attention_mma": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                   _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -91,6 +96,13 @@ class KernelLibrary:
 # operand dtypes of K5-K8: float32, or bfloat16 with float32 arithmetic
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary, as the
+    kernels' 16-byte asynchronous copies need (a fresh tensor does; a view
+    with an offset may not)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check_tensors(dtypes: tuple[torch.dtype, ...], **tensors: torch.Tensor) -> torch.device:

@@ -5,32 +5,71 @@
 //
 // G is (m, k), V is (k, nb), both float32 or both bfloat16; the product
 // is accumulated in float32 and stored in V's dtype, as the Pallas kernel
-// stores its VMEM float32 accumulator.
+// stores its VMEM float32 accumulator.  Ragged edges are masked in the
+// loads and the stores: the wrapper passes G and V as they are, with no
+// padded copy (at a ragged 8192-wide shape a padded copy of G alone would
+// cost as much as the kernel's bound).
+//
+// Routes (kernels/crosspoint_mvm.py:crosspoint_mvm_route, a pure function
+// of dtype, nb and alignment):
+//
+// * "mma_async": bf16, nb >= 2, k % 8 == 0, nb % 8 == 0 and both base
+//   pointers 16-byte aligned -> crosspoint_mvm_mma_kernel<true>;
+// * "mma_scalar": any other bf16 product with nb >= 2 ->
+//   crosspoint_mvm_mma_kernel<false>, the same kernel staging its tiles
+//   through masked scalar loads;
+// * "fma": float32 at any nb, and bf16 at nb = 1 (a GEMV, where tensor
+//   cores buy nothing) -> crosspoint_mvm_kernel on common.cuh's
+//   tile_product.  TF32 stays off (the parity contract), so float32 gets
+//   no tensor cores.
 //
 // What bounds it on an H100.  For the crossbar's own operation, nb = 1,
 // bytes: G is read once (268 MB of float32 at m = k = 8192, 80 us at
 // 3.35 TB/s) for 2 flops per element.  For a batch of nb voltage vectors
-// the flops grow with nb and the bytes do not: past nb ~ 40 (float32,
-// 67 TFLOP/s outside the tensor cores) it is bound by operations
-// (nb = 64: 8.6 GFLOP, 128 us).
+// the flops grow with nb and the bytes do not: in float32 past nb ~ 40
+// (67 TFLOP/s outside the tensor cores) it is bound by operations (nb =
+// 64: 8.6 GFLOP, 128 us).  In bf16 at nb = 64 it stays bound by bytes:
+// 136 MB (G 134 MB, V and I 1 MB each) take 40.7 us at 3.35 TB/s, and
+// the 8.6 GFLOP take 8.7 us at the bf16 tensor-core peak -- but 128 us
+// at the float32 FMA rate, which is why the bf16 route needs the tensor
+// cores even though it is bound by bytes.
 //
-// Design: the tiled product of common.cuh (tile_product), one BM x BN
-// output tile per block, shared-memory tiles of G and V over the
-// contraction, float32 accumulators in registers.  The Pallas grid's
+// Design of the bf16 route.  A block of 8 warps owns BM = 64 rows and
+// BN = 64 columns of I (m = 8192: 128 blocks on the 132 SMs) and walks k
+// in BK = 128 steps through a ring of STAGES = 4 shared-memory stages,
+// each a 64 x 128 tile of G (16 KB) and a 128 x 64 tile of V, filled by
+// 16-byte cp.async: three stages (48 KB of G) are in flight while one is
+// multiplied, above the ~25 KB that Little's law asks of each SM
+// (3.35 TB/s x ~1 us over 132 SMs).  Warp w owns rows 16 (w % 4) and
+// columns 32 (w / 4) of the tile: per 16-deep step one ldmatrix of G (the
+// A fragment), two ldmatrix.trans of V (V is k-major, so the B fragments
+// come transposed) and four m16n8k16 products into float32 registers.
+// Tile rows are padded by 16 bytes, so the eight rows an ldmatrix reads
+// fall in distinct banks.  The epilogue rounds to bf16 and masks rows
+// past m and columns past nb.  Split-k is not used: the 128 row blocks
+// already cover the card.  At b = 64 the kernel runs at about 60 % of
+// the HBM rate: the per-step cost of the ring (its wait and barrier, the
+// copies' issue, the fragments' shared-memory reads), not HBM, sets the
+// pace, which is why the steps are 128 deep rather than 64.  Warpgroup
+// products (wgmma), whose operands the tensor cores read from shared
+// memory, fed by TMA with an mbarrier per stage instead of a block-wide
+// barrier, are the next step; a first wgmma version fed by cp.async, one
+// warpgroup per SM and a wait after every step, was slower than this one.
+//
+// Design of the fma route: the tiled product of common.cuh (tile_product),
+// one BM x BN output tile per block, shared-memory tiles of G and V over
+// the contraction, float32 accumulators in registers.  The Pallas grid's
 // sequential k axis and its VMEM accumulator become the loop over k
 // inside the block.  The tile width follows nb: nb = 1 takes ProdColumn
 // (32 x 1 tiles, the 128-deep step split over 8 thread chunks), so a
 // block's 256 threads all read and add G; nb <= 16 takes ProdNarrow and
-// wider batches ProdWide.  Ragged edges are masked in the loads and the
-// stores: the wrapper passes G and V as they are, with no padded copy
-// (at a ragged 8192-wide shape a padded copy of G alone would cost as
-// much as the kernel's bound).  No tensor cores: a wgmma/TMA pipeline is
-// later work, and this kernel is the simple, correct first version.
+// wider batches ProdWide.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace repro_torch {
 namespace {
@@ -73,6 +112,149 @@ int launch_for_width(const void* g, const void* v, void* out, int m, int k, int 
   return launch<ProdWide, T>(g, v, out, m, k, nb, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores fed through a ring of shared-memory stages
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BM = 64, MMA_BN = 64, MMA_BK = 128, MMA_STAGES = 4, MMA_THREADS = 256;
+constexpr int MMA_LDG = MMA_BK + 8;   // row strides of the G and V tiles, in bf16
+constexpr int MMA_LDV = MMA_BN + 8;
+constexpr int MMA_G_ELEMS = MMA_BM * MMA_LDG;
+constexpr int MMA_STAGE_ELEMS = MMA_G_ELEMS + MMA_BK * MMA_LDV;   // G tile, then V tile
+constexpr int MMA_SMEM_BYTES = MMA_STAGES * MMA_STAGE_ELEMS * 2;
+
+// Stage the k-step at k0: G rows [row0, row0 + 64) x [k0, k0 + 64) and V
+// rows [k0, k0 + 64) x [col0, col0 + 64), zero outside the matrices.
+// VEC16: 16-byte asynchronous copies (k and nb multiples of 8, aligned
+// bases, so every 8-element chunk lies wholly inside or outside);
+// otherwise masked scalar loads and stores.
+template <bool VEC16>
+__device__ __forceinline__ void mvm_stage(const __nv_bfloat16* __restrict__ g,
+                                          const __nv_bfloat16* __restrict__ v,
+                                          __nv_bfloat16* gs, __nv_bfloat16* vs, int m, int k,
+                                          int nb, int row0, int col0, int k0) {
+  const int t = threadIdx.x;
+  if constexpr (VEC16) {
+#pragma unroll
+    for (int i = 0; i < MMA_BM * MMA_BK / 8 / MMA_THREADS; ++i) {
+      const int c = t + i * MMA_THREADS;
+      const int r = c / (MMA_BK / 8), cc = (c % (MMA_BK / 8)) * 8;
+      const bool ok = row0 + r < m && k0 + cc < k;
+      cp_async16(gs + r * MMA_LDG + cc,
+                 ok ? g + static_cast<size_t>(row0 + r) * k + k0 + cc : g, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < MMA_BK * MMA_BN / 8 / MMA_THREADS; ++i) {
+      const int c = t + i * MMA_THREADS;
+      const int r = c / (MMA_BN / 8), cc = (c % (MMA_BN / 8)) * 8;
+      const bool ok = k0 + r < k && col0 + cc < nb;
+      cp_async16(vs + r * MMA_LDV + cc,
+                 ok ? v + static_cast<size_t>(k0 + r) * nb + col0 + cc : v, ok ? 16 : 0);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll 4
+    for (int i = 0; i < MMA_BM * MMA_BK / MMA_THREADS; ++i) {
+      const int e = t + i * MMA_THREADS;
+      const int r = e / MMA_BK, c = e % MMA_BK;
+      const bool ok = row0 + r < m && k0 + c < k;
+      gs[r * MMA_LDG + c] = ok ? g[static_cast<size_t>(row0 + r) * k + k0 + c] : zero;
+    }
+#pragma unroll 4
+    for (int i = 0; i < MMA_BK * MMA_BN / MMA_THREADS; ++i) {
+      const int e = t + i * MMA_THREADS;
+      const int r = e / MMA_BN, c = e % MMA_BN;
+      const bool ok = k0 + r < k && col0 + c < nb;
+      vs[r * MMA_LDV + c] = ok ? v[static_cast<size_t>(k0 + r) * nb + col0 + c] : zero;
+    }
+  }
+}
+
+template <bool VEC16>
+__global__ void __launch_bounds__(MMA_THREADS)
+crosspoint_mvm_mma_kernel(const __nv_bfloat16* __restrict__ g,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                          int m, int k, int nb) {
+  extern __shared__ __align__(128) unsigned char mvm_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(mvm_smem);
+  const int row0 = blockIdx.x * MMA_BM;
+  const int col0 = blockIdx.y * MMA_BN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = (warp & 3) * 16;          // the warp's rows and columns in the tile
+  const int wc = (warp >> 2) * 32;
+  const bool active = col0 + wc < nb;      // warp-uniform: columns left to compute
+  const int n_steps = (k + MMA_BK - 1) / MMA_BK;
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  // fill the ring: steps 0 .. STAGES - 2, one commit group each
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < n_steps) {
+      __nv_bfloat16* gs = ring + s * MMA_STAGE_ELEMS;
+      mvm_stage<VEC16>(g, v, gs, gs + MMA_G_ELEMS, m, k, nb, row0, col0, s * MMA_BK);
+    }
+    cp_async_commit();
+  }
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<MMA_STAGES - 2>();   // this thread's copies of `step` have landed
+    __syncthreads();                   // ... everyone's, and step - 1's reads are done
+    const int next = step + MMA_STAGES - 1;
+    if (next < n_steps) {              // refill the slot that step - 1 used
+      __nv_bfloat16* gs = ring + (next % MMA_STAGES) * MMA_STAGE_ELEMS;
+      mvm_stage<VEC16>(g, v, gs, gs + MMA_G_ELEMS, m, k, nb, row0, col0, next * MMA_BK);
+    }
+    cp_async_commit();                 // an empty group past the end keeps the count
+    if (!active) continue;
+    const __nv_bfloat16* gs = ring + (step % MMA_STAGES) * MMA_STAGE_ELEMS;
+    const __nv_bfloat16* vs = gs + MMA_G_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK; kk += 16) {
+      uint32_t a[4], b[2][4];
+      ldmatrix_x4(a, gs + (wr + (lane & 15)) * MMA_LDG + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(b[np], vs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * MMA_LDV + wc +
+                                     np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        mma_bf16(acc[2 * np], a, b[np][0], b[np][1]);
+        mma_bf16(acc[2 * np + 1], a, b[np][2], b[np][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + wr + gid + (e >> 1) * 8;
+      const int c = col0 + wc + j * 8 + tig * 2 + (e & 1);
+      if (r < m && c < nb) out[static_cast<size_t>(r) * nb + c] = __float2bfloat16_rn(acc[j][e]);
+    }
+  }
+}
+
+template <bool VEC16>
+int launch_mma(const void* g, const void* v, void* out, int m, int k, int nb,
+               cudaStream_t stream) {
+  static std::atomic<bool> raised[MAX_DEVICES];
+  cudaError_t err = allow_dynamic_smem(crosspoint_mvm_mma_kernel<VEC16>, MMA_SMEM_BYTES, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + MMA_BM - 1) / MMA_BM, (nb + MMA_BN - 1) / MMA_BN);
+  crosspoint_mvm_mma_kernel<VEC16><<<grid, MMA_THREADS, MMA_SMEM_BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), m, k, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -87,4 +269,19 @@ extern "C" int repro_crosspoint_mvm(const void* g, const void* v, int is_bf16, v
   auto s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_for_width<__nv_bfloat16>(g, v, out, m, k, nb, s)
                  : launch_for_width<float>(g, v, out, m, k, nb, s);
+}
+
+// The bf16 tensor-core route: g (m, k), v (k, nb), out (m, nb), device
+// pointers of contiguous bfloat16 tensors, nb >= 2.  vec16 != 0 takes the
+// 16-byte asynchronous copies, which need k and nb multiples of 8 and g
+// and v 16-byte aligned (the wrapper's crosspoint_mvm_route decides).
+// Returns the CUDA error code of the launch (0 = success); an empty
+// output launches nothing.
+extern "C" int repro_crosspoint_mvm_mma(const void* g, const void* v, void* out, int m, int k,
+                                        int nb, int vec16, void* stream) {
+  using namespace repro_torch;
+  if (m == 0 || nb == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  return vec16 ? launch_mma<true>(g, v, out, m, k, nb, s)
+               : launch_mma<false>(g, v, out, m, k, nb, s);
 }

@@ -13,38 +13,87 @@
 // the final division floors l at 1e-30.  p_bf16 rounds the probability
 // tile to bf16 before the PV product (the row sum stays float32).
 //
+// Routes (kernels/flash_attention.py:flash_attention_route, a pure
+// function of dtype, D and alignment):
+//
+// * "mma": bfloat16 with q, k and v 16-byte aligned (any fresh tensor) ->
+//   flash_attention_mma_kernel, bf16 tensor cores with float32
+//   accumulators;
+// * "fma": float32 (TF32 would break its 1e-6 + 1e-5 |want| bar), and a
+//   bf16 view whose base is not 16-byte aligned ->
+//   flash_attention_kernel, float32 FMA.
+//
 // What bounds it on an H100.  At the serving path's prefill shape (B = 1,
 // S = T = 2048, H = 32, KV = 8, D = 128, causal) the two products take
 // 4 * H * D * S (S + 1) / 2 = 34.4 GFLOP against 42 MB of q, k, v and o:
 // operations, 35 us at the bf16 tensor-core peak (989 TFLOP/s), 0.51 ms
-// at the float32 FMA peak (67 TFLOP/s) that this kernel's arithmetic
-// runs at.
+// at the float32 FMA peak (67 TFLOP/s).  Only the tensor cores can get
+// under the second.
 //
-// Design (the simple, correct first version; no tensor cores, no TMA).
-// The Pallas grid (batch * kv head, q tile, kv tile) with the kv axis
-// sequential and a VMEM carry becomes one thread block per (batch * kv
-// head, row tile) with the kv loop inside the block.  A row tile is 64
-// consecutive rows of the flattened (q position, group member) index
-// R = qpos * G + g of one KV head, so the block holds all G query heads
-// that share its K/V tiles (K/V are never repeated) and any G works
-// (G = 1 up to MQA's G = H).  Per 64-key tile: the K tile is staged in
-// shared memory (converted to float32, zero past T), every thread forms
-// a 4 x 4 block of scores with float32 FMA, the row max and sum are
-// reduced over the 16 lanes that share a row (shuffles, no shared
-// memory), the probabilities go to shared memory, the V tile replaces
-// the K tile, and every thread adds its 4 x D/16 outputs.  Tiles that
-// the causal mask or the window make unreachable for every row of the
-// block are skipped; the element mask is the reference's.  Row tiles are
-// issued longest first (causal work grows with the q position).  Ragged
-// S and T are masked in the loads and stores: nothing is padded and the
-// rows past S * G are never written.
+// Shared by both routes.  The Pallas grid (batch * kv head, q tile, kv
+// tile) with the kv axis sequential and a VMEM carry becomes one thread
+// block per (batch * kv head, row tile) with the kv loop inside the
+// block.  A row tile is consecutive rows of the flattened (q position,
+// group member) index R = qpos * G + g of one KV head, so the block holds
+// all G query heads that share its K/V tiles (K/V are never repeated) and
+// any G works (G = 1 up to MQA's G = H, Granite's 48 included).  Keys come
+// in tiles of 64 (KV_TILE of the plain version: with p rounded, p is
+// rounded against the running max at these tile edges).  Tiles that the
+// causal mask or the window make unreachable for every row of the block
+// are skipped, and the element mask is applied only on tiles that
+// straddle the diagonal, the window edge or T.  Row tiles are issued
+// longest first (causal work grows with the q position).  Ragged S and T
+// are masked in the loads and stores: nothing is padded, and the rows
+// past S * G are never written.
+//
+// Design of the mma route (FlashAttention-2's layout on mma.sync; the
+// wgmma/TMA form with a producer warp is the open step).  A block of 8
+// warps owns 128 rows, warp w rows 16 w .. 16 w + 15, one block per SM
+// (216 registers a thread at D = 128): the rows that share a K/V tile are
+// twice those of 4-warp blocks, two per SM, which read every tile twice
+// as often and ran slower.  Q is copied once per block with 16-byte
+// cp.async (its rows are a (qpos, G, D) box) and kept in registers as A
+// fragments (ldmatrix).  K
+// and V tiles (64 keys x D) stream through two stages each by 16-byte
+// cp.async, a warp copying whole key rows, zero filled past T: tile j+1
+// is copied while tile j is computed, behind one barrier per tile.  S
+// comes from m16n8k16 bf16 products with float32 accumulators (K's B
+// fragments by ldmatrix, all 64 keys' before the products of a 16-deep
+// step, so consecutive products never share an accumulator); the mask,
+// the row max and sum (over the four lanes that share a row, by
+// shuffles) and the rescale run on the accumulator fragments, with
+// scores and the running max in the log2 domain (exp2 of x * scale *
+// log2(e) - m, the same function as the reference's exp).  P never
+// leaves registers: the accumulator of a 16-key block is the A fragment
+// of the PV product, with V's B fragments by ldmatrix.trans.  With
+// p_dtype = None p stays float32 in meaning: p = p_hi + p_lo, both bf16
+// (p_hi = bf16(p), p_lo = bf16(p - p_hi)), and both go into the same
+// float32 accumulator by two products; the residual p - p_hi - p_lo is
+// under 2^-16 p, far below the output's bf16 rounding.  With p rounded
+// (p_bf16) only p_hi is used.  Shared-memory rows are padded by 16
+// bytes, so the eight rows an ldmatrix reads fall in distinct banks.
+// What holds it back: each warp reads the whole K and V tile through
+// ldmatrix (eight reads of every byte per block), and the softmax between
+// the two products runs with two warps per scheduler, so the tensor
+// cores wait.  A first wgmma version (operands read by the tensor cores
+// from shared memory once per warpgroup) was slower still: cp.async into
+// wgmma's unswizzled core-matrix layout reads 64 bytes per key per warp
+// request, and its copies cost more than the products.  The open step is
+// TMA with the 128-byte swizzle, a producer warp, and one tile's softmax
+// overlapped with the next tile's products.
+//
+// Design of the fma route (the first port).  A block of 256 threads owns
+// 64 rows; per 64-key tile the K tile is staged in shared memory
+// (converted to float32, zero past T), every thread forms a 4 x 4 block
+// of scores with float32 FMA, the row max and sum are reduced over the
+// 16 lanes that share a row, the probabilities go to shared memory, the
+// V tile replaces the K tile, and every thread adds its 4 x D/16 outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace repro_torch {
 namespace {
@@ -53,7 +102,6 @@ constexpr int FA_THREADS = 256;
 constexpr int FA_ROWS = 64;       // rows (q position, group member) per block
 constexpr int FA_KB = 64;         // keys per tile
 constexpr float FA_NEG_INF = -1e30f;
-constexpr int FA_MAX_DEVICES = 64;  // devices whose shared-memory limit is cached
 
 template <int D>
 struct FaLayout {
@@ -242,21 +290,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
            int h, int kv, int causal, int window, float scale, int p_bf16,
            cudaStream_t stream) {
   using L = FaLayout<D>;
-  // past 48 KB of dynamic shared memory.  The attribute belongs to one
-  // device, so it is raised once for each device this instantiation
-  // launches on (setting it twice is harmless; a warm-up call before a
-  // CUDA graph capture keeps the call out of the captured launches)
-  static std::atomic<bool> raised[FA_MAX_DEVICES];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static std::atomic<bool> raised[MAX_DEVICES];   // past 48 KB of shared memory
+  const cudaError_t err = allow_dynamic_smem(flash_attention_kernel<T, D>,
+                                             static_cast<int>(L::BYTES), raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= FA_MAX_DEVICES || !raised[device].load()) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(L::BYTES));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (device < FA_MAX_DEVICES) raised[device].store(true);
-  }
   const int n_rows = s * (h / kv);
   const dim3 grid((n_rows + FA_ROWS - 1) / FA_ROWS, batch * kv);
   flash_attention_kernel<T, D><<<grid, FA_THREADS, L::BYTES, stream>>>(
@@ -276,6 +313,282 @@ int launch_for_dim(const void* q, const void* k, const void* v, void* o, int bat
     case 128: return launch<T, 128>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// mma route: bf16 tensor cores (mma.sync) in FlashAttention-2's layout
+// ---------------------------------------------------------------------------
+
+constexpr int FM_WARPS = 8;
+constexpr int FM_THREADS = FM_WARPS * 32;
+constexpr int FM_ROWS = FM_WARPS * 16;   // rows per block, 16 per warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct FmLayout {
+  static constexpr int LD = D + 8;                // row stride in bf16: a 16-byte pad
+  static constexpr int CHUNKS = D / 8;            // 16-byte chunks per row
+  static constexpr int Q_ELEMS = FM_ROWS * LD;
+  static constexpr int KV_ELEMS = FA_KB * LD;     // one stage of K or of V
+  static constexpr int BYTES = (Q_ELEMS + 4 * KV_ELEMS) * 2;   // Q, K x 2, V x 2
+  static constexpr int DG = D / 16 < 4 ? D / 16 : 4;   // 16-column groups of V held at once
+};
+
+// the max/sum over the four lanes of a quad (the threads of one row pair)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// keys [k0, k0 + 64) of one KV head's (T, KV, D) slab at `src` -> dst
+// [64][LD] by 16-byte cp.async, zero past key t_len; a warp copies whole
+// key rows (D * 2 contiguous bytes each)
+template <int D>
+__device__ __forceinline__ void fm_load_kv(const __nv_bfloat16* __restrict__ src,
+                                           __nv_bfloat16* dst, int k0, int t_len, int kv) {
+  using L = FmLayout<D>;
+  for (int c = threadIdx.x; c < FA_KB * L::CHUNKS; c += FM_THREADS) {
+    const int r = c / L::CHUNKS, cc = (c % L::CHUNKS) * 8;
+    const bool ok = k0 + r < t_len;
+    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(k0 + r) * kv * D + cc : src;
+    cp_async16(dst + r * L::LD + cc, p, ok ? 16 : 0);
+  }
+}
+
+template <int D, bool P_BF16>
+__global__ void __launch_bounds__(FM_THREADS, 1)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                           int s_len, int t_len, int h, int kv, int causal, int window,
+                           float scale) {
+  using L = FmLayout<D>;
+  extern __shared__ __align__(128) unsigned char fm_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fm_smem);   // [FM_ROWS][LD]
+  __nv_bfloat16* ks = qs + L::Q_ELEMS;                               // [2][FA_KB][LD]
+  __nv_bfloat16* vs = ks + 2 * L::KV_ELEMS;                          // [2][FA_KB][LD]
+
+  const int g = h / kv;
+  const int n_rows = s_len * g;
+  const int tile = gridDim.x - 1 - blockIdx.x;     // longest (latest q) first
+  const int r0 = tile * FM_ROWS;
+  const int b = blockIdx.y / kv;
+  const int kvh = blockIdx.y % kv;
+  const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
+  const size_t kv_off = static_cast<size_t>(b) * t_len * kv * D + static_cast<size_t>(kvh) * D;
+  const __nv_bfloat16* kh = k + kv_off;
+  const __nv_bfloat16* vh = v + kv_off;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  // scores in the log2 domain: exp(x * scale - m) = exp2(x * scale log2(e) - m log2(e))
+  const float scale2 = scale * LOG2E;
+
+  // key tiles that hold an unmasked key for some row of the block
+  const int q_lo = r0 / g;
+  const int q_hi = (min(r0 + FM_ROWS, n_rows) - 1) / g;
+  int k_hi = t_len - 1;
+  if (causal) k_hi = min(k_hi, q_hi);
+  const int k_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int kt0 = k_lo / FA_KB;
+  const int n_tiles = k_lo <= k_hi ? k_hi / FA_KB - kt0 + 1 : 0;
+
+  // one copy group for Q, K(0) and V(0); then one for K(j+1), V(j+1) at tile j
+  for (int c = threadIdx.x; c < FM_ROWS * L::CHUNKS; c += FM_THREADS) {
+    const int r = c / L::CHUNKS, cc = (c % L::CHUNKS) * 8;
+    const int row = r0 + r;
+    const bool ok = row < n_rows;   // rows past S * G: zero, never written
+    const __nv_bfloat16* p =
+        ok ? q + q_base + (static_cast<size_t>(row / g) * h + kvh * g + row % g) * D + cc : q;
+    cp_async16(qs + r * L::LD + cc, p, ok ? 16 : 0);
+  }
+  if (n_tiles > 0) {
+    fm_load_kv<D>(kh, ks, kt0 * FA_KB, t_len, kv);
+    fm_load_kv<D>(vh, vs, kt0 * FA_KB, t_len, kv);
+  }
+  cp_async_commit();
+
+  // this thread's rows: gid and gid + 8 of the warp's 16
+  const int ra = r0 + warp * 16 + gid, rb = ra + 8;
+  const int qa = ra < n_rows ? ra / g : 0, qb = rb < n_rows ? rb / g : 0;
+  float m_a = FA_NEG_INF, m_b = FA_NEG_INF, l_a = 0.0f, l_b = 0.0f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  uint32_t qf[D / 16][4];           // the warp's Q rows as A fragments
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int k0 = (kt0 + it) * FA_KB;
+    cp_async_wait<0>();             // this thread's copies of K(it), V(it) have landed;
+    __syncthreads();                // everyone's, and tile it - 1 is done with the stage
+                                    // that tile it + 1 takes
+    if (it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        ldmatrix_x4(qf[kd], qs + (warp * 16 + (lane & 15)) * L::LD + kd * 16 + (lane >> 4) * 8);
+    }
+    if (it + 1 < n_tiles) {         // K(it + 1), V(it + 1) load while tile it is computed
+      fm_load_kv<D>(kh, ks + (st ^ 1) * L::KV_ELEMS, k0 + FA_KB, t_len, kv);
+      fm_load_kv<D>(vh, vs + (st ^ 1) * L::KV_ELEMS, k0 + FA_KB, t_len, kv);
+    }
+    cp_async_commit();
+
+    // S = Q K^T: 16 rows x 64 keys per warp, float32.  Per 16-deep step the
+    // fragments of all 64 keys first, then eight independent products.
+    float sc[FA_KB / 8][4];
+#pragma unroll
+    for (int j = 0; j < FA_KB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+    const __nv_bfloat16* kt = ks + st * L::KV_ELEMS;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t bk[FA_KB / 16][4];
+#pragma unroll
+      for (int np = 0; np < FA_KB / 16; ++np)
+        ldmatrix_x4(bk[np], kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * L::LD +
+                                kd * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < FA_KB / 16; ++np) {
+        mma_bf16(sc[2 * np], qf[kd], bk[np][0], bk[np][1]);
+        mma_bf16(sc[2 * np + 1], qf[kd], bk[np][2], bk[np][3]);
+      }
+    }
+
+    // scale, mask (only on a tile that straddles the diagonal, the window
+    // edge or T), online softmax, rescale the accumulator.  m is kept in
+    // the log2 domain; the mask value stays the finite NEG_INF.
+    const bool edge = k0 + FA_KB > t_len || (causal && k0 + FA_KB - 1 > q_lo) ||
+                      (window > 0 && k0 <= q_hi - window);
+    float mx_a = FA_NEG_INF, mx_b = FA_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < FA_KB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float xa = sc[j][e] * scale2, xb = sc[j][e + 2] * scale2;
+        if (edge) {
+          const int kpos = k0 + j * 8 + tig * 2 + e;
+          bool oka = kpos < t_len, okb = oka;
+          if (causal) oka = oka && kpos <= qa, okb = okb && kpos <= qb;
+          if (window > 0) oka = oka && kpos > qa - window, okb = okb && kpos > qb - window;
+          xa = oka ? xa : FA_NEG_INF;
+          xb = okb ? xb : FA_NEG_INF;
+        }
+        sc[j][e] = xa;
+        sc[j][e + 2] = xb;
+        mx_a = fmaxf(mx_a, xa);
+        mx_b = fmaxf(mx_b, xb);
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int j = 0; j < FA_KB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[j][e] = exp2f(sc[j][e] - mn_a);
+        sc[j][e + 2] = exp2f(sc[j][e + 2] - mn_b);
+        sum_a += sc[j][e];
+        sum_b += sc[j][e + 2];
+      }
+    l_a = l_a * al_a + quad_sum(sum_a);
+    l_b = l_b * al_b + quad_sum(sum_b);
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= al_a;
+      acc[j][1] *= al_a;
+      acc[j][2] *= al_b;
+      acc[j][3] *= al_b;
+    }
+
+    // O += P V, P from registers: the accumulators of keys 16 kk .. +15 are
+    // the A fragment (p_hi and, unless p is rounded, p_lo); V's fragments
+    // for up to 64 output columns at a time, then their p_hi products, then
+    // their p_lo products
+    const __nv_bfloat16* vt = vs + st * L::KV_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < FA_KB / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {   // (row gid | gid + 8) x (keys 16 kk | 16 kk + 8)
+        const int j = 2 * kk + (r >> 1), e = (r & 1) * 2;
+        ph[r] = pack_bf16(sc[j][e], sc[j][e + 1]);
+        if constexpr (!P_BF16)
+          pl[r] = pack_bf16(bf16_residual(sc[j][e]), bf16_residual(sc[j][e + 1]));
+      }
+#pragma unroll
+      for (int d0 = 0; d0 < D / 16; d0 += L::DG) {
+        uint32_t bv[L::DG][4];
+#pragma unroll
+        for (int i = 0; i < L::DG; ++i)
+          ldmatrix_x4_trans(bv[i], vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::LD +
+                                       (d0 + i) * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < L::DG; ++i) {
+          mma_bf16(acc[2 * (d0 + i)], ph, bv[i][0], bv[i][1]);
+          mma_bf16(acc[2 * (d0 + i) + 1], ph, bv[i][2], bv[i][3]);
+        }
+        if constexpr (!P_BF16) {
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i) {
+            mma_bf16(acc[2 * (d0 + i)], pl, bv[i][0], bv[i][1]);
+            mma_bf16(acc[2 * (d0 + i) + 1], pl, bv[i][2], bv[i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+  if (ra < n_rows) {
+    __nv_bfloat16* dst = o + q_base + (static_cast<size_t>(qa) * h + kvh * g + ra % g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[j][0] / la, acc[j][1] / la);
+  }
+  if (rb < n_rows) {
+    __nv_bfloat16* dst = o + q_base + (static_cast<size_t>(qb) * h + kvh * g + rb % g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[j][2] / lb, acc[j][3] / lb);
+  }
+}
+
+template <int D, bool P_BF16>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int batch, int s, int t,
+               int h, int kv, int causal, int window, float scale, cudaStream_t stream) {
+  using L = FmLayout<D>;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err =
+      allow_dynamic_smem(flash_attention_mma_kernel<D, P_BF16>, L::BYTES, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_rows = s * (h / kv);
+  const dim3 grid((n_rows + FM_ROWS - 1) / FM_ROWS, batch * kv);
+  flash_attention_mma_kernel<D, P_BF16><<<grid, FM_THREADS, L::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), s, t, h, kv, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_mma_for_p(const void* q, const void* k, const void* v, void* o, int batch, int s,
+                     int t, int h, int kv, int causal, int window, float scale, int p_bf16,
+                     cudaStream_t stream) {
+  return p_bf16 ? launch_mma<D, true>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, stream)
+                : launch_mma<D, false>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, stream);
 }
 
 }  // namespace
@@ -298,4 +611,25 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   return is_bf16
       ? launch_for_dim<__nv_bfloat16>(q, k, v, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st)
       : launch_for_dim<float>(q, k, v, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st);
+}
+
+// The bf16 tensor-core route: the arguments of repro_flash_attention for
+// bfloat16 tensors whose base pointers are 16-byte aligned (the wrapper's
+// flash_attention_route decides).  Returns the CUDA error code of the
+// launch (0 = success); an empty output launches nothing.
+extern "C" int repro_flash_attention_mma(const void* q, const void* k, const void* v, void* o,
+                                         int batch, int s, int t, int h, int kv, int d,
+                                         int causal, int window, float scale, int p_bf16,
+                                         void* stream) {
+  using namespace repro_torch;
+  if (batch == 0 || s == 0 || h == 0) return 0;
+  if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch_mma_for_p<16>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 32: return launch_mma_for_p<32>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 64: return launch_mma_for_p<64>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 128: return launch_mma_for_p<128>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

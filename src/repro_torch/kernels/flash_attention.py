@@ -21,7 +21,9 @@ dtype, which :func:`repro_torch.kernels.ops.flash_attention` passes on.
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 its plain PyTorch version, :func:`flash_attention_plain`, for CPU
 tensors.  D must be 16, 32, 64 or 128; q, k and v share one dtype,
-float32 or bfloat16.
+float32 or bfloat16.  The route it launches is
+:func:`flash_attention_route`'s: bf16 on the tensor cores, float32 on
+float32 FMA.
 """
 
 from __future__ import annotations
@@ -36,6 +38,23 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 KV_TILE = 64          # keys per tile, in the kernel and in the plain version
 P_DTYPES = (None, torch.bfloat16)
+# "mma": bf16 tensor cores with float32 accumulators; "fma": float32 FMA
+ROUTES = ("mma", "fma")
+
+
+def flash_attention_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The route of a K8 call, a pure function of its dtype, head size and
+    alignment (``aligned``: q, k and v start on 16-byte boundaries).
+
+    bf16 at every head size of :data:`HEAD_DIMS` takes ``"mma"`` when
+    aligned (any fresh tensor is); float32 takes ``"fma"``, because TF32
+    would break its 1e-6 + 1e-5 |want| bar, and so does a bf16 view whose
+    base is off the 16-byte grid, which the FMA kernel reads element by
+    element.
+    """
+    if dtype == torch.bfloat16 and d in HEAD_DIMS and aligned:
+        return "mma"
+    return "fma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p_dtype,
@@ -113,24 +132,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas``
     (which rounds ``p`` to ``v.dtype``: ``ops.flash_attention``).  Any
     S and T: the kernel masks ragged edges, so nothing is padded.  Bound
-    by operations at the main path's shape (``csrc/flash_attention.cu``).
+    by operations at the main path's shape (``csrc/flash_attention.cu``);
+    the route is :func:`flash_attention_route`'s.
     """
     dev = _check(q, k, v, p_dtype, window)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
+    route = flash_attention_route(q.dtype, d, build.aligned16(q, k, v))
     lib = build.load_library()
     out = torch.empty_like(q)
+    scale, p_bf16 = 1.0 / math.sqrt(d), int(p_dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib.call("repro_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 int(q.dtype == torch.bfloat16), out.data_ptr(), b, s, t, h, kv, d,
-                 int(causal), int(window), 1.0 / math.sqrt(d),
-                 int(p_dtype == torch.bfloat16), stream)
+        if route == "mma":
+            lib.call("repro_flash_attention_mma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, s, t, h, kv, d, int(causal), int(window), scale,
+                     p_bf16, stream)
+        else:
+            lib.call("repro_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     int(q.dtype == torch.bfloat16), out.data_ptr(), b, s, t, h, kv, d,
+                     int(causal), int(window), scale, p_bf16, stream)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
-# launch count of the CUDA kernel (plain-version calls do not count)
+# launch counts of the CUDA kernel, in all and by route (plain-version
+# calls do not count)
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

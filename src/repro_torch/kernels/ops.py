@@ -291,11 +291,24 @@ _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
             _tr.colabs, _tr.assemble, _fa.flash_attention)
 
 
+# the kernels with more than one route, and their launch counts by route
+_ROUTED = (_mvm.crosspoint_mvm, _fa.flash_attention)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel (K1-K8) since the last reset."""
     return {fn.__name__: fn.launches for fn in _KERNELS}
 
 
+def launch_counts_by_route() -> dict[str, dict[str, int]]:
+    """Launches of K6 and K8 by route since the last reset: K6's
+    ``crosspoint_mvm_route`` ("mma_async", "mma_scalar", "fma") and K8's
+    ``flash_attention_route`` ("mma", "fma")."""
+    return {fn.__name__: dict(fn.launches_by_route) for fn in _ROUTED}
+
+
 def reset_launch_counts() -> None:
     for fn in _KERNELS:
         fn.launches = 0
+    for fn in _ROUTED:
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)

@@ -178,12 +178,19 @@ def test_flash_attention_matches_plain_version(cuda, dtype):
     rounded = torch.bfloat16 if dtype == torch.bfloat16 else None
     gen = torch.Generator(device=cuda).manual_seed(41)
     before = ops.launch_counts()["flash_attention"]
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    before_route = ops.launch_counts_by_route()["flash_attention"][route]
     cases = [  # b, s, t, h, kv, d, causal, window, p_dtype
         (2, 128, 128, 4, 2, 32, True, 0, None),
         (1, 100, 100, 4, 1, 16, True, 0, rounded),
         (1, 192, 192, 8, 2, 64, True, 64, None),
         (2, 77, 130, 6, 3, 128, False, 0, None),
         (1, 300, 300, 32, 8, 128, True, 0, rounded),
+        # p kept float32 (the p_hi + p_lo split in bf16) at every head size
+        (2, 131, 131, 4, 2, 16, True, 0, None),
+        (1, 131, 131, 4, 2, 64, True, 0, None),
+        # Granite-20B's MQA: 48 query heads over one KV head (64 % 48 != 0)
+        (1, 200, 200, 48, 1, 128, True, 0, None),
     ]
     for b, s, t, h, kv, d, causal, window, p_dtype in cases:
         q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
@@ -196,3 +203,87 @@ def test_flash_attention_matches_plain_version(cuda, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
                                    msg=lambda m: f"{(b, s, t, h, kv, d)}: {m}")
     assert ops.launch_counts()["flash_attention"] - before == len(cases)
+    assert ops.launch_counts_by_route()["flash_attention"][route] - before_route == len(cases)
+
+
+@pytest.mark.cuda
+def test_flash_attention_unaligned_bf16_takes_the_fma_route(cuda):
+    """A bf16 view off the 16-byte grid goes to the FMA kernel, which reads
+    element by element, and agrees with the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    shape = (1, 70, 4, 32)
+    n = 70 * 4 * 32
+    q, k, v = (torch.randn(n + 1, generator=gen, device=cuda).bfloat16()[1:].view(shape)
+               for _ in range(3))
+    assert k8.flash_attention_route(torch.bfloat16, 32, False) == "fma"
+    before = ops.launch_counts_by_route()["flash_attention"]["fma"]
+    got = k8.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), k8.flash_attention_plain(q, k, v).float(),
+                               rtol=1e-2, atol=1e-3)
+    assert ops.launch_counts_by_route()["flash_attention"]["fma"] == before + 1
+
+
+def _mvm_bf16_share(got, want):
+    """The largest |got - want| over its element's bar 1e-2 |want| +
+    1e-3 max|want| (chip_smoke.py's MVM_BF16 bar: a sound bf16 pair lies at
+    most one bf16 ulp, 2^-7 |want|, apart; above 1 fails)."""
+    got, want = got.double(), want.double()
+    bar = 1e-2 * want.abs() + 1e-3 * float(want.abs().max())
+    return float(((got - want).abs() / bar).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [
+    ((300, 513, 1), "fma"),
+    ((300, 513, 5), "mma_scalar"),
+    ((257, 130, 64), "mma_scalar"),
+    ((1000, 1048, 24), "mma_async"),
+    ((300, 520, 64), "mma_async"),
+    ((2048, 2048, 64), "mma_async"),
+])
+def test_crosspoint_mvm_bf16_routes(cuda, shape, route):
+    """K6 in bf16 at ragged shapes that reach each route, held element by
+    element against its plain version; the route's launch count moves."""
+    m, k, nb = shape
+    rng = np.random.default_rng(37)
+    g = torch.as_tensor(rng.standard_normal((m, k)), device=cuda).bfloat16()
+    v = torch.as_tensor(rng.standard_normal((k, nb)), device=cuda).bfloat16()
+    assert mvm.crosspoint_mvm_route(torch.bfloat16, m, k, nb, True) == route
+    before = ops.launch_counts_by_route()["crosspoint_mvm"][route]
+    got = mvm.crosspoint_mvm(g, v)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, nb)
+    assert _mvm_bf16_share(got, mvm.crosspoint_mvm_plain(g, v)) <= 1
+    assert ops.launch_counts_by_route()["crosspoint_mvm"][route] == before + 1
+
+
+@pytest.mark.cuda
+def test_crosspoint_mvm_unaligned_bf16_takes_the_scalar_route(cuda):
+    """A bf16 view off the 16-byte grid, at a shape the asynchronous copies
+    would take, goes to the masked-load variant and agrees."""
+    rng = np.random.default_rng(38)
+    m, k, nb = 130, 136, 16
+    g = torch.as_tensor(rng.standard_normal(m * k + 1), device=cuda).bfloat16()[1:].view(m, k)
+    v = torch.as_tensor(rng.standard_normal((k, nb)), device=cuda).bfloat16()
+    before = ops.launch_counts_by_route()["crosspoint_mvm"]["mma_scalar"]
+    got = mvm.crosspoint_mvm(g, v)
+    assert _mvm_bf16_share(got, mvm.crosspoint_mvm_plain(g, v)) <= 1
+    assert ops.launch_counts_by_route()["crosspoint_mvm"]["mma_scalar"] == before + 1
+
+
+@pytest.mark.cuda
+def test_crosspoint_mvm_bf16_bar_fails_planted_faults(cuda):
+    """The per-element bf16 bar rejects a crossbar product (positive
+    conductances, voltages in [-0.5, 0.5]) with one 64-deep k-step left out
+    of the rows past m / 2, and one with V's last 8 columns dropped."""
+    rng = np.random.default_rng(39)
+    m, k, nb = 2048, 2048, 64
+    g = torch.as_tensor(rng.uniform(1e-5, 1e-4, (m, k)), device=cuda).bfloat16()
+    v = torch.as_tensor(rng.uniform(-0.5, 0.5, (k, nb)), device=cuda).bfloat16()
+    want = mvm.crosspoint_mvm_plain(g, v)
+    assert _mvm_bf16_share(mvm.crosspoint_mvm(g, v), want) <= 1
+    skipped = mvm.crosspoint_mvm(g, v)
+    skipped[m // 2:] = mvm.crosspoint_mvm(g[m // 2:, 64:].contiguous(), v[64:].contiguous())
+    assert _mvm_bf16_share(skipped, want) > 1
+    dropped = torch.zeros_like(want)
+    dropped[:, :nb - 8] = mvm.crosspoint_mvm(g, v[:, :nb - 8].contiguous())
+    assert _mvm_bf16_share(dropped, want) > 1
