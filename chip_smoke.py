@@ -34,14 +34,18 @@ non-zero:
    crossbar from ``crosspoint_layout`` at the DC node voltages, with 64
    voltage vectors and in bf16, and 200 ``transient_step`` (K5) steps of
    one dense n = 1024 circuit (nz = 8192) from 16 start states, failing
-   unless K6's two float32 products took its FMA route and the bf16 one
-   its tensor-core route.  Then the transform against float64, each
-   kernel against its plain version within a bar scaled to its largest
-   output (K6 in bf16 element by element, with two planted faults that
-   the bar must reject), K5's column 0 against 500 launches of K4, each
-   kernel at ragged shapes (K5 once per tile width, K6 once per tile
-   width and bf16 route), and the times of kernel, plain version and
-   library call;
+   unless K7a took its 16-byte route, K6's b = 1 product its GEMV route,
+   the b = 64 float32 one its split-k route with 16-byte copies and the
+   bf16 one its tensor-core route.  Then the transform against float64,
+   each kernel against its plain version within a bar scaled to its
+   largest output (K6 in bf16 element by element), K7a bit for bit
+   against its order in plain PyTorch, planted faults that the bars must
+   reject (two for K6 in bf16, a cluster rank's rows left out of K7a, a
+   k-split partial left out of K6 in float32), two launches of K7a and
+   of K6 float32 bit for bit equal, K5's column 0 against 500 launches
+   of K4, each kernel at ragged shapes (K5 once per tile width, K6 on
+   every route, K7a on both routes and off the 16-byte grid), and the
+   times of kernel, plain version and library call;
 5. quickstart — the single-system flow of examples/quickstart.py at
    n = 24 on the card and on the CPU, which must agree;
 6. serve — the language-model serving path.  K8 (flash attention)
@@ -63,11 +67,12 @@ non-zero:
    (a key tile dropped for late rows, the GQA head order swapped), which
    the K8 bars and the logit bar must reject; and the SMOKE config
    (float32, K8's FMA route) on the card against the CPU;
-7. the kernels line (K1-K8; K6 and K8 one row per route), the
-   nvidia-smi line, and the contract's last line.
+7. the kernels line (K1-K8; K6 and K8 one row per route, K7a with its
+   route), the nvidia-smi line, and the contract's last line.
 
-It imports no JAX and nothing of the JAX package.  Without CUDA it
-exits with code 2 before printing any result.
+It imports no JAX and nothing of the JAX package.  Without CUDA, or
+outside a checkout (no ``src/repro_torch`` beside it), it exits with
+code 2 before printing any result.
 """
 
 from __future__ import annotations
@@ -512,14 +517,25 @@ K5_STEPS = 200
 K5_VS_K4_STEPS = 500
 K6_BATCH = 64
 RAGGED_TRANSFORM = 4000
-# K6 at ragged shapes, (m, k, nb) and the route each takes in bf16
-# (crosspoint_mvm_route): the column product, the tensor-core product with
-# 16-byte asynchronous copies and m/k tails, and its masked-load variant
-# (k or nb not a multiple of 8).  float32 takes the FMA product at every
-# shape, one tile width each (nb = 1, <= 16, > 16).
-RAGGED_MVM = (((300, 513, 1), "fma"), ((300, 513, 5), "mma_scalar"),
-              ((257, 130, 64), "mma_scalar"), ((1000, 1048, 24), "mma_async"),
-              ((300, 520, 64), "mma_async"))
+# K6 at ragged shapes, (m, k, nb) and the route each takes in bf16 and in
+# float32 (crosspoint_mvm_route): the GEMV, the tensor-core product (bf16)
+# or the split-k FFMA product (float32) with 16-byte asynchronous copies
+# and m/k tails, and their masked-load variants (k or nb off the 8- or
+# 4-element grid).
+RAGGED_MVM = (((300, 513, 1), "fma", "fma"), ((300, 513, 5), "mma_scalar", "f32_scalar"),
+              ((257, 130, 64), "mma_scalar", "f32_scalar"),
+              ((1000, 1048, 24), "mma_async", "f32_async"),
+              ((300, 520, 64), "mma_async", "f32_async"),
+              ((300, 520, 68), "mma_scalar", "f32_async"),
+              ((300, 516, 64), "mma_scalar", "f32_async"))
+# K7a at ragged shapes, (rows, cols), dtype and route (colabs_route):
+# columns off the 4- or 8-column grid, a strip's columns past the end,
+# fewer rows than a cluster's 8 blocks
+RAGGED_COLABS = (((4000, 4004), torch.bfloat16, "scalar"),
+                 ((4000, 4004), torch.float32, "vec16"),
+                 ((1000, 513), torch.float32, "scalar"),
+                 ((3, 4096), torch.float32, "vec16"),
+                 ((4000, 4000), torch.bfloat16, "vec16"))
 RAGGED_STEP = ((137, 1), (137, 17), (130, 33))                # each K5 tile width
 # the reference's kernel-test bars (tests/test_kernels.py:19-23, :84-99),
 # each scaled to the largest output as the CPU parity tests scale theirs:
@@ -537,6 +553,12 @@ TOL_MVM_F32, TOL_TRANSFORM = 5e-5, 1e-5
 # does not.
 MVM_BF16_RTOL, MVM_BF16_ATOL_OF_MAX = 1e-2, 1e-3
 API_KERNELS = ("transient_step", "crosspoint_mvm", "colabs", "assemble")
+# the routes the counted kernel-API run must take: K6's b = 1 product the
+# GEMV, its b = 64 float32 one the split-k product with 16-byte copies, its
+# bf16 one the tensor cores with 16-byte copies; K7a its 16-byte loads
+API_ROUTES = {"crosspoint_mvm": dict(mma_async=1, mma_scalar=0, f32_async=1, f32_scalar=0,
+                                     fma=1),
+              "colabs": dict(vec16=1, scalar=0)}
 # a planted K6 fault leaves out this many k (one 64-deep step) from the
 # rows past m / 2
 K6_FAULT_KSTEP = 64
@@ -586,6 +608,34 @@ def k6_column_tile_dropped(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 K6_FAULTS = {"kstep_dropped_late_rows": k6_kstep_dropped,
              "last_column_tile_dropped": k6_column_tile_dropped}
+
+
+def k7a_rank_dropped(a: torch.Tensor) -> torch.Tensor:
+    """A planted fault: K7a that leaves the last cluster rank's rows out of
+    the second column strip (columns 128-255)."""
+    from repro_torch.kernels import spd_transform as tr
+
+    rows = a.shape[0]
+    ranks = tr.colabs_ranks(rows)
+    chunk = -(-rows // ranks)
+    out = tr.colabs(a)
+    out[128:256] = tr.colabs(a[:chunk * (ranks - 1), 128:256].contiguous())
+    return out
+
+
+def k6_f32_partial_dropped(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A planted fault: K6's float32 split-k product that leaves the last
+    cluster rank's k partial out."""
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+    (m, k), nb = g.shape, v.shape[1]
+    k0, _ = mvm.k_ranges(k, mvm.crosspoint_mvm_split(m, k, nb))[-1]
+    return mvm.crosspoint_mvm(g[:, :k0].contiguous(), v[:k0].contiguous())
+
+
+def share_of_bar(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max |got - want| over the bar tol max |want| (above 1 fails)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / (tol * float(want.abs().max()))
 
 
 def api_operands(dev) -> dict:
@@ -647,21 +697,21 @@ def drive_api(op: dict) -> tuple[dict, dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    by_route = ops.launch_counts_by_route()["crosspoint_mvm"]
+    by_route = ops.launch_counts_by_route()
     for name in API_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched on the kernel-API path")
-    # the b = 1 and b = 64 float32 products take the FMA product, the bf16
-    # one the tensor cores with 16-byte copies
-    check(by_route == dict(mma_async=1, mma_scalar=0, fma=2),
-          f"K6 routes on the kernel-API path: {by_route}")
-    counts["crosspoint_mvm_by_route"] = by_route
+    for name, want in API_ROUTES.items():
+        check(by_route[name] == want, f"{name} routes on the kernel-API path: {by_route[name]}")
+        counts[f"{name}_by_route"] = by_route[name]
     return out, counts, wall
 
 
 def ragged_checks(dev) -> dict:
-    """Each kernel at ragged shapes against its plain version, K5 and K6
-    once per tile width (nb = 1, <= 16, > 16) and K6 in bf16 once or
-    more per route (RAGGED_MVM), each checked for the route it took."""
+    """Each kernel at ragged shapes against its plain version: K5 once
+    per tile width (nb = 1, <= 16, > 16), K6 in both dtypes once or more
+    per route (RAGGED_MVM) and off the 16-byte grid, K7a on both routes
+    (RAGGED_COLABS) and off the grid, bit for bit against its order in
+    plain PyTorch; each checked for the route it took."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import spd_transform as tr
 
@@ -681,16 +731,42 @@ def ragged_checks(dev) -> dict:
     pa, pb = tr.assemble_plain(a, d, ks)
     hold(errs, "assemble", ka, pa, 0.0)
     hold(errs, "assemble", kb, pb, 0.0)
-    for (m_, k_, nb), route in RAGGED_MVM:
+
+    def routed(kernel, route, what, fn):
+        before = ops.launch_counts_by_route()[kernel][route]
+        got = fn()
+        check(ops.launch_counts_by_route()[kernel][route] == before + 1,
+              f"{what} did not take the {route} route")
+        return got
+
+    def held_colabs(x, route, what):
+        got = routed("colabs", route, what, lambda: tr.colabs(x))
+        check(torch.equal(got, tr.colabs_in_kernel_order(x)),
+              f"{what}: not bit for bit its order in plain PyTorch")
+        hold(errs, "colabs", got, tr.colabs_plain(x), 1e-5)
+
+    for shape, dtype, route in RAGGED_COLABS:
+        held_colabs(t(shape, dtype), route, f"K7a {shape} {dtype}")
+    for dtype in (torch.float32, torch.bfloat16):     # a view off the 16-byte grid
+        held_colabs(t(700 * 256 + 1, dtype)[1:].view(700, 256), "scalar",
+                    f"K7a unaligned {dtype}")
+    for (m_, k_, nb), route_bf16, route_f32 in RAGGED_MVM:
         g, v = t((m_, k_)), t((k_, nb))
-        hold(errs, "crosspoint_mvm", mvm.crosspoint_mvm(g, v), mvm.crosspoint_mvm_plain(g, v),
-             TOL_MVM_F32)
+        hold(errs, "crosspoint_mvm",
+             routed("crosspoint_mvm", route_f32, f"K6 f32 {(m_, k_, nb)}",
+                    lambda: mvm.crosspoint_mvm(g, v)),
+             mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
         gb, vb = g.bfloat16(), v.bfloat16()
-        before = ops.launch_counts_by_route()["crosspoint_mvm"][route]
-        hold_mvm_bf16(errs, "crosspoint_mvm_bf16", mvm.crosspoint_mvm(gb, vb),
+        hold_mvm_bf16(errs, "crosspoint_mvm_bf16",
+                      routed("crosspoint_mvm", route_bf16, f"K6 bf16 {(m_, k_, nb)}",
+                             lambda: mvm.crosspoint_mvm(gb, vb)),
                       mvm.crosspoint_mvm_plain(gb, vb))
-        check(ops.launch_counts_by_route()["crosspoint_mvm"][route] == before + 1,
-              f"K6 bf16 {(m_, k_, nb)} did not take the {route} route")
+    g = t(300 * 1024 + 1)[1:].view(300, 1024)          # a float32 view off the grid
+    v = t((1024, 64))
+    hold(errs, "crosspoint_mvm",
+         routed("crosspoint_mvm", "f32_scalar", "K6 f32 unaligned",
+                lambda: mvm.crosspoint_mvm(g, v)),
+         mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
     for n5, b5 in RAGGED_STEP:
         m5, z5, c5 = t((n5, n5)) * 0.1, t((n5, b5)), t((n5, b5))
         hold(errs, "transient_step", st.transient_step(m5, z5, c5, 1e-2),
@@ -725,7 +801,10 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
         check(e <= TOL_TRANSFORM * scale, f"{name} vs float64 transform: {e} > 1e-5 x {scale}")
     a = op["a"]
     errs: dict = {}
-    hold(errs, "colabs", tr.colabs(a), tr.colabs_plain(a), 1e-5)
+    colsum = tr.colabs(a)
+    hold(errs, "colabs", colsum, tr.colabs_plain(a), 1e-5)
+    check(torch.equal(colsum, tr.colabs_in_kernel_order(a)),
+          "K7a at the main shape: not bit for bit its order in plain PyTorch")
     pa, pb = tr.assemble_plain(a, d, ks)
     hold(errs, "assemble", ka, pa, 0.0)
     hold(errs, "assemble", kb, pb, 0.0)
@@ -744,6 +823,27 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
         err, share = bar_share(fault(op["g_bf"], op["v_bf"]), want_bf, MVM_BF16_RTOL, atol)
         k6_planted[name] = dict(max_abs_err=err, of_bar=share)
         check(share > 1, f"K6's bf16 bar passes the planted fault {name}: {share} of it")
+    # the split reductions: planted faults that their bars must reject, and
+    # two launches that must give the same bits
+    want_v = mvm.crosspoint_mvm_plain(g, v)
+    split_planted = {
+        "k7a_rank_rows_dropped": share_of_bar(k7a_rank_dropped(a), tr.colabs_plain(a), 1e-5),
+        "k6_f32_k_partial_dropped": share_of_bar(k6_f32_partial_dropped(g, v), want_v,
+                                                 TOL_MVM_F32)}
+    for name, share in split_planted.items():
+        check(share > 1, f"the bar passes the planted fault {name}: {share} of it")
+    # the split must fit one wave of the card's clusters: a second wave
+    # costs nearly a whole kernel's time
+    (gm, gk), gnb = g.shape, v.shape[1]
+    ranks = mvm.crosspoint_mvm_split(gm, gk, gnb)
+    k6_waves = dict(ranks=ranks, clusters=-(-gm // mvm.F32_BM) * -(-gnb // mvm.F32_BN),
+                    per_wave={r: mvm.f32_clusters_per_wave(r) for r in (1, 2, 4)})
+    check(k6_waves["clusters"] <= k6_waves["per_wave"][ranks],
+          f"K6 f32's split does not fit one wave: {k6_waves}")
+    deterministic = {"colabs": torch.equal(tr.colabs(a), colsum),
+                     "crosspoint_mvm_f32": torch.equal(mvm.crosspoint_mvm(g, v), out["i_v"])}
+    for name, same in deterministic.items():
+        check(same, f"{name}: two launches on the same input differ")
     # K5: 200 steps against 200 plain steps; column 0 through 500 steps
     # of K5 (one column) against 500 launches of K4 (B = 1, padded as the
     # engine pads)
@@ -763,7 +863,8 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
     ragged = ragged_checks(dev)
     emit(dict(phase="kernel_api", case="vs_plain", main_path=errs, ragged=ragged,
               k6_bf16_bar=dict(rtol=MVM_BF16_RTOL, atol_of_max=MVM_BF16_ATOL_OF_MAX),
-              k6_planted_faults=k6_planted,
+              k6_planted_faults=k6_planted, split_planted_faults_of_bar=split_planted,
+              bitwise_equal_launches=deterministic, k6_f32_waves=k6_waves,
               k5_max_z=float(zp.abs().max()), k5_vs_k4_max_z=float(z4.abs().max()),
               i_dc_max=float(out["i_dc"].abs().max()), i_v_max=float(out["i_v"].abs().max())))
 
@@ -1340,9 +1441,9 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
     main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
     every shape, its launches from the main path that drives it (the slice
     for K1-K4, the kernel API for K5-K7b, the serving path for K8), for K6
-    and K8 those of the row's route (``kernel_route``): K6's two float32
-    rows share the "fma" route's count, and K8's fma row counts the
-    float32 SMOKE config's engine run on the card."""
+    and K8 those of the row's route (``kernel_route``; K7a names its route
+    too), and K8's fma row counts the float32 SMOKE config's engine run on
+    the card."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -1381,10 +1482,13 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
         row = dict(name=f"{tag} {name}", route="cuda", source=source, replaces=rep,
                    launches=api_launches[name], **{key: k[key] for key in keys})
         row["other_shapes"] = {m: {key: api_rows[m][key] for key in keys} for m in more}
+        if name == "colabs":
+            row["kernel_route"] = "vec16"
+            row["launches_by_route"] = api_launches["colabs_by_route"]
         rows.append(row)
     by_route = api_launches["crosspoint_mvm_by_route"]
     for key, label, kernel_route in (("crosspoint_mvm", "f32, b = 1", "fma"),
-                                     ("crosspoint_mvm_b64", "f32, b = 64", "fma"),
+                                     ("crosspoint_mvm_b64", "f32, b = 64", "f32_async"),
                                      ("crosspoint_mvm_b64_bf16", "bf16, b = 64", "mma_async")):
         rows.append(dict(name=f"K6 crosspoint_mvm ({label})", route="cuda",
                          source="src/repro_torch/kernels/csrc/crosspoint_mvm.cu",
@@ -1406,7 +1510,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke.py: no port package at {src / 'repro_torch'}; run it from a "
+              "checkout of the repository; nothing run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False

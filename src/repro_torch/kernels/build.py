@@ -58,8 +58,12 @@ _SIGNATURES = {
     "repro_crosspoint_mvm": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     # g, v, out, m, k, nb, vec16, stream
     "repro_crosspoint_mvm_mma": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
-    # a, a_is_bf16, out, rows, cols, stream
-    "repro_colabs": ((_P, _I, _P, _I, _I, _P), _I),
+    # g, v, out, m, k, nb, ranks, vec16, stream
+    "repro_crosspoint_mvm_f32": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    # ranks, clusters (int*)
+    "repro_crosspoint_mvm_f32_clusters": ((_I, _P), _I),
+    # a, a_is_bf16, out, rows, cols, ranks, vec16, stream
+    "repro_colabs": ((_P, _I, _P, _I, _I, _I, _I, _P), _I),
     # a, a_is_bf16, d, k_s, k_a, k_b, n, stream
     "repro_assemble": ((_P, _I, _P, _P, _P, _P, _I, _P), _I),
     # q, k, v, is_bf16, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
@@ -131,6 +135,18 @@ def check_tensors(dtypes: tuple[torch.dtype, ...], **tensors: torch.Tensor) -> t
         if dev.type == "cuda" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on CUDA")
     return dev
+
+
+def current_stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, which the kernels
+    launch on.  torch's raw accessor (what its own compiled kernels use)
+    costs well under a microsecond; ``torch.cuda.current_stream(dev)``
+    builds a Stream object, about 5 us per call on the card's host, which
+    a short kernel launched from a Python loop pays every time."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 _LIB: KernelLibrary | None = None

@@ -14,34 +14,99 @@ wrapper with 1-D voltages is :func:`repro_torch.kernels.ops.crosspoint_mvm`.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
 
 # "mma_async": bf16 tensor cores fed by 16-byte asynchronous copies;
 # "mma_scalar": the same product staged through masked scalar loads;
-# "fma": the float32 FMA tile product (common.cuh:tile_product)
-ROUTES = ("mma_async", "mma_scalar", "fma")
+# "f32_async": the float32 FFMA product split over k across a thread-block
+# cluster, fed by 16-byte asynchronous copies; "f32_scalar": the same
+# product staged through masked scalar loads; "fma": the GEMV at nb = 1
+# (common.cuh:tile_product)
+ROUTES = ("mma_async", "mma_scalar", "f32_async", "f32_scalar", "fma")
+
+# The float32 route's tile (csrc/crosspoint_mvm.cu: F32_BM, F32_BN, F32_BK)
+# and its k split: up to F32_MAX_SPLIT blocks of a cluster share an output
+# tile's contraction, as many as keep the grid within F32_MAX_BLOCKS, each
+# rank with at least F32_MIN_RANK_K of k.  An H100 holds 62 clusters of 4
+# of these blocks at once (two blocks per SM; f32_clusters_per_wave, which
+# chip_smoke.py reads on the card), so a grid past 248 blocks in clusters
+# of 4 runs in two waves: 240 leaves a margin.
+F32_BM, F32_BN, F32_BK = 128, 64, 32
+F32_MAX_SPLIT = 4
+F32_MAX_BLOCKS = 240
+F32_MIN_RANK_K = 256
 
 
 def crosspoint_mvm_route(dtype: torch.dtype, m: int, k: int, nb: int, aligned: bool) -> str:
     """The route of a K6 product, a pure function of its dtype, shape and
     alignment (``aligned``: both base pointers on 16-byte boundaries).
 
-    bf16 with ``nb >= 2`` takes the tensor cores: ``"mma_async"`` where
-    every 8-element chunk of G's and V's rows lies wholly inside or outside
-    the matrix (``k % 8 == 0``, ``nb % 8 == 0``) and the bases are
-    aligned, else ``"mma_scalar"``.  bf16 at ``nb == 1`` (a GEMV, where
-    tensor cores buy nothing) and every float32 product take ``"fma"``:
-    TF32 stays off, so float32 gets no tensor cores.  ``m`` does not
-    change the route.
+    ``nb == 1`` (the crossbar's GEMV, where neither tiles nor tensor
+    cores buy anything) takes ``"fma"`` in both dtypes.  bf16 with
+    ``nb >= 2`` takes the tensor cores: ``"mma_async"`` where every
+    8-element chunk of G's and V's rows lies wholly inside or outside the
+    matrix (``k % 8 == 0``, ``nb % 8 == 0``) and the bases are aligned,
+    else ``"mma_scalar"``.  float32 with ``nb >= 2`` takes the split-k
+    FFMA product (TF32 stays off): ``"f32_async"`` where ``k % 4 == 0``,
+    ``nb % 4 == 0`` and the bases are aligned, else ``"f32_scalar"``.
+    ``m`` does not change the route.
     """
     del m
-    if dtype != torch.bfloat16 or nb < 2:
+    if nb < 2:
         return "fma"
-    if k % 8 == 0 and nb % 8 == 0 and aligned:
-        return "mma_async"
-    return "mma_scalar"
+    if dtype == torch.bfloat16:
+        return "mma_async" if k % 8 == 0 and nb % 8 == 0 and aligned else "mma_scalar"
+    return "f32_async" if k % 4 == 0 and nb % 4 == 0 and aligned else "f32_scalar"
+
+
+def crosspoint_mvm_split(m: int, k: int, nb: int) -> int:
+    """How many blocks of a cluster share each output tile's contraction
+    on the float32 route: the largest power of two up to F32_MAX_SPLIT
+    that keeps the grid within F32_MAX_BLOCKS (one wave) and gives each
+    rank at least F32_MIN_RANK_K of k; 1 where the tiles alone fill the
+    card.  At nb = 64: 2 for m = 8192 (64 row tiles, 128 blocks), 4 for
+    m = 7680 (240 blocks)."""
+    tiles = -(-m // F32_BM) * -(-nb // F32_BN)
+    want = min(F32_MAX_SPLIT, F32_MAX_BLOCKS // max(tiles, 1), -(-k // F32_MIN_RANK_K))
+    return 1 << (max(want, 1).bit_length() - 1)
+
+
+def k_ranges(k: int, ranks: int) -> list[tuple[int, int]]:
+    """The k range ``[k0, k1)`` that each rank of the split adds, in rank
+    order: whole 32-deep steps of ``ceil(k / ranks)`` rounded up, the tail
+    to the last ranks (as ``csrc/crosspoint_mvm.cu:launch_f32``)."""
+    per_rank = -(-k // ranks)
+    chunk = -(-per_rank // F32_BK) * F32_BK
+    return [(min(k, r * chunk), min(k, (r + 1) * chunk)) for r in range(ranks)]
+
+
+def f32_clusters_per_wave(ranks: int) -> int:
+    """How many clusters of ``ranks`` blocks of the float32 route the
+    current CUDA device runs at once (``cudaOccupancyMaxActiveClusters``):
+    a grid of more clusters runs in more than one wave."""
+    clusters = ctypes.c_int(0)
+    build.load_library().call("repro_crosspoint_mvm_f32_clusters", ranks,
+                              ctypes.addressof(clusters))
+    return clusters.value
+
+
+def crosspoint_mvm_in_split_order(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The float32 routes' order of the sum, in plain PyTorch: each rank's
+    k range (:func:`k_ranges`) as one float32 product, the partials added
+    in rank order.  Within a range the kernel adds in k order, which a
+    library product need not, so this holds the split's rounding, not the
+    kernel's bits."""
+    m, k = g.shape
+    ranks = crosspoint_mvm_split(m, k, v.shape[1])
+    out = None
+    for k0, k1 in k_ranges(k, ranks):
+        part = torch.matmul(g[:, k0:k1].float(), v[k0:k1].float())
+        out = part if out is None else out + part
+    return out.to(v.dtype)
 
 
 def crosspoint_mvm_plain(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -62,7 +127,10 @@ def crosspoint_mvm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     Any shape: the kernel masks the ragged edges, so nothing is padded.
     Replaces ``repro/kernels/crosspoint_mvm.py:crosspoint_mvm_pallas``.
     Bound by bytes (G read once) at small nb and in bf16, by float32
-    operations past nb ~ 40 in float32 (``csrc/crosspoint_mvm.cu``).
+    operations past nb ~ 40 in float32 (``csrc/crosspoint_mvm.cu``).  The
+    float32 routes split k over the blocks of a cluster
+    (:func:`crosspoint_mvm_split`, :func:`k_ranges`) and add the partials
+    in rank order: the same bits from launch to launch.
     """
     dev = build.check_tensors(build.FLOAT_DTYPES, g=g, v=v)
     if g.ndim != 2 or v.ndim != 2 or g.shape[1] != v.shape[0] or g.dtype != v.dtype:
@@ -75,10 +143,14 @@ def crosspoint_mvm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib = build.load_library()
     out = torch.empty((m, nb), dtype=v.dtype, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = build.current_stream(dev)
         if route == "fma":
             lib.call("repro_crosspoint_mvm", g.data_ptr(), v.data_ptr(),
                      int(v.dtype == torch.bfloat16), out.data_ptr(), m, k, nb, stream)
+        elif route.startswith("f32"):
+            lib.call("repro_crosspoint_mvm_f32", g.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     m, k, nb, crosspoint_mvm_split(m, k, nb), int(route == "f32_async"),
+                     stream)
         else:
             lib.call("repro_crosspoint_mvm_mma", g.data_ptr(), v.data_ptr(), out.data_ptr(),
                      m, k, nb, int(route == "mma_async"), stream)

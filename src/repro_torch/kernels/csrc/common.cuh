@@ -1,13 +1,82 @@
 // Device helpers shared by the Hopper kernels: the reductions of the
-// settle sweeps (K1-K4) and the tiled dense product of K5 and K6.
+// settle sweeps (K1-K4), the tiled dense product of K5 and K6's GEMV, and
+// the rank-ordered sum over a thread-block cluster (K6 float32, K7a).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
 namespace repro_torch {
+
+// ---------------------------------------------------------------------------
+// Split reductions across the blocks of a thread-block cluster
+// ---------------------------------------------------------------------------
+//
+// A reduction split over R blocks (R <= 8, the portable cluster size) is
+// summed in one launch, with no workspace and no atomics: each block of
+// the cluster leaves its float32 partial tile in its own shared memory,
+// and the leader (rank 0) reads its peers' tiles through distributed
+// shared memory (DSMEM) and adds them in rank order,
+//   ((p_0 + p_1) + p_2) + ... + p_{R-1},
+// so two launches on the same input give the same bits.
+//
+// `part` holds n float4 at the same shared-memory offset in every block
+// of the cluster, written by the calling block before the call.  On
+// return the leader's `part` holds the rank-ordered sum, visible to all
+// of its threads; the call returns true in the leader only.  Every thread
+// of every block of the cluster must call it.  The first cluster barrier
+// publishes the partials (it orders every thread's shared-memory writes
+// before the peers' reads); the second keeps each block, and with it its
+// shared memory, alive until the leader has read it.
+__device__ __forceinline__ bool cluster_sum_rank_order(float4* part, int n) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();
+  const bool leader = cluster.block_rank() == 0;
+  if (leader) {
+    const unsigned ranks = cluster.num_blocks();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      float4 s = part[i];
+      for (unsigned r = 1; r < ranks; ++r) {
+        const float4 p = cluster.map_shared_rank(part, r)[i];
+        s.x += p.x;
+        s.y += p.y;
+        s.z += p.z;
+        s.w += p.w;
+      }
+      part[i] = s;
+    }
+  }
+  cluster.sync();
+  return leader;
+}
+
+// Launch `kernel` on `grid` x `block` threads in clusters of `ranks`
+// blocks along x (gridDim.x must be a multiple of ranks); returns the
+// launch's error or cudaGetLastError().  A launch the card refuses (a
+// cluster that does not fit) returns its error: there is no fallback.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads,
+                                    int smem_bytes, int ranks, cudaStream_t stream,
+                                    Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 // Row-block height of the row-tiled kernels (K2, K4): one thread block
 // covers ROW_BLOCK rows and writes one max partial, the (B, nz / 128)
@@ -57,7 +126,7 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled dense product (K5 transient_step, K6 crosspoint_mvm)
+// Tiled dense product (K5 transient_step; K6 crosspoint_mvm at b = 1)
 // ---------------------------------------------------------------------------
 //
 // One thread block of 256 threads owns a BM x BN tile of C = A B, for A
@@ -96,7 +165,8 @@ struct ProdConfig {
 // b = 1, the crossbar's own operation: 32-row tiles (256 blocks for
 // m = 8192, two per SM), 128-deep steps split over 8 chunks.
 using ProdColumn = ProdConfig<32, 128, 1, 1, 1>;
-// 2 <= b <= 16
+// 2 <= b <= 16 (K5 only: K6's float32 products with b >= 2 take
+// crosspoint_mvm.cu's split-k kernel)
 using ProdNarrow = ProdConfig<64, 64, 16, 4, 1>;
 // b > 16
 using ProdWide = ProdConfig<64, 64, 64, 4, 4>;

@@ -18,10 +18,15 @@
 // * "mma_scalar": any other bf16 product with nb >= 2 ->
 //   crosspoint_mvm_mma_kernel<false>, the same kernel staging its tiles
 //   through masked scalar loads;
-// * "fma": float32 at any nb, and bf16 at nb = 1 (a GEMV, where tensor
-//   cores buy nothing) -> crosspoint_mvm_kernel on common.cuh's
-//   tile_product.  TF32 stays off (the parity contract), so float32 gets
-//   no tensor cores.
+// * "f32_async": float32, nb >= 2, k % 4 == 0, nb % 4 == 0 and both bases
+//   16-byte aligned -> crosspoint_mvm_f32_kernel<true>, split-k over a
+//   thread-block cluster; TF32 stays off (the parity contract), so this
+//   is an FFMA kernel;
+// * "f32_scalar": any other float32 product with nb >= 2 ->
+//   crosspoint_mvm_f32_kernel<false>, the same kernel staging its tiles
+//   through masked scalar loads;
+// * "fma": nb = 1 in both dtypes (the crossbar's own GEMV) ->
+//   crosspoint_mvm_kernel on common.cuh's tile_product (ProdColumn).
 //
 // What bounds it on an H100.  For the crossbar's own operation, nb = 1,
 // bytes: G is read once (268 MB of float32 at m = k = 8192, 80 us at
@@ -56,14 +61,39 @@
 // barrier, are the next step; a first wgmma version fed by cp.async, one
 // warpgroup per SM and a wait after every step, was slower than this one.
 //
-// Design of the fma route: the tiled product of common.cuh (tile_product),
-// one BM x BN output tile per block, shared-memory tiles of G and V over
-// the contraction, float32 accumulators in registers.  The Pallas grid's
-// sequential k axis and its VMEM accumulator become the loop over k
-// inside the block.  The tile width follows nb: nb = 1 takes ProdColumn
-// (32 x 1 tiles, the 128-deep step split over 8 thread chunks), so a
-// block's 256 threads all read and add G; nb <= 16 takes ProdNarrow and
-// wider batches ProdWide.
+// Design of the float32 route (b >= 2).  At b = 64 it is bound by FP32
+// operations (8.6 GFLOP, 128 us at 67 TFLOP/s) while it streams G from HBM
+// at about 1.2 TB/s, so the kernel has to keep the FMA pipes fed and the
+// copies in flight at once:
+// * a block of 256 threads owns BM = 128 rows and BN = 64 columns of I;
+//   thread (rg, cg) owns rows rg + 16 i (i < 8) and columns 4 cg .. 4 cg + 3,
+//   an 8 x 4 register tile (F32_TM x F32_TN).  G's tile stays row-major in
+//   shared memory (rows padded by 16 bytes): per 4-deep k group a thread
+//   reads each of its 8 rows as one float4 and V's 4 rows as float4s, 12
+//   LDS.128 per 128 FFMA.  A warp spans 8 row groups and 4 column groups,
+//   so a quarter-warp reads 2 of G's rows and 4 of V's float4s per load;
+// * G and V arrive by 16-byte cp.async through a ring of F32_STAGES = 4
+//   stages of 32-deep k steps (26 KB each), one barrier per step, three
+//   steps in flight while one is multiplied;
+// * k is split over the R <= 4 blocks of a cluster (crosspoint_mvm.py:
+//   crosspoint_mvm_split), as many as fit one wave: the card holds two of
+//   these blocks per SM (registers) and 62 clusters of 4 at once, so
+//   m = 8192, b = 64 takes R = 2 (64 row tiles x 2 = 128 blocks), not the
+//   256 blocks of R = 4, which ran in two waves.  Each block leaves its
+//   partial tile in its ring, and the leader adds them in rank order
+//   through distributed shared memory (common.cuh:
+//   cluster_sum_rank_order) and stores the tile: no workspace, no
+//   atomics, the same bits from launch to launch.  Within a rank each
+//   output's sum runs in k order.
+// What holds it back on the card: its SMs retire FFMAs at little more
+// than half the rate of a loop on registers alone, and the time stayed
+// the same with one block per SM or two, with 8 x 8 register tiles (half
+// the shared-memory loads per FFMA) and with 64- or 128-deep k steps;
+// cuBLAS's float32 product of the same shape is somewhat faster (PERF.md).
+// The fma route (b = 1): the tiled product of common.cuh (tile_product),
+// 32 x 1 tiles with each 128-deep step split over 8 thread chunks, so a
+// block's 256 threads all read and add G; G is read once, at 82 % of the
+// HBM rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,14 +132,6 @@ int launch(const void* g, const void* v, void* out, int m, int k, int nb,
   crosspoint_mvm_kernel<C, T><<<grid, C::THREADS, 0, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(v), static_cast<T*>(out), m, k, nb);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_for_width(const void* g, const void* v, void* out, int m, int k, int nb,
-                     cudaStream_t stream) {
-  if (nb == 1) return launch<ProdColumn, T>(g, v, out, m, k, nb, stream);
-  if (nb <= ProdNarrow::BN) return launch<ProdNarrow, T>(g, v, out, m, k, nb, stream);
-  return launch<ProdWide, T>(g, v, out, m, k, nb, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -255,20 +277,244 @@ int launch_mma(const void* g, const void* v, void* out, int m, int k, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// float32 route (b >= 2): FFMA tiles, split-k over a thread-block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BM = 128, F32_BN = 64, F32_BK = 32, F32_STAGES = 4, F32_THREADS = 256;
+constexpr int F32_TM = 8, F32_TN = 4;       // a thread's register tile
+constexpr int F32_MAX_SPLIT = 4;            // blocks per cluster
+constexpr int F32_LDG = F32_BK + 4;         // G tile row stride in floats (16-byte pad)
+constexpr int F32_G_FLOATS = F32_BM * F32_LDG;
+constexpr int F32_STAGE_FLOATS = F32_G_FLOATS + F32_BK * F32_BN;   // G tile, then V tile
+constexpr int F32_SMEM_BYTES = F32_STAGES * F32_STAGE_FLOATS * 4;
+static_assert(F32_THREADS * F32_TM * F32_TN <= F32_STAGES * F32_STAGE_FLOATS,
+              "the partial tile must fit the ring");
+static_assert(F32_BM == 16 * F32_TM && F32_BN == 16 * F32_TN, "16 x 16 thread grid");
+
+// Stage the k step at k0 of this rank's range [.., k_end): G rows
+// [row0, row0 + 128) x [k0, k0 + 32) and V rows [k0, k0 + 32) x
+// [col0, col0 + 64), zero outside.  VEC16: 16-byte asynchronous copies (k
+// and nb multiples of 4, aligned bases, k0 and k_end multiples of 4, so
+// every 4-float chunk lies wholly inside or outside); otherwise masked
+// scalar loads and stores.
+template <bool VEC16>
+__device__ __forceinline__ void f32_stage(const float* __restrict__ g,
+                                          const float* __restrict__ v, float* gs, float* vs,
+                                          int m, int k, int k_end, int nb, int row0, int col0,
+                                          int k0) {
+  const int t = threadIdx.x;
+  if constexpr (VEC16) {
+#pragma unroll
+    for (int i = 0; i < F32_BM * F32_BK / 4 / F32_THREADS; ++i) {
+      const int c = t + i * F32_THREADS;
+      const int r = c / (F32_BK / 4), cc = (c % (F32_BK / 4)) * 4;
+      const bool ok = row0 + r < m && k0 + cc < k_end;
+      cp_async16(gs + r * F32_LDG + cc,
+                 ok ? g + static_cast<size_t>(row0 + r) * k + k0 + cc : g, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < F32_BK * F32_BN / 4 / F32_THREADS; ++i) {
+      const int c = t + i * F32_THREADS;
+      const int r = c / (F32_BN / 4), cc = (c % (F32_BN / 4)) * 4;
+      const bool ok = k0 + r < k_end && col0 + cc < nb;
+      cp_async16(vs + r * F32_BN + cc,
+                 ok ? v + static_cast<size_t>(k0 + r) * nb + col0 + cc : v, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < F32_BM * F32_BK / F32_THREADS; ++i) {
+      const int e = t + i * F32_THREADS;
+      const int r = e / F32_BK, c = e % F32_BK;
+      gs[r * F32_LDG + c] = (row0 + r < m && k0 + c < k_end)
+                                ? g[static_cast<size_t>(row0 + r) * k + k0 + c] : 0.0f;
+    }
+#pragma unroll 4
+    for (int i = 0; i < F32_BK * F32_BN / F32_THREADS; ++i) {
+      const int e = t + i * F32_THREADS;
+      const int r = e / F32_BN, c = e % F32_BN;
+      vs[r * F32_BN + c] = (k0 + r < k_end && col0 + c < nb)
+                               ? v[static_cast<size_t>(k0 + r) * nb + col0 + c] : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int j) {
+  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
+}
+
+// Grid: (row tiles x R, column tiles), in clusters of R blocks along x;
+// rank r of a cluster adds k in [r k_chunk, (r + 1) k_chunk).
+template <bool VEC16>
+__global__ void __launch_bounds__(F32_THREADS, 2)
+crosspoint_mvm_f32_kernel(const float* __restrict__ g, const float* __restrict__ v,
+                          float* __restrict__ out, int m, int k, int nb, int k_chunk) {
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  float* ring = reinterpret_cast<float*>(f32_smem);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = (blockIdx.x / ranks) * F32_BM;
+  const int col0 = blockIdx.y * F32_BN;
+  const int k_begin = rank * k_chunk;
+  const int k_end = min(k, k_begin + k_chunk);
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + F32_BK - 1) / F32_BK : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // rows rg + 16 i, columns 4 cg .. 4 cg + 3; a warp spans 8 row groups
+  // and 4 column groups
+  const int rg = (warp & 1) * 8 + (lane >> 2);
+  const int cg = (warp >> 1) * 4 + (lane & 3);
+
+  float acc[F32_TM][F32_TN];
+#pragma unroll
+  for (int i = 0; i < F32_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < F32_TN; ++j) acc[i][j] = 0.0f;
+
+  // fill the ring: steps 0 .. STAGES - 2, one commit group each
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < n_steps) {
+      float* gs = ring + s * F32_STAGE_FLOATS;
+      f32_stage<VEC16>(g, v, gs, gs + F32_G_FLOATS, m, k, k_end, nb, row0, col0,
+                       k_begin + s * F32_BK);
+    }
+    cp_async_commit();
+  }
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<F32_STAGES - 2>();   // this thread's copies of `step` have landed
+    __syncthreads();                   // ... everyone's, and step - 1's reads are done
+    const int next = step + F32_STAGES - 1;
+    if (next < n_steps) {              // refill the slot that step - 1 used
+      float* gs = ring + (next % F32_STAGES) * F32_STAGE_FLOATS;
+      f32_stage<VEC16>(g, v, gs, gs + F32_G_FLOATS, m, k, k_end, nb, row0, col0,
+                       k_begin + next * F32_BK);
+    }
+    cp_async_commit();                 // an empty group past the end keeps the count
+    const float* gs = ring + (step % F32_STAGES) * F32_STAGE_FLOATS;
+    const float* vs = gs + F32_G_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < F32_BK; kk += 4) {
+      float4 a[F32_TM], b[4];
+#pragma unroll
+      for (int i = 0; i < F32_TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(gs + (rg + 16 * i) * F32_LDG + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(vs + (kk + j) * F32_BN + 4 * cg);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < F32_TM; ++i) {
+          const float x = lane_of(a[i], j);
+          acc[i][0] = fmaf(x, b[j].x, acc[i][0]);
+          acc[i][1] = fmaf(x, b[j].y, acc[i][1]);
+          acc[i][2] = fmaf(x, b[j].z, acc[i][2]);
+          acc[i][3] = fmaf(x, b[j].w, acc[i][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // every warp is done with the ring
+
+  // the cluster's partial tiles, added in rank order in the leader's ring
+  float4* part = reinterpret_cast<float4*>(ring);
+#pragma unroll
+  for (int i = 0; i < F32_TM; ++i)
+    part[i * F32_THREADS + threadIdx.x] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  if (!cluster_sum_rank_order(part, F32_TM * F32_THREADS)) return;
+  const int c = col0 + 4 * cg;
+#pragma unroll
+  for (int i = 0; i < F32_TM; ++i) {
+    const int r = row0 + rg + 16 * i;
+    if (r >= m) continue;
+    const float4 sum = part[i * F32_THREADS + threadIdx.x];
+    float* dst = out + static_cast<size_t>(r) * nb + c;
+    if constexpr (VEC16) {
+      if (c < nb) *reinterpret_cast<float4*>(dst) = sum;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < nb) dst[e] = lane_of(sum, e);
+    }
+  }
+}
+
+template <bool VEC16>
+int launch_f32(const float* g, const float* v, float* out, int m, int k, int nb, int ranks,
+               cudaStream_t stream) {
+  static std::atomic<bool> raised[MAX_DEVICES];
+  cudaError_t err = allow_dynamic_smem(crosspoint_mvm_f32_kernel<VEC16>, F32_SMEM_BYTES, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // each rank's range a whole number of k steps, so every rank but the
+  // last starts and ends on the step grid (crosspoint_mvm.py:k_ranges)
+  const int per_rank = (k + ranks - 1) / ranks;
+  const int k_chunk = (per_rank + F32_BK - 1) / F32_BK * F32_BK;
+  const dim3 grid(((m + F32_BM - 1) / F32_BM) * ranks, (nb + F32_BN - 1) / F32_BN);
+  return static_cast<int>(launch_clustered(crosspoint_mvm_f32_kernel<VEC16>, grid, F32_THREADS,
+                                           F32_SMEM_BYTES, ranks, stream, g, v, out, m, k,
+                                           nb, k_chunk));
+}
+
 }  // namespace
 }  // namespace repro_torch
 
 // C interface (bound with ctypes).  g (m, k) and v (k, nb) are device
 // pointers of contiguous tensors of one dtype (float32, or bfloat16 when
-// is_bf16), out (m, nb) of the same dtype.  Returns the CUDA error code
-// of the launch (0 = success); an empty output launches nothing.
+// is_bf16), out (m, nb) of the same dtype.  Each returns the CUDA error
+// code of its launch (0 = success); an empty output launches nothing.
+//
+// The fma route: nb must be 1 (the crossbar's GEMV).
 extern "C" int repro_crosspoint_mvm(const void* g, const void* v, int is_bf16, void* out,
                                     int m, int k, int nb, void* stream) {
   using namespace repro_torch;
   if (m == 0 || nb == 0) return 0;
+  if (nb != 1) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_for_width<__nv_bfloat16>(g, v, out, m, k, nb, s)
-                 : launch_for_width<float>(g, v, out, m, k, nb, s);
+  return is_bf16 ? launch<ProdColumn, __nv_bfloat16>(g, v, out, m, k, nb, s)
+                 : launch<ProdColumn, float>(g, v, out, m, k, nb, s);
+}
+
+// The float32 route, nb >= 2: k split over `ranks` blocks of a cluster (1
+// <= ranks <= 4, crosspoint_mvm.py:crosspoint_mvm_split).  vec16 != 0
+// takes the 16-byte asynchronous copies, which need k and nb multiples of
+// 4 and g and v 16-byte aligned (crosspoint_mvm_route decides).
+extern "C" int repro_crosspoint_mvm_f32(const void* g, const void* v, void* out, int m, int k,
+                                        int nb, int ranks, int vec16, void* stream) {
+  using namespace repro_torch;
+  if (m == 0 || nb == 0) return 0;
+  if (ranks < 1 || ranks > F32_MAX_SPLIT) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto gp = static_cast<const float*>(g);
+  auto vp = static_cast<const float*>(v);
+  auto op = static_cast<float*>(out);
+  return vec16 ? launch_f32<true>(gp, vp, op, m, k, nb, ranks, s)
+               : launch_f32<false>(gp, vp, op, m, k, nb, ranks, s);
+}
+
+// How many clusters of `ranks` blocks of the float32 route the current
+// device runs at once (cudaOccupancyMaxActiveClusters), into *clusters;
+// crosspoint_mvm.py:crosspoint_mvm_split keeps the grid within one such
+// wave.  Returns the CUDA error code (0 = success).
+extern "C" int repro_crosspoint_mvm_f32_clusters(int ranks, int* clusters) {
+  using namespace repro_torch;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  cudaError_t err = allow_dynamic_smem(crosspoint_mvm_f32_kernel<true>, F32_SMEM_BYTES, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks);
+  cfg.blockDim = dim3(F32_THREADS);
+  cfg.dynamicSmemBytes = F32_SMEM_BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, crosspoint_mvm_f32_kernel<true>, &cfg));
 }
 
 // The bf16 tensor-core route: g (m, k), v (k, nb), out (m, nb), device

@@ -104,7 +104,7 @@ def ell_sweep(idx_t: torch.Tensor, w_t: torch.Tensor, z: torch.Tensor,
     out = torch.empty_like(z)
     res = torch.empty((bsz, 1), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
+        stream = build.current_stream(z.device)
         lib.call("repro_ell_sweep", idx_t.data_ptr(), w_t.data_ptr(),
                  int(w_t.dtype == torch.bfloat16), z.data_ptr(), c.data_ptr(),
                  out.data_ptr(), res.data_ptr(), bsz, nz, k, int(n_steps),
@@ -133,7 +133,7 @@ def ell_step(idx_t: torch.Tensor, w_t: torch.Tensor, z: torch.Tensor,
     out = torch.empty_like(z)
     res = torch.empty((bsz, nz // ROW_BLOCK), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
+        stream = build.current_stream(z.device)
         lib.call("repro_ell_step", idx_t.data_ptr(), w_t.data_ptr(),
                  int(w_t.dtype == torch.bfloat16), z.data_ptr(), c.data_ptr(),
                  out.data_ptr(), res.data_ptr(), bsz, nz, k, float(dt), stream)

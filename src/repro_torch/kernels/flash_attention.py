@@ -145,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     scale, p_bf16 = 1.0 / math.sqrt(d), int(p_dtype == torch.bfloat16)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = build.current_stream(dev)
         if route == "mma":
             lib.call("repro_flash_attention_mma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), b, s, t, h, kv, d, int(causal), int(window), scale,

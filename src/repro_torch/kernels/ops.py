@@ -292,7 +292,7 @@ _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
 
 
 # the kernels with more than one route, and their launch counts by route
-_ROUTED = (_mvm.crosspoint_mvm, _fa.flash_attention)
+_ROUTED = (_mvm.crosspoint_mvm, _tr.colabs, _fa.flash_attention)
 
 
 def launch_counts() -> dict[str, int]:
@@ -301,9 +301,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
-    """Launches of K6 and K8 by route since the last reset: K6's
-    ``crosspoint_mvm_route`` ("mma_async", "mma_scalar", "fma") and K8's
-    ``flash_attention_route`` ("mma", "fma")."""
+    """Launches of K6, K7a and K8 by route since the last reset: K6's
+    ``crosspoint_mvm_route`` ("mma_async", "mma_scalar", "f32_async",
+    "f32_scalar", "fma"), K7a's ``colabs_route`` ("vec16", "scalar") and
+    K8's ``flash_attention_route`` ("mma", "fma")."""
     return {fn.__name__: dict(fn.launches_by_route) for fn in _ROUTED}
 
 

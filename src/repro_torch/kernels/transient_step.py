@@ -84,7 +84,7 @@ def transient_sweep(m_t: torch.Tensor, z: torch.Tensor, c: torch.Tensor, *,
     out = torch.empty_like(z)
     res = torch.empty((bsz, 1), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
+        stream = build.current_stream(z.device)
         lib.call("repro_dense_sweep", m_t.data_ptr(), z.data_ptr(), c.data_ptr(),
                  out.data_ptr(), res.data_ptr(), bsz, n, int(n_steps), float(dt),
                  stream)
@@ -112,7 +112,7 @@ def transient_step_batched(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     out = torch.empty_like(z)
     res = torch.empty((bsz, n // ROW_BLOCK), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
+        stream = build.current_stream(z.device)
         lib.call("repro_dense_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
                  out.data_ptr(), res.data_ptr(), bsz, n, float(dt), stream)
     transient_step_batched.launches += 1
@@ -152,7 +152,7 @@ def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     lib = build.load_library()
     out = torch.empty_like(z)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = build.current_stream(dev)
         lib.call("repro_transient_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
                  int(z.dtype == torch.bfloat16), out.data_ptr(), n, nb, float(dt), stream)
     transient_step.launches += 1

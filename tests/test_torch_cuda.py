@@ -287,3 +287,138 @@ def test_crosspoint_mvm_bf16_bar_fails_planted_faults(cuda):
     dropped = torch.zeros_like(want)
     dropped[:, :nb - 8] = mvm.crosspoint_mvm(g, v[:, :nb - 8].contiguous())
     assert _mvm_bf16_share(dropped, want) > 1
+
+
+# ---------------------------------------------------------------------------
+# K7a and K6 float32: split reductions across a thread-block cluster
+# ---------------------------------------------------------------------------
+
+
+def _share(got, want, tol):
+    """max |got - want| over tol max |want| (the kernel-API bars; above 1
+    fails)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / (tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((1000, 512), torch.float32, "vec16"),
+    ((1000, 516), torch.float32, "vec16"),     # a strip's columns past the end
+    ((1000, 516), torch.bfloat16, "scalar"),   # 516 is off bf16's 8-column grid
+    ((4000, 4000), torch.bfloat16, "vec16"),
+    ((1000, 513), torch.float32, "scalar"),
+    ((3, 1024), torch.float32, "vec16"),       # fewer rows than a cluster's blocks
+    ((130, 77), torch.bfloat16, "scalar"),
+])
+def test_colabs_routes(cuda, shape, dtype, route):
+    """K7a at shapes that reach each route: the same bits as its order in
+    plain PyTorch (colabs_in_kernel_order), within 1e-5 max of the plain
+    version, on the route its chooser names."""
+    rng = np.random.default_rng(47)
+    a = torch.as_tensor(rng.standard_normal(shape), device=cuda).to(dtype)
+    assert tr.colabs_route(dtype, *shape, True) == route
+    before = ops.launch_counts_by_route()["colabs"][route]
+    got = tr.colabs(a)
+    assert torch.equal(got, tr.colabs_in_kernel_order(a))
+    assert _share(got, tr.colabs_plain(a), 1e-5) <= 1
+    assert ops.launch_counts_by_route()["colabs"][route] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_colabs_unaligned_takes_the_scalar_route(cuda, dtype):
+    """A view off the 16-byte grid, at a shape the 16-byte loads would
+    take, goes to the scalar loads, and gives the same bits as the
+    16-byte loads on an aligned copy."""
+    rng = np.random.default_rng(48)
+    rows, cols = 700, 256
+    flat = torch.as_tensor(rng.standard_normal(rows * cols + 1), device=cuda).to(dtype)
+    a = flat[1:].view(rows, cols)
+    before = ops.launch_counts_by_route()["colabs"]
+    got = tr.colabs(a)                     # off the grid: scalar loads
+    aligned = tr.colabs(a.clone())         # a fresh copy: 16-byte loads
+    after = ops.launch_counts_by_route()["colabs"]
+    assert torch.equal(got, tr.colabs_in_kernel_order(a))
+    assert torch.equal(got, aligned)
+    assert after == dict(vec16=before["vec16"] + 1, scalar=before["scalar"] + 1)
+
+
+@pytest.mark.cuda
+def test_colabs_deterministic_and_bar_fails_a_dropped_rank(cuda):
+    """At the main path's shape (4096 x 4096, float32): two launches give
+    the same bits; the bar rejects the sums with one cluster rank's rows
+    (512 of them) left out of one 128-column strip."""
+    rng = np.random.default_rng(49)
+    n = 4096
+    a = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=cuda)
+    first, second = tr.colabs(a), tr.colabs(a)
+    assert torch.equal(first, second)
+    want = tr.colabs_plain(a)
+    assert _share(first, want, 1e-5) <= 1
+    ranks = tr.colabs_ranks(n)
+    chunk = -(-n // ranks)
+    dropped = first.clone()
+    dropped[128:256] = tr.colabs(a[:chunk * (ranks - 1), 128:256].contiguous())
+    assert _share(dropped, want, 1e-5) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [
+    ((1000, 1048, 24), "f32_async"),
+    ((300, 520, 68), "f32_async"),     # two column tiles
+    ((2048, 2048, 64), "f32_async"),
+    ((300, 513, 64), "f32_scalar"),
+    ((300, 520, 5), "f32_scalar"),
+    ((257, 130, 64), "f32_scalar"),
+])
+def test_crosspoint_mvm_f32_routes(cuda, shape, route):
+    """K6 in float32 at shapes that reach each split-k route, within
+    5e-5 max of the plain version and of its own split order in plain
+    PyTorch; the route's launch count moves."""
+    m, k, nb = shape
+    rng = np.random.default_rng(51)
+    g = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32, device=cuda)
+    v = torch.as_tensor(rng.standard_normal((k, nb)), dtype=torch.float32, device=cuda)
+    assert mvm.crosspoint_mvm_route(torch.float32, m, k, nb, True) == route
+    before = ops.launch_counts_by_route()["crosspoint_mvm"][route]
+    got = mvm.crosspoint_mvm(g, v)
+    assert got.dtype == torch.float32 and got.shape == (m, nb)
+    assert _share(got, mvm.crosspoint_mvm_plain(g, v), 5e-5) <= 1
+    assert _share(got, mvm.crosspoint_mvm_in_split_order(g, v), 5e-5) <= 1
+    assert ops.launch_counts_by_route()["crosspoint_mvm"][route] == before + 1
+
+
+@pytest.mark.cuda
+def test_crosspoint_mvm_unaligned_f32_takes_the_scalar_route(cuda):
+    """A float32 view off the 16-byte grid, at a shape the asynchronous
+    copies would take, goes to the masked-load variant and agrees."""
+    rng = np.random.default_rng(52)
+    m, k, nb = 300, 1024, 64
+    g = torch.as_tensor(rng.standard_normal(m * k + 1), dtype=torch.float32,
+                        device=cuda)[1:].view(m, k)
+    v = torch.as_tensor(rng.standard_normal((k, nb)), dtype=torch.float32, device=cuda)
+    before = ops.launch_counts_by_route()["crosspoint_mvm"]["f32_scalar"]
+    got = mvm.crosspoint_mvm(g, v)
+    assert _share(got, mvm.crosspoint_mvm_plain(g, v), 5e-5) <= 1
+    assert ops.launch_counts_by_route()["crosspoint_mvm"]["f32_scalar"] == before + 1
+
+
+@pytest.mark.cuda
+def test_crosspoint_mvm_f32_deterministic_and_bar_fails_a_dropped_partial(cuda):
+    """A crossbar product at the main path's width (G 8192 x 8192, 64
+    voltage vectors, float32): two launches give the same bits; the bar
+    rejects the product with the last rank's k partial left out."""
+    rng = np.random.default_rng(53)
+    n, nb = 8192, 64
+    g = torch.as_tensor(rng.uniform(1e-5, 1e-4, (n, n)), dtype=torch.float32, device=cuda)
+    v = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), dtype=torch.float32, device=cuda)
+    first, second = mvm.crosspoint_mvm(g, v), mvm.crosspoint_mvm(g, v)
+    assert torch.equal(first, second)
+    want = mvm.crosspoint_mvm_plain(g, v)
+    assert _share(first, want, 5e-5) <= 1
+    ranks = mvm.crosspoint_mvm_split(n, n, nb)
+    assert ranks > 1
+    k0, _k1 = mvm.k_ranges(n, ranks)[-1]
+    dropped = mvm.crosspoint_mvm(g[:, :k0].contiguous(), v[:k0].contiguous())
+    assert _share(dropped, want, 5e-5) > 1

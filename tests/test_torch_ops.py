@@ -25,6 +25,7 @@ from repro.core.transform import transform_2n as jtransform_2n  # noqa: E402
 from repro.data.spd import random_rhs_from_solution, random_spd  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.spd_transform import colabs_pallas  # noqa: E402
 
 import repro_torch.kernels as tkernels  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -221,6 +222,36 @@ def test_plain_versions_match_reference_oracles(dt):
     for g, w in zip(tr.assemble_plain(at, dtt, kt), jref.assemble_ref(aj, dj, kj)):
         assert g.dtype == TORCH[dt]
         np.testing.assert_allclose(_f32(g), _f32(w), rtol=0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(1000, 130), (4000, 40), (300, 77), (3, 17)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_colabs_kernel_order_matches_reference(shape, dt):
+    """K7a's summation order (rows split over cluster ranks and warps,
+    partials added in warp and rank order) against colabs_pallas in
+    interpret mode, within K7a's bar of 1e-5 max|want|.  A is zero-padded
+    to the Pallas block, which leaves abs-sums exact."""
+    rows, cols = shape
+    rng = np.random.default_rng(rows + cols)
+    aj, at = _pair(rng.standard_normal(shape), dt)
+    padded = jnp.pad(aj, ((0, (-rows) % 128), (0, (-cols) % 128)))
+    want = _f32(colabs_pallas(padded, interpret=True))[0, :cols]
+    got = tr.colabs_in_kernel_order(at).numpy()
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,b", [(300, 513, 5), (257, 1048, 24), (128, 2048, 64)])
+def test_mvm_split_order_matches_reference(m, k, b):
+    """K6 float32's split-k order (each cluster rank's k range, partials
+    added in rank order) against crosspoint_mvm_pallas in interpret mode,
+    within TOL_MVM_F32 = 5e-5 max|want|."""
+    rng = np.random.default_rng(m + k + b)
+    gj, gt = _pair(rng.standard_normal((m, k)), "float32")
+    vj, vt = _pair(rng.standard_normal((k, b)), "float32")
+    assert mvm.crosspoint_mvm_split(m, k, b) > 1
+    want = _f32(jops.crosspoint_mvm(gj, vj, interpret=True))
+    got = mvm.crosspoint_mvm_in_split_order(gt, vt).numpy()
+    assert float(np.abs(got - want).max()) <= 5e-5 * float(np.abs(want).max())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -1,7 +1,11 @@
-"""Routing of the kernels with more than one route (K6, K8), on the CPU.
+"""Routing of the kernels with more than one route (K6, K7a, K8), on the CPU.
 
 * The route choosers are pure functions of dtype, shape and alignment:
   each returns the route its source note documents.
+* K7a and K6's float32 routes split a reduction over the blocks of a
+  thread-block cluster and add the partials in a fixed order: the split
+  itself is a pure function of the shape, and the sums taken in that
+  order stay within the kernels' bars of the plain versions.
 * K8's ``p_dtype = None`` on the tensor cores splits p into two bf16
   parts, p_hi + p_lo; a plain emulation shows the split keeps p float32
   in meaning.
@@ -20,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as k8  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import spd_transform as tr  # noqa: E402
 
 # repro_torch.kernels re-exports a function named like this submodule
 mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
@@ -36,17 +41,19 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_crosspoint_mvm_route(dtype, nb, aligned):
-    """float32 and the bf16 GEMV take the FMA product; bf16 with nb >= 2
-    the tensor cores, by 16-byte copies only where k and nb are multiples
-    of 8 and both bases are aligned."""
+    """The GEMV (nb = 1) takes the FMA product in both dtypes; bf16 with
+    nb >= 2 the tensor cores, by 16-byte copies only where k and nb are
+    multiples of 8 and both bases are aligned; float32 with nb >= 2 the
+    split-k FFMA product, by 16-byte copies only where k and nb are
+    multiples of 4 and both bases are aligned."""
     m, k = 8192, 8192
     route = mvm.crosspoint_mvm_route(dtype, m, k, nb, aligned)
-    if dtype == F32 or nb == 1:
+    if nb == 1:
         assert route == "fma"
-    elif nb % 8 == 0 and aligned:
-        assert route == "mma_async"
+    elif dtype == BF16:
+        assert route == ("mma_async" if nb % 8 == 0 and aligned else "mma_scalar")
     else:
-        assert route == "mma_scalar"
+        assert route == ("f32_async" if nb % 4 == 0 and aligned else "f32_scalar")
     assert route in mvm.ROUTES
 
 
@@ -62,6 +69,120 @@ def test_crosspoint_mvm_route_of_ragged_shapes(m, k, nb, route):
     """The ragged bf16 shapes the smoke run holds (RAGGED_MVM) reach the
     route it expects of each."""
     assert mvm.crosspoint_mvm_route(BF16, m, k, nb, True) == route
+
+
+@pytest.mark.parametrize("m,k,nb,route", [
+    (8192, 8192, 64, "f32_async"),    # the main path's batch of 64
+    (1000, 1048, 24, "f32_async"),    # m and k tails, 16-byte copies
+    (300, 520, 68, "f32_async"),      # a second column tile
+    (300, 513, 64, "f32_scalar"),     # k off the 4-element grid
+    (300, 520, 5, "f32_scalar"),      # nb off the grid
+    (257, 130, 64, "f32_scalar"),
+    (300, 513, 1, "fma"),             # the GEMV stays on tile_product
+    (1, 4, 4, "f32_async"),           # m does not change the route
+])
+def test_crosspoint_mvm_f32_route_of_ragged_shapes(m, k, nb, route):
+    """The float32 shapes the smoke run holds (RAGGED_MVM_F32) reach the
+    route it expects of each."""
+    assert mvm.crosspoint_mvm_route(F32, m, k, nb, True) == route
+
+
+@pytest.mark.parametrize("m,k,nb,ranks", [
+    (8192, 8192, 64, 2),     # 64 row tiles x 2 = 128 blocks: x 4 would not fit one wave
+    (7680, 8192, 64, 4),     # 60 row tiles x 4 = 240 blocks
+    (1000, 1048, 24, 4),
+    (300, 513, 5, 2),        # ceil(513 / 256) = 3, rounded down to 2
+    (257, 130, 64, 1),       # less than two ranks' worth of k
+    (64, 64, 17, 1),
+    (65536, 8192, 64, 1),    # 512 row tiles fill the card unsplit
+    (16384, 8192, 64, 1),
+    (8192, 8192, 128, 1),    # two column tiles
+    (8192, 0, 64, 1),
+])
+def test_crosspoint_mvm_split(m, k, nb, ranks):
+    """The k split of the float32 routes: the largest power of two up to 4
+    that keeps the grid within one wave (240 blocks) and gives each rank
+    at least 256 of k."""
+    assert mvm.crosspoint_mvm_split(m, k, nb) == ranks
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 130, 513, 1048, 8192])
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_k_ranges_cover_k_on_the_step_grid(k, ranks):
+    """The ranks' k ranges, in rank order, cover [0, k) once; each starts
+    on the 32-deep step grid, or at k when nothing is left for it."""
+    ranges = mvm.k_ranges(k, ranks)
+    assert len(ranges) == ranks
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a0 <= a1 == b0
+    assert all(k0 % mvm.F32_BK == 0 or k0 == k for k0, _ in ranges)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4096])
+@pytest.mark.parametrize("cols", [4096, 4000, 4100, 4001])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_colabs_route(dtype, cols, rows, aligned):
+    """K7a takes its 16-byte loads where a lane's 4 float32 or 8 bf16
+    columns lie wholly inside every row and the base is aligned, else its
+    scalar loads; rows (fewer than the cluster's blocks or not) do not
+    change the route."""
+    vec = 4 if dtype == F32 else 8
+    want = "vec16" if cols % vec == 0 and aligned else "scalar"
+    assert tr.colabs_route(dtype, rows, cols, aligned) == want
+    assert want in tr.COLABS_ROUTES
+
+
+@pytest.mark.parametrize("rows,ranks", [
+    (0, 1), (1, 1), (3, 1), (64, 1), (65, 2), (128, 2), (200, 4), (256, 4),
+    (257, 4), (4000, 8), (4096, 8), (100_000, 8),
+])
+def test_colabs_ranks(rows, ranks):
+    """K7a's row split: a power of two up to 8 blocks, each with at least
+    one pass of its 8 warps' 8-row groups; fewer rows than a cluster of 8
+    takes fewer ranks."""
+    assert tr.colabs_ranks(rows) == ranks
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
+    """max |got - want| <= tol max |want| (the kernel-API bars)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+# K7a's bar (chip_smoke.py, tests/test_kernels.py) and K6's float32 one
+# (chip_smoke.py:TOL_MVM_F32), each times max |want|
+TOL_COLABS, TOL_MVM_F32 = 1e-5, 5e-5
+
+
+@pytest.mark.parametrize("shape", [(4000, 40), (1000, 33), (4096, 64), (130, 20), (3, 17)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_colabs_kernel_order_within_the_bar(shape, dtype):
+    """K7a's order (rows split over ranks and warps, partials added in warp
+    and rank order) gives column sums within 1e-5 max of the plain
+    version, and adding the split in another rank order moves nothing
+    past that bar either."""
+    rng = np.random.default_rng(shape[0] + shape[1])
+    a = torch.as_tensor(rng.standard_normal(shape), dtype=F32).to(dtype)
+    got = tr.colabs_in_kernel_order(a)
+    assert got.dtype == F32 and got.shape == (shape[1],)
+    assert _within(got, tr.colabs_plain(a), TOL_COLABS)
+    one_rank = tr.colabs_in_kernel_order(a, ranks=1)
+    assert _within(got, one_rank, TOL_COLABS)
+
+
+@pytest.mark.parametrize("shape", [(300, 513, 5), (1000, 1048, 24), (257, 130, 64),
+                                   (300, 2048, 64)])
+def test_mvm_split_order_within_the_bar(shape):
+    """K6 float32's split-k order (each rank's k range, partials in rank
+    order) stays within 5e-5 max of the plain product."""
+    m, k, nb = shape
+    rng = np.random.default_rng(m + k + nb)
+    g = torch.as_tensor(rng.standard_normal((m, k)), dtype=F32)
+    v = torch.as_tensor(rng.standard_normal((k, nb)), dtype=F32)
+    got = mvm.crosspoint_mvm_in_split_order(g, v)
+    assert _within(got, mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
 
 
 @pytest.mark.parametrize("d", k8.HEAD_DIMS)
@@ -151,6 +272,16 @@ def test_crosspoint_mvm_on_cpu_runs_the_plain_version(dtype, nb):
     assert (ops.launch_counts(), ops.launch_counts_by_route()) == before
 
 
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("cols", [64, 77])
+def test_colabs_on_cpu_runs_the_plain_version(dtype, cols):
+    rng = np.random.default_rng(cols)
+    a = torch.as_tensor(rng.standard_normal((90, cols)), dtype=F32).to(dtype)
+    before = (ops.launch_counts(), ops.launch_counts_by_route())
+    assert torch.equal(tr.colabs(a), tr.colabs_plain(a))
+    assert (ops.launch_counts(), ops.launch_counts_by_route()) == before
+
+
 @pytest.mark.parametrize("dtype,p_dtype", [(F32, None), (BF16, None), (BF16, BF16)])
 @pytest.mark.parametrize("d", [16, 128])
 def test_flash_attention_on_cpu_runs_the_plain_version(dtype, p_dtype, d):
@@ -165,11 +296,12 @@ def test_flash_attention_on_cpu_runs_the_plain_version(dtype, p_dtype, d):
 
 
 def test_launch_counts_by_route_keys_and_reset():
-    """Every route of K6 and K8 has a count, and the reset zeroes them
-    beside the per-kernel counts."""
+    """Every route of K6, K7a and K8 has a count, and the reset zeroes
+    them beside the per-kernel counts."""
     counts = ops.launch_counts_by_route()
-    assert set(counts) == {"crosspoint_mvm", "flash_attention"}
+    assert set(counts) == {"crosspoint_mvm", "colabs", "flash_attention"}
     assert set(counts["crosspoint_mvm"]) == set(mvm.ROUTES)
+    assert set(counts["colabs"]) == set(tr.COLABS_ROUTES)
     assert set(counts["flash_attention"]) == set(k8.ROUTES)
     ops.reset_launch_counts()
     assert all(n == 0 for by_route in ops.launch_counts_by_route().values()
