@@ -12,7 +12,11 @@ non-zero:
    against its plain PyTorch version on the card at every operator shape
    the main path assembles (ELL n = 256, 1024, 2048; dense n = 48, 256)
    and at dense n = 64, 80, 128 around the persistent route's limit, plus each
-   persistent sweep against the loop of its row-tiled step; kernel,
+   persistent sweep against the loop of its row-tiled step; K4, split over
+   a cluster, also bit for bit from launch to launch, against its split
+   order in plain PyTorch and at dt = 0 at every dense shape, and at the
+   main shape its split within one wave and a planted fault (the last
+   rank's columns left out) that its bar must reject; kernel,
    plain-version and library-call times, and the per-step times of both
    routes of each pair at each shape;
 3. slice — the main path through the public entry points, with every
@@ -33,19 +37,23 @@ non-zero:
    dense n = 4096 system, ``crosspoint_mvm`` (K6) on its (8192, 8192)
    crossbar from ``crosspoint_layout`` at the DC node voltages, with 64
    voltage vectors and in bf16, and 200 ``transient_step`` (K5) steps of
-   one dense n = 1024 circuit (nz = 8192) from 16 start states, failing
-   unless K7a took its 16-byte route, K6's b = 1 product its GEMV route,
-   the b = 64 float32 one its split-k route with 16-byte copies and the
-   bf16 one its tensor-core route.  Then the transform against float64,
-   each kernel against its plain version within a bar scaled to its
-   largest output (K6 in bf16 element by element), K7a bit for bit
-   against its order in plain PyTorch, planted faults that the bars must
-   reject (two for K6 in bf16, a cluster rank's rows left out of K7a, a
-   k-split partial left out of K6 in float32), two launches of K7a and
-   of K6 float32 bit for bit equal, K5's column 0 against 500 launches
-   of K4, each kernel at ragged shapes (K5 once per tile width, K6 on
-   every route, K7a on both routes and off the 16-byte grid), and the
-   times of kernel, plain version and library call;
+   one dense n = 1024 circuit (nz = 8192) from 16 start states, one step
+   of it in bf16 and one on its step response alone, failing unless K7a
+   took its 16-byte route, K6's b = 1 product its GEMV route, the b = 64
+   float32 one its split-k route with 16-byte copies and the bf16 one its
+   tensor-core route, and K5's 16-column steps its split-k route with
+   16-byte copies and the one-column step its column route.  Then the
+   transform against float64, each kernel against its plain version
+   within a bar scaled to its largest output (K6 and K5 in bf16 element
+   by element), K7a bit for bit against its order in plain PyTorch,
+   planted faults that the bars must reject by more than 1000x (two for
+   K6 in bf16; a cluster rank's share left out of K7a, K6 in float32, K4
+   and K5), two launches of K7a, K6 float32, K4 and K5 bit for bit equal,
+   the splits of K6, K4 and K5 within one wave of the card's clusters,
+   K5's column 0 against 500 launches of K4, each kernel at ragged
+   shapes (K5 on every route in both dtypes, K6 on every route, K7a on
+   both routes, each also off the 16-byte grid), and the times of kernel,
+   plain version and library call;
 5. quickstart — the single-system flow of examples/quickstart.py at
    n = 24 on the card and on the CPU, which must agree;
 6. serve — the language-model serving path.  K8 (flash attention)
@@ -67,8 +75,9 @@ non-zero:
    (a key tile dropped for late rows, the GQA head order swapped), which
    the K8 bars and the logit bar must reject; and the SMOKE config
    (float32, K8's FMA route) on the card against the CPU;
-7. the kernels line (K1-K8; K6 and K8 one row per route, K7a with its
-   route), the nvidia-smi line, and the contract's last line.
+7. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
+   split, K7a with its route), the nvidia-smi line, and the contract's
+   last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 outside a checkout (no ``src/repro_torch`` beside it), it exits with
@@ -328,6 +337,38 @@ def dense_pair(n: int, dev, steps: int) -> dict:
     e4, r4 = max_rel(zs, zsp)
     _, rr4 = max_rel(rs, rsp)
     check(r4 <= TOL_Z and rr4 <= TOL_RES, f"K4 n={n} vs plain: state {r4}, residual {rr4}")
+    # K4 splits each row block's columns over a cluster: the same bits from
+    # launch to launch, its order within the bar, and dt = 0 evaluates the
+    # residual and leaves the state as it was
+    zs2, rs2 = sk.transient_step_batched(m, z0, c)
+    check(torch.equal(zs, zs2) and torch.equal(rs, rs2), f"K4 n={n}: two launches differ")
+    zo, ro = sk.dense_step_in_kernel_order(m, z0, c)
+    _, ro4 = max_rel(zo, zsp)
+    check(ro4 <= TOL_Z, f"K4 n={n}: its split order in plain PyTorch vs plain {ro4}")
+    zd, rd = sk.transient_step_batched(m, z0, c, 0.0)
+    _, rd4 = max_rel(rd, rsp)
+    check(torch.equal(zd, z0) and rd4 <= TOL_RES, f"K4 n={n} at dt = 0: residual {rd4}")
+    split = dict(ranks=sk.dense_step_ranks(bsz, nz), order_vs_plain=ro4, dt0_residual=rd4)
+    if n == N_DENSE:
+        # at the main shape: the split fits one wave of the card's clusters,
+        # and the bar rejects a step whose last rank's columns are left out
+        ranks = split["ranks"]
+        split["waves"] = dict(ranks=ranks, clusters=bsz * nz // ops.ROW_BLOCK,
+                              per_wave={r: sk.dense_step_clusters_per_wave(r)
+                                        for r in (1, 2, 4, 8)})
+        check(split["waves"]["clusters"] <= split["waves"]["per_wave"][ranks],
+              f"K4's split does not fit one wave: {split['waves']}")
+        split["rank_dropped_of_bar"] = share_of_bar(k4_rank_dropped(m, z0, c), zsp, TOL_Z)
+    # what the split buys: one step's device time at each cluster size the
+    # kernel takes (R = 1 is one block per 128-row block), each held to
+    # the bar first
+    split["device_ms_by_ranks"] = {}
+    for r in (1, 2, 4, 8):
+        if r <= nz // sk.DENSE_STEP_CHUNK:
+            zr, rr = k4_at_ranks(m, z0, c, r)
+            check(max_rel(zr, zsp)[1] <= TOL_Z and max_rel(rr, rsp)[1] <= TOL_RES,
+                  f"K4 n={n} at R = {r} vs plain")
+            split["device_ms_by_ranks"][r] = graph_ms(lambda r=r: k4_at_ranks(m, z0, c, r), 100)
     zl = z0
     for _ in range(steps):
         zl, _ = sk.transient_step_batched(m, zl, c)
@@ -355,11 +396,36 @@ def dense_pair(n: int, dev, steps: int) -> dict:
         transient_step_batched=dict(
             shape=[bsz, nz, nz], ms=t_k4, device_ms=t_k4g, plain_ms=t_k4p,
             library_ms=t_k4l, max_abs_err=e4, bytes=k4_bytes,
-            flops=bsz * nz * (2 * nz + 2)),
+            flops=bsz * nz * (2 * nz + 2), split=split),
         per_step={"route": route, "k3_ms_per_step": t_k3 / steps, "k4_ms_per_step": t_k4,
                   "k4_device_ms_per_step": t_k4g,
                   "operator_bytes_per_system": nz * nz * 4},
     )
+
+
+def k4_at_ranks(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor, ranks: int):
+    """K4's step with its columns split over ``ranks`` blocks of a cluster,
+    launched through the library's C entry (the wrapper takes
+    dense_step_ranks' R) and not counted."""
+    from repro_torch.kernels import build
+
+    bsz, nz = z.shape
+    out = torch.empty_like(z)
+    res = torch.empty((bsz, nz // 128), dtype=torch.float32, device=z.device)
+    build.load_library().call("repro_dense_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
+                              out.data_ptr(), res.data_ptr(), bsz, nz, ranks, 1.0,
+                              build.current_stream(z.device))
+    return out, res
+
+
+def k4_rank_dropped(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """A planted fault: K4's step with the last cluster rank's column
+    partial left out, in plain PyTorch around the kernel."""
+    sk = importlib.import_module("repro_torch.kernels.transient_step")
+    bsz, nz = z.shape
+    c0, c1 = sk.dense_step_column_ranges(nz, sk.dense_step_ranks(bsz, nz))[-1]
+    out, _ = sk.transient_step_batched(m, z, c)
+    return out - torch.einsum("bij,bj->bi", m[:, :, c0:c1], z[:, c0:c1])
 
 
 # The shape at which each kernel's row of the kernels line is timed: the
@@ -536,7 +602,19 @@ RAGGED_COLABS = (((4000, 4004), torch.bfloat16, "scalar"),
                  ((1000, 513), torch.float32, "scalar"),
                  ((3, 4096), torch.float32, "vec16"),
                  ((4000, 4000), torch.bfloat16, "vec16"))
-RAGGED_STEP = ((137, 1), (137, 17), (130, 33))                # each K5 tile width
+# K5 at ragged shapes, (n, nb) and the route each takes in float32 and in
+# bf16 (transient_step_route): the column and wide tiles, and the narrow
+# split-k product with 16-byte copies and its masked-load variant (n or nb
+# off the 4- or 8-element grid)
+RAGGED_STEP = (((137, 1), "column", "column"), ((137, 17), "wide", "wide"),
+               ((130, 33), "wide", "wide"), ((137, 5), "narrow_scalar", "narrow_scalar"),
+               ((8190, 16), "narrow_scalar", "narrow_scalar"),
+               ((8190, 2), "narrow_scalar", "narrow_scalar"),
+               ((8192, 2), "narrow_scalar", "narrow_scalar"),
+               ((8192, 5), "narrow_scalar", "narrow_scalar"),
+               ((1000, 16), "narrow_async", "narrow_async"),
+               ((4096, 8), "narrow_async", "narrow_async"),
+               ((4096, 12), "narrow_async", "narrow_scalar"))
 # the reference's kernel-test bars (tests/test_kernels.py:19-23, :84-99),
 # each scaled to the largest output as the CPU parity tests scale theirs:
 # crossbar products 5e-5 in float32 (k <= 8192 sums in another order); the
@@ -555,10 +633,18 @@ MVM_BF16_RTOL, MVM_BF16_ATOL_OF_MAX = 1e-2, 1e-3
 API_KERNELS = ("transient_step", "crosspoint_mvm", "colabs", "assemble")
 # the routes the counted kernel-API run must take: K6's b = 1 product the
 # GEMV, its b = 64 float32 one the split-k product with 16-byte copies, its
-# bf16 one the tensor cores with 16-byte copies; K7a its 16-byte loads
+# bf16 one the tensor cores with 16-byte copies; K7a its 16-byte loads; K5's
+# 200 float32 steps and its bf16 step on 16 columns the split-k product with
+# 16-byte copies, its step on one column the column tile
 API_ROUTES = {"crosspoint_mvm": dict(mma_async=1, mma_scalar=0, f32_async=1, f32_scalar=0,
                                      fma=1),
-              "colabs": dict(vec16=1, scalar=0)}
+              "colabs": dict(vec16=1, scalar=0),
+              "transient_step": dict(narrow_async=K5_STEPS + 1, narrow_scalar=0, column=1,
+                                     wide=0)}
+# K5's launches of that run by dtype and route: the 200 float32 steps and
+# the bf16 step share the narrow route's name
+API_K5_BY_DTYPE = {"float32": dict(narrow_async=K5_STEPS, narrow_scalar=0, column=1, wide=0),
+                   "bfloat16": dict(narrow_async=1, narrow_scalar=0, column=0, wide=0)}
 # a planted K6 fault leaves out this many k (one 64-deep step) from the
 # rows past m / 2
 K6_FAULT_KSTEP = 64
@@ -673,14 +759,16 @@ def api_operands(dev) -> dict:
     return dict(a=torch.as_tensor(a, dtype=f32, device=dev),
                 b=torch.as_tensor(b, dtype=f32, device=dev), tr64=tr64,
                 g=g, g_bf=g.bfloat16(), y=y, v=v, v_bf=v.bfloat16(), m=m, c=c, z=z,
-                nz=nz, dt=dt)
+                m_bf=m.bfloat16(), c_bf=c.bfloat16(), z_bf=z.bfloat16(),
+                z_col=z[:, 0].contiguous(), c_col=c[:, 0].contiguous(), nz=nz, dt=dt)
 
 
 def drive_api(op: dict) -> tuple[dict, dict, float]:
     """The kernel API's main path, once, with the launch counts reset just
     before and read just after: the fused transform, the crossbar at its
-    DC voltages, with 64 voltage vectors and in bf16, and 200 steps of one
-    circuit from 16 start states."""
+    DC voltages, with 64 voltage vectors and in bf16, 200 steps of one
+    circuit from 16 start states, and one step of it in bf16 and one of
+    its step response alone (one column)."""
     from repro_torch.kernels import ops
 
     torch.cuda.synchronize()
@@ -694,6 +782,8 @@ def drive_api(op: dict) -> tuple[dict, dict, float]:
     for _ in range(K5_STEPS):
         z = ops.transient_step(op["m"], z, op["c"], 1.0)
     out["z"] = z
+    out["z_bf"] = ops.transient_step(op["m_bf"], op["z_bf"], op["c_bf"], 1.0)
+    out["z_b1"] = ops.transient_step(op["m"], op["z_col"], op["c_col"], 1.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -703,12 +793,16 @@ def drive_api(op: dict) -> tuple[dict, dict, float]:
     for name, want in API_ROUTES.items():
         check(by_route[name] == want, f"{name} routes on the kernel-API path: {by_route[name]}")
         counts[f"{name}_by_route"] = by_route[name]
+    counts["transient_step_by_dtype"] = ops.launch_counts_by_dtype()
+    check(counts["transient_step_by_dtype"] == API_K5_BY_DTYPE,
+          f"K5 by dtype on the kernel-API path: {counts['transient_step_by_dtype']}")
     return out, counts, wall
 
 
 def ragged_checks(dev) -> dict:
-    """Each kernel at ragged shapes against its plain version: K5 once
-    per tile width (nb = 1, <= 16, > 16), K6 in both dtypes once or more
+    """Each kernel at ragged shapes against its plain version: K5 in both
+    dtypes on every route (RAGGED_STEP: n off the tile, nb = 1, 2, 5, 8,
+    12, 16, > 16) and off the 16-byte grid, K6 in both dtypes once or more
     per route (RAGGED_MVM) and off the 16-byte grid, K7a on both routes
     (RAGGED_COLABS) and off the grid, bit for bit against its order in
     plain PyTorch; each checked for the route it took."""
@@ -767,18 +861,47 @@ def ragged_checks(dev) -> dict:
          routed("crosspoint_mvm", "f32_scalar", "K6 f32 unaligned",
                 lambda: mvm.crosspoint_mvm(g, v)),
          mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
-    for n5, b5 in RAGGED_STEP:
-        m5, z5, c5 = t((n5, n5)) * 0.1, t((n5, b5)), t((n5, b5))
-        hold(errs, "transient_step", st.transient_step(m5, z5, c5, 1e-2),
-             st.transient_step_plain(m5, z5, c5, 1e-2), TOL_MVM_F32)
+    # K5 at dt = 1, as at the main shape: the product is then as large as
+    # the state, so the element-by-element bf16 bar sees a share of it lost
+    for (n5, b5), route_f32, route_bf16 in RAGGED_STEP:
+        m5 = t((n5, n5)) * (0.1 * min(1.0, (137 / n5) ** 0.5))
+        z5, c5 = t((n5, b5)), t((n5, b5))
+        hold(errs, "transient_step",
+             routed("transient_step", route_f32, f"K5 f32 {(n5, b5)}",
+                    lambda: st.transient_step(m5, z5, c5, 1.0)),
+             st.transient_step_plain(m5, z5, c5, 1.0), TOL_MVM_F32)
+        mb, zb, cb = m5.bfloat16(), z5.bfloat16(), c5.bfloat16()
+        hold_mvm_bf16(errs, "transient_step_bf16",
+                      routed("transient_step", route_bf16, f"K5 bf16 {(n5, b5)}",
+                             lambda: st.transient_step(mb, zb, cb, 1.0)),
+                      st.transient_step_plain(mb, zb, cb, 1.0))
+        del m5, mb
+    m5 = (t(1000 * 1000 + 1) * 0.01)[1:].view(1000, 1000)   # a view off the grid
+    z5, c5 = t((1000, 16)), t((1000, 16))
+    hold(errs, "transient_step",
+         routed("transient_step", "narrow_scalar", "K5 f32 unaligned",
+                lambda: st.transient_step(m5, z5, c5, 1.0)),
+         st.transient_step_plain(m5, z5, c5, 1.0), TOL_MVM_F32)
     return errs
 
 
-def phase_kernel_api(dev) -> tuple[dict, dict]:
+def k5_rank_dropped(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """A planted fault: K5's narrow step with the last cluster rank's k
+    partial left out, in plain PyTorch around the kernel."""
+    st = importlib.import_module("repro_torch.kernels.transient_step")
+    n, nb = z.shape
+    k0, k1 = st.narrow_k_ranges(n, st.transient_step_split(n))[-1]
+    out = st.transient_step(m, z, c, 1.0).float()
+    return out - torch.matmul(m[:, k0:k1].float(), z[k0:k1].float())
+
+
+def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     """K5, K6, K7a and K7b through the public wrappers at the size sweep's
     sizes: the counted main-path run, then each kernel against its plain
     version (and the transform against float64, K5 against K4), the ragged
-    shapes, and the times.  Returns per-kernel rows and the launches."""
+    shapes, and the times.  ``k4_split`` carries K4's split checks from the
+    kernels phase into this phase's line.  Returns per-kernel rows and the
+    launches."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import spd_transform as tr
 
@@ -826,12 +949,18 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
     # the split reductions: planted faults that their bars must reject, and
     # two launches that must give the same bits
     want_v = mvm.crosspoint_mvm_plain(g, v)
+    m, c, z0 = op["m"], op["c"], op["z"]
+    want_z1 = st.transient_step_plain(m, z0, c, 1.0)
     split_planted = {
         "k7a_rank_rows_dropped": share_of_bar(k7a_rank_dropped(a), tr.colabs_plain(a), 1e-5),
         "k6_f32_k_partial_dropped": share_of_bar(k6_f32_partial_dropped(g, v), want_v,
-                                                 TOL_MVM_F32)}
+                                                 TOL_MVM_F32),
+        "k4_rank_columns_dropped": k4_split["rank_dropped_of_bar"],
+        "k5_k_partial_dropped": share_of_bar(k5_rank_dropped(m, z0, c), want_z1,
+                                             TOL_MVM_F32)}
     for name, share in split_planted.items():
-        check(share > 1, f"the bar passes the planted fault {name}: {share} of it")
+        check(share > 1000, f"the bar passes the planted fault {name}, or fails it by "
+                            f"1000x or less: {share} of it")
     # the split must fit one wave of the card's clusters: a second wave
     # costs nearly a whole kernel's time
     (gm, gk), gnb = g.shape, v.shape[1]
@@ -840,22 +969,50 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
                     per_wave={r: mvm.f32_clusters_per_wave(r) for r in (1, 2, 4)})
     check(k6_waves["clusters"] <= k6_waves["per_wave"][ranks],
           f"K6 f32's split does not fit one wave: {k6_waves}")
+    nz = op["nz"]
+    ranks5 = st.transient_step_split(nz)
+    k5_waves = dict(ranks=ranks5, clusters=-(-nz // st.NARROW_BM),
+                    per_wave={r: st.narrow_clusters_per_wave(r) for r in (1, 2, 4, 8)})
+    check(k5_waves["clusters"] <= k5_waves["per_wave"][ranks5],
+          f"K5's split does not fit one wave: {k5_waves}")
+    z1 = st.transient_step(m, z0, c, 1.0)
     deterministic = {"colabs": torch.equal(tr.colabs(a), colsum),
-                     "crosspoint_mvm_f32": torch.equal(mvm.crosspoint_mvm(g, v), out["i_v"])}
+                     "crosspoint_mvm_f32": torch.equal(mvm.crosspoint_mvm(g, v), out["i_v"]),
+                     "transient_step_narrow": torch.equal(st.transient_step(m, z0, c, 1.0), z1),
+                     "transient_step_narrow_bf16": torch.equal(
+                         st.transient_step(op["m_bf"], op["z_bf"], op["c_bf"], 1.0),
+                         out["z_bf"])}
     for name, same in deterministic.items():
         check(same, f"{name}: two launches on the same input differ")
-    # K5: 200 steps against 200 plain steps; column 0 through 500 steps
-    # of K5 (one column) against 500 launches of K4 (B = 1, padded as the
-    # engine pads)
-    m, c, z0 = op["m"], op["c"], op["z"]
+    # K5: 200 steps against 200 plain steps, one step against the plain
+    # version, in its split order and in bf16 (element by element, as K6's
+    # bf16 products) and on one column; column 0 through 500 steps of K5
+    # (one column) against 500 launches of K4 (B = 1, padded as the engine
+    # pads), and K4's first step against its plain version
     zp = z0
     for _ in range(K5_STEPS):
         zp = st.transient_step_plain(m, zp, c, 1.0)
     hold(errs, "transient_step", out["z"], zp, TOL_Z)
+    hold(errs, "transient_step", z1, want_z1, TOL_MVM_F32)
+    hold(errs, "transient_step_order", st.transient_step_in_kernel_order(m, z0, c, 1.0),
+         want_z1, TOL_MVM_F32)
+    hold_mvm_bf16(errs, "transient_step_bf16", out["z_bf"],
+                  st.transient_step_plain(op["m_bf"], op["z_bf"], op["c_bf"], 1.0))
+    hold(errs, "transient_step_b1", out["z_b1"],
+         st.transient_step_plain(m, op["z_col"][:, None], op["c_col"][:, None], 1.0)[:, 0],
+         TOL_MVM_F32)
     z5, c5 = z0[:, :1].contiguous(), c[:, :1].contiguous()
     m4 = ops.pad_rows(m[None], (1, 2)).contiguous()
     z4 = ops.pad_rows(z0[:, 0][None], (1,)).contiguous()
     c4 = ops.pad_rows(c[:, 0][None], (1,)).contiguous()
+    zk4, rk4 = st.transient_step_batched(m4, z4, c4, 1.0)
+    zk4b, rk4b = st.transient_step_batched(m4, z4, c4, 1.0)
+    deterministic["transient_step_batched"] = bool(torch.equal(zk4, zk4b)
+                                                   and torch.equal(rk4, rk4b))
+    check(deterministic["transient_step_batched"], "K4 at B = 1: two launches differ")
+    zp4, rp4 = st.transient_step_batched_plain(m4, z4, c4, 1.0)
+    hold(errs, "transient_step_batched_b1", zk4, zp4, TOL_Z)
+    hold(errs, "transient_step_batched_b1_res", rk4, rp4, TOL_RES)
     for _ in range(K5_VS_K4_STEPS):
         z5 = ops.transient_step(m, z5, c5, 1.0)
         z4, _ = st.transient_step_batched(m4, z4, c4, 1.0)
@@ -865,6 +1022,8 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
               k6_bf16_bar=dict(rtol=MVM_BF16_RTOL, atol_of_max=MVM_BF16_ATOL_OF_MAX),
               k6_planted_faults=k6_planted, split_planted_faults_of_bar=split_planted,
               bitwise_equal_launches=deterministic, k6_f32_waves=k6_waves,
+              k4_waves=k4_split["waves"], k5_waves=k5_waves,
+              k4_split_order_vs_plain=k4_split["order_vs_plain"],
               k5_max_z=float(zp.abs().max()), k5_vs_k4_max_z=float(z4.abs().max()),
               i_dc_max=float(out["i_dc"].abs().max()), i_v_max=float(out["i_v"].abs().max())))
 
@@ -907,10 +1066,18 @@ def phase_kernel_api(dev) -> tuple[dict, dict]:
           lambda: st.transient_step_plain(m, z0, c, 1.0), lambda: torch.addmm(zc, m, z0),
           nz * nz * 4 + 3 * nz * K5_COLUMNS * 4, nz * K5_COLUMNS * (2 * nz + 3),
           ("transient_step",))
-    timed("transient_step_b1", [nz, nz, 1], lambda: st.transient_step(m, z5, c5, 1.0),
-          lambda: st.transient_step_plain(m, z5, c5, 1.0),
-          lambda: torch.addmm(z5 + c5, m, z5),
-          nz * nz * 4 + 3 * nz * 4, nz * (2 * nz + 3), ("k5_vs_k4", "transient_step"))
+    z1c, c1c = z0[:, :1].contiguous(), c[:, :1].contiguous()
+    timed("transient_step_b1", [nz, nz, 1], lambda: st.transient_step(m, z1c, c1c, 1.0),
+          lambda: st.transient_step_plain(m, z1c, c1c, 1.0),
+          lambda: torch.addmm(z1c + c1c, m, z1c),
+          nz * nz * 4 + 3 * nz * 4, nz * (2 * nz + 3), ("transient_step_b1",))
+    # bf16 inputs: bytes bound it at the bf16 rate too, as in float32
+    mb, zb, cb = op["m_bf"], op["z_bf"], op["c_bf"]
+    zcb = zb + cb
+    timed("transient_step_bf16", [nz, nz, K5_COLUMNS], lambda: st.transient_step(mb, zb, cb, 1.0),
+          lambda: st.transient_step_plain(mb, zb, cb, 1.0), lambda: torch.addmm(zcb, mb, zb),
+          nz * nz * 2 + 3 * nz * K5_COLUMNS * 2, nz * K5_COLUMNS * (2 * nz + 3),
+          ("transient_step_bf16",), BF16_FLOPS_PER_S)
     emit(dict(phase="kernel_api", case="times", rows=rows))
     return rows, launches
 
@@ -1437,13 +1604,14 @@ def phase_serve(dev) -> dict:
 
 def kernels_line(pairs: dict, launches: dict, api_rows: dict,
                  api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
-    """One row per kernel, and for K6 and K8 one per route: timed at its
-    main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
+    """One row per kernel, and for K5, K6 and K8 one per route: timed at
+    its main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
     every shape, its launches from the main path that drives it (the slice
-    for K1-K4, the kernel API for K5-K7b, the serving path for K8), for K6
-    and K8 those of the row's route (``kernel_route``; K7a names its route
-    too), and K8's fma row counts the float32 SMOKE config's engine run on
-    the card."""
+    for K1-K4, the kernel API for K5-K7b, the serving path for K8), for
+    K5, K6 and K8 those of the row's route (``kernel_route``; K7a names
+    its route too, K4 its split; K5's rows count their own dtype), and
+    K8's fma row counts the float32 SMOKE config's engine run on the
+    card."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -1466,22 +1634,32 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=k["library_ms"], shape=k["shape"], device_ms=k.get("device_ms"),
         ))
-    api = {
-        "transient_step": ("K5", "src/repro_torch/kernels/csrc/transient_step.cu",
-                           "src/repro/kernels/transient_step.py:99",
-                           ("transient_step_b1",)),
-        "colabs": ("K7a", "src/repro_torch/kernels/csrc/spd_transform.cu",
-                   "src/repro/kernels/spd_transform.py:48", ()),
-        "assemble": ("K7b", "src/repro_torch/kernels/csrc/spd_transform.cu",
-                     "src/repro/kernels/spd_transform.py:96", ()),
-    }
+        if "split" in k:
+            rows[-1]["ranks"] = k["split"]["ranks"]
+            rows[-1]["device_ms_by_ranks"] = k["split"]["device_ms_by_ranks"]
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape",
             "max_abs_err")
-    for name, (tag, source, rep, more) in api.items():
+    k5_by_dtype = api_launches["transient_step_by_dtype"]
+    for key, label, dtype, kernel_route in (
+            ("transient_step", "f32, nb = 16", "float32", "narrow_async"),
+            ("transient_step_bf16", "bf16, nb = 16", "bfloat16", "narrow_async"),
+            ("transient_step_b1", "f32, nb = 1", "float32", "column")):
+        rows.append(dict(name=f"K5 transient_step ({label})", route="cuda",
+                         source="src/repro_torch/kernels/csrc/transient_step.cu",
+                         replaces="src/repro/kernels/transient_step.py:99",
+                         launches=k5_by_dtype[dtype][kernel_route], kernel_route=kernel_route,
+                         launches_by_route=k5_by_dtype[dtype],
+                         **{k: api_rows[key][k] for k in keys}))
+    api = {
+        "colabs": ("K7a", "src/repro_torch/kernels/csrc/spd_transform.cu",
+                   "src/repro/kernels/spd_transform.py:48"),
+        "assemble": ("K7b", "src/repro_torch/kernels/csrc/spd_transform.cu",
+                     "src/repro/kernels/spd_transform.py:96"),
+    }
+    for name, (tag, source, rep) in api.items():
         k = api_rows[name]
         row = dict(name=f"{tag} {name}", route="cuda", source=source, replaces=rep,
                    launches=api_launches[name], **{key: k[key] for key in keys})
-        row["other_shapes"] = {m: {key: api_rows[m][key] for key in keys} for m in more}
         if name == "colabs":
             row["kernel_route"] = "vec16"
             row["launches_by_route"] = api_launches["colabs_by_route"]
@@ -1536,7 +1714,8 @@ def main() -> int:
     emit(dict(phase="route_times",
               per_step={f"{form}_n{n}": p["per_step"] for (form, n), p in pairs.items()}))
     launches = phase_slice(dev, routes)
-    api_rows, api_launches = phase_kernel_api(dev)
+    api_rows, api_launches = phase_kernel_api(
+        dev, pairs[("dense", N_DENSE)]["transient_step_batched"]["split"])
     phase_quickstart()
     k8_rows = phase_k8()
     k8_launches = phase_serve(dev)

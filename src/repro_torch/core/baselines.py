@@ -1,16 +1,19 @@
-"""Batched digital solver baselines (Sec. I-A), in PyTorch float64.
+"""Digital solver baselines (Sec. I-A), in PyTorch float64.
 
-Counterpart of the batched half of :mod:`repro.core.baselines`:
+Counterpart of :mod:`repro.core.baselines`:
 
-* :func:`cholesky_solve_batch` — direct factorization per system.
-* :func:`cg_solve_batch` — Conjugate Gradient.
-* :func:`jacobi_solve_batch` — stationary Jacobi iteration.
+* :func:`cholesky_solve` / :func:`cholesky_solve_batch` — direct
+  factorization.
+* :func:`cg_solve` / :func:`cg_solve_batch` — Conjugate Gradient.
+* :func:`jacobi_solve` / :func:`jacobi_solve_batch` — stationary Jacobi
+  iteration.
 
-The iterative solvers *freeze* each system at its own convergence step,
-so its iterates and its recorded ``iterations`` equal a loop of
-single-system solves while the batch steps on until every system is
-done.  The loop runs on the host and checks convergence once per
-iteration.
+The single-system solvers take the reference's arguments and return its
+fields, iteration counts included.  The batched iterative solvers
+*freeze* each system at its own convergence step, so its iterates and
+its recorded ``iterations`` equal a loop of single-system solves while
+the batch steps on until every system is done.  The loops run on the
+host and check convergence once per iteration.
 """
 
 from __future__ import annotations
@@ -24,6 +27,28 @@ class IterativeResult(NamedTuple):
     x: torch.Tensor
     iterations: torch.Tensor
     residual_norm: torch.Tensor
+
+
+def cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` (n, n) SPD, ``b`` (n,) -> ``x`` (n,)."""
+    return cholesky_solve_batch(a[None], b[None])[0]
+
+
+def cg_solve(a: torch.Tensor, b: torch.Tensor, *, tol: float = 1e-10, max_iter: int = 1000,
+             x0: torch.Tensor | None = None) -> IterativeResult:
+    """Conjugate Gradient with the reference's stopping rule: iterate while
+    ``|r|^2 / |b|^2 > tol^2`` and fewer than ``max_iter`` steps."""
+    res = cg_solve_batch(a[None], b[None], tol=tol, max_iter=max_iter,
+                         x0=None if x0 is None else x0[None])
+    return IterativeResult(*(t[0] for t in res))
+
+
+def jacobi_solve(a: torch.Tensor, b: torch.Tensor, *, tol: float = 1e-10,
+                 max_iter: int = 10000) -> IterativeResult:
+    """Jacobi iteration from ``x0 = b / diag(a)`` (counted as iteration 1),
+    while ``|b - a x| / |b| > tol`` and fewer than ``max_iter`` steps."""
+    res = jacobi_solve_batch(a[None], b[None], tol=tol, max_iter=max_iter)
+    return IterativeResult(*(t[0] for t in res))
 
 
 def cholesky_solve_batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -44,10 +69,11 @@ def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def cg_solve_batch(a: torch.Tensor, b: torch.Tensor, *, tol: float = 1e-10,
-                   max_iter: int = 1000) -> IterativeResult:
-    """Batched CG with per-system convergence freezing."""
-    x = torch.zeros_like(b)
-    r = b
+                   max_iter: int = 1000, x0: torch.Tensor | None = None) -> IterativeResult:
+    """Batched CG with per-system convergence freezing, from ``x0`` (B, n)
+    or zero."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - _bmv(a, x)
     p = r
     rs = _bdot(r, r)
     b_norm2 = torch.clamp(_bdot(b, b), min=1e-300)

@@ -1097,19 +1097,14 @@ def euler_settle_batch(
             return ops.ell_transient_sweep(idx_t, w_t, zz, ct, n_steps=n,
                                            padded=True, sweep_dtype=sweep_dtype)
     else:
-        mt = (bss.m * dt_t[:, None, None]).to(torch.float32)
+        # rounded through the sweep dtype (bf16 storage semantics), padded
+        # and laid out for its kernel once, outside the chunk loop
+        route, mop = ops.dense_prepare((bss.m * dt_t[:, None, None]).to(torch.float32),
+                                       sweep_dtype)
         ct = pad((bss.c * dt_t[:, None]).to(torch.float32))
-        if sweep_dtype == "bfloat16":
-            # bf16 storage semantics on the dense path: round the folded
-            # operator through bf16 once, outside the chunk loop
-            mt = mt.to(torch.bfloat16).to(torch.float32)
-        mt = pad(mt)
-        if ops.dense_sweep_persistent(nz):
-            mt = mt.transpose(1, 2)            # K3 takes M^T
-        mt = mt.contiguous()
 
         def step_chunk(zz, n):
-            return ops.transient_sweep(mt, zz, ct, n_steps=n, m_transposed=True)
+            return ops.dense_sweep_prepared(route, mop, zz, ct, n_steps=n)
 
     steps, x_final, res = _settle_loop(
         step_chunk, z0, dt, x_ref, rtol=rtol, atol=atol,

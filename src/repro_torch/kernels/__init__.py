@@ -14,10 +14,11 @@
   language-model stack's prefill attention.
 
 :mod:`~repro_torch.kernels.ops` holds the public wrappers: the kernel API
-re-exported here (:func:`crosspoint_mvm`, :func:`transient_step`,
-:func:`spd_transform_arrays`), the settle-sweep routing and the launch
-counters (K1-K8, and K6's and K8's by route: their bf16 products run on
-the tensor cores, float32 on FMA).  As in the reference, the re-exported ``crosspoint_mvm`` and
+re-exported here in the reference's order (:func:`crosspoint_mvm`,
+:func:`transient_step`, :func:`transient_step_batched`,
+:func:`transient_sweep`, :func:`spd_transform_arrays`), the settle-sweep
+routing and the launch counters (K1-K8, and K5's, K6's, K7a's and K8's
+by route).  As in the reference, the re-exported ``crosspoint_mvm`` and
 ``transient_step`` functions shadow the submodules of the same names:
 reach those with ``importlib.import_module``.  The CUDA sources are built
 at first CUDA use (:mod:`~repro_torch.kernels.build`).
@@ -25,6 +26,8 @@ at first CUDA use (:mod:`~repro_torch.kernels.build`).
 
 from repro_torch.kernels.ops import (  # noqa: F401
     crosspoint_mvm,
-    spd_transform_arrays,
     transient_step,
+    transient_step_batched,
+    transient_sweep,
+    spd_transform_arrays,
 )

@@ -39,6 +39,25 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+# The split kernels (K4, K5's narrow route, K6's float32 route) share an
+# output tile's work over the R blocks of a thread-block cluster.  An H100
+# runs at once 132 clusters of 2 of their blocks, 62 of 4 and 30 of 8
+# (cudaOccupancyMaxActiveClusters, which chip_smoke.py reads through each
+# kernel's *_clusters_per_wave and holds the chosen R against), so a grid
+# of at most 240 blocks runs in one wave at every cluster size.
+ONE_WAVE_BLOCKS = 240
+
+
+def split_ranks(tiles: int, max_split: int, max_by_work: int) -> int:
+    """The cluster size R of a split kernel with ``tiles`` output tiles: the
+    largest power of two up to ``max_split`` that keeps the grid
+    ``tiles * R`` within ONE_WAVE_BLOCKS and is at most ``max_by_work``
+    (how many ranks the work gives a share each); at least 1.  A pure
+    function of the shape, so the CPU tests can hold it."""
+    want = min(max_split, ONE_WAVE_BLOCKS // max(tiles, 1), max_by_work)
+    return 1 << (max(want, 1).bit_length() - 1)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -50,10 +69,16 @@ _SIGNATURES = {
     "repro_ell_step": ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     # mt, z, c, z_out, res, batch, n, n_steps, dt, stream
     "repro_dense_sweep": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
-    # m, z, c, z_out, res, batch, n, dt, stream
-    "repro_dense_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
+    # m, z, c, z_out, res, batch, n, ranks, dt, stream
+    "repro_dense_step": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    # ranks, clusters (int*)
+    "repro_dense_step_clusters": ((_I, _P), _I),
     # m, z, c, is_bf16, z_out, n, nb, dt, stream
     "repro_transient_step": ((_P, _P, _P, _I, _P, _I, _I, _F, _P), _I),
+    # m, z, c, is_bf16, z_out, n, nb, ranks, vec16, dt, stream
+    "repro_transient_step_narrow": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P), _I),
+    # ranks, clusters (int*)
+    "repro_transient_step_narrow_clusters": ((_I, _P), _I),
     # g, v, is_bf16, out, m, k, nb, stream
     "repro_crosspoint_mvm": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
     # g, v, out, m, k, nb, vec16, stream

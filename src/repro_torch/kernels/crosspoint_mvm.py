@@ -30,14 +30,10 @@ ROUTES = ("mma_async", "mma_scalar", "f32_async", "f32_scalar", "fma")
 
 # The float32 route's tile (csrc/crosspoint_mvm.cu: F32_BM, F32_BN, F32_BK)
 # and its k split: up to F32_MAX_SPLIT blocks of a cluster share an output
-# tile's contraction, as many as keep the grid within F32_MAX_BLOCKS, each
-# rank with at least F32_MIN_RANK_K of k.  An H100 holds 62 clusters of 4
-# of these blocks at once (two blocks per SM; f32_clusters_per_wave, which
-# chip_smoke.py reads on the card), so a grid past 248 blocks in clusters
-# of 4 runs in two waves: 240 leaves a margin.
+# tile's contraction, the grid within one wave (build.split_ranks), each
+# rank with at least F32_MIN_RANK_K of k.
 F32_BM, F32_BN, F32_BK = 128, 64, 32
 F32_MAX_SPLIT = 4
-F32_MAX_BLOCKS = 240
 F32_MIN_RANK_K = 256
 
 
@@ -66,13 +62,12 @@ def crosspoint_mvm_route(dtype: torch.dtype, m: int, k: int, nb: int, aligned: b
 def crosspoint_mvm_split(m: int, k: int, nb: int) -> int:
     """How many blocks of a cluster share each output tile's contraction
     on the float32 route: the largest power of two up to F32_MAX_SPLIT
-    that keeps the grid within F32_MAX_BLOCKS (one wave) and gives each
+    that keeps the grid within one wave (build.split_ranks) and gives each
     rank at least F32_MIN_RANK_K of k; 1 where the tiles alone fill the
     card.  At nb = 64: 2 for m = 8192 (64 row tiles, 128 blocks), 4 for
     m = 7680 (240 blocks)."""
     tiles = -(-m // F32_BM) * -(-nb // F32_BN)
-    want = min(F32_MAX_SPLIT, F32_MAX_BLOCKS // max(tiles, 1), -(-k // F32_MIN_RANK_K))
-    return 1 << (max(want, 1).bit_length() - 1)
+    return build.split_ranks(tiles, F32_MAX_SPLIT, -(-k // F32_MIN_RANK_K))
 
 
 def k_ranges(k: int, ranks: int) -> list[tuple[int, int]]:

@@ -1,6 +1,7 @@
 // Device helpers shared by the Hopper kernels: the reductions of the
 // settle sweeps (K1-K4), the tiled dense product of K5 and K6's GEMV, and
-// the rank-ordered sum over a thread-block cluster (K6 float32, K7a).
+// the rank-ordered sum over a thread-block cluster (K4, K5 on narrow
+// state, K6 float32, K7a).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -53,6 +54,24 @@ __device__ __forceinline__ bool cluster_sum_rank_order(float4* part, int n) {
   return leader;
 }
 
+// The launch configuration of `grid` x `threads` in clusters of `ranks`
+// blocks along x; `attr` holds its one attribute and must outlive it.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, int smem_bytes, int ranks,
+                                         cudaStream_t stream, cudaLaunchAttribute (&attr)[1]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // Launch `kernel` on `grid` x `block` threads in clusters of `ranks`
 // blocks along x (gridDim.x must be a multiple of ranks); returns the
 // launch's error or cudaGetLastError().  A launch the card refuses (a
@@ -61,25 +80,29 @@ template <typename... Params, typename... Args>
 inline cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads,
                                     int smem_bytes, int ranks, cudaStream_t stream,
                                     Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, threads, smem_bytes, ranks, stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// How many clusters of `ranks` blocks of `kernel` (`threads` threads and
+// `smem_bytes` of dynamic shared memory each) the current device runs at
+// once, into *clusters (cudaOccupancyMaxActiveClusters): a grid of more
+// clusters runs in more than one wave.  The kernel's dynamic shared-memory
+// limit must already allow smem_bytes.
+template <typename... Params>
+inline cudaError_t max_active_clusters(void (*kernel)(Params...), int threads, int smem_bytes,
+                                       int ranks, int* clusters) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(ranks), threads, smem_bytes, ranks,
+                                                nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 // Row-block height of the row-tiled kernels (K2, K4): one thread block
-// covers ROW_BLOCK rows and writes one max partial, the (B, nz / 128)
+// (K4: one cluster) covers ROW_BLOCK rows and writes one max partial, the (B, nz / 128)
 // layout of the reference's per-block residual output.
 constexpr int ROW_BLOCK = 128;
 
@@ -126,7 +149,7 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled dense product (K5 transient_step; K6 crosspoint_mvm at b = 1)
+// Tiled dense product (K5 at b = 1 and b > 16; K6 crosspoint_mvm at b = 1)
 // ---------------------------------------------------------------------------
 //
 // One thread block of 256 threads owns a BM x BN tile of C = A B, for A
@@ -165,10 +188,8 @@ struct ProdConfig {
 // b = 1, the crossbar's own operation: 32-row tiles (256 blocks for
 // m = 8192, two per SM), 128-deep steps split over 8 chunks.
 using ProdColumn = ProdConfig<32, 128, 1, 1, 1>;
-// 2 <= b <= 16 (K5 only: K6's float32 products with b >= 2 take
-// crosspoint_mvm.cu's split-k kernel)
-using ProdNarrow = ProdConfig<64, 64, 16, 4, 1>;
-// b > 16
+// b > 16 (K5 only: K6's products with b >= 2 and K5's with 2 <= b <= 16
+// take the split-k kernels of crosspoint_mvm.cu and transient_step.cu)
 using ProdWide = ProdConfig<64, 64, 64, 4, 4>;
 
 template <typename C, typename T>

@@ -502,19 +502,8 @@ extern "C" int repro_crosspoint_mvm_f32_clusters(int ranks, int* clusters) {
   static std::atomic<bool> raised[MAX_DEVICES];
   cudaError_t err = allow_dynamic_smem(crosspoint_mvm_f32_kernel<true>, F32_SMEM_BYTES, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks);
-  cfg.blockDim = dim3(F32_THREADS);
-  cfg.dynamicSmemBytes = F32_SMEM_BYTES;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, crosspoint_mvm_f32_kernel<true>, &cfg));
+  return static_cast<int>(max_active_clusters(crosspoint_mvm_f32_kernel<true>, F32_THREADS,
+                                              F32_SMEM_BYTES, ranks, clusters));
 }
 
 // The bf16 tensor-core route: g (m, k), v (k, nb), out (m, nb), device

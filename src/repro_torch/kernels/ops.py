@@ -4,13 +4,15 @@ settle sweeps.
 Counterpart of :mod:`repro.kernels.ops`.
 
 * The kernel API — :func:`crosspoint_mvm` (K6), :func:`transient_step`
-  (K5), :func:`spd_transform_arrays` (K7a + K7b) and
+  (K5), :func:`transient_step_batched` (K4), :func:`transient_sweep` (K3
+  or K4), :func:`spd_transform_arrays` (K7a + K7b) and
   :func:`flash_attention` (K8), with the
   reference's contracts: 1-D or 2-D inputs, the output dtype, and
-  ``(K_A, K_B, D, K_s)`` in that order.  Unlike the reference they pad
-  nothing (the kernels mask ragged edges) and take no ``block=`` or
-  ``interpret=``: tile shapes are the kernels' own, and a CPU tensor
-  runs the plain version.
+  ``(K_A, K_B, D, K_s)`` in that order.  Unlike the reference the K5-K8
+  wrappers pad nothing (the kernels mask ragged edges; the dense settle
+  steps pad to the 128-row block as the reference does) and none takes
+  ``block=`` or ``interpret=``: tile shapes are the kernels' own, and a
+  CPU tensor runs the plain version.
 * The settle sweeps: pad inputs to the 128-row block (zero padding is
   exact: padded rows carry ``w = 0`` slots pointing at column 0, and zero
   operator rows and columns are neutral); lay the ELL slots out
@@ -54,6 +56,23 @@ def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     if z.ndim == 1:
         return _st.transient_step(m, z[:, None], c[:, None], dt)[:, 0]
     return _st.transient_step(m, z, c, dt)
+
+
+def transient_step_batched(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
+                           dt: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batched fused Euler step (K4); m (B, n, n), z/c (B, n), any n.
+
+    Pads M, z and c once to the 128-row block (zero rows and columns are
+    neutral), runs the step in float32 and returns ``(z'[:, :n], res)``
+    with ``res`` the per-system ``max_i |M z + c|_i`` at the input state,
+    as the reference's ``transient_step_batched``.
+    """
+    n = m.shape[1]
+    m = pad_rows(m.to(torch.float32), (1, 2)).contiguous()
+    z = pad_rows(z.to(torch.float32), (1,)).contiguous()
+    c = pad_rows(c.to(torch.float32), (1,)).contiguous()
+    out, res = _st.transient_step_batched(m, z, c, dt)
+    return out[:, :n], res.amax(dim=1)
 
 
 def spd_transform_arrays(
@@ -238,6 +257,48 @@ def ell_transient_sweep(
     return z[:, :nz], res.amax(dim=1)
 
 
+def dense_prepare(m: torch.Tensor, sweep_dtype: str = "float32") -> tuple[str, torch.Tensor]:
+    """The dense operators M (B, n, n) -> ``(route, operand)`` for
+    :func:`dense_sweep_prepared`: rounded through ``sweep_dtype`` (bf16
+    storage), cast to float32, padded to the row block and laid out as
+    the route's kernel reads it — ``M^T`` for the persistent sweep K3
+    (``route == "dense"``), ``M`` for the row-tiled step K4
+    (``"dense-step"``).  A settle loop calls this once per operator batch
+    and runs every chunk on the prepared operand.
+    """
+    if sweep_dtype not in _ell.SWEEP_DTYPES:
+        raise ValueError(f"unknown sweep_dtype {sweep_dtype!r}")
+    route = "dense" if dense_sweep_persistent(m.shape[1]) else "dense-step"
+    if sweep_dtype == "bfloat16":
+        m = m.to(torch.bfloat16)
+    m = pad_rows(m.to(torch.float32), (1, 2))
+    if route == "dense":
+        m = m.transpose(1, 2)
+    return route, m.contiguous()
+
+
+def dense_sweep_prepared(route: str, operand: torch.Tensor, z: torch.Tensor,
+                         c: torch.Tensor, *, n_steps: int,
+                         dt: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_steps`` Euler steps on an operand of :func:`dense_prepare`;
+    z/c (B, n_p) float32, padded to the row block.  ``"dense"`` runs the
+    persistent sweep K3; ``"dense-step"`` ``n_steps`` launches of K4 and
+    one ``dt=0`` launch for the residual at the final state.  Returns the
+    padded ``(z', res)``, ``res`` the per-system ``max_i |M z' + c|_i``.
+    """
+    if route == "dense":
+        out, res = _st.transient_sweep(operand, z, c, n_steps=n_steps, dt=dt)
+        return out, res[:, 0]
+    if route != "dense-step":
+        raise ValueError(f"unknown dense route {route!r}")
+    for _ in range(n_steps):
+        z, _ = _st.transient_step_batched(operand, z, c, dt)
+    # dt=0 step: state unchanged, residual evaluated at the *final*
+    # state — matching the fused kernel's contract
+    _zf, res = _st.transient_step_batched(operand, z, c, 0.0)
+    return z, res.amax(dim=1)
+
+
 def transient_sweep(
     m: torch.Tensor,
     z: torch.Tensor,
@@ -256,10 +317,14 @@ def transient_sweep(
     ``(z', res)`` with ``res`` the per-system ``max_i |M z' + c|_i`` at
     the final state.
 
-    ``m_transposed=True`` says the caller already padded every operand
-    to the row block and passed ``m[b] = M_b.T`` when K3 applies (the
-    untransposed ``M_b`` when K4 does) — the loop-hoisted path, which
-    expects ``sweep_dtype`` rounding applied to ``m`` already.
+    ``m_transposed=True`` says, as in the reference, that the caller
+    already padded every operand to the row block, applied the
+    ``sweep_dtype`` rounding and passed ``m[b] = M_b.T``, whichever
+    route runs.  K3 reads that operand as it is; where K4 applies, this
+    call transposes it back once: one read and one write of the operator
+    per call, against a 50-step chunk's 51 reads.  A settle loop that runs
+    many chunks on one operator batch hoists that with
+    :func:`dense_prepare` and :func:`dense_sweep_prepared` instead.
 
     ``sweep_dtype="bfloat16"`` rounds the dense operator through bf16
     once before the f32 sweep; the kernels themselves are unchanged.
@@ -267,23 +332,17 @@ def transient_sweep(
     if sweep_dtype not in _ell.SWEEP_DTYPES:
         raise ValueError(f"unknown sweep_dtype {sweep_dtype!r}")
     n = m.shape[1]
-    fused = dense_sweep_persistent(n)
-    if not m_transposed:
-        if sweep_dtype == "bfloat16":
-            m = m.to(torch.bfloat16).to(torch.float32)
-        m = pad_rows(m.to(torch.float32), (1, 2))
-        if fused:
-            m = m.transpose(1, 2)
-        m = m.contiguous()
+    if m_transposed:
+        if dense_sweep_persistent(n):
+            route, operand = "dense", m
+        else:
+            route, operand = "dense-step", m.transpose(1, 2).contiguous()
+    else:
+        route, operand = dense_prepare(m, sweep_dtype)
         z = pad_rows(z.to(torch.float32), (1,))
         c = pad_rows(c.to(torch.float32), (1,))
-    if fused:
-        out, res = _st.transient_sweep(m, z, c, n_steps=n_steps, dt=dt)
-        return out[:, :n], res[:, 0]
-    for _ in range(n_steps):
-        z, _ = _st.transient_step_batched(m, z, c, dt)
-    _zf, res = _st.transient_step_batched(m, z, c, 0.0)
-    return z[:, :n], res.amax(dim=1)
+    out, res = dense_sweep_prepared(route, operand, z, c, n_steps=n_steps, dt=dt)
+    return out[:, :n], res
 
 
 _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
@@ -292,7 +351,7 @@ _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
 
 
 # the kernels with more than one route, and their launch counts by route
-_ROUTED = (_mvm.crosspoint_mvm, _tr.colabs, _fa.flash_attention)
+_ROUTED = (_st.transient_step, _mvm.crosspoint_mvm, _tr.colabs, _fa.flash_attention)
 
 
 def launch_counts() -> dict[str, int]:
@@ -301,11 +360,19 @@ def launch_counts() -> dict[str, int]:
 
 
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
-    """Launches of K6, K7a and K8 by route since the last reset: K6's
-    ``crosspoint_mvm_route`` ("mma_async", "mma_scalar", "f32_async",
-    "f32_scalar", "fma"), K7a's ``colabs_route`` ("vec16", "scalar") and
-    K8's ``flash_attention_route`` ("mma", "fma")."""
+    """Launches of K5, K6, K7a and K8 by route since the last reset: K5's
+    ``transient_step_route`` ("narrow_async", "narrow_scalar", "column",
+    "wide"), K6's ``crosspoint_mvm_route`` ("mma_async", "mma_scalar",
+    "f32_async", "f32_scalar", "fma"), K7a's ``colabs_route`` ("vec16",
+    "scalar") and K8's ``flash_attention_route`` ("mma", "fma")."""
     return {fn.__name__: dict(fn.launches_by_route) for fn in _ROUTED}
+
+
+def launch_counts_by_dtype() -> dict[str, dict[str, int]]:
+    """K5's launches by operand dtype ("float32", "bfloat16") and route
+    since the last reset: its narrow kernel serves both dtypes on one
+    route name."""
+    return {dt: dict(by_route) for dt, by_route in _st.transient_step.launches_by_dtype.items()}
 
 
 def reset_launch_counts() -> None:
@@ -313,3 +380,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in _ROUTED:
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    _st.transient_step.launches_by_dtype = {
+        dt: dict.fromkeys(by_route, 0)
+        for dt, by_route in _st.transient_step.launches_by_dtype.items()}

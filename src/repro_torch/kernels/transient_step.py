@@ -8,24 +8,52 @@ are ``csrc/transient_step.cu``):
   ``m_t[b] = M_b^T``, and the fused ``max |M z + c|`` at the final state.
 * :func:`transient_step_batched` (K4) — one row-tiled step on the
   untransposed operator, and the max of ``|M z + c|`` at the *input*
-  state per 128-row block.
+  state per 128-row block; each block's columns split over the blocks of
+  a thread-block cluster (:func:`dense_step_ranks`).
 * :func:`transient_step` (K5) — one step ``Z' = Z + dt (M Z + C)`` of a
   single operator ``M`` (n, n) on ``nb`` state columns, float32 or
-  bfloat16 operands with a float32 accumulator: K6's tiled product with
-  the step as its epilogue.
+  bfloat16 operands with a float32 accumulator, on the route of
+  :func:`transient_step_route`: for 2 <= nb <= 16 a product split over k
+  across a cluster (:func:`transient_step_split`), else K6's tiled
+  product with the step as its epilogue.
 
 Each wrapper launches its kernel for tensors on a CUDA device and runs
 its plain PyTorch version (``*_plain``) for tensors on the CPU.  K3 and
-K4 run in float32 with a float32 accumulator.
+K4 run in float32 with a float32 accumulator.  The ``*_in_kernel_order``
+functions repeat the split kernels' order of summation in plain PyTorch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 
 ROW_BLOCK = 128
+
+# K4's split (csrc/transient_step.cu: dense_step_kernel): the columns of
+# each 128-row block go to the R ranks of a cluster in chunks of 128, R
+# up to DENSE_STEP_MAX_SPLIT, the grid within one wave (build.split_ranks).
+DENSE_STEP_CHUNK = 128
+DENSE_STEP_MAX_SPLIT = 8
+
+# K5's routes (csrc/transient_step.cu): "narrow_async", 2 <= nb <= 16 split
+# over k across a cluster and fed by 16-byte asynchronous copies;
+# "narrow_scalar", the same kernel staging its tiles through masked scalar
+# loads; "column", nb = 1, and "wide", nb > 16, on common.cuh:tile_product.
+STEP_ROUTES = ("narrow_async", "narrow_scalar", "column", "wide")
+# The narrow route's tile (NS_BM x NS_BN), its k steps (128 bytes of each
+# M row: 32 float32 or 64 bf16 k, a sixteen-byte slice to each of 8
+# warps), the grid its ranks' k ranges start on, and its split: up to
+# NARROW_MAX_SPLIT ranks, the grid within one wave (build.split_ranks), each
+# rank at least NARROW_MIN_RANK_K of k.
+NARROW_BM, NARROW_BN = 128, 16
+NARROW_WARPS = 8
+NARROW_K_GRID = 64
+NARROW_MAX_SPLIT = 8
+NARROW_MIN_RANK_K = 512
 
 
 def transient_sweep_plain(m_t, z, c, *, n_steps: int, dt: float = 1.0):
@@ -41,6 +69,50 @@ def transient_step_batched_plain(m, z, c, dt: float = 1.0):
     """Plain PyTorch version of :func:`transient_step_batched`."""
     dz = torch.einsum("bij,bj->bi", m, z) + c
     bsz, n = z.shape
+    res = dz.abs().reshape(bsz, n // ROW_BLOCK, ROW_BLOCK).amax(dim=2)
+    return z + dt * dz, res
+
+
+def dense_step_ranks(batch: int, n: int) -> int:
+    """How many blocks of a cluster share each 128-row block's columns in
+    K4: the largest power of two up to DENSE_STEP_MAX_SPLIT that keeps the
+    grid ``batch * n / 128 * R`` within one wave (build.split_ranks) and
+    gives every rank a 128-column chunk.  2 at the settle sweep's
+    (4, 2048) and at (1, 8192), 4 at (4, 1024) and (4, 640)."""
+    return build.split_ranks(batch * (n // ROW_BLOCK), DENSE_STEP_MAX_SPLIT,
+                             n // DENSE_STEP_CHUNK)
+
+
+def dense_step_column_ranges(n: int, ranks: int) -> list[tuple[int, int]]:
+    """The columns ``[c0, c1)`` each rank of K4's split adds, in rank
+    order: ``ceil(chunks / ranks)`` chunks of 128 a rank, the last ranks
+    short or empty (as ``csrc/transient_step.cu:repro_dense_step``)."""
+    chunks = n // DENSE_STEP_CHUNK
+    per_rank = -(-chunks // ranks) * DENSE_STEP_CHUNK
+    return [(min(n, r * per_rank), min(n, (r + 1) * per_rank)) for r in range(ranks)]
+
+
+def dense_step_clusters_per_wave(ranks: int) -> int:
+    """How many clusters of ``ranks`` K4 blocks the current CUDA device runs
+    at once (``cudaOccupancyMaxActiveClusters``)."""
+    clusters = ctypes.c_int(0)
+    build.load_library().call("repro_dense_step_clusters", ranks, ctypes.addressof(clusters))
+    return clusters.value
+
+
+def dense_step_in_kernel_order(m, z, c, dt: float = 1.0):
+    """K4's order of the sum in plain PyTorch: each rank's columns
+    (:func:`dense_step_column_ranges`) as one float32 product, the
+    partials added in rank order, then the step and the block maxima.
+    Within a rank the kernel adds in its own order, which a library
+    product need not, so this holds the split's rounding, not the
+    kernel's bits."""
+    bsz, n = z.shape
+    acc = None
+    for c0, c1 in dense_step_column_ranges(n, dense_step_ranks(bsz, n)):
+        part = torch.einsum("bij,bj->bi", m[:, :, c0:c1], z[:, c0:c1])
+        acc = part if acc is None else acc + part
+    dz = acc + c
     res = dz.abs().reshape(bsz, n // ROW_BLOCK, ROW_BLOCK).amax(dim=2)
     return z + dt * dz, res
 
@@ -102,8 +174,11 @@ def transient_step_batched(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     input state.  ``z'`` is a new buffer; ``z`` is not written.
 
     Replaces ``repro/kernels/transient_step.py:transient_step_batched_pallas``.
-    Bound by bytes (the operator once per step, over all SMs) and, in a
-    loop of steps, by the host call per launch (``csrc/transient_step.cu``).
+    Bound by bytes (the operator once per step) and, in a loop of steps,
+    by the host call per launch (``csrc/transient_step.cu``).  Each
+    128-row block's columns are split over :func:`dense_step_ranks`
+    blocks of a cluster and added in rank order: the same bits from
+    launch to launch.
     """
     bsz, n = _check(m, z, c)
     if z.device.type == "cpu":
@@ -114,7 +189,8 @@ def transient_step_batched(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     with torch.cuda.device(z.device):
         stream = build.current_stream(z.device)
         lib.call("repro_dense_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
-                 out.data_ptr(), res.data_ptr(), bsz, n, float(dt), stream)
+                 out.data_ptr(), res.data_ptr(), bsz, n, dense_step_ranks(bsz, n),
+                 float(dt), stream)
     transient_step_batched.launches += 1
     return out, res
 
@@ -128,6 +204,76 @@ def transient_step_plain(m, z, c, dt: float):
     return (z.float() + dt * (mz + c.float())).to(z.dtype)
 
 
+def transient_step_route(dtype: torch.dtype, n: int, nb: int, aligned: bool) -> str:
+    """The route of a K5 step, a pure function of its dtype, shape and
+    alignment (``aligned``: m's and z's bases on 16-byte boundaries).
+
+    ``nb == 1`` takes ``"column"`` and ``nb > 16`` ``"wide"``.  Between,
+    the split-k product: ``"narrow_async"`` where every 16-byte chunk of
+    M's and Z's rows lies wholly inside or outside the matrix (n and nb
+    multiples of 4 in float32, of 8 in bf16) and the bases are aligned,
+    else ``"narrow_scalar"``.
+    """
+    if nb <= 1:
+        return "column"
+    if nb > NARROW_BN:
+        return "wide"
+    per_chunk = 8 if dtype == torch.bfloat16 else 4
+    vec16 = n % per_chunk == 0 and nb % per_chunk == 0 and aligned
+    return "narrow_async" if vec16 else "narrow_scalar"
+
+
+def transient_step_split(n: int) -> int:
+    """How many blocks of a cluster share each tile's contraction on the
+    narrow route (one column tile: nb <= 16): the largest power of two up
+    to NARROW_MAX_SPLIT that keeps the grid within one wave
+    (build.split_ranks) and gives each rank at least NARROW_MIN_RANK_K of
+    k.  2 at n = 8192 (64 row tiles, 128 blocks)."""
+    return build.split_ranks(-(-n // NARROW_BM), NARROW_MAX_SPLIT,
+                             -(-n // NARROW_MIN_RANK_K))
+
+
+def narrow_k_ranges(n: int, ranks: int) -> list[tuple[int, int]]:
+    """The k range ``[k0, k1)`` each rank of the narrow route adds, in rank
+    order: ``ceil(n / ranks)`` rounded up to the 64-deep grid, the tail to
+    the last ranks (as ``csrc/transient_step.cu:launch_narrow``)."""
+    per_rank = -(-n // ranks)
+    chunk = -(-per_rank // NARROW_K_GRID) * NARROW_K_GRID
+    return [(min(n, r * chunk), min(n, (r + 1) * chunk)) for r in range(ranks)]
+
+
+def narrow_clusters_per_wave(ranks: int) -> int:
+    """How many clusters of ``ranks`` blocks of the narrow route the current
+    CUDA device runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    clusters = ctypes.c_int(0)
+    build.load_library().call("repro_transient_step_narrow_clusters", ranks,
+                              ctypes.addressof(clusters))
+    return clusters.value
+
+
+def transient_step_in_kernel_order(m, z, c, dt: float):
+    """The narrow route's order of the sum in plain PyTorch: within each
+    rank's k range (:func:`narrow_k_ranges`) warp w adds the k whose
+    offset from the range's start falls in the w-th sixteen bytes of a
+    128-byte step, the warps' partials are added in warp order, then the
+    ranks' in rank order, and the step is rounded as the plain version
+    rounds it.  Each warp's products are one float32 product here, whose
+    order a library need not keep: this holds the split's rounding, not
+    the kernel's bits."""
+    n, nb = z.shape
+    per_warp = 16 // m.element_size()
+    step = NARROW_WARPS * per_warp
+    acc = None
+    for k0, k1 in narrow_k_ranges(n, transient_step_split(n)):
+        ks = torch.arange(k0, k1, device=m.device)
+        warp = ((ks - k0) % step) // per_warp
+        for w in range(NARROW_WARPS):
+            sel = ks[warp == w]
+            part = torch.matmul(m[:, sel].float(), z[sel].float())
+            acc = part if acc is None else acc + part
+    return (z.float() + dt * (acc + c.float())).to(z.dtype)
+
+
 def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
                    dt: float) -> torch.Tensor:
     """K5: ``z + dt * (m @ z + c)`` for m (n, n) and z, c (n, nb), all of
@@ -137,7 +283,10 @@ def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     Any n and nb: the kernel masks the ragged edges, nothing is padded.
     Replaces ``repro/kernels/transient_step.py:transient_step_pallas``.
     Bound by bytes (M read once) at small nb, by float32 operations past
-    nb ~ 40 (``csrc/transient_step.cu``).
+    nb ~ 40 (``csrc/transient_step.cu``).  The route is
+    :func:`transient_step_route`'s; the narrow routes split k over
+    :func:`transient_step_split` blocks of a cluster and add the partials
+    in a fixed order: the same bits from launch to launch.
     """
     dev = build.check_tensors(build.FLOAT_DTYPES, m=m, z=z, c=c)
     n = m.shape[0]
@@ -149,17 +298,30 @@ def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     if dev.type == "cpu":
         return transient_step_plain(m, z, c, dt)
     nb = z.shape[1]
+    route = transient_step_route(z.dtype, n, nb, build.aligned16(m, z))
     lib = build.load_library()
     out = torch.empty_like(z)
+    is_bf16 = int(z.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = build.current_stream(dev)
-        lib.call("repro_transient_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
-                 int(z.dtype == torch.bfloat16), out.data_ptr(), n, nb, float(dt), stream)
+        if route.startswith("narrow"):
+            lib.call("repro_transient_step_narrow", m.data_ptr(), z.data_ptr(), c.data_ptr(),
+                     is_bf16, out.data_ptr(), n, nb, transient_step_split(n),
+                     int(route == "narrow_async"), float(dt), stream)
+        else:
+            lib.call("repro_transient_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
+                     is_bf16, out.data_ptr(), n, nb, float(dt), stream)
     transient_step.launches += 1
+    transient_step.launches_by_route[route] += 1
+    transient_step.launches_by_dtype[str(z.dtype).removeprefix("torch.")][route] += 1
     return out
 
 
-# launch counts of the CUDA kernels (plain-version calls do not count)
+# launch counts of the CUDA kernels, and K5's by route and by dtype and
+# route (plain-version calls do not count)
 transient_sweep.launches = 0
 transient_step_batched.launches = 0
 transient_step.launches = 0
+transient_step.launches_by_route = dict.fromkeys(STEP_ROUTES, 0)
+transient_step.launches_by_dtype = {dt: dict.fromkeys(STEP_ROUTES, 0)
+                                    for dt in ("float32", "bfloat16")}

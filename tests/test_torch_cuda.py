@@ -422,3 +422,137 @@ def test_crosspoint_mvm_f32_deterministic_and_bar_fails_a_dropped_partial(cuda):
     k0, _k1 = mvm.k_ranges(n, ranks)[-1]
     dropped = mvm.crosspoint_mvm(g[:, :k0].contiguous(), v[:k0].contiguous())
     assert _share(dropped, want, 5e-5) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,n", [(4, 2048), (1, 8192), (4, 640), (4, 384), (4, 1024)])
+def test_dense_step_splits(cuda, bsz, n):
+    """K4 at shapes that take each split (R = 2, 4; 2 at the settle sweep's
+    (4, 2048) and at B = 1), within 1e-5 max|z'| of its plain version and
+    of its split order in plain PyTorch; two launches give the same bits;
+    dt = 0 leaves the state as it was."""
+    rng = np.random.default_rng(61)
+    m = torch.as_tensor(rng.uniform(-1, 1, (bsz, n, n)) / n ** 0.5, dtype=torch.float32,
+                        device=cuda)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, n)), dtype=torch.float32, device=cuda)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, n)), dtype=torch.float32, device=cuda)
+    assert st.dense_step_ranks(bsz, n) > 1
+    got, res = st.transient_step_batched(m, z, c)
+    again, res_again = st.transient_step_batched(m, z, c)
+    assert torch.equal(got, again) and torch.equal(res, res_again)
+    want, want_res = st.transient_step_batched_plain(m, z, c)
+    assert _share(got, want, Z_TOL) <= 1 and _share(res, want_res, 1e-4) <= 1
+    assert _share(got, st.dense_step_in_kernel_order(m, z, c)[0], Z_TOL) <= 1
+    still, res0 = st.transient_step_batched(m, z, c, 0.0)
+    assert torch.equal(still, z) and _share(res0, want_res, 1e-4) <= 1
+
+
+@pytest.mark.cuda
+def test_dense_step_bar_fails_a_dropped_rank_and_fits_one_wave(cuda):
+    """At the settle sweep's shape (4, 2048, 2048): the bar rejects the step
+    with the last cluster rank's columns left out, and the split's clusters
+    fit one wave of the card's."""
+    rng = np.random.default_rng(62)
+    bsz, n = 4, 2048
+    m = torch.as_tensor(rng.uniform(-1, 1, (bsz, n, n)) / n ** 0.5, dtype=torch.float32,
+                        device=cuda)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, n)), dtype=torch.float32, device=cuda)
+    c = torch.zeros_like(z)
+    ranks = st.dense_step_ranks(bsz, n)
+    c0, c1 = st.dense_step_column_ranges(n, ranks)[-1]
+    got, _ = st.transient_step_batched(m, z, c)
+    dropped = got - torch.einsum("bij,bj->bi", m[:, :, c0:c1], z[:, c0:c1])
+    assert _share(dropped, st.transient_step_batched_plain(m, z, c)[0], Z_TOL) > 1000
+    assert bsz * n // 128 <= st.dense_step_clusters_per_wave(ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route_f32,route_bf16", [
+    ((8192, 16), "narrow_async", "narrow_async"),
+    ((8190, 16), "narrow_scalar", "narrow_scalar"),
+    ((137, 5), "narrow_scalar", "narrow_scalar"),
+    ((4096, 2), "narrow_scalar", "narrow_scalar"),
+    ((1000, 16), "narrow_async", "narrow_async"),
+    ((4096, 12), "narrow_async", "narrow_scalar"),
+])
+def test_transient_step_narrow_routes(cuda, dtype, shape, route_f32, route_bf16):
+    """K5 with 2 <= nb <= 16 at shapes that reach each narrow route, in
+    both dtypes: float32 within 5e-5 max of the plain version and of its
+    split order in plain PyTorch, bf16 element by element within one bf16
+    rounding (1e-2 |want| + 1e-3 max|want|); two launches give the same
+    bits; the route's launch count moves."""
+    n, nb = shape
+    route = route_f32 if dtype == torch.float32 else route_bf16
+    rng = np.random.default_rng(63)
+    m = torch.as_tensor(rng.uniform(-1, 1, (n, n)) / n ** 0.5, device=cuda).to(dtype)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), device=cuda).to(dtype)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), device=cuda).to(dtype)
+    assert st.transient_step_route(dtype, n, nb, True) == route
+    before = ops.launch_counts_by_route()["transient_step"][route]
+    got = st.transient_step(m, z, c, 0.5)
+    assert torch.equal(got, st.transient_step(m, z, c, 0.5))
+    assert ops.launch_counts_by_route()["transient_step"][route] == before + 2
+    assert got.dtype == dtype and got.shape == (n, nb)
+    want = st.transient_step_plain(m, z, c, 0.5)
+    if dtype == torch.float32:
+        assert _share(got, want, 5e-5) <= 1
+        assert _share(got, st.transient_step_in_kernel_order(m, z, c, 0.5), 5e-5) <= 1
+    else:
+        w = want.double()
+        assert bool(((got.double() - w).abs() <= 1e-2 * w.abs() + 1e-3 * w.abs().max()).all())
+
+
+@pytest.mark.cuda
+def test_transient_step_unaligned_takes_the_scalar_route(cuda):
+    """A float32 operator view off the 16-byte grid, at a shape the
+    asynchronous copies would take, goes to the masked-load variant."""
+    rng = np.random.default_rng(64)
+    n, nb = 1000, 16
+    m = torch.as_tensor(rng.uniform(-1, 1, n * n + 1) / n ** 0.5, dtype=torch.float32,
+                        device=cuda)[1:].view(n, n)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), dtype=torch.float32, device=cuda)
+    before = ops.launch_counts_by_route()["transient_step"]["narrow_scalar"]
+    got = st.transient_step(m, z, z, 0.5)
+    assert _share(got, st.transient_step_plain(m, z, z, 0.5), 5e-5) <= 1
+    assert ops.launch_counts_by_route()["transient_step"]["narrow_scalar"] == before + 1
+
+
+@pytest.mark.cuda
+def test_transient_step_narrow_bar_fails_a_dropped_partial_and_fits_one_wave(cuda):
+    """At the kernel API's shape (8192^2, nb = 16, float32): the bar
+    rejects the step with the last cluster rank's k partial left out, and
+    the split's clusters fit one wave of the card's."""
+    rng = np.random.default_rng(65)
+    n, nb = 8192, 16
+    m = torch.as_tensor(rng.uniform(-1, 1, (n, n)) / n ** 0.5, dtype=torch.float32,
+                        device=cuda)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), dtype=torch.float32, device=cuda)
+    ranks = st.transient_step_split(n)
+    assert ranks > 1
+    k0, k1 = st.narrow_k_ranges(n, ranks)[-1]
+    got = st.transient_step(m, z, z, 1.0)
+    dropped = got - torch.matmul(m[:, k0:k1], z[k0:k1])
+    assert _share(dropped, st.transient_step_plain(m, z, z, 1.0), 5e-5) > 1000
+    assert -(-n // st.NARROW_BM) <= st.narrow_clusters_per_wave(ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 80])
+def test_transient_sweep_m_transposed_on_the_card(cuda, n):
+    """The public dense sweep on the card with the transposed operator
+    (m_transposed=True) on both sides of the persistent route's 1 MiB
+    limit (nz = 320: K3; nz = 640: K4) equals the untransposed call."""
+    a, _x, b = _systems(66, n, 2)
+    bss = engine.assemble_batch(build_proposed_batch(a, b, device=cuda), device=cuda)
+    dt = torch.as_tensor(engine._settle_dt(bss, 0.5, "diag"), device=cuda)
+    m = (bss.m * dt[:, None, None]).float()
+    c = (bss.c * dt[:, None]).float()
+    z0 = torch.zeros_like(c)
+    route, _ = ops.dense_prepare(m)
+    assert route == ("dense" if n == 40 else "dense-step")
+    want_z, want_r = ops.transient_sweep(m, z0, c, n_steps=20)
+    mt = ops.pad_rows(m, (1, 2)).transpose(1, 2).contiguous()
+    got_z, got_r = ops.transient_sweep(mt, ops.pad_rows(z0, (1,)), ops.pad_rows(c, (1,)),
+                                       n_steps=20, m_transposed=True)
+    assert torch.equal(got_z[:, :m.shape[1]], want_z) and torch.equal(got_r, want_r)

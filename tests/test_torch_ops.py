@@ -1,7 +1,9 @@
 """Port parity: the kernel API of repro_torch — ``crosspoint_mvm`` (K6),
-``transient_step`` (K5) and ``spd_transform_arrays`` (K7a + K7b) — against
-the reference's wrappers in Pallas interpret mode, at the shapes and with
-the tolerances of the reference's own tests (``tests/test_kernels.py``).
+``transient_step`` (K5), ``transient_step_batched`` (K4),
+``transient_sweep`` (K3 or K4) and ``spd_transform_arrays`` (K7a + K7b) —
+against the reference's wrappers in Pallas interpret mode, at the shapes
+and with the tolerances of the reference's own tests
+(``tests/test_kernels.py``, ``tests/test_batched_engine.py``).
 
 On the CPU each port wrapper runs its kernel's plain PyTorch version;
 ``tests/test_torch_cuda.py`` holds the Hopper kernels against those plain
@@ -9,7 +11,9 @@ versions on a CUDA device.  Inputs are drawn with numpy and rounded to
 the working dtype once, so both packages see identical operands.
 """
 
+import ast
 import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from repro.data.spd import random_rhs_from_solution, random_spd  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.spd_transform import colabs_pallas  # noqa: E402
+from repro.kernels.transient_step import transient_step_batched_pallas  # noqa: E402
 
 import repro_torch.kernels as tkernels  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -278,10 +283,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tr.assemble(f32, torch.ones(4, dtype=torch.float64), torch.ones(4))
 
 
+def _ops_imports(package: str) -> list[str]:
+    """The names ``package/__init__.py`` imports from its ops module, in order."""
+    root = Path(__file__).resolve().parents[1] / "src" / package / "kernels" / "__init__.py"
+    for node in ast.parse(root.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module.endswith("kernels.ops"):
+            return [alias.name for alias in node.names]
+    raise AssertionError(f"no ops import in {root}")
+
+
 def test_package_reexports_the_kernel_api():
-    """repro_torch.kernels exports the reference's kernel API names."""
+    """repro_torch.kernels exports the reference's kernel API names, in the
+    reference's order."""
     assert tkernels.crosspoint_mvm is ops.crosspoint_mvm
     assert tkernels.transient_step is ops.transient_step
+    assert tkernels.transient_step_batched is ops.transient_step_batched
+    assert tkernels.transient_sweep is ops.transient_sweep
     assert tkernels.spd_transform_arrays is ops.spd_transform_arrays
+    assert _ops_imports("repro_torch") == _ops_imports("repro")
     assert set(ops.launch_counts()) >= {"transient_step", "crosspoint_mvm", "colabs",
-                                        "assemble"}
+                                        "assemble", "transient_step_batched"}
+
+
+@pytest.mark.parametrize("n", [100, 128, 300])
+def test_transient_step_batched_matches_reference(n):
+    """The public padded dense step (any n) against the reference's, with
+    its tolerances (tests/test_batched_engine.py:164): the state sliced
+    back to n and the per-system residual at the input state."""
+    rng = np.random.default_rng(n)
+    m = rng.standard_normal((3, n, n)) * 0.05
+    z = rng.standard_normal((3, n))
+    c = rng.standard_normal((3, n))
+    (mj, mt), (zj, zt), (cj, ct) = (_pair(x, "float32") for x in (m, z, c))
+    got, res = ops.transient_step_batched(mt, zt, ct, 1e-2)
+    want, want_res = jops.transient_step_batched(mj, zj, cj, 1e-2, interpret=True)
+    assert got.shape == (3, n) and res.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(res.numpy(), _f32(want_res), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("nz,route", [(384, "dense"), (640, "dense-step")])
+def test_transient_sweep_transposed_operand_matches_reference(nz, route):
+    """m_transposed=True means m[b] = M_b^T, padded, on both sides of the
+    persistent route's 1 MiB limit (nz = 384: 576 KiB, K3; nz = 640:
+    1.6 MiB, K4), as the reference reads it; M is not symmetric, so a
+    route that took the operand as M would compute M^T z."""
+    rng = np.random.default_rng(nz)
+    bsz = 2
+    m = rng.uniform(-1, 1, (bsz, nz, nz)) * 0.3 / np.sqrt(nz) - 0.5 * np.eye(nz)
+    assert np.abs(m - m.transpose(0, 2, 1)).max() > 0.01
+    z = rng.uniform(-0.5, 0.5, (bsz, nz))
+    c = rng.uniform(-0.5, 0.5, (bsz, nz))
+    (mj, _), (zj, zt), (cj, ct) = (_pair(x, "float32") for x in (m, z, c))
+    m_t = np.ascontiguousarray(_f32(mj).transpose(0, 2, 1))
+    assert ops.sweep_backend(nz, None) == route
+    got_z, got_r = ops.transient_sweep(torch.from_numpy(m_t), zt, ct, n_steps=12,
+                                       m_transposed=True)
+    want_z, want_r = jops.transient_sweep(jnp.asarray(m_t), zj, cj, n_steps=12,
+                                          interpret=True, m_transposed=True)
+    np.testing.assert_allclose(got_z.numpy(), _f32(want_z), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_r.numpy(), _f32(want_r), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bsz,n", [(4, 512), (1, 1024), (2, 640)])
+def test_dense_step_kernel_order_matches_reference(bsz, n):
+    """K4's split order (each cluster rank's columns, partials added in
+    rank order) against transient_step_batched_pallas in interpret mode,
+    within 1e-5 max|z'| (the sweeps' bar) and 1e-4 of the residual."""
+    rng = np.random.default_rng(bsz * n)
+    m = rng.uniform(-1, 1, (bsz, n, n)) / np.sqrt(n)
+    z = rng.uniform(-0.5, 0.5, (bsz, n))
+    c = rng.uniform(-0.5, 0.5, (bsz, n))
+    (mj, mt), (zj, zt), (cj, ct) = (_pair(x, "float32") for x in (m, z, c))
+    assert st.dense_step_ranks(bsz, n) > 1
+    want, want_res = transient_step_batched_pallas(mj, zj, cj, 1.0, interpret=True)
+    got, res = st.dense_step_in_kernel_order(mt, zt, ct, 1.0)
+    want = _f32(want)
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * float(np.abs(want).max())
+    want_res = _f32(want_res)
+    assert float(np.abs(res.numpy() - want_res).max()) <= 1e-4 * float(np.abs(want_res).max())
+
+
+@pytest.mark.parametrize("n,b", [(1000, 16), (2048, 5), (700, 2)])
+def test_transient_step_kernel_order_matches_reference(n, b):
+    """K5's narrow split order (warps' k slices, then cluster ranks) against
+    transient_step in interpret mode, within TOL_MVM_F32 = 5e-5 max|want|."""
+    rng = np.random.default_rng(n + b)
+    mj, mt = _pair(rng.uniform(-1, 1, (n, n)) / np.sqrt(n), "float32")
+    zj, zt = _pair(rng.uniform(-0.5, 0.5, (n, b)), "float32")
+    cj, ct = _pair(rng.uniform(-0.5, 0.5, (n, b)), "float32")
+    assert st.transient_step_split(n) > 1
+    want = _f32(jops.transient_step(mj, zj, cj, 0.5, interpret=True))
+    got = st.transient_step_in_kernel_order(mt, zt, ct, 0.5).numpy()
+    assert float(np.abs(got - want).max()) <= 5e-5 * float(np.abs(want).max())

@@ -1,11 +1,14 @@
-"""Routing of the kernels with more than one route (K6, K7a, K8), on the CPU.
+"""Routing of the kernels with more than one route (K5, K6, K7a, K8) and
+the splits of the kernels that reduce across a cluster (K4, K5, K6, K7a),
+on the CPU.
 
 * The route choosers are pure functions of dtype, shape and alignment:
   each returns the route its source note documents.
-* K7a and K6's float32 routes split a reduction over the blocks of a
-  thread-block cluster and add the partials in a fixed order: the split
-  itself is a pure function of the shape, and the sums taken in that
-  order stay within the kernels' bars of the plain versions.
+* K4, K5's narrow routes, K7a and K6's float32 routes split a reduction
+  over the blocks of a thread-block cluster and add the partials in a
+  fixed order: the split itself is a pure function of the shape, and the
+  sums taken in that order stay within the kernels' bars of the plain
+  versions.
 * K8's ``p_dtype = None`` on the tensor cores splits p into two bf16
   parts, p_hi + p_lo; a plain emulation shows the split keeps p float32
   in meaning.
@@ -22,12 +25,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as k8  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spd_transform as tr  # noqa: E402
 
-# repro_torch.kernels re-exports a function named like this submodule
+# repro_torch.kernels re-exports functions named like these submodules
 mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+st = importlib.import_module("repro_torch.kernels.transient_step")
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -85,6 +90,23 @@ def test_crosspoint_mvm_f32_route_of_ragged_shapes(m, k, nb, route):
     """The float32 shapes the smoke run holds (RAGGED_MVM_F32) reach the
     route it expects of each."""
     assert mvm.crosspoint_mvm_route(F32, m, k, nb, True) == route
+
+
+@pytest.mark.parametrize("tiles,max_split,max_by_work,ranks", [
+    (64, 8, 16, 2),      # 64 x 4 = 256 blocks would take a second wave
+    (60, 4, 32, 4),      # 60 x 4 = 240 blocks: one wave exactly
+    (16, 8, 4, 4),       # the work gives only 4 ranks a share
+    (16, 8, 3, 2),       # rounded down to a power of two
+    (30, 8, 64, 8),      # 30 clusters of 8: one wave exactly
+    (241, 8, 64, 1),     # the tiles alone are past one wave
+    (0, 8, 0, 1),        # nothing to split: one rank
+])
+def test_split_ranks(tiles, max_split, max_by_work, ranks):
+    """The split kernels' shared chooser: the largest power of two up to
+    max_split and max_by_work whose grid fits ONE_WAVE_BLOCKS, at least 1."""
+    got = build.split_ranks(tiles, max_split, max_by_work)
+    assert got == ranks and got & (got - 1) == 0
+    assert got == 1 or tiles * got <= build.ONE_WAVE_BLOCKS
 
 
 @pytest.mark.parametrize("m,k,nb,ranks", [
@@ -296,14 +318,209 @@ def test_flash_attention_on_cpu_runs_the_plain_version(dtype, p_dtype, d):
 
 
 def test_launch_counts_by_route_keys_and_reset():
-    """Every route of K6, K7a and K8 has a count, and the reset zeroes
+    """Every route of K5, K6, K7a and K8 has a count, and the reset zeroes
     them beside the per-kernel counts."""
     counts = ops.launch_counts_by_route()
-    assert set(counts) == {"crosspoint_mvm", "colabs", "flash_attention"}
+    assert set(counts) == {"transient_step", "crosspoint_mvm", "colabs", "flash_attention"}
+    assert set(counts["transient_step"]) == set(st.STEP_ROUTES)
     assert set(counts["crosspoint_mvm"]) == set(mvm.ROUTES)
     assert set(counts["colabs"]) == set(tr.COLABS_ROUTES)
     assert set(counts["flash_attention"]) == set(k8.ROUTES)
+    by_dtype = ops.launch_counts_by_dtype()
+    assert set(by_dtype) == {"float32", "bfloat16"}
+    assert all(set(by_route) == set(st.STEP_ROUTES) for by_route in by_dtype.values())
     ops.reset_launch_counts()
     assert all(n == 0 for by_route in ops.launch_counts_by_route().values()
                for n in by_route.values())
+    assert all(n == 0 for by_route in ops.launch_counts_by_dtype().values()
+               for n in by_route.values())
     assert all(n == 0 for n in ops.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# (d) K4 and K5's narrow routes: splits, routes and sum orders
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bsz,n,ranks", [
+    (4, 2048, 2),     # the settle sweep's shape: 64 row blocks, 128 blocks
+    (1, 8192, 2),     # one n = 1024 circuit (the K5 vs K4 check)
+    (4, 1024, 4),
+    (4, 640, 4),      # five column chunks: one rank short
+    (4, 512, 4),
+    (4, 384, 2),      # three column chunks
+    (1, 128, 1),      # one chunk
+    (64, 2048, 1),    # 1024 row blocks fill the card alone
+])
+def test_dense_step_ranks(bsz, n, ranks):
+    """K4's split: the largest power of two up to 8 that keeps the grid
+    within 240 blocks (one wave) and gives every rank a column chunk."""
+    assert st.dense_step_ranks(bsz, n) == ranks
+    row_blocks = bsz * n // st.ROW_BLOCK
+    assert ranks == 1 or row_blocks * ranks <= build.ONE_WAVE_BLOCKS
+    assert ranks <= n // st.DENSE_STEP_CHUNK
+
+
+@pytest.mark.parametrize("n", [128, 384, 640, 2048, 8192])
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+def test_dense_step_column_ranges_cover_the_columns(n, ranks):
+    """The ranks' column ranges tile [0, n) in order, on the 128-column grid."""
+    ranges = st.dense_step_column_ranges(n, ranks)
+    assert len(ranges) == ranks and ranges[0][0] == 0 and ranges[-1][1] == n
+    for (a0, a1), (b0, _b1) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    assert all(c0 % 128 == 0 and c0 <= c1 for c0, c1 in ranges)
+
+
+@pytest.mark.parametrize("bsz,n", [(4, 2048), (4, 640), (2, 384), (1, 1024)])
+def test_dense_step_kernel_order_within_the_bar(bsz, n):
+    """K4's split order in plain PyTorch (each rank's columns as one
+    product, the partials in rank order) against the plain step, within
+    the sweeps' bar of 1e-5 max|z'|; the block maxima are the plain ones."""
+    rng = np.random.default_rng(n + bsz)
+    m = torch.as_tensor(rng.uniform(-1, 1, (bsz, n, n)) / n ** 0.5, dtype=F32)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, n)), dtype=F32)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, n)), dtype=F32)
+    got, res = st.dense_step_in_kernel_order(m, z, c, 0.5)
+    want, want_res = st.transient_step_batched_plain(m, z, c, 0.5)
+    assert res.shape == want_res.shape == (bsz, n // 128)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float((res - want_res).abs().max()) <= 1e-4 * float(want_res.abs().max())
+
+
+@pytest.mark.parametrize("nb", [1, 2, 5, 8, 12, 16, 17, 64])
+@pytest.mark.parametrize("n", [8192, 8190, 137])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_transient_step_route(dtype, n, nb, aligned):
+    """nb = 1 takes the column tile and nb > 16 the wide one in both
+    dtypes; between, the split-k product, by 16-byte copies only where n
+    and nb are multiples of 4 (float32) or 8 (bf16) and both bases are
+    aligned."""
+    route = st.transient_step_route(dtype, n, nb, aligned)
+    per_chunk = 8 if dtype == BF16 else 4
+    if nb == 1:
+        assert route == "column"
+    elif nb > 16:
+        assert route == "wide"
+    else:
+        vec16 = n % per_chunk == 0 and nb % per_chunk == 0 and aligned
+        assert route == ("narrow_async" if vec16 else "narrow_scalar")
+    assert route in st.STEP_ROUTES
+
+
+@pytest.mark.parametrize("n,ranks", [
+    (8192, 2),     # 64 row tiles: 4 ranks would be 256 blocks, past one wave
+    (8190, 2),
+    (4096, 4),     # 32 tiles
+    (1000, 2),     # 8 tiles, each rank at least 512 of k
+    (512, 1),
+    (137, 1),
+    (16384, 1),    # 128 tiles fill the card alone
+])
+def test_transient_step_split(n, ranks):
+    """K5's narrow split: the largest power of two up to 8 that keeps the
+    grid within 240 blocks and gives each rank at least 512 of k."""
+    assert st.transient_step_split(n) == ranks
+    tiles = -(-n // st.NARROW_BM)
+    assert ranks == 1 or tiles * ranks <= build.ONE_WAVE_BLOCKS
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 137, 1000, 8190, 8192])
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+def test_narrow_k_ranges_cover_k_on_the_grid(n, ranks):
+    """The ranks' k ranges tile [0, n) in rank order, each starting on the
+    64-deep grid that both dtypes' steps divide."""
+    ranges = st.narrow_k_ranges(n, ranks)
+    assert len(ranges) == ranks and ranges[0][0] == 0 and ranges[-1][1] == n
+    for (a0, a1), (b0, _b1) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    assert all(k0 % st.NARROW_K_GRID == 0 or k0 == n for k0, _ in ranges)
+
+
+@pytest.mark.parametrize("shape", [(2048, 16), (1000, 16), (137, 5), (300, 2), (700, 12)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_transient_step_kernel_order_within_the_bar(shape, dtype):
+    """K5's narrow order in plain PyTorch (each warp's k slice of each
+    128-byte step, warps then ranks in order) against the plain step:
+    float32 within 5e-5 max|want| (the kernel-API bar), bf16 element by
+    element within one bf16 rounding of the float32 result."""
+    n, nb = shape
+    rng = np.random.default_rng(n + nb)
+    m = torch.as_tensor(rng.uniform(-1, 1, (n, n)) / n ** 0.5, dtype=F32).to(dtype)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), dtype=F32).to(dtype)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, nb)), dtype=F32).to(dtype)
+    got = st.transient_step_in_kernel_order(m, z, c, 0.5)
+    want = st.transient_step_plain(m, z, c, 0.5)
+    assert got.dtype == dtype and got.shape == (n, nb)
+    g, w = got.double(), want.double()
+    if dtype == F32:
+        assert float((g - w).abs().max()) <= 5e-5 * float(w.abs().max())
+    else:
+        assert bool(((g - w).abs() <= 1e-2 * w.abs() + 1e-3 * w.abs().max()).all())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("nb", [1, 5, 16, 33])
+def test_transient_step_on_cpu_runs_the_plain_version(dtype, nb):
+    rng = np.random.default_rng(nb)
+    m = torch.as_tensor(rng.standard_normal((90, 90)) * 0.1, dtype=F32).to(dtype)
+    z = torch.as_tensor(rng.standard_normal((90, nb)), dtype=F32).to(dtype)
+    before = (ops.launch_counts(), ops.launch_counts_by_route(), ops.launch_counts_by_dtype())
+    assert torch.equal(st.transient_step(m, z, z, 0.1), st.transient_step_plain(m, z, z, 0.1))
+    assert (ops.launch_counts(), ops.launch_counts_by_route(),
+            ops.launch_counts_by_dtype()) == before
+
+
+def test_transient_step_batched_on_cpu_runs_the_plain_version():
+    rng = np.random.default_rng(3)
+    m = torch.as_tensor(rng.standard_normal((2, 256, 256)) * 0.05, dtype=F32)
+    z = torch.as_tensor(rng.standard_normal((2, 256)), dtype=F32)
+    before = ops.launch_counts()
+    for got, want in zip(st.transient_step_batched(m, z, z, 0.5),
+                         st.transient_step_batched_plain(m, z, z, 0.5)):
+        assert torch.equal(got, want)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("n,route", [(40, "dense"), (48, "dense"), (64, "dense"),
+                                     (80, "dense-step"), (256, "dense-step")])
+@pytest.mark.parametrize("sweep_dtype", ["float32", "bfloat16"])
+def test_dense_prepare_lays_out_the_operand_for_its_kernel(n, route, sweep_dtype):
+    """dense_prepare rounds through the sweep dtype, pads to the row block
+    and transposes for K3 only (the persistent route up to a 1 MiB
+    operator: nz = 8n states on the proposed design)."""
+    nz = 8 * n
+    rng = np.random.default_rng(n)
+    m = torch.as_tensor(rng.standard_normal((2, nz, nz)), dtype=F32)
+    got_route, operand = ops.dense_prepare(m, sweep_dtype)
+    assert got_route == route == ops.sweep_backend(nz, None)
+    size = nz + (-nz) % 128
+    assert operand.shape == (2, size, size) and operand.is_contiguous()
+    want = m.to(BF16).float() if sweep_dtype == "bfloat16" else m
+    want = ops.pad_rows(want, (1, 2))
+    if route == "dense":
+        want = want.transpose(1, 2)
+    assert torch.equal(operand, want)
+
+
+@pytest.mark.parametrize("n", [40, 80])
+def test_transient_sweep_transposed_operand_on_both_routes(n):
+    """m_transposed=True takes M^T padded on both sides of the persistent
+    route's limit and gives what the untransposed call gives; the
+    prepared path (the engine's) gives it too."""
+    nz = 8 * n
+    rng = np.random.default_rng(n + 1)
+    m = torch.as_tensor(rng.uniform(-1, 1, (2, nz, nz)) * 0.3 / nz ** 0.5 - 0.5 * np.eye(nz),
+                        dtype=F32)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, nz)), dtype=F32)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, nz)), dtype=F32)
+    want_z, want_r = ops.transient_sweep(m, z, c, n_steps=7)
+    zp, cp = ops.pad_rows(z, (1,)), ops.pad_rows(c, (1,))
+    mt = ops.pad_rows(m, (1, 2)).transpose(1, 2).contiguous()
+    got_z, got_r = ops.transient_sweep(mt, zp, cp, n_steps=7, m_transposed=True)
+    assert torch.equal(got_z[:, :nz], want_z) and torch.equal(got_r, want_r)
+    route, operand = ops.dense_prepare(m)
+    prep_z, prep_r = ops.dense_sweep_prepared(route, operand, zp, cp, n_steps=7)
+    assert torch.equal(prep_z[:, :nz], want_z) and torch.equal(prep_r, want_r)
