@@ -12,13 +12,19 @@ non-zero:
    against its plain PyTorch version on the card at every operator shape
    the main path assembles (ELL n = 256, 1024, 2048; dense n = 48, 256)
    and at dense n = 64, 80, 128 around the persistent route's limit, plus each
-   persistent sweep against the loop of its row-tiled step; K4, split over
+   persistent sweep against the loop of its row-tiled step (K1 bit for
+   bit, in both dtypes); K1 and K3, one system per thread-block cluster,
+   also bit for bit from launch to launch, with their cluster size,
+   variant (slots or slab resident in shared memory, or streamed; both
+   variants of each must run) and clusters per wave at every shape, and
+   at the main shape a planted fault (the last rank's rows never
+   broadcast) that the bar must reject by more than 1000x; K4, split over
    a cluster, also bit for bit from launch to launch, against its split
    order in plain PyTorch and at dt = 0 at every dense shape, and at the
    main shape its split within one wave and a planted fault (the last
-   rank's columns left out) that its bar must reject; kernel,
-   plain-version and library-call times, and the per-step times of both
-   routes of each pair at each shape;
+   rank's columns left out) that its bar must reject; kernel (in a Python
+   loop and in a CUDA graph), plain-version and library-call times, and
+   the per-step times of both routes of each pair at each shape;
 3. slice — the main path through the public entry points, with every
    launch count reset just before and read just after, and each case
    failing unless its operator is routed to the kernel it is there to
@@ -76,8 +82,8 @@ non-zero:
    the K8 bars and the logit bar must reject; and the SMOKE config
    (float32, K8's FMA route) on the card against the CPU;
 7. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
-   split, K7a with its route), the nvidia-smi line, and the contract's
-   last line.
+   split, K1 and K3 with their cluster layout, K7a with its route), the
+   nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 outside a checkout (no ``src/repro_torch`` beside it), it exits with
@@ -251,8 +257,11 @@ TOL_Z, TOL_RES, TOL_BF16 = 1e-5, 1e-4, 2e-3
 
 def ell_pair(n: int, dev, steps: int) -> dict:
     """K1 and K2 on the size-n ELL operator: each against its plain version
-    in float32 and bfloat16, K1 against ``steps`` K2 launches plus the dt=0
-    launch; per-call times of both."""
+    in float32 and bfloat16, K1 bit for bit against ``steps`` K2 launches
+    plus the dt=0 launch in both dtypes and against a second K1 launch, its
+    cluster size, variant and clusters per wave, at the main shape a
+    planted fault (the last rank's rows never broadcast); per-call times
+    of both."""
     from repro_torch.kernels import ell_transient as ek
     from repro_torch.kernels import ops
 
@@ -264,11 +273,24 @@ def ell_pair(n: int, dev, steps: int) -> dict:
     zp, rp = ek.ell_sweep_plain(idx_t, w_t, z0, c, n_steps=steps)
     e1, r1 = max_rel(zk, zp)
     _, rr1 = max_rel(rk, rp)
-    zkb, _ = ek.ell_sweep(idx_t, w_bf, z0, c, n_steps=steps)
+    zkb, rkb = ek.ell_sweep(idx_t, w_bf, z0, c, n_steps=steps)
     zpb, _ = ek.ell_sweep_plain(idx_t, w_bf, z0, c, n_steps=steps)
     e1b, r1b = max_rel(zkb, zpb)
     check(r1 <= TOL_Z and rr1 <= TOL_RES, f"K1 n={n} vs plain: state {r1}, residual {rr1}")
     check(r1b <= TOL_BF16, f"K1 bf16 n={n} vs plain: state {r1b}")
+    # K1 runs each system over a cluster; two launches give the same bits
+    zk2, rk2 = ek.ell_sweep(idx_t, w_t, z0, c, n_steps=steps)
+    zkb2, rkb2 = ek.ell_sweep(idx_t, w_bf, z0, c, n_steps=steps)
+    check(torch.equal(zk, zk2) and torch.equal(rk, rk2)
+          and torch.equal(zkb, zkb2) and torch.equal(rkb, rkb2),
+          f"K1 n={n}: two launches differ")
+    layout = {}
+    for dtype, w in (("float32", w_t), ("bfloat16", w_bf)):
+        isz = w.element_size()
+        layout[dtype] = dict(ranks=ek.ell_sweep_ranks(nz, k, isz),
+                             variant=ek.ell_sweep_variant(nz, k, isz),
+                             clusters_per_wave=ek.ell_sweep_clusters_per_wave(nz, k, w.dtype))
+        check(layout[dtype]["clusters_per_wave"] > 0, f"K1 n={n} {dtype}: no cluster fits")
 
     zs, rs = ek.ell_step(idx_t, w_t, z0, c)
     zsp, rsp = ek.ell_step_plain(idx_t, w_t, z0, c)
@@ -280,15 +302,26 @@ def ell_pair(n: int, dev, steps: int) -> dict:
     check(r2 <= TOL_Z and rr2 <= TOL_RES, f"K2 n={n} vs plain: state {r2}, residual {rr2}")
     check(r2b <= TOL_BF16, f"K2 bf16 n={n} vs plain: state {r2b}")
 
-    zl = z0
-    for _ in range(steps):
-        zl, _ = ek.ell_step(idx_t, w_t, zl, c)
-    _, rl = ek.ell_step(idx_t, w_t, zl, c, 0.0)
-    _, x12 = max_rel(zl, zk)
-    _, xr12 = max_rel(rl.amax(dim=1), rk[:, 0])
-    check(x12 <= TOL_Z and xr12 <= TOL_RES, f"K1 vs K2 loop n={n}: {x12}, {xr12}")
+    # K1 computes each row with K2's arithmetic: n K1 steps are n K2
+    # launches, bit for bit, in both dtypes
+    for label, w, zs1, rs1 in (("float32", w_t, zk, rk), ("bfloat16", w_bf, zkb, rkb)):
+        zl = z0
+        for _ in range(steps):
+            zl, _ = ek.ell_step(idx_t, w, zl, c)
+        _, rl = ek.ell_step(idx_t, w, zl, c, 0.0)
+        check(torch.equal(zl, zs1) and torch.equal(rl.amax(dim=1), rs1[:, 0]),
+              f"K1 vs K2 loop n={n} {label}: not bit for bit (state {max_rel(zl, zs1)}, "
+              f"residual {max_rel(rl.amax(dim=1), rs1[:, 0])})")
+    if n == MAIN_SHAPE["ell_sweep"][1]:
+        # the bar rejects a sweep whose last rank's rows never reach its peers
+        ranks = layout["float32"]["ranks"]
+        layout["broadcast_dropped_of_bar"] = share_of_bar(sweep_broadcast_dropped(
+            lambda z: z + ek.ell_dz_plain(idx_t, w_t, z, c), z0, steps, ranks), zp, TOL_Z)
 
     t_k1 = cuda_ms(lambda: ek.ell_sweep(idx_t, w_t, z0, c, n_steps=steps), 20)
+    t_k1g = graph_ms(lambda: ek.ell_sweep(idx_t, w_t, z0, c, n_steps=steps), 10)
+    # a launch with no step: the slots' copy, the residual pass, the launch
+    t_k1g0 = graph_ms(lambda: ek.ell_sweep(idx_t, w_t, z0, c, n_steps=0), 20)
     t_k1b = cuda_ms(lambda: ek.ell_sweep(idx_t, w_bf, z0, c, n_steps=steps), 20)
     t_k1p = cuda_ms(lambda: ek.ell_sweep_plain(idx_t, w_t, z0, c, n_steps=steps), 3)
     t_k2 = cuda_ms(lambda: ek.ell_step(idx_t, w_t, z0, c), 200)
@@ -303,23 +336,46 @@ def ell_pair(n: int, dev, steps: int) -> dict:
     return dict(
         route=route,
         ell_sweep=dict(
-            shape=[bsz, k, nz], n_steps=steps, ms=t_k1, ms_bf16=t_k1b, plain_ms=t_k1p,
-            library_ms=None, max_abs_err=e1, max_abs_err_bf16=e1b,
-            bytes=k1_bytes, flops=(steps + 1) * bsz * nz * (2 * k + 2)),
+            shape=[bsz, k, nz], n_steps=steps, ms=t_k1, device_ms=t_k1g,
+            device_ms_0_steps=t_k1g0, ms_bf16=t_k1b,
+            plain_ms=t_k1p, library_ms=None, max_abs_err=e1, max_abs_err_bf16=e1b,
+            bytes=k1_bytes, flops=(steps + 1) * bsz * nz * (2 * k + 2), layout=layout,
+            equals_k2_loop=True),
         ell_step=dict(
             shape=[bsz, k, nz], ms=t_k2, device_ms=t_k2g, plain_ms=t_k2p,
             library_ms=t_k2l, max_abs_err=e2, max_abs_err_bf16=e2b,
             bytes=k2_bytes, flops=bsz * nz * (2 * k + 2)),
-        per_step={"route": route, "k1_ms_per_step": t_k1 / steps, "k2_ms_per_step": t_k2,
+        per_step={"route": route, "k1_ms_per_step": t_k1 / steps,
+                  "k1_device_ms_per_step": t_k1g / steps,
+                  "k1_device_ms_per_step_past_launch": (t_k1g - t_k1g0) / steps,
+                  "k2_ms_per_step": t_k2,
                   "k2_device_ms_per_step": t_k2g,
                   "operator_bytes_per_system": nz * k * 8},
     )
 
 
+def sweep_broadcast_dropped(step, z0: torch.Tensor, steps: int, ranks: int) -> torch.Tensor:
+    """A planted fault, in plain PyTorch: a persistent sweep over ``ranks``
+    cluster ranks whose last rank never broadcasts its rows.  Its peers
+    keep those rows at their start values, the last rank sees every row;
+    each rank returns its own rows.  ``step(z)`` is one plain step of every
+    row."""
+    r0 = z0.shape[1] - z0.shape[1] // ranks
+    peers, last = z0, z0
+    for _ in range(steps):
+        from_peers = step(peers)[:, :r0]
+        own = step(last)[:, r0:]
+        peers = torch.cat([from_peers, z0[:, r0:]], dim=1)
+        last = torch.cat([from_peers, own], dim=1)
+    return torch.cat([peers[:, :r0], last[:, r0:]], dim=1)
+
+
 def dense_pair(n: int, dev, steps: int) -> dict:
     """K3 and K4 on the size-n dense operator: each against its plain
-    version, K3 against ``steps`` K4 launches plus the dt=0 launch;
-    per-call times of both."""
+    version, K3 against ``steps`` K4 launches plus the dt=0 launch and
+    against a second K3 launch, its cluster size, variant and clusters per
+    wave, at the main shape a planted fault (the last rank's rows never
+    broadcast); per-call times of both."""
     from repro_torch.kernels import ops
     sk = importlib.import_module("repro_torch.kernels.transient_step")
 
@@ -332,6 +388,17 @@ def dense_pair(n: int, dev, steps: int) -> dict:
     e3, r3 = max_rel(zk, zp)
     _, rr3 = max_rel(rk, rp)
     check(r3 <= TOL_Z and rr3 <= TOL_RES, f"K3 n={n} vs plain: state {r3}, residual {rr3}")
+    # K3 runs each system over a cluster; two launches give the same bits
+    zk2, rk2 = sk.transient_sweep(m_t, z0, c, n_steps=steps)
+    check(torch.equal(zk, zk2) and torch.equal(rk, rk2), f"K3 n={n}: two launches differ")
+    layout = dict(ranks=sk.dense_sweep_ranks(nz), variant=sk.dense_sweep_variant(nz),
+                  clusters_per_wave=sk.dense_sweep_clusters_per_wave(nz))
+    check(layout["clusters_per_wave"] > 0, f"K3 n={n}: no cluster fits")
+    if n == MAIN_SHAPE["transient_sweep"][1]:
+        # the bar rejects a sweep whose last rank's rows never reach its peers
+        layout["broadcast_dropped_of_bar"] = share_of_bar(sweep_broadcast_dropped(
+            lambda z: z + (torch.einsum("bj,bji->bi", z, m_t) + c), z0, steps,
+            layout["ranks"]), zp, TOL_Z)
     zs, rs = sk.transient_step_batched(m, z0, c)
     zsp, rsp = sk.transient_step_batched_plain(m, z0, c)
     e4, r4 = max_rel(zs, zsp)
@@ -377,7 +444,21 @@ def dense_pair(n: int, dev, steps: int) -> dict:
     _, xr34 = max_rel(rl.amax(dim=1), rk[:, 0])
     check(x34 <= TOL_Z and xr34 <= TOL_RES, f"K3 vs K4 loop n={n}: {x34}, {xr34}")
 
-    t_k3 = cuda_ms(lambda: sk.transient_sweep(m_t, z0, c, n_steps=steps), 5)
+    t_k3 = cuda_ms(lambda: sk.transient_sweep(m_t, z0, c, n_steps=steps), 10)
+    t_k3g = graph_ms(lambda: sk.transient_sweep(m_t, z0, c, n_steps=steps), 10)
+    # a launch with no step: the slab's copy, the residual pass, the launch
+    t_k3g0 = graph_ms(lambda: sk.transient_sweep(m_t, z0, c, n_steps=0), 20)
+    if n == MAIN_SHAPE["transient_sweep"][1]:
+        # what more ranks buy: the resident sweep's device time at each
+        # cluster size that fits, each held to the plain version's bar first
+        layout["device_ms_by_ranks"] = {}
+        for r in (4, 8, 16):
+            if sk.dense_sweep_fits(nz, r):
+                zr, rr = k3_at_ranks(m_t, z0, c, steps, r)
+                check(max_rel(zr, zp)[1] <= TOL_Z and max_rel(rr, rp)[1] <= TOL_RES,
+                      f"K3 n={n} at R = {r} vs plain")
+                layout["device_ms_by_ranks"][r] = graph_ms(
+                    lambda r=r: k3_at_ranks(m_t, z0, c, steps, r), 10)
     t_k3p = cuda_ms(lambda: sk.transient_sweep_plain(m_t, z0, c, n_steps=steps), 3)
     t_k4 = cuda_ms(lambda: sk.transient_step_batched(m, z0, c), 200)
     t_k4g = graph_ms(lambda: sk.transient_step_batched(m, z0, c), 100)
@@ -391,16 +472,37 @@ def dense_pair(n: int, dev, steps: int) -> dict:
     return dict(
         route=route,
         transient_sweep=dict(
-            shape=[bsz, nz, nz], n_steps=steps, ms=t_k3, plain_ms=t_k3p, library_ms=None,
-            max_abs_err=e3, bytes=k3_bytes, flops=(steps + 1) * bsz * nz * (2 * nz + 2)),
+            shape=[bsz, nz, nz], n_steps=steps, ms=t_k3, device_ms=t_k3g,
+            device_ms_0_steps=t_k3g0, plain_ms=t_k3p,
+            library_ms=None, max_abs_err=e3, bytes=k3_bytes,
+            flops=(steps + 1) * bsz * nz * (2 * nz + 2), layout=layout),
         transient_step_batched=dict(
             shape=[bsz, nz, nz], ms=t_k4, device_ms=t_k4g, plain_ms=t_k4p,
             library_ms=t_k4l, max_abs_err=e4, bytes=k4_bytes,
             flops=bsz * nz * (2 * nz + 2), split=split),
-        per_step={"route": route, "k3_ms_per_step": t_k3 / steps, "k4_ms_per_step": t_k4,
+        per_step={"route": route, "k3_ms_per_step": t_k3 / steps,
+                  "k3_device_ms_per_step": t_k3g / steps,
+                  "k3_device_ms_per_step_past_launch": (t_k3g - t_k3g0) / steps,
+                  "k4_ms_per_step": t_k4,
                   "k4_device_ms_per_step": t_k4g,
                   "operator_bytes_per_system": nz * nz * 4},
     )
+
+
+def k3_at_ranks(m_t: torch.Tensor, z: torch.Tensor, c: torch.Tensor, steps: int,
+                ranks: int):
+    """K3's resident sweep on ``ranks`` blocks a system, launched through
+    the library's C entry (the wrapper takes dense_sweep_ranks' R) and not
+    counted."""
+    from repro_torch.kernels import build
+
+    bsz, nz = z.shape
+    out = torch.empty_like(z)
+    res = torch.empty((bsz, 1), dtype=torch.float32, device=z.device)
+    build.load_library().call("repro_dense_sweep", m_t.data_ptr(), z.data_ptr(), c.data_ptr(),
+                              out.data_ptr(), res.data_ptr(), bsz, nz, steps, 1.0, ranks, 1,
+                              build.current_stream(z.device))
+    return out, res
 
 
 def k4_at_ranks(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor, ranks: int):
@@ -442,13 +544,29 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     """Both kernels of each pair at every operator shape the main path
     builds (ELL at n = 256, 1024, 2048; dense at n = 48, 256), plus the
     dense operators of DENSE_ROUTE_PROBES around the persistent dense
-    route's limit.  Returns the per-shape results and the route each
-    shape takes."""
+    route's limit; fails unless K1 and K3 each ran both variants and the
+    planted lost-broadcast faults fail their bars by more than 1000x.
+    Returns the per-shape results and the route each shape takes."""
+    from repro_torch.kernels import ops
+
     pairs: dict[tuple[str, int], dict] = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
     for n in (N_DENSE, N_MATRIX_FREE, N_MATRIX_FREE_LARGE):
         pairs[("ell", n)] = ell_pair(n, dev, KERNEL_STEPS)
     for n in (N_DENSE_SMALL, N_DENSE, *DENSE_ROUTE_PROBES):
         pairs[("dense", n)] = dense_pair(n, dev, KERNEL_STEPS)
+    by_variant = ops.launch_counts_by_variant()
+    for name, counts in by_variant.items():
+        for variant, launched in counts.items():
+            check(launched > 0, f"{name}: the {variant} variant was not launched")
+    planted = {name: pairs[MAIN_SHAPE[name]][name]["layout"]["broadcast_dropped_of_bar"]
+               for name in ("ell_sweep", "transient_sweep")}
+    for name, share in planted.items():
+        check(share > 1000, f"{name}: the bar passes a lost broadcast, or fails it by 1000x "
+                            f"or less: {share} of it")
+    emit(dict(phase="kernels", case="sweep_variants", launches_by_variant=by_variant,
+              broadcast_dropped_of_bar=planted))
     return pairs, {key: p["route"] for key, p in pairs.items()}
 
 
@@ -459,7 +577,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
 
 def drive(fn, launches: dict) -> tuple[object, dict, dict, float]:
     """Run one main-path call with the launch counts reset just before and
-    read just after; add them to ``launches``."""
+    read just after; add them to ``launches``, and the persistent sweeps'
+    by variant to ``launches["by_variant"]``."""
     from repro_torch.kernels import ops
 
     timings: dict = {}
@@ -472,6 +591,11 @@ def drive(fn, launches: dict) -> tuple[object, dict, dict, float]:
     counts = ops.launch_counts()
     for name, v in counts.items():
         launches[name] = launches.get(name, 0) + v
+    by_variant = launches.setdefault("by_variant", {})
+    for name, per in ops.launch_counts_by_variant().items():
+        for variant, v in per.items():
+            by_variant.setdefault(name, {}).setdefault(variant, 0)
+            by_variant[name][variant] += v
     return result, counts, timings, wall
 
 
@@ -1609,7 +1733,9 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
     every shape, its launches from the main path that drives it (the slice
     for K1-K4, the kernel API for K5-K7b, the serving path for K8), for
     K5, K6 and K8 those of the row's route (``kernel_route``; K7a names
-    its route too, K4 its split; K5's rows count their own dtype), and
+    its route too, K4 its split, K1 and K3 their cluster size, variant,
+    clusters per wave and main-path launches by variant; K5's rows count
+    their own dtype), and
     K8's fma row counts the float32 SMOKE config's engine run on the
     card."""
     replaces = {
@@ -1634,6 +1760,15 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=k["library_ms"], shape=k["shape"], device_ms=k.get("device_ms"),
         ))
+        if "layout" in k:
+            # K1 (float32 slots) and K3: cluster size, variant, clusters per wave
+            layout = k["layout"].get("float32", k["layout"])
+            rows[-1].update(ranks=layout["ranks"], variant=layout["variant"],
+                            clusters_per_wave=layout["clusters_per_wave"],
+                            launches_by_variant=launches["by_variant"][name],
+                            device_ms_0_steps=k["device_ms_0_steps"])
+            if "device_ms_by_ranks" in layout:
+                rows[-1]["device_ms_by_ranks"] = layout["device_ms_by_ranks"]
         if "split" in k:
             rows[-1]["ranks"] = k["split"]["ranks"]
             rows[-1]["device_ms_by_ranks"] = k["split"]["device_ms_by_ranks"]

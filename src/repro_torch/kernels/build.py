@@ -47,6 +47,31 @@ NVCC_FLAGS = (
 # of at most 240 blocks runs in one wave at every cluster size.
 ONE_WAVE_BLOCKS = 240
 
+# Shared memory a thread block may use on an H100 (sharedMemPerBlockOptin)
+SMEM_PER_BLOCK = 232_448
+
+# The persistent sweeps K1 and K3 run each system on the R blocks of a
+# thread-block cluster, R a power of two up to SWEEP_MAX_RANKS (past the
+# portable 8; csrc/common.cuh), in one of two variants: "resident", each
+# rank's share of the operator copied into its shared memory once per
+# launch, or "streamed", read from L2/HBM every step.  SWEEP_SCRATCH_BYTES
+# covers a block's static shared arrays (a 32-float reduction scratch and
+# 16 rank maxima).
+SWEEP_MAX_RANKS = 16
+SWEEP_VARIANTS = ("resident", "streamed")
+SWEEP_SCRATCH_BYTES = 256
+
+
+def sweep_ranks(fits) -> int:
+    """The cluster size of a persistent sweep: the smallest power of two R
+    up to SWEEP_MAX_RANKS for which ``fits(R)`` (the rank's share of the
+    operator fits its shared memory beside the state), else
+    SWEEP_MAX_RANKS, where the operator streams."""
+    ranks = 1
+    while ranks < SWEEP_MAX_RANKS and not fits(ranks):
+        ranks *= 2
+    return ranks
+
 
 def split_ranks(tiles: int, max_split: int, max_by_work: int) -> int:
     """The cluster size R of a split kernel with ``tiles`` output tiles: the
@@ -63,12 +88,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points of csrc/*.cu: (argtypes, restype)
 _SIGNATURES = {
-    # idx, w, w_is_bf16, z, c, z_out, res, batch, nz, k, n_steps, dt, stream
-    "repro_ell_sweep": ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+    # idx, w, w_is_bf16, z, c, z_out, res, batch, nz, k, n_steps, dt, ranks, resident, stream
+    "repro_ell_sweep": ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), _I),
+    # w_is_bf16, nz, k, ranks, resident, clusters (int*)
+    "repro_ell_sweep_clusters": ((_I, _I, _I, _I, _I, _P), _I),
     # idx, w, w_is_bf16, z, c, z_out, res, batch, nz, k, dt, stream
     "repro_ell_step": ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
-    # mt, z, c, z_out, res, batch, n, n_steps, dt, stream
-    "repro_dense_sweep": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    # mt, z, c, z_out, res, batch, n, n_steps, dt, ranks, resident, stream
+    "repro_dense_sweep": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P), _I),
+    # n, ranks, resident, clusters (int*)
+    "repro_dense_sweep_clusters": ((_I, _I, _I, _P), _I),
     # m, z, c, z_out, res, batch, n, ranks, dt, stream
     "repro_dense_step": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     # ranks, clusters (int*)

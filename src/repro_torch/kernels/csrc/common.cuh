@@ -1,7 +1,8 @@
 // Device helpers shared by the Hopper kernels: the reductions of the
-// settle sweeps (K1-K4), the tiled dense product of K5 and K6's GEMV, and
-// the rank-ordered sum over a thread-block cluster (K4, K5 on narrow
-// state, K6 float32, K7a).
+// settle sweeps (K1-K4), the tiled dense product of K5 and K6's GEMV, the
+// rank-ordered sum over a thread-block cluster (K4, K5 on narrow state,
+// K6 float32, K7a), and the state shared across a cluster by the
+// persistent sweeps (K1, K3).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -9,6 +10,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <atomic>
+
+#include "mma_bf16.cuh"
 
 namespace repro_torch {
 
@@ -138,6 +143,154 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
     v = warp_max(v);
   }
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// One system per cluster: the persistent sweeps (K1, K3)
+// ---------------------------------------------------------------------------
+//
+// A persistent sweep runs n_steps Euler steps of one system on the R
+// blocks of a cluster (R <= SWEEP_MAX_RANKS, a power of two): rank r owns
+// the rows [r nz / R, (r + 1) nz / R), and every rank keeps the whole
+// state in its shared memory, double-buffered, since each row reads all
+// of it.  A step computes the rank's rows from `cur` and stores each new
+// value into `nxt` of every rank (cluster_broadcast); one barrier
+// (cluster_step_barrier) then publishes the stores and keeps a fast rank
+// from writing a buffer that a slow peer still reads.
+constexpr int SWEEP_MAX_RANKS = 16;   // past the portable 8: H100 allows 16
+
+// Store v at element i of `buf` in every block of the cluster (`buf` at
+// the same shared-memory offset in each), this block's own first and the
+// peers from the next rank on, so that the ranks' stores spread over the
+// cluster instead of all reaching rank 0 first.
+__device__ __forceinline__ void cluster_broadcast(cooperative_groups::cluster_group& cluster,
+                                                  float* buf, int i, float v) {
+  const unsigned ranks = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  buf[i] = v;
+  for (unsigned d = 1; d < ranks; ++d) {
+    const unsigned r = rank + d < ranks ? rank + d : rank + d - ranks;
+    cluster.map_shared_rank(buf, r)[i] = v;
+  }
+}
+
+// The one barrier of a step: every thread of every block of the cluster
+// arrives (release) and waits (acquire), so each rank's stores of the
+// step, local and remote, are visible to all ranks after it.
+__device__ __forceinline__ void cluster_step_barrier(cooperative_groups::cluster_group& cluster) {
+  cluster.sync();
+}
+
+// Max over the cluster of each thread's non-negative `v` (NaN propagates,
+// as jnp.max): block_max in every block, each block's max stored into the
+// leader's `rank_max` (SWEEP_MAX_RANKS floats, same offset in every block)
+// through DSMEM, one cluster barrier, and the leader combines them in rank
+// order (max is order-free).  The result is valid in thread 0 of rank 0.
+// No block touches a peer's shared memory after the barrier, so every
+// block may exit after the call.  Every thread of the cluster must call it.
+__device__ __forceinline__ float cluster_max(cooperative_groups::cluster_group& cluster, float v,
+                                             float* scratch, float* rank_max) {
+  const unsigned rank = cluster.block_rank();
+  v = block_max(v, scratch);
+  if (threadIdx.x == 0) cluster.map_shared_rank(rank_max, 0)[rank] = v;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    const unsigned ranks = cluster.num_blocks();
+    for (unsigned r = 0; r < ranks; ++r) v = nan_max(v, rank_max[r]);
+  }
+  return v;
+}
+
+// 4-byte copy global -> shared, asynchronous (cp.async.ca), for gathers
+// that 16-byte copies cannot express; committed and awaited as cp_async16.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Copy `n_rows` rows of `row_bytes` each, `src_stride` bytes apart in
+// global memory, into contiguous shared memory at `dst`, by 16-byte
+// asynchronous copies spread over the block's threads (row_bytes,
+// src_stride and both bases multiples of 16).  The caller commits and
+// waits (cp_async_commit, cp_async_wait<0>) and then synchronises.
+__device__ __forceinline__ void stage_rows(void* dst, const void* src, int n_rows,
+                                           int row_bytes, size_t src_stride) {
+  const int chunks = row_bytes / 16;
+  for (int e = threadIdx.x; e < n_rows * chunks; e += blockDim.x) {
+    const int r = e / chunks, q = e - r * chunks;
+    cp_async16(static_cast<unsigned char*>(dst) + static_cast<size_t>(r) * row_bytes + q * 16,
+               static_cast<const unsigned char*>(src) + r * src_stride + q * 16, 16);
+  }
+}
+
+// Whether `ranks` blocks can share a persistent sweep of n rows: a power
+// of two up to SWEEP_MAX_RANKS whose ranks own whole rows, a multiple of 8
+// each (16-byte copies of a float32, int32 or bf16 row slice)
+inline bool sweep_ranks_valid(int n, int ranks) {
+  return ranks >= 1 && ranks <= SWEEP_MAX_RANKS && (ranks & (ranks - 1)) == 0 &&
+         n % (8 * ranks) == 0;
+}
+
+// Threads of a persistent-sweep block whose rank owns `rows` rows: a
+// thread per row, whole warps, at least `least` (threads past the rows
+// only help copy the operator in) and at most 1024.
+inline int sweep_threads(int rows, int least = 32) {
+  int t = (rows + 31) / 32 * 32;
+  t = t > least ? t : least;
+  return t < 1024 ? t : 1024;
+}
+
+// Let a persistent sweep take clusters of up to 16 blocks and as much
+// dynamic shared memory as the device gives a block beside the kernel's
+// static arrays, once per device (see allow_dynamic_smem).
+template <typename Kernel>
+inline cudaError_t allow_sweep_clusters(Kernel kernel, std::atomic<bool> (&raised)[MAX_DEVICES]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < MAX_DEVICES && raised[device].load()) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && device < MAX_DEVICES) raised[device].store(true);
+  return err;
+}
+
+// How many clusters of `ranks` blocks of a persistent sweep the device
+// runs at once (cudaOccupancyMaxActiveClusters), into *clusters.  An error
+// (shared memory past the block's limit, say) is also cleared from the
+// runtime's last error, so that the next launch's check does not report it.
+template <typename... Params>
+inline cudaError_t sweep_max_clusters(void (*kernel)(Params...), int threads, int smem_bytes,
+                                      int ranks, int* clusters) {
+  *clusters = 0;
+  const cudaError_t err = max_active_clusters(kernel, threads, smem_bytes, ranks, clusters);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// Launch a persistent sweep: `batch` clusters of `ranks` blocks, after
+// checking that the device can place one such cluster at all; a cluster
+// it cannot place, or a launch it refuses, returns the error and nothing
+// runs (there is no fallback).
+template <typename... Params, typename... Args>
+inline cudaError_t launch_sweep_clusters(void (*kernel)(Params...), int batch, int threads,
+                                         int smem_bytes, int ranks, cudaStream_t stream,
+                                         Args... args) {
+  int clusters = 0;
+  cudaError_t err = sweep_max_clusters(kernel, threads, smem_bytes, ranks, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = launch_clustered(kernel, dim3(batch * ranks), threads, smem_bytes, ranks, stream,
+                         args...);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 // float32 or bfloat16 operands, float32 arithmetic

@@ -15,18 +15,42 @@
 // card's ~20 flop/byte f32 balance; a matrix-vector product per system
 // gives the tensor cores nothing to do.
 //
-// K3 (dense_sweep_kernel): one thread block per system, looping over the
-//   n_steps inside the block, as the Pallas grid runs one program per
-//   system with a fori_loop inside.  The operator comes PRE-TRANSPOSED,
-//   mt[j][i] = M[i][j], as the reference passes it: a thread owns four
-//   consecutive rows i and walks j, reading mt[j][4t .. 4t+3] as one
-//   float4, so a warp reads 512 consecutive bytes per j.  The state lives
-//   in shared memory, double-buffered with one __syncthreads() per step
-//   (each step reads the whole previous state).  The operator streams
-//   from L2/HBM every step: unlike the TPU's VMEM, a block's 227 KB hold
-//   a float32 operator only up to nz ~ 235, but they hold the state up to
-//   nz = 28,928, which is what the fit test checks.  Only B of the 132
-//   SMs are busy, and one SM's load rate bounds each system.
+// K3 (dense_sweep_kernel): one system per thread-block cluster, looping
+//   over the n_steps inside the cluster, as the Pallas grid runs one
+//   program per system with a fori_loop inside.  The operator comes
+//   PRE-TRANSPOSED, mt[j][i] = M[i][j], as the reference passes it.  The
+//   first port ran a block per system (B of 132 SMs busy), streamed the
+//   whole operator through that SM every step, and walked all nz columns
+//   in one dependent chain per thread over 4 rows (96 threads at nz =
+//   384): 25.5 us a step.  Now system b runs on the R blocks of cluster b
+//   (transient_step.py:dense_sweep_ranks, a pure function of nz), with
+//   the skeleton of K1 (common.cuh: cluster_broadcast, cluster_step_barrier,
+//   cluster_max):
+//   * rank r owns the rows [r nz / R, (r + 1) nz / R) of M, the columns of
+//     mt in that range for all j, one row a thread; each row is the
+//     parent's chain, fmaf over j ascending and then z + dt (Mz + c), so
+//     the bits are the first port's;
+//   * RESIDENT (nz * nz / R floats fit beside the state): the rank copies
+//     its rows of M into shared memory once per launch, four columns to a
+//     float4 (stage_slab: 4-byte cp.async, by 16 warps so that enough
+//     copies are in flight), and reads them from there every step, one
+//     16-byte load per four columns; R is the smallest power of two that
+//     fits (4 at the n = 48 case, nz = 384: 147,456 bytes of slab and
+//     3,072 of state a rank; 8 at nz = 512 and 640);
+//   * streamed (no R <= 16 fits, nz >= 1024): R = 16 and each row streams
+//     its column of mt from L2/HBM every step, eight loads ahead of its
+//     chain: latency-bound, which the routes never ask of it (K4 takes
+//     nz >= 1024);
+//   * every rank keeps the whole state, double-buffered; the new rows go
+//     to every rank's next buffer through DSMEM, one cluster barrier a
+//     step, the residual is combined in rank 0.
+//   What bounds it now: the chain.  On an H100 a resident step takes 2.7
+//   us at nz = 384, 3.1 at 512 and 3.7 at 640 (about 4 ns a column, past
+//   the barrier and the broadcast), against 25.5 before; a launch with no
+//   step, 15 us (the slab's copy and the launch); R = 8 or 16 instead of 4
+//   take 4-8 % off, the shared-memory rate being no limit.  Splitting j
+//   over threads would shorten the chain but change the order of the sum,
+//   and with it the settle decisions, so the order stays the first port's.
 // K4 (dense_step_kernel): one step of every system, a batched GEMV split
 //   over k across a thread-block cluster.  At the settle sweep's shape,
 //   (4, 2048, 2048), the operator is 67.1 MB, more than the 50 MB L2, so
@@ -63,54 +87,135 @@
 namespace repro_torch {
 namespace {
 
-__device__ __forceinline__ float4 dense_rows(const float4* __restrict__ mt4,
-                                             const float* z, int n, int g) {
-  // rows 4g .. 4g+3 of M z, from the transposed operator
-  const int groups = n >> 2;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-  for (int j = 0; j < n; ++j) {
-    const float4 m = __ldg(mt4 + static_cast<size_t>(j) * groups + g);
-    const float zj = z[j];
-    acc.x = fmaf(m.x, zj, acc.x);
-    acc.y = fmaf(m.y, zj, acc.y);
-    acc.z = fmaf(m.z, zj, acc.z);
-    acc.w = fmaf(m.w, zj, acc.w);
+// A resident K3 rank's slab holds its rows of M four columns to a float4,
+// slab4[(j / 4) * rows + l] = M[row0 + l][j .. j + 3], so that a row reads
+// four of its columns with one 16-byte load (the warp's lanes on
+// consecutive rows: conflict-free).  Staged from the transposed operator
+// by 4-byte asynchronous copies, each warp reading 128 contiguous bytes of
+// one column of mt.
+__device__ __forceinline__ void stage_slab(float* slab, const float* __restrict__ mt, int n,
+                                           int rows, int row0) {
+  for (int e = threadIdx.x; e < n * rows; e += blockDim.x) {
+    const int j = e / rows, l = e - j * rows;
+    cp_async4(slab + ((j >> 2) * rows + l) * 4 + (j & 3),
+              mt + static_cast<size_t>(j) * n + row0 + l);
+  }
+}
+
+// Row l of the rank's rows of M z, as one fmaf chain over j ascending (the
+// first port's chain), from the resident slab, 32 columns at a time, the
+// chunk's eight float4 of the row and of the state read ahead of its 32
+// FMAs (of the loop shapes tried on an H100 -- 16 columns with the next
+// 16 loaded ahead, 32 or 64 columns a chunk -- this one ran fastest).  n
+// is a multiple of 128.
+constexpr int DS_RES_CH = 8;   // float4 a chunk
+
+__device__ __forceinline__ float dense_row_resident(const float4* slab4, const float* z, int n,
+                                                    int rows, int l) {
+  const float4* z4 = reinterpret_cast<const float4*>(z);
+  const float4* p = slab4 + l;
+  float acc = 0.0f;
+  for (int j4 = 0; j4 < n / 4; j4 += DS_RES_CH) {
+    float4 m[DS_RES_CH], zj[DS_RES_CH];
+#pragma unroll
+    for (int q = 0; q < DS_RES_CH; ++q) {
+      m[q] = p[(j4 + q) * rows];
+      zj[q] = z4[j4 + q];
+    }
+#pragma unroll
+    for (int q = 0; q < DS_RES_CH; ++q) {
+      acc = fmaf(m[q].x, zj[q].x, acc);
+      acc = fmaf(m[q].y, zj[q].y, acc);
+      acc = fmaf(m[q].z, zj[q].z, acc);
+      acc = fmaf(m[q].w, zj[q].w, acc);
+    }
   }
   return acc;
 }
 
-__global__ void __launch_bounds__(1024)
+// Row i of M z from the transposed operator in global memory, mt[j * n + i]
+// = M[i][j], the same chain; the next DS_CH values are loaded while the
+// current ones are multiplied (n is a multiple of 128).
+constexpr int DS_CH = 8;
+
+__device__ __forceinline__ void dense_row_load(const float* __restrict__ col, int n, int j,
+                                               float (&v)[DS_CH]) {
+#pragma unroll
+  for (int q = 0; q < DS_CH; ++q) v[q] = __ldg(col + static_cast<size_t>(j + q) * n);
+}
+
+__device__ __forceinline__ float dense_row_streamed(const float* __restrict__ mt,
+                                                    const float* z, int n, int i) {
+  const float* col = mt + i;
+  float cur[DS_CH], nxt[DS_CH];
+  dense_row_load(col, n, 0, cur);
+  float acc = 0.0f;
+  for (int j = 0; j < n; j += DS_CH) {
+    if (j + DS_CH < n) dense_row_load(col, n, j + DS_CH, nxt);
+    const float4 za = *reinterpret_cast<const float4*>(z + j);
+    const float4 zb = *reinterpret_cast<const float4*>(z + j + 4);
+    acc = fmaf(cur[0], za.x, acc);
+    acc = fmaf(cur[1], za.y, acc);
+    acc = fmaf(cur[2], za.z, acc);
+    acc = fmaf(cur[3], za.w, acc);
+    acc = fmaf(cur[4], zb.x, acc);
+    acc = fmaf(cur[5], zb.y, acc);
+    acc = fmaf(cur[6], zb.z, acc);
+    acc = fmaf(cur[7], zb.w, acc);
+#pragma unroll
+    for (int q = 0; q < DS_CH; ++q) cur[q] = nxt[q];
+  }
+  return acc;
+}
+
+// Grid: B clusters of R blocks along x; dynamic shared memory: the state
+// [2][n] float32 and, when RESIDENT, the rank's slab (n / 4 x rows float4).
+template <bool RESIDENT>
+__global__ void __launch_bounds__(RESIDENT ? 512 : 1024)
 dense_sweep_kernel(const float* __restrict__ mt, const float* __restrict__ z0,
                    const float* __restrict__ c, float* __restrict__ z_out,
                    float* __restrict__ res, int n, int n_steps, float dt) {
-  extern __shared__ __align__(16) float state[];   // [2][n]
+  extern __shared__ __align__(16) float ds_smem[];
   __shared__ float scratch[32];
-  const size_t b = blockIdx.x;
-  const float4* mt4 = reinterpret_cast<const float4*>(mt + b * n * n);
-  const float4* c4 = reinterpret_cast<const float4*>(c + b * n);
+  __shared__ float rank_max[SWEEP_MAX_RANKS];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.x / ranks;
+  const int rows = n / ranks;
+  const int row0 = rank * rows;
+  mt += b * n * n;
   z0 += b * n;
+  c += b * n;
   z_out += b * n;
-  const int groups = n >> 2;
 
-  float* cur = state;
-  float* nxt = state + n;
+  float* cur = ds_smem;
+  float* nxt = ds_smem + n;
+  float* slab = ds_smem + 2 * n;
+  const float4* slab4 = reinterpret_cast<const float4*>(slab);
   for (int i = threadIdx.x; i < n; i += blockDim.x) cur[i] = z0[i];
-  __syncthreads();
+  if constexpr (RESIDENT) {
+    stage_slab(slab, mt, n, rows, row0);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  // every block of the cluster has started and holds the state and its slab
+  cluster.sync();
 
   for (int s = 0; s < n_steps; ++s) {
-    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-      const float4 mz = dense_rows(mt4, cur, n, g);
-      const float4 cc = __ldg(c4 + g);
-      const float4 zz = reinterpret_cast<const float4*>(cur)[g];
-      float4 out;
-      out.x = zz.x + dt * (mz.x + cc.x);
-      out.y = zz.y + dt * (mz.y + cc.y);
-      out.z = zz.z + dt * (mz.z + cc.z);
-      out.w = zz.w + dt * (mz.w + cc.w);
-      reinterpret_cast<float4*>(nxt)[g] = out;
+    for (int l = threadIdx.x; l < rows; l += blockDim.x) {
+      const int i = row0 + l;
+      float mz;
+      if constexpr (RESIDENT)
+        mz = dense_row_resident(slab4, cur, n, rows, l);
+      else
+        mz = dense_row_streamed(mt, cur, n, i);
+      const float cc = __ldg(c + i);
+      const float zz = cur[i];
+      const float out = zz + dt * (mz + cc);
+      cluster_broadcast(cluster, nxt, i, out);
     }
-    __syncthreads();
+    cluster_step_barrier(cluster);
     float* t = cur;
     cur = nxt;
     nxt = t;
@@ -118,17 +223,56 @@ dense_sweep_kernel(const float* __restrict__ mt, const float* __restrict__ z0,
 
   // fused settling check at the final state: max_i |M z + c|
   float m = 0.0f;
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    const float4 mz = dense_rows(mt4, cur, n, g);
-    const float4 cc = __ldg(c4 + g);
-    m = nan_max(m, fabsf(mz.x + cc.x));
-    m = nan_max(m, fabsf(mz.y + cc.y));
-    m = nan_max(m, fabsf(mz.z + cc.z));
-    m = nan_max(m, fabsf(mz.w + cc.w));
-    reinterpret_cast<float4*>(z_out)[g] = reinterpret_cast<const float4*>(cur)[g];
+  for (int l = threadIdx.x; l < rows; l += blockDim.x) {
+    const int i = row0 + l;
+    float mz;
+    if constexpr (RESIDENT)
+      mz = dense_row_resident(slab4, cur, n, rows, l);
+    else
+      mz = dense_row_streamed(mt, cur, n, i);
+    m = nan_max(m, fabsf(mz + __ldg(c + i)));
+    z_out[i] = cur[i];
   }
-  m = block_max(m, scratch);
-  if (threadIdx.x == 0) res[b] = m;
+  m = cluster_max(cluster, m, scratch, rank_max);
+  if (rank == 0 && threadIdx.x == 0) res[b] = m;
+}
+
+// Ready K3's kernel of this variant for clusters of `ranks` blocks (once
+// per device); its threads and dynamic shared memory: the state, and a
+// resident rank's slab
+template <bool RESIDENT>
+cudaError_t dense_sweep_setup(int n, int ranks, int* threads, int* smem) {
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const size_t state = 2 * static_cast<size_t>(n) * sizeof(float);
+  const size_t slab = static_cast<size_t>(n) * (n / ranks) * sizeof(float);
+  // a resident rank owns at most 241 rows (n * n / R * 4 bytes fit a block),
+  // too few warps to keep the slab's 4-byte copies in flight: 16 warps copy
+  *threads = sweep_threads(n / ranks, RESIDENT ? 512 : 32);
+  *smem = static_cast<int>(RESIDENT ? state + slab : state);
+  return allow_sweep_clusters(dense_sweep_kernel<RESIDENT>, raised);
+}
+
+template <bool RESIDENT>
+int launch_dense_sweep(const void* mt, const void* z, const void* c, void* z_out, void* res,
+                       int batch, int n, int n_steps, float dt, int ranks,
+                       cudaStream_t stream) {
+  int threads = 0, smem = 0;
+  cudaError_t err = dense_sweep_setup<RESIDENT>(n, ranks, &threads, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_sweep_clusters(
+      dense_sweep_kernel<RESIDENT>, batch, threads, smem, ranks, stream,
+      static_cast<const float*>(mt), static_cast<const float*>(z),
+      static_cast<const float*>(c), static_cast<float*>(z_out), static_cast<float*>(res),
+      n, n_steps, dt));
+}
+
+template <bool RESIDENT>
+int dense_sweep_clusters(int n, int ranks, int* clusters) {
+  int threads = 0, smem = 0;
+  cudaError_t err = dense_sweep_setup<RESIDENT>(n, ranks, &threads, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      sweep_max_clusters(dense_sweep_kernel<RESIDENT>, threads, smem, ranks, clusters));
 }
 
 // ---------------------------------------------------------------------------
@@ -556,24 +700,36 @@ extern "C" int repro_transient_step_narrow_clusters(int ranks, int* clusters) {
 }
 
 // C interface of K3 and K4 (bound with ctypes).  Pointers are device pointers of
-// contiguous float32 tensors; n is a multiple of 128.  Each returns the
+// contiguous float32 tensors, 16-byte aligned; n is a multiple of 128.  Each returns the
 // CUDA error code of its launch (0 = success).
+//
+// K3 on `ranks` blocks a system (1, 2, 4, 8 or 16), its slab resident in
+// shared memory when `resident` (transient_step.py:dense_sweep_ranks and
+// dense_sweep_variant decide).  A cluster the device cannot place returns
+// an error and launches nothing.
 extern "C" int repro_dense_sweep(const void* mt, const void* z, const void* c,
                                  void* z_out, void* res, int batch, int n,
-                                 int n_steps, float dt, void* stream) {
+                                 int n_steps, float dt, int ranks, int resident,
+                                 void* stream) {
   using namespace repro_torch;
-  const size_t smem = 2 * static_cast<size_t>(n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = n / 4;
-  const int threads = groups < 1024 ? groups : 1024;
-  dense_sweep_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mt), static_cast<const float*>(z),
-      static_cast<const float*>(c), static_cast<float*>(z_out),
-      static_cast<float*>(res), n, n_steps, dt);
-  return static_cast<int>(cudaGetLastError());
+  if (batch == 0) return 0;
+  if (!sweep_ranks_valid(n, ranks)) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return resident ? launch_dense_sweep<true>(mt, z, c, z_out, res, batch, n, n_steps, dt,
+                                             ranks, s)
+                  : launch_dense_sweep<false>(mt, z, c, z_out, res, batch, n, n_steps, dt,
+                                              ranks, s);
+}
+
+// How many K3 clusters of `ranks` blocks at n states of this variant the
+// current device runs at once (cudaOccupancyMaxActiveClusters), into
+// *clusters; 0 means the device cannot place one and repro_dense_sweep
+// would refuse the launch.
+extern "C" int repro_dense_sweep_clusters(int n, int ranks, int resident, int* clusters) {
+  using namespace repro_torch;
+  if (!sweep_ranks_valid(n, ranks)) return static_cast<int>(cudaErrorInvalidValue);
+  return resident ? dense_sweep_clusters<true>(n, ranks, clusters)
+                  : dense_sweep_clusters<false>(n, ranks, clusters);
 }
 
 // K4: the columns of each 128-row block split over `ranks` blocks of a

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import crosspoint_mvm as _mvm
 from repro_torch.kernels import ell_transient as _ell
 from repro_torch.kernels import flash_attention as _fa
@@ -118,29 +119,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # The reference sizes its limits to TPU VMEM: SWEEP_STATE_LIMIT = 1792
 # (the whole (n^2 + 3n)-f32 dense operator resident) and ELL_VMEM_BUDGET =
 # 12 MiB with ell_sweep_fits_vmem (the whole ELL operator resident).  On
-# an H100 a thread block may use 227 KB (232,448 bytes) of shared memory,
-# which holds a float32 dense operator only up to nz ~ 235.  So the
-# persistent sweeps K1 and K3 keep only the *state* on chip — two f32
-# copies of the padded state (ping-pong) plus a 32-float reduction
-# scratch — and stream the operator from L2/HBM every step.  That gives
-# two limits:
+# an H100 a thread block may use 227 KB (232,448 bytes) of shared memory.
+# The persistent sweeps K1 and K3 run each system on the R <= 16 blocks of
+# a thread-block cluster: every rank keeps the whole state (two f32 copies
+# of the padded state, ping-pong), computes its nz / R rows and sends them
+# to its peers through distributed shared memory, and holds its rows of
+# the operator in its shared memory where they fit beside the state
+# (ell_sweep_variant, dense_sweep_variant), else streams them from L2/HBM.
+# That gives two limits:
 #
 # * a hard one: the state must fit one block's shared memory
 #   (sweep_state_fits_smem), the same for the dense and the ELL sweep;
-# * a rate one, per pair: a persistent sweep runs each system through ONE
-#   SM, while the row-tiled kernels K2/K4 spread the batch over all 132
-#   SMs but pay a launch and its host call per step.  The persistent
-#   sweep wins while its step takes less than a row-tiled step takes the
-#   host (26-48 us per launch from Python on an H100).  chip_smoke.py
-#   times both routes of each pair on each side of its limit (its
-#   route_times line; PERF.md, "Routing limits"):
-#   - ELL: K1 streams its slots at ~100 GB/s per SM, 20 us per step at
-#     2.1 MB per system and 42 us at 4.3 MB, where the settle loop's K2
-#     launches took 26-44 us each (a tie), so ELL_PERSISTENT_BYTES = 4 MiB;
-#   - dense: K3 walks all nz columns in one dependent chain per thread,
-#     ~66 ns per column, 34 us per step at 1 MiB (K4: 42 us) and 43 us at
-#     1.6 MiB (K4: 24 us), so DENSE_PERSISTENT_BYTES = 1 MiB.
-SMEM_PER_BLOCK = 232_448
+# * a rate one, per pair: the row-tiled kernels K2/K4 spread the batch
+#   over all 132 SMs but pay a launch and its host call per step (20-40 us
+#   a launch from Python on an H100), while a persistent sweep pays one
+#   launch per 50-step chunk.  chip_smoke.py times both routes of each
+#   pair on each side of its limit (its route_times line; PERF.md):
+#   - ELL_PERSISTENT_BYTES = 4 MiB was set when K1 ran a system through
+#     one SM (20 us a step at 2.1 MB, 42 at 4.3 MB, a tie with the K2
+#     loop).  Over a cluster K1 takes 3.1 us a step at 2.1 MB (resident)
+#     and 7.3 at 4.3 MB (streamed), against 18-43 us a K2 launch in the
+#     loop and 4.8-6.7 on the device;
+#   - DENSE_PERSISTENT_BYTES = 1 MiB was set when K3 walked a system's
+#     columns on one SM (34 us a step at 1 MiB, K4 42; 43 at 1.6 MiB, K4
+#     24).  Over a cluster K3 takes 2.9-4.0 us a step up to 1.6 MiB
+#     (resident) and 27 at 4 MiB (streamed), against 17-42 us a K4 launch
+#     in the loop and 4.4-6.9 on the device.
+#   So in the Python loop the persistent sweeps now win on both sides of
+#   both limits, while the row-tiled kernels' device times are close to
+#   theirs.  The limits stay until the row-tiled chunk runs as a CUDA
+#   graph (ROADMAP, "Beside the kernels"), which moves the other side of
+#   the same comparison; moving them now would change which kernel, and
+#   so which order of summation, decides the settle steps of the main
+#   path.
+SMEM_PER_BLOCK = build.SMEM_PER_BLOCK
 ELL_PERSISTENT_BYTES = 4 << 20
 DENSE_PERSISTENT_BYTES = 1 << 20
 
@@ -352,6 +364,8 @@ _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
 
 # the kernels with more than one route, and their launch counts by route
 _ROUTED = (_st.transient_step, _mvm.crosspoint_mvm, _tr.colabs, _fa.flash_attention)
+# the persistent sweeps, and their launch counts by variant
+_SWEEPS = (_ell.ell_sweep, _st.transient_sweep)
 
 
 def launch_counts() -> dict[str, int]:
@@ -368,6 +382,13 @@ def launch_counts_by_route() -> dict[str, dict[str, int]]:
     return {fn.__name__: dict(fn.launches_by_route) for fn in _ROUTED}
 
 
+def launch_counts_by_variant() -> dict[str, dict[str, int]]:
+    """Launches of the persistent sweeps K1 and K3 by variant since the last
+    reset: "resident" (the rank's share of the operator in shared memory,
+    ``ell_sweep_variant`` / ``dense_sweep_variant``) or "streamed"."""
+    return {fn.__name__: dict(fn.launches_by_variant) for fn in _SWEEPS}
+
+
 def launch_counts_by_dtype() -> dict[str, dict[str, int]]:
     """K5's launches by operand dtype ("float32", "bfloat16") and route
     since the last reset: its narrow kernel serves both dtypes on one
@@ -380,6 +401,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in _ROUTED:
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    for fn in _SWEEPS:
+        fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
     _st.transient_step.launches_by_dtype = {
         dt: dict.fromkeys(by_route, 0)
         for dt, by_route in _st.transient_step.launches_by_dtype.items()}

@@ -5,7 +5,10 @@ are ``csrc/transient_step.cu``):
 
 * :func:`transient_sweep` (K3) — ``n_steps`` fused steps
   ``z <- z + dt (M z + c)`` per system on the *pre-transposed* operator
-  ``m_t[b] = M_b^T``, and the fused ``max |M z + c|`` at the final state.
+  ``m_t[b] = M_b^T``, and the fused ``max |M z + c|`` at the final state;
+  each system on the blocks of a thread-block cluster
+  (:func:`dense_sweep_ranks`), its rows of the operator resident in their
+  shared memory where they fit (:func:`dense_sweep_variant`).
 * :func:`transient_step_batched` (K4) — one row-tiled step on the
   untransposed operator, and the max of ``|M z + c|`` at the *input*
   state per 128-row block; each block's columns split over the blocks of
@@ -63,6 +66,40 @@ def transient_sweep_plain(m_t, z, c, *, n_steps: int, dt: float = 1.0):
         zz = zz + dt * (torch.einsum("bj,bji->bi", zz, m_t) + c)
     dz = torch.einsum("bj,bji->bi", zz, m_t) + c
     return zz, dz.abs().amax(dim=1, keepdim=True)
+
+
+def dense_sweep_fits(n: int, ranks: int) -> bool:
+    """Whether K3's resident variant fits one block at ``ranks`` blocks a
+    system: the rank's slab of the transposed operator (``n`` columns of
+    ``n / ranks`` rows, float32) beside the whole state, double-buffered,
+    and the static scratch."""
+    return n * (n // ranks) * 4 + 2 * n * 4 + build.SWEEP_SCRATCH_BYTES <= build.SMEM_PER_BLOCK
+
+
+def dense_sweep_ranks(n: int) -> int:
+    """K3's cluster size for ``n`` padded states: the smallest power of two
+    up to 16 at which the rank's slab fits beside the state, else 16
+    (streamed).  4 at the n = 48 case (nz = 384), 8 at nz = 512 and 640,
+    16 (streamed) from nz = 1024.  It divides ``n`` (a multiple of 128),
+    so every rank owns whole rows."""
+    return build.sweep_ranks(lambda r: dense_sweep_fits(n, r))
+
+
+def dense_sweep_variant(n: int) -> str:
+    """``"resident"`` where K3's slab fits at :func:`dense_sweep_ranks`,
+    else ``"streamed"``."""
+    return "resident" if dense_sweep_fits(n, dense_sweep_ranks(n)) else "streamed"
+
+
+def dense_sweep_clusters_per_wave(n: int) -> int:
+    """How many K3 clusters at ``n`` states, of its chosen size and variant,
+    the current CUDA device runs at once (``cudaOccupancyMaxActiveClusters``);
+    0 would refuse the launch."""
+    clusters = ctypes.c_int(0)
+    build.load_library().call("repro_dense_sweep_clusters", n, dense_sweep_ranks(n),
+                              int(dense_sweep_variant(n) == "resident"),
+                              ctypes.addressof(clusters))
+    return clusters.value
 
 
 def transient_step_batched_plain(m, z, c, dt: float = 1.0):
@@ -146,12 +183,18 @@ def transient_sweep(m_t: torch.Tensor, z: torch.Tensor, c: torch.Tensor, *,
     ``res[b, 0] = max_i |M_b z'_b + c_b|_i`` at the final state.
 
     Replaces ``repro/kernels/transient_step.py:transient_sweep_pallas``.
-    Bound by bytes (the operator streams every step through one SM per
-    system); the state stays in shared memory (``csrc/transient_step.cu``).
+    Each system runs on the :func:`dense_sweep_ranks` blocks of a
+    thread-block cluster, a row a thread, each row's sum in column order
+    (the first port's bits), the new rows shared through distributed
+    shared memory; each rank's rows of the operator stay in its shared
+    memory where :func:`dense_sweep_variant` says they fit, else stream
+    from L2/HBM (``csrc/transient_step.cu``).  A cluster the card cannot
+    place raises.
     """
     bsz, n = _check(m_t, z, c)
     if z.device.type == "cpu":
         return transient_sweep_plain(m_t, z, c, n_steps=n_steps, dt=dt)
+    ranks, variant = dense_sweep_ranks(n), dense_sweep_variant(n)
     lib = build.load_library()
     out = torch.empty_like(z)
     res = torch.empty((bsz, 1), dtype=torch.float32, device=z.device)
@@ -159,8 +202,9 @@ def transient_sweep(m_t: torch.Tensor, z: torch.Tensor, c: torch.Tensor, *,
         stream = build.current_stream(z.device)
         lib.call("repro_dense_sweep", m_t.data_ptr(), z.data_ptr(), c.data_ptr(),
                  out.data_ptr(), res.data_ptr(), bsz, n, int(n_steps), float(dt),
-                 stream)
+                 ranks, int(variant == "resident"), stream)
     transient_sweep.launches += 1
+    transient_sweep.launches_by_variant[variant] += 1
     return out, res
 
 
@@ -317,9 +361,10 @@ def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
     return out
 
 
-# launch counts of the CUDA kernels, and K5's by route and by dtype and
-# route (plain-version calls do not count)
+# launch counts of the CUDA kernels, K3's by variant, and K5's by route
+# and by dtype and route (plain-version calls do not count)
 transient_sweep.launches = 0
+transient_sweep.launches_by_variant = dict.fromkeys(build.SWEEP_VARIANTS, 0)
 transient_step_batched.launches = 0
 transient_step.launches = 0
 transient_step.launches_by_route = dict.fromkeys(STEP_ROUTES, 0)

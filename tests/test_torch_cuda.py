@@ -556,3 +556,110 @@ def test_transient_sweep_m_transposed_on_the_card(cuda, n):
     got_z, got_r = ops.transient_sweep(mt, ops.pad_rows(z0, (1,)), ops.pad_rows(c, (1,)),
                                        n_steps=20, m_transposed=True)
     assert torch.equal(got_z[:, :m.shape[1]], want_z) and torch.equal(got_r, want_r)
+
+
+def _ell_operator(seed, bsz, k, nz, dtype, dev):
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(rng.integers(0, nz, (bsz, k, nz)), dtype=torch.int32, device=dev)
+    w = torch.as_tensor(rng.uniform(-1, 1, (bsz, k, nz)) * 0.4 / k, dtype=torch.float32,
+                        device=dev).to(dtype)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, nz)), dtype=torch.float32, device=dev)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (bsz, nz)), dtype=torch.float32, device=dev)
+    return idx, w, z, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,k,nz,variant", [
+    (4, 32, 8192, "resident"),    # the matrix-free n = 1024 case, R = 16
+    (3, 29, 2048, "resident"),    # R = 4 (f32) / 2 (bf16)
+    (2, 20, 640, "resident"),     # R = 1, 640 rows: a partial warp
+    (2, 33, 16384, "streamed"),   # R = 16, the slots stream from L2
+])
+def test_ell_sweep_equals_the_step_loop_in_both_variants(cuda, dtype, bsz, k, nz, variant):
+    """K1 over a cluster: n steps give the bits of n K2 launches and the
+    dt = 0 launch, two launches the same bits, within the bar of its plain
+    version; the variant's launch count moves."""
+    idx, w, z, c = _ell_operator(nz + k, bsz, k, nz, dtype, cuda)
+    isz = w.element_size()
+    assert ell.ell_sweep_variant(nz, k, isz) == variant
+    assert ell.ell_sweep_clusters_per_wave(nz, k, dtype) > 0
+    before = ops.launch_counts_by_variant()["ell_sweep"][variant]
+    got_z, got_r = ell.ell_sweep(idx, w, z, c, n_steps=20, dt=0.5)
+    again_z, again_r = ell.ell_sweep(idx, w, z, c, n_steps=20, dt=0.5)
+    assert ops.launch_counts_by_variant()["ell_sweep"][variant] == before + 2
+    assert torch.equal(got_z, again_z) and torch.equal(got_r, again_r)
+    zl = z
+    for _ in range(20):
+        zl, _ = ell.ell_step(idx, w, zl, c, 0.5)
+    _, rl = ell.ell_step(idx, w, zl, c, 0.0)
+    assert torch.equal(got_z, zl) and torch.equal(got_r[:, 0], rl.amax(dim=1))
+    want_z, _ = ell.ell_sweep_plain(idx, w, z, c, n_steps=20, dt=0.5)
+    tol = Z_TOL if dtype == torch.float32 else 2e-3
+    assert _share(got_z, want_z, tol) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,variant", [(384, "resident"), (640, "resident"),
+                                       (1024, "streamed"), (2048, "streamed")])
+def test_dense_sweep_in_both_variants(cuda, n, variant):
+    """K3 over a cluster: within 1e-5 max|z| of its plain version after 20
+    steps (1e-4 relative for the residual, which the operator keeps well
+    above its cancellation noise), two launches the same bits; the
+    variant's launch count moves."""
+    rng = np.random.default_rng(n)
+    m = torch.as_tensor(rng.uniform(-1, 1, (3, n, n)) * 0.1 / n ** 0.5 - 0.2 * np.eye(n),
+                        dtype=torch.float32, device=cuda)
+    m_t = m.transpose(1, 2).contiguous()
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, (3, n)), dtype=torch.float32, device=cuda)
+    c = torch.as_tensor(rng.uniform(-0.5, 0.5, (3, n)), dtype=torch.float32, device=cuda)
+    assert st.dense_sweep_variant(n) == variant and st.dense_sweep_clusters_per_wave(n) > 0
+    before = ops.launch_counts_by_variant()["transient_sweep"][variant]
+    got_z, got_r = st.transient_sweep(m_t, z, c, n_steps=20)
+    again_z, again_r = st.transient_sweep(m_t, z, c, n_steps=20)
+    assert ops.launch_counts_by_variant()["transient_sweep"][variant] == before + 2
+    assert torch.equal(got_z, again_z) and torch.equal(got_r, again_r)
+    want_z, want_r = st.transient_sweep_plain(m_t, z, c, n_steps=20)
+    assert _share(got_z, want_z, Z_TOL) <= 1 and _share(got_r, want_r, 1e-4) <= 1
+
+
+@pytest.mark.cuda
+def test_ell_sweep_refuses_unaligned_operands(cuda):
+    """The resident variant copies the slots by 16-byte copies: an operand
+    view off the 16-byte grid raises instead of launching."""
+    idx, w, z, c = _ell_operator(7, 1, 4, 256, torch.float32, cuda)
+    w_off = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)[1:].view(w.shape)
+    w_off.copy_(w)
+    with pytest.raises(ValueError, match="aligned"):
+        ell.ell_sweep(idx, w_off, z, c, n_steps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ell", "dense"])
+def test_sweep_refuses_a_cluster_the_card_cannot_place(cuda, kernel):
+    """A resident sweep asked for on one block at the main shape (2 MiB of
+    K1's slots, 576 KiB of K3's rows: no block holds them) is refused by
+    the C entry and raises; nothing runs in its place, and the next launch
+    does not inherit the error."""
+    from repro_torch.kernels import build
+
+    lib = build.load_library()
+    stream = build.current_stream(torch.device("cuda", torch.cuda.current_device()))
+    if kernel == "ell":
+        idx, w, z, c = _ell_operator(8, 4, 32, 8192, torch.float32, cuda)
+        out, res = torch.empty_like(z), torch.empty((4, 1), device=cuda)
+        args = ("repro_ell_sweep", idx.data_ptr(), w.data_ptr(), 0, z.data_ptr(), c.data_ptr(),
+                out.data_ptr(), res.data_ptr(), 4, 8192, 32, 2, 1.0, 1, 1, stream)
+    else:
+        m_t = torch.zeros((4, 384, 384), device=cuda)
+        z = torch.zeros((4, 384), device=cuda)
+        out, res = torch.empty_like(z), torch.empty((4, 1), device=cuda)
+        args = ("repro_dense_sweep", m_t.data_ptr(), z.data_ptr(), z.data_ptr(), out.data_ptr(),
+                res.data_ptr(), 4, 384, 2, 1.0, 1, 1, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lib.call(*args)
+    if kernel == "ell":
+        ell.ell_sweep(idx, w, z, c, n_steps=2)
+    else:
+        st.transient_sweep(m_t, z, z, n_steps=2)
+    torch.cuda.synchronize()
