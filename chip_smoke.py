@@ -37,6 +37,27 @@ non-zero:
    ``transient_batch(method="euler")`` on the ELL and the dense operator
    at n = 256, and ``euler_settle_batch`` on both against one reference
    point (their settle steps must agree within one 50-step chunk);
+3b. settling — the options of ``solve_batch`` beyond the slice, through
+   the public entry points: (1) the predicted form,
+   ``settle_dt_policy="spectral"``, on the slice's four operators (K1 at
+   n = 1024, K2 at n = 2048 matrix-free, K4 at dense n = 256, K3 at n =
+   48), launch counts reset just before and read just after each, each
+   failing unless its kernel launched in chunks of the length
+   ``sweep_chunk_schedule`` gives the spectral pass's prediction (the
+   launches and every settle step must fit those chunks), with the
+   spectral and ``diag`` dt, predicted and measured settle steps and the
+   spectral pass as a stage of ``timings``; (2) the estimator alone,
+   ``settle_method="spectral"``, at n = 1024 and 2048 (every system
+   stable; slow mode, residual and certificate printed); (3) the
+   settling-accuracy guard (``repro_torch.settling_guard``: spectral slow
+   mode within [0.5, 2]x exact eig, unstable systems flagged); (4) graded
+   recovery at dense n = 256 (int8 pots under ``refine="ir"`` and
+   ``"fcg"`` delivered analog or refined, int4 through its fallback,
+   every delivered residual <= 1e-10); (5) the nonlinear RK4 transient at
+   n = 24 and 48 with the last system negated (saturated exactly there,
+   the others stable); (6) the spectral estimate, refinement and the RK4
+   transient at n = 24 on the card against the CPU, within the CPU
+   tests' bars;
 4. kernel_api — the kernel API through the public wrappers, launch
    counts reset just before and read just after, failing unless K5, K6,
    K7a and K7b each launched: ``spd_transform_arrays`` (K7a + K7b) on a
@@ -82,7 +103,9 @@ non-zero:
    the K8 bars and the logit bar must reject; and the SMOKE config
    (float32, K8's FMA route) on the card against the CPU;
 7. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
-   split, K1 and K3 with their cluster layout, K7a with its route), the
+   split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
+   count the launches of the slice and of the settling phase's predicted
+   form, ``launches_by_phase``), the
    nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -187,6 +210,11 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max |a - b|, that over max |b|)."""
     err = float((a.double() - b.double()).abs().max())
     return err, err / max(float(b.double().abs().max()), 1e-30)
+
+
+def finite(values) -> list:
+    """A float array as a JSON list, non-finite entries as null."""
+    return [float(v) if np.isfinite(v) else None for v in np.asarray(values, dtype=float)]
 
 
 def check(ok: bool, what: str) -> None:
@@ -693,6 +721,257 @@ def phase_slice(dev, routes: dict) -> dict:
     for name in KERNEL_OF_ROUTE.values():
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     emit(dict(phase="slice", case="launch_totals", launches=launches))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: settling — spectral settling, refinement and the nonlinear
+# transient through the public entry points
+# ---------------------------------------------------------------------------
+
+N_NONLINEAR = (24, 48)     # dense RK4: four (B, nz, nz) products a step
+N_REFINE = N_DENSE         # dense n = 256: each inner pass re-stamps on the host
+N_CROSS = 24               # card against CPU
+# the parity bars of tests/test_torch_{spectral,refine,transient_nl}.py
+TOL_DT, TOL_SLOW, TOL_REFINE_X, TOL_NL_X = 1e-9, 1e-6, 1e-8, 1e-9
+
+
+def embed(x: np.ndarray, n_states: int) -> np.ndarray:
+    """euler_settle_batch's node-block embedding: x on the nodes, -x on
+    their mirrors (the 2n design), amp and buffer states 0."""
+    z = np.zeros((x.shape[0], n_states))
+    z[:, : x.shape[1]] = x
+    z[:, x.shape[1]: 2 * x.shape[1]] = -x
+    return z
+
+
+def expected_chunk(bss, x_target: np.ndarray) -> tuple[object, np.ndarray, int]:
+    """The spectral pass transient_batch(dt_policy="spectral") runs, on the
+    same operator, and the chunk sweep_chunk_schedule gives its
+    amplitude-aware prediction: ``(bounds, predicted steps, chunk)``."""
+    from repro_torch.core import spectral
+    from repro_torch.kernels import ops
+
+    sb = spectral.spectral_bounds(bss, rtol=0.01)
+    predicted = spectral.amplitude_settle_steps(
+        sb, -embed(x_target, bss.n_states), rtol=0.01,
+        x_scale=np.max(np.abs(x_target), axis=1))
+    return sb, predicted, ops.sweep_chunk_schedule(predicted, MAX_STEPS)
+
+
+def check_chunked(label: str, kernel: str, launches: int, steps: np.ndarray,
+                  chunk: int) -> None:
+    """The sweep ran in chunks of ``chunk``: every settle step a multiple
+    of it (or the budget), and the kernel's launches those of
+    ceil(max(steps) / chunk) chunks (K1, K3: one launch a chunk; K2, K4:
+    one a step and a dt = 0 launch a chunk)."""
+    taken = int(steps.max())
+    chunks = -(-taken // chunk)
+    want = chunks if kernel in ("ell_sweep", "transient_sweep") else taken + chunks
+    check(launches == want, f"{label}: {kernel} launched {launches} times, not the "
+                            f"{want} of {chunks} chunks of {chunk} over {taken} steps")
+    check(bool(np.all((steps % chunk == 0) | (steps == MAX_STEPS))),
+          f"{label}: settle steps {steps.tolist()} off the {chunk}-step chunks")
+
+
+def phase_settling(dev, routes: dict) -> dict:
+    """The options of solve_batch beyond the slice: the predicted-form
+    euler sweep, the spectral estimator, the settling-accuracy guard,
+    graded recovery, the nonlinear transient, and card against CPU.
+    Returns the K1-K4 launches of the predicted-form cases."""
+    from repro_torch import settling_guard, solve_batch
+    from repro_torch.core import engine, spectral, transient_nl
+    from repro_torch.core.network import build_proposed_batch
+    from repro_torch.core.operating_point import NonIdealities
+
+    launches: dict[str, int] = {}
+    ell_bounds = {}
+
+    # (1) predicted-form euler: the spectral pass's dt and chunk, then the
+    # sweep, on the slice's own systems and kernels
+    for label, n, kernel, matrix_free in (
+            (f"predicted_matrix_free_n{N_MATRIX_FREE}", N_MATRIX_FREE, "ell_sweep", True),
+            (f"predicted_matrix_free_n{N_MATRIX_FREE_LARGE}", N_MATRIX_FREE_LARGE,
+             "ell_step", True),
+            (f"predicted_dense_n{N_DENSE}", N_DENSE, "transient_step_batched", False),
+            (f"predicted_dense_n{N_DENSE_SMALL}", N_DENSE_SMALL, "transient_sweep", False)):
+        a, x, b = systems(n, BATCH)
+        nets = build_proposed_batch(a, b, device=dev)
+        if matrix_free:
+            bss = engine.assemble_batch_ell(nets, device=dev)
+            x_target = x
+        else:
+            bss = engine.assemble_batch(nets, device=dev)
+            x_target = engine.dc_solve_batch(bss)[:, :n]
+        t0 = time.perf_counter()
+        sb, predicted, chunk = expected_chunk(bss, x_target)
+        torch.cuda.synchronize()
+        spectral_s = time.perf_counter() - t0
+        dt_diag = engine._settle_dt(bss, 0.5, "diag")
+        if matrix_free:
+            ell_bounds[n] = sb
+        del bss
+        kw = {"settle_matrix_free": True, "x_ref": x} if matrix_free else {}
+        res, counts, timings, wall = drive(lambda t: solve_batch(
+            a, b, method="analog_2n", compute_settling=True, settle_method="euler",
+            settle_dt_policy="spectral", settle_max_steps=MAX_STEPS, device=dev,
+            timings=t, **kw), launches)
+        form = "ell" if matrix_free else "dense"
+        chosen = KERNEL_OF_ROUTE[routes[(form, n)]]
+        check(chosen == kernel, f"{label}: sweep_backend chose {chosen}, not {kernel}")
+        check(counts[kernel] > 0, f"{label}: {kernel} was not launched")
+        steps = res.info["settle_steps"]
+        check_chunked(label, kernel, counts[kernel], steps, chunk)
+        settled = steps < MAX_STEPS
+        err = float(np.max(np.abs(res.x - x)) / np.max(np.abs(x)))
+        check(err <= 1e-8, f"{label}: x vs x_ref relative {err}")
+        check(bool(np.all(res.stable[settled])), f"{label}: settled but not stable")
+        check("spectral" in timings, f"{label}: no spectral stage in timings")
+        dt = 0.5 * sb.dt_limit
+        measured_s = np.where(settled, steps * dt, np.nan)
+        emit(dict(
+            phase="settling", case=label, n=n, batch=BATCH, kernel=kernel, chunk=chunk,
+            launches=counts, settle_steps=steps.tolist(), stable=res.stable.tolist(),
+            predicted_steps=finite(predicted), blind_predicted_steps=finite(sb.settle_steps),
+            dt_spectral=dt.tolist(), dt_diag=dt_diag.tolist(),
+            dt_spectral_over_diag=(dt / dt_diag).tolist(),
+            predicted_over_measured=finite(predicted * dt / measured_s),
+            slow_residual=finite(sb.slow_residual), certified=sb.certified.tolist(),
+            x_rel_err=err, wall_s=wall, stage_s=timings, spectral_alone_s=spectral_s,
+        ))
+
+    # (2) the estimator alone: settle_method="spectral" (its spectral pass
+    # is case (1)'s on the same ELL operator, whose residuals it prints)
+    for n in (N_MATRIX_FREE, N_MATRIX_FREE_LARGE):
+        a, x, b = systems(n, BATCH)
+        timings: dict = {}
+        t0 = time.perf_counter()
+        res = solve_batch(a, b, method="analog_2n", compute_settling=True,
+                          settle_method="spectral", x_ref=x, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(bool(np.all(res.stable)), f"spectral n={n}: not every system stable")
+        check(res.info["settle_method"] == "spectral", f"spectral n={n}: method")
+        # the operator is assembled anew (float64 atomics on the card), so
+        # the two passes may differ in the last bits: printed, not held
+        sb = ell_bounds[n]
+        emit(dict(phase="settling", case=f"spectral_n{n}", n=n,
+                  slow_re=res.info["max_re_eig"].tolist(),
+                  certified=res.info["settle_certified"].tolist(),
+                  case1_slow_residual=finite(sb.slow_residual),
+                  case1_certified=sb.certified.tolist(),
+                  case1_settle_steps=finite(sb.settle_steps),
+                  settle_steps=finite(res.info["settle_steps"]),
+                  settle_time=finite(res.settle_time), wall_s=wall, stage_s=timings))
+
+    # (3) the settling-accuracy guard
+    t0 = time.perf_counter()
+    failures, rows = settling_guard.settling_accuracy(device=dev)
+    emit(dict(phase="settling", case="guard", failures=failures, rows=rows,
+              wall_s=time.perf_counter() - t0))
+    check(not failures, f"settling guard: {failures}")
+
+    # (4) graded recovery at dense n = 256
+    a, x, b = systems(N_REFINE, BATCH)
+    for label, ni, refine in (
+            ("int8_ir", NonIdealities(pot_bits=8, pot_tol=0.01, seed=1), "ir"),
+            ("int8_fcg", NonIdealities(pot_bits=8, pot_tol=0.01, seed=1), "fcg"),
+            ("int4_default", NonIdealities(pot_bits=4, pot_tol=0.05, seed=2), True)):
+        timings = {}
+        t0 = time.perf_counter()
+        res = solve_batch(a, b, nonideal=ni, refine=refine, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = res.info["precision_path"]
+        emit(dict(phase="settling", case=f"refine_{label}_n{N_REFINE}",
+                  precision_path=path.tolist(), refine_iters=res.info["refine_iters"].tolist(),
+                  residual=finite(res.info["residual"]), fallback=res.info["fallback"].tolist(),
+                  wall_s=wall, stage_s=timings))
+        delivered = path != "unrefined"
+        check(bool(np.all(res.info["residual"][delivered] <= 1e-10)),
+              f"refine {label}: a delivered residual above tol")
+        if label.startswith("int8"):
+            check(set(path.tolist()) <= {"analog", "refined"},
+                  f"refine {label}: paths {path.tolist()}")
+        else:
+            check("fallback" in set(path.tolist())
+                  and np.array_equal(res.info["fallback"] != "", path == "fallback"),
+                  f"refine {label}: paths {path.tolist()}, fallback "
+                  f"{res.info['fallback'].tolist()}")
+
+    # (5) the nonlinear transient, the last system negated (Fig. 8)
+    nl_rows = {}
+    for n in N_NONLINEAR:
+        a, x, b = systems(n, BATCH)
+        a[-1], b[-1] = -a[-1], -b[-1]
+        nets = build_proposed_batch(a, b, device=dev)
+        t0 = time.perf_counter()
+        tr = transient_nl.nonlinear_transient_batch(nets, device=dev)
+        wall = time.perf_counter() - t0
+        timings = {}
+        t0 = time.perf_counter()
+        res = solve_batch(a, b, compute_settling=True, settle_method="nonlinear",
+                          fallback="none", device=dev, timings=timings)
+        solve_wall = time.perf_counter() - t0
+        rk4_steps = int(round(tr.times[-1] / tr.dt))
+        emit(dict(phase="settling", case=f"nonlinear_n{n}", n=n, rk4_steps=rk4_steps,
+                  dt=tr.dt, saturated=tr.saturated.tolist(), stable=res.stable.tolist(),
+                  settle_time=finite(res.settle_time), wall_s=wall,
+                  solve_batch_wall_s=solve_wall, stage_s=timings))
+        want = [False] * (BATCH - 1) + [True]
+        check(tr.saturated.tolist() == want, f"nonlinear n={n}: saturated {tr.saturated}")
+        check(bool(np.all(res.stable[:-1])) and not res.stable[-1],
+              f"nonlinear n={n}: stable {res.stable}")
+        nl_rows[n] = (a, b, tr)
+
+    # (6) card against CPU at n = 24, within the CPU tests' bars
+    a, x, b = systems(N_CROSS, BATCH)
+    got, want = {}, {}
+    # one CPU thread: the CPU runs are the plain reference, not timed
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for out, d in ((got, dev), (want, "cpu")):
+        nets = build_proposed_batch(a, b, device=d)
+        out["sb"] = spectral.spectral_bounds(engine.assemble_batch_ell(nets, device=d))
+        out["refine"] = solve_batch(a, b, nonideal=NonIdealities(pot_bits=8, pot_tol=0.01,
+                                                                 seed=1),
+                                    refine=True, device=d)
+    na, nb, tr_card = nl_rows[N_CROSS]
+    want["nl"] = transient_nl.nonlinear_transient_batch(
+        build_proposed_batch(na, nb, device="cpu"), device="cpu")
+    torch.set_num_threads(threads)
+    gs, ws = got["sb"], want["sb"]
+    errs = dict(
+        dt=float(np.max(np.abs(gs.dt / ws.dt - 1))),
+        slow_re=float(np.max(np.abs(gs.slow_re / ws.slow_re - 1))),
+        refine_x=float(np.max(np.abs(got["refine"].x - want["refine"].x))
+                       / np.max(np.abs(want["refine"].x))),
+        nl_x=float(np.max(np.abs(tr_card.x - want["nl"].x)) / np.max(np.abs(want["nl"].x))),
+        nl_times=float(np.max(np.abs(tr_card.times / want["nl"].times - 1))),
+    )
+    emit(dict(phase="settling", case=f"cuda_vs_cpu_n{N_CROSS}", errors=errs,
+              certified=[gs.certified.tolist(), ws.certified.tolist()],
+              slow_residual=[finite(gs.slow_residual), finite(ws.slow_residual)],
+              settle_steps=[finite(gs.settle_steps), finite(ws.settle_steps)],
+              precision_path=[got["refine"].info["precision_path"].tolist(),
+                              want["refine"].info["precision_path"].tolist()],
+              refine_iters=[got["refine"].info["refine_iters"].tolist(),
+                            want["refine"].info["refine_iters"].tolist()]))
+    check(errs["dt"] <= TOL_DT and errs["slow_re"] <= TOL_SLOW, f"spectral cuda vs cpu {errs}")
+    check(np.array_equal(gs.certified, ws.certified) and np.array_equal(gs.stable, ws.stable)
+          and np.array_equal(gs.settle_steps, ws.settle_steps),
+          "spectral cuda vs cpu: certified, stable or settle_steps differ")
+    for key in ("precision_path", "refine_iters", "fallback"):
+        check(np.array_equal(got["refine"].info[key], want["refine"].info[key]),
+              f"refine cuda vs cpu: {key}")
+    check(errs["refine_x"] <= TOL_REFINE_X, f"refine cuda vs cpu: x {errs['refine_x']}")
+    check(errs["nl_x"] <= TOL_NL_X and errs["nl_times"] <= 1e-12
+          and np.array_equal(tr_card.saturated, want["nl"].saturated),
+          f"nonlinear cuda vs cpu: {errs}")
+
+    for kernel in KERNEL_OF_ROUTE.values():
+        check(launches.get(kernel, 0) > 0, f"settling: {kernel} was not launched")
+    emit(dict(phase="settling", case="launch_totals", launches=launches))
     return launches
 
 
@@ -1726,12 +2005,14 @@ def phase_serve(dev) -> dict:
     return {"mma": by_route["mma"], "fma": cross["k8_launches_by_route"]["fma"]}
 
 
-def kernels_line(pairs: dict, launches: dict, api_rows: dict,
+def kernels_line(pairs: dict, launches: dict, settling_launches: dict, api_rows: dict,
                  api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
     """One row per kernel, and for K5, K6 and K8 one per route: timed at
     its main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
     every shape, its launches from the main path that drives it (the slice
-    for K1-K4, the kernel API for K5-K7b, the serving path for K8), for
+    and the settling phase's predicted-form sweeps for K1-K4, split in
+    ``launches_by_phase``; the kernel API for K5-K7b, the serving path for
+    K8), for
     K5, K6 and K8 those of the row's route (``kernel_route``; K7a names
     its route too, K4 its split, K1 and K3 their cluster size, variant,
     clusters per wave and main-path launches by variant; K5's rows count
@@ -1756,7 +2037,9 @@ def kernels_line(pairs: dict, launches: dict, api_rows: dict,
         bound_ms, bound_by = bound(k["bytes"], k["flops"])
         rows.append(dict(
             name=f"{tag} {name}", route="cuda", source=source, replaces=rep,
-            launches=launches[name], max_abs_err=err, ms=k["ms"],
+            launches=launches[name] + settling_launches[name],
+            launches_by_phase=dict(slice=launches[name], settling=settling_launches[name]),
+            max_abs_err=err, ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=k["library_ms"], shape=k["shape"], device_ms=k.get("device_ms"),
         ))
@@ -1849,14 +2132,15 @@ def main() -> int:
     emit(dict(phase="route_times",
               per_step={f"{form}_n{n}": p["per_step"] for (form, n), p in pairs.items()}))
     launches = phase_slice(dev, routes)
+    settling_launches = phase_settling(dev, routes)
     api_rows, api_launches = phase_kernel_api(
         dev, pairs[("dense", N_DENSE)]["transient_step_batched"]["split"])
     phase_quickstart()
     k8_rows = phase_k8()
     k8_launches = phase_serve(dev)
 
-    emit({"kernels": kernels_line(pairs, launches, api_rows, api_launches, k8_rows,
-                                  k8_launches)})
+    emit({"kernels": kernels_line(pairs, launches, settling_launches, api_rows,
+                                  api_launches, k8_rows, k8_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

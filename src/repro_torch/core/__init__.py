@@ -15,7 +15,12 @@ Counterpart of :mod:`repro.core`, exporting every name of its
   :mod:`~repro_torch.core.components`) and power (Eq. 31,
   :mod:`~repro_torch.core.power`);
 * the batched engine (stamp patterns, assembly, DC solve, settling), the
-  batched operating point, the digital baselines and the solve API.
+  batched operating point, the digital baselines and the solve API;
+* the spectral settling estimator (:mod:`~repro_torch.core.spectral`),
+  mixed-precision refinement (:mod:`~repro_torch.core.refine`) and the
+  nonlinear RK4 transient (:mod:`~repro_torch.core.transient_nl`),
+  which the reference reaches as submodules; their public names are
+  exported here too.
 
 Unlike the reference, importing it changes no global dtype setting: the
 port passes float64 and float32 explicitly.
@@ -78,6 +83,25 @@ from repro_torch.core.solver import (  # noqa: F401
     solve_batch,
     solve_batch_submit,
 )
+from repro_torch.core.spectral import (  # noqa: F401
+    SpectralBounds,
+    amplitude_settle_steps,
+    spectral_bounds,
+)
+from repro_torch.core.refine import (  # noqa: F401
+    DEFAULT_REFINE,
+    RefineResult,
+    RefineSpec,
+    fcg_batch,
+    refine_batch,
+)
+from repro_torch.core.solver import PRECISION_PATHS  # noqa: F401
+from repro_torch.core.transient_nl import (  # noqa: F401
+    BatchNLTrace,
+    NLTrace,
+    nonlinear_transient,
+    nonlinear_transient_batch,
+)
 from repro_torch.core.sdd import is_diagonally_dominant, sdd_margin  # noqa: F401
 from repro_torch.core.power import system_power  # noqa: F401
 from repro_torch.core.components import component_counts  # noqa: F401
@@ -132,4 +156,17 @@ __all__ = [
     "system_power",
     "component_counts",
     "crosspoint_layout",
+    "SpectralBounds",
+    "amplitude_settle_steps",
+    "spectral_bounds",
+    "DEFAULT_REFINE",
+    "RefineResult",
+    "RefineSpec",
+    "fcg_batch",
+    "refine_batch",
+    "PRECISION_PATHS",
+    "BatchNLTrace",
+    "NLTrace",
+    "nonlinear_transient",
+    "nonlinear_transient_batch",
 ]

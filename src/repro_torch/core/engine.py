@@ -28,10 +28,12 @@ runs float32 (or bf16 weights), which the 1 % settling band absorbs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from repro_torch.core import spectral
 from repro_torch.core.network import Netlist
 from repro_torch.core.specs import OpAmpSpec, AD712
 from repro_torch.device import resolve_device, stage
@@ -47,12 +49,6 @@ EIG_STATE_LIMIT = 2048
 # settle verdict certifies arrival within this per-system band
 # (relative to max |x_ref|), as in the reference.
 BF16_SETTLE_RTOL = 0.15
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +603,38 @@ class EllBatchedStateSpace:
         """ELL row width over dense row length — the crossover metric."""
         return self.ell_width / max(self.n_states, 1)
 
+    @functools.cached_property
+    def gather_indices(self) -> torch.Tensor:
+        """The int32 slot indices as the int64 that ``torch.gather`` takes,
+        cast once per operator."""
+        return self.indices.long()
+
+    def matvec(self, z: torch.Tensor) -> torch.Tensor:
+        """Batched ``M z`` (gathered row reduction, operand dtype)."""
+        gathered = torch.gather(z, 1, self.gather_indices.reshape(self.batch, -1))
+        return torch.sum(self.weights * gathered.reshape(self.indices.shape), dim=2)
+
+    def matvec_block(self, z: torch.Tensor) -> torch.Tensor:
+        """Block matvec ``(B, k, nz) -> (B, k, nz)``: one gathered row
+        reduction over the whole block
+        (:func:`repro_torch.core.spectral.ell_block_matvec`)."""
+        return spectral.ell_block_matvec(self.gather_indices, self.weights, z)
+
+    def matvec_t(self, z: torch.Tensor) -> torch.Tensor:
+        """Batched ``M^T z`` (row-wise scatter-add).
+
+        ``scatter_add_`` on a CUDA tensor adds with atomics, so on the
+        card its float64 sums vary from run to run at the ulp level.
+        Only the global symmetric-part bound of
+        :func:`~repro_torch.core.spectral.spectral_bounds` uses it, and
+        only with ``lanczos_iters > 0`` (the default is 0).
+        """
+        b, nz, k = self.indices.shape
+        contrib = (self.weights * z[:, :, None]).reshape(b, nz * k)
+        cols = self.gather_indices.reshape(b, nz * k)
+        out = torch.zeros((b, nz), dtype=self.weights.dtype, device=self.device)
+        return out.scatter_add_(1, cols, contrib)
+
     def diagonal(self) -> torch.Tensor:
         """Batched ``diag(M)`` — slots whose column equals their row."""
         rows = torch.arange(self.n_states, device=self.device,
@@ -896,8 +924,13 @@ class BatchTransientResult:
     dominant_tau: np.ndarray     # (B,)
     mirror_residual: np.ndarray  # (B,)
     method: str = "eig"
+    # spectral path only: converged rightmost Ritz pair with a negative
+    # restricted numerical abscissa (repro_torch.core.spectral); None on
+    # the eig/euler/nonlinear paths
+    certified: np.ndarray | None = None
     # euler path: per-system sweep steps actually taken (== max_steps if
-    # never settled); None on the eig path
+    # never settled); spectral path: the predicted step count; None on
+    # the eig/nonlinear paths
     settle_steps: np.ndarray | None = None
 
     def __len__(self) -> int:
@@ -957,11 +990,14 @@ def _transient_batch_eig(bss: BatchedStateSpace, *, t_max: float, t_min: float,
 def _settle_dt(bss, dt_safety: float, dt_policy: str) -> np.ndarray:
     """Per-system forward-Euler step size (host float64).
 
-    ``"diag"`` — ``dt_safety / max_i |M_ii|``.  ``"spectral"`` is not
-    ported yet.
+    ``"diag"`` — ``dt_safety / max_i |M_ii|``.  ``"spectral"`` — the
+    abscissa-aware rule (:func:`repro_torch.core.spectral.mode_dt_limit`)
+    in its dt-only configuration: power-iteration rate and Krylov Ritz
+    modes, no slow-mode extraction and no certificate.
     """
     if dt_policy == "spectral":
-        raise _not_ported('dt_policy="spectral"', 6)
+        return spectral.spectral_bounds(
+            bss, dt_safety=dt_safety, slow_iters=0, lanczos_iters=0).dt
     if dt_policy != "diag":
         raise ValueError(f"unknown dt_policy {dt_policy!r}")
     if isinstance(bss, EllBatchedStateSpace):
@@ -1029,6 +1065,7 @@ def euler_settle_batch(
     check_every: int | None = None,
     max_steps: int = 200_000,
     dt_policy: str = "diag",
+    bounds=None,
     x0: np.ndarray | None = None,
     sweep_dtype: str = "float32",
     timings: dict | None = None,
@@ -1036,11 +1073,21 @@ def euler_settle_batch(
     """Forward-Euler settling sweep through the Hopper kernels K1-K4.
 
     Integrates the batch from ``z = 0`` (or the warm start ``x0``) in
-    float32, ``check_every`` (default 50) fused steps per launch, until
-    every unknown of every system stays within ``max(rtol |x_ref|,
-    atol)`` of its reference, or ``max_steps``.  The per-system step
+    float32, ``check_every`` fused steps per launch, until every unknown
+    of every system stays within ``max(rtol |x_ref|, atol)`` of its
+    reference, or ``max_steps``.  The per-system step
     (:func:`_settle_dt`) is folded into the operator in float64 before
     the cast to float32, so one kernel serves heterogeneous rates.
+
+    ``bounds`` (a precomputed :class:`repro_torch.core.spectral.
+    SpectralBounds`) replaces the ``dt_policy="spectral"`` estimate
+    (``dt = dt_safety * bounds.dt_limit``) and, with ``check_every``
+    left ``None``, sizes the chunks from the predicted settle steps
+    (:func:`repro_torch.kernels.ops.sweep_chunk_schedule`); with its
+    slow basis the prediction is amplitude-aware: the initial error
+    state (the embedding of ``x0`` minus that of ``x_ref``) is projected
+    onto the slow subspace.  Without a prediction ``check_every``
+    defaults to 50.
 
     A dense :class:`BatchedStateSpace` runs the dense sweep (K3, or K4
     past the shared-memory limit).  An :class:`EllBatchedStateSpace`
@@ -1064,24 +1111,42 @@ def euler_settle_batch(
     dev = bss.c.device
     size = nz + (-nz) % ops.ROW_BLOCK
 
+    def embed(x_nodes: np.ndarray) -> np.ndarray:
+        """Node-block state embedding ``(B, nu) -> (B, nz)``: mirror nodes
+        get ``-x`` on the 2n design, amp/buffer states 0 (an estimate,
+        good enough for warm starts and amplitude projections)."""
+        z_full = np.zeros((b_count, nz))
+        z_full[:, :nu] = x_nodes
+        if nn == 2 * nu:
+            z_full[:, nu: 2 * nu] = -x_nodes
+        return z_full
+
+    z0_full = None
     z0 = torch.zeros((b_count, size), dtype=torch.float32, device=dev)
     if x0 is not None:
-        # node-block embedding: mirror nodes get -x0 on the 2n design,
-        # amp/buffer states start at 0
-        x0 = np.asarray(x0, dtype=np.float64).reshape(b_count, nu)
-        z_full = np.zeros((b_count, size))
-        z_full[:, :nu] = x0
-        if nn == 2 * nu:
-            z_full[:, nu: 2 * nu] = -x0
-        z0 = torch.as_tensor(z_full.astype(np.float32), device=dev)
+        z0_full = embed(np.asarray(x0, dtype=np.float64).reshape(b_count, nu))
+        z0 = torch.as_tensor(np.pad(z0_full, ((0, 0), (0, size - nz))).astype(np.float32),
+                             device=dev)
 
     tol_floor = (
         BF16_SETTLE_RTOL * np.max(np.abs(x_ref), axis=1)
         if sweep_dtype == "bfloat16" else None
     )
-    dt = _settle_dt(bss, dt_safety, dt_policy)              # (B,)
+    if bounds is not None and dt_policy == "spectral":
+        # the caller's safety factor on the (factor-free) stability limit
+        dt = dt_safety * np.asarray(bounds.dt_limit)        # (B,)
+    else:
+        dt = _settle_dt(bss, dt_safety, dt_policy)          # (B,)
     if check_every is None:
-        check_every = 50
+        if bounds is not None:
+            predicted = bounds.settle_steps
+            if bounds.slow_basis is not None:
+                z_err = (z0_full if z0_full is not None else 0.0) - embed(x_ref)
+                predicted = spectral.amplitude_settle_steps(
+                    bounds, z_err, rtol=rtol, x_scale=np.max(np.abs(x_ref), axis=1))
+            check_every = ops.sweep_chunk_schedule(predicted, max_steps)
+        else:
+            check_every = 50
     dt_t = torch.as_tensor(dt, device=dev)
 
     def pad(x):
@@ -1132,6 +1197,9 @@ def transient_batch(
     dt_policy: str = "diag",
     x0: np.ndarray | None = None,
     sweep_dtype: str = "float32",
+    nl_t_end: float = 2e-4,
+    nl_n_samples: int = 400,
+    nl_safety: float = 0.4,
     device=None,
     timings: dict | None = None,
 ) -> BatchTransientResult:
@@ -1140,24 +1208,28 @@ def transient_batch(
     ``method``: ``"eig"`` — exact stacked eigendecomposition (host
     numpy); ``"euler"`` — forward-Euler sweep through the Hopper kernels
     (float32, settling time quantized to the check interval);
+    ``"spectral"`` — the spectral estimator alone
+    (:mod:`repro_torch.core.spectral`) on the ELL operators: the
+    predicted settle time and steps, no integration, plus the
+    ``certified`` flags; ``"nonlinear"`` — the slew-clipped,
+    rail-clamped RK4 integration (:mod:`repro_torch.core.transient_nl`):
+    ``stable`` is False when an active amp pins at a rail or the
+    trajectory never enters the settle band around the DC point within
+    ``nl_t_end`` (``nl_n_samples`` samples, RK4 margin ``nl_safety``);
     ``"auto"`` — eig up to :data:`EIG_STATE_LIMIT` states, euler beyond.
-    ``"spectral"`` and ``"nonlinear"`` are not ported yet.
 
     On the euler path ``stable`` means *settled within ``max_steps``*.
     ``x_ref`` (``(B, nu)``) makes the euler path matrix-free: ELL
     assembly and sweep, settling against ``x_ref`` with no DC solve.
     Without it the euler path settles against the DC fixed point of the
-    dense operator.  ``timings`` accumulates stage wall seconds
-    (``assembly``, ``dc_solve``, ``sweep``, ``poll``).
+    dense operator.  ``dt_policy="spectral"`` runs one full spectral
+    pass first: its abscissa-aware dt drives the sweep and its predicted
+    settle steps size the chunks.  ``timings`` accumulates stage wall
+    seconds (``assembly``, ``dc_solve``, ``spectral``, ``sweep``,
+    ``poll``, ``rk4``).
     """
     dev = resolve_device(device)
     params = nets[0].params
-    if method == "spectral":
-        raise _not_ported('settle_method="spectral"', 6)
-    if method == "nonlinear":
-        raise _not_ported('settle_method="nonlinear"', 8)
-    if dt_policy == "spectral":
-        raise _not_ported('dt_policy="spectral"', 6)
     if method == "auto":
         # the eig path runs per exact pattern: gate on the largest exact
         # state count, not the union pattern's
@@ -1202,8 +1274,37 @@ def transient_batch(
             out.dominant_tau[ii] = res.dominant_tau
             out.mirror_residual[ii] = res.mirror_residual
         return out
+    if method == "nonlinear":
+        return _transient_batch_nonlinear(
+            nets, opamp, v_os=v_os, buffers=buffers, pattern=pattern, t_end=nl_t_end,
+            n_samples=nl_n_samples, safety=nl_safety, device=dev, timings=timings)
+    if method == "spectral":
+        # estimator only, on the ELL operators: no dense build, no integration
+        with stage(timings, "assembly", dev):
+            bss = assemble_batch_ell(nets, opamp, v_os=v_os, buffers=buffers,
+                                     pattern=pattern, device=dev)
+        with stage(timings, "spectral", dev):
+            sb = spectral.spectral_bounds(bss, rtol=params.settle_rtol)
+        b_count = len(nets)
+        nu = bss.n_unknowns
+        if x_ref is not None:
+            x_conv = np.where(
+                sb.stable[:, None],
+                np.asarray(x_ref, dtype=np.float64).reshape(b_count, nu), np.nan)
+        else:
+            x_conv = np.full((b_count, nu), np.nan)
+        with np.errstate(divide="ignore"):
+            tau = np.where(sb.stable, 1.0 / np.maximum(-sb.slow_re, 1e-300), np.inf)
+        return BatchTransientResult(
+            stable=sb.stable, settle_time=sb.settle_time, x_converged=x_conv,
+            max_re_eig=sb.slow_re, dominant_tau=tau,
+            mirror_residual=np.full(b_count, np.nan), method="spectral",
+            certified=sb.certified, settle_steps=sb.settle_steps,
+        )
     if method != "euler":
         raise ValueError(f"unknown transient method {method!r}")
+    if dt_policy not in ("diag", "spectral"):
+        raise ValueError(f"unknown dt_policy {dt_policy!r}")
 
     if x_ref is not None:
         # matrix-free path: ELL assembly, settle against the caller's
@@ -1223,10 +1324,16 @@ def transient_batch(
             z_star = dc_solve_batch(bss)
         nu = bss.n_unknowns
         x_star = z_star[:, :nu]
+    bounds = None
+    if dt_policy == "spectral":
+        # one full spectral pass: its abscissa-aware dt drives the sweep
+        # and its predicted settle steps size the chunks
+        with stage(timings, "spectral", dev):
+            bounds = spectral.spectral_bounds(bss, rtol=params.settle_rtol)
     steps, x_final, _res, dt = euler_settle_batch(
         bss, x_star, rtol=params.settle_rtol, atol=params.settle_atol,
         max_steps=max_steps, check_every=check_every, dt_policy=dt_policy,
-        x0=x0, sweep_dtype=sweep_dtype, timings=timings,
+        bounds=bounds, x0=x0, sweep_dtype=sweep_dtype, timings=timings,
     )
     tol = np.maximum(params.settle_rtol * np.abs(x_star), params.settle_atol)
     if sweep_dtype == "bfloat16":
@@ -1251,4 +1358,47 @@ def transient_batch(
         mirror_residual=mirror,
         method="euler",
         settle_steps=steps,
+    )
+
+
+def _transient_batch_nonlinear(nets, opamp, *, v_os, buffers, pattern, t_end, n_samples,
+                               safety, device, timings) -> BatchTransientResult:
+    """``transient_batch(method="nonlinear")``: the RK4 integration of
+    :mod:`repro_torch.core.transient_nl`, with settling read on its sample
+    grid against the DC fixed point, as the linear paths read it."""
+    from repro_torch.core import transient_nl
+
+    params = nets[0].params
+    with stage(timings, "assembly", device):
+        bss = assemble_batch(nets, opamp, v_os=v_os, buffers=buffers, pattern=pattern,
+                             device=device)
+    with stage(timings, "rk4", device):
+        tr = transient_nl.nonlinear_transient_batch(
+            nets, opamp, t_end=t_end, n_samples=n_samples, v_os=v_os, safety=safety,
+            bss=bss)
+    b_count = len(nets)
+    nu = bss.n_unknowns
+    with stage(timings, "dc_solve", device):
+        z_star = dc_solve_batch(bss)
+    x_star = z_star[:, :nu]
+    tol = np.maximum(params.settle_rtol * np.abs(x_star)[:, None, :], params.settle_atol)
+    ok = np.all(np.abs(tr.x - x_star[:, None, :]) <= tol, axis=2)
+    # first sample index from which the trajectory stays in-band
+    viol = ~ok[:, ::-1]
+    last_bad = np.where(viol.any(axis=1), ok.shape[1] - 1 - np.argmax(viol, axis=1), -1)
+    settled = ok[:, -1] & ~tr.saturated
+    idx = np.clip(last_bad + 1, 0, ok.shape[1] - 1)
+    settle_time = np.where(settled, tr.times[idx], np.inf)
+    if bss.n_nodes == 2 * nu:
+        mirror = np.max(np.abs(z_star[:, :nu] + z_star[:, nu: 2 * nu]), axis=1)
+    else:
+        mirror = np.zeros(b_count)
+    return BatchTransientResult(
+        stable=settled,
+        settle_time=settle_time,
+        x_converged=np.where(settled[:, None], tr.x_final, np.nan),
+        max_re_eig=np.full(b_count, np.nan),
+        dominant_tau=np.full(b_count, np.nan),
+        mirror_residual=mirror,
+        method="nonlinear",
     )

@@ -4,9 +4,11 @@ Counterpart of :mod:`repro.core.solver`.  ``solve_batch(A, b)`` takes
 ``A`` (B, n, n) and ``b`` (B, n) and dispatches:
 
 * ``analog_2n`` — the proposed 2n design (Sec. IV): netlist build,
-  batched assembly and float64 DC solve on the device, and with
-  ``compute_settling`` the settle analysis (exact eig, or the
-  forward-Euler sweep through the Hopper kernels K1-K4);
+  batched assembly and float64 DC solve on the device, with
+  ``compute_settling`` the settle analysis (exact eig, the forward-Euler
+  sweep through the Hopper kernels K1-K4, the spectral estimate, or the
+  nonlinear RK4 transient), and with ``refine`` graded recovery
+  (mixed-precision refinement around the analog solve);
 * ``analog_n`` — the preliminary n design (Sec. III);
 * ``cholesky`` / ``cg`` / ``jacobi`` — batched digital baselines.
 
@@ -26,14 +28,15 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import baselines, engine
-from repro_torch.core.engine import _not_ported
+from repro_torch.core import baselines, engine, refine as refine_mod
 from repro_torch.core.network import Netlist, build_preliminary_batch, build_proposed_batch
 from repro_torch.core.operating_point import (
     IDEAL,
     NonIdealities,
+    operating_point_batch,
     operating_point_batch_submit,
 )
+from repro_torch.core.refine import RefineSpec  # noqa: F401  (re-export for callers)
 from repro_torch.core.specs import OPAMPS, CircuitParams, DEFAULT_PARAMS, OpAmpSpec
 from repro_torch.device import resolve_device, stage
 
@@ -105,9 +108,9 @@ def fallback_mask(x: np.ndarray, a: np.ndarray, b: np.ndarray, certified=None, *
 
     A system is degraded when its solution carries NaN/Inf, or when its
     settling analysis did not certify *and* its relative residual
-    ``||A x - b|| / ||b||`` exceeds ``residual_tol``.  (The certificate
-    comes from the spectral estimator, not ported yet; without it only
-    non-finite rows fall back.)
+    ``||A x - b|| / ||b||`` exceeds ``residual_tol`` (the certificate
+    comes from the spectral estimator; without it only non-finite rows
+    fall back).
     """
     x = np.asarray(x, dtype=np.float64)
     bad = ~np.isfinite(x).all(axis=1)
@@ -151,6 +154,80 @@ def _apply_digital_fallback(result: BatchSolveResult, a: np.ndarray, b: np.ndarr
                               max_iter=max_iter, device=device)
     result.x = x
     result.info["fallback"] = np.where(bad, method, "")
+    return result
+
+
+# per-system delivery paths of the graded-recovery pipeline (recorded in
+# info["precision_path"] when refine= is enabled):
+#   "analog"    — the raw analog solve already met the refinement tol
+#   "refined"   — iterative refinement converged to the tol
+#   "fallback"  — refinement stalled / exhausted; digital re-solve delivered
+#   "unrefined" — refinement failed and fallback="none": degraded result
+PRECISION_PATHS = ("analog", "refined", "fallback", "unrefined")
+
+
+def _apply_graded_recovery(result: BatchSolveResult, a: np.ndarray, b: np.ndarray, *,
+                           refspec: refine_mod.RefineSpec, method: str, spec: OpAmpSpec,
+                           ni: NonIdealities, params: CircuitParams, d_policy: str,
+                           beta: float, alpha: float, pattern, device: torch.device,
+                           fallback: str, tol: float, max_iter: int) -> BatchSolveResult:
+    """Residual-verified graded recovery: verify -> refine -> fall back.
+
+    Every analog solution is verified against its fp64 relative
+    residual; rows above ``refspec.tol`` enter iterative refinement whose
+    inner pass re-stamps and re-solves the *analog* circuit (the same
+    error-model draws) for the residual, rescaled to the right-hand
+    side's full scale, and only rows whose refinement stalls or runs out
+    of budget escalate to the digital ``fallback``.  Records
+    ``info["residual"]``, ``info["refine_iters"]`` and
+    ``info["precision_path"]`` (see :data:`PRECISION_PATHS`).
+    """
+    b_count = a.shape[0]
+    tiny = np.finfo(np.float64).tiny
+    a_t = torch.as_tensor(a, device=device)
+    rel = refine_mod.relative_residuals(a_t, b, result.x)
+    refine_iters = np.zeros(b_count, dtype=np.int64)
+    path = np.full(b_count, "analog", dtype="<U9")
+    need = rel > refspec.tol
+    if need.any():
+        sel = np.flatnonzero(need)
+        bscale = np.maximum(np.max(np.abs(b), axis=1), tiny)
+
+        def inner_solve(idx: np.ndarray, rhs: np.ndarray) -> np.ndarray:
+            # analog inner pass: re-stamp the circuit for (A, r * s) with
+            # the same error model and DC-solve it; the residual is
+            # rescaled to the RHS's full scale so the hardware's absolute
+            # error floor stays relative to the update
+            rows = sel[np.asarray(idx)]
+            s = bscale[rows] / np.maximum(np.max(np.abs(rhs), axis=1), tiny)
+            nets_r = _build_nets(a[rows], rhs * s[:, None], method, d_policy=d_policy,
+                                 beta=beta, alpha=alpha, params=params, device=device)
+            pat = (pattern if pattern is not None and engine.pattern_covers(pattern, nets_r)
+                   else None)
+            op = operating_point_batch(nets_r, spec, nonideal=ni, pattern=pat,
+                                       device=device)
+            return np.asarray(op.x, dtype=np.float64) / s[:, None]
+
+        driver = refine_mod.refine_driver(refspec)
+        rr = driver(a_t[sel], b[sel], result.x[sel], inner_solve, spec=refspec)
+        x = np.array(result.x, dtype=np.float64, copy=True)
+        x[sel] = rr.x
+        rel[sel] = rr.residual
+        refine_iters[sel] = rr.iters
+        path[sel] = np.where(rr.converged, "refined", "unrefined")
+
+        bad = sel[~rr.converged]
+        if bad.size and fallback != "none":
+            x[bad] = _digital_resolve(a[bad], b[bad], method=fallback, tol=tol,
+                                      max_iter=max_iter, device=device)
+            rel[bad] = refine_mod.relative_residuals(a_t[bad], b[bad], x[bad])
+            path[bad] = "fallback"
+        result.x = x
+    result.info["residual"] = rel
+    result.info["refine_iters"] = refine_iters
+    result.info["precision_path"] = path
+    # the binary-era field: per-system digital re-solve method, "" = none
+    result.info["fallback"] = np.where(path == "fallback", fallback, "")
     return result
 
 
@@ -276,10 +353,10 @@ def solve_batch_submit(
     returns a :class:`PendingBatchSolve` without waiting.  Arguments as
     :func:`solve_batch`; ``solve_batch`` is ``solve_batch_submit(...).wait()``.
     """
-    if refine is not None and refine is not False:
-        raise _not_ported("refine= (graded recovery)", 7)
     if mesh is not None:
-        raise _not_ported("mesh= (a sharded batch)", 9)
+        raise NotImplementedError(
+            "mesh= (a sharded batch) is not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
@@ -297,11 +374,7 @@ def solve_batch_submit(
     if fallback not in FALLBACK_METHODS:
         raise ValueError(
             f"unknown fallback {fallback!r}: expected one of {FALLBACK_METHODS}")
-    if compute_settling and settle_method in ("spectral", "nonlinear"):
-        raise _not_ported(f"settle_method={settle_method!r}",
-                          6 if settle_method == "spectral" else 8)
-    if compute_settling and settle_dt_policy == "spectral":
-        raise _not_ported('settle_dt_policy="spectral"', 6)
+    refspec = refine_mod.as_refine_spec(refine)
 
     spec = OPAMPS[opamp] if isinstance(opamp, str) else opamp
     ni = IDEAL if nonideal is None else nonideal
@@ -340,12 +413,15 @@ def solve_batch_submit(
 
     def finish(result: BatchSolveResult) -> BatchSolveResult:
         if compute_settling:
-            # x_ref reaches the transient engine only on explicit opt-in:
-            # the default euler/auto path settles against the DC fixed point
+            # x_ref reaches the transient engine only on explicit opt-in (or
+            # for the estimator-only spectral path, where it merely fills
+            # x_converged): the default euler/auto path settles against the
+            # DC fixed point
+            settle_ref = (x_ref if (settle_matrix_free or settle_method == "spectral")
+                          else None)
             tr = engine.transient_batch(
                 nets, spec, method=settle_method, pattern=pattern,
-                max_steps=settle_max_steps,
-                x_ref=x_ref if settle_matrix_free else None,
+                max_steps=settle_max_steps, x_ref=settle_ref,
                 dt_policy=settle_dt_policy, x0=settle_x0, sweep_dtype=sweep_dtype,
                 device=dev, timings=timings,
             )
@@ -357,6 +433,19 @@ def solve_batch_submit(
             result.info["settle_method"] = tr.method
             if tr.settle_steps is not None:
                 result.info["settle_steps"] = np.asarray(tr.settle_steps, dtype=np.int64)
+            if tr.certified is not None:
+                # spectral estimator: converged rightmost mode + contracting
+                # slow subspace (repro_torch.core.spectral.SpectralBounds)
+                result.info["settle_certified"] = tr.certified
+        if refspec is not None:
+            # graded recovery: fp64 verify -> analog iterative refinement ->
+            # digital fallback only for rows whose refinement stalls
+            with stage(timings, "refine", dev):
+                return _apply_graded_recovery(
+                    result, a, b, refspec=refspec, method=method, spec=spec, ni=ni,
+                    params=params, d_policy=d_policy, beta=beta, alpha=alpha,
+                    pattern=pattern, device=dev, fallback=fallback, tol=tol,
+                    max_iter=max_iter)
         if fallback != "none":
             result = _apply_digital_fallback(
                 result, a, b, method=fallback, tol=tol, max_iter=max_iter,
@@ -403,23 +492,32 @@ def solve_batch(
     design, so assembly, DC solve and settling run as batched device
     calls.  ``settle_method`` selects the transient path ("eig" — exact
     modal; "euler" — the forward-Euler sweep through the Hopper kernels;
-    "auto" — by state count).  ``settle_matrix_free=True`` opts the
-    euler path into the ELL engine, settling against ``x_ref``
-    (required) instead of the circuit's DC fixed point; its
-    ``mirror_residual`` is NaN.
+    "spectral" — the settling *estimate*, no integration, with
+    ``info["settle_certified"]``; "nonlinear" — the slew-clipped,
+    rail-clamped RK4 transient; "auto" — by state count).
+    ``settle_dt_policy`` picks the euler step rule ("diag" | "spectral" —
+    the abscissa-aware rule, whose predicted settle steps also size the
+    sweep's chunks).  ``settle_matrix_free=True`` opts the euler path
+    into the ELL engine, settling against ``x_ref`` (required) instead of
+    the circuit's DC fixed point; its ``mirror_residual`` is NaN.
 
-    ``fallback`` re-solves systems whose analog solution is non-finite
-    with a digital baseline (``"cholesky"`` default, ``"cg"``, or
-    ``"none"``), recorded in ``info["fallback"]``.  ``sweep_dtype``
-    ("float32" | "bfloat16") selects the sweep's weight precision;
-    ``settle_x0`` ((B, n)) warm-starts the sweep.  ``timings`` (a dict)
-    collects per-stage wall seconds — ``netlist_build``, ``assembly``,
-    ``dc_solve``, ``sweep``, ``poll`` — synchronizing the device at
-    each stage boundary.
+    ``fallback`` re-solves systems whose analog solution is non-finite —
+    or uncertified with a relative residual above
+    ``fallback_residual_tol`` — with a digital baseline (``"cholesky"``
+    default, ``"cg"``, or ``"none"``), recorded in ``info["fallback"]``.
+    ``refine`` (``True``, ``"ir"``, ``"fcg"`` or a :class:`RefineSpec`)
+    turns that into graded recovery: rows above the refinement tol run
+    mixed-precision refinement with the analog circuit as the inner
+    solve, and only stalled rows fall back; ``info`` then carries
+    ``residual``, ``refine_iters`` and ``precision_path`` (one of
+    :data:`PRECISION_PATHS`).  ``sweep_dtype`` ("float32" | "bfloat16")
+    selects the sweep's weight precision; ``settle_x0`` ((B, n))
+    warm-starts the sweep.  ``timings`` (a dict) collects per-stage wall
+    seconds — ``netlist_build``, ``assembly``, ``dc_solve``,
+    ``spectral``, ``sweep``, ``poll``, ``rk4``, ``refine`` —
+    synchronizing the device at each stage boundary.
 
-    Not ported yet (they raise ``NotImplementedError``): ``refine``,
-    ``mesh``, ``settle_method="spectral"|"nonlinear"`` and
-    ``settle_dt_policy="spectral"``.
+    Not ported yet: ``mesh`` (raises ``NotImplementedError``).
     """
     return solve_batch_submit(
         a, b, method=method, opamp=opamp, nonideal=nonideal, params=params,

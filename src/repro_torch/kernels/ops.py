@@ -25,6 +25,7 @@ tensors; the routing here is the same for both.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -194,6 +195,32 @@ def pad_rows(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
     if not any(pad):
         return x
     return torch.nn.functional.pad(x, pad)
+
+
+def sweep_chunk_schedule(
+    predicted_steps,
+    max_steps: int,
+    *,
+    floor: int = 50,
+    ceil: int = 4096,
+    splits: int = 8,
+) -> int:
+    """Fused-sweep chunk length from a spectral settling prediction.
+
+    Every chunk boundary costs a launch (K1, K3) or a dt = 0 launch (K2,
+    K4) and a host poll, so a sweep predicted to run N steps is cut into
+    chunks of ``median(N) / splits``, clipped to ``[floor, min(ceil,
+    max_steps)]``: the settle step stays resolved to about 1/``splits``
+    of the horizon.  Non-finite predictions (unstable systems) are
+    ignored; with none finite the chunk is ``floor``.  Host numpy, the
+    reference's arithmetic.
+    """
+    p = np.asarray(predicted_steps, dtype=np.float64).reshape(-1)
+    p = p[np.isfinite(p)]
+    if p.size == 0:
+        return floor
+    target = int(np.median(p) / max(splits, 1))
+    return int(np.clip(target, floor, max(min(ceil, max_steps), floor)))
 
 
 def sweep_backend(nz: int, k: int | None) -> str:

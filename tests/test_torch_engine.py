@@ -288,13 +288,17 @@ def test_transient_batch_eig_matches_reference():
     _rel(got.max_re_eig, want.max_re_eig, 1e-8)
 
 
-def test_transient_batch_rejects_unported_methods():
+def test_transient_batch_rejects_unknown_method_and_dt_policy():
+    """Every method and dt policy of the reference is ported (spectral and
+    nonlinear: tests/test_torch_{spectral,transient_nl}.py); an unknown
+    one raises ValueError, as in the reference."""
     a, _x, b = _systems(12, 5, 1)
     tn = tnet.build_proposed_batch(a, b, device=CPU)
-    for kw in ({"method": "spectral"}, {"method": "nonlinear"},
-               {"method": "euler", "dt_policy": "spectral"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    for kw in ({"method": "exact"}, {"method": "euler", "dt_policy": "gershgorin"}):
+        with pytest.raises(ValueError, match="unknown"):
             tengine.transient_batch(tn, device=CPU, **kw)
+        with pytest.raises(ValueError, match="unknown"):
+            jengine.transient_batch(jnet.build_proposed_batch(a, b), interpret=True, **kw)
 
 
 # -------------------------------------------------------------- baselines

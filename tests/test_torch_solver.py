@@ -149,15 +149,26 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_raise_not_implemented():
+def test_mesh_alone_raises_not_implemented(monkeypatch):
+    """mesh= is the one option still to port (ROADMAP Queue 1 item 9); the
+    options of items 6-8 run on the CPU when asked and, like every entry
+    point, raise without a card when not."""
     a, x, b = _systems(37, 5, 2)
-    for kw in (dict(refine=True), dict(refine="fcg"), dict(mesh=object()),
-               dict(compute_settling=True, settle_method="spectral"),
+    for kw in (dict(mesh=object()), dict(mesh=object(), refine=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+            tsolver.solve_batch(a, b, device=CPU, **kw)
+    options = (dict(refine=True), dict(refine="fcg"),
+               dict(compute_settling=True, settle_method="spectral", x_ref=x),
                dict(compute_settling=True, settle_method="nonlinear"),
                dict(compute_settling=True, settle_method="euler",
-                    settle_dt_policy="spectral")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            tsolver.solve_batch(a, b, device=CPU, **kw)
+                    settle_dt_policy="spectral"))
+    for kw in options:
+        res = tsolver.solve_batch(a, b, device=CPU, **kw)
+        assert np.all(np.isfinite(res.x)), kw
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in options:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsolver.solve_batch(a, b, **kw)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
