@@ -58,6 +58,28 @@ non-zero:
    the others stable); (6) the spectral estimate, refinement and the RK4
    transient at n = 24 on the card against the CPU, within the CPU
    tests' bars;
+3c. solve_service — the solve service (``repro_torch.serving``) on the
+   card's CUDA streams, through its public entry points: (a) the
+   benchmark's stream (benchmarks/solve_service.py's mix of n = 16, 24,
+   64, 192 over analog_2n on SPD and SDD systems, analog_n and cholesky,
+   8 times, 72 requests, 8 slots), every delivered x within 1e-9 of a
+   direct ``solve`` on the card, one pattern derivation per analog_2n
+   bucket, no error; (b) a FEM stream (``mesh_stream``, 32 meshes of n =
+   256, 576, 1024) at one and two micro-batches in flight, the same
+   parity and one derivation per bucket; (c) settling tickets (8 at dense
+   n = 48, 8 at n = 256, and n = 256 with the spectral dt), launch counts
+   reset just before and read just after each drain, failing unless K3
+   launched at n = 48 and K4 at n = 256, each ticket's x, ``stable`` and
+   ``settle_steps`` equal to one ``solve_batch`` of the same 8 systems;
+   (d) stream (a) on one and two CUDA streams of the card, at one and two
+   micro-batches in flight, the same bytes from all four, requests/s and
+   the stats' split printed; (e) chaos at 5 % and 20 % (50/25/25 over
+   device faults, NaN solutions and build errors, seeded): every request
+   answered once, every delivery within 1e-9; then two streams with
+   stream 0 always faulting: every ticket delivered, stream 0
+   quarantined; (f) ``newton_batch`` at B = 8, n = 64 through a session:
+   the direct executor's iteration counts, x within 1e-7, one pattern;
+   (g) ``solve_batch(mesh=solver_mesh())`` bit for bit ``device="cuda"``;
 4. kernel_api — the kernel API through the public wrappers, launch
    counts reset just before and read just after, failing unless K5, K6,
    K7a and K7b each launched: ``spd_transform_arrays`` (K7a + K7b) on a
@@ -105,7 +127,8 @@ non-zero:
 7. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
-   form, ``launches_by_phase``), the
+   form and of the solve service's settling tickets,
+   ``launches_by_phase``), the
    nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -972,6 +995,248 @@ def phase_settling(dev, routes: dict) -> dict:
     for kernel in KERNEL_OF_ROUTE.values():
         check(launches.get(kernel, 0) > 0, f"settling: {kernel} was not launched")
     emit(dict(phase="settling", case="launch_totals", launches=launches))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: solve_service — the solve service on CUDA streams, its
+# sessions, its Newton and FEM clients, and mesh=
+# ---------------------------------------------------------------------------
+
+# benchmarks/solve_service.py:101-121, the repo's own service stream (the
+# benchmark imports the JAX package, so the mix is copied here)
+SERVICE_MIX = (
+    (16, "analog_2n", "spd"),
+    (16, "analog_2n", "sdd"),
+    (16, "analog_n", "spd"),
+    (16, "cholesky", "spd"),
+    (24, "analog_2n", "spd"),     # off-grid: pads into the n = 32 bucket
+    (64, "analog_2n", "spd"),
+    (64, "cholesky", "spd"),
+    (192, "analog_2n", "spd"),
+    (192, "cholesky", "spd"),
+)
+SERVICE_REPEAT = 8            # 72 requests
+SERVICE_SLOTS = 8
+PARITY_ATOL = 1e-9            # the benchmark's
+# a FEM stream up to the size sweep's scale: n = 256, 576, 1024
+SERVICE_FEM = (32, ((16, 16), (24, 24), (32, 32)))
+SERVICE_SETTLE = ((N_DENSE_SMALL, "transient_sweep", "diag"),
+                  (N_DENSE, "transient_step_batched", "diag"),
+                  (N_DENSE, "transient_step_batched", "spectral"))
+SERVICE_FAULT_RATES = (0.05, 0.20)   # split 50/25/25, as the benchmark's
+# chaos at tests/test_faults.py's 2 slots: 36 dispatches of the stream, so
+# each rate draws faults (at 8 slots its 9 dispatches draw none from the
+# benchmark's fault seed, SEED + 1)
+CHAOS_SLOTS = 2
+NEWTON_SHAPE = (8, 64)
+STAGES = ("wall_s", "host_build_s", "device_wait_s", "settle_finish_s", "unpack_s")
+
+
+def service_stream() -> list[tuple]:
+    """The benchmark's mix, SERVICE_REPEAT times, from default_rng(SEED)."""
+    from repro_torch.data.spd import random_rhs_from_solution, random_sdd, random_spd
+
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(SERVICE_REPEAT):
+        for n, method, kind in SERVICE_MIX:
+            a = random_sdd(rng, n) if kind == "sdd" else random_spd(rng, n)
+            _x, b = random_rhs_from_solution(rng, a)
+            out.append((a, b, method))
+    return out
+
+
+def serve(stream: list, label: str, direct: list, **service_kw) -> tuple:
+    """Submit ``stream`` to a fresh service and drain it once.  Fails
+    unless every request is answered exactly once and every delivered x is
+    within PARITY_ATOL of its direct solve.  Returns (service, answers in
+    submission order, drain wall seconds, summary row)."""
+    from repro_torch.serving import SolveService
+    from repro_torch.serving.faults import SolveError
+
+    svc = SolveService(**{"batch_slots": SERVICE_SLOTS, **service_kw})
+    rids = [svc.submit(a, b, method=m) for a, b, m in stream]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(set(out) == set(rids) and len(svc.queue) == 0, f"{label}: not answered exactly once")
+    res = [out[r] for r in rids]
+    errors = [r.kind for r in res if isinstance(r, SolveError)]
+    worst = max((float(np.max(np.abs(r.x - d))) for r, d in zip(res, direct)
+                 if not isinstance(r, SolveError)), default=0.0)
+    check(worst <= PARITY_ATOL, f"{label}: delivered x {worst} from the direct solve")
+    st = svc.stats
+    row = dict(phase="solve_service", case=label, requests=len(stream),
+               streams=st["devices"], inflight_per_device=st["inflight_per_device"],
+               batch_slots=st["batch_slots"],
+               wall_s=wall, requests_per_s=len(stream) / wall, worst_abs_err=worst,
+               errors=errors, stage_s={k: st[k] for k in STAGES},
+               buckets=st["buckets"], pad_overhead=st["pad_overhead"],
+               retries=st["retries"], bisections=st["bisections"],
+               quarantines=st["quarantines"], fault_injections=st["fault_injections"],
+               breaker=st["breaker"])
+    return svc, res, wall, row
+
+
+def phase_solve_service(dev) -> dict:
+    """The solve service through its public entry points on the card:
+    (a) the benchmark's stream, (b) a FEM stream, (c) settling tickets
+    (K3, K4), (d) streams and in-flight depth, (e) chaos and quarantine,
+    (f) Newton through a session, (g) mesh=.  Returns the K1-K4 launches
+    of the settling tickets' drains."""
+    from repro_torch import solve, solve_batch
+    from repro_torch.data.fem import mesh_stream
+    from repro_torch.distributed.sharding import solver_mesh
+    from repro_torch.optim.batched_newton import BatchedNewtonConfig, newton_batch
+    from repro_torch.serving import SolveService
+    from repro_torch.serving.faults import FaultInjector, FaultPlan, SolveError
+
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    stream = service_stream()
+    direct = [solve(a, b, method=m, device=dev).x for a, b, m in stream]
+
+    # (a) the repo's own stream on one CUDA stream, double-buffered
+    svc, res, _wall, row = serve(stream, "stream", direct, devices=[dev])
+    check(not row["errors"], f"stream: errors {row['errors']}")
+    for key, bucket in svc.stats["buckets"].items():
+        if key.endswith("/analog_2n"):
+            check(bucket["pattern_derivations"] == 1,
+                  f"stream: {key} derived {bucket['pattern_derivations']} patterns")
+    emit(row)
+
+    # (d) one and two CUDA streams of the card, one and two micro-batches
+    # in flight: the same bytes
+    xs = {}
+    for n_streams in (1, 2):
+        for inflight in (1, 2):
+            _svc, res, _wall, row = serve(stream, f"streams_{n_streams}_inflight_{inflight}",
+                                          direct, devices=[dev] * n_streams,
+                                          inflight_per_device=inflight)
+            check(not row["errors"], f"{row['case']}: errors {row['errors']}")
+            xs[(n_streams, inflight)] = [r.x for r in res]
+            emit(row)
+    first = xs[(1, 1)]
+    for key, got in xs.items():
+        check(all(np.array_equal(g, f) for g, f in zip(got, first)),
+              f"streams {key}: delivered bytes differ from one stream at inflight 1")
+
+    # (b) a FEM stream up to the size sweep's scale, at inflight 1 and 2
+    count, grids = SERVICE_FEM
+    meshes = list(mesh_stream(SEED, count, grids=grids))
+    fem = [(m.a, m.b, "analog_2n") for m in meshes]
+    fem_direct = [solve(a, b, method="analog_2n", device=dev).x for a, b, _m in fem]
+    fem_x = {}
+    for inflight in (1, 2):
+        svc, res, _wall, row = serve(fem, f"fem_inflight_{inflight}", fem_direct,
+                                     devices=[dev], inflight_per_device=inflight)
+        check(not row["errors"], f"fem: errors {row['errors']}")
+        for key, bucket in svc.stats["buckets"].items():
+            check(bucket["pattern_derivations"] == 1,
+                  f"fem: {key} derived {bucket['pattern_derivations']} patterns")
+        row["grids"] = sorted({(m.nx, m.ny) for m in meshes})
+        fem_x[inflight] = [r.x for r in res]
+        emit(row)
+    check(all(np.array_equal(g, f) for g, f in zip(fem_x[1], fem_x[2])),
+          "fem: inflight 1 and 2 delivered different bytes")
+
+    # (c) settling tickets at exact n: the settle sweep of the service's
+    # finish phase launches K3 (n = 48) and K4 (n = 256), and each ticket
+    # equals one solve_batch of the same systems
+    for n, kernel, dt_policy in SERVICE_SETTLE:
+        label = f"settle_dense_n{n}_{dt_policy}"
+        a, _x, b = systems(n, SERVICE_SLOTS)
+        opts = dict(method="analog_2n", compute_settling=True, settle_method="euler",
+                    settle_max_steps=MAX_STEPS, settle_dt_policy=dt_policy)
+        svc = SolveService(batch_slots=SERVICE_SLOTS, devices=[dev])
+        rids = [svc.submit(a[k], b[k], **opts) for k in range(SERVICE_SLOTS)]
+        out, counts, _t, wall = drive(lambda t: svc.drain(), launches)
+        check(counts[kernel] > 0, f"{label}: {kernel} was not launched from the service")
+        want = solve_batch(a, b, device=dev, **opts)
+        steps = []
+        for k, rid in enumerate(rids):
+            r = out[rid]
+            check(not isinstance(r, SolveError), f"{label}: ticket {k} failed: {r}")
+            check(r.info["service_n_padded"] == n, f"{label}: ticket {k} was padded")
+            check(np.array_equal(r.x, want.x[k]) and r.stable == bool(want.stable[k])
+                  and r.info["settle_steps"] == int(want.info["settle_steps"][k]),
+                  f"{label}: ticket {k} differs from solve_batch")
+            steps.append(r.info["settle_steps"])
+        st = svc.stats
+        emit(dict(phase="solve_service", case=label, n=n, tickets=SERVICE_SLOTS,
+                  launches={k: v for k, v in counts.items() if v}, settle_steps=steps,
+                  stable=[out[r].stable for r in rids], wall_s=wall,
+                  stage_s={k: st[k] for k in STAGES}))
+
+    # (e) chaos at the benchmark's rates, then a sick stream beside a
+    # healthy one: every ticket answered once, every delivery clean
+    for rate in SERVICE_FAULT_RATES:
+        plan = FaultPlan(seed=SEED + 1, rates={"device_fault": rate * 0.50,
+                                               "nonfinite": rate * 0.25,
+                                               "build_error": rate * 0.25})
+        _svc, _res, _wall, row = serve(stream, f"chaos_{rate:.2f}", direct, devices=[dev],
+                                       batch_slots=CHAOS_SLOTS,
+                                       fault_injector=FaultInjector(plan),
+                                       breaker_backoff_s=0.01)
+        check(row["fault_injections"] > 0, f"{row['case']}: nothing injected")
+        emit(row)
+    plan = FaultPlan(seed=SEED + 1, rates={"device_fault": 1.0}, devices=(0,))
+    svc, res, _wall, row = serve(stream, "quarantine", direct, devices=[dev, dev],
+                                 fault_injector=FaultInjector(plan), breaker_threshold=1,
+                                 breaker_backoff_s=30.0, max_attempts=10)
+    check(not row["errors"], f"quarantine: errors {row['errors']}")
+    check(row["quarantines"] >= 1 and row["breaker"]["states"] == ["open", "closed"],
+          f"quarantine: {row['quarantines']} quarantines, breaker {row['breaker']}")
+    emit(row)
+
+    # (f) Newton through a session: the convex quartic of
+    # tests/test_solve_sessions.py at B = 8, n = 64
+    bsz, n = NEWTON_SHAPE
+    rng = np.random.default_rng(SEED)
+    t = rng.normal(size=(bsz, n))
+    m = rng.normal(size=(bsz, n, n)) / np.sqrt(n)
+    q = 0.5 * np.einsum("bij,bkj->bik", m, m) + np.eye(n)
+
+    def grad_hess(x):
+        d = x - t
+        return (np.einsum("bij,bj->bi", q, d) + d ** 3,
+                q + (3.0 * d ** 2)[:, :, None] * np.eye(n))
+
+    cfg = BatchedNewtonConfig(method="analog_2n", tol=1e-9, max_iter=30)
+    t0 = time.perf_counter()
+    tr_direct = newton_batch(grad_hess, np.zeros((bsz, n)), cfg, device=dev)
+    direct_s = time.perf_counter() - t0
+    sess = SolveService(batch_slots=SERVICE_SLOTS, devices=[dev]).session(method="analog_2n")
+    t0 = time.perf_counter()
+    tr = newton_batch(grad_hess, np.zeros((bsz, n)), cfg, rounds=sess)
+    session_s = time.perf_counter() - t0
+    newton_err = float(np.max(np.abs(tr.x - tr_direct.x)))
+    check(bool(tr.converged.all()), "newton: a system did not converge through the session")
+    check(np.array_equal(tr.iterations, tr_direct.iterations),
+          f"newton: iterations {tr.iterations.tolist()} vs {tr_direct.iterations.tolist()}")
+    check(newton_err <= 1e-7, f"newton: x {newton_err} from the direct executor")
+    check(sess.pattern_derivations == 1, f"newton: {sess.pattern_derivations} patterns")
+    emit(dict(phase="solve_service", case=f"newton_b{bsz}_n{n}",
+              iterations=tr.iterations.tolist(), rounds=tr.solve_rounds,
+              pattern_derivations=sess.pattern_derivations, max_abs_err=newton_err,
+              session_s=session_s, direct_s=direct_s))
+
+    # (g) mesh=: a mesh of the one card gives the bytes of device="cuda"
+    a, _x, b = systems(N_DENSE, SERVICE_SLOTS)
+    for method in ("analog_2n", "cholesky"):
+        whole = solve_batch(a, b, method=method, device=dev)
+        split = solve_batch(a, b, method=method, mesh=solver_mesh())
+        check(np.array_equal(split.x, whole.x), f"mesh: {method} differs from device=cuda")
+    emit(dict(phase="solve_service", case="mesh", n=N_DENSE, batch=SERVICE_SLOTS,
+              devices=[str(d) for d in solver_mesh().devices], bit_equal=True))
+
+    for kernel in ("transient_sweep", "transient_step_batched"):
+        check(launches.get(kernel, 0) > 0, f"solve_service: {kernel} was not launched")
+    emit(dict(phase="solve_service", case="launch_totals", launches=launches,
+              wall_s=time.perf_counter() - t_phase))
     return launches
 
 
@@ -2005,14 +2270,15 @@ def phase_serve(dev) -> dict:
     return {"mma": by_route["mma"], "fma": cross["k8_launches_by_route"]["fma"]}
 
 
-def kernels_line(pairs: dict, launches: dict, settling_launches: dict, api_rows: dict,
-                 api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
+def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
+                 service_launches: dict, api_rows: dict, api_launches: dict, k8_rows: dict,
+                 k8_launches: dict) -> list[dict]:
     """One row per kernel, and for K5, K6 and K8 one per route: timed at
     its main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
-    every shape, its launches from the main path that drives it (the slice
-    and the settling phase's predicted-form sweeps for K1-K4, split in
-    ``launches_by_phase``; the kernel API for K5-K7b, the serving path for
-    K8), for
+    every shape, its launches from the main path that drives it (the slice,
+    the settling phase's predicted-form sweeps and the solve service's
+    settling tickets for K1-K4, split in ``launches_by_phase``; the kernel
+    API for K5-K7b, the serving path for K8), for
     K5, K6 and K8 those of the row's route (``kernel_route``; K7a names
     its route too, K4 its split, K1 and K3 their cluster size, variant,
     clusters per wave and main-path launches by variant; K5's rows count
@@ -2035,10 +2301,11 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict, api_rows:
         # the largest disagreement with the plain version over every shape
         err = max(p[name]["max_abs_err"] for p in pairs.values() if name in p)
         bound_ms, bound_by = bound(k["bytes"], k["flops"])
+        by_phase = dict(slice=launches[name], settling=settling_launches[name],
+                        solve_service=service_launches.get(name, 0))
         rows.append(dict(
             name=f"{tag} {name}", route="cuda", source=source, replaces=rep,
-            launches=launches[name] + settling_launches[name],
-            launches_by_phase=dict(slice=launches[name], settling=settling_launches[name]),
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=err, ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=k["library_ms"], shape=k["shape"], device_ms=k.get("device_ms"),
@@ -2133,14 +2400,15 @@ def main() -> int:
               per_step={f"{form}_n{n}": p["per_step"] for (form, n), p in pairs.items()}))
     launches = phase_slice(dev, routes)
     settling_launches = phase_settling(dev, routes)
+    service_launches = phase_solve_service(dev)
     api_rows, api_launches = phase_kernel_api(
         dev, pairs[("dense", N_DENSE)]["transient_step_batched"]["split"])
     phase_quickstart()
     k8_rows = phase_k8()
     k8_launches = phase_serve(dev)
 
-    emit({"kernels": kernels_line(pairs, launches, settling_launches, api_rows,
-                                  api_launches, k8_rows, k8_launches)})
+    emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,
+                                  api_rows, api_launches, k8_rows, k8_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

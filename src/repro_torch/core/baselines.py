@@ -52,10 +52,17 @@ def jacobi_solve(a: torch.Tensor, b: torch.Tensor, *, tol: float = 1e-10,
 
 
 def cholesky_solve_batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a`` (B, n, n) SPD, ``b`` (B, n) -> ``x`` (B, n)."""
-    l = torch.linalg.cholesky(a)
+    """``a`` (B, n, n) SPD, ``b`` (B, n) -> ``x`` (B, n).
+
+    A system whose factorization fails (not positive definite, or NaN)
+    gets an all-NaN row and the others their solutions, as the
+    reference's ``jnp.linalg.cholesky`` gives; nothing raises, and the
+    device is not synchronized for the check.
+    """
+    l, info = torch.linalg.cholesky_ex(a)
     y = torch.linalg.solve_triangular(l, b.unsqueeze(-1), upper=False)
-    return torch.linalg.solve_triangular(l.transpose(-1, -2), y, upper=True)[..., 0]
+    x = torch.linalg.solve_triangular(l.transpose(-1, -2), y, upper=True)[..., 0]
+    return torch.where((info == 0)[:, None], x, torch.nan)
 
 
 def _bdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

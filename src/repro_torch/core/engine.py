@@ -855,15 +855,37 @@ def assemble_batch_ell(
 # ---------------------------------------------------------------------------
 
 
-def dc_solve_batch_submit(bss: BatchedStateSpace) -> torch.Tensor:
+def _dc_solve(m: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    z, _info = torch.linalg.solve_ex(m, -c.unsqueeze(-1))
+    return z[..., 0]
+
+
+def dc_solve_batch_submit(bss: BatchedStateSpace, *, mesh=None, device=None) -> torch.Tensor:
     """Enqueue the batched float64 DC solve; returns the device result.
 
     On CUDA the call returns before the device finishes (the caller can
     build its next batch meanwhile); singular systems come back
     non-finite and are repaired by :func:`dc_solve_batch_finalize`.
+
+    ``device`` solves the whole batch there; ``mesh`` (a
+    :func:`repro_torch.distributed.sharding.solver_mesh`) splits the
+    batch axis into contiguous parts, solves each on its mesh device and
+    gathers the parts in order on ``bss.device``.  The two are mutually
+    exclusive.  (The reference donates the operand buffers of a
+    per-device solve to XLA; PyTorch's caching allocator has no
+    counterpart, and none is needed.)
     """
-    z, _info = torch.linalg.solve_ex(bss.m, -bss.c.unsqueeze(-1))
-    return z[..., 0]
+    if device is not None and mesh is not None:
+        raise ValueError("pass either device= (stream) or mesh= (shard)")
+    if device is not None:
+        dev = resolve_device(device)
+        return _dc_solve(bss.m.to(dev), bss.c.to(dev))
+    if mesh is not None:
+        from repro_torch.distributed.sharding import shard_system_batch
+
+        ms, cs = shard_system_batch(bss.m, bss.c, mesh=mesh)
+        return torch.cat([_dc_solve(m, c).to(bss.device) for m, c in zip(ms, cs)])
+    return _dc_solve(bss.m, bss.c)
 
 
 def dc_solve_batch_finalize(z_dev: torch.Tensor, bss: BatchedStateSpace) -> np.ndarray:

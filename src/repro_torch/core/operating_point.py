@@ -206,6 +206,7 @@ def operating_point_batch_submit(
     nonideal: NonIdealities = DEFAULT_NONIDEAL,
     x_ref: np.ndarray | None = None,
     pattern: engine.StampPattern | None = None,
+    mesh=None,
     device=None,
     timings: dict | None = None,
 ) -> PendingBatchOperatingPoint:
@@ -213,7 +214,9 @@ def operating_point_batch_submit(
 
     Applies the per-system error model (host), assembles the batch on
     the shared stamp pattern on ``device``, enqueues the float64 solve
-    and returns without waiting for it.
+    and returns without waiting for it.  ``mesh`` splits the DC solve's
+    batch axis over a 1-d solver mesh
+    (:func:`repro_torch.distributed.sharding.solver_mesh`).
     """
     dev = resolve_device(device)
     spec = opamp
@@ -228,7 +231,7 @@ def operating_point_batch_submit(
         bss = engine.assemble_batch(nets_ni, spec, v_os=v_os, pattern=pattern,
                                     device=dev)
     with stage(timings, "dc_solve", dev):
-        z_dev = engine.dc_solve_batch_submit(bss)
+        z_dev = engine.dc_solve_batch_submit(bss, mesh=mesh)
     return PendingBatchOperatingPoint(
         _bss=bss, _z_dev=z_dev, _x_ref=x_ref, _batch=len(nets), _timings=timings,
     )
@@ -241,9 +244,15 @@ def operating_point_batch(
     nonideal: NonIdealities = DEFAULT_NONIDEAL,
     x_ref: np.ndarray | None = None,
     pattern: engine.StampPattern | None = None,
+    mesh=None,
     device=None,
 ) -> BatchOperatingPoint:
-    """Batched DC solve of the (non-ideal) circuits: submit + wait."""
+    """Batched DC solve of the (non-ideal) circuits: submit + wait.
+
+    ``mesh`` splits the DC solve's batch axis over a solver mesh; the
+    assembly runs on ``device``.
+    """
     return operating_point_batch_submit(
-        nets, opamp, nonideal=nonideal, x_ref=x_ref, pattern=pattern, device=device,
+        nets, opamp, nonideal=nonideal, x_ref=x_ref, pattern=pattern, mesh=mesh,
+        device=device,
     ).wait()

@@ -169,7 +169,7 @@ PRECISION_PATHS = ("analog", "refined", "fallback", "unrefined")
 def _apply_graded_recovery(result: BatchSolveResult, a: np.ndarray, b: np.ndarray, *,
                            refspec: refine_mod.RefineSpec, method: str, spec: OpAmpSpec,
                            ni: NonIdealities, params: CircuitParams, d_policy: str,
-                           beta: float, alpha: float, pattern, device: torch.device,
+                           beta: float, alpha: float, pattern, mesh, device: torch.device,
                            fallback: str, tol: float, max_iter: int) -> BatchSolveResult:
     """Residual-verified graded recovery: verify -> refine -> fall back.
 
@@ -205,7 +205,7 @@ def _apply_graded_recovery(result: BatchSolveResult, a: np.ndarray, b: np.ndarra
             pat = (pattern if pattern is not None and engine.pattern_covers(pattern, nets_r)
                    else None)
             op = operating_point_batch(nets_r, spec, nonideal=ni, pattern=pat,
-                                       device=device)
+                                       mesh=mesh, device=device)
             return np.asarray(op.x, dtype=np.float64) / s[:, None]
 
         driver = refine_mod.refine_driver(refspec)
@@ -285,31 +285,44 @@ class PendingBatchSolve:
         return self._done
 
 
-def _solve_batch_digital_submit(a, b, method, *, tol, max_iter,
+def _solve_batch_digital_submit(a, b, method, *, tol, max_iter, mesh=None,
                                 device: torch.device) -> PendingBatchSolve:
     """Batched digital baselines; ``stable`` is all-True and the
-    iterative methods report per-system ``iterations``/``residual_norm``."""
-    at = torch.as_tensor(a, device=device)
-    bt = torch.as_tensor(b, device=device)
+    iterative methods report per-system ``iterations``/``residual_norm``.
+    ``mesh`` splits the batch axis over a 1-d solver mesh: each part runs
+    on its device and :meth:`PendingBatchSolve.wait` gathers them in order
+    (the iterative methods freeze each system on its own, so a part's
+    iterates do not depend on the split)."""
+    if mesh is not None:
+        from repro_torch.distributed.sharding import shard_system_batch
+
+        a_parts, b_parts = shard_system_batch(a, b, mesh=mesh)
+    else:
+        a_parts = [torch.as_tensor(a, device=device)]
+        b_parts = [torch.as_tensor(b, device=device)]
     n_systems = a.shape[0]
+
+    def gather(parts) -> np.ndarray:
+        return np.concatenate([p.cpu().numpy() for p in parts])
+
     if method == "cholesky":
-        x_dev = baselines.cholesky_solve_batch(at, bt)
+        xs = [baselines.cholesky_solve_batch(at, bt) for at, bt in zip(a_parts, b_parts)]
 
         def finalize() -> BatchSolveResult:
-            return BatchSolveResult(x=x_dev.cpu().numpy(), method=method,
+            return BatchSolveResult(x=gather(xs), method=method,
                                     stable=np.ones(n_systems, dtype=bool),
                                     settle_time=None, info={})
     else:
         fn = baselines.cg_solve_batch if method == "cg" else baselines.jacobi_solve_batch
-        res = fn(at, bt, tol=tol, max_iter=max_iter)
+        res = [fn(at, bt, tol=tol, max_iter=max_iter) for at, bt in zip(a_parts, b_parts)]
 
         def finalize() -> BatchSolveResult:
             return BatchSolveResult(
-                x=res.x.cpu().numpy(), method=method,
+                x=gather(r.x for r in res), method=method,
                 stable=np.ones(n_systems, dtype=bool), settle_time=None,
                 info={
-                    "iterations": res.iterations.cpu().numpy().astype(np.int64),
-                    "residual_norm": res.residual_norm.cpu().numpy().astype(np.float64),
+                    "iterations": gather(r.iterations for r in res).astype(np.int64),
+                    "residual_norm": gather(r.residual_norm for r in res).astype(np.float64),
                 },
             )
 
@@ -352,19 +365,23 @@ def solve_batch_submit(
     host, assembles on the device and enqueues the DC solve, then
     returns a :class:`PendingBatchSolve` without waiting.  Arguments as
     :func:`solve_batch`; ``solve_batch`` is ``solve_batch_submit(...).wait()``.
+
+    The analog handle is two-phase: ``wait_dc()`` harvests the DC
+    operating point and ``wait()`` adds the finish phase (settling,
+    graded recovery, digital fallback), so a pipelined caller (the solve
+    service) can release its stream at the DC harvest.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a sharded batch) is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 9)")
-    dev = resolve_device(device)
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     if a.ndim != 3 or b.ndim != 2 or a.shape[:2] != (b.shape[0], b.shape[1]):
         raise ValueError(f"expected (B, n, n) and (B, n); got {a.shape}, {b.shape}")
+    if mesh is not None and device is not None:
+        raise ValueError("pass either mesh= or device=, not both")
+    # with a mesh, everything but the split DC solve runs on its first device
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     if method in DIGITAL_METHODS:
         return _solve_batch_digital_submit(a, b, method, tol=tol, max_iter=max_iter,
-                                           device=dev)
+                                           mesh=mesh, device=dev)
     if method not in ANALOG_METHODS:
         raise ValueError(
             f"unknown method {method!r}: expected one of "
@@ -391,7 +408,7 @@ def solve_batch_submit(
         raise ValueError("settle_matrix_free requires x_ref")
     # non-idealities perturb conductance values, never the cell pattern
     pending_op = operating_point_batch_submit(
-        nets, spec, nonideal=ni, x_ref=x_ref, pattern=pattern, device=dev,
+        nets, spec, nonideal=ni, x_ref=x_ref, pattern=pattern, mesh=mesh, device=dev,
         timings=timings,
     )
 
@@ -444,7 +461,7 @@ def solve_batch_submit(
                 return _apply_graded_recovery(
                     result, a, b, refspec=refspec, method=method, spec=spec, ni=ni,
                     params=params, d_policy=d_policy, beta=beta, alpha=alpha,
-                    pattern=pattern, device=dev, fallback=fallback, tol=tol,
+                    pattern=pattern, mesh=mesh, device=dev, fallback=fallback, tol=tol,
                     max_iter=max_iter)
         if fallback != "none":
             result = _apply_digital_fallback(
@@ -517,7 +534,10 @@ def solve_batch(
     ``spectral``, ``sweep``, ``poll``, ``rk4``, ``refine`` —
     synchronizing the device at each stage boundary.
 
-    Not ported yet: ``mesh`` (raises ``NotImplementedError``).
+    ``mesh`` (a 1-d solver mesh,
+    :func:`repro_torch.distributed.sharding.solver_mesh`) splits the DC
+    solve's and the digital baselines' batch axis over its devices; the
+    rest runs on the mesh's first device.  It excludes ``device``.
     """
     return solve_batch_submit(
         a, b, method=method, opamp=opamp, nonideal=nonideal, params=params,

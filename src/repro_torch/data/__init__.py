@@ -1,1 +1,3 @@
-"""Test-data generators (host-side numpy)."""
+"""Test-data generators (host-side numpy): the SPD/SDD systems of the
+paper's protocol (:mod:`~repro_torch.data.spd`) and FEM assembly with its
+mesh request stream (:mod:`~repro_torch.data.fem`)."""

@@ -1,0 +1,270 @@
+"""Solver meshes, solve-service streams and the per-stream circuit breaker.
+
+Counterpart of the solver part of :mod:`repro.distributed.sharding`
+(``solver_mesh``, ``stream_devices``, ``StreamBreaker`` and
+``shard_system_batch``).  The logical-axis rules of the model stack are
+not ported here.
+
+JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
+PyTorch has no such array, so the port's mesh is a plain tuple of
+:class:`torch.device` and "sharding" a batch means splitting its axis 0
+into contiguous parts, one per device; a caller runs each part where it
+lies and gathers the results in order (see
+:func:`repro_torch.core.engine.dc_solve_batch_submit`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverMesh:
+    """A 1-d solver mesh: the devices the system-batch axis is split over."""
+
+    devices: tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def _visible_cuda_devices() -> list[torch.device]:
+    """Every visible CUDA device; raises (through resolve_device) without one."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def solver_mesh(n_devices: Optional[int] = None, devices=None) -> SolverMesh:
+    """1-d solver mesh over the system-batch axis.
+
+    ``devices`` lists the mesh's devices (``["cpu"] * k`` runs k parts on
+    the host, as the tests do); otherwise ``n_devices`` takes the first N
+    visible CUDA devices, and with neither the mesh is ``(cuda:0,)``.
+    Like every entry point it raises without a card unless given CPU
+    devices.
+    """
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+    else:
+        devs = _visible_cuda_devices()
+        if n_devices is None:
+            devs = devs[:1]
+    if n_devices is not None:
+        if n_devices > len(devs):
+            raise RuntimeError(
+                f"solver mesh wants {n_devices} devices, have {len(devs)}"
+            )
+        devs = devs[:n_devices]
+    if not devs:
+        raise ValueError("a solver mesh needs at least one device")
+    return SolverMesh(devices=tuple(devs))
+
+
+def stream_devices(mesh=None, devices=None, n_devices: Optional[int] = None):
+    """Ordered device list for the solve service's streams.
+
+    Accepts a 1-d solver mesh (its device order), an explicit device
+    list, or a device count (the first N visible CUDA devices); with none
+    of the three, the default device (``cuda:0``) alone.  A device may
+    repeat: each entry is one stream.  The solve service assigns whole
+    micro-batches to these streams round-robin instead of splitting one
+    micro-batch with :func:`shard_system_batch`.
+    """
+    if devices is not None:
+        return [resolve_device(d) for d in devices]
+    if mesh is not None:
+        return list(mesh.devices)
+    devs = _visible_cuda_devices()
+    if n_devices is not None:
+        if n_devices > len(devs):
+            raise RuntimeError(
+                f"stream wants {n_devices} devices, have {len(devs)}"
+            )
+        return devs[:n_devices]
+    return devs[:1]
+
+
+@dataclasses.dataclass
+class _StreamState:
+    """Breaker state of one device stream."""
+
+    state: str = "closed"            # closed | open | half_open
+    consecutive_failures: int = 0
+    backoff_s: float = 0.0           # current open-interval length
+    open_until: float = 0.0          # monotonic time the backoff elapses
+
+
+class StreamBreaker:
+    """Per-device-stream circuit breaker for the solve service.
+
+    Each stream (an index into the service's round-robin stream list)
+    is ``closed`` (serving), ``open`` (quarantined: consecutive
+    failures reached ``threshold``; no dispatches until its backoff
+    elapses) or ``half_open`` (one probe micro-batch in flight).  A
+    successful probe closes the stream and resets its backoff; a
+    failed probe re-opens it with the backoff doubled (capped at
+    ``backoff_max_s``) — exponential-backoff half-open probing, so a
+    flapping device costs a geometrically shrinking share of traffic
+    while a recovered one rejoins after a single probe.
+
+    The service owns the policy around the breaker: on a trip it
+    re-queues the quarantined stream's in-flight tickets (at original
+    admission rank, blameless — no retry budget consumed) onto the
+    healthy streams, and when *every* stream is open with work still
+    queued it calls :meth:`force_probe` so the service degrades to
+    probing instead of deadlocking.  Pure host logic; ``clock`` is
+    injectable so tests drive it with a fake clock.
+    """
+
+    def __init__(
+        self,
+        n_streams: int,
+        *,
+        threshold: int = 3,
+        backoff_s: float = 0.25,
+        backoff_max_s: float = 30.0,
+        clock=time.monotonic,
+    ):
+        if n_streams < 1:
+            raise ValueError("need at least one stream")
+        if threshold < 1:
+            raise ValueError("threshold must be >= 1")
+        self.threshold = int(threshold)
+        self.backoff_s = float(backoff_s)
+        self.backoff_max_s = float(backoff_max_s)
+        self.clock = clock
+        self._streams = [_StreamState() for _ in range(n_streams)]
+        self.trips = 0               # closed/half_open -> open transitions
+        self.probes = 0              # open -> half_open transitions
+        self.restores = 0            # half_open -> closed transitions
+        # acquire/record_* are read-modify-write on per-stream state; two
+        # callers must not both win the same probe slot
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._streams)
+
+    def state(self, dev: int) -> str:
+        return self._streams[dev].state
+
+    def acquire(self, dev: int) -> bool:
+        """May stream ``dev`` take a dispatch right now?
+
+        ``closed`` streams always may.  An ``open`` stream whose
+        backoff has elapsed transitions to ``half_open`` and accepts
+        exactly this one dispatch as its probe; while the probe is in
+        flight further acquires are refused.
+        """
+        with self._lock:
+            s = self._streams[dev]
+            if s.state == "closed":
+                return True
+            if s.state == "open" and self.clock() >= s.open_until:
+                s.state = "half_open"
+                self.probes += 1
+                return True
+            return False
+
+    def release(self, dev: int) -> None:
+        """Hand back an acquired probe slot without a device verdict.
+
+        Called when a dispatch acquired via :meth:`acquire` never
+        reached the device (the *host* build raised): the probe said
+        nothing about the stream's health, so a ``half_open`` stream
+        returns to ``open`` with its backoff already elapsed — the
+        next acquire probes again immediately.
+        """
+        with self._lock:
+            s = self._streams[dev]
+            if s.state == "half_open":
+                s.state = "open"
+                s.open_until = self.clock()
+
+    def record_success(self, dev: int) -> None:
+        with self._lock:
+            s = self._streams[dev]
+            if s.state == "half_open":
+                s.state = "closed"
+                self.restores += 1
+            s.consecutive_failures = 0
+            s.backoff_s = 0.0
+
+    def record_failure(self, dev: int) -> bool:
+        """Count one device-side failure; returns True when this call
+        trips the stream open (caller quarantines its in-flights)."""
+        with self._lock:
+            s = self._streams[dev]
+            s.consecutive_failures += 1
+            if s.state == "half_open":
+                # failed probe: back off twice as long
+                s.state = "open"
+                s.backoff_s = min(
+                    max(s.backoff_s, self.backoff_s) * 2.0, self.backoff_max_s
+                )
+                s.open_until = self.clock() + s.backoff_s
+                self.trips += 1
+                return True
+            if s.state == "closed" and s.consecutive_failures >= self.threshold:
+                s.state = "open"
+                s.backoff_s = self.backoff_s
+                s.open_until = self.clock() + s.backoff_s
+                self.trips += 1
+                return True
+            return False
+
+    def force_probe(self) -> int:
+        """Expire the soonest-recovering open stream's backoff now.
+
+        Called when every stream is quarantined but work remains: the
+        service must keep probing rather than deadlock — "degrade to
+        fewer streams", never to zero.  Returns the stream index.
+        """
+        with self._lock:
+            open_streams = [
+                i for i, s in enumerate(self._streams) if s.state == "open"
+            ]
+            if not open_streams:
+                raise RuntimeError("force_probe with no open stream")
+            dev = min(open_streams, key=lambda i: self._streams[i].open_until)
+            self._streams[dev].open_until = self.clock()
+            return dev
+
+    def stats(self) -> dict:
+        return {
+            "states": [s.state for s in self._streams],
+            "trips": self.trips,
+            "probes": self.probes,
+            "restores": self.restores,
+        }
+
+
+def shard_system_batch(*arrays, mesh: SolverMesh):
+    """Split each array's batch axis contiguously over the solver mesh.
+
+    Returns, for each array, a list of ``mesh.size`` tensors: part ``i``
+    holds rows ``[i k, (i + 1) k)`` on ``mesh.devices[i]``.  The batch
+    size must divide evenly — the solve service pads every micro-batch to
+    a fixed size before dispatch, and direct callers get a clear error.
+    """
+    n_dev = mesh.size
+    out = []
+    for x in arrays:
+        if x.shape[0] % n_dev:
+            raise ValueError(
+                f"batch of {x.shape[0]} does not divide over {n_dev} "
+                f"devices; pad the batch (the solve service does this "
+                f"automatically)"
+            )
+        t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+        k = t.shape[0] // n_dev
+        out.append([t[i * k:(i + 1) * k].to(dev) for i, dev in enumerate(mesh.devices)])
+    return tuple(out) if len(out) != 1 else out[0]

@@ -1,6 +1,7 @@
-"""Serving: the batched prefill/decode engine for the dense decoder, its
+"""Serving: the continuously batched solve service and its multi-round
+sessions, the batched prefill/decode engine for the dense decoder, its
 slot admission, and the fault-injection hook (counterpart of
-:mod:`repro.serving`; the solve service is still to be ported)."""
+:mod:`repro.serving`)."""
 
 from repro_torch.serving.engine import (  # noqa: F401
     AdmissionQueue,
@@ -13,4 +14,9 @@ from repro_torch.serving.faults import (  # noqa: F401
     FaultInjector,
     FaultPlan,
     SolveError,
+)
+from repro_torch.serving.solve_service import (  # noqa: F401
+    SessionRoundError,
+    SolveService,
+    SolveSession,
 )

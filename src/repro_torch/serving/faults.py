@@ -8,8 +8,9 @@ the four serving fault classes, driven by per-kind rates or an exact
 ``(dispatch_index, kind)`` schedule.  :class:`~repro_torch.serving.
 engine.ServeEngine` takes the injector as a constructor hook and draws
 once per decode step; :meth:`FaultInjector.arm` plants a fault into a
-:class:`repro_torch.core.PendingBatchSolve`, for the solve service that
-is still to be ported (ROADMAP Queue 1 item 9).
+:class:`repro_torch.core.PendingBatchSolve`, and
+:class:`~repro_torch.serving.solve_service.SolveService` draws once per
+micro-batch dispatch.
 """
 
 from __future__ import annotations

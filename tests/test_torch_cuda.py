@@ -663,3 +663,42 @@ def test_sweep_refuses_a_cluster_the_card_cannot_place(cuda, kernel):
     else:
         st.transient_sweep(m_t, z, z, n_steps=2)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_service_streams_give_the_bytes_of_one_stream(cuda):
+    """The solve service on one CUDA stream and on two streams of the
+    card, each at one and two micro-batches in flight, delivers the same
+    bytes; settling tickets launch K3 from the service."""
+    from repro_torch.serving import SolveService
+
+    a, _x, b = _systems(23, 16, 12)
+    got = {}
+    for devices in (["cuda"], ["cuda", "cuda"]):
+        for inflight in (1, 2):
+            svc = SolveService(devices=devices, batch_slots=2, inflight_per_device=inflight)
+            rids = [svc.submit(a[k], b[k], method=("analog_2n", "cholesky", "cg")[k % 3])
+                    for k in range(12)]
+            rids += [svc.submit(a[k], b[k], compute_settling=True, settle_method="euler")
+                     for k in range(4)]
+            ops.reset_launch_counts()
+            res = svc.drain()
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["transient_sweep"] > 0
+            assert svc.stats["errors"] == {k: 0 for k in svc.stats["errors"]}
+            got[(len(devices), inflight)] = [res[r].x for r in rids]
+    first = got[(1, 1)]
+    for xs in got.values():
+        assert all(np.array_equal(x, y) for x, y in zip(xs, first))
+
+
+@pytest.mark.cuda
+def test_mesh_of_one_card_is_the_card(cuda):
+    """solve_batch(mesh=solver_mesh()) gives the bytes of device="cuda"."""
+    from repro_torch.distributed.sharding import solver_mesh
+
+    a, _x, b = _systems(24, 16, 4)
+    for method in ("analog_2n", "cholesky", "cg"):
+        whole = solve_batch(a, b, method=method, device=cuda)
+        split = solve_batch(a, b, method=method, mesh=solver_mesh())
+        assert np.array_equal(split.x, whole.x), method

@@ -1,6 +1,6 @@
 """Port parity: repro_torch's solve_batch / solve end to end against the
 JAX reference on the CPU, and the port's package contract (no JAX
-inside, the CUDA default, the not-yet-ported options).
+inside, the CUDA default, ``mesh=``).
 
 ``settle_steps`` and ``stable`` must be equal; solutions within 1e-10.
 """
@@ -150,13 +150,41 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_mesh_alone_raises_not_implemented(monkeypatch):
-    """mesh= is the one option still to port (ROADMAP Queue 1 item 9); the
+    """mesh= runs (it no longer raises): a batch split over a mesh of two
+    CPU devices gives the unsharded batch's bytes, an indivisible batch
+    raises the reference's ValueError, and mesh= with device= raises.  The
     options of items 6-8 run on the CPU when asked and, like every entry
     point, raise without a card when not."""
+    from types import SimpleNamespace
+
+    import jax
+    from repro.distributed import sharding as jsharding
+    from repro_torch.distributed.sharding import shard_system_batch, solver_mesh
+
     a, x, b = _systems(37, 5, 2)
-    for kw in (dict(mesh=object()), dict(mesh=object(), refine=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            tsolver.solve_batch(a, b, device=CPU, **kw)
+    mesh = solver_mesh(devices=[CPU] * 2)
+    for kw in (dict(), dict(refine=True), dict(method="analog_n"), dict(method="cholesky"),
+               dict(method="cg"), dict(compute_settling=True, settle_method="euler")):
+        whole = tsolver.solve_batch(a, b, device=CPU, **kw)
+        split = tsolver.solve_batch(a, b, mesh=mesh, **kw)
+        assert np.array_equal(split.x, whole.x), kw
+        assert np.array_equal(split.stable, whole.stable), kw
+        for key in ("iterations", "settle_steps", "precision_path"):
+            if key in whole.info:
+                assert np.array_equal(split.info[key], whole.info[key]), (kw, key)
+    a3, _x3, b3 = _systems(38, 5, 3)
+    with pytest.raises(ValueError) as ported:
+        tsolver.solve_batch(a3, b3, mesh=mesh)
+    with pytest.raises(ValueError) as reference:
+        jsharding.shard_system_batch(a3, mesh=SimpleNamespace(devices=np.empty(2, object)))
+    assert str(ported.value) == str(reference.value)
+    assert "does not divide over 2 devices" in str(ported.value)
+    with pytest.raises(ValueError, match="divide"):
+        shard_system_batch(a3, b3, mesh=mesh)
+    with pytest.raises(ValueError, match="either mesh= or device="):
+        tsolver.solve_batch(a, b, mesh=mesh, device=CPU)
+    with pytest.raises(ValueError, match="either mesh= or device="):
+        jsolver.solve_batch(a, b, mesh=jsharding.solver_mesh(), device=jax.devices()[0])
     options = (dict(refine=True), dict(refine="fcg"),
                dict(compute_settling=True, settle_method="spectral", x_ref=x),
                dict(compute_settling=True, settle_method="nonlinear"),
@@ -166,9 +194,15 @@ def test_mesh_alone_raises_not_implemented(monkeypatch):
         res = tsolver.solve_batch(a, b, device=CPU, **kw)
         assert np.all(np.isfinite(res.x)), kw
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for kw in options:
+    for kw in options + (dict(mesh=mesh),):
+        if "mesh" in kw:
+            # a mesh of CPU devices asks for the CPU
+            assert np.all(np.isfinite(tsolver.solve_batch(a, b, **kw).x))
+            continue
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tsolver.solve_batch(a, b, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solver_mesh()
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
