@@ -80,6 +80,21 @@ non-zero:
    quarantined; (f) ``newton_batch`` at B = 8, n = 64 through a session:
    the direct executor's iteration counts, x within 1e-7, one pattern;
    (g) ``solve_batch(mesh=solver_mesh())`` bit for bit ``device="cuda"``;
+3d. analysis — the runtime sync gate (``repro_torch.analysis.
+   run_service_gate``) on one and two CUDA streams: after a warmup drain
+   the same drain must make no kernel build, no host copy under the
+   ``dispatch`` label and no synchronizing operation there either
+   (``torch.cuda.set_sync_debug_mode("warn")``, recorded by label); a
+   ``.item()`` planted in the dispatch scope must count exactly once; then
+   one drain of stream (a) and the settling tickets of (c) at n = 48 (K3)
+   and 256 (K4, ``diag``) under ``SyncWatch``, launch counts reset just
+   before and read just after, printing host copies and synchronizing
+   operations by label, by entry point and by call site (the settling
+   tickets failing unless their poll counted under ``settle_poll``, each
+   ticket equal to ``solve_batch``), the watched mix drain's bytes equal to
+   a plain drain's, and the profiler's ``cudaStreamSynchronize`` count of a
+   third drain beside the 192 that scripts/service_overlap.py recorded
+   before the dispatch phase's copies were made asynchronous;
 4. kernel_api — the kernel API through the public wrappers, launch
    counts reset just before and read just after, failing unless K5, K6,
    K7a and K7b each launched: ``spd_transform_arrays`` (K7a + K7b) on a
@@ -127,8 +142,8 @@ non-zero:
 7. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
-   form and of the solve service's settling tickets,
-   ``launches_by_phase``), the
+   form and of the solve service's and the analysis phase's settling
+   tickets, ``launches_by_phase``), the
    nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -1241,6 +1256,154 @@ def phase_solve_service(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: analysis — the runtime sync gate and host copies by phase label
+# ---------------------------------------------------------------------------
+
+# the cudaStreamSynchronize calls scripts/service_overlap.py's profile
+# counted in one drain of the benchmark's mix on an H100 (700 W) while
+# every host-to-device copy of the dispatch phase still synchronized
+RECORDED_STREAM_SYNCS = 192
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
+              "cudaEventSynchronize")
+
+
+def site(path: str) -> str:
+    """``file:line`` of a warning, its path shortened to the last two parts."""
+    name, _, line = path.rpartition(":")
+    return "/".join(Path(name).parts[-2:]) + ":" + line
+
+
+def outer_op(event) -> str:
+    """The outermost ``aten::`` operation a profiler event ran under."""
+    name, parent = "(none)", getattr(event, "cpu_parent", None)
+    while parent is not None:
+        if parent.name.startswith("aten::"):
+            name = parent.name
+        parent = getattr(parent, "cpu_parent", None)
+    return name
+
+
+def watched(dev, label: str, fn) -> tuple[object, dict]:
+    """Run ``fn`` under a SyncWatch of tensors on ``dev``'s type (on the
+    card with torch's synchronizing-operation warnings recorded by label);
+    returns fn's result and the summary row."""
+    from collections import Counter
+
+    from repro_torch.analysis import SyncWatch
+
+    t0 = time.perf_counter()
+    with SyncWatch(device_type=dev.type) as watch:
+        result = fn()
+    wall = time.perf_counter() - t0
+    by_entry = Counter(f"{scope} {entry}" for scope, entry in watch.calls)
+    aten_by_site = Counter(f"{scope} {site(where)}" for scope, where in watch.aten_calls)
+    row = dict(phase="analysis", case=label, wall_s=wall, counts=watch.counts,
+               total=watch.total(), by_entry=dict(by_entry),
+               aten_counts=watch.aten_counts, aten_total=sum(watch.aten_counts.values()),
+               aten_by_site=dict(aten_by_site.most_common()),
+               calls=watch.calls[:10], aten_calls=[[c, site(w)] for c, w in watch.aten_calls[:10]])
+    return result, row
+
+
+def phase_analysis(dev) -> dict:
+    """The runtime sync gate on the card (1 and 2 streams), a planted
+    dispatch-phase .item() that it must count once, then the host copies by
+    label of one drain of the benchmark's mix and of the settling tickets
+    (K3 at n = 48, K4 at n = 256), with torch's synchronizing-operation
+    warnings beside them and the mix drain's CUDA syncs from the profiler.
+    Returns the K1-K4 launches of the settling drains."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import solve_batch
+    from repro_torch.analysis import SyncWatch, run_service_gate
+    from repro_torch.serving import SolveService, solve_service
+    from repro_torch.serving.faults import SolveError
+
+    for n_streams in (1, 2):
+        report = run_service_gate(device=dev, n_streams=n_streams)
+        emit(dict(phase="analysis", case=f"gate_{n_streams}_streams", **report))
+        check(report["ok"] and report["dispatch_aten_syncs"] == 0,
+              f"gate at {n_streams} streams: {report}")
+
+    orig, planted = solve_service.solve_batch_submit, []
+
+    def submit(*args, **kwargs):
+        if SyncWatch._active is not None and not planted:
+            planted.append(torch.zeros((), device=dev).item())
+        return orig(*args, **kwargs)
+
+    solve_service.solve_batch_submit = submit
+    try:
+        report = run_service_gate(device=dev)
+    finally:
+        solve_service.solve_batch_submit = orig
+    emit(dict(phase="analysis", case="gate_planted_item", **report))
+    check(len(planted) == 1 and report["dispatch_syncs"] == 1 and not report["ok"],
+          f"planted .item(): {len(planted)} planted, {report['dispatch_syncs']} counted, "
+          f"ok {report['ok']}")
+
+    # (a) the benchmark's mix: a plain drain, a watched one (the same bytes),
+    # and a profiled one for the CUDA runtime's own sync count
+    stream = service_stream()
+
+    def mix_service():
+        svc = SolveService(batch_slots=SERVICE_SLOTS, devices=[dev])
+        rids = [svc.submit(a, b, method=m) for a, b, m in stream]
+        return svc, rids
+
+    svc, rids = mix_service()
+    plain = svc.drain()
+    svc, rids_w = mix_service()
+    torch.cuda.synchronize()
+    out, row = watched(dev, "mix_drain", svc.drain)
+    torch.cuda.synchronize()
+    check(all(np.array_equal(out[r].x, plain[p].x) for r, p in zip(rids_w, rids)),
+          "mix drain: the watched drain delivered other bytes")
+    check(row["counts"].get("dispatch", 0) == 0 and row["aten_counts"].get("dispatch", 0) == 0,
+          f"mix drain: dispatch syncs {row['counts']}, synchronizing operations "
+          f"{row['aten_counts']}")
+    svc, _rids = mix_service()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        svc.drain()
+    from collections import Counter
+
+    cuda_calls = {e.key: e.count for e in prof.key_averages() if e.key in SYNC_CALLS}
+    stream_syncs_by_op = Counter(outer_op(e) for e in prof.events()
+                                 if e.name == "cudaStreamSynchronize")
+    row.update(requests=len(stream), profiled_cuda_calls=cuda_calls,
+               profiled_stream_syncs_by_op=dict(stream_syncs_by_op.most_common()),
+               recorded_stream_syncs=RECORDED_STREAM_SYNCS)
+    emit(row)
+
+    # (c) settling tickets: the sweep's poll under settle_poll, K3 and K4 launched
+    launches: dict[str, int] = {}
+    for n, kernel, dt_policy in SERVICE_SETTLE[:2]:
+        a, _x, b = systems(n, SERVICE_SLOTS)
+        opts = dict(method="analog_2n", compute_settling=True, settle_method="euler",
+                    settle_max_steps=MAX_STEPS, settle_dt_policy=dt_policy)
+        svc = SolveService(batch_slots=SERVICE_SLOTS, devices=[dev])
+        rids = [svc.submit(a[k], b[k], **opts) for k in range(SERVICE_SLOTS)]
+        label = f"settle_dense_n{n}_{dt_policy}"
+        (out, row), counts, _t, _wall = drive(lambda t: watched(dev, label, svc.drain),
+                                              launches)
+        check(counts[kernel] > 0, f"{row['case']}: {kernel} was not launched")
+        want = solve_batch(a, b, device=dev, **opts)
+        for k, rid in enumerate(rids):
+            r = out[rid]
+            check(not isinstance(r, SolveError) and np.array_equal(r.x, want.x[k])
+                  and r.info["settle_steps"] == int(want.info["settle_steps"][k]),
+                  f"{row['case']}: ticket {k} differs from solve_batch")
+        check(row["counts"].get("settle_poll", 0) > 0 and row["counts"].get("dispatch", 0) == 0,
+              f"{row['case']}: syncs by label {row['counts']}")
+        row["launches"] = {k: v for k, v in counts.items() if v}
+        emit(row)
+    for kernel in ("transient_sweep", "transient_step_batched"):
+        check(launches.get(kernel, 0) > 0, f"analysis: {kernel} was not launched")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the kernel API (K5, K6, K7a, K7b) and the single-circuit modules
 # ---------------------------------------------------------------------------
 
@@ -2271,13 +2434,14 @@ def phase_serve(dev) -> dict:
 
 
 def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
-                 service_launches: dict, api_rows: dict, api_launches: dict, k8_rows: dict,
-                 k8_launches: dict) -> list[dict]:
+                 service_launches: dict, analysis_launches: dict, api_rows: dict,
+                 api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
     """One row per kernel, and for K5, K6 and K8 one per route: timed at
     its main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
     every shape, its launches from the main path that drives it (the slice,
-    the settling phase's predicted-form sweeps and the solve service's
-    settling tickets for K1-K4, split in ``launches_by_phase``; the kernel
+    the settling phase's predicted-form sweeps and the solve service's and
+    the analysis phase's settling tickets for K1-K4, split in
+    ``launches_by_phase``; the kernel
     API for K5-K7b, the serving path for K8), for
     K5, K6 and K8 those of the row's route (``kernel_route``; K7a names
     its route too, K4 its split, K1 and K3 their cluster size, variant,
@@ -2302,7 +2466,8 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
         err = max(p[name]["max_abs_err"] for p in pairs.values() if name in p)
         bound_ms, bound_by = bound(k["bytes"], k["flops"])
         by_phase = dict(slice=launches[name], settling=settling_launches[name],
-                        solve_service=service_launches.get(name, 0))
+                        solve_service=service_launches.get(name, 0),
+                        analysis=analysis_launches.get(name, 0))
         rows.append(dict(
             name=f"{tag} {name}", route="cuda", source=source, replaces=rep,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -2317,6 +2482,14 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                             clusters_per_wave=layout["clusters_per_wave"],
                             launches_by_variant=launches["by_variant"][name],
                             device_ms_0_steps=k["device_ms_0_steps"])
+            # the step-to-step dependency through cluster.sync(), which
+            # bound_ms does not model: KERNEL_STEPS times the least per-step
+            # device time past the launch over every shape (route_times),
+            # where a rank's own row work is smallest
+            key = {"ell_sweep": "k1", "transient_sweep": "k3"}[name]
+            key += "_device_ms_per_step_past_launch"
+            rows[-1]["latency_bound_ms"] = KERNEL_STEPS * min(
+                p["per_step"][key] for p in pairs.values() if key in p["per_step"])
             if "device_ms_by_ranks" in layout:
                 rows[-1]["device_ms_by_ranks"] = layout["device_ms_by_ranks"]
         if "split" in k:
@@ -2401,6 +2574,7 @@ def main() -> int:
     launches = phase_slice(dev, routes)
     settling_launches = phase_settling(dev, routes)
     service_launches = phase_solve_service(dev)
+    analysis_launches = phase_analysis(dev)
     api_rows, api_launches = phase_kernel_api(
         dev, pairs[("dense", N_DENSE)]["transient_step_batched"]["split"])
     phase_quickstart()
@@ -2408,6 +2582,7 @@ def main() -> int:
     k8_launches = phase_serve(dev)
 
     emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,
+                                  analysis_launches,
                                   api_rows, api_launches, k8_rows, k8_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

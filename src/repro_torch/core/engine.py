@@ -33,10 +33,11 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import sync_scope
 from repro_torch.core import spectral
 from repro_torch.core.network import Netlist
 from repro_torch.core.specs import OpAmpSpec, AD712
-from repro_torch.device import resolve_device, stage
+from repro_torch.device import resolve_device, stage, to_device
 from repro_torch.kernels import ops
 
 F64 = torch.float64
@@ -422,14 +423,14 @@ def _node_capacitance(pat, vals, params, opamp, dev) -> torch.Tensor:
     """Per-node capacitance: wiring + switches + active amp/buffer pins."""
     cap = torch.full((len(vals.elem), pat.n_nodes), params.c_node, dtype=F64,
                      device=dev)
-    cap = cap + params.c_switch * torch.as_tensor(vals.elem, device=dev)
+    cap = cap + params.c_switch * to_device(vals.elem, dev)
     if pat.n_pair_slots:
-        pin = 2.0 * opamp.c_in * torch.as_tensor(vals.pair_active, dtype=F64, device=dev)
-        cap.index_add_(1, torch.as_tensor(pat.pair_i, device=dev), pin)
-        cap.index_add_(1, torch.as_tensor(pat.pair_j, device=dev), pin)
+        pin = 2.0 * opamp.c_in * to_device(vals.pair_active, dev, F64)
+        cap.index_add_(1, to_device(pat.pair_i, dev), pin)
+        cap.index_add_(1, to_device(pat.pair_j, dev), pin)
     if pat.n_ground_slots:
-        cap.index_add_(1, torch.as_tensor(pat.gcell_i, device=dev),
-                       opamp.c_in * torch.as_tensor(vals.g_active, dtype=F64, device=dev))
+        cap.index_add_(1, to_device(pat.gcell_i, dev),
+                       opamp.c_in * to_device(vals.g_active, dev, F64))
     return cap
 
 
@@ -457,7 +458,7 @@ def assemble_batch(
     vals = _gather_batch_values(nets, pat, v_os)
 
     def t(x):
-        return torch.as_tensor(x, device=dev)
+        return to_device(x, dev)
 
     bidx = torch.arange(b_count, device=dev)[:, None]
     inv_c = 1.0 / _node_capacitance(pat, vals, params, opamp, dev)
@@ -781,7 +782,7 @@ def assemble_batch_ell(
     amp_idx, amp_w = _amp_rows_static(pat, opamp, buffers, k)
 
     def t(x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+        return to_device(x, dev, dtype)
 
     n = pat.n_nodes
     nz = pat.n_states
@@ -1055,23 +1056,27 @@ def _settle_loop(step_chunk, z, dt, x_ref, *, rtol, atol, check_every,
     res = np.zeros(b_count, dtype=np.float64)
     x_now = None
     taken = 0
-    while taken < max_steps:
-        chunk = min(check_every, max_steps - taken)
-        with stage(timings, "sweep", dev):
-            z, r = step_chunk(z, chunk)
-        taken += chunk
-        with stage(timings, "poll", dev):
-            host = torch.cat([z[:, :nu], r[:, None]], dim=1).cpu().numpy()
-            host = host.astype(np.float64)
-            x_now = host[:, :nu]
-            # dt was folded into the operator: undo it for the true residual
-            res = host[:, nu] / dt
-            ok = np.all(np.abs(x_now - x_ref) <= tol, axis=1)
-            newly = ok & ~done
-            steps[newly] = taken
-            done |= newly
-        if np.all(done):
-            break
+    # the per-chunk poll is the sweep's sanctioned host copy: labeled so
+    # SyncWatch counts it under settle_poll, not under the phase of
+    # whichever service called us
+    with sync_scope("settle_poll"):
+        while taken < max_steps:
+            chunk = min(check_every, max_steps - taken)
+            with stage(timings, "sweep", dev):
+                z, r = step_chunk(z, chunk)
+            taken += chunk
+            with stage(timings, "poll", dev):
+                host = torch.cat([z[:, :nu], r[:, None]], dim=1).cpu().numpy()
+                host = host.astype(np.float64)
+                x_now = host[:, :nu]
+                # dt was folded into the operator: undo it for the true residual
+                res = host[:, nu] / dt
+                ok = np.all(np.abs(x_now - x_ref) <= tol, axis=1)
+                newly = ok & ~done
+                steps[newly] = taken
+                done |= newly
+            if np.all(done):
+                break
     if x_now is None:
         x_now = z[:, :nu].cpu().numpy().astype(np.float64)
     return steps, x_now, res

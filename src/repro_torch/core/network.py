@@ -24,9 +24,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import sync_scope
 from repro_torch.core import transform as T
 from repro_torch.core.specs import CircuitParams, DEFAULT_PARAMS
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 
 _EMPTY_I = np.zeros(0, dtype=np.int64)
 _EMPTY_F = np.zeros(0, dtype=np.float64)
@@ -377,14 +378,18 @@ def build_proposed_batch(
     b = np.asarray(b, dtype=np.float64)
     b_count, n = b.shape
     tr = T.transform_2n(
-        torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev),
+        to_device(a, dev), to_device(b, dev),
         d_policy=d_policy, beta=beta, params=params,
     )
     if alpha != 1.0:
         tr = T.scale_system(tr, alpha)                      # Eq. 27
-    m_dc = tr.assembled().cpu().numpy()
-    k_s = tr.k_s.cpu().numpy()
-    sign = tr.b_sign.cpu().numpy()
+    # the extraction below is host numpy by design, so the transform's
+    # outputs copy back here — labeled net_build so SyncWatch counts them
+    # under the build, not under the caller's dispatch scope
+    with sync_scope("net_build"):
+        m_dc = tr.assembled().cpu().numpy()
+        k_s = tr.k_s.cpu().numpy()
+        sign = tr.b_sign.cpu().numpy()
     supply_g = np.concatenate([k_s, k_s], axis=1)
     supply_v = params.supply_v * np.concatenate([sign, -sign], axis=1)
 

@@ -38,7 +38,7 @@ from repro_torch.core.operating_point import (
 )
 from repro_torch.core.refine import RefineSpec  # noqa: F401  (re-export for callers)
 from repro_torch.core.specs import OPAMPS, CircuitParams, DEFAULT_PARAMS, OpAmpSpec
-from repro_torch.device import resolve_device, stage
+from repro_torch.device import resolve_device, stage, to_device
 
 
 @dataclasses.dataclass
@@ -298,8 +298,8 @@ def _solve_batch_digital_submit(a, b, method, *, tol, max_iter, mesh=None,
 
         a_parts, b_parts = shard_system_batch(a, b, mesh=mesh)
     else:
-        a_parts = [torch.as_tensor(a, device=device)]
-        b_parts = [torch.as_tensor(b, device=device)]
+        a_parts = [to_device(a, device)]
+        b_parts = [to_device(b, device)]
     n_systems = a.shape[0]
 
     def gather(parts) -> np.ndarray:
@@ -314,9 +314,12 @@ def _solve_batch_digital_submit(a, b, method, *, tol, max_iter, mesh=None,
                                     settle_time=None, info={})
     else:
         fn = baselines.cg_solve_batch if method == "cg" else baselines.jacobi_solve_batch
-        res = [fn(at, bt, tol=tol, max_iter=max_iter) for at, bt in zip(a_parts, b_parts)]
 
         def finalize() -> BatchSolveResult:
+            # the iterations run here, at the harvest: each one's stopping
+            # test copies a flag to the host, which at submit would make
+            # the dispatch phase wait for the card
+            res = [fn(at, bt, tol=tol, max_iter=max_iter) for at, bt in zip(a_parts, b_parts)]
             return BatchSolveResult(
                 x=gather(r.x for r in res), method=method,
                 stable=np.ones(n_systems, dtype=bool), settle_time=None,

@@ -28,6 +28,23 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array (numpy, list, scalar) as a tensor on ``device``.
+
+    ``torch.as_tensor(x, device="cuda")`` copies from pageable memory,
+    and such a copy waits for everything queued on the current stream
+    (``cudaStreamSynchronize``): a service dispatch that stamps
+    micro-batch ``i+1`` on a stream would wait for the solve of ``i``.
+    On the card the copy goes through pinned memory with
+    ``non_blocking=True`` instead; the caching host allocator keeps the
+    pinned block until the copy is done.  The bytes are the same.
+    """
+    t = torch.as_tensor(x, dtype=dtype)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def as_float64(x, device=None) -> torch.Tensor:
     """``x`` as a float64 tensor.
 

@@ -250,6 +250,8 @@ class ServeEngine:
             if req is None:
                 continue
             self.pos[s] += 1
+            # nxt is numpy: _sample made the step's one host copy
+            # repro: ignore[host-sync-in-hot-path]
             req.out.append(int(nxt[s]))
             if len(req.out) >= req.max_new or self.pos[s] >= self.max_seq - 1:
                 req.done = True

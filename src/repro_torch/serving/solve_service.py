@@ -68,8 +68,16 @@ How the reference's per-device JAX streams become CUDA streams:
   Quarantine, re-queueing and half-open probes therefore act on the
   faults the seeded :class:`~repro_torch.serving.faults.FaultInjector`
   plants; no recovery from a real fault is attempted.
-* The reference's ``sync_scope`` markers (its static-analysis runtime
-  gate) are left out until that gate is ported.
+* **Phases are labeled for the runtime sync gate** as in the reference:
+  :func:`~repro_torch.analysis.runtime.sync_scope` marks ``dispatch``
+  (the host phase and submit), ``harvest`` (``wait_dc``), ``finish``
+  (``wait``) and ``unpack``; the netlist build inside dispatch is
+  ``net_build`` and the settle poll inside finish ``settle_poll``
+  (innermost label wins).  ``python -m repro_torch.analysis
+  --runtime-gate`` requires no host copy under ``dispatch``.  The submit
+  path's host-to-device copies go through pinned memory
+  (:func:`repro_torch.device.to_device`): a copy from pageable memory
+  would wait for the stream's previous solve.
 
 Failure semantics (the delivery contract): every submitted ticket gets
 exactly one terminal answer from :meth:`SolveService.drain` — a
@@ -94,6 +102,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import sync_scope
 from repro_torch.core import engine
 from repro_torch.core.operating_point import NonIdealities
 from repro_torch.core.refine import as_refine_spec
@@ -546,58 +555,61 @@ class SolveService:
             None if self.fault_injector is None
             else self.fault_injector.draw(dev=dev)
         )
+        # sync_scope: a host copy in here is a dispatch-phase sync —
+        # the runtime gate requires none
         try:
-            if fault is not None:
-                self.fault_injector.build_fault(fault)  # raises build_error
-            sig = pipe.sig
-            n_real = len(tickets)
-            fill = self.batch_slots - n_real
-            rhs = "zero" if sig.method in DIGITAL_METHODS else "supply"
-            padded = [pad_system(t.a, t.b, pipe.n_pad, rhs=rhs) for t in tickets]
-            padded += [padded[-1]] * fill    # repeat-fill to fixed shape
-            a_stack = np.stack([p[0] for p in padded])
-            b_stack = np.stack([p[1] for p in padded])
+            with sync_scope("dispatch"):
+                if fault is not None:
+                    self.fault_injector.build_fault(fault)  # raises build_error
+                sig = pipe.sig
+                n_real = len(tickets)
+                fill = self.batch_slots - n_real
+                rhs = "zero" if sig.method in DIGITAL_METHODS else "supply"
+                padded = [pad_system(t.a, t.b, pipe.n_pad, rhs=rhs) for t in tickets]
+                padded += [padded[-1]] * fill    # repeat-fill to fixed shape
+                a_stack = np.stack([p[0] for p in padded])
+                b_stack = np.stack([p[1] for p in padded])
 
-            settle_x0 = None
-            if sig.method in ANALOG_METHODS and any(t.x0 is not None for t in tickets):
-                # warm-start stack: a cold ticket's row is the zero initial
-                # state; warm pad entries sit at the known pad solution
-                rows = []
-                for t in tickets:
-                    row = np.zeros(pipe.n_pad, dtype=np.float64)
-                    if t.x0 is not None:
-                        row[: t.n] = t.x0
-                        row[t.n:] = PAD_SOLUTION_V
-                    rows.append(row)
-                rows += [rows[-1]] * fill
-                settle_x0 = np.stack(rows)
+                settle_x0 = None
+                if sig.method in ANALOG_METHODS and any(t.x0 is not None for t in tickets):
+                    # warm-start stack: a cold ticket's row is the zero initial
+                    # state; warm pad entries sit at the known pad solution
+                    rows = []
+                    for t in tickets:
+                        row = np.zeros(pipe.n_pad, dtype=np.float64)
+                        if t.x0 is not None:
+                            row[: t.n] = t.x0
+                            row[t.n:] = PAD_SOLUTION_V
+                        rows.append(row)
+                    rows += [rows[-1]] * fill
+                    settle_x0 = np.stack(rows)
 
-            pattern, nets = self._bucket_pattern(pipe, a_stack, b_stack, dev)
-            with self._on_stream(dev):
-                pending = solve_batch_submit(
-                    a_stack,
-                    b_stack,
-                    method=sig.method,
-                    opamp=sig.opamp,
-                    nonideal=sig.nonideal,
-                    nets=nets,
-                    d_policy=sig.d_policy,
-                    beta=sig.beta,
-                    alpha=sig.alpha,
-                    compute_settling=sig.compute_settling,
-                    settle_method=sig.settle_method,
-                    settle_max_steps=sig.settle_max_steps,
-                    settle_dt_policy=sig.settle_dt_policy,
-                    tol=sig.tol,
-                    max_iter=sig.max_iter,
-                    fallback=self.fallback,
-                    fallback_residual_tol=self.fallback_residual_tol,
-                    refine=self.refine,
-                    sweep_dtype=sig.sweep_dtype,
-                    settle_x0=settle_x0,
-                    pattern=pattern,
-                    device=self.devices[dev],
-                )
+                pattern, nets = self._bucket_pattern(pipe, a_stack, b_stack, dev)
+                with self._on_stream(dev):
+                    pending = solve_batch_submit(
+                        a_stack,
+                        b_stack,
+                        method=sig.method,
+                        opamp=sig.opamp,
+                        nonideal=sig.nonideal,
+                        nets=nets,
+                        d_policy=sig.d_policy,
+                        beta=sig.beta,
+                        alpha=sig.alpha,
+                        compute_settling=sig.compute_settling,
+                        settle_method=sig.settle_method,
+                        settle_max_steps=sig.settle_max_steps,
+                        settle_dt_policy=sig.settle_dt_policy,
+                        tol=sig.tol,
+                        max_iter=sig.max_iter,
+                        fallback=self.fallback,
+                        fallback_residual_tol=self.fallback_residual_tol,
+                        refine=self.refine,
+                        sweep_dtype=sig.sweep_dtype,
+                        settle_x0=settle_x0,
+                        pattern=pattern,
+                        device=self.devices[dev],
+                    )
         finally:
             self._host_build_s += time.perf_counter() - t_build
         if fault is not None:
@@ -769,7 +781,7 @@ class SolveService:
         """
         t_wait = time.perf_counter()
         try:
-            with self._on_stream(flight.dev):
+            with self._on_stream(flight.dev), sync_scope("harvest"):
                 batch = flight.pending.wait_dc()
         except Exception as exc:
             self._device_wait_s += time.perf_counter() - t_wait
@@ -798,7 +810,7 @@ class SolveService:
         """
         t_finish = time.perf_counter()
         try:
-            with self._on_stream(flight.dev):
+            with self._on_stream(flight.dev), sync_scope("finish"):
                 batch = flight.pending.wait()
         except Exception as exc:
             self._settle_finish_s += time.perf_counter() - t_finish
@@ -813,9 +825,10 @@ class SolveService:
         """Delivery acceptance for one harvested micro-batch: unpack,
         hand out terminal answers, route rejected tickets to retry."""
         t_unpack = time.perf_counter()
-        bad = self._unpack_micro_batch(
-            flight.pipe, flight.tickets, batch, injected=flight.injected
-        )
+        with sync_scope("unpack"):
+            bad = self._unpack_micro_batch(
+                flight.pipe, flight.tickets, batch, injected=flight.injected
+            )
         self._unpack_s += time.perf_counter() - t_unpack
         for t in flight.tickets:
             if t.result is not None:

@@ -702,3 +702,28 @@ def test_mesh_of_one_card_is_the_card(cuda):
         whole = solve_batch(a, b, method=method, device=cuda)
         split = solve_batch(a, b, method=method, mesh=solver_mesh())
         assert np.array_equal(split.x, whole.x), method
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_streams", [1, 2])
+def test_service_gate_on_the_card(cuda, monkeypatch, n_streams):
+    """The runtime sync gate holds on the card's streams, and a planted
+    .item() of a CUDA tensor in the dispatch scope counts exactly once."""
+    from repro_torch.analysis import SyncWatch, run_service_gate
+    from repro_torch.serving import solve_service
+
+    report = run_service_gate(device="cuda", n_streams=n_streams)
+    assert report["ok"] and report["dispatch_aten_syncs"] == 0, report
+    assert report["harvest_syncs"] > 0 and report["aten_sync_counts"]["harvest"] > 0
+
+    orig = solve_service.solve_batch_submit
+    planted = []
+
+    def submit(*args, **kwargs):
+        if SyncWatch._active is not None and not planted:
+            planted.append(torch.zeros((), device=cuda).item())
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(solve_service, "solve_batch_submit", submit)
+    report = run_service_gate(device="cuda", n_streams=n_streams)
+    assert report["dispatch_syncs"] == 1 and not report["ok"]
