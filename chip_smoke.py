@@ -138,12 +138,39 @@ non-zero:
    through K8 against the plain attention and against two planted faults
    (a key tile dropped for late rows, the GQA head order swapped), which
    the K8 bars and the logit bar must reject; and the SMOKE config
-   (float32, K8's FMA route) on the card against the CPU;
-7. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
+   (float32, K8's FMA route) on the card against the CPU.  K8's cases
+   include the families' shapes (Zamba2's D = 112 on both routes,
+   InternVL2's G = 7, Mixtral's G = 6 with its 4096 window at S = 6000,
+   Whisper's non-causal encoder and cross attention at T = 1500), and a
+   planted fault at D = 112 (the short column group left unnormalized)
+   must fail the bar by more than 1000x;
+7. families — every other model family at its published width, bf16,
+   seeded random weights on the card, greedy: InternVL2-1B (24 layers,
+   256 patch embeddings and 300-1200 text tokens, through ``prefill_into``
+   / ``decode_step``), Granite-MoE 1B-A400M (24 layers, ``ServeEngine`` at
+   the serve phase's protocol), Mixtral-8x22B (12 of its 56 layers, the
+   most that fit one card with room to run; prompts of 4500-6000 tokens,
+   so K8's window masks), Mamba2-370M (48 layers, ``ServeEngine``,
+   prompts of 256-2048 tokens; it launches no kernel), Zamba2-7B (81
+   layers, ``ServeEngine``, prompts that are multiples of 256; K8 at D =
+   112) and Whisper-base (6 + 6 layers, 1500 frame embeddings, 8-64
+   decoder tokens, through ``prefill_into`` / ``decode_step``); each model
+   failing unless every request finishes with its tokens in the
+   vocabulary and K8 launched exactly once per attention application of
+   each prefill, all on its tensor-core route, and nothing else
+   launched; then two prefills again with K8 held element by element
+   against its plain version on every attention layer's own inputs and
+   the first token the served one, and the SMOKE config on the card
+   against the CPU (logits within TOL_SMOKE_LOGITS, greedy tokens equal);
+   prefill and decode times, tokens/s, peak memory and the init seconds
+   of each model are printed, with no gate, and a ``torch.profiler``
+   breakdown of one prefill and four decode steps;
+8. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
    form and of the solve service's and the analysis phase's settling
-   tickets, ``launches_by_phase``), the
+   tickets, ``launches_by_phase``; K8's rows theirs by phase and family,
+   ``launches_by_family``, with a row at D = 112), the
    nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
@@ -153,6 +180,7 @@ code 2 before printing any result.
 
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import subprocess
@@ -2011,6 +2039,8 @@ TOL_SMOKE_LOGITS = 1e-4
 # through ops.flash_attention
 BF16, F32 = torch.bfloat16, torch.float32
 K8_MAIN = ("main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
+# Zamba2-7B's shared attention at a 2048-token prompt: D = 112, G = 1
+K8_D112 = ("d112_zamba", BF16, 1, 2048, 2048, 32, 32, 112, True, 0, None)
 K8_CASES = (
     K8_MAIN,
     ("main_p_bf16", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, BF16),
@@ -2026,6 +2056,17 @@ K8_CASES = (
     *((f"bf16_d{d}_p_f32", BF16, 2, 515, 515, 8, 2, d, True, 0, None) for d in (16, 32, 64)),
     # Granite-20B's MQA: 48 query heads over one KV head, 64 % 48 != 0
     ("mqa_g48", BF16, 1, 1000, 1000, 48, 1, 128, True, 0, None),
+    # the families phase's shapes: Zamba2's D = 112 (G = 1) on both routes,
+    # InternVL2's G = 7 (256 patches + 1200 text), Mixtral's G = 6 with its
+    # 4096 window masking at S = 6000, Whisper's non-causal encoder
+    # (S = T = 1500) and cross attention (S != T = 1500)
+    K8_D112,
+    ("d112_p_bf16", BF16, 2, 515, 515, 8, 2, 112, True, 0, BF16),
+    ("f32_d112", F32, 2, 515, 515, 8, 2, 112, True, 0, None),
+    ("g7_internvl", BF16, 1, 1456, 1456, 14, 2, 64, True, 0, None),
+    ("g6_window_mixtral", BF16, 1, 6000, 6000, 48, 8, 128, True, 4096, None),
+    ("encoder_whisper", BF16, 1, 1500, 1500, 8, 8, 64, False, 0, None),
+    ("cross_whisper", BF16, 2, 64, 1500, 8, 8, 64, False, 0, None),
 )
 # the same shape in float32: the FMA route's row of the kernels line
 K8_MAIN_F32 = ("main_f32", F32, *K8_MAIN[2:])
@@ -2106,6 +2147,25 @@ def k8_heads_swapped(q, k, v, **kw):
 K8_FAULTS = {"tile_dropped_late_rows": k8_tile_dropped, "gqa_heads_swapped": k8_heads_swapped}
 
 
+def k8_last_group_unnormalized(q, k, v, **kw):
+    """A planted fault at D = 112: K8 with its last 16 output columns (in
+    the short second group of V's columns, which D = 112 alone has) left
+    unnormalized, acc instead of acc / l, l the row's softmax denominator
+    from a float32 score matrix (causal)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    out = fa.flash_attention(q, k, v, **kw)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    sc = torch.einsum("bqhgd,bkhd->bqhgk", q.float().reshape(b, s, kv, h // kv, d),
+                      k.float()) / np.sqrt(d)
+    keep = torch.arange(k.shape[1], device=q.device)[None, :] <= \
+        torch.arange(s, device=q.device)[:, None]
+    sc = sc.masked_fill(~keep[None, :, None, None, :], -np.inf)
+    l = torch.exp(sc - sc.amax(dim=-1, keepdim=True)).sum(dim=-1).reshape(b, s, h)
+    out[..., d - 16:] = (out[..., d - 16:].float() * l[..., None]).to(out.dtype)
+    return out
+
+
 def k8_operands(case, gen):
     _label, dtype, b, s, t, h, kv, d, _causal, _window, _p = case
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2115,9 +2175,11 @@ def k8_operands(case, gen):
 def phase_k8() -> dict:
     """K8 against its plain version at every case (main-path shape, ragged
     S, MQA with G = 32 and 48, a window, non-causal, S != T, each head
-    size, float32 and bf16, p rounded or not), each through the route
-    flash_attention_route names; then the times at the main-path shape on
-    each route (bf16 -> "mma", float32 -> "fma"), keyed by route."""
+    size, float32 and bf16, p rounded or not, and the families' shapes),
+    each through the route flash_attention_route names; the planted faults,
+    one at D = 112; then the times at the main-path shape on each route
+    (bf16 -> "mma", float32 -> "fma") and at Zamba2's D = 112 shape
+    ("mma_d112")."""
     from repro_torch.kernels import ops
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -2151,9 +2213,18 @@ def phase_k8() -> dict:
         err, share = bar_share(fault(q, k, v), want, *K8_BARS[dtype])
         planted[name] = dict(max_abs_err=err, of_bar=share)
         check(share > 1, f"K8's bar passes the planted fault {name}: {share} of it")
+    # the short column group at D = 112: a fault there must fail the bar by
+    # more than 1000x
+    q, k, v = k8_operands(K8_D112, gen)
+    err, share = bar_share(k8_last_group_unnormalized(q, k, v),
+                           fa.flash_attention_plain(q, k, v), *K8_BARS[BF16])
+    planted["d112_last_group_unnormalized"] = dict(max_abs_err=err, of_bar=share)
+    check(share > 1000, f"K8's bar passes the D = 112 planted fault, or fails it by 1000x "
+                        f"or less: {share} of it")
     emit(dict(phase="serve", case="k8_planted_faults", faults=planted))
 
-    rows = {"mma": k8_times(q, k, v, errs, routes)}
+    rows = {"mma_d112": k8_times(q, k, v, errs, routes)}
+    rows["mma"] = k8_times(*k8_operands(K8_MAIN, gen), errs, routes)
     rows["fma"] = k8_times(*k8_operands(K8_MAIN_F32, gen), errs, routes)
     for row in rows.values():
         emit(dict(phase="serve", case="k8_times", **row))
@@ -2433,6 +2504,342 @@ def phase_serve(dev) -> dict:
     return {"mma": by_route["mma"], "fma": cross["k8_launches_by_route"]["fma"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: families — the other model families' serving paths, K8 on every
+# prefill's attention
+# ---------------------------------------------------------------------------
+
+FAMILY_MAX_NEW = 16
+# Mixtral-8x22B's depth, cut to fit one card: ~5.0 GB of bf16 weights a
+# layer (8 experts of 3 x 6144 x 16384, attention 88 M), 141 B parameters
+# in all; 12 of its 56 layers are 60.9 GB with the tables
+MIXTRAL_LAYERS = 12
+# each family's requests: prompt lengths drawn from default_rng(SEED) in
+# [lo, hi], or taken as listed; the families ServeEngine serves (as the
+# reference's does) go through it with ``slots``, a vlm (patches) and an
+# encdec (frames) through prefill_into / decode_step, one slot a request
+FAMILY_PLANS = {
+    "internvl2_1b": dict(requests=4, lens=(300, 1200)),
+    "granite_moe_1b_a400m": dict(slots=SERVE_SLOTS, requests=SERVE_REQUESTS,
+                                 lens=SERVE_PROMPT_LENS),
+    "mixtral_8x22b": dict(slots=2, requests=2, lens=(4500, 6000)),
+    "mamba2_370m": dict(slots=4, requests=4, lens=[256, 512, 1024, 2048]),
+    "zamba2_7b": dict(slots=4, requests=4, lens=[768, 1280, 1536, 2048]),
+    "whisper_base": dict(requests=4, lens=(8, 64)),
+}
+
+
+def attention_applications(cfg) -> int:
+    """K8 launches of one prefill: one per attention layer (a hybrid's
+    shared block once per group; an encdec's encoder self, decoder self
+    and cross attention)."""
+    from repro_torch.models.model import hybrid_groups
+
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return hybrid_groups(cfg)[0]
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_inputs(cfg, gen: torch.Generator, n: int, dev) -> dict:
+    """A vlm's patch or an encdec's frame embeddings for n requests (the
+    stubbed front ends: (n, 1, length, d) normals in the activation dtype,
+    on the card)."""
+    length = {"vlm": cfg.n_patches, "encdec": cfg.enc_len}.get(cfg.family)
+    if length is None:
+        return {}
+    x = torch.randn((n, 1, length, cfg.d_model), device=dev, generator=gen)
+    return {"patches" if cfg.family == "vlm" else "frames": x.to(cfg.act_dtype())}
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "mixtral_8x22b":
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS)
+    return cfg
+
+
+def serve_direct(params, cfg, prompts, extra: dict, dev) -> tuple[list, list, list]:
+    """A vlm's or an encdec's requests through prefill_into (one slot each)
+    and decode_step (all slots at their own positions), greedy.  Returns
+    (tokens per request, prefill times, decode step times)."""
+    from repro_torch.models.model import decode_step, init_decode_cache, prefill_into
+
+    offset = cfg.n_patches if cfg.family == "vlm" else 0
+    max_seq = offset + max(len(p) for p in prompts) + FAMILY_MAX_NEW
+    cache = init_decode_cache(cfg, len(prompts), max_seq, device=dev)
+    outs, prefills, decodes = [], [], []
+    for slot, prompt in enumerate(prompts):
+        t = time.perf_counter()
+        logits = prefill_into(params, prompt[None, :], cfg, cache, slot,
+                              **{key: x[slot] for key, x in extra.items()})
+        outs.append([int(logits.argmax(dim=-1)[0])])
+        prefills.append(dict(prompt_len=len(prompt), ms=(time.perf_counter() - t) * 1e3))
+    pos = np.array([offset + len(p) for p in prompts])
+    for _ in range(FAMILY_MAX_NEW - 1):
+        t = time.perf_counter()
+        toks = np.array([[o[-1]] for o in outs])
+        logits, cache = decode_step(params, toks, pos, cache, cfg)
+        for o, nxt in zip(outs, logits.argmax(dim=-1).cpu().numpy()):
+            o.append(int(nxt))
+        decodes.append(dict(active=len(prompts), ms=(time.perf_counter() - t) * 1e3))
+        pos = pos + 1
+    return outs, prefills, decodes
+
+
+def serve_engine(params, cfg, prompts, slots: int, dev) -> tuple[list, list, list]:
+    """The requests through ServeEngine, greedy, each prefill and decode
+    step timed on the host (both end in a host copy of the tokens)."""
+    from repro_torch.serving import Request, ServeEngine
+
+    max_seq = max(len(p) for p in prompts) + FAMILY_MAX_NEW + 1
+    eng = ServeEngine(cfg, params, batch_slots=slots, max_seq=max_seq, device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new=FAMILY_MAX_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    prefills, decodes = [], []
+    prefill_slot, decode_active = eng._prefill_slot, eng._decode_active
+
+    def timed_prefill(slot, req):
+        t = time.perf_counter()
+        prefill_slot(slot, req)
+        prefills.append(dict(prompt_len=len(req.prompt), ms=(time.perf_counter() - t) * 1e3))
+
+    def timed_decode():
+        t = time.perf_counter()
+        out = decode_active()
+        decodes.append(dict(active=sum(r is not None for r in eng.active),
+                            ms=(time.perf_counter() - t) * 1e3))
+        return out
+
+    eng._prefill_slot, eng._decode_active = timed_prefill, timed_decode
+    eng.run(max_steps=400)
+    for r in reqs:
+        check(r.done and r.error is None and len(r.out) == FAMILY_MAX_NEW,
+              f"{cfg.arch_id} request {r.rid}: done={r.done} error={r.error} "
+              f"tokens={len(r.out)}")
+    return [r.out for r in reqs], prefills, decodes
+
+
+def family_prefill_checks(params, cfg, prompts, extra: dict, outs: list) -> dict:
+    """The first two prompts' prefills again, outside the counted run: K8
+    held element by element against its plain version on every attention
+    layer's own q, k and v (the plain calls launch nothing), the greedy
+    token the served one, and (reported, no gate) the logits through K8
+    against the same prefill through the plain attention."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import prefill
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    k8 = attn_mod.flash_attention
+    layers: dict = {}
+    held_shapes = set()
+
+    def held(q, k, v, **kw):
+        got = k8(q, k, v, **kw)
+        hold_close(layers, "layers", got, fa.flash_attention_plain(q, k, v, **kw),
+                   *K8_BARS[q.dtype])
+        held_shapes.add((tuple(q.shape), tuple(k.shape), kw.get("causal", True),
+                         kw.get("window", 0)))
+        return got
+
+    def logits(attention, i):
+        batch = {"tokens": prompts[i][None, :], **{key: x[i] for key, x in extra.items()}}
+        attn_mod.flash_attention = attention
+        try:
+            offset = cfg.n_patches if cfg.family == "vlm" else 0
+            return prefill(params, batch, cfg, offset + len(prompts[i]))[0].float()
+        finally:
+            attn_mod.flash_attention = k8
+
+    reads = []
+    for i in range(min(2, len(prompts))):
+        ops.reset_launch_counts()
+        got = logits(held, i)
+        check(ops.launch_counts()["flash_attention"] == attention_applications(cfg),
+              f"{cfg.arch_id}: K8 launches of the held prefill")
+        check(bool(torch.isfinite(got).all()), f"{cfg.arch_id}: non-finite prefill logits")
+        check(int(got.argmax(dim=-1)[0]) == outs[i][0],
+              f"{cfg.arch_id}: served first token {outs[i][0]} vs prefill "
+              f"{int(got.argmax(dim=-1)[0])}")
+        read = dict(prompt_len=len(prompts[i]))
+        if attention_applications(cfg):
+            want = logits(fa.flash_attention_plain, i)
+            read.update(layers_of_bar=layers.pop("layers")["of_bar"],
+                        k8_vs_plain_logits_of_max=float((got - want).abs().max())
+                        / float(want.abs().max()))
+        reads.append(read)
+    return dict(prompts=reads, k8_shapes=sorted(str(x) for x in held_shapes))
+
+
+def family_profile(params, cfg, prompt, extra: dict, dev) -> dict:
+    """Where one request's time goes (no gate): its prefill, then four
+    decode steps from its cache, each under torch.profiler
+    (:func:`device_breakdown`)."""
+    from repro_torch.models.model import decode_step, init_decode_cache, prefill_into
+
+    offset = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = init_decode_cache(cfg, 1, offset + len(prompt) + 8, device=dev)
+    kw = {key: x[0] for key, x in extra.items()}
+    prefill_prof = device_breakdown(lambda: prefill_into(params, prompt[None, :], cfg, cache,
+                                                         **kw).argmax(dim=-1).cpu())
+
+    def decode():
+        tok = np.zeros((1, 1), dtype=np.int64)
+        for i in range(4):
+            logits, _ = decode_step(params, tok, offset + len(prompt) + i, cache, cfg)
+            tok = logits.argmax(dim=-1, keepdim=True).cpu().numpy()
+
+    return dict(prompt_len=len(prompt), prefill=prefill_prof, decode_steps=4,
+                decode=device_breakdown(decode))
+
+
+def family_smoke_cross_device(arch: str) -> dict:
+    """The arch's SMOKE config (float32) on the card and on the CPU, one set
+    of weights: prefill of two sequences and three decode steps at
+    staggered positions, logits within TOL_SMOKE_LOGITS of max|logit|,
+    greedy tokens equal; K8's launches by route over the card's run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    gpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu").to("cuda")
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 64))}   # 2 SMOKE ssm chunks
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    s = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lg_g, c_g = prefill(gpu, batch, cfg, s + 8)
+    lg_c, c_c = prefill(cpu, batch, cfg, s + 8)
+    pos = np.array([s, s - 3])
+    worst, tokens = 0.0, []
+    for step in range(4):
+        scale = float(lg_c.abs().max())
+        err = float((lg_g.cpu().double() - lg_c.double()).abs().max())
+        check(err <= TOL_SMOKE_LOGITS * scale, f"{arch} smoke config step {step}: cuda vs cpu "
+                                               f"logits {err} of max {scale}")
+        worst = max(worst, err / scale)
+        nxt = lg_c.argmax(dim=-1, keepdim=True).numpy()
+        check(bool((lg_g.argmax(dim=-1, keepdim=True).cpu().numpy() == nxt).all()),
+              f"{arch} smoke config step {step}: greedy tokens differ")
+        tokens.append(nxt[:, 0].tolist())
+        lg_g, c_g = decode_step(gpu, nxt, pos, c_g, cfg)
+        lg_c, c_c = decode_step(cpu, nxt, pos, c_c, cfg)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    return dict(logits_err_of_max=worst, tokens=tokens,
+                k8_launches_by_route=ops.launch_counts_by_route()["flash_attention"])
+
+
+def run_family(arch: str, dev) -> dict:
+    """One model: seeded random bf16 weights on the card, its requests
+    (FAMILY_PLANS) with K8's launches counted over the run, its outcome
+    checked; then the held prefills and the SMOKE config card vs CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import count_active_params, count_params, init_params
+    from repro_torch.serving.engine import SERVED_FAMILIES
+
+    plan = FAMILY_PLANS[arch]
+    cfg = family_config(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    lens = plan["lens"]
+    if isinstance(lens, tuple):
+        lens = rng.integers(lens[0], lens[1] + 1, plan["requests"]).tolist()
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+    extra = family_inputs(cfg, torch.Generator(device=dev).manual_seed(SEED), len(prompts), dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    entry = "engine" if cfg.family in SERVED_FAMILIES else "direct"
+    if entry == "engine":
+        outs, prefills, decodes = serve_engine(params, cfg, prompts, plan["slots"], dev)
+    else:
+        outs, prefills, decodes = serve_direct(params, cfg, prompts, extra, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_route = ops.launch_counts_by_route()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, out in enumerate(outs):
+        check(len(out) == FAMILY_MAX_NEW and all(0 <= t < cfg.vocab_padded for t in out),
+              f"{arch} request {i}: {len(out)} tokens, range")
+    check(len(prefills) == len(prompts), f"{arch}: {len(prefills)} prefills")
+    want = attention_applications(cfg) * len(prefills)
+    check(counts["flash_attention"] == want,
+          f"{arch}: K8 launched {counts['flash_attention']} times, want {want}")
+    check(by_route["mma"] == want, f"{arch}: K8 routes {by_route}")
+    check(not any(v for k, v in counts.items() if k != "flash_attention"),
+          f"{arch}: a kernel other than K8 launched: {counts}")
+    generated = sum(len(o) for o in outs)
+    row = dict(phase="families", case="serve", arch=arch, family=cfg.family,
+               entry=entry, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               head_dim=cfg.head_dim, params=count_params(params),
+               active_params=count_active_params(params, cfg), param_init_s=init_s,
+               prompt_lens=lens, max_new=FAMILY_MAX_NEW, wall_s=wall,
+               generated_tokens=generated, tokens_per_s=generated / wall,
+               prefills=prefills, prefill_ms_mean=float(np.mean([p["ms"] for p in prefills])),
+               decode_steps=len(decodes),
+               decode_ms_mean=float(np.mean([d["ms"] for d in decodes])),
+               peak_memory_allocated_bytes=peak, allocated_before_run_bytes=held,
+               k8_launches=counts["flash_attention"],
+               k8_launches_by_route=by_route)
+    if arch == "mixtral_8x22b":
+        row["reduced"] = dict(n_layers=f"{MIXTRAL_LAYERS} of 56 (141 B parameters do not fit "
+                                        "one 80 GB card)")
+    emit(row)
+    checks = family_prefill_checks(params, cfg, prompts, extra, outs)
+    emit(dict(phase="families", case="profile", arch=arch,
+              **family_profile(params, cfg, prompts[0], extra, dev)))
+    del params, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross = family_smoke_cross_device(arch)
+    emit(dict(phase="families", case="checks", arch=arch, bars=bars_json(), **checks,
+              smoke_config_cuda_vs_cpu=cross))
+    return dict(mma=by_route["mma"], head_dim=cfg.head_dim,
+                fma=cross["k8_launches_by_route"]["fma"], wall_s=wall)
+
+
+def phase_families(dev) -> dict:
+    """Every family beside the dense one at its published width (Mixtral at
+    MIXTRAL_LAYERS layers), one after the other, each model freed before
+    the next.  Returns K8's launches by family: those of each served run
+    (all on the tensor-core route) and the fma launches of each SMOKE
+    config's card run."""
+    # the serve phase's engine holds its model through a reference cycle
+    # (its timing closures): collect it, so the first family's peak is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {arch: run_family(arch, dev) for arch in FAMILY_PLANS}
+    emit(dict(phase="families", case="wall", wall_s=time.perf_counter() - t0,
+              served_wall_s={arch: r["wall_s"] for arch, r in out.items()}))
+    return out
+
+
 def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                  service_launches: dict, analysis_launches: dict, api_rows: dict,
                  api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
@@ -2447,8 +2854,10 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
     its route too, K4 its split, K1 and K3 their cluster size, variant,
     clusters per wave and main-path launches by variant; K5's rows count
     their own dtype), and
-    K8's fma row counts the float32 SMOKE config's engine run on the
-    card."""
+    K8's rows count by phase and family (``launches_by_family``): the
+    tensor-core row at D = 128 the serve phase's and every family's but
+    Zamba2's, the D = 112 row Zamba2's, the fma row the float32 SMOKE
+    configs' runs on the card."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -2531,12 +2940,14 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                          replaces="src/repro/kernels/crosspoint_mvm.py:48",
                          launches=by_route[kernel_route], kernel_route=kernel_route,
                          **{k: api_rows[key][k] for k in keys}))
-    for kernel_route, row in k8_rows.items():
+    for key, row in k8_rows.items():
+        by_family = k8_launches[key]
         rows.append(dict(name=f"K8 flash_attention ({row['dtype']}, D = {row['shape'][-1]})",
                          route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
                          replaces="src/repro/kernels/flash_attention.py:103",
-                         launches=k8_launches[kernel_route], kernel_route=kernel_route,
-                         **{key: row[key] for key in keys},
+                         launches=sum(by_family.values()), launches_by_family=by_family,
+                         kernel_route=row["route"],
+                         **{k: row[k] for k in keys},
                          f32_fma_bound_ms=row["f32_fma_bound_ms"],
                          tflop_per_s=row["tflop_per_s"]))
     return rows
@@ -2579,7 +2990,17 @@ def main() -> int:
         dev, pairs[("dense", N_DENSE)]["transient_step_batched"]["split"])
     phase_quickstart()
     k8_rows = phase_k8()
-    k8_launches = phase_serve(dev)
+    serve_launches = phase_serve(dev)
+    families = phase_families(dev)
+    # K8's launches by row: the tensor-core rows split by head size (D =
+    # 112 is Zamba2's alone), the FMA row the float32 SMOKE configs' card
+    # runs; each by the phase or family that made them
+    k8_launches = {
+        "mma": {"serve": serve_launches["mma"],
+                **{a: r["mma"] for a, r in families.items() if r["head_dim"] != 112}},
+        "mma_d112": {a: r["mma"] for a, r in families.items() if r["head_dim"] == 112},
+        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()}},
+    }
 
     emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,
                                   analysis_launches,

@@ -9,8 +9,8 @@ numpy arrays and scalars — as read off the reference's ``Netlist``,
 ``StateSpace`` and ``Transformed2N`` — and build the port's objects, the
 operators on a given device.  A test can then feed the identical operator to both
 packages' sweeps and hold a kernel apart from assembly.
-:func:`lm_params_from_arrays` does the same for a dense decoder's
-parameter tree.
+:func:`lm_params_from_arrays` does the same for a language model's
+parameter tree, of any family.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from repro_torch.core.transient import StateSpace
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as lm_blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DenseDecoder, _require_dense
+from repro_torch.models.model import LanguageModel, family_of
 
 NETLIST_ARRAYS = ("branch_i", "branch_j", "branch_g", "ground_g", "supply_g",
                   "supply_v", "cell_i", "cell_j", "cell_w")
@@ -132,33 +132,83 @@ def transformed_from_arrays(k_a, k_b, d, k_s, b_sign, *, supply_v: float,
                          supply_v=float(supply_v))
 
 
+# leaves the reference keeps float32 at any param_dtype
+FLOAT32_LEAVES = ("w_router", "conv_x_w", "conv_x_b", "conv_bc_w", "conv_bc_b", "dt_bias",
+                  "a_log", "d_skip")
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked subtree."""
+    if isinstance(tree, Mapping):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def lm_params_from_arrays(tree: Mapping[str, Any], cfg: ModelConfig,
-                          device=None) -> DenseDecoder:
-    """A dense decoder from the reference's parameter tree as numpy arrays.
+                          device=None) -> LanguageModel:
+    """A model of any family from the reference's parameter tree as numpy
+    arrays.
 
     ``tree`` has the reference's layout: ``embed``, ``final_norm``,
-    ``lm_head`` (unless ``tie_embeddings``) and ``blocks`` with a leading
-    layer axis on every leaf (``blocks["attn"]["wq"]`` is
-    (n_layers, d, H, dh)).  Values are cast to ``cfg.p_dtype()`` through
-    float32 (exact for float32 and bfloat16 sources).
+    ``lm_head`` (unless ``tie_embeddings``), and by family ``blocks``
+    (a leading layer axis on every leaf: ``blocks["attn"]["wq"]`` is
+    (n_layers, d, H, dh)), ``shared_attn`` (one block, no layer axis),
+    ``enc_blocks``, ``dec_blocks`` and ``enc_final_norm``.  Values go
+    through float32 (exact for float32 and bfloat16 sources) to
+    ``cfg.p_dtype()``, except the leaves the reference keeps float32
+    (:data:`FLOAT32_LEAVES`), which stay float32.
     """
-    _require_dense(cfg)
+    family = family_of(cfg)
     dev = resolve_device(device)
 
-    def t(x) -> torch.Tensor:
-        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev).to(cfg.p_dtype())
+    def t(x, name: str = "") -> torch.Tensor:
+        dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.p_dtype()
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev).to(dtype)
 
-    blocks = tree["blocks"]
-    attn, mlp = blocks["attn"], blocks["mlp"]
-    layers = []
-    for i in range(cfg.n_layers):
-        norms = {name: t(attn[name][i]) for name in ("q_norm", "k_norm") if name in attn}
-        layers.append(lm_blocks.DenseBlock(
-            t(blocks["ln1"][i]),
-            lm_blocks.Attention(*(t(attn[name][i]) for name in ("wq", "wk", "wv", "wo")),
-                                **norms),
-            t(blocks["ln2"][i]),
-            lm_blocks.MLP(*(t(mlp[name][i]) for name in ("w_gate", "w_up", "w_down"))),
-        ))
+    def attn(a) -> lm_blocks.Attention:
+        norms = {name: t(a[name]) for name in ("q_norm", "k_norm") if name in a}
+        return lm_blocks.Attention(*(t(a[name]) for name in ("wq", "wk", "wv", "wo")), **norms)
+
+    def dense(b) -> lm_blocks.DenseBlock:
+        return lm_blocks.DenseBlock(
+            t(b["ln1"]), attn(b["attn"]), t(b["ln2"]),
+            lm_blocks.MLP(*(t(b["mlp"][name]) for name in ("w_gate", "w_up", "w_down"))))
+
+    def moe(b) -> lm_blocks.MoEBlock:
+        return lm_blocks.MoEBlock(
+            t(b["ln1"]), attn(b["attn"]), t(b["ln2"]),
+            lm_blocks.MoE(*(t(b["moe"][name], name)
+                            for name in ("w_router", "w_gate", "w_up", "w_down"))))
+
+    def mamba(b) -> lm_blocks.MambaBlock:
+        return lm_blocks.MambaBlock(**{name: t(b[name], name) for name in lm_blocks.MAMBA_LEAVES})
+
+    def ln(b) -> lm_blocks.LayerNorm:
+        return lm_blocks.LayerNorm(t(b["scale"]), t(b["bias"]))
+
+    def encdec(b) -> lm_blocks.EncDecBlock:
+        mlp = lm_blocks.GeluMLP(*(t(b["mlp"][name])
+                                  for name in ("w_up", "b_up", "w_down", "b_down")))
+        cross = {}
+        if "xattn" in b:
+            cross = dict(ln_x=ln(b["ln_x"]), xattn=attn(b["xattn"]))
+        return lm_blocks.EncDecBlock(ln(b["ln1"]), attn(b["attn"]), ln(b["ln2"]), mlp, **cross)
+
+    def stack(sub, make, n: int) -> list:
+        return [make(_layer(sub, i)) for i in range(n)]
+
+    parts: dict = {}
+    if family in ("dense", "vlm"):
+        parts["blocks"] = stack(tree["blocks"], dense, cfg.n_layers)
+    elif family == "moe":
+        parts["blocks"] = stack(tree["blocks"], moe, cfg.n_layers)
+    elif family in ("ssm", "hybrid"):
+        parts["blocks"] = stack(tree["blocks"], mamba, cfg.n_layers)
+        if family == "hybrid":
+            parts["shared_attn"] = dense(tree["shared_attn"])
+    else:
+        parts["enc_blocks"] = stack(tree["enc_blocks"], encdec, cfg.n_enc_layers)
+        parts["dec_blocks"] = stack(tree["dec_blocks"], encdec, cfg.n_layers)
+        parts["enc_final_norm"] = t(tree["enc_final_norm"])
     lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
-    return DenseDecoder(t(tree["embed"]), t(tree["final_norm"]), layers, lm_head)
+    return LanguageModel(t(tree["embed"]), t(tree["final_norm"]), lm_head=lm_head, **parts)

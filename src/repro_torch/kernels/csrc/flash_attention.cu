@@ -72,6 +72,9 @@
 // under 2^-16 p, far below the output's bf16 rounding.  With p rounded
 // (p_bf16) only p_hi is used.  Shared-memory rows are padded by 16
 // bytes, so the eight rows an ldmatrix reads fall in distinct banks.
+// Every head size is a multiple of 16: D = 112 (Zamba2-7B's shared
+// attention) takes seven 16-column groups of V, four then three, and its
+// 240-byte shared rows keep ldmatrix's eight rows in distinct banks.
 // What holds it back: each warp reads the whole K and V tile through
 // ldmatrix (eight reads of every byte per block), and the softmax between
 // the two products runs with two warps per scheduler, so the tensor
@@ -310,6 +313,7 @@ int launch_for_dim(const void* q, const void* k, const void* v, void* o, int bat
     case 16: return launch<T, 16>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
     case 32: return launch<T, 32>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
     case 64: return launch<T, 64>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 112: return launch<T, 112>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
     case 128: return launch<T, 128>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -331,7 +335,8 @@ struct FmLayout {
   static constexpr int Q_ELEMS = FM_ROWS * LD;
   static constexpr int KV_ELEMS = FA_KB * LD;     // one stage of K or of V
   static constexpr int BYTES = (Q_ELEMS + 4 * KV_ELEMS) * 2;   // Q, K x 2, V x 2
-  static constexpr int DG = D / 16 < 4 ? D / 16 : 4;   // 16-column groups of V held at once
+  static constexpr int NG = D / 16;               // 16-column groups of V
+  static constexpr int DG = NG < 4 ? NG : 4;        // groups held at once
 };
 
 // the max/sum over the four lanes of a quad (the threads of one row pair)
@@ -526,20 +531,25 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
           pl[r] = pack_bf16(bf16_residual(sc[j][e]), bf16_residual(sc[j][e + 1]));
       }
 #pragma unroll
-      for (int d0 = 0; d0 < D / 16; d0 += L::DG) {
+      for (int d0 = 0; d0 < L::NG; d0 += L::DG) {
+        // the last group is short when DG does not divide NG (D = 112: 4 + 3);
+        // the bounds are compile-time constants once the loops unroll
         uint32_t bv[L::DG][4];
 #pragma unroll
         for (int i = 0; i < L::DG; ++i)
-          ldmatrix_x4_trans(bv[i], vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::LD +
-                                       (d0 + i) * 16 + (lane >> 4) * 8);
+          if (d0 + i < L::NG)
+            ldmatrix_x4_trans(bv[i], vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::LD +
+                                         (d0 + i) * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int i = 0; i < L::DG; ++i) {
+          if (d0 + i >= L::NG) continue;
           mma_bf16(acc[2 * (d0 + i)], ph, bv[i][0], bv[i][1]);
           mma_bf16(acc[2 * (d0 + i) + 1], ph, bv[i][2], bv[i][3]);
         }
         if constexpr (!P_BF16) {
 #pragma unroll
           for (int i = 0; i < L::DG; ++i) {
+            if (d0 + i >= L::NG) continue;
             mma_bf16(acc[2 * (d0 + i)], pl, bv[i][0], bv[i][1]);
             mma_bf16(acc[2 * (d0 + i) + 1], pl, bv[i][2], bv[i][3]);
           }
@@ -597,7 +607,7 @@ int launch_mma_for_p(const void* q, const void* k, const void* v, void* o, int b
 // C interface (bound with ctypes).  q (batch, s, h, d), k and v
 // (batch, t, kv, d), o (batch, s, h, d): device pointers of contiguous
 // tensors of one dtype (float32, or bfloat16 when is_bf16).  d is 16,
-// 32, 64 or 128 and kv divides h; window = 0 means no window.  Returns
+// 32, 64, 112 or 128 and kv divides h; window = 0 means no window.  Returns
 // the CUDA error code of the launch (0 = success); an empty output
 // launches nothing.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, int is_bf16,
@@ -629,6 +639,7 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k, const voi
     case 16: return launch_mma_for_p<16>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
     case 32: return launch_mma_for_p<32>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
     case 64: return launch_mma_for_p<64>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 112: return launch_mma_for_p<112>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
     case 128: return launch_mma_for_p<128>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,7 +20,7 @@ dtype, which :func:`repro_torch.kernels.ops.flash_attention` passes on.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 its plain PyTorch version, :func:`flash_attention_plain`, for CPU
-tensors.  D must be 16, 32, 64 or 128; q, k and v share one dtype,
+tensors.  D must be 16, 32, 64, 112 or 128; q, k and v share one dtype,
 float32 or bfloat16.  The route it launches is
 :func:`flash_attention_route`'s: bf16 on the tensor cores, float32 on
 float32 FMA.
@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)   # 112: Zamba2-7B's shared attention
 KV_TILE = 64          # keys per tile, in the kernel and in the plain version
 P_DTYPES = (None, torch.bfloat16)
 # "mma": bf16 tensor cores with float32 accumulators; "fma": float32 FMA

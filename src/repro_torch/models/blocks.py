@@ -1,14 +1,18 @@
-"""Per-layer blocks of the dense decoder: parameter modules, initializers
-and forward functions.
+"""Per-layer blocks of every model family: parameter modules,
+initializers and forward functions.
 
-Counterpart of the dense part of :mod:`repro.models.blocks` (MoE, Mamba
-and the encoder-decoder blocks are not ported yet).  Parameters live in
-small :class:`torch.nn.Module` containers whose attribute names are the
-reference's dict keys (``attn.wq``, ``mlp.w_gate``, ...), so a state dict
-maps one to one onto the reference's parameter tree; the forward
-functions are plain functions on tensors, as in the reference.  The
-reference's sharding hints (``lc``, ``boundary_pin``) are dropped:
-without mesh rules they are no-ops.
+Counterpart of :mod:`repro.models.blocks`: the dense (and shared
+attention) block, the MoE block, the Mamba2 block and Whisper's
+encoder and decoder blocks.  Parameters live in small
+:class:`torch.nn.Module` containers whose attribute names are the
+reference's dict keys (``attn.wq``, ``mlp.w_gate``, ``moe.w_router``,
+``ln1.scale``, ...), so a state dict maps one to one onto the
+reference's parameter tree; the forward functions are plain functions on
+tensors, as in the reference.  The reference's sharding hints (``lc``,
+``boundary_pin``) are dropped: without mesh rules they are no-ops.
+The float32 leaves of the reference (``moe.w_router``, the Mamba
+block's ``conv_*``, ``dt_bias``, ``a_log`` and ``d_skip``) stay float32
+at any ``param_dtype``.
 
 Initialization draws float32 normals from an explicit
 :class:`torch.Generator` on its own device, scales them and casts to the
@@ -27,7 +31,9 @@ from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm, swiglu_mlp
+from repro_torch.models.layers import apply_rope, gelu_mlp, layer_norm, rms_norm, swiglu_mlp
+from repro_torch.models.moe import moe_ffn, moe_ffn_grouped
+from repro_torch.models.ssm import mamba2_decode, mamba2_forward
 
 
 def _normal(generator: torch.Generator, shape, dtype: torch.dtype, std: float) -> torch.Tensor:
@@ -63,6 +69,66 @@ class DenseBlock(nn.Module):
         super().__init__()
         self.ln1, self.ln2 = _param(ln1), _param(ln2)
         self.attn, self.mlp = attn, mlp
+
+
+class MoE(nn.Module):
+    """``w_router`` (d, E) float32; ``w_gate``/``w_up`` (E, d, f),
+    ``w_down`` (E, f, d)."""
+
+    def __init__(self, w_router, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_router, self.w_gate, self.w_up, self.w_down = map(
+            _param, (w_router, w_gate, w_up, w_down))
+
+
+class MoEBlock(nn.Module):
+    def __init__(self, ln1, attn: Attention, ln2, moe: MoE):
+        super().__init__()
+        self.ln1, self.ln2 = _param(ln1), _param(ln2)
+        self.attn, self.moe = attn, moe
+
+
+# the Mamba2 block's leaves, in the reference's order
+MAMBA_LEAVES = ("ln", "w_z", "w_x", "w_bc", "w_dt", "conv_x_w", "conv_x_b", "conv_bc_w",
+                "conv_bc_b", "dt_bias", "a_log", "d_skip", "norm_scale", "w_out")
+
+
+class MambaBlock(nn.Module):
+    """A Mamba2 block: ``ln`` (d,), the split in-projection ``w_z``/``w_x``
+    (d, d_in), ``w_bc`` (d, 2GN), ``w_dt`` (d, H); the float32 conv
+    ``conv_x_w`` (K, d_in), ``conv_x_b``, ``conv_bc_w`` (K, 2GN),
+    ``conv_bc_b``; float32 ``dt_bias``, ``a_log``, ``d_skip`` (H,);
+    ``norm_scale`` (d_in,) and ``w_out`` (d_in, d)."""
+
+    def __init__(self, **leaves):
+        super().__init__()
+        if set(leaves) != set(MAMBA_LEAVES):
+            raise ValueError(f"Mamba block leaves {sorted(leaves)}, want {sorted(MAMBA_LEAVES)}")
+        for name in MAMBA_LEAVES:
+            setattr(self, name, _param(leaves[name]))
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, scale, bias):
+        super().__init__()
+        self.scale, self.bias = _param(scale), _param(bias)
+
+
+class GeluMLP(nn.Module):
+    def __init__(self, w_up, b_up, w_down, b_down):
+        super().__init__()
+        self.w_up, self.b_up, self.w_down, self.b_down = map(_param, (w_up, b_up, w_down, b_down))
+
+
+class EncDecBlock(nn.Module):
+    """Whisper's block: ``ln1``, ``attn``, ``ln2``, ``mlp`` (GELU, biases);
+    a decoder block also has ``ln_x`` and the cross attention ``xattn``."""
+
+    def __init__(self, ln1: LayerNorm, attn: Attention, ln2: LayerNorm, mlp: GeluMLP,
+                 ln_x: LayerNorm | None = None, xattn: Attention | None = None):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.ln_x, self.xattn = ln_x, xattn
 
 
 # --------------------------------------------------------------------------
@@ -193,3 +259,190 @@ def dense_block_decode(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig,
         return x + a + swiglu_mlp(h, p.mlp)
     x = x + attn_decode(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg, cache_k, cache_v, pos)
     return x + swiglu_mlp(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp)
+
+
+# --------------------------------------------------------------------------
+# MoE decoder block
+# --------------------------------------------------------------------------
+
+def init_moe_block(generator: torch.Generator, cfg: ModelConfig) -> MoEBlock:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = cfg.p_dtype()
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    attn = init_attn(generator, cfg, out_scale)
+    moe = MoE(
+        _normal(generator, (d, e), torch.float32, d ** -0.5),
+        _normal(generator, (e, d, f), dt, d ** -0.5),
+        _normal(generator, (e, d, f), dt, d ** -0.5),
+        _normal(generator, (e, f, d), dt, out_scale * f ** -0.5),
+    )
+    ones = torch.ones(d, dtype=dt, device=generator.device)
+    return MoEBlock(ones, attn, ones.clone(), moe)
+
+
+def moe_block_forward(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, positions: torch.Tensor):
+    """Returns ``(out, aux, (k, v))``: the reference's ``(out, aux)`` and
+    the attention's k/v, the cache entries of a prefill."""
+    a, kvc = attn_forward(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg, positions=positions)
+    x = x + a
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    b, s, d = h.shape
+    if cfg.dispatch_groups > 1:
+        y, aux = moe_ffn_grouped(h.reshape(b * s, d), p.moe, n_experts=cfg.n_experts,
+                                 top_k=cfg.top_k, groups=cfg.dispatch_groups)
+    else:
+        y, aux = moe_ffn(h.reshape(b * s, d), p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k)
+    return x + y.reshape(b, s, d), aux, kvc
+
+
+def moe_block_decode(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos) -> torch.Tensor:
+    """One token through one MoE block: flat dispatch at capacity factor
+    2, as the reference decodes; the caches are updated in place."""
+    x = x + attn_decode(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg, cache_k, cache_v, pos)
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    b, _, d = h.shape
+    y, _ = moe_ffn(h.reshape(b, d), p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                   capacity_factor=2.0)
+    return x + y.reshape(b, 1, d)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 block (ssm / hybrid families)
+# --------------------------------------------------------------------------
+
+def _uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return u.mul_(hi - lo).add_(lo)
+
+
+def init_mamba_block(generator: torch.Generator, cfg: ModelConfig) -> MambaBlock:
+    d, d_in = cfg.d_model, cfg.d_inner
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    dt, f32 = cfg.p_dtype(), torch.float32
+    dev = generator.device
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    # dt_bias = softplus^-1(dt0), dt0 log-uniform in [1e-3, 1e-1]
+    dt0 = torch.exp(_uniform(generator, (h,), math.log(1e-3), math.log(1e-1)))
+    return MambaBlock(
+        ln=torch.ones(d, dtype=dt, device=dev),
+        w_z=_normal(generator, (d, d_in), dt, d ** -0.5),
+        w_x=_normal(generator, (d, d_in), dt, d ** -0.5),
+        w_bc=_normal(generator, (d, 2 * g * n), dt, d ** -0.5),
+        w_dt=_normal(generator, (d, h), dt, d ** -0.5),
+        conv_x_w=_normal(generator, (cfg.ssm_conv, d_in), f32, d_in ** -0.5),
+        conv_x_b=torch.zeros(d_in, dtype=f32, device=dev),
+        conv_bc_w=_normal(generator, (cfg.ssm_conv, 2 * g * n), f32, (2 * g * n) ** -0.5),
+        conv_bc_b=torch.zeros(2 * g * n, dtype=f32, device=dev),
+        dt_bias=torch.log(torch.expm1(dt0)),
+        a_log=torch.log(1.0 + 15.0 * _uniform(generator, (h,), 0.0, 1.0)),
+        d_skip=torch.ones(h, dtype=f32, device=dev),
+        norm_scale=torch.ones(d_in, dtype=dt, device=dev),
+        w_out=_normal(generator, (d_in, d), dt, out_scale * d_in ** -0.5),
+    )
+
+
+def mamba_block_forward(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig):
+    """Returns (x + Mamba2(rms_norm(x)), final ssm state)."""
+    y, state = mamba2_forward(rms_norm(x, p.ln, cfg.norm_eps), p, cfg)
+    return x + y, state
+
+
+def mamba_conv_tail(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig) -> torch.Tensor:
+    """The decode conv window a prefill leaves: the pre-conv ``[x | B C]``
+    in-projections of the last K-1 tokens of the block's input ``x``."""
+    tail = rms_norm(x[:, -(cfg.ssm_conv - 1):, :], p.ln, cfg.norm_eps)
+    return torch.cat([tail @ p.w_x, tail @ p.w_bc], dim=-1)
+
+
+def mamba_block_decode(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig,
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """Returns (out, new conv_state, new ssm_state)."""
+    y, conv_state, ssm_state = mamba2_decode(rms_norm(x, p.ln, cfg.norm_eps), p, cfg,
+                                             conv_state, ssm_state)
+    return x + y, conv_state, ssm_state
+
+
+# --------------------------------------------------------------------------
+# Whisper-style encoder / decoder blocks (LayerNorm, biases, GELU)
+# --------------------------------------------------------------------------
+
+def _init_ln(d: int, dt: torch.dtype, device) -> LayerNorm:
+    return LayerNorm(torch.ones(d, dtype=dt, device=device),
+                     torch.zeros(d, dtype=dt, device=device))
+
+
+def init_encdec_block(generator: torch.Generator, cfg: ModelConfig, *,
+                      cross: bool) -> EncDecBlock:
+    d, f = cfg.d_model, cfg.d_ff
+    dt, dev = cfg.p_dtype(), generator.device
+    out_scale = 1.0 / math.sqrt(2 * (cfg.n_layers + cfg.n_enc_layers))
+    attn = init_attn(generator, cfg, out_scale)
+    mlp = GeluMLP(
+        _normal(generator, (d, f), dt, d ** -0.5),
+        torch.zeros(f, dtype=dt, device=dev),
+        _normal(generator, (f, d), dt, out_scale * f ** -0.5),
+        torch.zeros(d, dtype=dt, device=dev),
+    )
+    cross_parts = {}
+    if cross:
+        cross_parts = dict(ln_x=_init_ln(d, dt, dev), xattn=init_attn(generator, cfg, out_scale))
+    return EncDecBlock(_init_ln(d, dt, dev), attn, _init_ln(d, dt, dev), mlp, **cross_parts)
+
+
+def _ln(x: torch.Tensor, p: LayerNorm, cfg: ModelConfig) -> torch.Tensor:
+    return layer_norm(x, p.scale, p.bias, cfg.norm_eps)
+
+
+def encoder_block_forward(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig,
+                          positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention without RoPE (K8, non-causal), then the
+    GELU MLP."""
+    a, _ = attn_forward(_ln(x, p.ln1, cfg), p.attn, cfg, positions=positions, causal=False,
+                        use_rope=False)
+    x = x + a
+    return x + gelu_mlp(_ln(x, p.ln2, cfg), p.mlp)
+
+
+def cross_attn(x: torch.Tensor, p: Attention, cfg: ModelConfig, enc_k: torch.Tensor,
+               enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross attention over precomputed encoder K/V (B, T, KV, dh): K8,
+    non-causal, S decoder rows against T encoder keys."""
+    o = attn_lib.flash_attention(_project(x, p.wq), enc_k, enc_v, causal=False)
+    return _out(o, p)
+
+
+def encdec_cross_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor):
+    return _project(enc_out, p.wk), _project(enc_out, p.wv)
+
+
+def decoder_block_forward(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig,
+                          positions: torch.Tensor, enc_out: torch.Tensor):
+    """Causal self-attention (no RoPE), cross attention over ``enc_out``,
+    the GELU MLP.  Returns (out, (k, v)) of the self-attention."""
+    a, kvc = attn_forward(_ln(x, p.ln1, cfg), p.attn, cfg, positions=positions, causal=True,
+                          use_rope=False)
+    x = x + a
+    xk, xv = encdec_cross_kv(p.xattn, cfg, enc_out)
+    x = x + cross_attn(_ln(x, p.ln_x, cfg), p.xattn, cfg, xk, xv)
+    return x + gelu_mlp(_ln(x, p.ln2, cfg), p.mlp), kvc
+
+
+def decoder_block_decode(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig,
+                         cache_k: torch.Tensor, cache_v: torch.Tensor, xk: torch.Tensor,
+                         xv: torch.Tensor, pos) -> torch.Tensor:
+    """One decoder token: the self cache written in place at each
+    sequence's position (no RoPE, no qk-norm, as the reference's step),
+    then cross attention over every encoder row."""
+    b = x.shape[0]
+    hx = _ln(x, p.ln1, cfg)
+    q, k, v = _project(hx, p.attn.wq), _project(hx, p.attn.wk), _project(hx, p.attn.wv)
+    pos_vec = pos_vector(pos, b, x.device)
+    _cache_row_write(cache_k, k, pos_vec)
+    _cache_row_write(cache_v, v, pos_vec)
+    x = x + _out(attn_lib.decode_attention(q, cache_k, cache_v, pos_vec), p.attn)
+
+    qx = _project(_ln(x, p.ln_x, cfg), p.xattn.wq)
+    last = torch.full((b,), xk.shape[1] - 1, dtype=torch.int64, device=x.device)
+    x = x + _out(attn_lib.decode_attention(qx, xk, xv, last), p.xattn)
+    return x + gelu_mlp(_ln(x, p.ln2, cfg), p.mlp)

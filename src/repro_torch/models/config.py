@@ -3,8 +3,8 @@ reference (:mod:`repro.models.config`).
 
 The fields and derived properties are the reference's; only the dtype
 accessors differ: :meth:`ModelConfig.act_dtype` and
-:meth:`ModelConfig.p_dtype` return torch dtypes.  Of the families, only
-``"dense"`` runs in the port so far (:mod:`repro_torch.models.model`).
+:meth:`ModelConfig.p_dtype` return torch dtypes.  Every family runs in
+the port (:mod:`repro_torch.models.model`).
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
-"""Shared building blocks: norms, RoPE, the gated MLP, embeddings.
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, sinusoids.
 
-Counterpart of :mod:`repro.models.layers` (the dense decoder's part;
-``layer_norm``, ``gelu_mlp`` and the sinusoids belong to Whisper and are
-not ported yet).  Functions on tensors; every op takes and returns the
-compute dtype, with norm and activation statistics in float32.
+Counterpart of :mod:`repro.models.layers`.  Functions on tensors; every
+op takes and returns the compute dtype, with norm and activation
+statistics in float32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +17,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with the population variance, in float32."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -47,6 +58,14 @@ def swiglu_mlp(x: torch.Tensor, p) -> torch.Tensor:
     return h @ p.w_down
 
 
+def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    """Whisper-style MLP: w_down(gelu(w_up x + b_up)) + b_down, GELU's tanh
+    form in float32."""
+    h = x @ p.w_up + p.b_up.to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p.w_down + p.b_down.to(x.dtype)
+
+
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
@@ -54,3 +73,25 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits over the padded vocab."""
     return x @ table
+
+
+def _sinusoid_freqs(d_model: int, device) -> torch.Tensor:
+    half = d_model // 2
+    steps = torch.arange(half, dtype=torch.float32, device=device)
+    return torch.exp(-math.log(10000.0) * steps / (half - 1))
+
+
+def sinusoid_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positions, float32 (length, d):
+    ``[sin | cos]`` of ``pos * exp(-log(10000) i / (d/2 - 1))``."""
+    freqs = _sinusoid_freqs(d_model, device)
+    args = torch.arange(length, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+
+
+def sinusoid_position_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoidal embedding at each position of ``pos`` (any shape of
+    integers): (*pos.shape, d), float32."""
+    freqs = _sinusoid_freqs(d_model, pos.device)
+    args = pos.float()[..., None] * freqs
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)

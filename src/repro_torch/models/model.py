@@ -1,17 +1,41 @@
-"""The dense decoder: initialization, prefill, decode and accounting.
+"""Top-level models of every family: initialization, prefill, decode and
+accounting.
 
-Counterpart of the dense part of :mod:`repro.models.model`.  The
-reference scans over layer-stacked parameters; here the decoder is an
-:class:`torch.nn.Module` holding one :class:`~repro_torch.models.blocks.
-DenseBlock` per layer, and the scan is a Python loop.  State-dict names
-are the reference's tree with the layer axis unstacked
-(``blocks.{i}.attn.wq`` for ``blocks.attn.wq[i]``).  ``jax.checkpoint``
-(training only) and the sharding hints are dropped.
+Counterpart of :mod:`repro.models.model` (its serving half; training is
+ROADMAP Queue 1 items 12.6-12.8).  The reference scans over
+layer-stacked parameters; here a model is one :class:`LanguageModel`
+holding one block module per layer, and the scan is a Python loop.
+State-dict names are the reference's tree with the layer axis unstacked
+(``blocks.{i}.attn.wq`` for ``blocks.attn.wq[i]``); the top-level keys
+are the reference's: ``embed``, ``final_norm``, ``lm_head`` (unless
+``tie_embeddings``), and ``blocks`` (dense, vlm, moe, ssm, hybrid),
+``shared_attn`` (hybrid), ``enc_blocks``/``dec_blocks``/``enc_final_norm``
+(encdec).  ``jax.checkpoint`` (training only) and the sharding hints are
+dropped.
+
+The families, as the reference runs them:
+
+* ``dense``: a stack of :class:`~repro_torch.models.blocks.DenseBlock`.
+* ``vlm`` (InternVL2): the dense stack over ``batch["patches"]``
+  (B, n_patches, d), precomputed patch embeddings, prepended to the text;
+  a decode position counts the patches.
+* ``moe``: attention plus a sort-dispatched MoE FFN per layer
+  (:mod:`repro_torch.models.moe`); decode dispatches flat at capacity
+  factor 2.  The decode step ignores ``sliding_window`` (the reference's
+  does too), so Mixtral's decode attends to the whole cache.
+* ``ssm`` (Mamba2): Mamba2 blocks; the cache is the conv window and the
+  SSD state.  A prompt longer than ``ssm_chunk`` must be a multiple of
+  it, and at least ``ssm_conv - 1`` tokens long (:class:`ValueError`).
+* ``hybrid`` (Zamba2): one weight-shared dense block applied before every
+  group of ``attn_every`` Mamba blocks, then the leftover Mamba blocks;
+  one KV cache per application.
+* ``encdec`` (Whisper): an encoder over ``batch["frames"]`` (B, enc_len,
+  d) plus sinusoids, and a decoder with self and cross attention; the
+  cache holds the decoder's self K/V and each layer's cross K/V.
 
 The serving functions run under :func:`torch.inference_mode`.  Unlike
-the reference, which returns new caches, they write the KV cache in
-place and return it.  Other families than ``dense`` raise
-:class:`NotImplementedError` naming their ROADMAP item.
+the reference, which returns new caches, they write the cache in place
+and return it.  Every prefill's attention runs K8 on the card.
 """
 
 from __future__ import annotations
@@ -22,53 +46,69 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_tokens, rms_norm, unembed
+from repro_torch.models.layers import (
+    apply_rope,
+    embed_tokens,
+    rms_norm,
+    sinusoid_position_at,
+    sinusoid_positions,
+    unembed,
+)
+from repro_torch.models.ssm import check_chunk
 
-# where each family's port stands in ROADMAP.md, Queue 1
-_UNPORTED = {
-    "vlm": "12.2 (VLM prefill: patches plus the dense decoder)",
-    "moe": "12.3 (MoE, models/moe.py)",
-    "ssm": "12.4 (SSM and hybrid, models/ssm.py)",
-    "hybrid": "12.4 (SSM and hybrid, models/ssm.py)",
-    "encdec": "12.5 (encoder-decoder)",
-}
-
-
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        item = _UNPORTED.get(cfg.family)
-        if item is None:
-            raise ValueError(f"unknown model family {cfg.family!r}")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
-            f"ROADMAP Queue 1 item {item}")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
-class DenseDecoder(nn.Module):
-    """Parameters of a dense decoder: ``embed`` (vocab_padded, d),
+class LanguageModel(nn.Module):
+    """Parameters of a model of any family: ``embed`` (vocab_padded, d),
     ``final_norm`` (d,), ``lm_head`` (d, vocab_padded) unless
-    ``tie_embeddings``, and ``blocks`` (one DenseBlock per layer)."""
+    ``tie_embeddings``; ``blocks`` (one block per layer), ``shared_attn``
+    (hybrid), ``enc_blocks``, ``dec_blocks`` and ``enc_final_norm``
+    (encdec), each None where the family has none."""
 
-    def __init__(self, embed, final_norm, blocks, lm_head=None):
+    def __init__(self, embed, final_norm, blocks=None, lm_head=None, *, shared_attn=None,
+                 enc_blocks=None, dec_blocks=None, enc_final_norm=None):
         super().__init__()
         self.embed = B._param(embed)
         self.final_norm = B._param(final_norm)
         self.lm_head = None if lm_head is None else B._param(lm_head)
-        self.blocks = nn.ModuleList(blocks)
+        self.blocks = None if blocks is None else nn.ModuleList(blocks)
+        self.shared_attn = shared_attn
+        self.enc_blocks = None if enc_blocks is None else nn.ModuleList(enc_blocks)
+        self.dec_blocks = None if dec_blocks is None else nn.ModuleList(dec_blocks)
+        self.enc_final_norm = None if enc_final_norm is None else B._param(enc_final_norm)
+
+
+# the dense decoder's name since the first LM slice
+DenseDecoder = LanguageModel
+
+
+def family_of(cfg: ModelConfig) -> str:
+    """``cfg.family``, raising on a family the models do not know."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}: expected one of {FAMILIES}")
+    return cfg.family
+
+
+def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(shared-attention applications, trailing Mamba blocks) of a hybrid."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.n_layers - g * cfg.attn_every
 
 
 # ===========================================================================
 # parameter initialization
 # ===========================================================================
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> DenseDecoder:
-    """Random parameters at ``cfg``'s shapes and the reference's scales.
+def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> LanguageModel:
+    """Random parameters at ``cfg``'s shapes, dtypes and the reference's
+    scales.
 
     ``generator`` must live on ``device`` (default ``"cuda"``): every
     tensor is drawn there, one at a time, so a full-size model never
     holds more than one float32 tensor beside its parameters.
     """
-    _require_dense(cfg)
+    family = family_of(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters go to {dev}: "
@@ -79,15 +119,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = B._normal(generator, (d, cfg.vocab_padded), dt, 0.02)
-    blocks = [B.init_dense_block(generator, cfg) for _ in range(cfg.n_layers)]
-    return DenseDecoder(embed, torch.ones(d, dtype=dt, device=dev), blocks, lm_head)
+    parts: dict = {}
+    if family in ("dense", "vlm"):
+        parts["blocks"] = [B.init_dense_block(generator, cfg) for _ in range(cfg.n_layers)]
+    elif family == "moe":
+        parts["blocks"] = [B.init_moe_block(generator, cfg) for _ in range(cfg.n_layers)]
+    elif family in ("ssm", "hybrid"):
+        parts["blocks"] = [B.init_mamba_block(generator, cfg) for _ in range(cfg.n_layers)]
+        if family == "hybrid":
+            parts["shared_attn"] = B.init_dense_block(generator, cfg)
+    else:
+        parts["enc_blocks"] = [B.init_encdec_block(generator, cfg, cross=False)
+                               for _ in range(cfg.n_enc_layers)]
+        parts["dec_blocks"] = [B.init_encdec_block(generator, cfg, cross=True)
+                               for _ in range(cfg.n_layers)]
+        parts["enc_final_norm"] = torch.ones(d, dtype=dt, device=dev)
+    return LanguageModel(embed, torch.ones(d, dtype=dt, device=dev), lm_head=lm_head, **parts)
 
 
-def _device_of(params: DenseDecoder) -> torch.device:
+def _device_of(params: LanguageModel) -> torch.device:
     return params.embed.device
 
 
-def _logits(params: DenseDecoder, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: LanguageModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     table = params.embed.T if cfg.tie_embeddings else params.lm_head
     return unembed(x, table)
@@ -98,72 +152,202 @@ def _logits(params: DenseDecoder, cfg: ModelConfig, x: torch.Tensor) -> torch.Te
 # ===========================================================================
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> dict:
-    """Zero KV caches ``{"k", "v"}`` of shape (n_layers, batch, max_seq,
-    KV, dh) in the activation dtype."""
-    _require_dense(cfg)
+    """Zero caches of the reference's leaves, shapes and dtypes:
+
+    * dense, vlm, moe: ``k``, ``v`` (n_layers, batch, max_seq, KV, dh);
+    * ssm: ``conv`` (n_layers, batch, K-1, d_in + 2GN) and ``ssm``
+      (n_layers, batch, H, P, N) float32;
+    * hybrid: those, and ``k``, ``v`` with one row per shared-attention
+      application;
+    * encdec: ``k``, ``v`` and the cross ``xk``, ``xv`` (n_layers, batch,
+      enc_len, KV, dh).
+
+    Everything but ``ssm`` is in the activation dtype.
+    """
+    family = family_of(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.act_dtype(), device=dev),
-            "v": torch.zeros(shape, dtype=cfg.act_dtype(), device=dev)}
+    dt = cfg.act_dtype()
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if family in ("dense", "vlm", "moe"):
+        return {"k": zeros(cfg.n_layers, batch, max_seq, kv, dh),
+                "v": zeros(cfg.n_layers, batch, max_seq, kv, dh)}
+    if family in ("ssm", "hybrid"):
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache = {"conv": zeros(cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
+                 "ssm": zeros(cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state, dtype=torch.float32)}
+        if family == "hybrid":
+            g, _ = hybrid_groups(cfg)
+            cache["k"] = zeros(g, batch, max_seq, kv, dh)
+            cache["v"] = zeros(g, batch, max_seq, kv, dh)
+        return cache
+    return {"k": zeros(cfg.n_layers, batch, max_seq, kv, dh),
+            "v": zeros(cfg.n_layers, batch, max_seq, kv, dh),
+            "xk": zeros(cfg.n_layers, batch, cfg.enc_len, kv, dh),
+            "xv": zeros(cfg.n_layers, batch, cfg.enc_len, kv, dh)}
 
 
 def _tokens(tokens, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).to(torch.int64)
 
 
+def _embeddings(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(dtype)
+
+
 @torch.inference_mode()
-def prefill_into(params: DenseDecoder, tokens, cfg: ModelConfig, cache: dict,
-                 slot: int = 0) -> torch.Tensor:
+def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
+                 slot: int = 0, *, patches=None, frames=None) -> torch.Tensor:
     """Prefill ``tokens`` (B, S) into rows ``slot .. slot + B`` of
-    ``cache``, in place: cache rows [0, S) take the prompt's K/V and rows
-    [S, max_seq) are zeroed, as the reference's padded prefill cache
-    does.  Returns the last-token logits (B, vocab_padded)."""
-    _require_dense(cfg)
+    ``cache``, in place, and return the last-token logits (B, vocab_padded).
+
+    Every leaf of those rows is written: K/V rows [0, S') take the prompt's
+    (S' = n_patches + S for a vlm) and rows [S', max_seq) are zeroed, as
+    the reference's padded prefill cache; an ssm or hybrid writes each
+    layer's conv window and final SSD state; an encdec also writes each
+    decoder layer's cross K/V.  ``patches`` (B, n_patches, d) is a vlm's
+    input, ``frames`` (B, enc_len, d) an encdec's.
+    """
+    family = family_of(cfg)
     dev = _device_of(params)
     tokens = _tokens(tokens, dev)
     bsz, s = tokens.shape
-    max_seq = cache["k"].shape[2]
-    if s > max_seq:
-        raise ValueError(f"prompt of {s} tokens does not fit max_seq={max_seq}")
-    x = embed_tokens(tokens, params.embed)
-    positions = torch.arange(s, device=dev).expand(bsz, s)
     rows = slice(slot, slot + bsz)
-    for i, p in enumerate(params.blocks):
-        x, (k, v) = B.dense_block_forward(x, p, cfg, positions)
+    x = embed_tokens(tokens, params.embed)
+    if family == "vlm":
+        if patches is None:
+            raise ValueError("a vlm prefill needs patches (B, n_patches, d_model)")
+        x = torch.cat([_embeddings(patches, dev, x.dtype), x], dim=1)
+    elif family == "encdec" and frames is None:
+        raise ValueError("an encdec prefill needs frames (B, enc_len, d_model)")
+    s_total = x.shape[1]
+    if "k" in cache and s_total > cache["k"].shape[2]:
+        raise ValueError(f"prompt of {s_total} positions does not fit "
+                         f"max_seq={cache['k'].shape[2]}")
+    if family in ("ssm", "hybrid"):
+        if s < cfg.ssm_conv - 1:
+            raise ValueError(f"prompt of {s} tokens is shorter than the conv window "
+                             f"ssm_conv - 1 = {cfg.ssm_conv - 1}")
+        check_chunk(s, min(cfg.ssm_chunk, s))
+    positions = torch.arange(s_total, device=dev).expand(bsz, s_total)
+
+    def put_kv(i, k, v):
         for name, new in (("k", k), ("v", v)):
-            cache[name][i, rows, :s] = new
-            cache[name][i, rows, s:] = 0
+            cache[name][i, rows, :s_total] = new
+            cache[name][i, rows, s_total:] = 0
+
+    def mamba(i, x):
+        p = params.blocks[i]
+        cache["conv"][i, rows] = B.mamba_conv_tail(x, p, cfg)
+        x, cache["ssm"][i, rows] = B.mamba_block_forward(x, p, cfg)
+        return x
+
+    if family in ("dense", "vlm"):
+        for i, p in enumerate(params.blocks):
+            x, (k, v) = B.dense_block_forward(x, p, cfg, positions)
+            put_kv(i, k, v)
+    elif family == "moe":
+        for i, p in enumerate(params.blocks):
+            h = x
+            x, _, (k, v) = B.moe_block_forward(x, p, cfg, positions)
+            if cfg.qk_norm:
+                # the reference caches the un-normed k (model.py:400-410);
+                # without qk_norm, as in every MoE config, that is the
+                # attention's own k
+                hn = rms_norm(h, p.ln1, cfg.norm_eps)
+                k = apply_rope(B._project(hn, p.attn.wk), positions, cfg.rope_theta)
+            put_kv(i, k, v)
+    elif family == "ssm":
+        for i in range(cfg.n_layers):
+            x = mamba(i, x)
+    elif family == "hybrid":
+        g, _ = hybrid_groups(cfg)
+        for j in range(g):
+            x, (k, v) = B.dense_block_forward(x, params.shared_attn, cfg, positions)
+            put_kv(j, k, v)
+            for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
+                x = mamba(i, x)
+        for i in range(g * cfg.attn_every, cfg.n_layers):
+            x = mamba(i, x)
+    else:
+        h = _embeddings(frames, dev, x.dtype)
+        t = h.shape[1]
+        h = h + sinusoid_positions(t, cfg.d_model, dev)[None].to(x.dtype)
+        epos = torch.arange(t, device=dev).expand(bsz, t)
+        for p in params.enc_blocks:
+            h = B.encoder_block_forward(h, p, cfg, epos)
+        enc_out = rms_norm(h, params.enc_final_norm, cfg.norm_eps)
+        x = x + sinusoid_positions(s, cfg.d_model, dev)[None].to(x.dtype)
+        for i, p in enumerate(params.dec_blocks):
+            x, (k, v) = B.decoder_block_forward(x, p, cfg, positions, enc_out)
+            put_kv(i, k, v)
+            cache["xk"][i, rows], cache["xv"][i, rows] = B.encdec_cross_kv(p.xattn, cfg,
+                                                                           enc_out)
     return _logits(params, cfg, x[:, -1:, :])[:, 0, :]
 
 
-def prefill(params: DenseDecoder, batch: dict, cfg: ModelConfig, max_seq: int):
+def prefill(params: LanguageModel, batch: dict, cfg: ModelConfig, max_seq: int):
     """Full-sequence prefill building the decode cache.
 
-    ``batch["tokens"]`` (B, S).  Returns (last-token logits
+    ``batch["tokens"]`` (B, S), with ``batch["patches"]`` for a vlm and
+    ``batch["frames"]`` for an encdec.  Returns (last-token logits
     (B, vocab_padded), cache padded to ``max_seq``).
     """
     tokens = batch["tokens"]
     cache = init_decode_cache(cfg, len(tokens), max_seq, device=_device_of(params))
-    logits = prefill_into(params, tokens, cfg, cache)
+    logits = prefill_into(params, tokens, cfg, cache, patches=batch.get("patches"),
+                          frames=batch.get("frames"))
     return logits, cache
 
 
 @torch.inference_mode()
-def decode_step(params: DenseDecoder, token, pos, cache: dict, cfg: ModelConfig):
+def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig):
     """One token for every sequence.  Returns (logits (B, vocab_padded),
     cache), the cache updated in place.
 
     ``pos`` may be a scalar (every sequence at the same length) or a
     per-sequence (B,) vector: each slot writes its KV row, rotates its
-    query and masks its keys at its own position.
+    query and masks its keys at its own position (a vlm's positions count
+    its patches; an ssm's state carries its own).
     """
-    _require_dense(cfg)
+    family = family_of(cfg)
     dev = _device_of(params)
     token = _tokens(token, dev)
     pos_vec = B.pos_vector(pos, token.shape[0], dev)
     x = embed_tokens(token, params.embed)
-    for i, p in enumerate(params.blocks):
-        x = B.dense_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec)
+
+    def mamba(i, x):
+        x, cache["conv"][i], cache["ssm"][i] = B.mamba_block_decode(
+            x, params.blocks[i], cfg, cache["conv"][i], cache["ssm"][i])
+        return x
+
+    if family in ("dense", "vlm"):
+        for i, p in enumerate(params.blocks):
+            x = B.dense_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec)
+    elif family == "moe":
+        for i, p in enumerate(params.blocks):
+            x = B.moe_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec)
+    elif family == "ssm":
+        for i in range(cfg.n_layers):
+            x = mamba(i, x)
+    elif family == "hybrid":
+        g, _ = hybrid_groups(cfg)
+        for j in range(g):
+            x = B.dense_block_decode(x, params.shared_attn, cfg, cache["k"][j], cache["v"][j],
+                                     pos_vec)
+            for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
+                x = mamba(i, x)
+        for i in range(g * cfg.attn_every, cfg.n_layers):
+            x = mamba(i, x)
+    else:
+        x = x + sinusoid_position_at(pos_vec, cfg.d_model)[:, None, :].to(x.dtype)
+        for i, p in enumerate(params.dec_blocks):
+            x = B.decoder_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], cache["xk"][i],
+                                       cache["xv"][i], pos_vec)
     return _logits(params, cfg, x)[:, 0, :], cache
 
 
@@ -175,15 +359,24 @@ def count_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
-def count_flop_params(params: DenseDecoder, cfg: ModelConfig) -> int:
-    """Parameters without the embedding table (a lookup, not a product;
-    the LM head product is counted).  Dense: every parameter is active."""
-    _require_dense(cfg)
-    return count_params(params) - params.embed.numel()
+def count_active_params(params: LanguageModel, cfg: ModelConfig) -> int:
+    """MoE: only top_k of n_experts experts act on a token."""
+    total = count_params(params)
+    if cfg.family != "moe":
+        return total
+    expert = sum(getattr(p.moe, name).numel() for p in params.blocks
+                 for name in ("w_gate", "w_up", "w_down"))
+    return int(total - expert * (1.0 - cfg.top_k / cfg.n_experts))
 
 
-def model_flops(params: DenseDecoder, cfg: ModelConfig, n_tokens: int, *,
+def count_flop_params(params: LanguageModel, cfg: ModelConfig) -> int:
+    """Active parameters without the embedding table (a lookup, not a
+    product; the LM head product is counted)."""
+    return count_active_params(params, cfg) - params.embed.numel()
+
+
+def model_flops(params: LanguageModel, cfg: ModelConfig, n_tokens: int, *,
                 train: bool = True) -> float:
-    """MODEL_FLOPS = 6 N D (train) / 2 N D (inference), N = non-embedding
-    parameters."""
+    """MODEL_FLOPS = 6 N D (train) / 2 N D (inference), N = active
+    non-embedding parameters."""
     return (6.0 if train else 2.0) * count_flop_params(params, cfg) * n_tokens

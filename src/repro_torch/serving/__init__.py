@@ -1,5 +1,5 @@
 """Serving: the continuously batched solve service and its multi-round
-sessions, the batched prefill/decode engine for the dense decoder, its
+sessions, the batched prefill/decode engine for the language models, its
 slot admission, and the fault-injection hook (counterpart of
 :mod:`repro.serving`)."""
 

@@ -1,16 +1,20 @@
 """Batched serving engine and the shared slot-admission machinery.
 
-Counterpart of :mod:`repro.serving.engine` for the dense decoder.
-Continuous batching with a fixed decode batch of slots: finished
-sequences release their slot, and the scheduler admits queued requests
-by prefilling them into the free slot.  Admission (:class:`AdmissionQueue`,
+Counterpart of :mod:`repro.serving.engine`.  Continuous batching with a
+fixed decode batch of slots: finished sequences release their slot, and
+the scheduler admits queued requests by prefilling them into the free
+slot.  The engine serves the families whose prefill takes tokens alone,
+as the reference's does: ``dense``, ``moe``, ``ssm`` and ``hybrid``.  A
+``vlm`` needs patch embeddings and an ``encdec`` frames, which neither
+engine takes, so the port refuses them at construction.  Admission (:class:`AdmissionQueue`,
 :func:`admission_key`) orders requests by priority, then deadline, then
 arrival, and is not decode-specific (the solve service, still to be
 ported, shares it in the reference).
 
-The engine keeps its KV cache on its device (``"cuda"`` unless given
-``device="cpu"``); the prefill writes the slot's cache rows in place,
-and every decode step runs all slots at their own positions.  Each
+The engine keeps its cache on its device (``"cuda"`` unless given
+``device="cpu"``); the prefill writes every cache leaf of the slot in
+place (K/V rows; an ssm's or hybrid's conv window and SSD state), and
+every decode step runs all slots at their own positions.  Each
 prefill's attention runs K8 on the card.  Sampling is greedy or
 categorical (Gumbel-max) from the engine's seeded :class:`torch.Generator`;
 the reference samples with ``jax.random``, so only greedy tokens can
@@ -30,7 +34,13 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DenseDecoder, decode_step, init_decode_cache, prefill_into
+from repro_torch.models.model import (
+    LanguageModel,
+    decode_step,
+    family_of,
+    init_decode_cache,
+    prefill_into,
+)
 from repro_torch.serving.faults import SolveError
 
 
@@ -133,8 +143,12 @@ class Request:
     seq: int = 0
 
 
+# the families a prefill of tokens alone serves (the reference engine's)
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 class ServeEngine:
-    """Continuous-batching server for a dense decoder on one device.
+    """Continuous-batching server for a model on one device.
 
     ``params`` must live on ``device`` (default ``"cuda"``; raises
     without a card unless given ``device="cpu"``).  ``fault_injector``
@@ -147,7 +161,7 @@ class ServeEngine:
     def __init__(
         self,
         cfg: ModelConfig,
-        params: DenseDecoder,
+        params: LanguageModel,
         *,
         batch_slots: int = 4,
         max_seq: int = 512,
@@ -159,6 +173,12 @@ class ServeEngine:
     ):
         if sampler not in ("greedy", "categorical"):
             raise ValueError(f"unknown sampler {sampler!r}")
+        if family_of(cfg) not in SERVED_FAMILIES:
+            raise ValueError(
+                f"ServeEngine serves {SERVED_FAMILIES}, not the {cfg.family!r} family of "
+                f"{cfg.arch_id}: its prefill needs "
+                f"{'patches' if cfg.family == 'vlm' else 'frames'} beside the tokens; "
+                "call models.model.prefill and decode_step directly")
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params are on {params.embed.device}, the engine on {self.device}")

@@ -54,6 +54,8 @@ PALLAS_GRID = [
     (128, 4, 4, 32, False, 0),
     (192, 8, 2, 16, True, 64),
     (100, 4, 1, 32, True, 0),       # ragged, MQA
+    (100, 2, 2, 112, True, 0),      # Zamba2's head size, ragged
+    (64, 14, 2, 16, False, 0),      # G = 7, non-causal
 ]
 
 
@@ -76,6 +78,10 @@ def test_k8_plain_matches_pallas_interpret(s, h, kv, d, causal, window, dt):
     (1, 130, 130, 8, 2, 64, True, 48),      # window; ragged against the 64-key tile
     (2, 70, 70, 4, 1, 16, False, 0),        # MQA, non-causal, ragged
     (1, 33, 200, 4, 4, 128, False, 0),      # S != T, D = 128
+    (1, 90, 90, 14, 2, 64, True, 0),        # InternVL2's G = 7
+    (1, 70, 70, 4, 4, 112, True, 0),        # Zamba2's D = 112, G = 1
+    (2, 20, 75, 4, 4, 112, False, 0),       # D = 112, cross-attention shape
+    (1, 150, 150, 12, 2, 32, True, 64),     # Mixtral's G = 6 with a window
 ])
 @pytest.mark.parametrize("p_dtype", [None, "bfloat16"])
 def test_flash_attention_matches_reference(case, p_dtype):

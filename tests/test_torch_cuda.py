@@ -207,6 +207,71 @@ def test_flash_attention_matches_plain_version(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_family_shapes(cuda, dtype):
+    """K8 against its plain version at the shapes the other model families
+    give it: Zamba2's D = 112 (seven 16-column groups of V on the tensor
+    cores, four then three), InternVL2's G = 7, Mixtral's G = 6 with a
+    window that masks, Whisper's non-causal encoder (S = T = 1500) and
+    cross attention (S != T = 1500), G = 1; the bars of
+    test_flash_attention_matches_plain_version."""
+    rtol, atol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    before = ops.launch_counts_by_route()["flash_attention"][route]
+    cases = [  # b, s, t, h, kv, d, causal, window
+        (1, 300, 300, 32, 32, 112, True, 0),
+        (2, 131, 131, 4, 4, 112, True, 0),
+        (1, 77, 200, 8, 8, 112, False, 0),
+        (1, 400, 400, 14, 2, 64, True, 0),
+        (1, 700, 700, 12, 2, 128, True, 256),
+        (1, 1500, 1500, 8, 8, 64, False, 0),
+        (2, 40, 1500, 8, 8, 64, False, 0),
+    ]
+    for b, s, t, h, kv, d, causal, window in cases:
+        q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+        k = torch.randn((b, t, kv, d), generator=gen, device=cuda).to(dtype)
+        v = torch.randn((b, t, kv, d), generator=gen, device=cuda).to(dtype)
+        got = k8.flash_attention(q, k, v, causal=causal, window=window)
+        want = k8.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{(b, s, t, h, kv, d)}: {m}")
+    assert ops.launch_counts_by_route()["flash_attention"][route] - before == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2_1b", "granite_moe_1b_a400m", "mixtral_8x22b",
+                                  "mamba2_370m", "zamba2_7b", "whisper_base"])
+def test_family_smoke_configs_on_the_card_match_cpu(cuda, arch):
+    """Each family's SMOKE config (float32) on the card against the CPU with
+    one set of weights: prefill logits and two decode steps within 1e-4 of
+    max|logit| (chip_smoke.py's TOL_SMOKE_LOGITS), equal greedy tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    gpu = init_params(cfg, torch.Generator().manual_seed(5), device="cpu").to(cuda)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 32))}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    lg_g, c_g = prefill(gpu, batch, cfg, 64)
+    lg_c, c_c = prefill(cpu, batch, cfg, 64)
+    pos = np.array([32, 29]) + (cfg.n_patches if cfg.family == "vlm" else 0)
+    for _ in range(3):
+        scale = float(lg_c.abs().max())
+        assert float((lg_g.cpu() - lg_c).abs().max()) <= 1e-4 * scale
+        nxt = lg_c.argmax(dim=-1, keepdim=True).numpy()
+        assert (lg_g.argmax(dim=-1, keepdim=True).cpu().numpy() == nxt).all()
+        lg_g, c_g = decode_step(gpu, nxt, pos, c_g, cfg)
+        lg_c, c_c = decode_step(cpu, nxt, pos, c_c, cfg)
+        pos = pos + 1
+
+
+@pytest.mark.cuda
 def test_flash_attention_unaligned_bf16_takes_the_fma_route(cuda):
     """A bf16 view off the 16-byte grid goes to the FMA kernel, which reads
     element by element, and agrees with the plain version."""

@@ -8,8 +8,9 @@ The SMOKE configs are float32: Qwen3-8B (GQA, qk_norm), Granite-20B
 port's attention runs K8's plain version.  Logits are held within
 1e-5 of max|logit| (float32 sums in another order through two layers);
 greedy tokens must be equal.  Several reference engine tests use the
-``mamba2_370m`` SSM config, which the port does not run yet: their
-cases run here on the ``qwen3_8b`` SMOKE config, in both packages.
+``mamba2_370m`` SSM config: their cases run here on the ``qwen3_8b``
+SMOKE config, in both packages, and the engine's other families (moe,
+ssm, hybrid) have their own greedy parity test.
 """
 
 import dataclasses
@@ -102,12 +103,20 @@ def test_configs_match_reference():
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "internvl2_1b", "mamba2_370m",
                                   "whisper_base", "zamba2_7b"])
 def test_unported_families_raise_naming_roadmap_item(arch):
+    """The families that raised NotImplementedError naming their ROADMAP
+    Queue 1 item (12.2-12.5) until they were ported: now each builds its
+    parameters and its decode cache with the reference's names, shapes
+    and dtypes (tests/test_torch_families.py holds their values)."""
     cfg = get_smoke_config(arch)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        tmodel.init_params(cfg, gen, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        tmodel.init_decode_cache(cfg, 1, 8, device=CPU)
+    jcfg = jget_smoke(arch)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
+    shapes = jax.eval_shape(lambda key: jmodel.init_params(jcfg, key), jax.random.PRNGKey(0))
+    assert tmodel.count_params(params) == jmodel.count_params(shapes)
+    assert tmodel.count_active_params(params, cfg) == jmodel.count_active_params(shapes, jcfg)
+    cache = tmodel.init_decode_cache(cfg, 1, 8, device=CPU)
+    ref = jax.eval_shape(lambda: jmodel.init_decode_cache(jcfg, 1, 8))
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch.")) for k, v in cache.items()} \
+        == {k: (v.shape, str(v.dtype)) for k, v in ref.items()}
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, models):
@@ -438,3 +447,38 @@ def test_categorical_sampling_is_seeded(models):
 
     assert run(3) == run(3)
     assert run(3) != run(4)
+
+
+ENGINE_FAMILIES = ["granite_moe_1b_a400m", "mamba2_370m", "zamba2_7b"]
+
+
+@pytest.mark.parametrize("arch", ENGINE_FAMILIES)
+def test_serve_engine_families_greedy_match_reference(arch):
+    """ServeEngine on the moe, ssm and hybrid SMOKE configs: four requests
+    through two slots (the later two admitted mid-stream, so slots decode
+    at staggered positions), greedy tokens equal the reference engine's.
+    Prompts stay within the SMOKE ssm_chunk (32) and above the conv
+    window."""
+    jcfg = jget_smoke(arch)
+    jp = jax.jit(lambda key: jmodel.init_params(jcfg, key))(jax.random.PRNGKey(0))
+    cfg = get_smoke_config(arch)
+    tp = lm_params_from_arrays(jax.tree.map(np.asarray, jp), cfg, CPU)
+    prompts = [(np.arange(5 + 4 * i) * (i + 3)) % cfg.vocab for i in range(4)]
+    (_, jreqs) = _serve(jengine.ServeEngine, jengine.Request, jcfg, jp, prompts, slots=2,
+                        max_new=5)
+    (_, reqs) = _serve(ServeEngine, Request, cfg, tp, prompts, slots=2, max_new=5, device=CPU)
+    for j, r in zip(jreqs, reqs):
+        assert r.done and len(r.out) == 5
+        assert all(0 <= t < cfg.vocab_padded for t in r.out)
+        assert r.out == j.out
+
+
+@pytest.mark.parametrize("arch", ["internvl2_1b", "whisper_base"])
+def test_serve_engine_refuses_families_needing_embeddings(arch):
+    """The reference's engine prefills tokens alone (repro/serving/engine.py
+    :209), so it cannot serve a vlm (patches) or an encdec (frames); the
+    port's refuses them at construction, naming the family."""
+    cfg = get_smoke_config(arch)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
+    with pytest.raises(ValueError, match=cfg.family):
+        ServeEngine(cfg, params, batch_slots=1, max_seq=32, device=CPU)
