@@ -165,13 +165,40 @@ non-zero:
    prefill and decode times, tokens/s, peak memory and the init seconds
    of each model are printed, with no gate, and a ``torch.profiler``
    breakdown of one prefill and four decode steps;
-8. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
+6b. K8's backward (run after K8's forward cases, before serving) — the
+   three hand-written kernels (Delta, dK/dV, dQ) against the plain
+   backward on the kernel's own output and lse, element by element, at
+   the forward's main shape in bf16, train_lm's attention (float32, D =
+   64), D = 112, non-causal S != T, a window, G = 48, p rounded and small
+   float32 cases, each launching each kernel once; the forward's lse
+   against the plain one; a planted fault (a GQA head left out of dK/dV)
+   that the bar must reject by more than 1000x; each kernel's time, its
+   operation bound and the plain backward's and
+   ``scaled_dot_product_attention``'s backward times (comparison only);
+8. train — the training path: (a) examples/train_lm.py's default run on
+   the port (lm_100m: 6 layers, d 768, vocab 32768, float32, K8's FMA
+   route forward and backward; B = 4, S = 192, 300 AnalogNewton steps,
+   three refreshes, each one ``solve_batch(analog_2n)`` of 768 systems of
+   n = 32 on the card, a checkpoint every 100 steps into a temporary
+   directory), failing unless every loss is finite, the last logged loss
+   is at least 0.2 nats below the first, the refresh accounting is three
+   calls on one pattern and ``restore_latest`` gives back the final state
+   bit for bit; (b) Qwen3-8B at its published width with 2 of its 36
+   layers, bf16, AdamW, B = 1, S = 2048, 3 steps (finite losses), the
+   first layer's attention inputs captured and the backward kernels held
+   against the plain backward on them; (c) every family's SMOKE config,
+   one train step on the card and on the CPU from one state (loss,
+   gradients, updated parameters within the CPU parity bars); ms per
+   step, the refresh wall, the loss curve, K8's launches and peak memory
+   are printed;
+9. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
    form and of the solve service's and the analysis phase's settling
    tickets, ``launches_by_phase``; K8's rows theirs by phase and family,
-   ``launches_by_family``, with a row at D = 112), the
-   nvidia-smi line, and the contract's last line.
+   ``launches_by_family``, with a row at D = 112, and the train phase's;
+   K8's backward kernels a row each per dtype, with the train phase's
+   launches by case), the nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 outside a checkout (no ``src/repro_torch`` beside it), it exits with
@@ -2840,9 +2867,471 @@ def phase_families(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K8's backward: the hand-written kernels against their plain version
+# ---------------------------------------------------------------------------
+
+# (label, dtype, b, s, t, h, kv, d, causal, window, p_dtype): the forward's
+# main shape in bf16, train_lm's attention (float32, D = 64), D = 112,
+# non-causal S != T, a window, G = 48, p rounded, and small float32 cases
+K8_BWD_MAIN = ("bwd_main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
+K8_BWD_F32 = ("bwd_f32_d64", F32, 4, 192, 192, 12, 4, 64, True, 0, None)
+K8_BWD_CASES = (
+    K8_BWD_MAIN,
+    K8_BWD_F32,
+    ("bwd_d112", BF16, 1, 2048, 2048, 32, 32, 112, True, 0, None),
+    ("bwd_f32_d112", F32, 2, 515, 515, 8, 2, 112, True, 0, None),
+    ("bwd_non_causal_s300_t1000", BF16, 1, 300, 1000, 32, 8, 128, False, 0, None),
+    ("bwd_cross_whisper", BF16, 2, 64, 1500, 8, 8, 64, False, 0, None),
+    ("bwd_window512", BF16, 1, 2048, 2048, 32, 8, 128, True, 512, None),
+    ("bwd_mqa_g48", BF16, 1, 1000, 1000, 48, 1, 128, True, 0, None),
+    ("bwd_main_p_bf16", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, BF16),
+    ("bwd_f32_d16", F32, 2, 515, 515, 8, 2, 16, True, 0, None),
+    ("bwd_f32_d32_non_causal", F32, 2, 515, 300, 8, 2, 32, False, 0, None),
+)
+# The backward kernels against the plain backward on the same forward
+# output and lse, element by element: |got - want| <= atol max|want| +
+# rtol |want|.  Both sum in float32 in other orders (1e-5 of the largest
+# element, as the CPU parity bars); bf16 gradients are rounded once, so a
+# sound pair lies at most one bf16 ulp apart (2^-8 |want| < rtol 1e-2).
+# With p rounded, a p whose bf16 rounding flips between the two moves dV
+# by 2^-8 p |dO|: atol 1e-2.
+K8_BWD_BARS = {BF16: (1e-2, 1e-5), F32: (0.0, 1e-5)}
+K8_BWD_P_BF16_ATOL = 1e-2
+K8_BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+                  "flash_attention_bwd_dq")
+K8_BWD_REPLACES = "none: replaces jax.grad through src/repro/models/attention.py:42"
+
+
+def bwd_share(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_rel: float
+              ) -> tuple[float, float]:
+    """max |got - want| and the largest share of the bar atol_rel max|want|
+    + rtol |want| (above 1 fails)."""
+    err = (got.double() - want.double()).abs()
+    bar = atol_rel * float(want.double().abs().max()) + rtol * want.double().abs()
+    return float(err.max()), float((err / bar).max())
+
+
+def k8_bwd_operands(case, gen):
+    q, k, v = k8_operands(case, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    return q, k, v, do
+
+
+def k8_bwd_head_dropped(q, k, v, o, lse, do, **kw):
+    """A planted fault: the backward with the last query head of every GQA
+    group left out of dK and dV (its dO zeroed)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    g = q.shape[2] // k.shape[2]
+    dropped = do.clone()
+    dropped[:, :, g - 1::g] = 0
+    return fa.flash_attention_bwd(q, k, v, o, lse, dropped, **kw)
+
+
+def phase_k8_bwd() -> dict:
+    """K8's backward kernels (Delta, dK/dV, dQ) against the plain backward
+    at every case of K8_BWD_CASES, on the kernel's own forward output and
+    lse, each kernel launched once per case; the forward's lse against the
+    plain one; a planted fault (a GQA head left out of dK, dV) that the
+    bar must reject by more than 1000x; then the times of each kernel, the
+    plain backward and scaled_dot_product_attention's backward at the main
+    shape (bf16) and at train_lm's (float32, D = 64)."""
+    from repro_torch.kernels import ops
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs: dict = {}
+    for case in K8_BWD_CASES:
+        label, dtype, _b, _s, _t, _h, _kv, _d, causal, window, p_dtype = case
+        q, k, v, do = k8_bwd_operands(case, gen)
+        o, lse = fa.flash_attention_lse(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        _, lse_plain = fa.flash_attention_plain_lse(q, k, v, causal=causal, window=window,
+                                                    p_dtype=p_dtype)
+        err, share = bwd_share(lse, lse_plain, 0.0, 1e-5)
+        check(share <= 1, f"K8 lse {label}: {err}, {share} of its bar")
+        before = ops.launch_counts()
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                     p_dtype=p_dtype)
+        after = ops.launch_counts()
+        check(all(after[n] == before[n] + 1 for n in K8_BWD_KERNELS),
+              f"K8 backward {label}: not one launch of each kernel")
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                            p_dtype=p_dtype)
+        rtol, atol = K8_BWD_BARS[dtype]
+        if p_dtype is not None:
+            atol = K8_BWD_P_BF16_ATOL
+        row = dict(lse=dict(max_abs_err=err, of_bar=share))
+        for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+            check(g_.dtype == dtype and g_.shape == w.shape, f"K8 backward {label}: {name}")
+            e, sh = bwd_share(g_, w, rtol, atol)
+            check(sh <= 1, f"K8 backward {label} {name}: max err {e}, {sh} of its bar")
+            row[name] = dict(max_abs_err=e, of_bar=sh)
+        delta = fa.flash_attention_bwd_delta(o, do)
+        e, sh = bwd_share(delta, (do.float() * o.float()).sum(-1).transpose(1, 2), 0.0, 1e-5)
+        check(sh <= 1, f"K8 backward {label} delta: {e}, {sh} of its bar")
+        row["delta"] = dict(max_abs_err=e, of_bar=sh)
+        errs[label] = row
+    emit(dict(phase="train", case="k8_bwd_vs_plain",
+              bars={str(dt).removeprefix("torch."): dict(rtol=r, atol_of_max=a)
+                    for dt, (r, a) in K8_BWD_BARS.items()},
+              p_bf16_atol_of_max=K8_BWD_P_BF16_ATOL, errors=errs))
+
+    q, k, v, do = k8_bwd_operands(K8_BWD_MAIN, gen)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    _dq, dk, _dv = k8_bwd_head_dropped(q, k, v, o, lse, do)
+    err, share = bwd_share(dk, want[1], *K8_BWD_BARS[BF16])
+    check(share > 1000, f"K8 backward's bar passes the planted fault, or fails it by 1000x or "
+                        f"less: {share} of it")
+    emit(dict(phase="train", case="k8_bwd_planted_fault",
+              faults={"gqa_head_dropped_dk": dict(max_abs_err=err, of_bar=share)}))
+
+    rows = {}
+    for key, case in (("bf16", K8_BWD_MAIN), ("f32", K8_BWD_F32)):
+        rows[key] = k8_bwd_times(*k8_bwd_operands(case, gen), errs)
+        emit(dict(phase="train", case="k8_bwd_times", **rows[key]))
+    return rows
+
+
+def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
+    """Each backward kernel's time (causal, p float32), its bound at the peak
+    of the inputs' type, the plain backward's time and that of
+    scaled_dot_product_attention's backward (the library call, timed only)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == BF16
+    dtype = str(q.dtype).removeprefix("torch.")
+    esize = q.element_size()
+    o, lse = fa.flash_attention_lse(q, k, v)
+    lse = lse.contiguous()
+    delta = fa.flash_attention_bwd_delta(o, do)
+    pairs = attn_pairs(s, t, True, 0)
+    peak = BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S
+    qkvo = (q.numel() + k.numel() + v.numel() + do.numel()) * esize
+    stats = 2 * b * h * s * 4
+    calls = {
+        "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(o, do),
+                                      2 * o.numel() * esize + b * h * s * 4,
+                                      2 * o.numel()),
+        "flash_attention_bwd_dkdv": (lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta),
+                                     qkvo + stats + 2 * k.numel() * esize,
+                                     8 * d * pairs * b * h),
+        "flash_attention_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                                   qkvo + stats + q.numel() * esize, 6 * d * pairs * b * h),
+    }
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                                enable_gqa=True)
+    do_h = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qh, kh, vh), do_h, retain_graph=True)
+
+    lib_dq = sdpa_bwd()[0].transpose(1, 2)
+    got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    out = dict(shape=[b, s, t, h, kv, d], causal=True, dtype=dtype,
+               bound_peak=("bf16 tensor cores, 989 TFLOP/s" if bf16 else "float32 FMA, 67 TFLOP/s")
+               + " (the inputs' type)",
+               plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), 3),
+               plain_covers="the whole plain backward (dq, dk, dv)",
+               library_backward_ms=cuda_ms(sdpa_bwd, 10),
+               library_max_abs_err_dq=float((lib_dq.float() - got_dq.float()).abs().max()),
+               kernels={})
+    for name, (fn, nbytes, flops) in calls.items():
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        ms = cuda_ms(fn, 5)
+        out["kernels"][name] = dict(ms=ms, device_ms=graph_ms(fn, 5), bound_ms=bound_ms,
+                                    bound_by=bound_by, bytes=nbytes, flops=flops,
+                                    tflop_per_s=flops / (ms * 1e-3) / 1e12)
+    out["backward_ms"] = sum(r["ms"] for r in out["kernels"].values())
+    out["max_abs_err"] = {
+        "flash_attention_bwd_delta": max(r["delta"]["max_abs_err"] for lbl, r in errs.items()
+                                         if case_dtype(lbl) == q.dtype),
+        "flash_attention_bwd_dkdv": max(max(r["dk"]["max_abs_err"], r["dv"]["max_abs_err"])
+                                        for lbl, r in errs.items() if case_dtype(lbl) == q.dtype),
+        "flash_attention_bwd_dq": max(r["dq"]["max_abs_err"] for lbl, r in errs.items()
+                                      if case_dtype(lbl) == q.dtype),
+    }
+    return out
+
+
+def case_dtype(label: str) -> torch.dtype:
+    return next(c[1] for c in K8_BWD_CASES if c[0] == label)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+# (a) examples/train_lm.py's default run: lm_100m, B = 4, S = 192, 300
+# AnalogNewton steps, a refresh and a checkpoint every 100
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 300, 4, 192, 0.02
+TRAIN_LOSS_DROP = 0.2          # the reference's own bar (tests/test_training_optim.py:53)
+# (b) Qwen3-8B at its published width, 2 of its 36 layers (the full model
+# with AdamW's float32 moments does not fit one 80 GB card), bf16, AdamW
+WIDE_ARCH, WIDE_LAYERS, WIDE_BATCH, WIDE_SEQ, WIDE_STEPS = "qwen3_8b", 2, 1, 2048, 3
+# (c) every family's SMOKE config, one AdamW step at TRAIN_SMOKE_LR, card
+# against CPU, with the CPU parity bars (tests/test_torch_training.py): the
+# loss 1e-5, every gradient leaf 1e-4 of its largest element, the updated
+# parameters 1e-4 of their largest wherever the gradient stands above the
+# gradient bar's noise (|g| > TOL_TRAIN_SIGNAL max|g|).  Below it Adam's
+# first step u = g / (|g| + eps) is sign-like, any value in (-1, 1) for a
+# noise-level g, so there the bar is the step itself: 2 lr.
+TRAIN_SMOKE_ARCHS = ("qwen3_8b", "internvl2_1b", "granite_moe_1b_a400m", "mixtral_8x22b",
+                     "mamba2_370m", "zamba2_7b", "whisper_base")
+TRAIN_SMOKE_LR = 1e-3
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_PARAM, TOL_TRAIN_SIGNAL = 1e-5, 1e-4, 1e-4, 1e-3
+
+
+def load_example(name: str):
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k8_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    counts = ops.launch_counts()
+    return dict(forward_by_route=ops.launch_counts_by_route()["flash_attention"],
+                backward={n: counts[n] for n in K8_BWD_KERNELS},
+                backward_by_dtype=ops.launch_counts_bwd_by_dtype())
+
+
+def same_tensors(a, b) -> bool:
+    """Every tensor and int of two train states equal, bit for bit."""
+    if isinstance(a, torch.nn.Module):
+        pb = dict(b.named_parameters())
+        return all(torch.equal(p, pb[n]) for n, p in a.named_parameters())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def train_lm_default(dev) -> dict:
+    """Case (a): examples/train_lm.py's default run on the port."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_optimizer, train_loop
+    from repro_torch.training import init_train_state
+
+    an = importlib.import_module("repro_torch.optim.analog_newton")
+    ex = load_example("train_lm_torch")
+    cfg, acfg = ex.lm_100m(), ex.analog_config(False)
+    an.reset_refresh_stats()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    timings: dict = {}
+    lines: list = []
+    with tempfile.TemporaryDirectory(prefix="repro_train_smoke_") as ckpt:
+        t0 = time.perf_counter()
+        out = train_loop(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         optimizer_name="analog_newton", lr=TRAIN_LR, ckpt_dir=ckpt,
+                         ckpt_every=100, analog_cfg=acfg, log_fn=lines.append, device=dev,
+                         timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k8_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rs = an.REFRESH_STATS
+        optimizer, _ = build_optimizer("analog_newton", TRAIN_LR, TRAIN_STEPS, acfg)
+        fresh = init_train_state(cfg, optimizer, torch.Generator(device=dev).manual_seed(SEED),
+                                 device=dev)
+        step, restored, ds = CheckpointManager(ckpt).restore_latest(fresh)
+        restored_equal = step == TRAIN_STEPS and same_tensors(out["state"], restored)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    res = dict(case="train_lm_100m", steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               optimizer="analog_newton", lr=TRAIN_LR, wall_s=wall,
+               ms_per_step=timings["step"] / TRAIN_STEPS * 1e3, timings_s=timings,
+               refresh_wall_s=timings.get("refresh", 0.0),
+               refresh_s_each=timings.get("refresh", 0.0) / max(rs.refreshes, 1),
+               refresh_stats=dict(refreshes=rs.refreshes, solve_batch_calls=rs.solve_batch_calls,
+                                  systems_solved=rs.systems_solved,
+                                  pattern_derivations=rs.pattern_derivations),
+               loss_curve=[[h["step"], h["loss"]] for h in hist], first_loss=losses[0],
+               last_loss=losses[-1], k8=launches, peak_memory_bytes=peak,
+               restored_bit_for_bit=restored_equal, data_state=ds, log_tail=lines[-3:])
+    emit(dict(phase="train", **res))
+    check(all(np.isfinite(losses)), f"train_lm 100M: non-finite loss {losses}")
+    check(losses[-1] <= losses[0] - TRAIN_LOSS_DROP,
+          f"train_lm 100M: loss {losses[0]} -> {losses[-1]}, less than {TRAIN_LOSS_DROP} nats")
+    check(rs.refreshes == rs.solve_batch_calls == TRAIN_STEPS // acfg.refresh_every
+          and rs.pattern_derivations == 1 and rs.systems_solved == 3 * 768,
+          f"train_lm 100M refresh accounting: {res['refresh_stats']}")
+    check(launches["forward_by_route"]["fma"] > 0
+          and all(launches["backward"][n] > 0 for n in K8_BWD_KERNELS),
+          f"train_lm 100M: K8 forward/backward not launched: {launches}")
+    check(restored_equal, "train_lm 100M: restore_latest did not give back the final state")
+    return res
+
+
+def train_wide(dev) -> dict:
+    """Case (b): Qwen3-8B's width, WIDE_LAYERS layers, bf16, AdamW, with the
+    first layer's attention inputs captured and its backward held against
+    the plain backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training import init_train_state, make_train_step
+
+    attn_mod = importlib.import_module("repro_torch.models.attention")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg = dataclasses.replace(get_config(WIDE_ARCH), n_layers=WIDE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw(3e-4)
+    state = init_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step_fn = make_train_step(cfg, opt)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=WIDE_SEQ, batch_size=WIDE_BATCH, seed=SEED)
+    captured = []
+    real = attn_mod.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q.detach(), k.detach(), v.detach(), kw))
+        return real(q, k, v, **kw)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    attn_mod.flash_attention = capture
+    try:
+        for _ in range(WIDE_STEPS):
+            batch = {k: torch.as_tensor(x, device=dev) for k, x in next(data).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        attn_mod.flash_attention = real
+        data.close()
+    launches = k8_counts()
+    peak = torch.cuda.max_memory_allocated()
+    q, k, v, kw = captured[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    errs = {}
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        e, sh = bwd_share(g_, w, *K8_BWD_BARS[q.dtype])
+        errs[name] = dict(max_abs_err=e, of_bar=sh)
+    res = dict(case="qwen3_8b_width_2_layers", layers=WIDE_LAYERS, params=n_params,
+               batch=WIDE_BATCH, seq=WIDE_SEQ, optimizer="adamw", dtype="bfloat16",
+               losses=losses, ms_per_step=step_ms, k8=launches, peak_memory_bytes=peak,
+               first_layer_attention=dict(shape=list(q.shape), kv_shape=list(k.shape),
+                                          errors=errs))
+    emit(dict(phase="train", **res))
+    del state, step_fn, captured
+    check(all(np.isfinite(losses)), f"Qwen3-8B width: non-finite loss {losses}")
+    check(all(e["of_bar"] <= 1 for e in errs.values()),
+          f"Qwen3-8B width: first layer's backward off its bar: {errs}")
+    check(launches["forward_by_route"]["mma"] > 0
+          and all(launches["backward_by_dtype"][n]["bfloat16"] > 0 for n in K8_BWD_KERNELS),
+          f"Qwen3-8B width: K8 forward/backward not launched: {launches}")
+    return res
+
+
+def train_smoke_cross_device(arch: str, dev) -> dict:
+    """Case (c): one AdamW train step of the arch's SMOKE config (float32) on
+    the card and on the CPU from one state: loss, every gradient leaf and
+    every updated parameter within the CPU parity bars."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import forward_train
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training import cross_entropy_loss, init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch)
+    opt = adamw(TRAIN_SMOKE_LR)
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)   # 2 SMOKE ssm chunks
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        state = init_train_state(cfg, opt, torch.Generator().manual_seed(SEED), device="cpu")
+        state["params"].to(where)
+        state["opt_state"] = opt.init(dict(state["params"].named_parameters()))
+        feed = {k: torch.from_numpy(x).to(where) for k, x in batch.items()}
+        logits, aux = forward_train(state["params"], feed, cfg)
+        loss = cross_entropy_loss(logits, feed["targets"], cfg.vocab)[0] + 0.01 * aux
+        loss.backward()
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in state["params"].named_parameters()}
+        state["params"].zero_grad(set_to_none=True)
+        state, m = make_train_step(cfg, opt)(state, feed)
+        params = {n: p.detach().double().cpu() for n, p in state["params"].named_parameters()}
+        out[where if where == "cpu" else "cuda"] = (float(m["loss"]), grads, params)
+    (loss_cpu, grad_cpu, param_cpu), (loss_gpu, grad_gpu, param_gpu) = out["cpu"], out["cuda"]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = max(float((grad_gpu[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                   for n, w in grad_cpu.items())
+    signal_err, noise_err = 0.0, 0.0
+    for n, w in param_cpu.items():
+        err = (param_gpu[n] - w).abs()
+        signal = grad_cpu[n].abs() > TOL_TRAIN_SIGNAL * float(grad_cpu[n].abs().max())
+        if bool(signal.any()):
+            signal_err = max(signal_err, float(err[signal].max()) / float(w.abs().max()))
+        if bool((~signal).any()):
+            noise_err = max(noise_err, float(err[~signal].max()) / TRAIN_SMOKE_LR)
+    check(loss_err <= TOL_TRAIN_LOSS,
+          f"{arch} train step: loss {loss_gpu} vs {loss_cpu} on the CPU")
+    check(grad_err <= TOL_TRAIN_GRAD, f"{arch} train step: a gradient {grad_err} of its max")
+    check(signal_err <= TOL_TRAIN_PARAM and noise_err <= 2,
+          f"{arch} train step: parameters {signal_err} of their max where the gradient is "
+          f"signal, {noise_err} lr where it is noise")
+    return dict(loss_err_of_loss=loss_err, grad_err_of_max=grad_err,
+                param_err_of_max=signal_err, param_err_in_lr_where_noise=noise_err)
+
+
+def phase_train(dev) -> dict:
+    """The training path: cases (a), (b) and (c).  Returns K8's launches by
+    case: forward by route, backward by kernel and dtype."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    res = {"train_lm_100m": train_lm_default(dev)}
+    res["qwen3_8b_width"] = train_wide(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    smoke = {arch: train_smoke_cross_device(arch, dev) for arch in TRAIN_SMOKE_ARCHS}
+    res["smoke"] = dict(k8=k8_counts())
+    emit(dict(phase="train", case="smoke_card_vs_cpu", archs=smoke, k8=res["smoke"]["k8"],
+              bars=dict(loss=TOL_TRAIN_LOSS, grad=TOL_TRAIN_GRAD, param=TOL_TRAIN_PARAM,
+                        signal=TOL_TRAIN_SIGNAL, param_where_noise_in_lr=2)))
+    emit(dict(phase="train", case="wall", wall_s=time.perf_counter() - t0))
+    return {case: r["k8"] for case, r in res.items()}
+
+
 def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                  service_launches: dict, analysis_launches: dict, api_rows: dict,
-                 api_launches: dict, k8_rows: dict, k8_launches: dict) -> list[dict]:
+                 api_launches: dict, k8_rows: dict, k8_launches: dict, k8_bwd_rows: dict,
+                 train_launches: dict) -> list[dict]:
     """One row per kernel, and for K5, K6 and K8 one per route: timed at
     its main-path shape (MAIN_SHAPE for K1-K4), its error the largest over
     every shape, its launches from the main path that drives it (the slice,
@@ -2857,7 +3346,10 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
     K8's rows count by phase and family (``launches_by_family``): the
     tensor-core row at D = 128 the serve phase's and every family's but
     Zamba2's, the D = 112 row Zamba2's, the fma row the float32 SMOKE
-    configs' runs on the card."""
+    configs' runs on the card; each also the train phase's.  K8's backward
+    kernels have a row each per dtype (bf16 at the forward's main shape,
+    float32 at train_lm's), their launches those of the train phase by
+    case, ``launches_by_phase``."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -2950,6 +3442,31 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                          **{k: row[k] for k in keys},
                          f32_fma_bound_ms=row["f32_fma_bound_ms"],
                          tflop_per_s=row["tflop_per_s"]))
+    return rows + k8_bwd_line_rows(k8_bwd_rows, train_launches)
+
+
+def k8_bwd_line_rows(k8_bwd_rows: dict, train_launches: dict) -> list[dict]:
+    """The kernels line's rows of K8's backward kernels: one per kernel and
+    dtype, timed at the row's shape, its launches the train phase's in
+    that dtype by case.  No single library call computes one kernel's part
+    of the gradient (``library_ms`` null); SDPA's whole backward is
+    ``library_backward_ms``."""
+    rows = []
+    for row in k8_bwd_rows.values():
+        dtype = row["dtype"]
+        for name, k in row["kernels"].items():
+            by_phase = {case: counts["backward_by_dtype"][name][dtype]
+                        for case, counts in train_launches.items()}
+            rows.append(dict(
+                name=f"K8 {name} ({dtype}, D = {row['shape'][-1]})", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces=K8_BWD_REPLACES, launches=sum(by_phase.values()),
+                launches_by_phase=by_phase, max_abs_err=row["max_abs_err"][name],
+                ms=k["ms"], device_ms=k["device_ms"], plain_ms=row["plain_ms"],
+                plain_covers=row["plain_covers"], bound_ms=k["bound_ms"],
+                bound_by=k["bound_by"], library_ms=None,
+                library_backward_ms=row["library_backward_ms"], shape=row["shape"],
+                tflop_per_s=k["tflop_per_s"]))
     return rows
 
 
@@ -2990,21 +3507,28 @@ def main() -> int:
         dev, pairs[("dense", N_DENSE)]["transient_step_batched"]["split"])
     phase_quickstart()
     k8_rows = phase_k8()
+    k8_bwd_rows = phase_k8_bwd()
     serve_launches = phase_serve(dev)
     families = phase_families(dev)
+    train_launches = phase_train(dev)
     # K8's launches by row: the tensor-core rows split by head size (D =
     # 112 is Zamba2's alone), the FMA row the float32 SMOKE configs' card
     # runs; each by the phase or family that made them
+    train_fwd = {route: sum(c["forward_by_route"][route] for c in train_launches.values())
+                 for route in ("mma", "fma")}
     k8_launches = {
         "mma": {"serve": serve_launches["mma"],
-                **{a: r["mma"] for a, r in families.items() if r["head_dim"] != 112}},
+                **{a: r["mma"] for a, r in families.items() if r["head_dim"] != 112},
+                "train": train_fwd["mma"]},
         "mma_d112": {a: r["mma"] for a, r in families.items() if r["head_dim"] == 112},
-        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()}},
+        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()},
+                "train": train_fwd["fma"]},
     }
 
     emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,
                                   analysis_launches,
-                                  api_rows, api_launches, k8_rows, k8_launches)})
+                                  api_rows, api_launches, k8_rows, k8_launches, k8_bwd_rows,
+                                  train_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

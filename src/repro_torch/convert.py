@@ -10,7 +10,8 @@ numpy arrays and scalars — as read off the reference's ``Netlist``,
 operators on a given device.  A test can then feed the identical operator to both
 packages' sweeps and hold a kernel apart from assembly.
 :func:`lm_params_from_arrays` does the same for a language model's
-parameter tree, of any family.
+parameter tree, of any family, and :func:`train_state_from_arrays` for a
+whole train state (parameters, optimizer state, step).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.core.transient import StateSpace
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as lm_blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LanguageModel, family_of
+from repro_torch.models.model import STACKED, LanguageModel, family_of
 
 NETLIST_ARRAYS = ("branch_i", "branch_j", "branch_g", "ground_g", "supply_g",
                   "supply_v", "cell_i", "cell_j", "cell_w")
@@ -212,3 +213,53 @@ def lm_params_from_arrays(tree: Mapping[str, Any], cfg: ModelConfig,
         parts["enc_final_norm"] = t(tree["enc_final_norm"])
     lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
     return LanguageModel(t(tree["embed"]), t(tree["final_norm"]), lm_head=lm_head, **parts)
+
+
+
+def reference_leaf(tree: Mapping[str, Any], name: str):
+    """The reference tree's array for the port's state-dict name ``name``
+    (``blocks.3.attn.wq`` -> ``tree["blocks"]["attn"]["wq"][3]``,
+    ``shared_attn.mlp.w_up`` -> ``tree["shared_attn"]["mlp"]["w_up"]``)."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] in STACKED:
+        layer = int(parts.pop(1))
+    node = tree
+    for part in parts:
+        node = node[part]
+    return node if layer is None else node[layer]
+
+
+def train_state_from_arrays(tree: Mapping[str, Any], cfg: ModelConfig, optimizer_name: str,
+                            device=None) -> dict:
+    """A port train state from the reference's ``{params, opt_state,
+    step}`` as numpy arrays (``jax.tree.map(np.asarray, state)``, or a
+    reference checkpoint restored to host arrays).
+
+    ``params`` go through :func:`lm_params_from_arrays` and become
+    trainable; the optimizer state is keyed by the port's state-dict
+    names: ``mu`` and ``nu`` (``"adamw"``), or ``mu``, ``cov`` and
+    ``pinv`` (``"analog_newton"``; ``cov``/``pinv`` for the leaves the
+    reference preconditions, its ``None`` leaves left out), all float32,
+    and ``step`` as ints.
+    """
+    if optimizer_name not in ("adamw", "analog_newton"):
+        raise ValueError(f"optimizer {optimizer_name!r}: expected adamw or analog_newton")
+    dev = resolve_device(device)
+    params = lm_params_from_arrays(tree["params"], cfg, dev).requires_grad_(True)
+    names = [n for n, _ in params.named_parameters()]
+    opt = tree["opt_state"]
+
+    def f32(x) -> torch.Tensor:
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
+
+    state: dict = {"mu": {n: f32(reference_leaf(opt["mu"], n)) for n in names}}
+    if optimizer_name == "adamw":
+        state["nu"] = {n: f32(reference_leaf(opt["nu"], n)) for n in names}
+    else:
+        for key in ("cov", "pinv"):
+            leaves = {n: reference_leaf(opt[key], n) for n in names
+                      if n.split(".")[0] not in STACKED}
+            state[key] = {n: f32(x) for n, x in leaves.items() if x is not None}
+    state["step"] = int(np.asarray(opt["step"]))
+    return {"params": params, "opt_state": state, "step": int(np.asarray(tree["step"]))}

@@ -120,12 +120,22 @@ _SIGNATURES = {
     "repro_colabs": ((_P, _I, _P, _I, _I, _I, _I, _P), _I),
     # a, a_is_bf16, d, k_s, k_a, k_b, n, stream
     "repro_assemble": ((_P, _I, _P, _P, _P, _P, _I, _P), _I),
-    # q, k, v, is_bf16, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
-    "repro_flash_attention": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                               _P), _I),
-    # q, k, v, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
-    "repro_flash_attention_mma": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                   _P), _I),
+    # q, k, v, is_bf16, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
+    "repro_flash_attention": ((_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _I, _P), _I),
+    # q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
+    "repro_flash_attention_mma": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                   _I, _P), _I),
+    # o, dout, is_bf16, delta, batch, s, h, d, stream
+    "repro_flash_attention_bwd_delta": ((_P, _P, _I, _P, _I, _I, _I, _I, _P), _I),
+    # q, k, v, dout, is_bf16, lse, delta, dk, dv, batch, s, t, h, kv, d, causal, window,
+    # scale, p_bf16, stream
+    "repro_flash_attention_bwd_dkdv": ((_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _F, _I, _P), _I),
+    # q, k, v, dout, is_bf16, lse, delta, dq, batch, s, t, h, kv, d, causal, window, scale,
+    # stream
+    "repro_flash_attention_bwd_dq": ((_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _F, _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

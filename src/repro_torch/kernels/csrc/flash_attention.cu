@@ -91,6 +91,24 @@
 // of scores with float32 FMA, the row max and sum are reduced over the
 // 16 lanes that share a row, the probabilities go to shared memory, the
 // V tile replaces the K tile, and every thread adds its 4 x D/16 outputs.
+// Both routes can also write each row's log-sum-exp lse = m + log(l) of
+// the scaled scores, float32 (B, H, S), for the backward; without it they
+// compute and store exactly what they did before the output existed.
+//
+// Backward (no TPU counterpart: the reference differentiates the pure-JAX
+// attention of src/repro/models/attention.py:42 with jax.grad; these
+// kernels replace that gradient).  Three launches, FlashAttention-2's
+// recomputation: Delta = rowsum(dO * O); then per (batch, KV head, 64-key
+// tile) one block that loops over the G query heads of the group and every
+// query tile that reaches its keys, recomputes P = exp(S scale - lse) under
+// the forward's mask and adds dV += P~^T dO (P~ = bf16(P) when p_bf16, as
+// the forward's PV product) and dK += dS^T Q with dS = P (dP - Delta), in
+// float32 registers, each element written once (the GQA sum over heads is
+// in a fixed order, with no atomics); then per (batch, head, 64-row tile)
+// one block that adds dQ += dS K over the key tiles.  Every product is
+// float32 FMA on shared-memory tiles (4 x 4 (key, query) pairs per thread,
+// as the forward's fma route); bf16 inputs are read element by element and
+// converted, and bf16 gradients are rounded once, at the store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,7 +164,7 @@ __device__ __forceinline__ void load_kv_tile(const T* __restrict__ src, float* d
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        int s_len, int t_len, int h, int kv, int causal, int window,
                        float scale, int p_bf16) {
   using L = FaLayout<D>;
@@ -285,12 +303,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dst = o + q_base + (static_cast<size_t>(qpos[i]) * h + head) * D;
 #pragma unroll
     for (int j = 0; j < L::DC; ++j) store_as(dst + tc + 16 * j, acc[i][j] / l);
+    if (lse != nullptr && tc == 0)
+      lse[(static_cast<size_t>(b) * h + head) * s_len + qpos[i]] = m_i[i] + logf(l);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int s, int t,
-           int h, int kv, int causal, int window, float scale, int p_bf16,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int s,
+           int t, int h, int kv, int causal, int window, float scale, int p_bf16,
            cudaStream_t stream) {
   using L = FaLayout<D>;
   static std::atomic<bool> raised[MAX_DEVICES];   // past 48 KB of shared memory
@@ -301,20 +321,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   const dim3 grid((n_rows + FA_ROWS - 1) / FA_ROWS, batch * kv);
   flash_attention_kernel<T, D><<<grid, FA_THREADS, L::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, t, h, kv, causal, window, scale, p_bf16);
+      static_cast<T*>(o), lse, s, t, h, kv, causal, window, scale, p_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_for_dim(const void* q, const void* k, const void* v, void* o, int batch, int s,
-                   int t, int h, int kv, int d, int causal, int window, float scale,
+int launch_for_dim(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                   int s, int t, int h, int kv, int d, int causal, int window, float scale,
                    int p_bf16, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 32: return launch<T, 32>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 64: return launch<T, 64>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 112: return launch<T, 112>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 128: return launch<T, 128>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 112: return launch<T, 112>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -327,6 +347,7 @@ constexpr int FM_WARPS = 8;
 constexpr int FM_THREADS = FM_WARPS * 32;
 constexpr int FM_ROWS = FM_WARPS * 16;   // rows per block, 16 per warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct FmLayout {
@@ -370,8 +391,8 @@ __global__ void __launch_bounds__(FM_THREADS, 1)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                           int s_len, int t_len, int h, int kv, int causal, int window,
-                           float scale) {
+                           float* __restrict__ lse, int s_len, int t_len, int h, int kv,
+                           int causal, int window, float scale) {
   using L = FmLayout<D>;
   extern __shared__ __align__(128) unsigned char fm_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fm_smem);   // [FM_ROWS][LD]
@@ -574,11 +595,18 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + tig * 2) =
           __floats2bfloat162_rn(acc[j][2] / lb, acc[j][3] / lb);
   }
+  // the row log-sum-exp in natural units: m is in the log2 domain
+  if (lse != nullptr && tig == 0) {
+    const size_t head_row = static_cast<size_t>(b) * h + kvh * g;
+    if (ra < n_rows) lse[(head_row + ra % g) * s_len + qa] = m_a * LN2 + logf(la);
+    if (rb < n_rows) lse[(head_row + rb % g) * s_len + qb] = m_b * LN2 + logf(lb);
+  }
 }
 
 template <int D, bool P_BF16>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int batch, int s, int t,
-               int h, int kv, int causal, int window, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+               int s, int t, int h, int kv, int causal, int window, float scale,
+               cudaStream_t stream) {
   using L = FmLayout<D>;
   static std::atomic<bool> raised[MAX_DEVICES];
   const cudaError_t err =
@@ -588,17 +616,399 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int batch, 
   const dim3 grid((n_rows + FM_ROWS - 1) / FM_ROWS, batch * kv);
   flash_attention_mma_kernel<D, P_BF16><<<grid, FM_THREADS, L::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), s, t, h, kv, causal,
-      window, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, s, t, h, kv,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_mma_for_p(const void* q, const void* k, const void* v, void* o, int batch, int s,
-                     int t, int h, int kv, int causal, int window, float scale, int p_bf16,
-                     cudaStream_t stream) {
-  return p_bf16 ? launch_mma<D, true>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, stream)
-                : launch_mma<D, false>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, stream);
+int launch_mma_for_p(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                     int s, int t, int h, int kv, int causal, int window, float scale,
+                     int p_bf16, cudaStream_t stream) {
+  return p_bf16
+      ? launch_mma<D, true>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, stream)
+      : launch_mma<D, false>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, stream);
+}
+
+// ---------------------------------------------------------------------------
+// backward: Delta, then dK and dV, then dQ (float32 FMA)
+// ---------------------------------------------------------------------------
+
+constexpr int FB_TILE = 64;       // query rows and keys per tile
+
+template <int D>
+struct FbLayout {
+  static constexpr int RS = D + 1;          // padded stride of a D-wide tile, in floats
+  static constexpr int PS = FB_TILE + 1;    // padded stride of a 64 x 64 tile
+  static constexpr int DC = D / 16;         // output columns per thread
+  static constexpr int TILE = FB_TILE * RS;
+  // dkdv: K, V, Q, dO tiles and P, dS ([key][query]); dq: Q, dO, K, V and dS
+  static constexpr size_t DKDV_BYTES = (4 * TILE + 2 * FB_TILE * PS) * sizeof(float);
+  static constexpr size_t DQ_BYTES = (4 * TILE + FB_TILE * PS) * sizeof(float);
+};
+
+__device__ __forceinline__ bool fa_keep(int qpos, int kpos, int t_len, int causal, int window) {
+  bool ok = kpos < t_len;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && kpos > qpos - window;
+  return ok;
+}
+
+// rows [q0, q0 + 64) of query head `head` of a (S, H, D) slab -> dst
+// [64][D + 1], float32, zero past row s_len
+template <typename T, int D>
+__device__ __forceinline__ void load_q_tile(const T* __restrict__ src, float* dst, int q0,
+                                            int s_len, int h, int head) {
+  for (int e = threadIdx.x; e < FB_TILE * D; e += FA_THREADS) {
+    const int r = e / D;
+    const int c = e % D;
+    const int qpos = q0 + r;
+    dst[r * FbLayout<D>::RS + c] =
+        qpos < s_len ? to_f32(src[(static_cast<size_t>(qpos) * h + head) * D + c]) : 0.0f;
+  }
+}
+
+// Delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in float32: one warp
+// per row, rows in (b, s, h) order
+template <typename T>
+__global__ void flash_attention_bwd_delta_kernel(const T* __restrict__ o,
+                                                 const T* __restrict__ dout,
+                                                 float* __restrict__ delta, long long n_rows,
+                                                 int s_len, int h, int d) {
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const T* orow = o + row * d;
+  const T* drow = dout + row * d;
+  float sum = 0.0f;
+  for (int c = lane; c < d; c += 32) sum = fmaf(to_f32(drow[c]), to_f32(orow[c]), sum);
+  sum = warp_sum(sum);
+  if (lane == 0) {
+    const long long bs = row / h;           // b * s_len + s
+    const int head = static_cast<int>(row % h);
+    const long long b = bs / s_len;
+    const int s = static_cast<int>(bs % s_len);
+    delta[(b * h + head) * s_len + s] = sum;
+  }
+}
+
+// dK and dV of one key tile of one KV head: the block loops over the G
+// query heads of the group and every query tile that reaches the keys, in
+// a fixed order, and writes each dK, dV element once (no atomics).  Per
+// (head, query tile): S^T and dP^T by FMA (a 4 x 4 block of (key, query)
+// pairs per thread), P = exp(S scale - lse) under the forward's mask,
+// dS = P (dP - Delta); then dV += P~^T dO (P~ = bf16(P) when p_bf16, as
+// the forward's PV product) and dK += dS^T Q, scaled once at the end.
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv, int s_len, int t_len,
+                                int h, int kv, int causal, int window, float scale, int p_bf16) {
+  using L = FbLayout<D>;
+  extern __shared__ float smem[];
+  float* ks = smem;                     // [64][RS] the key tile
+  float* vs = ks + L::TILE;             // [64][RS] the value tile
+  float* qs = vs + L::TILE;             // [64][RS] a query tile
+  float* dos = qs + L::TILE;            // [64][RS] its dO tile
+  float* ps = dos + L::TILE;            // [64 keys][PS] P~
+  float* dss = ps + FB_TILE * L::PS;    // [64 keys][PS] dS
+  __shared__ float lse_s[FB_TILE], delta_s[FB_TILE];
+
+  const int g = h / kv;
+  const int k0 = blockIdx.x * FB_TILE;
+  const int b = blockIdx.y / kv;
+  const int kvh = blockIdx.y % kv;
+  const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
+  const size_t kv_base = static_cast<size_t>(b) * t_len * kv * D;
+  const size_t head_off = static_cast<size_t>(kvh) * D;
+  load_kv_tile<T, D>(k + kv_base, ks, k0, t_len, kv, head_off);
+  load_kv_tile<T, D>(v + kv_base, vs, k0, t_len, kv, head_off);
+
+  const int tc = threadIdx.x % 16;    // queries tc + 16 j; output columns tc + 16 j
+  const int tr = threadIdx.x / 16;    // keys tr + 16 i
+  float dk_acc[4][L::DC], dv_acc[4][L::DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < L::DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
+
+  // query rows that keep a key of this tile: causal from k0 on, a window
+  // up to the last key + window - 1
+  const int k_last = min(k0 + FB_TILE, t_len) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(s_len - 1, k_last + window - 1) : s_len - 1;
+
+  for (int gi = 0; gi < g; ++gi) {
+    const int head = kvh * g + gi;
+    const size_t stat_base = (static_cast<size_t>(b) * h + head) * s_len;
+    for (int qt = q_lo / FB_TILE; q_lo <= q_hi && qt <= q_hi / FB_TILE; ++qt) {
+      const int q0 = qt * FB_TILE;
+      __syncthreads();                // the previous tile's reads of qs, dos, ps, dss are done
+      load_q_tile<T, D>(q + q_base, qs, q0, s_len, h, head);
+      load_q_tile<T, D>(dout + q_base, dos, q0, s_len, h, head);
+      if (threadIdx.x < FB_TILE) {
+        const int qpos = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = qpos < s_len ? lse[stat_base + qpos] : 0.0f;
+        delta_s[threadIdx.x] = qpos < s_len ? delta[stat_base + qpos] : 0.0f;
+      }
+      __syncthreads();
+
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.0f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kk[4], vv[4], qq[4], oo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kk[i] = ks[(tr + 16 * i) * L::RS + d];
+          vv[i] = vs[(tr + 16 * i) * L::RS + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qq[j] = qs[(tc + 16 * j) * L::RS + d];
+          oo[j] = dos[(tc + 16 * j) * L::RS + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[i][j] = fmaf(kk[i], qq[j], st[i][j]);
+            dpt[i][j] = fmaf(vv[i], oo[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = k0 + tr + 16 * i;
+          const int qpos = q0 + tc + 16 * j;
+          const bool ok = qpos < s_len && fa_keep(qpos, kpos, t_len, causal, window);
+          const float p = ok ? expf(st[i][j] * scale - lse_s[tc + 16 * j]) : 0.0f;
+          ps[(tr + 16 * i) * L::PS + tc + 16 * j] =
+              p_bf16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
+          dss[(tr + 16 * i) * L::PS + tc + 16 * j] = p * (dpt[i][j] - delta_s[tc + 16 * j]);
+        }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int r = 0; r < FB_TILE; ++r) {
+        float pv[4], dsv[4], oo[L::DC], qq[L::DC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = ps[(tr + 16 * i) * L::PS + r];
+          dsv[i] = dss[(tr + 16 * i) * L::PS + r];
+        }
+#pragma unroll
+        for (int j = 0; j < L::DC; ++j) {
+          oo[j] = dos[r * L::RS + tc + 16 * j];
+          qq[j] = qs[r * L::RS + tc + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < L::DC; ++j) {
+            dv_acc[i][j] = fmaf(pv[i], oo[j], dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(dsv[i], qq[j], dk_acc[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + tr + 16 * i;
+    if (kpos >= t_len) continue;
+    const size_t off = kv_base + static_cast<size_t>(kpos) * kv * D + head_off;
+#pragma unroll
+    for (int j = 0; j < L::DC; ++j) {
+      store_as(dk + off + tc + 16 * j, dk_acc[i][j] * scale);
+      store_as(dv + off + tc + 16 * j, dv_acc[i][j]);
+    }
+  }
+}
+
+// dQ of one query tile of one head: the block loops over the key tiles the
+// forward reaches, S and dP by FMA (a 4 x 4 block of (query, key) pairs per
+// thread), dS = P (dP - Delta) into shared memory, then dQ += dS K; scaled
+// and written once at the end.
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              T* __restrict__ dq, int s_len, int t_len, int h, int kv,
+                              int causal, int window, float scale) {
+  using L = FbLayout<D>;
+  extern __shared__ float smem[];
+  float* qs = smem;                     // [64][RS] the query tile
+  float* dos = qs + L::TILE;            // [64][RS] its dO tile
+  float* ks = dos + L::TILE;            // [64][RS] a key tile
+  float* vs = ks + L::TILE;             // [64][RS] its value tile
+  float* dss = vs + L::TILE;            // [64 queries][PS] dS
+  __shared__ float lse_s[FB_TILE], delta_s[FB_TILE];
+
+  const int g = h / kv;
+  const int tile = gridDim.x - 1 - blockIdx.x;     // longest (latest q) first
+  const int q0 = tile * FB_TILE;
+  const int b = blockIdx.y / h;
+  const int head = blockIdx.y % h;
+  const int kvh = head / g;
+  const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
+  const size_t kv_base = static_cast<size_t>(b) * t_len * kv * D;
+  const size_t head_off = static_cast<size_t>(kvh) * D;
+  const size_t stat_base = (static_cast<size_t>(b) * h + head) * s_len;
+  load_q_tile<T, D>(q + q_base, qs, q0, s_len, h, head);
+  load_q_tile<T, D>(dout + q_base, dos, q0, s_len, h, head);
+  if (threadIdx.x < FB_TILE) {
+    const int qpos = q0 + threadIdx.x;
+    lse_s[threadIdx.x] = qpos < s_len ? lse[stat_base + qpos] : 0.0f;
+    delta_s[threadIdx.x] = qpos < s_len ? delta[stat_base + qpos] : 0.0f;
+  }
+
+  const int tc = threadIdx.x % 16;    // keys tc + 16 j; output columns tc + 16 j
+  const int tr = threadIdx.x / 16;    // queries tr + 16 i
+  float dq_acc[4][L::DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < L::DC; ++j) dq_acc[i][j] = 0.0f;
+
+  // the forward's key range for these rows
+  const int q_hi = min(q0 + FB_TILE, s_len) - 1;
+  int k_hi = t_len - 1;
+  if (causal) k_hi = min(k_hi, q_hi);
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  for (int kt = k_lo / FB_TILE; k_lo <= k_hi && kt <= k_hi / FB_TILE; ++kt) {
+    const int k0 = kt * FB_TILE;
+    __syncthreads();                  // the previous tile's reads of ks, vs, dss are done
+    load_kv_tile<T, D>(k + kv_base, ks, k0, t_len, kv, head_off);
+    load_kv_tile<T, D>(v + kv_base, vs, k0, t_len, kv, head_off);
+    __syncthreads();
+
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qq[4], oo[4], kk[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qq[i] = qs[(tr + 16 * i) * L::RS + d];
+        oo[i] = dos[(tr + 16 * i) * L::RS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kk[j] = ks[(tc + 16 * j) * L::RS + d];
+        vv[j] = vs[(tc + 16 * j) * L::RS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qq[i], kk[j], sc[i][j]);
+          dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qpos = q0 + tr + 16 * i;
+        const int kpos = k0 + tc + 16 * j;
+        const bool ok = qpos < s_len && fa_keep(qpos, kpos, t_len, causal, window);
+        const float p = ok ? expf(sc[i][j] * scale - lse_s[tr + 16 * i]) : 0.0f;
+        dss[(tr + 16 * i) * L::PS + tc + 16 * j] = p * (dp[i][j] - delta_s[tr + 16 * i]);
+      }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < FB_TILE; ++c) {
+      float dsv[4], kk[L::DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dss[(tr + 16 * i) * L::PS + c];
+#pragma unroll
+      for (int j = 0; j < L::DC; ++j) kk[j] = ks[c * L::RS + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < L::DC; ++j) dq_acc[i][j] = fmaf(dsv[i], kk[j], dq_acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + tr + 16 * i;
+    if (qpos >= s_len) continue;
+    T* dst = dq + q_base + (static_cast<size_t>(qpos) * h + head) * D;
+#pragma unroll
+    for (int j = 0; j < L::DC; ++j) store_as(dst + tc + 16 * j, dq_acc[i][j] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int batch,
+                    int s, int t, int h, int kv, int causal, int window, float scale,
+                    int p_bf16, cudaStream_t stream) {
+  using L = FbLayout<D>;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err = allow_dynamic_smem(flash_attention_bwd_dkdv_kernel<T, D>,
+                                             static_cast<int>(L::DKDV_BYTES), raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t + FB_TILE - 1) / FB_TILE, batch * kv);
+  flash_attention_bwd_dkdv_kernel<T, D><<<grid, FA_THREADS, L::DKDV_BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s, t,
+      h, kv, causal, window, scale, p_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dq, int batch, int s, int t,
+                  int h, int kv, int causal, int window, float scale, cudaStream_t stream) {
+  using L = FbLayout<D>;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err = allow_dynamic_smem(flash_attention_bwd_dq_kernel<T, D>,
+                                             static_cast<int>(L::DQ_BYTES), raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + FB_TILE - 1) / FB_TILE, batch * h);
+  flash_attention_bwd_dq_kernel<T, D><<<grid, FA_THREADS, L::DQ_BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), s, t, h, kv, causal, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_for_dim(int which, const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta, void* dq,
+                       void* dk, void* dv, int batch, int s, int t, int h, int kv, int d,
+                       int causal, int window, float scale, int p_bf16, cudaStream_t stream) {
+#define REPRO_FA_BWD_CASE(DIM)                                                              \
+  case DIM:                                                                                 \
+    return which == 0 ? launch_bwd_dkdv<T, DIM>(q, k, v, dout, lse, delta, dk, dv, batch, s, \
+                                                t, h, kv, causal, window, scale, p_bf16,    \
+                                                stream)                                     \
+                      : launch_bwd_dq<T, DIM>(q, k, v, dout, lse, delta, dq, batch, s, t, h, \
+                                              kv, causal, window, scale, stream);
+  switch (d) {
+    REPRO_FA_BWD_CASE(16)
+    REPRO_FA_BWD_CASE(32)
+    REPRO_FA_BWD_CASE(64)
+    REPRO_FA_BWD_CASE(112)
+    REPRO_FA_BWD_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FA_BWD_CASE
 }
 
 }  // namespace
@@ -606,12 +1016,15 @@ int launch_mma_for_p(const void* q, const void* k, const void* v, void* o, int b
 
 // C interface (bound with ctypes).  q (batch, s, h, d), k and v
 // (batch, t, kv, d), o (batch, s, h, d): device pointers of contiguous
-// tensors of one dtype (float32, or bfloat16 when is_bf16).  d is 16,
-// 32, 64, 112 or 128 and kv divides h; window = 0 means no window.  Returns
-// the CUDA error code of the launch (0 = success); an empty output
+// tensors of one dtype (float32, or bfloat16 when is_bf16).  lse, when not
+// null, is a float32 (batch, h, s) buffer that takes each row's log-sum-exp
+// m + log(l) of the scaled scores (the backward's input); with lse null the
+// kernel computes and writes exactly what it did without the output.  d is
+// 16, 32, 64, 112 or 128 and kv divides h; window = 0 means no window.
+// Returns the CUDA error code of the launch (0 = success); an empty output
 // launches nothing.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, int is_bf16,
-                                     void* o, int batch, int s, int t, int h, int kv, int d,
+                                     void* o, float* lse, int batch, int s, int t, int h, int kv, int d,
                                      int causal, int window, float scale, int p_bf16,
                                      void* stream) {
   using namespace repro_torch;
@@ -619,8 +1032,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch_for_dim<__nv_bfloat16>(q, k, v, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st)
-      : launch_for_dim<float>(q, k, v, o, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st);
+      ? launch_for_dim<__nv_bfloat16>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st)
+      : launch_for_dim<float>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st);
 }
 
 // The bf16 tensor-core route: the arguments of repro_flash_attention for
@@ -628,7 +1041,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 // flash_attention_route decides).  Returns the CUDA error code of the
 // launch (0 = success); an empty output launches nothing.
 extern "C" int repro_flash_attention_mma(const void* q, const void* k, const void* v, void* o,
-                                         int batch, int s, int t, int h, int kv, int d,
+                                         float* lse, int batch, int s, int t, int h, int kv, int d,
                                          int causal, int window, float scale, int p_bf16,
                                          void* stream) {
   using namespace repro_torch;
@@ -636,11 +1049,79 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k, const voi
   if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch_mma_for_p<16>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
-    case 32: return launch_mma_for_p<32>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
-    case 64: return launch_mma_for_p<64>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
-    case 112: return launch_mma_for_p<112>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
-    case 128: return launch_mma_for_p<128>(q, k, v, o, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 16: return launch_mma_for_p<16>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 32: return launch_mma_for_p<32>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 64: return launch_mma_for_p<64>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 112: return launch_mma_for_p<112>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
+    case 128: return launch_mma_for_p<128>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward (bound with ctypes), three launches in this order:
+//
+// repro_flash_attention_bwd_delta: delta (batch, h, s) float32 = the row
+// sums of dout * o, both (batch, s, h, d) in one dtype.
+//
+// repro_flash_attention_bwd_dkdv: dk, dv (batch, t, kv, d) in q's dtype from
+// q, k, v, dout (the forward's operands and the output's gradient, one
+// dtype), the forward's lse and delta (batch, h, s) float32; one block per
+// (batch * kv head, 64-key tile), the G query heads' sum in a fixed order.
+//
+// repro_flash_attention_bwd_dq: dq (batch, s, h, d) in q's dtype from the
+// same inputs; one block per (batch * head, 64-row tile).
+//
+// causal, window, scale and p_bf16 are the forward's.  Each returns the
+// CUDA error code of its launch (0 = success); an empty input launches
+// nothing.
+extern "C" int repro_flash_attention_bwd_delta(const void* o, const void* dout, int is_bf16,
+                                               float* delta, int batch, int s, int h, int d,
+                                               void* stream) {
+  using namespace repro_torch;
+  const long long n_rows = static_cast<long long>(batch) * s * h;
+  if (n_rows == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (n_rows * 32 + threads - 1) / threads;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    flash_attention_bwd_delta_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta,
+        n_rows, s, h, d);
+  else
+    flash_attention_bwd_delta_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), delta, n_rows, s, h, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
+                                              const void* dout, int is_bf16, const float* lse,
+                                              const float* delta, void* dk, void* dv, int batch,
+                                              int s, int t, int h, int kv, int d, int causal,
+                                              int window, float scale, int p_bf16,
+                                              void* stream) {
+  using namespace repro_torch;
+  if (batch == 0 || t == 0 || h == 0) return 0;
+  if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return is_bf16
+      ? launch_bwd_for_dim<__nv_bfloat16>(0, q, k, v, dout, lse, delta, nullptr, dk, dv, batch,
+                                          s, t, h, kv, d, causal, window, scale, p_bf16, st)
+      : launch_bwd_for_dim<float>(0, q, k, v, dout, lse, delta, nullptr, dk, dv, batch, s, t, h,
+                                  kv, d, causal, window, scale, p_bf16, st);
+}
+
+extern "C" int repro_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                            const void* dout, int is_bf16, const float* lse,
+                                            const float* delta, void* dq, int batch, int s,
+                                            int t, int h, int kv, int d, int causal, int window,
+                                            float scale, void* stream) {
+  using namespace repro_torch;
+  if (batch == 0 || s == 0 || h == 0) return 0;
+  if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return is_bf16
+      ? launch_bwd_for_dim<__nv_bfloat16>(1, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+                                          batch, s, t, h, kv, d, causal, window, scale, 0, st)
+      : launch_bwd_for_dim<float>(1, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, s,
+                                  t, h, kv, d, causal, window, scale, 0, st);
 }

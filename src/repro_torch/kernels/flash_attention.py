@@ -24,6 +24,22 @@ tensors.  D must be 16, 32, 64, 112 or 128; q, k and v share one dtype,
 float32 or bfloat16.  The route it launches is
 :func:`flash_attention_route`'s: bf16 on the tensor cores, float32 on
 float32 FMA.
+
+Training (ROADMAP Queue 1 item 12.6).  Under grad mode, with an input that
+requires grad, :func:`flash_attention` runs through
+:class:`FlashAttention`, whose forward also writes each row's
+log-sum-exp (:func:`flash_attention_lse`) and whose backward is
+:func:`flash_attention_bwd`: three hand-written kernels on the card
+(``csrc/flash_attention.cu``: Delta, then dK/dV, then dQ, float32 FMA)
+and :func:`flash_attention_bwd_plain` on the CPU.  The reference has no
+backward kernel: it differentiates the pure-JAX attention
+(``repro/models/attention.py:42``) with ``jax.grad``, which these
+replace.  The gradient is FlashAttention-2's: ``P = exp(S scale - lse)``
+under the forward's mask, ``dV = P~^T dO`` with ``P~`` the forward's PV
+operand (``P`` rounded to bf16 when ``p_dtype`` is bf16), ``dS = P (dP -
+Delta)`` with the float32 ``P`` (``jax.grad`` passes a cast's cotangent
+straight through), ``dQ = scale dS K``, ``dK = scale dS^T Q``; the GQA
+sum over a group's query heads is in a fixed order, without atomics.
 """
 
 from __future__ import annotations
@@ -79,6 +95,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p_dtype,
     return dev
 
 
+def _keep(s: int, k0: int, k1: int, causal: bool, window: int, device) -> torch.Tensor:
+    """The forward's mask of query rows [0, s) against keys [k0, k1)."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    ok = torch.ones((s, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int = 0,
                           p_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -91,26 +119,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     max.  Tiles that the kernel skips are fully masked for every row
     that reaches them, and their contribution is wiped, as in the kernel.
     """
+    return flash_attention_plain_lse(q, k, v, causal=causal, window=window, p_dtype=p_dtype)[0]
+
+
+def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              p_dtype: torch.dtype | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_plain` and each row's log-sum-exp ``m +
+    log(max(l, 1e-30))`` of the scaled scores, float32 (B, H, S): the
+    plain version of :func:`flash_attention_lse`."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
     scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, s, kv, g, d).float()
     kf, vf = k.float(), v.float()
-    qpos = torch.arange(s, device=q.device)[:, None]
     acc = torch.zeros((b, kv, g, s, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, kv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kv, g, s), dtype=torch.float32, device=q.device)
     for k0 in range(0, t, KV_TILE):
         k1 = min(k0 + KV_TILE, t)
         sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, k0:k1]) * scale
-        kpos = torch.arange(k0, k1, device=q.device)[None, :]
-        ok = torch.ones((s, k1 - k0), dtype=torch.bool, device=q.device)
-        if causal:
-            ok &= kpos <= qpos
-        if window > 0:
-            ok &= kpos > qpos - window
-        sc = torch.where(ok, sc, NEG_INF)
+        sc = torch.where(_keep(s, k0, k1, causal, window, q.device), sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new[..., None])
@@ -119,8 +150,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = p.to(p_dtype).float()
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vf[:, k0:k1])
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]                   # (b, kv, g, s, d)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    l = l.clamp_min(1e-30)
+    out = acc / l[..., None]                                    # (b, kv, g, s, d)
+    lse = (m + torch.log(l)).reshape(b, h, s)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype), lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,33 +166,222 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (which rounds ``p`` to ``v.dtype``: ``ops.flash_attention``).  Any
     S and T: the kernel masks ragged edges, so nothing is padded.  Bound
     by operations at the main path's shape (``csrc/flash_attention.cu``);
-    the route is :func:`flash_attention_route`'s.
+    the route is :func:`flash_attention_route`'s.  Under grad mode with an
+    input that requires grad the call goes through :class:`FlashAttention`,
+    so the result has a ``grad_fn`` whose backward is
+    :func:`flash_attention_bwd`.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, p_dtype)
+    return flash_attention_lse(q, k, v, causal=causal, window=window, p_dtype=p_dtype,
+                               lse=False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        p_dtype: torch.dtype | None = None, lse: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """K8's forward and, when ``lse``, each row's log-sum-exp (float32
+    (B, H, S)) from the same launch; ``(out, None)`` without it, the
+    kernel then writing exactly what it wrote before that output existed.
+    Launches for CUDA tensors (counted as :func:`flash_attention`'s), runs
+    :func:`flash_attention_plain_lse` for CPU tensors.  No autograd."""
     dev = _check(q, k, v, p_dtype, window)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        out, row_lse = flash_attention_plain_lse(q, k, v, causal=causal, window=window,
+                                                 p_dtype=p_dtype)
+        return out, (row_lse if lse else None)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     route = flash_attention_route(q.dtype, d, build.aligned16(q, k, v))
     lib = build.load_library()
     out = torch.empty_like(q)
+    row_lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if lse else None
+    lse_ptr = row_lse.data_ptr() if lse else None
     scale, p_bf16 = 1.0 / math.sqrt(d), int(p_dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = build.current_stream(dev)
         if route == "mma":
             lib.call("repro_flash_attention_mma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, s, t, h, kv, d, int(causal), int(window), scale,
-                     p_bf16, stream)
+                     out.data_ptr(), lse_ptr, b, s, t, h, kv, d, int(causal), int(window),
+                     scale, p_bf16, stream)
         else:
             lib.call("repro_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     int(q.dtype == torch.bfloat16), out.data_ptr(), b, s, t, h, kv, d,
-                     int(causal), int(window), scale, p_bf16, stream)
+                     int(q.dtype == torch.bfloat16), out.data_ptr(), lse_ptr, b, s, t, h, kv,
+                     d, int(causal), int(window), scale, p_bf16, stream)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
-    return out
+    return out, row_lse
 
 
 # launch counts of the CUDA kernel, in all and by route (plain-version
 # calls do not count)
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              p_dtype: torch.dtype | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`flash_attention_bwd`: the kernels'
+    formulas over the same key tiles of :data:`KV_TILE`, in float32.
+
+    ``o`` and ``lse`` are the forward's output and row log-sum-exp, ``do``
+    the output's gradient.  ``Delta = rowsum(dO * O)``; per key tile ``P =
+    exp(S scale - lse)`` (0 where masked), ``dV = P~^T dO`` (``P~`` rounded
+    to bf16 when ``p_dtype`` is), ``dS = P (dP - Delta)``, ``dK = scale
+    dS^T Q`` (the group's query heads summed), ``dQ += scale dS K``.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes.
+    """
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s, kv, g, d).float()
+    dog = do.reshape(b, s, kv, g, d).float()
+    kf, vf = k.float(), v.float()
+    delta = (dog * o.reshape(b, s, kv, g, d).float()).sum(-1).permute(0, 2, 3, 1)
+    lse_g = lse.float().reshape(b, kv, g, s)
+    dq = torch.zeros((b, s, kv, g, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, t, kv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((b, t, kv, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, t, KV_TILE):
+        k1 = min(k0 + KV_TILE, t)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, k0:k1]) * scale
+        p = torch.exp(sc - lse_g[..., None])
+        p = torch.where(_keep(s, k0, k1, causal, window, q.device), p, 0.0)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf[:, k0:k1])
+        ds = p * (dp - delta[..., None])
+        p_mm = p.to(p_dtype).float() if p_dtype is not None else p
+        dv[:, k0:k1] = torch.einsum("bhgqk,bqhgd->bkhd", p_mm, dog)
+        dk[:, k0:k1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kf[:, k0:k1]) * scale
+    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _count_bwd(fn, dtype: torch.dtype) -> None:
+    fn.launches += 1
+    fn.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
+
+
+def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``Delta = rowsum(dO * O)``, float32 (B, H, S), for ``o`` and ``do``
+    (B, S, H, D) of one dtype: one CUDA launch (counted), plain on the CPU."""
+    dev = build.check_tensors(build.FLOAT_DTYPES, o=o, do=do)
+    if o.shape != do.shape or o.dtype != do.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         "must share shape and dtype")
+    b, s, h, d = o.shape
+    if dev.type == "cpu":
+        return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        build.load_library().call(
+            "repro_flash_attention_bwd_delta", o.data_ptr(), do.data_ptr(),
+            int(o.dtype == torch.bfloat16), delta.data_ptr(), b, s, h, d,
+            build.current_stream(dev))
+    _count_bwd(flash_attention_bwd_delta, o.dtype)
+    return delta
+
+
+def _bwd_operands(q, k, v, do, lse, delta) -> tuple[tuple, tuple]:
+    """The pointers and sizes the dK/dV and dQ entry points share."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             int(q.dtype == torch.bfloat16), lse.data_ptr(), delta.data_ptr()),
+            (b, s, t, h, kv, d))
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0,
+                             p_dtype: torch.dtype | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV (B, T, KV, D) in k's dtype: one CUDA launch (counted), a
+    block per (batch, KV head, key tile).  CUDA tensors only, checked by
+    :func:`flash_attention_bwd`."""
+    ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        build.load_library().call(
+            "repro_flash_attention_bwd_dkdv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims,
+            int(causal), int(window), 1.0 / math.sqrt(dims[-1]),
+            int(p_dtype == torch.bfloat16), build.current_stream(q.device))
+    _count_bwd(flash_attention_bwd_dkdv, q.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           window: int = 0) -> torch.Tensor:
+    """dQ (B, S, H, D) in q's dtype: one CUDA launch (counted), a block per
+    (batch, head, query tile).  CUDA tensors only, checked by
+    :func:`flash_attention_bwd`."""
+    ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        build.load_library().call(
+            "repro_flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *dims, int(causal),
+            int(window), 1.0 / math.sqrt(dims[-1]), build.current_stream(q.device))
+    _count_bwd(flash_attention_bwd_dq, q.dtype)
+    return dq
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, p_dtype: torch.dtype | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's backward: ``(dq, dk, dv)`` in the inputs' dtypes from the
+    forward's operands, its output ``o`` and row log-sum-exp ``lse``
+    (float32 (B, H, S)) and the output's gradient ``do`` (taken in q's
+    dtype).  For CUDA tensors three launches (Delta, dK/dV, dQ); for CPU
+    tensors :func:`flash_attention_bwd_plain`."""
+    dev = _check(q, k, v, p_dtype, window)
+    do = do.to(q.dtype).contiguous()
+    build.check_tensors(build.FLOAT_DTYPES, q=q, o=o, do=do)
+    b, s, h, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"need o and do {tuple(q.shape)} and lse {(b, h, s)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                         p_dtype=p_dtype)
+    lse = lse.float().contiguous()
+    delta = flash_attention_bwd_delta(o.to(q.dtype), do)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal, window=window,
+                                      p_dtype=p_dtype)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal, window=window)
+    return dq, dk, dv
+
+
+# the backward's CUDA kernels; each counts its launches, in all and by the
+# inputs' dtype (plain-version calls do not count)
+BWD_KERNELS = (flash_attention_bwd_delta, flash_attention_bwd_dkdv, flash_attention_bwd_dq)
+BWD_DTYPES = ("float32", "bfloat16")
+for _fn in BWD_KERNELS:
+    _fn.launches = 0
+    _fn.launches_by_dtype = dict.fromkeys(BWD_DTYPES, 0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K8 with its hand-written backward: the forward (one K8 launch on
+    the card, with the row log-sum-exp) saves q, k, v, the output and
+    ``lse``; the backward is :func:`flash_attention_bwd`.  Called as
+    ``FlashAttention.apply(q, k, v, causal, window, p_dtype)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, p_dtype):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, p_dtype=p_dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None

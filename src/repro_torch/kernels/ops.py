@@ -386,7 +386,7 @@ def transient_sweep(
 
 _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
             _st.transient_step_batched, _st.transient_step, _mvm.crosspoint_mvm,
-            _tr.colabs, _tr.assemble, _fa.flash_attention)
+            _tr.colabs, _tr.assemble, _fa.flash_attention, *_fa.BWD_KERNELS)
 
 
 # the kernels with more than one route, and their launch counts by route
@@ -396,7 +396,8 @@ _SWEEPS = (_ell.ell_sweep, _st.transient_sweep)
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel (K1-K8) since the last reset."""
+    """Launches of each CUDA kernel (K1-K8, and K8's backward kernels
+    ``flash_attention_bwd_{delta,dkdv,dq}``) since the last reset."""
     return {fn.__name__: fn.launches for fn in _KERNELS}
 
 
@@ -423,9 +424,17 @@ def launch_counts_by_dtype() -> dict[str, dict[str, int]]:
     return {dt: dict(by_route) for dt, by_route in _st.transient_step.launches_by_dtype.items()}
 
 
+def launch_counts_bwd_by_dtype() -> dict[str, dict[str, int]]:
+    """K8's backward kernels' launches by the inputs' dtype ("float32",
+    "bfloat16") since the last reset."""
+    return {fn.__name__: dict(fn.launches_by_dtype) for fn in _fa.BWD_KERNELS}
+
+
 def reset_launch_counts() -> None:
     for fn in _KERNELS:
         fn.launches = 0
+    for fn in _fa.BWD_KERNELS:
+        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
     for fn in _ROUTED:
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     for fn in _SWEEPS:

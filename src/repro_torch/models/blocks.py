@@ -42,7 +42,8 @@ def _normal(generator: torch.Generator, shape, dtype: torch.dtype, std: float) -
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
-    # the serving path runs under torch.inference_mode; no gradients yet
+    # frozen by default (serving runs under torch.inference_mode); training
+    # turns gradients on with LanguageModel.requires_grad_()
     return nn.Parameter(x, requires_grad=False)
 
 

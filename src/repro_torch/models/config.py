@@ -64,7 +64,7 @@ class ModelConfig:
 
     attn_p_bf16: bool = False       # flash: round the probability tile to
                                     # bf16 before the PV product
-    remat_policy: str = "full"      # training only (not ported yet)
+    remat_policy: str = "full"      # full | dots | none: forward_train block remat
     dtype: str = "bfloat16"         # activation/compute dtype
     param_dtype: str = "bfloat16"
 

@@ -1,8 +1,7 @@
-"""Top-level models of every family: initialization, prefill, decode and
-accounting.
+"""Top-level models of every family: initialization, the train forward,
+prefill, decode and accounting.
 
-Counterpart of :mod:`repro.models.model` (its serving half; training is
-ROADMAP Queue 1 items 12.6-12.8).  The reference scans over
+Counterpart of :mod:`repro.models.model`.  The reference scans over
 layer-stacked parameters; here a model is one :class:`LanguageModel`
 holding one block module per layer, and the scan is a Python loop.
 State-dict names are the reference's tree with the layer axis unstacked
@@ -10,8 +9,9 @@ State-dict names are the reference's tree with the layer axis unstacked
 are the reference's: ``embed``, ``final_norm``, ``lm_head`` (unless
 ``tie_embeddings``), and ``blocks`` (dense, vlm, moe, ssm, hybrid),
 ``shared_attn`` (hybrid), ``enc_blocks``/``dec_blocks``/``enc_final_norm``
-(encdec).  ``jax.checkpoint`` (training only) and the sharding hints are
-dropped.
+(encdec).  The sharding hints are dropped.  :func:`forward_train` runs
+every block under ``torch.utils.checkpoint`` as the reference runs it
+under ``jax.checkpoint`` (``ModelConfig.remat_policy``).
 
 The families, as the reference runs them:
 
@@ -40,8 +40,15 @@ and return it.  Every prefill's attention runs K8 on the card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -57,6 +64,9 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import check_chunk
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the subtrees the reference stacks on a leading layer axis; here each
+# layer is its own module, named ``blocks.{i}`` and so on
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
 class LanguageModel(nn.Module):
@@ -145,6 +155,107 @@ def _logits(params: LanguageModel, cfg: ModelConfig, x: torch.Tensor) -> torch.T
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     table = params.embed.T if cfg.tie_embeddings else params.lm_head
     return unembed(x, table)
+
+
+# ===========================================================================
+# train forward (full sequence -> logits)
+# ===========================================================================
+
+REMAT_POLICIES = ("full", "dots", "none")
+# the matrix products without batch dimensions: what
+# jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under block remat, the counterpart of the reference's
+    ``_ckpt`` (``repro/models/model.py:18``): ``"full"`` keeps only the
+    block's inputs and recomputes the rest in the backward; ``"dots"``
+    also keeps the outputs of the matrix products without batch
+    dimensions; ``"none"`` (the port's) keeps every activation.  Remat
+    changes memory, not values.  Outside grad mode it is ``fn``."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected one of {REMAT_POLICIES}")
+    if cfg.remat_policy == "none":
+        return fn
+    kwargs = {}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return run
+
+
+def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S_text, vocab_padded), aux loss ()), the
+    counterpart of ``repro/models/model.py:125``.
+
+    ``batch["tokens"]`` (B, S); a vlm also takes ``batch["patches"]``
+    (B, n_patches, d) and an encdec ``batch["frames"]`` (B, enc_len, d).
+    Runs under autograd: every attention goes through K8 and its
+    hand-written backward on the card.  The aux loss is the MoE's
+    load-balancing loss summed over layers (zero for the other families).
+    """
+    family = family_of(cfg)
+    dev = _device_of(params)
+    tokens = _tokens(batch["tokens"], dev)
+    bsz, s_text = tokens.shape
+    x = embed_tokens(tokens, params.embed)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if family == "vlm":
+        x = torch.cat([_embeddings(batch["patches"], dev, x.dtype), x], dim=1)
+    s_total = x.shape[1]
+    positions = torch.arange(s_total, device=dev).expand(bsz, s_total)
+
+    def dense(p):
+        return _remat(lambda h: B.dense_block_forward(h, p, cfg, positions)[0], cfg)
+
+    def mamba(p):
+        return _remat(lambda h: B.mamba_block_forward(h, p, cfg)[0], cfg)
+
+    if family in ("dense", "vlm"):
+        for p in params.blocks:
+            x = dense(p)(x)
+    elif family == "moe":
+        for p in params.blocks:
+            x, a = _remat(lambda h, p=p: B.moe_block_forward(h, p, cfg, positions)[:2], cfg)(x)
+            aux = aux + a
+    elif family == "ssm":
+        for p in params.blocks:
+            x = mamba(p)(x)
+    elif family == "hybrid":
+        g, _ = hybrid_groups(cfg)
+        for j in range(g):
+            x = dense(params.shared_attn)(x)
+            for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
+                x = mamba(params.blocks[i])(x)
+        for i in range(g * cfg.attn_every, cfg.n_layers):
+            x = mamba(params.blocks[i])(x)
+    else:
+        frames = _embeddings(batch["frames"], dev, x.dtype)
+        t = frames.shape[1]
+        h = frames + sinusoid_positions(t, cfg.d_model, dev)[None].to(x.dtype)
+        epos = torch.arange(t, device=dev).expand(bsz, t)
+        for p in params.enc_blocks:
+            h = _remat(lambda c, p=p: B.encoder_block_forward(c, p, cfg, epos), cfg)(h)
+        enc_out = rms_norm(h, params.enc_final_norm, cfg.norm_eps)
+        x = x + sinusoid_positions(s_text, cfg.d_model, dev)[None].to(x.dtype)
+        for p in params.dec_blocks:
+            x = _remat(lambda c, e, p=p: B.decoder_block_forward(c, p, cfg, positions, e)[0],
+                       cfg)(x, enc_out)
+    if family == "vlm":
+        x = x[:, -s_text:, :]
+    return _logits(params, cfg, x), aux
 
 
 # ===========================================================================

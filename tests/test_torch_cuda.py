@@ -792,3 +792,126 @@ def test_service_gate_on_the_card(cuda, monkeypatch, n_streams):
     monkeypatch.setattr(solve_service, "solve_batch_submit", submit)
     report = run_service_gate(device="cuda", n_streams=n_streams)
     assert report["dispatch_syncs"] == 1 and not report["ok"]
+
+
+def _bwd_close(got, want, rtol, atol_rel, label):
+    """|got - want| <= atol_rel max|want| + rtol |want|, element by element."""
+    got, want = got.double().cpu(), want.double().cpu()
+    bar = atol_rel * float(want.abs().max()) + rtol * want.abs()
+    err = (got - want).abs()
+    assert bool((err <= bar).all()), f"{label}: max err {float(err.max())}, " \
+        f"{float((err / bar).max())} of the bar"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grad_runs_the_backward_kernels(cuda, dtype):
+    """A CUDA flash_attention under grad mode returns a tensor with a
+    grad_fn (the FlashAttention Function), and its gradients, from the
+    hand-written backward kernels (one launch each of Delta, dK/dV and dQ
+    per call), match the plain backward on the kernel's own forward output
+    and log-sum-exp: float32 within 1e-5 of each array's largest element; bf16
+    also within one bf16 ulp of the element (2^-8 < 1e-2 |want|), the
+    gradients being rounded once.  With p rounded, a p whose rounding flips
+    between the two moves dV by 2^-8 p |dO|: 1e-2 of the largest element.
+    The forward's lse matches the plain version's within 1e-5 max|lse|."""
+    rounded = torch.bfloat16 if dtype == torch.bfloat16 else None
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    cases = [  # b, s, t, h, kv, d, causal, window, p_dtype
+        (2, 128, 128, 4, 2, 32, True, 0, None),
+        (1, 100, 100, 4, 1, 16, True, 0, None),
+        (1, 192, 192, 8, 2, 64, True, 64, None),
+        (2, 77, 130, 6, 3, 128, False, 0, None),
+        (1, 131, 131, 4, 4, 112, True, 0, None),
+        (1, 200, 200, 48, 1, 128, True, 0, None),
+        (1, 150, 150, 4, 2, 64, True, 0, rounded),
+    ]
+    names = [fn.__name__ for fn in k8.BWD_KERNELS]
+    before = {n: ops.launch_counts()[n] for n in names}
+    for b, s, t, h, kv, d, causal, window, p_dtype in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype).requires_grad_()
+                   for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+        do = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+        out = k8.flash_attention(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
+        assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+        out.backward(do)
+        o_plain, lse_plain = k8.flash_attention_plain_lse(
+            q.detach(), k.detach(), v.detach(), causal=causal, window=window, p_dtype=p_dtype)
+        _, lse = k8.flash_attention_lse(q.detach(), k.detach(), v.detach(), causal=causal,
+                                        window=window, p_dtype=p_dtype)
+        _bwd_close(lse, lse_plain, 0.0, 1e-5, f"lse {(b, s, t, h, kv, d)}")
+        assert torch.equal(o_plain, k8.flash_attention_plain(
+            q.detach(), k.detach(), v.detach(), causal=causal, window=window, p_dtype=p_dtype))
+        # the backward kernels against the plain backward on the kernel's
+        # own forward output and lse
+        want = k8.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(),
+                                            lse, do, causal=causal, window=window,
+                                            p_dtype=p_dtype)
+        rtol = 1e-2 if dtype == torch.bfloat16 else 0.0
+        atol = 1e-2 if p_dtype is not None else 1e-5
+        for name, g, w in zip("qkv", (q.grad, k.grad, v.grad), want):
+            assert g.dtype == dtype
+            _bwd_close(g, w, rtol, atol, f"d{name} {(b, s, t, h, kv, d, p_dtype)}")
+    for n in names:
+        assert ops.launch_counts()[n] - before[n] == len(cases), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_8b", "whisper_base"])
+def test_train_step_on_the_card_matches_cpu(cuda, arch):
+    """One AdamW train step of a SMOKE config (float32) on the card and on
+    the CPU from one state, with the CPU parity bars: the loss within
+    1e-5, every gradient leaf within 1e-4 of its largest element (float32
+    sums in other orders; the embedding's backward adds with atomics on
+    the card), the updated parameters within 1e-4 of their largest
+    wherever the gradient stands above that bar's noise (|g| > 1e-3
+    max|g|); below it Adam's first step g / (|g| + eps) is sign-like, so
+    there the bar is the step itself, 2 lr.  The K8 forward and backward
+    kernels launched on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import forward_train
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training import cross_entropy_loss, init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch)
+    opt = adamw(1e-3)
+    states = {}
+    for dev in ("cpu", cuda):
+        state = init_train_state(cfg, opt, torch.Generator().manual_seed(3), device="cpu")
+        state["params"].to(dev)
+        state["opt_state"] = opt.init(dict(state["params"].named_parameters()))
+        states[dev] = state
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    before = ops.launch_counts()
+    grads, losses = {}, {}
+    for dev, state in states.items():
+        feed = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        logits, aux = forward_train(state["params"], feed, cfg)
+        loss = cross_entropy_loss(logits, feed["targets"], cfg.vocab)[0] + 0.01 * aux
+        loss.backward()
+        grads[dev] = {n: p.grad.detach().cpu().double()
+                      for n, p in state["params"].named_parameters()}
+        state["params"].zero_grad(set_to_none=True)
+        states[dev], metrics = make_train_step(cfg, opt)(state, feed)
+        losses[dev] = float(metrics["loss"])
+    after = ops.launch_counts()
+    assert abs(losses[cuda] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+    for name, want in grads["cpu"].items():
+        err = float((grads[cuda][name] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), name
+    for name, p in states["cpu"]["params"].named_parameters():
+        got = states[cuda]["params"].get_parameter(name).detach().cpu().double()
+        want = p.detach().double()
+        g = grads["cpu"][name].abs()
+        signal = g > 1e-3 * float(g.max())
+        err = (got - want).abs()
+        assert float(torch.where(signal, err, 0.0).max()) <= 1e-4 * float(want.abs().max()), \
+            name
+        assert float(torch.where(signal, 0.0, err).max()) <= 2 * 1e-3, name
+    for name in ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        assert after[name] > before[name], name
