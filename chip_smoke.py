@@ -170,10 +170,15 @@ non-zero:
    backward on the kernel's own output and lse, element by element, at
    the forward's main shape in bf16, train_lm's attention (float32, D =
    64), D = 112, non-causal S != T, a window, G = 48, p rounded and small
-   float32 cases, each launching each kernel once; the forward's lse
+   float32 cases, each launching each kernel once, dK/dV and dQ on the
+   route ``flash_attention_bwd_route`` names (bf16 on the tensor cores,
+   "mma", float32 on FMA, "fma"; checked by the route counters), the main
+   and D = 112 cases also on "fma" through a view off the 16-byte grid,
+   and every bf16 case run twice for the same bits; the forward's lse
    against the plain one; a planted fault (a GQA head left out of dK/dV)
-   that the bar must reject by more than 1000x; each kernel's time, its
-   operation bound and the plain backward's and
+   that the bar must reject by more than 1000x; each kernel's time on
+   each route at the main shape (the median of 20 calls after a warm-up,
+   with its spread), its operation bound and the plain backward's and
    ``scaled_dot_product_attention``'s backward times (comparison only);
 8. train — the training path: (a) examples/train_lm.py's default run on
    the port (lm_100m: 6 layers, d 768, vocab 32768, float32, K8's FMA
@@ -197,8 +202,9 @@ non-zero:
    form and of the solve service's and the analysis phase's settling
    tickets, ``launches_by_phase``; K8's rows theirs by phase and family,
    ``launches_by_family``, with a row at D = 112, and the train phase's;
-   K8's backward kernels a row each per dtype, with the train phase's
-   launches by case), the nvidia-smi line, and the contract's last line.
+   K8's backward kernels a row each per dtype and route (bf16 on the
+   tensor cores, float32 on FMA), with the train phase's launches by
+   case), the nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 outside a checkout (no ``src/repro_torch`` beside it), it exits with
@@ -210,6 +216,7 @@ from __future__ import annotations
 import gc
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -261,6 +268,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_ms_spread(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """Device milliseconds of ``reps`` single calls of ``fn()`` after
+    ``warmup`` calls, each between two events on the stream: the median
+    and the spread (min, max)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, stop in events:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    ms = sorted(start.elapsed_time(stop) for start, stop in events)
+    return dict(median=float(np.median(ms)), min=ms[0], max=ms[-1], calls=reps)
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -2900,6 +2925,10 @@ K8_BWD_BARS = {BF16: (1e-2, 1e-5), F32: (0.0, 1e-5)}
 K8_BWD_P_BF16_ATOL = 1e-2
 K8_BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                   "flash_attention_bwd_dq")
+K8_BWD_ROUTED = ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+# cases also run on the FMA route through a view off the 16-byte grid
+K8_BWD_FMA_VIEW = ("bwd_main", "bwd_d112")
+K8_BWD_TIMING_CALLS = 20
 K8_BWD_REPLACES = "none: replaces jax.grad through src/repro/models/attention.py:42"
 
 
@@ -2918,6 +2947,59 @@ def k8_bwd_operands(case, gen):
     return q, k, v, do
 
 
+def ptxas_usage(log: str, pattern: str) -> dict:
+    """Registers and spill bytes that nvcc's ``-Xptxas=-v`` output (the
+    kernel build's log) gives each kernel instantiation whose name starts
+    with ``pattern``, keyed ``name<dtype,template ints>``."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            base = re.search("(" + re.escape(pattern) + r"\w*?_kernel)I(.*?)EEv", name)
+            key = None
+            if base:
+                tmpl = base.group(2)
+                dtype = "bf16" if tmpl.startswith("13__nv_bfloat16") else (
+                    "f32" if tmpl.startswith("f") else "")
+                args = ([dtype] if dtype else []) + re.findall(r"L[ib](\d+)E", tmpl + "E")
+                key = f"{base.group(1)}<{','.join(args)}>"
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+def off_grid(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a view whose base lies 2 bytes off the 16-byte grid."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return y.copy_(x)
+
+
+def k8_bwd_routed(q, k, v, o, lse, do, route: str, label: str, **kw):
+    """The backward, failing unless dK/dV and dQ launched once each, on
+    ``route``, and every backward kernel once."""
+    from repro_torch.kernels import ops
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    before, before_route = ops.launch_counts(), ops.launch_counts_bwd_by_route()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    after, after_route = ops.launch_counts(), ops.launch_counts_bwd_by_route()
+    check(all(after[n] == before[n] + 1 for n in K8_BWD_KERNELS),
+          f"K8 backward {label}: not one launch of each kernel")
+    check(all(after_route[n][r] == before_route[n][r] + (r == route)
+              for n in K8_BWD_ROUTED for r in ("mma", "fma")),
+          f"K8 backward {label}: dK/dV and dQ not launched once each on {route!r}")
+    return got
+
+
 def k8_bwd_head_dropped(q, k, v, o, lse, do, **kw):
     """A planted fault: the backward with the last query head of every GQA
     group left out of dK and dV (its dO zeroed)."""
@@ -2931,14 +3013,20 @@ def k8_bwd_head_dropped(q, k, v, o, lse, do, **kw):
 def phase_k8_bwd() -> dict:
     """K8's backward kernels (Delta, dK/dV, dQ) against the plain backward
     at every case of K8_BWD_CASES, on the kernel's own forward output and
-    lse, each kernel launched once per case; the forward's lse against the
+    lse, each kernel launched once per case and dK/dV and dQ on the route
+    flash_attention_bwd_route names (bf16 "mma", float32 "fma"); the cases
+    of K8_BWD_FMA_VIEW also on "fma" through views off the 16-byte grid;
+    each bf16 case twice, the same bits; the forward's lse against the
     plain one; a planted fault (a GQA head left out of dK, dV) that the
-    bar must reject by more than 1000x; then the times of each kernel, the
-    plain backward and scaled_dot_product_attention's backward at the main
-    shape (bf16) and at train_lm's (float32, D = 64)."""
-    from repro_torch.kernels import ops
+    bar must reject by more than 1000x; then the times of each kernel on
+    each route, the plain backward and scaled_dot_product_attention's
+    backward at the main shape (bf16) and at train_lm's (float32, D =
+    64)."""
+    from repro_torch.kernels import build
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    emit(dict(phase="train", case="k8_bwd_registers",
+              ptxas=ptxas_usage(build.load_library().log, "flash_attention_bwd_")))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs: dict = {}
     for case in K8_BWD_CASES:
@@ -2949,23 +3037,32 @@ def phase_k8_bwd() -> dict:
                                                     p_dtype=p_dtype)
         err, share = bwd_share(lse, lse_plain, 0.0, 1e-5)
         check(share <= 1, f"K8 lse {label}: {err}, {share} of its bar")
-        before = ops.launch_counts()
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
-                                     p_dtype=p_dtype)
-        after = ops.launch_counts()
-        check(all(after[n] == before[n] + 1 for n in K8_BWD_KERNELS),
-              f"K8 backward {label}: not one launch of each kernel")
-        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
-                                            p_dtype=p_dtype)
+        kw = dict(causal=causal, window=window, p_dtype=p_dtype)
+        route = fa.flash_attention_bwd_route(dtype, q.shape[-1], True)
+        got = k8_bwd_routed(q, k, v, o, lse, do, route, label, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         rtol, atol = K8_BWD_BARS[dtype]
         if p_dtype is not None:
             atol = K8_BWD_P_BF16_ATOL
-        row = dict(lse=dict(max_abs_err=err, of_bar=share))
+        row = dict(route=route, lse=dict(max_abs_err=err, of_bar=share))
         for name, g_, w in zip(("dq", "dk", "dv"), got, want):
             check(g_.dtype == dtype and g_.shape == w.shape, f"K8 backward {label}: {name}")
             e, sh = bwd_share(g_, w, rtol, atol)
             check(sh <= 1, f"K8 backward {label} {name}: max err {e}, {sh} of its bar")
             row[name] = dict(max_abs_err=e, of_bar=sh)
+        if route == "mma":
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(row["same_bits_twice"], f"K8 backward {label}: two runs differ")
+        if label in K8_BWD_FMA_VIEW:
+            views = [off_grid(x) for x in (q, k, v, do)]
+            got_fma = k8_bwd_routed(*views[:3], o, lse, views[3], "fma", f"{label} off grid",
+                                    **kw)
+            row["fma_view"] = {}
+            for name, g_, w in zip(("dq", "dk", "dv"), got_fma, want):
+                e, sh = bwd_share(g_, w, rtol, atol)
+                check(sh <= 1, f"K8 backward {label} {name} on fma: max err {e}, {sh} of its bar")
+                row["fma_view"][name] = dict(max_abs_err=e, of_bar=sh)
         delta = fa.flash_attention_bwd_delta(o, do)
         e, sh = bwd_share(delta, (do.float() * o.float()).sum(-1).transpose(1, 2), 0.0, 1e-5)
         check(sh <= 1, f"K8 backward {label} delta: {e}, {sh} of its bar")
@@ -2994,9 +3091,16 @@ def phase_k8_bwd() -> dict:
 
 
 def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
-    """Each backward kernel's time (causal, p float32), its bound at the peak
-    of the inputs' type, the plain backward's time and that of
-    scaled_dot_product_attention's backward (the library call, timed only)."""
+    """Each backward kernel's time (causal, p float32) on the route the
+    inputs take, and in bf16 also dK/dV and dQ on the FMA route through
+    views off the 16-byte grid (``fma_ms``): the median of
+    K8_BWD_TIMING_CALLS calls after a warm-up, with the spread; each
+    kernel's bound at the peak of the inputs' type, counting the products
+    the algorithm needs (8 d and 6 d flops a pair; with p float32 the
+    tensor-core route's P and dS split does 12 d and 8 d, 1.5x and 1.33x
+    that, on the tensor cores); the plain backward's time and that
+    of scaled_dot_product_attention's backward (the library call, timed
+    only, the same way)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -3010,15 +3114,20 @@ def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
     peak = BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S
     qkvo = (q.numel() + k.numel() + v.numel() + do.numel()) * esize
     stats = 2 * b * h * s * 4
+    route = fa.flash_attention_bwd_route(q.dtype, d, True)
+    qu, ku, vu, dou = (off_grid(x) for x in (q, k, v, do))
     calls = {
         "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(o, do),
                                       2 * o.numel() * esize + b * h * s * 4,
-                                      2 * o.numel()),
+                                      2 * o.numel(), None),
         "flash_attention_bwd_dkdv": (lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta),
                                      qkvo + stats + 2 * k.numel() * esize,
-                                     8 * d * pairs * b * h),
+                                     8 * d * pairs * b * h,
+                                     lambda: fa.flash_attention_bwd_dkdv(qu, ku, vu, dou, lse,
+                                                                         delta)),
         "flash_attention_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-                                   qkvo + stats + q.numel() * esize, 6 * d * pairs * b * h),
+                                   qkvo + stats + q.numel() * esize, 6 * d * pairs * b * h,
+                                   lambda: fa.flash_attention_bwd_dq(qu, ku, vu, dou, lse, delta)),
     }
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
@@ -3030,20 +3139,33 @@ def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
 
     lib_dq = sdpa_bwd()[0].transpose(1, 2)
     got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-    out = dict(shape=[b, s, t, h, kv, d], causal=True, dtype=dtype,
+    library = cuda_ms_spread(sdpa_bwd, K8_BWD_TIMING_CALLS)
+    # the library call's device time: its kernels under the profiler
+    prof = device_breakdown(lambda: [sdpa_bwd() for _ in range(K8_BWD_TIMING_CALLS)])
+    library_device = (sum(prof["device_ms"].values()) / K8_BWD_TIMING_CALLS
+                      if prof["device_ms"] else None)
+    out = dict(shape=[b, s, t, h, kv, d], causal=True, dtype=dtype, route=route,
                bound_peak=("bf16 tensor cores, 989 TFLOP/s" if bf16 else "float32 FMA, 67 TFLOP/s")
                + " (the inputs' type)",
                plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), 3),
                plain_covers="the whole plain backward (dq, dk, dv)",
-               library_backward_ms=cuda_ms(sdpa_bwd, 10),
+               library_backward_ms=library["median"], library_backward_spread_ms=library,
+               library_backward_device_ms=library_device,
+               library_backward_kernels=prof["top_kernels"][:4],
                library_max_abs_err_dq=float((lib_dq.float() - got_dq.float()).abs().max()),
+               timing=f"median of {K8_BWD_TIMING_CALLS} calls after 3, each between two events",
                kernels={})
-    for name, (fn, nbytes, flops) in calls.items():
+    for name, (fn, nbytes, flops, fma_fn) in calls.items():
         bound_ms, bound_by = bound(nbytes, flops, peak)
-        ms = cuda_ms(fn, 5)
-        out["kernels"][name] = dict(ms=ms, device_ms=graph_ms(fn, 5), bound_ms=bound_ms,
-                                    bound_by=bound_by, bytes=nbytes, flops=flops,
-                                    tflop_per_s=flops / (ms * 1e-3) / 1e12)
+        spread = cuda_ms_spread(fn, K8_BWD_TIMING_CALLS)
+        ms = spread["median"]
+        row = dict(kernel_route=route if fma_fn is not None else None, ms=ms, spread_ms=spread,
+                   device_ms=graph_ms(fn, 5), bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, flops=flops, tflop_per_s=flops / (ms * 1e-3) / 1e12)
+        if fma_fn is not None and route == "mma":
+            fma = cuda_ms_spread(fma_fn, K8_BWD_TIMING_CALLS)
+            row.update(fma_ms=fma["median"], fma_spread_ms=fma, fma_device_ms=graph_ms(fma_fn, 5))
+        out["kernels"][name] = row
     out["backward_ms"] = sum(r["ms"] for r in out["kernels"].values())
     out["max_abs_err"] = {
         "flash_attention_bwd_delta": max(r["delta"]["max_abs_err"] for lbl, r in errs.items()
@@ -3100,7 +3222,8 @@ def k8_counts() -> dict:
     counts = ops.launch_counts()
     return dict(forward_by_route=ops.launch_counts_by_route()["flash_attention"],
                 backward={n: counts[n] for n in K8_BWD_KERNELS},
-                backward_by_dtype=ops.launch_counts_bwd_by_dtype())
+                backward_by_dtype=ops.launch_counts_bwd_by_dtype(),
+                backward_by_route=ops.launch_counts_bwd_by_route())
 
 
 def same_tensors(a, b) -> bool:
@@ -3172,7 +3295,8 @@ def train_lm_default(dev) -> dict:
           and rs.pattern_derivations == 1 and rs.systems_solved == 3 * 768,
           f"train_lm 100M refresh accounting: {res['refresh_stats']}")
     check(launches["forward_by_route"]["fma"] > 0
-          and all(launches["backward"][n] > 0 for n in K8_BWD_KERNELS),
+          and all(launches["backward"][n] > 0 for n in K8_BWD_KERNELS)
+          and all(launches["backward_by_route"][n]["fma"] > 0 for n in K8_BWD_ROUTED),
           f"train_lm 100M: K8 forward/backward not launched: {launches}")
     check(restored_equal, "train_lm 100M: restore_latest did not give back the final state")
     return res
@@ -3247,8 +3371,9 @@ def train_wide(dev) -> dict:
     check(all(e["of_bar"] <= 1 for e in errs.values()),
           f"Qwen3-8B width: first layer's backward off its bar: {errs}")
     check(launches["forward_by_route"]["mma"] > 0
-          and all(launches["backward_by_dtype"][n]["bfloat16"] > 0 for n in K8_BWD_KERNELS),
-          f"Qwen3-8B width: K8 forward/backward not launched: {launches}")
+          and all(launches["backward_by_dtype"][n]["bfloat16"] > 0 for n in K8_BWD_KERNELS)
+          and all(launches["backward_by_route"][n]["mma"] > 0 for n in K8_BWD_ROUTED),
+          f"Qwen3-8B width: K8 forward/backward not launched on the tensor cores: {launches}")
     return res
 
 
@@ -3447,25 +3572,39 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
 
 def k8_bwd_line_rows(k8_bwd_rows: dict, train_launches: dict) -> list[dict]:
     """The kernels line's rows of K8's backward kernels: one per kernel and
-    dtype, timed at the row's shape, its launches the train phase's in
-    that dtype by case.  No single library call computes one kernel's part
-    of the gradient (``library_ms`` null); SDPA's whole backward is
+    dtype, and so per route of dK/dV and dQ (bf16 on the tensor cores,
+    ``kernel_route`` "mma", with the FMA route's time at the same shape in
+    ``fma_ms``; float32 on "fma"), timed at the row's shape, its launches
+    the train phase's in that dtype (dK/dV and dQ: on that route) by case.
+    No single library call computes one kernel's part of the gradient
+    (``library_ms`` null); SDPA's whole backward is
     ``library_backward_ms``."""
     rows = []
     for row in k8_bwd_rows.values():
         dtype = row["dtype"]
         for name, k in row["kernels"].items():
-            by_phase = {case: counts["backward_by_dtype"][name][dtype]
-                        for case, counts in train_launches.items()}
+            if name in K8_BWD_ROUTED:
+                by_phase = {case: counts["backward_by_route"][name][row["route"]]
+                            if row["route"] == "mma" else counts["backward_by_dtype"][name][dtype]
+                            for case, counts in train_launches.items()}
+            else:
+                by_phase = {case: counts["backward_by_dtype"][name][dtype]
+                            for case, counts in train_launches.items()}
+            extra = {key: k[key] for key in ("fma_ms", "fma_device_ms", "spread_ms") if key in k}
+            if name in K8_BWD_ROUTED:
+                extra["kernel_route"] = row["route"]
             rows.append(dict(
-                name=f"K8 {name} ({dtype}, D = {row['shape'][-1]})", route="cuda",
+                name=f"K8 {name} ({dtype}, D = {row['shape'][-1]}"
+                     + (f", {row['route']})" if name in K8_BWD_ROUTED else ")"),
+                route="cuda", **extra,
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces=K8_BWD_REPLACES, launches=sum(by_phase.values()),
                 launches_by_phase=by_phase, max_abs_err=row["max_abs_err"][name],
                 ms=k["ms"], device_ms=k["device_ms"], plain_ms=row["plain_ms"],
                 plain_covers=row["plain_covers"], bound_ms=k["bound_ms"],
                 bound_by=k["bound_by"], library_ms=None,
-                library_backward_ms=row["library_backward_ms"], shape=row["shape"],
+                library_backward_ms=row["library_backward_ms"],
+                library_backward_device_ms=row["library_backward_device_ms"], shape=row["shape"],
                 tflop_per_s=k["tflop_per_s"]))
     return rows
 

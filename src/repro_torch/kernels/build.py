@@ -6,7 +6,8 @@ library with a plain C interface, loaded with ``ctypes``.  No source
 includes PyTorch's headers, so a build takes seconds.  The library
 lands in ``build/repro_torch_kernels/`` at the repository root, named
 by a hash of the sources and flags, so an unchanged checkout loads the
-library an earlier process built.
+library an earlier process built, with that build's nvcc/ptxas log,
+kept beside it.
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine need not have ``nvcc``.
@@ -136,6 +137,13 @@ _SIGNATURES = {
     # stream
     "repro_flash_attention_bwd_dq": ((_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _P), _I),
+    # q, k, v, dout, lse, delta, dk, dv, batch, s, t, h, kv, d, causal, window, scale,
+    # p_bf16, stream
+    "repro_flash_attention_bwd_dkdv_mma": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                            _I, _I, _I, _F, _I, _P), _I),
+    # q, k, v, dout, lse, delta, dq, batch, s, t, h, kv, d, causal, window, scale, stream
+    "repro_flash_attention_bwd_dq_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _F, _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -146,7 +154,7 @@ class KernelLibrary:
     def __init__(self, path: Path, build_seconds: float, log: str):
         self.path = path
         self.build_seconds = build_seconds   # 0.0 when an earlier build was reused
-        self.log = log                       # nvcc/ptxas output (-Xptxas=-v)
+        self.log = log                       # nvcc/ptxas output (-Xptxas=-v) of its build
         self._lib = ctypes.CDLL(str(path))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(self._lib, name)
@@ -267,8 +275,15 @@ def _build(target: Path) -> str:
         ])
         tmp_so = Path(tmp) / target.name
         log += _run([[nvcc, "-shared", "-o", str(tmp_so), *map(str, objs)]])
+        tmp_log = Path(tmp) / "build.log"
+        tmp_log.write_text(log)
+        os.replace(tmp_log, _log_path(target))   # before the library: it marks the build done
         os.replace(tmp_so, target)
     return log
+
+
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".log")
 
 
 def load_library() -> KernelLibrary:
@@ -277,8 +292,12 @@ def load_library() -> KernelLibrary:
     with _LOCK:
         if _LIB is None:
             target = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
-            t0 = time.perf_counter()
-            log = _build(target) if not target.exists() else ""
-            seconds = time.perf_counter() - t0 if log else 0.0
+            if target.exists():   # an earlier build's library, and its log
+                log_path = _log_path(target)
+                log, seconds = (log_path.read_text() if log_path.exists() else ""), 0.0
+            else:
+                t0 = time.perf_counter()
+                log = _build(target)
+                seconds = time.perf_counter() - t0
             _LIB = KernelLibrary(target, seconds, log)
         return _LIB

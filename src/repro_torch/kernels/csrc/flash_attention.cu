@@ -104,11 +104,28 @@
 // the forward's mask and adds dV += P~^T dO (P~ = bf16(P) when p_bf16, as
 // the forward's PV product) and dK += dS^T Q with dS = P (dP - Delta), in
 // float32 registers, each element written once (the GQA sum over heads is
-// in a fixed order, with no atomics); then per (batch, head, 64-row tile)
-// one block that adds dQ += dS K over the key tiles.  Every product is
-// float32 FMA on shared-memory tiles (4 x 4 (key, query) pairs per thread,
-// as the forward's fma route); bf16 inputs are read element by element and
-// converted, and bf16 gradients are rounded once, at the store.
+// in a fixed order, with no atomics); then one block per rows of queries
+// that adds dQ += dS K over the key tiles.  bf16 gradients are rounded
+// once, at the store.  Two routes for dK/dV and dQ, by the forward's rule
+// (kernels/flash_attention.py:flash_attention_bwd_route):
+//
+// * "fma" (float32, and bf16 off the 16-byte grid; the first port):
+//   flash_attention_bwd_dkdv_kernel and _dq_kernel, every product float32
+//   FMA on shared-memory tiles (4 x 4 (key, query) pairs per thread, as the
+//   forward's fma route), bf16 inputs read element by element;
+// * "mma" (bf16 with q, k, v and dO 16-byte aligned):
+//   flash_attention_bwd_dkdv_mma_kernel and _dq_mma_kernel, mma.sync on the
+//   bf16 tensor cores with float32 accumulators, tiles copied by 16-byte
+//   cp.async two deep, P and dS fed from the accumulators to the second
+//   products as A fragments, split as the forward's P (hi + lo, both bf16)
+//   so that they stay float32 in meaning.
+//
+// What bounds the backward at the training path's bf16 shape (Qwen3-8B:
+// B = 1, S = T = 2048, 32 query heads over 8 KV heads, D = 128, causal):
+// dK/dV's four products take 8 D flops a (query, key) pair (69 us at the
+// bf16 tensor-core peak), dQ's three 6 D (52 us), against 34 MB of
+// inputs and outputs: operations.  The split makes that 12 D and 8 D on
+// the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1011,6 +1028,627 @@ int launch_bwd_for_dim(int which, const void* q, const void* k, const void* v,
 #undef REPRO_FA_BWD_CASE
 }
 
+// ---------------------------------------------------------------------------
+// backward, mma route: bf16 tensor cores (mma.sync), as the forward's
+// ---------------------------------------------------------------------------
+
+constexpr int BM_WARPS = 8;                   // dK/dV: two warps per 16 keys of a 64-key tile
+constexpr int BM_THREADS = BM_WARPS * 32;
+constexpr int BM_ROWS = 64;                   // rows of R per staged dK/dV tile
+constexpr int BM_PASS = 32;                   // rows (dK/dV) or keys (dQ) per pass of the products
+
+template <int D>
+struct BmLayout {
+  static constexpr int LD = D + 8;            // row stride in bf16: a 16-byte pad
+  static constexpr int CHUNKS = D / 8;        // 16-byte chunks per row
+  static constexpr int TILE = 64 * LD;        // 64 keys or rows of D
+  static constexpr int NG = D / 16;           // 16-column groups of the D side
+  static constexpr int DG = NG < 4 ? NG : 4;  // groups held at once
+  // dK/dV: K, V, then two stages of (Q, dO, lse, Delta)
+  // (the two Q and dO stages, 4 TILE bf16, then hold the second warp
+  // group's float32 sums, 4 warps x 2 x 16 x D floats = 4 TILE bf16 at
+  // most: 512 D <= 512 (D + 8) bytes)
+  static constexpr int DKDV_BYTES = (2 * TILE + 2 * 2 * TILE) * 2 + 2 * 2 * BM_ROWS * 4;
+  // dQ: Q, dO (FM_ROWS rows each), then two stages of (K, V)
+  static constexpr int DQ_BYTES = (2 * FM_ROWS * LD + 2 * 2 * TILE) * 2;
+};
+
+// rows [r0, r0 + ROWS) of R = qpos G + g of KV head kvh from a (S, H, D)
+// slab at `src` -> dst [ROWS][LD] by 16-byte cp.async, zero past n_rows
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void bm_load_rows(const __nv_bfloat16* __restrict__ src,
+                                             __nv_bfloat16* dst, int r0, int n_rows, int g,
+                                             int h, int kvh) {
+  using L = BmLayout<D>;
+  for (int c = threadIdx.x; c < ROWS * L::CHUNKS; c += THREADS) {
+    const int r = c / L::CHUNKS, cc = (c % L::CHUNKS) * 8;
+    const int row = r0 + r;
+    const bool ok = row < n_rows;
+    const __nv_bfloat16* p =
+        ok ? src + (static_cast<size_t>(row / g) * h + kvh * g + row % g) * D + cc : src;
+    cp_async16(dst + r * L::LD + cc, p, ok ? 16 : 0);
+  }
+}
+
+// keys [k0, k0 + 64) of one KV head's (T, KV, D) slab -> dst [64][LD], zero
+// past t_len (fm_load_kv for THREADS threads)
+template <int D, int THREADS>
+__device__ __forceinline__ void bm_load_keys(const __nv_bfloat16* __restrict__ src,
+                                             __nv_bfloat16* dst, int k0, int t_len, int kv) {
+  using L = BmLayout<D>;
+  for (int c = threadIdx.x; c < FA_KB * L::CHUNKS; c += THREADS) {
+    const int r = c / L::CHUNKS, cc = (c % L::CHUNKS) * 8;
+    const bool ok = k0 + r < t_len;
+    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(k0 + r) * kv * D + cc : src;
+    cp_async16(dst + r * L::LD + cc, p, ok ? 16 : 0);
+  }
+}
+
+// lse and Delta of rows [r0, r0 + 64) of R (float32 (B, H, S); stat_base
+// is the KV head's first query head's row) -> lse_d, delta_d [64], zero
+// past n_rows
+__device__ __forceinline__ void bm_load_stats(const float* __restrict__ lse,
+                                              const float* __restrict__ delta, float* lse_d,
+                                              float* delta_d, size_t stat_base, int r0,
+                                              int n_rows, int g, int s_len) {
+  for (int i = threadIdx.x; i < 2 * BM_ROWS; i += BM_THREADS) {
+    const int r = i % BM_ROWS, row = r0 + r;
+    const float* src = i < BM_ROWS ? lse : delta;
+    const bool ok = row < n_rows;
+    const float* p = ok ? src + stat_base + static_cast<size_t>(row % g) * s_len + row / g : src;
+    cp_async4((i < BM_ROWS ? lse_d : delta_d) + r, p, ok ? 4 : 0);
+  }
+}
+
+// dK and dV of one 64-key tile of one KV head, on the tensor cores.
+// Warps w and w + 4 own keys 16 w .. 16 w + 15 and hold their dK and dV
+// rows in float32 accumulators, warp w over the first 32 rows of every row tile and warp
+// w + 4 over the last 32; at the end warp w + 4 hands its sums to warp w
+// through shared memory, which adds them in that order and stores.  (A
+// first version with four warps a block, each over both halves, ran
+// slower: at D = 128 the accumulators take the 255 registers a thread
+// that let an SM hold eight warps, and its short causal key tiles left
+// SMs idle.)  The block walks the 64-row tiles of R = qpos G + g that
+// reach its keys, in one fixed order, staged two deep by cp.async (Q, dO,
+// and each row's lse and Delta).  Per 32-row pass, with keys as the M
+// dimension: S^T = K Q^T and dP^T = V dO^T (K and V as A fragments, Q and
+// dO as B fragments, by ldmatrix); P^T = exp2(S^T scale log2(e) - lse
+// log2(e)), masked only where the warp's keys and the pass's rows straddle
+// the diagonal, the window edge or T; dS^T = P^T (dP^T - Delta) on the
+// accumulators, which then are the A fragments of dV += P^T dO and dK +=
+// dS^T Q (dO and Q as B fragments by ldmatrix.trans).  P and dS enter
+// those products split, x = bf16(x) + bf16(x - bf16(x)), two products into
+// one accumulator; with P_BF16, dV takes bf16(P) alone.  Rows past S * G
+// load as zero Q, dO, lse and Delta, so they add exactly zero (P = 1,
+// dO = 0, dS = 0); a warp skips a pass that the causal mask or the window
+// hides from all its keys.  Blocks are issued key tile 0 first: under the
+// causal mask it reaches the most rows.  (Pairing key tile i with tile
+// n - 1 - i in one block, to even out the causal triangle, ran slower on
+// the H100: PERF.md.)
+template <int D, bool P_BF16>
+__global__ void __launch_bounds__(BM_THREADS, 1)
+flash_attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                    const __nv_bfloat16* __restrict__ k,
+                                    const __nv_bfloat16* __restrict__ v,
+                                    const __nv_bfloat16* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    __nv_bfloat16* __restrict__ dk,
+                                    __nv_bfloat16* __restrict__ dv, int n_bkv, int s_len,
+                                    int t_len, int h, int kv, int causal, int window,
+                                    float scale) {
+  using L = BmLayout<D>;
+  extern __shared__ __align__(128) unsigned char bm_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bm_smem);   // [64][LD]
+  __nv_bfloat16* vs = ks + L::TILE;                                  // [64][LD]
+  __nv_bfloat16* qs = vs + L::TILE;                                  // [2][64][LD]
+  __nv_bfloat16* dos = qs + 2 * L::TILE;                             // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * L::TILE);        // [2][64]
+  float* delta_s = lse_s + 2 * BM_ROWS;                              // [2][64]
+
+  const int g = h / kv;
+  const int n_rows = s_len * g;
+  const int kt = static_cast<int>(blockIdx.x) / n_bkv;   // key tile 0 first
+  const int bkv = static_cast<int>(blockIdx.x) % n_bkv;
+  const int b = bkv / kv, kvh = bkv % kv;
+  const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
+  const size_t kv_off = static_cast<size_t>(b) * t_len * kv * D + static_cast<size_t>(kvh) * D;
+  const size_t stat_base = (static_cast<size_t>(b) * h + static_cast<size_t>(kvh) * g) * s_len;
+  const __nv_bfloat16* qh = q + q_base;
+  const __nv_bfloat16* doh = dout + q_base;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float scale2 = scale * LOG2E;
+
+  const int k0 = kt * FA_KB;
+  const int k_last = min(k0 + FA_KB, t_len) - 1;
+  // rows of R that keep a key of the tile: causal from qpos k0 on, a
+  // window up to qpos k_last + window - 1
+  const int r_lo = causal ? k0 * g : 0;
+  const int r_hi =
+      window > 0 ? min(s_len - 1, k_last + min(window, s_len) - 1) * g + g - 1 : n_rows - 1;
+  const int rt0 = r_lo / BM_ROWS;
+  const int n_rt = r_lo <= r_hi ? r_hi / BM_ROWS - rt0 + 1 : 0;
+
+  bm_load_keys<D, BM_THREADS>(k + kv_off, ks, k0, t_len, kv);
+  bm_load_keys<D, BM_THREADS>(v + kv_off, vs, k0, t_len, kv);
+  if (n_rt > 0) {
+    bm_load_rows<D, BM_ROWS, BM_THREADS>(qh, qs, rt0 * BM_ROWS, n_rows, g, h, kvh);
+    bm_load_rows<D, BM_ROWS, BM_THREADS>(doh, dos, rt0 * BM_ROWS, n_rows, g, h, kvh);
+    bm_load_stats(lse, delta, lse_s, delta_s, stat_base, rt0 * BM_ROWS, n_rows, g, s_len);
+  }
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+  const int wk_lo = k0 + (warp & 3) * 16, wk_hi = wk_lo + 15;   // this warp's keys
+  const int key_a = wk_lo + gid, key_b = key_a + 8;            // this thread's
+  const int pass = warp >> 2;                                  // its half of a row tile
+
+  for (int it = 0; it < n_rt; ++it) {
+    const int st = it & 1;
+    const int r0 = (rt0 + it) * BM_ROWS;
+    cp_async_wait<0>();           // this thread's copies of tile it have landed;
+    __syncthreads();              // everyone's, and tile it - 1 is done with stage st ^ 1
+    if (it + 1 < n_rt) {          // tile it + 1 loads while tile it is computed
+      const int r1 = r0 + BM_ROWS;
+      bm_load_rows<D, BM_ROWS, BM_THREADS>(qh, qs + (st ^ 1) * L::TILE, r1, n_rows, g, h, kvh);
+      bm_load_rows<D, BM_ROWS, BM_THREADS>(doh, dos + (st ^ 1) * L::TILE, r1, n_rows, g, h,
+                                           kvh);
+      bm_load_stats(lse, delta, lse_s + (st ^ 1) * BM_ROWS, delta_s + (st ^ 1) * BM_ROWS,
+                    stat_base, r1, n_rows, g, s_len);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* qt = qs + st * L::TILE;
+    const __nv_bfloat16* dot = dos + st * L::TILE;
+    const float* lse_t = lse_s + st * BM_ROWS;
+    const float* delta_t = delta_s + st * BM_ROWS;
+
+    const int p0 = r0 + pass * BM_PASS;
+    const int pq_lo = p0 / g, pq_hi = (min(p0 + BM_PASS, n_rows) - 1) / g;
+    // rows past S * G, or no key of this warp kept for any row of the pass
+    const bool idle = p0 >= n_rows || wk_lo >= t_len || (causal && wk_lo > pq_hi) ||
+                      (window > 0 && wk_hi <= pq_lo - window);
+    if (!idle) {
+      const bool edge = wk_hi >= t_len || (causal && wk_hi > pq_lo) ||
+                        (window > 0 && wk_lo <= pq_hi - window);
+      const __nv_bfloat16* qp = qt + pass * BM_PASS * L::LD;
+      const __nv_bfloat16* dop = dot + pass * BM_PASS * L::LD;
+
+      // S^T, dP^T: 16 keys x 32 rows per warp, float32
+      float sT[BM_PASS / 8][4], dpT[BM_PASS / 8][4];
+#pragma unroll
+      for (int j = 0; j < BM_PASS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < L::NG; ++kd) {
+        uint32_t ka[4], va[4], qb[BM_PASS / 16][4], ob[BM_PASS / 16][4];
+        const int a_off = ((warp & 3) * 16 + (lane & 15)) * L::LD + kd * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(ka, ks + a_off);
+        ldmatrix_x4(va, vs + a_off);
+#pragma unroll
+        for (int np = 0; np < BM_PASS / 16; ++np) {
+          const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * L::LD + kd * 16 +
+                            ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(qb[np], qp + b_off);
+          ldmatrix_x4(ob[np], dop + b_off);
+        }
+#pragma unroll
+        for (int np = 0; np < BM_PASS / 16; ++np) {
+          mma_bf16(sT[2 * np], ka, qb[np][0], qb[np][1]);
+          mma_bf16(sT[2 * np + 1], ka, qb[np][2], qb[np][3]);
+          mma_bf16(dpT[2 * np], va, ob[np][0], ob[np][1]);
+          mma_bf16(dpT[2 * np + 1], va, ob[np][2], ob[np][3]);
+        }
+      }
+
+      // P^T and dS^T in place: accumulator rows are keys key_a (e = 0, 1)
+      // and key_b (e = 2, 3), columns the pass's rows
+#pragma unroll
+      for (int j = 0; j < BM_PASS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = pass * BM_PASS + j * 8 + tig * 2 + e;   // row within the tile
+          const float l2 = lse_t[c] * LOG2E, dl = delta_t[c];
+          float pa = exp2f(fmaf(sT[j][e], scale2, -l2));
+          float pb = exp2f(fmaf(sT[j][e + 2], scale2, -l2));
+          if (edge) {
+            const int qpos = (r0 + c) / g;
+            if (!fa_keep(qpos, key_a, t_len, causal, window)) pa = 0.0f;
+            if (!fa_keep(qpos, key_b, t_len, causal, window)) pb = 0.0f;
+          }
+          sT[j][e] = pa;
+          sT[j][e + 2] = pb;
+          dpT[j][e] = pa * (dpT[j][e] - dl);
+          dpT[j][e + 2] = pb * (dpT[j][e + 2] - dl);
+        }
+
+      // dV += P^T dO and dK += dS^T Q, 16 rows of the pass at a time; per
+      // group of up to 64 columns the hi products, then the lo products
+#pragma unroll
+      for (int kk = 0; kk < BM_PASS / 16; ++kk) {
+        uint32_t ph[4], pl[4], dh[4], dlo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {   // (key gid | gid + 8) x (rows 16 kk | 16 kk + 8)
+          const int j = 2 * kk + (r >> 1), e = (r & 1) * 2;
+          ph[r] = pack_bf16(sT[j][e], sT[j][e + 1]);
+          if constexpr (!P_BF16)
+            pl[r] = pack_bf16(bf16_residual(sT[j][e]), bf16_residual(sT[j][e + 1]));
+          dh[r] = pack_bf16(dpT[j][e], dpT[j][e + 1]);
+          dlo[r] = pack_bf16(bf16_residual(dpT[j][e]), bf16_residual(dpT[j][e + 1]));
+        }
+        const int b_row = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::LD;
+#pragma unroll
+        for (int d0 = 0; d0 < L::NG; d0 += L::DG) {
+          // the last group is short when DG does not divide NG (D = 112: 4 + 3)
+          uint32_t bf[L::DG][4];
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i)
+            if (d0 + i < L::NG)
+              ldmatrix_x4_trans(bf[i], dop + b_row + (d0 + i) * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i) {
+            if (d0 + i >= L::NG) continue;
+            mma_bf16(dv_acc[2 * (d0 + i)], ph, bf[i][0], bf[i][1]);
+            mma_bf16(dv_acc[2 * (d0 + i) + 1], ph, bf[i][2], bf[i][3]);
+          }
+          if constexpr (!P_BF16) {
+#pragma unroll
+            for (int i = 0; i < L::DG; ++i) {
+              if (d0 + i >= L::NG) continue;
+              mma_bf16(dv_acc[2 * (d0 + i)], pl, bf[i][0], bf[i][1]);
+              mma_bf16(dv_acc[2 * (d0 + i) + 1], pl, bf[i][2], bf[i][3]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i)
+            if (d0 + i < L::NG)
+              ldmatrix_x4_trans(bf[i], qp + b_row + (d0 + i) * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i) {
+            if (d0 + i >= L::NG) continue;
+            mma_bf16(dk_acc[2 * (d0 + i)], dh, bf[i][0], bf[i][1]);
+            mma_bf16(dk_acc[2 * (d0 + i) + 1], dh, bf[i][2], bf[i][3]);
+          }
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i) {
+            if (d0 + i >= L::NG) continue;
+            mma_bf16(dk_acc[2 * (d0 + i)], dlo, bf[i][0], bf[i][1]);
+            mma_bf16(dk_acc[2 * (d0 + i) + 1], dlo, bf[i][2], bf[i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // warp w + 4's sums to warp w through the staging buffers, then added
+  // in that order: dK scaled once, both rounded to bf16 once
+  __syncthreads();                // every warp is done with the staged tiles
+  float* part = reinterpret_cast<float*>(qs);   // [4][2][D / 8][4][32]
+  const int kw = warp & 3;
+  if (pass == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part[(((kw * 2) * (D / 8) + j) * 4 + e) * 32 + lane] = dk_acc[j][e];
+        part[(((kw * 2 + 1) * (D / 8) + j) * 4 + e) * 32 + lane] = dv_acc[j][e];
+      }
+  }
+  __syncthreads();
+  if (pass == 1) return;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[j][e] += part[(((kw * 2) * (D / 8) + j) * 4 + e) * 32 + lane];
+      dv_acc[j][e] += part[(((kw * 2 + 1) * (D / 8) + j) * 4 + e) * 32 + lane];
+    }
+  if (key_a < t_len) {
+    const size_t off = kv_off + static_cast<size_t>(key_a) * kv * D + tig * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
+          __floats2bfloat162_rn(dk_acc[j][0] * scale, dk_acc[j][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
+          __floats2bfloat162_rn(dv_acc[j][0], dv_acc[j][1]);
+    }
+  }
+  if (key_b < t_len) {
+    const size_t off = kv_off + static_cast<size_t>(key_b) * kv * D + tig * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
+          __floats2bfloat162_rn(dk_acc[j][2] * scale, dk_acc[j][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
+          __floats2bfloat162_rn(dv_acc[j][2], dv_acc[j][3]);
+    }
+  }
+}
+
+// dQ of 128 rows of R of one KV head on the tensor cores, in the forward's
+// layout: warp w owns rows 16 w .. 16 w + 15, its Q and dO rows held as A
+// fragments (ldmatrix, once), dQ in float32 accumulators.  K and V tiles
+// (64 keys) stream through two stages by cp.async over the forward's key
+// range.  Per 32-key pass: S = Q K^T and dP = dO V^T (K and V as B
+// fragments by ldmatrix); P = exp2(S scale log2(e) - lse log2(e)), masked
+// only on a pass that straddles the diagonal, the window edge or T;
+// dS = P (dP - Delta) on the accumulators, which are the A fragments of
+// dQ += dS K (K as B fragments by ldmatrix.trans), dS split in two bf16
+// products.  Scaled and stored once.  A separate kernel from dK/dV: a
+// fused dQ would add across blocks with atomics, in no fixed order.
+template <int D>
+__global__ void __launch_bounds__(FM_THREADS, 1)
+flash_attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const __nv_bfloat16* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  __nv_bfloat16* __restrict__ dq, int n_bkv, int s_len,
+                                  int t_len, int h, int kv, int causal, int window, float scale) {
+  using L = BmLayout<D>;
+  extern __shared__ __align__(128) unsigned char bq_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bq_smem);   // [FM_ROWS][LD]
+  __nv_bfloat16* dos = qs + FM_ROWS * L::LD;                         // [FM_ROWS][LD]
+  __nv_bfloat16* ks = dos + FM_ROWS * L::LD;                         // [2][64][LD]
+  __nv_bfloat16* vs = ks + 2 * L::TILE;                              // [2][64][LD]
+
+  const int g = h / kv;
+  const int n_rows = s_len * g;
+  const int n_row_tiles = (n_rows + FM_ROWS - 1) / FM_ROWS;
+  // longest (latest q) first, across every (batch, KV head)
+  const int tile = n_row_tiles - 1 - static_cast<int>(blockIdx.x) / n_bkv;
+  const int bkv = static_cast<int>(blockIdx.x) % n_bkv;
+  const int b = bkv / kv, kvh = bkv % kv;
+  const int r0 = tile * FM_ROWS;
+  const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
+  const size_t kv_off = static_cast<size_t>(b) * t_len * kv * D + static_cast<size_t>(kvh) * D;
+  const size_t stat_base = (static_cast<size_t>(b) * h + static_cast<size_t>(kvh) * g) * s_len;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float scale2 = scale * LOG2E;
+
+  // the forward's key range for the block's rows
+  const int q_lo = r0 / g;
+  const int q_hi = (min(r0 + FM_ROWS, n_rows) - 1) / g;
+  int k_hi = t_len - 1;
+  if (causal) k_hi = min(k_hi, q_hi);
+  const int k_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int kt0 = k_lo / FA_KB;
+  const int n_kt = k_lo <= k_hi ? k_hi / FA_KB - kt0 + 1 : 0;
+
+  // one copy group for Q, dO, K(0) and V(0); then one for K(j+1), V(j+1)
+  bm_load_rows<D, FM_ROWS, FM_THREADS>(q + q_base, qs, r0, n_rows, g, h, kvh);
+  bm_load_rows<D, FM_ROWS, FM_THREADS>(dout + q_base, dos, r0, n_rows, g, h, kvh);
+  if (n_kt > 0) {
+    bm_load_keys<D, FM_THREADS>(k + kv_off, ks, kt0 * FA_KB, t_len, kv);
+    bm_load_keys<D, FM_THREADS>(v + kv_off, vs, kt0 * FA_KB, t_len, kv);
+  }
+  cp_async_commit();
+
+  // this thread's rows gid and gid + 8 of the warp's 16, their lse (log2
+  // domain) and Delta; rows past S * G take 0 and are never stored
+  const int ra = r0 + warp * 16 + gid, rb = ra + 8;
+  const int qa = ra < n_rows ? ra / g : 0, qb = rb < n_rows ? rb / g : 0;
+  const size_t sa = stat_base + static_cast<size_t>(ra % g) * s_len + qa;
+  const size_t sb = stat_base + static_cast<size_t>(rb % g) * s_len + qb;
+  const float l2a = ra < n_rows ? lse[sa] * LOG2E : 0.0f;
+  const float l2b = rb < n_rows ? lse[sb] * LOG2E : 0.0f;
+  const float dla = ra < n_rows ? delta[sa] : 0.0f;
+  const float dlb = rb < n_rows ? delta[sb] : 0.0f;
+  // the warp's q positions, to skip passes the mask hides from all of them
+  const int w_r0 = r0 + warp * 16;
+  const bool w_live = w_r0 < n_rows;
+  const int wq_lo = w_r0 / g, wq_hi = (min(w_r0 + 16, n_rows) - 1) / g;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  uint32_t qf[L::NG][4], of[L::NG][4];   // the warp's Q and dO rows as A fragments
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    const int k0 = (kt0 + it) * FA_KB;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < L::NG; ++kd) {
+        const int a_off = (warp * 16 + (lane & 15)) * L::LD + kd * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(qf[kd], qs + a_off);
+        ldmatrix_x4(of[kd], dos + a_off);
+      }
+    }
+    if (it + 1 < n_kt) {
+      bm_load_keys<D, FM_THREADS>(k + kv_off, ks + (st ^ 1) * L::TILE, k0 + FA_KB, t_len, kv);
+      bm_load_keys<D, FM_THREADS>(v + kv_off, vs + (st ^ 1) * L::TILE, k0 + FA_KB, t_len, kv);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* kt = ks + st * L::TILE;
+    const __nv_bfloat16* vt = vs + st * L::TILE;
+
+#pragma unroll 1
+    for (int pass = 0; pass < FA_KB / BM_PASS; ++pass) {
+      const int p0 = k0 + pass * BM_PASS;   // the pass's first key
+      // no key of the pass is kept for any row of this warp
+      if (!w_live || p0 >= t_len || (causal && p0 > wq_hi) ||
+          (window > 0 && p0 + BM_PASS - 1 <= wq_lo - window))
+        continue;
+      const bool edge = p0 + BM_PASS > t_len || (causal && p0 + BM_PASS - 1 > wq_lo) ||
+                        (window > 0 && p0 <= wq_hi - window);
+      const __nv_bfloat16* kp = kt + pass * BM_PASS * L::LD;
+      const __nv_bfloat16* vp = vt + pass * BM_PASS * L::LD;
+
+      // S, dP: 16 rows x 32 keys per warp, float32
+      float sc[BM_PASS / 8][4], dp[BM_PASS / 8][4];
+#pragma unroll
+      for (int j = 0; j < BM_PASS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < L::NG; ++kd) {
+        uint32_t bk[BM_PASS / 16][4], bv[BM_PASS / 16][4];
+#pragma unroll
+        for (int np = 0; np < BM_PASS / 16; ++np) {
+          const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * L::LD + kd * 16 +
+                            ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(bk[np], kp + b_off);
+          ldmatrix_x4(bv[np], vp + b_off);
+        }
+#pragma unroll
+        for (int np = 0; np < BM_PASS / 16; ++np) {
+          mma_bf16(sc[2 * np], qf[kd], bk[np][0], bk[np][1]);
+          mma_bf16(sc[2 * np + 1], qf[kd], bk[np][2], bk[np][3]);
+          mma_bf16(dp[2 * np], of[kd], bv[np][0], bv[np][1]);
+          mma_bf16(dp[2 * np + 1], of[kd], bv[np][2], bv[np][3]);
+        }
+      }
+
+      // dS in place of S: rows ra (e = 0, 1) and rb (e = 2, 3)
+#pragma unroll
+      for (int j = 0; j < BM_PASS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float pa = exp2f(fmaf(sc[j][e], scale2, -l2a));
+          float pb = exp2f(fmaf(sc[j][e + 2], scale2, -l2b));
+          if (edge) {
+            const int kpos = p0 + j * 8 + tig * 2 + e;
+            if (!fa_keep(qa, kpos, t_len, causal, window)) pa = 0.0f;
+            if (!fa_keep(qb, kpos, t_len, causal, window)) pb = 0.0f;
+          }
+          sc[j][e] = pa * (dp[j][e] - dla);
+          sc[j][e + 2] = pb * (dp[j][e + 2] - dlb);
+        }
+
+      // dQ += dS K over the pass's keys, 16 at a time
+#pragma unroll
+      for (int kk = 0; kk < BM_PASS / 16; ++kk) {
+        uint32_t dh[4], dlo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 2 * kk + (r >> 1), e = (r & 1) * 2;
+          dh[r] = pack_bf16(sc[j][e], sc[j][e + 1]);
+          dlo[r] = pack_bf16(bf16_residual(sc[j][e]), bf16_residual(sc[j][e + 1]));
+        }
+        const int b_row = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::LD;
+#pragma unroll
+        for (int d0 = 0; d0 < L::NG; d0 += L::DG) {
+          uint32_t bf[L::DG][4];
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i)
+            if (d0 + i < L::NG)
+              ldmatrix_x4_trans(bf[i], kp + b_row + (d0 + i) * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i) {
+            if (d0 + i >= L::NG) continue;
+            mma_bf16(acc[2 * (d0 + i)], dh, bf[i][0], bf[i][1]);
+            mma_bf16(acc[2 * (d0 + i) + 1], dh, bf[i][2], bf[i][3]);
+          }
+#pragma unroll
+          for (int i = 0; i < L::DG; ++i) {
+            if (d0 + i >= L::NG) continue;
+            mma_bf16(acc[2 * (d0 + i)], dlo, bf[i][0], bf[i][1]);
+            mma_bf16(acc[2 * (d0 + i) + 1], dlo, bf[i][2], bf[i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (ra < n_rows) {
+    __nv_bfloat16* dst = dq + q_base + (static_cast<size_t>(qa) * h + kvh * g + ra % g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
+  }
+  if (rb < n_rows) {
+    __nv_bfloat16* dst = dq + q_base + (static_cast<size_t>(qb) * h + kvh * g + rb % g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
+  }
+}
+
+constexpr long long MAX_GRID_X = 0x7fffffffLL;
+
+template <int D, bool P_BF16>
+int launch_bwd_dkdv_mma(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dk, void* dv, int batch,
+                        int s, int t, int h, int kv, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  using L = BmLayout<D>;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err =
+      allow_dynamic_smem(flash_attention_bwd_dkdv_mma_kernel<D, P_BF16>, L::DKDV_BYTES, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_kt = (t + FA_KB - 1) / FA_KB;
+  const long long blocks = static_cast<long long>(batch) * kv * n_kt;
+  if (blocks > MAX_GRID_X) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bwd_dkdv_mma_kernel<D, P_BF16>
+      <<<static_cast<unsigned>(blocks), BM_THREADS, L::DKDV_BYTES, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+          delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), batch * kv,
+          s, t, h, kv, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, int batch, int s, int t,
+                      int h, int kv, int causal, int window, float scale, cudaStream_t stream) {
+  using L = BmLayout<D>;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err =
+      allow_dynamic_smem(flash_attention_bwd_dq_mma_kernel<D>, L::DQ_BYTES, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_rows = static_cast<long long>(s) * (h / kv);
+  const long long blocks = static_cast<long long>(batch) * kv * ((n_rows + FM_ROWS - 1) / FM_ROWS);
+  if (blocks > MAX_GRID_X) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bwd_dq_mma_kernel<D>
+      <<<static_cast<unsigned>(blocks), FM_THREADS, L::DQ_BYTES, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+          delta, static_cast<__nv_bfloat16*>(dq), batch * kv, s, t, h, kv, causal, window,
+          scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_mma(int which, const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv, int batch,
+                   int s, int t, int h, int kv, int d, int causal, int window, float scale,
+                   int p_bf16, cudaStream_t stream) {
+#define REPRO_FA_BWD_MMA_CASE(DIM)                                                           \
+  case DIM:                                                                                  \
+    if (which == 1)                                                                          \
+      return launch_bwd_dq_mma<DIM>(q, k, v, dout, lse, delta, dq, batch, s, t, h, kv,       \
+                                    causal, window, scale, stream);                          \
+    return p_bf16 ? launch_bwd_dkdv_mma<DIM, true>(q, k, v, dout, lse, delta, dk, dv, batch, \
+                                                   s, t, h, kv, causal, window, scale,       \
+                                                   stream)                                   \
+                  : launch_bwd_dkdv_mma<DIM, false>(q, k, v, dout, lse, delta, dk, dv,       \
+                                                    batch, s, t, h, kv, causal, window,      \
+                                                    scale, stream);
+  switch (d) {
+    REPRO_FA_BWD_MMA_CASE(16)
+    REPRO_FA_BWD_MMA_CASE(32)
+    REPRO_FA_BWD_MMA_CASE(64)
+    REPRO_FA_BWD_MMA_CASE(112)
+    REPRO_FA_BWD_MMA_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FA_BWD_MMA_CASE
+}
 }  // namespace
 }  // namespace repro_torch
 
@@ -1124,4 +1762,42 @@ extern "C" int repro_flash_attention_bwd_dq(const void* q, const void* k, const 
                                           batch, s, t, h, kv, d, causal, window, scale, 0, st)
       : launch_bwd_for_dim<float>(1, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, s,
                                   t, h, kv, d, causal, window, scale, 0, st);
+}
+
+// The backward's bf16 tensor-core route (the wrapper's
+// flash_attention_bwd_route decides: bfloat16 q, k, v and dout whose base
+// pointers are 16-byte aligned).  The arguments of
+// repro_flash_attention_bwd_dkdv / _dq without is_bf16.
+//
+// repro_flash_attention_bwd_dkdv_mma: one block of 8 warps per (batch * kv
+// head, 64-key tile), key tile 0 first.
+//
+// repro_flash_attention_bwd_dq_mma: one block of 8 warps per (batch * kv
+// head, 128 rows of the (q position, group member) index).
+//
+// Each returns the CUDA error code of its launch (0 = success); an empty
+// input launches nothing.
+extern "C" int repro_flash_attention_bwd_dkdv_mma(const void* q, const void* k, const void* v,
+                                                  const void* dout, const float* lse,
+                                                  const float* delta, void* dk, void* dv,
+                                                  int batch, int s, int t, int h, int kv, int d,
+                                                  int causal, int window, float scale,
+                                                  int p_bf16, void* stream) {
+  using namespace repro_torch;
+  if (batch == 0 || t == 0 || h == 0) return 0;
+  if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_mma(0, q, k, v, dout, lse, delta, nullptr, dk, dv, batch, s, t, h, kv, d,
+                        causal, window, scale, p_bf16, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v,
+                                                const void* dout, const float* lse,
+                                                const float* delta, void* dq, int batch, int s,
+                                                int t, int h, int kv, int d, int causal,
+                                                int window, float scale, void* stream) {
+  using namespace repro_torch;
+  if (batch == 0 || s == 0 || h == 0) return 0;
+  if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_mma(1, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, s, t, h, kv,
+                        d, causal, window, scale, 0, static_cast<cudaStream_t>(stream));
 }

@@ -39,6 +39,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 
+// 4-byte copy global -> shared (cp.async.ca), for per-row float32 stats;
+// src_bytes is 0 or 4, the rest zero filled, as cp_async16.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

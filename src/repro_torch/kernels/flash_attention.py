@@ -30,8 +30,10 @@ requires grad, :func:`flash_attention` runs through
 :class:`FlashAttention`, whose forward also writes each row's
 log-sum-exp (:func:`flash_attention_lse`) and whose backward is
 :func:`flash_attention_bwd`: three hand-written kernels on the card
-(``csrc/flash_attention.cu``: Delta, then dK/dV, then dQ, float32 FMA)
-and :func:`flash_attention_bwd_plain` on the CPU.  The reference has no
+(``csrc/flash_attention.cu``: Delta, then dK/dV, then dQ, on the route
+:func:`flash_attention_bwd_route` names: bf16 on the tensor cores,
+float32 on float32 FMA) and :func:`flash_attention_bwd_plain` on the
+CPU.  The reference has no
 backward kernel: it differentiates the pure-JAX attention
 (``repro/models/attention.py:42``) with ``jax.grad``, which these
 replace.  The gradient is FlashAttention-2's: ``P = exp(S scale - lse)``
@@ -71,6 +73,12 @@ def flash_attention_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
     if dtype == torch.bfloat16 and d in HEAD_DIMS and aligned:
         return "mma"
     return "fma"
+
+
+def flash_attention_bwd_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The route of K8's dK/dV and dQ kernels: :func:`flash_attention_route`'s
+    rule, with dO among the inputs that ``aligned`` covers."""
+    return flash_attention_route(dtype, d, aligned)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p_dtype,
@@ -265,9 +273,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _count_bwd(fn, dtype: torch.dtype) -> None:
+def _count_bwd(fn, dtype: torch.dtype, route: str | None = None) -> None:
     fn.launches += 1
     fn.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
+    if route is not None:
+        fn.launches_by_route[route] += 1
 
 
 def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -290,44 +300,61 @@ def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor
     return delta
 
 
-def _bwd_operands(q, k, v, do, lse, delta) -> tuple[tuple, tuple]:
-    """The pointers and sizes the dK/dV and dQ entry points share."""
+def _bwd_operands(q, k, v, do, lse, delta) -> tuple[str, tuple, tuple]:
+    """The route (:func:`flash_attention_bwd_route`) and the pointers and
+    sizes the dK/dV and dQ entry points share (the FMA ones also take
+    ``is_bf16`` after dO)."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             int(q.dtype == torch.bfloat16), lse.data_ptr(), delta.data_ptr()),
-            (b, s, t, h, kv, d))
+    route = flash_attention_bwd_route(q.dtype, d, build.aligned16(q, k, v, do))
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()]
+    if route == "fma":
+        ptrs.insert(4, int(q.dtype == torch.bfloat16))
+    return route, tuple(ptrs), (b, s, t, h, kv, d)
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0,
                              p_dtype: torch.dtype | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """dK and dV (B, T, KV, D) in k's dtype: one CUDA launch (counted), a
-    block per (batch, KV head, key tile).  CUDA tensors only, checked by
-    :func:`flash_attention_bwd`."""
-    ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
+    """dK and dV (B, T, KV, D) in k's dtype: one CUDA launch (counted, by
+    dtype and by route), a block per (batch, KV head, key tile), on the
+    tensor cores (``"mma"``: a block of 8 warps per 64 keys) or on float32
+    FMA (``"fma"``).  No fallback: a failed launch raises.  CUDA tensors
+    only, checked by :func:`flash_attention_bwd`."""
+    route, ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    scale, p_bf16 = 1.0 / math.sqrt(dims[-1]), int(p_dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
-        build.load_library().call(
-            "repro_flash_attention_bwd_dkdv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims,
-            int(causal), int(window), 1.0 / math.sqrt(dims[-1]),
-            int(p_dtype == torch.bfloat16), build.current_stream(q.device))
-    _count_bwd(flash_attention_bwd_dkdv, q.dtype)
+        stream = build.current_stream(q.device)
+        if route == "mma":
+            build.load_library().call(
+                "repro_flash_attention_bwd_dkdv_mma", *ptrs, dk.data_ptr(), dv.data_ptr(),
+                *dims, int(causal), int(window), scale, p_bf16, stream)
+        else:
+            build.load_library().call(
+                "repro_flash_attention_bwd_dkdv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims,
+                int(causal), int(window), scale, p_bf16, stream)
+    _count_bwd(flash_attention_bwd_dkdv, q.dtype, route)
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: int = 0) -> torch.Tensor:
-    """dQ (B, S, H, D) in q's dtype: one CUDA launch (counted), a block per
-    (batch, head, query tile).  CUDA tensors only, checked by
-    :func:`flash_attention_bwd`."""
-    ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
+    """dQ (B, S, H, D) in q's dtype: one CUDA launch (counted, by dtype and
+    by route), on the tensor cores (``"mma"``: a block of 8 warps per 128
+    rows of the (q position, group member) index, as the forward) or on
+    float32 FMA (``"fma"``: a block per (batch, head, 64 rows)).  No
+    fallback.  CUDA tensors only, checked by :func:`flash_attention_bwd`."""
+    route, ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
+    entry = "repro_flash_attention_bwd_dq_mma" if route == "mma" else \
+        "repro_flash_attention_bwd_dq"
     with torch.cuda.device(q.device):
-        build.load_library().call(
-            "repro_flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *dims, int(causal),
-            int(window), 1.0 / math.sqrt(dims[-1]), build.current_stream(q.device))
-    _count_bwd(flash_attention_bwd_dq, q.dtype)
+        build.load_library().call(entry, *ptrs, dq.data_ptr(), *dims, int(causal),
+                                  int(window), 1.0 / math.sqrt(dims[-1]),
+                                  build.current_stream(q.device))
+    _count_bwd(flash_attention_bwd_dq, q.dtype, route)
     return dq
 
 
@@ -338,8 +365,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """K8's backward: ``(dq, dk, dv)`` in the inputs' dtypes from the
     forward's operands, its output ``o`` and row log-sum-exp ``lse``
     (float32 (B, H, S)) and the output's gradient ``do`` (taken in q's
-    dtype).  For CUDA tensors three launches (Delta, dK/dV, dQ); for CPU
-    tensors :func:`flash_attention_bwd_plain`."""
+    dtype).  For CUDA tensors three launches (Delta, dK/dV, dQ; the last two
+    on :func:`flash_attention_bwd_route`'s route); for CPU tensors
+    :func:`flash_attention_bwd_plain`."""
     dev = _check(q, k, v, p_dtype, window)
     do = do.to(q.dtype).contiguous()
     build.check_tensors(build.FLOAT_DTYPES, q=q, o=o, do=do)
@@ -359,12 +387,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 
 
 # the backward's CUDA kernels; each counts its launches, in all and by the
-# inputs' dtype (plain-version calls do not count)
+# inputs' dtype, and dK/dV and dQ also by route (plain-version calls do
+# not count)
 BWD_KERNELS = (flash_attention_bwd_delta, flash_attention_bwd_dkdv, flash_attention_bwd_dq)
+BWD_ROUTED = (flash_attention_bwd_dkdv, flash_attention_bwd_dq)
 BWD_DTYPES = ("float32", "bfloat16")
 for _fn in BWD_KERNELS:
     _fn.launches = 0
     _fn.launches_by_dtype = dict.fromkeys(BWD_DTYPES, 0)
+for _fn in BWD_ROUTED:
+    _fn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -430,12 +430,18 @@ def launch_counts_bwd_by_dtype() -> dict[str, dict[str, int]]:
     return {fn.__name__: dict(fn.launches_by_dtype) for fn in _fa.BWD_KERNELS}
 
 
+def launch_counts_bwd_by_route() -> dict[str, dict[str, int]]:
+    """K8's dK/dV and dQ kernels' launches by route since the last reset:
+    ``flash_attention_bwd_route``'s "mma" (bf16 tensor cores) and "fma"."""
+    return {fn.__name__: dict(fn.launches_by_route) for fn in _fa.BWD_ROUTED}
+
+
 def reset_launch_counts() -> None:
     for fn in _KERNELS:
         fn.launches = 0
     for fn in _fa.BWD_KERNELS:
         fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
-    for fn in _ROUTED:
+    for fn in (*_ROUTED, *_fa.BWD_ROUTED):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     for fn in _SWEEPS:
         fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)

@@ -165,3 +165,35 @@ def test_grad_mode_routes_and_cpu_counts_no_launch():
     assert {n: ops.launch_counts()[n] for n in names} == before
     with pytest.raises(ValueError, match="lse"):
         k8.flash_attention_bwd(q, k, v, out.detach(), torch.zeros(1, 4, 64), do)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("d", k8.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_route(dtype, d, aligned):
+    """The backward's dK/dV and dQ route, a pure function of dtype, head
+    size and alignment: bf16 with q, k, v and dO on the 16-byte grid takes
+    the tensor cores ("mma") at every head size; float32, or a bf16 view
+    off the grid, takes float32 FMA ("fma")."""
+    want = "mma" if dtype == torch.bfloat16 and aligned else "fma"
+    assert k8.flash_attention_bwd_route(dtype, d, aligned) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_counts_no_launch_on_either_route(dtype):
+    """A backward of CPU tensors (the plain version) counts no launch of the
+    dK/dV or dQ kernels on either route, in bf16 as in float32, and gives
+    the plain backward's gradients."""
+    q, k, v, do = (torch.from_numpy(x).to(dtype)
+                   for x in _operands(37, 1, 70, 70, 4, 2, 32))
+    before = ops.launch_counts_bwd_by_route()
+    assert set(before) == {"flash_attention_bwd_dkdv", "flash_attention_bwd_dq"}
+    assert all(set(r) == {"mma", "fma"} for r in before.values())
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = k8.flash_attention(*leaves)
+    out.backward(do)
+    assert ops.launch_counts_bwd_by_route() == before
+    o, lse = k8.flash_attention_plain_lse(q, k, v)
+    want = k8.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for got, w in zip((x.grad for x in leaves), want):
+        assert got.dtype == dtype and torch.equal(got, w)

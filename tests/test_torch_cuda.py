@@ -856,6 +856,91 @@ def test_flash_attention_grad_runs_the_backward_kernels(cuda, dtype):
         assert ops.launch_counts()[n] - before[n] == len(cases), n
 
 
+# (b, s, t, h, kv, d, causal, window, p_bf16): the cases of
+# test_flash_attention_grad_runs_the_backward_kernels, G = 48, a window,
+# non-causal S != T and p rounded among them
+BWD_MMA_CASES = [
+    (2, 128, 128, 4, 2, 32, True, 0, False),
+    (1, 100, 100, 4, 1, 16, True, 0, False),
+    (1, 192, 192, 8, 2, 64, True, 64, False),
+    (2, 77, 130, 6, 3, 128, False, 0, False),
+    (1, 131, 131, 4, 4, 112, True, 0, False),
+    (1, 200, 200, 48, 1, 128, True, 0, False),
+    (1, 150, 150, 4, 2, 64, True, 0, True),
+    (1, 300, 300, 8, 2, 64, False, 100, False),
+]
+
+
+def _bwd_inputs(gen, cuda, b, s, t, h, kv, d, causal, window, p_bf16):
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    do = torch.randn((b, s, h, d), generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, p_dtype=torch.bfloat16 if p_bf16 else None)
+    o, lse = k8.flash_attention_lse(q, k, v, **kw)
+    return q, k, v, o, lse, do, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_MMA_CASES)
+def test_flash_attention_bwd_mma_route(cuda, case):
+    """bf16 inputs on the 16-byte grid take the tensor-core backward: one
+    launch each of the dK/dV and dQ kernels on "mma" and none on "fma",
+    with the gradients within the bars of
+    test_flash_attention_grad_runs_the_backward_kernels against the plain
+    backward (1e-2 |want| + 1e-5 max|want|; 1e-2 max|want| with p rounded)."""
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    q, k, v, o, lse, do, kw = _bwd_inputs(gen, cuda, *case)
+    before = ops.launch_counts_bwd_by_route()
+    got = k8.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    after = ops.launch_counts_bwd_by_route()
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert after[name]["mma"] == before[name]["mma"] + 1, name
+        assert after[name]["fma"] == before[name]["fma"], name
+    want = k8.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    atol = 1e-2 if kw["p_dtype"] is not None else 1e-5
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        _bwd_close(g, w, 1e-2, atol, f"d{name} {case}")
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_unaligned_bf16_takes_the_fma_route(cuda):
+    """A bf16 view off the 16-byte grid takes the FMA backward kernels,
+    which read element by element, and agrees with the plain backward."""
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    q, k, v, o, lse, do, kw = _bwd_inputs(gen, cuda, 1, 150, 150, 8, 2, 64, True, 0, False)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    off.copy_(q)
+    assert k8.flash_attention_bwd_route(torch.bfloat16, 64, False) == "fma"
+    before = ops.launch_counts_bwd_by_route()
+    got = k8.flash_attention_bwd(off, k, v, o, lse, do, **kw)
+    after = ops.launch_counts_bwd_by_route()
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert after[name]["fma"] == before[name]["fma"] + 1, name
+        assert after[name]["mma"] == before[name]["mma"], name
+    want = k8.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        _bwd_close(g, w, 1e-2, 1e-5, f"d{name} unaligned")
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_mma_is_deterministic(cuda):
+    """Two tensor-core backward runs on the same inputs give the same bits
+    (the GQA sum and every product in a fixed order, no atomics), and so
+    does the dK/dV kernel called on its own."""
+    gen = torch.Generator(device=cuda).manual_seed(59)
+    q, k, v, o, lse, do, kw = _bwd_inputs(gen, cuda, 1, 515, 515, 16, 4, 128, True, 0, False)
+    first = k8.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = k8.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    delta = k8.flash_attention_bwd_delta(o, do)
+    kw.pop("p_dtype")
+    alone = k8.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    for a, c in zip(alone, first[1:]):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3_8b", "whisper_base"])
 def test_train_step_on_the_card_matches_cpu(cuda, arch):

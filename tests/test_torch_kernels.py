@@ -10,6 +10,7 @@ import importlib
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -280,3 +281,24 @@ def test_import_builds_nothing():
     assert out.stdout.strip().endswith("build/repro_torch_kernels")
     assert build.SOURCES == ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
                              "spd_transform.cu", "flash_attention.cu")
+
+
+def test_a_reused_library_keeps_its_build_log(tmp_path, monkeypatch):
+    """The nvcc/ptxas log of a build is kept beside the library, so a later
+    process that loads the library from disk reports the same registers
+    and spills; its build time reads 0."""
+    def fake_run(cmds):
+        for cmd in cmds:
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return "".join("ptxas info    : Used 255 registers\n" for cmd in cmds if "-c" in cmd)
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build, "_run", fake_run)
+    monkeypatch.setattr(build, "KernelLibrary",
+                        lambda path, seconds, log: (path, seconds, log))
+    path, _seconds, log = build.load_library()
+    assert path.exists() and log.count("Used 255 registers") == len(build.SOURCES)
+    monkeypatch.setattr(build, "_LIB", None)
+    assert build.load_library() == (path, 0.0, log)
