@@ -170,11 +170,13 @@ non-zero:
    backward on the kernel's own output and lse, element by element, at
    the forward's main shape in bf16, train_lm's attention (float32, D =
    64), D = 112, non-causal S != T, a window, G = 48, p rounded and small
-   float32 cases, each launching each kernel once, dK/dV and dQ on the
-   route ``flash_attention_bwd_route`` names (bf16 on the tensor cores,
-   "mma", float32 on FMA, "fma"; checked by the route counters), the main
-   and D = 112 cases also on "fma" through a view off the 16-byte grid,
-   and every bf16 case run twice for the same bits; the forward's lse
+   float32 cases (one windowed at G = 48, S = 515), each launching each
+   kernel once, dK/dV and dQ on the route ``flash_attention_bwd_route``
+   names (bf16 on the tensor cores, "mma", float32 on FMA, "fma"; checked
+   by the route counters), the main and D = 112 cases also on "fma"
+   through a view off the 16-byte grid, and every case run twice for the
+   same bits; at every case on "fma" the dK/dV split's plan in Python
+   against the C launcher's, its grid within one wave; the forward's lse
    against the plain one; a planted fault (a GQA head left out of dK/dV)
    that the bar must reject by more than 1000x; each kernel's time on
    each route at the main shape (the median of 20 calls after a warm-up,
@@ -188,7 +190,11 @@ non-zero:
    directory), failing unless every loss is finite, the last logged loss
    is at least 0.2 nats below the first, the refresh accounting is three
    calls on one pattern and ``restore_latest`` gives back the final state
-   bit for bit; (b) Qwen3-8B at its published width with 2 of its 36
+   bit for bit; then (``train_profile``) a few steps of the same run from
+   a fresh state under ``torch.profiler``: device ms a step by kind (K8's
+   forward, each backward kernel, matrix products, the rest, and the
+   optimizer's update), the busy share and the host ms a step; (b)
+   Qwen3-8B at its published width with 2 of its 36
    layers, bf16, AdamW, B = 1, S = 2048, 3 steps (finite losses), the
    first layer's attention inputs captured and the backward kernels held
    against the plain backward on them; (c) every family's SMOKE config,
@@ -201,7 +207,8 @@ non-zero:
    count the launches of the slice and of the settling phase's predicted
    form and of the solve service's and the analysis phase's settling
    tickets, ``launches_by_phase``; K8's rows theirs by phase and family,
-   ``launches_by_family``, with a row at D = 112, and the train phase's;
+   ``launches_by_family``, with a row at D = 112 and the FMA route's rows
+   at the main shape and at train_lm's, the latter the train phase's;
    K8's backward kernels a row each per dtype and route (bf16 on the
    tensor cores, float32 on FMA), with the train phase's launches by
    case), the nvidia-smi line, and the contract's last line.
@@ -2119,9 +2126,14 @@ K8_CASES = (
     ("g6_window_mixtral", BF16, 1, 6000, 6000, 48, 8, 128, True, 4096, None),
     ("encoder_whisper", BF16, 1, 1500, 1500, 8, 8, 64, False, 0, None),
     ("cross_whisper", BF16, 2, 64, 1500, 8, 8, 64, False, 0, None),
+    # examples/train_lm.py's attention (lm_100m: 12 heads over 4, D = 64),
+    # where training launches the FMA forward
+    ("train_f32_d64", F32, 4, 192, 192, 12, 4, 64, True, 0, None),
 )
 # the same shape in float32: the FMA route's row of the kernels line
 K8_MAIN_F32 = ("main_f32", F32, *K8_MAIN[2:])
+# the FMA route at train_lm's shape: its own row of the kernels line
+K8_TRAIN_F32 = next(c for c in K8_CASES if c[0] == "train_f32_d64")
 
 
 def attn_pairs(s: int, t: int, causal: bool, window: int) -> int:
@@ -2230,8 +2242,9 @@ def phase_k8() -> dict:
     size, float32 and bf16, p rounded or not, and the families' shapes),
     each through the route flash_attention_route names; the planted faults,
     one at D = 112; then the times at the main-path shape on each route
-    (bf16 -> "mma", float32 -> "fma") and at Zamba2's D = 112 shape
-    ("mma_d112")."""
+    (bf16 -> "mma", float32 -> "fma"), at Zamba2's D = 112 shape
+    ("mma_d112") and at train_lm's float32 shape, where training launches
+    the FMA route ("fma_train")."""
     from repro_torch.kernels import ops
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -2278,15 +2291,18 @@ def phase_k8() -> dict:
     rows = {"mma_d112": k8_times(q, k, v, errs, routes)}
     rows["mma"] = k8_times(*k8_operands(K8_MAIN, gen), errs, routes)
     rows["fma"] = k8_times(*k8_operands(K8_MAIN_F32, gen), errs, routes)
+    rows["fma_train"] = k8_times(*k8_operands(K8_TRAIN_F32, gen), errs, routes)
     for row in rows.values():
         emit(dict(phase="serve", case="k8_times", **row))
     return rows
 
 
-def k8_times(q, k, v, errs: dict, routes: dict) -> dict:
-    """K8's times at the main path's shape (causal, p float32) in the
-    inputs' dtype, beside the plain version, SDPA (the library call, timed
-    only) and the bound at the peak of the inputs' type."""
+def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> dict:
+    """K8's times at a shape (causal, p float32) in the inputs' dtype,
+    beside the plain version, SDPA (the library call, timed only: a loop
+    of calls between two events, and its kernels' device time under the
+    profiler) and the bound at the peak of the inputs' type; with
+    ``errs`` and ``routes`` (phase_k8's), the largest error of the route."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -2300,18 +2316,21 @@ def k8_times(q, k, v, errs: dict, routes: dict) -> dict:
     flops = 4 * b * h * d * attn_pairs(s, t, True, 0)
     bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    prof = device_breakdown(lambda: [sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+                                     for _ in range(20)])
     return dict(
         shape=[b, s, t, h, kv, d], causal=True, dtype=str(q.dtype).removeprefix("torch."),
         route=route, ms=ms, device_ms=graph_ms(lambda: fa.flash_attention(q, k, v), 20),
         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
         library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+        library_device_ms=(sum(prof["device_ms"].values()) / 20 if prof["device_ms"] else None),
         bound_ms=bound_ms, bound_by=bound_by,
         bound_peak=("bf16 tensor cores, 989 TFLOP/s" if bf16 else "float32 FMA, 67 TFLOP/s")
         + " (the inputs' type)",
         f32_fma_bound_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops,
         tflop_per_s=flops / (ms * 1e-3) / 1e12,
-        max_abs_err=max(e["max_abs_err"] for label, e in errs.items()
-                        if routes[label] == route),
+        max_abs_err=(max(e["max_abs_err"] for label, e in errs.items()
+                         if routes[label] == route) if errs is not None else None),
         library_max_abs_err=lib_err,
     )
 
@@ -2898,7 +2917,8 @@ def phase_families(dev) -> dict:
 
 # (label, dtype, b, s, t, h, kv, d, causal, window, p_dtype): the forward's
 # main shape in bf16, train_lm's attention (float32, D = 64), D = 112,
-# non-causal S != T, a window, G = 48, p rounded, and small float32 cases
+# non-causal S != T, a window, G = 48, p rounded, and small float32 cases,
+# one of them windowed at G = 48 with a ragged S
 K8_BWD_MAIN = ("bwd_main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
 K8_BWD_F32 = ("bwd_f32_d64", F32, 4, 192, 192, 12, 4, 64, True, 0, None)
 K8_BWD_CASES = (
@@ -2913,6 +2933,7 @@ K8_BWD_CASES = (
     ("bwd_main_p_bf16", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, BF16),
     ("bwd_f32_d16", F32, 2, 515, 515, 8, 2, 16, True, 0, None),
     ("bwd_f32_d32_non_causal", F32, 2, 515, 300, 8, 2, 32, False, 0, None),
+    ("bwd_f32_window_g48", F32, 1, 515, 515, 48, 1, 64, True, 100, None),
 )
 # The backward kernels against the plain backward on the same forward
 # output and lse, element by element: |got - want| <= atol max|want| +
@@ -3016,7 +3037,9 @@ def phase_k8_bwd() -> dict:
     lse, each kernel launched once per case and dK/dV and dQ on the route
     flash_attention_bwd_route names (bf16 "mma", float32 "fma"); the cases
     of K8_BWD_FMA_VIEW also on "fma" through views off the 16-byte grid;
-    each bf16 case twice, the same bits; the forward's lse against the
+    each case twice, the same bits (float32 and bf16 alike); at each case
+    on "fma" the dK/dV split's plan in Python (fma_dkdv_plan) against the C
+    launcher's, with its clusters per wave; the forward's lse against the
     plain one; a planted fault (a GQA head left out of dK, dV) that the
     bar must reject by more than 1000x; then the times of each kernel on
     each route, the plain backward and scaled_dot_product_attention's
@@ -3029,8 +3052,9 @@ def phase_k8_bwd() -> dict:
               ptxas=ptxas_usage(build.load_library().log, "flash_attention_bwd_")))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs: dict = {}
+    plans: dict = {}
     for case in K8_BWD_CASES:
-        label, dtype, _b, _s, _t, _h, _kv, _d, causal, window, p_dtype = case
+        label, dtype, b_, s_, t_, h_, kv_, d_, causal, window, p_dtype = case
         q, k, v, do = k8_bwd_operands(case, gen)
         o, lse = fa.flash_attention_lse(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
         _, lse_plain = fa.flash_attention_plain_lse(q, k, v, causal=causal, window=window,
@@ -3050,10 +3074,19 @@ def phase_k8_bwd() -> dict:
             e, sh = bwd_share(g_, w, rtol, atol)
             check(sh <= 1, f"K8 backward {label} {name}: max err {e}, {sh} of its bar")
             row[name] = dict(max_abs_err=e, of_bar=sh)
-        if route == "mma":
-            again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
-            check(row["same_bits_twice"], f"K8 backward {label}: two runs differ")
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(row["same_bits_twice"], f"K8 backward {label}: two runs differ")
+        if route == "fma" or label in K8_BWD_FMA_VIEW:
+            shape = (b_, s_, t_, h_, kv_, d_, causal, window)
+            plan, on_card = fa.fma_dkdv_plan(*shape), fa.fma_dkdv_plan_on_device(*shape)
+            tiles = b_ * kv_ * len(plan["tiles"])
+            plans[label] = dict(ranks=plan["ranks"], key_tiles=tiles,
+                                clusters_per_wave=on_card["clusters_per_wave"])
+            check(plan == {key: on_card[key] for key in ("ranks", "tiles")},
+                  f"K8 backward {label}: the dK/dV plan in Python and in C differ")
+            check(plan["ranks"] == 1 or tiles <= on_card["clusters_per_wave"],
+                  f"K8 backward {label}: the dK/dV split runs in more than one wave: {plans}")
         if label in K8_BWD_FMA_VIEW:
             views = [off_grid(x) for x in (q, k, v, do)]
             got_fma = k8_bwd_routed(*views[:3], o, lse, views[3], "fma", f"{label} off grid",
@@ -3071,7 +3104,7 @@ def phase_k8_bwd() -> dict:
     emit(dict(phase="train", case="k8_bwd_vs_plain",
               bars={str(dt).removeprefix("torch."): dict(rtol=r, atol_of_max=a)
                     for dt, (r, a) in K8_BWD_BARS.items()},
-              p_bf16_atol_of_max=K8_BWD_P_BF16_ATOL, errors=errs))
+              p_bf16_atol_of_max=K8_BWD_P_BF16_ATOL, errors=errs, fma_dkdv_plans=plans))
 
     q, k, v, do = k8_bwd_operands(K8_BWD_MAIN, gen)
     o, lse = fa.flash_attention_lse(q, k, v)
@@ -3090,7 +3123,7 @@ def phase_k8_bwd() -> dict:
     return rows
 
 
-def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
+def k8_bwd_times(q, k, v, do, errs: dict | None = None) -> dict:
     """Each backward kernel's time (causal, p float32) on the route the
     inputs take, and in bf16 also dK/dV and dQ on the FMA route through
     views off the 16-byte grid (``fma_ms``): the median of
@@ -3100,7 +3133,8 @@ def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
     tensor-core route's P and dS split does 12 d and 8 d, 1.5x and 1.33x
     that, on the tensor cores); the plain backward's time and that
     of scaled_dot_product_attention's backward (the library call, timed
-    only, the same way)."""
+    only, the same way); with ``errs`` (phase_k8_bwd's), each kernel's
+    largest error in the inputs' dtype."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -3167,6 +3201,9 @@ def k8_bwd_times(q, k, v, do, errs: dict) -> dict:
             row.update(fma_ms=fma["median"], fma_spread_ms=fma, fma_device_ms=graph_ms(fma_fn, 5))
         out["kernels"][name] = row
     out["backward_ms"] = sum(r["ms"] for r in out["kernels"].values())
+    out["dkdv_dq_device_ms"] = sum(out["kernels"][n]["device_ms"] for n in K8_BWD_ROUTED)
+    if errs is None:
+        return out
     out["max_abs_err"] = {
         "flash_attention_bwd_delta": max(r["delta"]["max_abs_err"] for lbl, r in errs.items()
                                          if case_dtype(lbl) == q.dtype),
@@ -3300,6 +3337,85 @@ def train_lm_default(dev) -> dict:
           f"train_lm 100M: K8 forward/backward not launched: {launches}")
     check(restored_equal, "train_lm 100M: restore_latest did not give back the final state")
     return res
+
+
+# train_lm's step under the profiler: steps after a warm-up, from a fresh state
+TRAIN_PROFILE_WARMUP, TRAIN_PROFILE_STEPS = 3, 5
+TRAIN_PROFILE_RANGE = "train_profile::optimizer_update"
+TRAIN_PROFILE_KINDS = ("k8_forward", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+                       "flash_attention_bwd_dq", "matmul", "other")
+
+
+def train_kernel_kind(name: str) -> str:
+    """The kind of a device kernel of train_lm's step, by its name."""
+    name = name.lower()
+    for bwd in TRAIN_PROFILE_KINDS[1:4]:
+        if bwd in name:
+            return bwd
+    if "flash_attention" in name:
+        return "k8_forward"
+    if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
+        return "matmul"
+    return "other"
+
+
+def train_profile(dev) -> dict:
+    """train_lm's step (case (a): lm_100m, B = 4, S = 192, float32,
+    AnalogNewton at TRAIN_LR) under torch.profiler: TRAIN_PROFILE_STEPS
+    steps after TRAIN_PROFILE_WARMUP, from a fresh state, the batches made
+    on the card before the window.  Device ms a step by kind (K8's forward,
+    each backward kernel, matrix products, the rest), the optimizer's
+    update (AnalogNewton's preconditioned step: the device time of the
+    kernels launched inside it, which the kinds also count), the busy
+    share (kernel time over the window's wall time; one stream, so kernels
+    do not overlap) and the host ms a step.  AnalogNewton's refresh runs
+    every 100 steps, outside the window (train (a)'s ``refresh_s_each``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.launch.train import build_optimizer
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.training import init_train_state, make_train_step
+
+    ex = load_example("train_lm_torch")
+    cfg, acfg = ex.lm_100m(), ex.analog_config(False)
+    opt, _ = build_optimizer("analog_newton", TRAIN_LR, TRAIN_STEPS, acfg)
+
+    def update(*args):
+        with record_function(TRAIN_PROFILE_RANGE):
+            return opt.update(*args)
+
+    ranged = Optimizer(init=opt.init, update=update)
+    state = init_train_state(cfg, ranged, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    step_fn = make_train_step(cfg, ranged)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED)
+    batches = [{k: torch.as_tensor(x, device=dev) for k, x in next(data).items()}
+               for _ in range(TRAIN_PROFILE_WARMUP + TRAIN_PROFILE_STEPS)]
+    data.close()
+    for batch in batches[:TRAIN_PROFILE_WARMUP]:
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[TRAIN_PROFILE_WARMUP:]:
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = dict.fromkeys(TRAIN_PROFILE_KINDS, 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            kinds[train_kernel_kind(e.key)] += us / 1e3
+    optimizer_ms = sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
+                       if e.name == TRAIN_PROFILE_RANGE) / 1e3
+    busy = sum(kinds.values())
+    n = TRAIN_PROFILE_STEPS
+    return dict(case="train_profile", steps=n, warmup=TRAIN_PROFILE_WARMUP,
+                device_ms_per_step={k: v / n for k, v in kinds.items()} if busy else None,
+                device_ms_per_step_total=busy / n if busy else None,
+                optimizer_update_device_ms_per_step=optimizer_ms / n if busy else None,
+                busy_share=busy / wall_ms if busy else None, host_ms_per_step=wall_ms / n)
 
 
 def train_wide(dev) -> dict:
@@ -3439,6 +3555,11 @@ def phase_train(dev) -> dict:
 
     t0 = time.perf_counter()
     res = {"train_lm_100m": train_lm_default(dev)}
+    profiled = train_profile(dev)
+    emit(dict(phase="train", **profiled))
+    check(profiled["device_ms_per_step"] is not None
+          and all(profiled["device_ms_per_step"][n] > 0 for n in TRAIN_PROFILE_KINDS[:4]),
+          f"train_lm profile: no device time of K8's kernels: {profiled}")
     res["qwen3_8b_width"] = train_wide(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3470,8 +3591,9 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
     their own dtype), and
     K8's rows count by phase and family (``launches_by_family``): the
     tensor-core row at D = 128 the serve phase's and every family's but
-    Zamba2's, the D = 112 row Zamba2's, the fma row the float32 SMOKE
-    configs' runs on the card; each also the train phase's.  K8's backward
+    Zamba2's, the D = 112 row Zamba2's, the fma row at D = 128 the float32
+    SMOKE configs' serving runs on the card, the fma row at train_lm's
+    shape the train phase's; the tensor-core rows also the train phase's.  K8's backward
     kernels have a row each per dtype (bf16 at the forward's main shape,
     float32 at train_lm's), their launches those of the train phase by
     case, ``launches_by_phase``."""
@@ -3566,6 +3688,7 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                          kernel_route=row["route"],
                          **{k: row[k] for k in keys},
                          f32_fma_bound_ms=row["f32_fma_bound_ms"],
+                         library_device_ms=row["library_device_ms"],
                          tflop_per_s=row["tflop_per_s"]))
     return rows + k8_bwd_line_rows(k8_bwd_rows, train_launches)
 
@@ -3651,8 +3774,9 @@ def main() -> int:
     families = phase_families(dev)
     train_launches = phase_train(dev)
     # K8's launches by row: the tensor-core rows split by head size (D =
-    # 112 is Zamba2's alone), the FMA row the float32 SMOKE configs' card
-    # runs; each by the phase or family that made them
+    # 112 is Zamba2's alone), the FMA rows the float32 SMOKE configs' card
+    # runs in serving (the D = 128 row) and the train phase's (train_lm's
+    # shape); each by the phase or family that made them
     train_fwd = {route: sum(c["forward_by_route"][route] for c in train_launches.values())
                  for route in ("mma", "fma")}
     k8_launches = {
@@ -3660,8 +3784,8 @@ def main() -> int:
                 **{a: r["mma"] for a, r in families.items() if r["head_dim"] != 112},
                 "train": train_fwd["mma"]},
         "mma_d112": {a: r["mma"] for a, r in families.items() if r["head_dim"] == 112},
-        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()},
-                "train": train_fwd["fma"]},
+        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()}},
+        "fma_train": {"train": train_fwd["fma"]},
     }
 
     emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,

@@ -10,15 +10,19 @@ forward without the row log-sum-exp at every case of
 routes, p rounded or not) from the smoke's seed, and saves every output.
 Where the package has ``flash_attention_lse`` it also prints whether the
 forward that writes ``lse`` gives, bit for bit, the output of the one that
-does not, and saves the backward's dq, dk and dv on the FMA route: at every
-float32 case of ``chip_smoke.K8_BWD_CASES`` and at its bf16 cases of
-``chip_smoke.K8_BWD_FMA_VIEW`` through views off the 16-byte grid (the
-route a package without the tensor-core backward also takes there).
+does not, and saves the backward at every case of
+``chip_smoke.K8_BWD_CASES``: Delta; dq, dk and dv on the FMA route at the
+float32 cases and, through views off the 16-byte grid, at the bf16 cases
+of ``chip_smoke.K8_BWD_FMA_VIEW``; and dq, dk and dv of the bf16 cases on
+the 16-byte grid (the tensor-core route where the package has it).
 ``--train`` also saves the loss curve of ``chip_smoke.py``'s train case
 (a), examples/train_lm.py's default run (300 AnalogNewton steps, float32).
 ``--compare`` prints, per output, whether two saved runs (for example two
-commits of the package on one card) agree bit for bit, and exits 1 if any
-differs.
+commits of the package on one card) agree bit for bit, and for each that
+differs how much: the largest |a - b| over max |b| of an array, the
+largest |a - b| of the loss curve; it exits 1 if any differs.  To compare
+two commits, run this script of one tree twice, once with each tree's
+``src`` first on the path, so that both runs take the same cases.
 """
 
 from __future__ import annotations
@@ -42,17 +46,23 @@ def bits(x: torch.Tensor) -> np.ndarray:
 
 
 def backward_bits(fa, gen) -> dict[str, np.ndarray]:
-    """dq, dk, dv of the FMA route at K8_BWD_CASES' float32 cases and, off
-    the 16-byte grid, at K8_BWD_FMA_VIEW's bf16 cases."""
+    """At every case of K8_BWD_CASES: Delta (``{label}_delta``); dq, dk, dv
+    of the FMA route at the float32 cases and, off the 16-byte grid, at
+    K8_BWD_FMA_VIEW's bf16 cases (``{label}_{name}``); dq, dk, dv of the
+    bf16 cases on the grid (``{label}_mma_{name}``)."""
     out = {}
     for case in smoke.K8_BWD_CASES:
         label, dtype, _b, _s, _t, _h, _kv, _d, causal, window, p_dtype = case
         q, k, v, do = smoke.k8_bwd_operands(case, gen)
-        if dtype != smoke.F32 and label not in smoke.K8_BWD_FMA_VIEW:
-            continue
         kw = dict(causal=causal, window=window, p_dtype=p_dtype)
         o, lse = fa.flash_attention_lse(q, k, v, **kw)
+        out[f"{label}_delta"] = bits(fa.flash_attention_bwd_delta(o, do))
         if dtype != smoke.F32:
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            for name, g in zip(("dq", "dk", "dv"), grads):
+                out[f"{label}_mma_{name}"] = bits(g)
+            if label not in smoke.K8_BWD_FMA_VIEW:
+                continue
             q, k, v, do = (smoke.off_grid(x) for x in (q, k, v, do))
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         for name, g in zip(("dq", "dk", "dv"), grads):
@@ -116,10 +126,32 @@ def save(path: str, train: bool) -> None:
         sys.exit(1)
 
 
+def values(x: np.ndarray) -> np.ndarray:
+    """A saved array's values in float64: bf16 and float32 outputs are
+    saved as their bits (int16, int32), the loss curve as float64."""
+    if x.dtype == np.int16:
+        x = (x.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    elif x.dtype == np.int32:
+        x = x.view(np.float32)
+    return x.astype(np.float64)
+
+
 def compare(a: str, b: str) -> int:
     x, y = np.load(a), np.load(b)
     same = {key: bool(key in y and np.array_equal(x[key], y[key])) for key in x.files}
-    print(json.dumps({"compare": [a, b], "bit_equal": same, "all": all(same.values())}))
+    differ = {}
+    for key in x.files:
+        if same[key] or key not in y or x[key].shape != y[key].shape:
+            continue
+        va, vb = values(x[key]), values(y[key])
+        if key == "train_lm_loss_curve":
+            differ[key] = {"max_abs_diff": float(np.abs(va - vb).max())}
+        else:
+            differ[key] = {"max_abs_diff_of_max": float(np.abs(va - vb).max())
+                           / max(float(np.abs(vb).max()), 1e-30)}
+    print(json.dumps({"compare": [a, b], "bit_equal": same, "differ": differ,
+                      "missing": sorted(set(x.files) ^ set(y.files)),
+                      "all": all(same.values())}))
     return 0 if all(same.values()) and set(x.files) == set(y.files) else 1
 
 

@@ -74,13 +74,15 @@ def sweep_ranks(fits) -> int:
     return ranks
 
 
-def split_ranks(tiles: int, max_split: int, max_by_work: int) -> int:
+def split_ranks(tiles: int, max_split: int, max_by_work: int,
+                wave: int = ONE_WAVE_BLOCKS) -> int:
     """The cluster size R of a split kernel with ``tiles`` output tiles: the
     largest power of two up to ``max_split`` that keeps the grid
-    ``tiles * R`` within ONE_WAVE_BLOCKS and is at most ``max_by_work``
-    (how many ranks the work gives a share each); at least 1.  A pure
-    function of the shape, so the CPU tests can hold it."""
-    want = min(max_split, ONE_WAVE_BLOCKS // max(tiles, 1), max_by_work)
+    ``tiles * R`` within one wave of ``wave`` blocks (ONE_WAVE_BLOCKS for a
+    kernel that fits two blocks an SM) and is at most ``max_by_work`` (how
+    many ranks the work gives a share each); at least 1.  A pure function
+    of the shape, so the CPU tests can hold it."""
+    want = min(max_split, wave // max(tiles, 1), max_by_work)
     return 1 << (max(want, 1).bit_length() - 1)
 
 
@@ -137,6 +139,8 @@ _SIGNATURES = {
     # stream
     "repro_flash_attention_bwd_dq": ((_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _P), _I),
+    # batch, s, t, h, kv, d, causal, window, plan (int*), plan_len
+    "repro_flash_attention_bwd_dkdv_clusters": ((_I, _I, _I, _I, _I, _I, _I, _I, _P, _I), _I),
     # q, k, v, dout, lse, delta, dk, dv, batch, s, t, h, kv, d, causal, window, scale,
     # p_bf16, stream
     "repro_flash_attention_bwd_dkdv_mma": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

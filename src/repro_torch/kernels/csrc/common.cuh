@@ -1,8 +1,8 @@
 // Device helpers shared by the Hopper kernels: the reductions of the
 // settle sweeps (K1-K4), the tiled dense product of K5 and K6's GEMV, the
 // rank-ordered sum over a thread-block cluster (K4, K5 on narrow state,
-// K6 float32, K7a), and the state shared across a cluster by the
-// persistent sweeps (K1, K3).
+// K6 float32, K7a; spread over the ranks, K8's float32 dK/dV), and the
+// state shared across a cluster by the persistent sweeps (K1, K3).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -57,6 +57,35 @@ __device__ __forceinline__ bool cluster_sum_rank_order(float4* part, int n) {
   }
   cluster.sync();
   return leader;
+}
+
+// The same sum spread over the cluster: block r adds the float4s
+// [r n / R, (r + 1) n / R) of every block's `part` in rank order,
+// ((p_0 + p_1) + p_2) + ..., and hands each sum to store(i, sum), so that
+// the R blocks add and store in parallel instead of the leader alone; each
+// sum has the bits cluster_sum_rank_order gives it.  Every thread of every
+// block of the cluster must call it; the second cluster barrier keeps each
+// block, and with it its shared memory, alive until its peers have read it.
+template <typename Store>
+__device__ __forceinline__ void cluster_sum_rank_order_spread(float4* part, int n, Store store) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int i1 = static_cast<int>(static_cast<long long>(n) * (rank + 1) / ranks);
+  for (int i = static_cast<int>(static_cast<long long>(n) * rank / ranks) + threadIdx.x; i < i1;
+       i += blockDim.x) {
+    float4 s = cluster.map_shared_rank(part, 0)[i];
+    for (int r = 1; r < ranks; ++r) {
+      const float4 p = cluster.map_shared_rank(part, r)[i];
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    store(i, s);
+  }
+  cluster.sync();
 }
 
 // The launch configuration of `grid` x `threads` in clusters of `ranks`

@@ -109,10 +109,13 @@
 // once, at the store.  Two routes for dK/dV and dQ, by the forward's rule
 // (kernels/flash_attention.py:flash_attention_bwd_route):
 //
-// * "fma" (float32, and bf16 off the 16-byte grid; the first port):
+// * "fma" (float32, and bf16 off the 16-byte grid):
 //   flash_attention_bwd_dkdv_kernel and _dq_kernel, every product float32
-//   FMA on shared-memory tiles (4 x 4 (key, query) pairs per thread, as the
-//   forward's fma route), bf16 inputs read element by element;
+//   FMA from shared-memory tiles read by 128-bit loads into register tiles
+//   (at least 4 FMA a load), fed two deep by cp.async (bf16 inputs read
+//   element by element into the same ring); dK/dV's walk of a key tile's
+//   (head, query tile) items split over the blocks of a thread-block
+//   cluster and summed in rank order (design at the kernels);
 // * "mma" (bf16 with q, k, v and dO 16-byte aligned):
 //   flash_attention_bwd_dkdv_mma_kernel and _dq_mma_kernel, mma.sync on the
 //   bf16 tensor cores with float32 accumulators, tiles copied by 16-byte
@@ -129,6 +132,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
@@ -140,6 +146,7 @@ constexpr int FA_THREADS = 256;
 constexpr int FA_ROWS = 64;       // rows (q position, group member) per block
 constexpr int FA_KB = 64;         // keys per tile
 constexpr float FA_NEG_INF = -1e30f;
+constexpr long long MAX_GRID_X = 0x7fffffffLL;
 
 template <int D>
 struct FaLayout {
@@ -648,21 +655,16 @@ int launch_mma_for_p(const void* q, const void* k, const void* v, void* o, float
 }
 
 // ---------------------------------------------------------------------------
-// backward: Delta, then dK and dV, then dQ (float32 FMA)
+// backward: Delta, then dK and dV, then dQ; the fma route (float32 FMA)
 // ---------------------------------------------------------------------------
 
-constexpr int FB_TILE = 64;       // query rows and keys per tile
-
-template <int D>
-struct FbLayout {
-  static constexpr int RS = D + 1;          // padded stride of a D-wide tile, in floats
-  static constexpr int PS = FB_TILE + 1;    // padded stride of a 64 x 64 tile
-  static constexpr int DC = D / 16;         // output columns per thread
-  static constexpr int TILE = FB_TILE * RS;
-  // dkdv: K, V, Q, dO tiles and P, dS ([key][query]); dq: Q, dO, K, V and dS
-  static constexpr size_t DKDV_BYTES = (4 * TILE + 2 * FB_TILE * PS) * sizeof(float);
-  static constexpr size_t DQ_BYTES = (4 * TILE + FB_TILE * PS) * sizeof(float);
-};
+// The fma route's tiles.  A dK/dV block owns FB_KEYS keys and walks items
+// of FB_QUERIES queries of one query head; a dQ block owns FB_QUERIES
+// queries of one head and walks key tiles of FB_KEYS.
+constexpr int FB_KEYS = 64;
+constexpr int FB_QUERIES = 32;
+constexpr int FB_MAX_RANKS = 8;        // dK/dV's cluster size: at most the portable 8
+constexpr int FB_WAVE_BLOCKS = 240;    // build.ONE_WAVE_BLOCKS: two blocks an SM
 
 __device__ __forceinline__ bool fa_keep(int qpos, int kpos, int t_len, int causal, int window) {
   bool ok = kpos < t_len;
@@ -671,17 +673,114 @@ __device__ __forceinline__ bool fa_keep(int qpos, int kpos, int t_len, int causa
   return ok;
 }
 
-// rows [q0, q0 + 64) of query head `head` of a (S, H, D) slab -> dst
-// [64][D + 1], float32, zero past row s_len
-template <typename T, int D>
-__device__ __forceinline__ void load_q_tile(const T* __restrict__ src, float* dst, int q0,
-                                            int s_len, int h, int head) {
-  for (int e = threadIdx.x; e < FB_TILE * D; e += FA_THREADS) {
-    const int r = e / D;
-    const int c = e % D;
-    const int qpos = q0 + r;
-    dst[r * FbLayout<D>::RS + c] =
-        qpos < s_len ? to_f32(src[(static_cast<size_t>(qpos) * h + head) * D + c]) : 0.0f;
+// The query tiles [*qt0, *qt0 + *n_qt) of FB_QUERIES rows that hold a row
+// keeping a key of key tile kt: causal from k0 on, a window up to the last
+// key + window - 1.  The items of key tile kt are (head gi, query tile
+// qt0 + j) in the order gi * n_qt + j, gi over the G heads of the group.
+__host__ __device__ inline void fb_query_tiles(int kt, int s_len, int t_len, int causal,
+                                               int window, int* qt0, int* n_qt) {
+  const int k0 = kt * FB_KEYS;
+  const int k_last = (k0 + FB_KEYS < t_len ? k0 + FB_KEYS : t_len) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? (s_len - 1 < k_last + window - 1 ? s_len - 1 : k_last + window - 1)
+                              : s_len - 1;
+  *qt0 = q_lo / FB_QUERIES;
+  *n_qt = q_lo <= q_hi ? q_hi / FB_QUERIES - *qt0 + 1 : 0;
+}
+
+// The first item of rank r's share of n items over `ranks` ranks:
+// contiguous shares in item order, sizes within one of each other
+__host__ __device__ inline int fb_share(int n, int r, int ranks) {
+  return static_cast<int>(static_cast<long long>(n) * r / ranks);
+}
+
+// dK/dV's cluster size, a pure function of the shape (as
+// kernels/flash_attention.py:fma_dkdv_ranks, build.split_ranks): the
+// largest power of two up to FB_MAX_RANKS that keeps the grid (batch * kv
+// * key tiles * R blocks) within one wave and gives every rank of the
+// busiest key tile an item.  At D >= 112 a block fills an SM's shared
+// memory, so the wave is half as many blocks.
+inline int fb_dkdv_ranks(int batch, int s, int t, int h, int kv, int d, int causal, int window) {
+  const int g = h / kv;
+  const int n_kt = (t + FB_KEYS - 1) / FB_KEYS;
+  long long most = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    int qt0 = 0, n_qt = 0;
+    fb_query_tiles(kt, s, t, causal, window, &qt0, &n_qt);
+    most = std::max(most, static_cast<long long>(g) * n_qt);
+  }
+  const long long tiles = std::max(1LL, static_cast<long long>(batch) * kv * n_kt);
+  const long long wave = d >= 112 ? FB_WAVE_BLOCKS / 2 : FB_WAVE_BLOCKS;
+  const long long want = std::min(std::min(static_cast<long long>(FB_MAX_RANKS), wave / tiles), most);
+  int ranks = 1;
+  while (2 * ranks <= want) ranks *= 2;
+  return ranks;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c + a . b, the four terms in order
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// acc[0..3] += s * x
+__device__ __forceinline__ void axpy4(float (&acc)[4], float s, const float4 x) {
+  acc[0] = fmaf(s, x.x, acc[0]);
+  acc[1] = fmaf(s, x.y, acc[1]);
+  acc[2] = fmaf(s, x.z, acc[2]);
+  acc[3] = fmaf(s, x.w, acc[3]);
+}
+
+// Rows [r0, r0 + n_rows) of D elements, `row_stride` elements apart from
+// `src` on, -> dst [n_rows][DS] float32, zero from row `limit` on.  float32
+// by cp.async: 16-byte copies when vec16 (every base on the 16-byte grid),
+// else 4-byte ones; bf16 element by element (a load and a conversion).
+// The caller commits the copies.
+template <typename T, int D, int DS, int THREADS>
+__device__ __forceinline__ void fb_stage_rows(float* dst, const T* __restrict__ src,
+                                              size_t row_stride, int r0, int n_rows, int limit,
+                                              int vec16) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec16) {
+      constexpr int CH = D / 4;
+      for (int e = threadIdx.x; e < n_rows * CH; e += THREADS) {
+        const int r = e / CH, c = (e % CH) * 4;
+        const bool ok = r0 + r < limit;
+        const T* p = ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src;
+        cp_async16(dst + r * DS + c, p, ok ? 16 : 0);
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < n_rows * D; e += THREADS) {
+      const int r = e / D, c = e % D;
+      const bool ok = r0 + r < limit;
+      const T* p = ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src;
+      cp_async4(dst + r * DS + c, p, ok ? 4 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_rows * D; e += THREADS) {
+      const int r = e / D, c = e % D;
+      dst[r * DS + c] =
+          r0 + r < limit ? to_f32(src[static_cast<size_t>(r0 + r) * row_stride + c]) : 0.0f;
+    }
+  }
+}
+
+// lse and Delta of rows [q0, q0 + FB_QUERIES) of one head (float32 (B, H,
+// S), `stat` the head's first row) -> lse_d, delta_d, zero past s_len
+template <int THREADS>
+__device__ __forceinline__ void fb_stage_stats(float* lse_d, float* delta_d,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta, size_t stat,
+                                               int q0, int s_len) {
+  for (int e = threadIdx.x; e < 2 * FB_QUERIES; e += THREADS) {
+    const int r = e % FB_QUERIES;
+    const float* src = e < FB_QUERIES ? lse : delta;
+    const bool ok = q0 + r < s_len;
+    cp_async4((e < FB_QUERIES ? lse_d : delta_d) + r, ok ? src + stat + q0 + r : src, ok ? 4 : 0);
   }
 }
 
@@ -709,265 +808,415 @@ __global__ void flash_attention_bwd_delta_kernel(const T* __restrict__ o,
   }
 }
 
-// dK and dV of one key tile of one KV head: the block loops over the G
-// query heads of the group and every query tile that reaches the keys, in
-// a fixed order, and writes each dK, dV element once (no atomics).  Per
-// (head, query tile): S^T and dP^T by FMA (a 4 x 4 block of (key, query)
-// pairs per thread), P = exp(S scale - lse) under the forward's mask,
-// dS = P (dP - Delta); then dV += P~^T dO (P~ = bf16(P) when p_bf16, as
-// the forward's PV product) and dK += dS^T Q, scaled once at the end.
+// dK/dV's layout.  The d side is padded to DP (D = 112 -> 128: columns
+// past D are computed from whatever the pad holds and never stored), rows
+// of DS = DP + 4 floats so that the eight rows a quarter warp reads by
+// 128-bit loads fall in distinct banks.  S^T and dP^T: a thread forms AK
+// keys x AQ queries (keys kg + 16 i, queries qg + QG j, qg the fast index,
+// so a quarter warp shares its K and V loads); dV and dK: BK keys x 4
+// columns (keys bkg + BKG i, columns 4 cg .. 4 cg + 3).
+template <int D>
+struct FbKv {
+  static constexpr int DP = D == 112 ? 128 : D;
+  static constexpr int DS = DP + 4;
+  static constexpr int PS = FB_QUERIES + 8;       // P~^T, dS^T rows: 4 keys a warp, no conflict
+  static constexpr int THREADS = DP == 128 ? 256 : 128;
+  static constexpr int AK = 4;
+  static constexpr int AQ = FB_KEYS * FB_QUERIES / THREADS / AK;   // 4, or 2 at DP = 128
+  static constexpr int QG = FB_QUERIES / AQ;
+  static constexpr int KG = FB_KEYS / AK;
+  static constexpr int CG = DP / 4;
+  static constexpr int BK = FB_KEYS * CG / THREADS;                  // 2, 4, 8, 8
+  static constexpr int BKG = FB_KEYS / BK;
+  static constexpr int TILE_K = FB_KEYS * DS;
+  static constexpr int TILE_Q = FB_QUERIES * DS;
+  // K, V; two stages of (Q, dO); P~^T, dS^T; two stages of (lse, Delta)
+  static constexpr int BYTES =
+      (2 * TILE_K + 4 * TILE_Q + 2 * FB_KEYS * PS + 4 * FB_QUERIES) * 4;
+  static_assert(QG * KG == THREADS && BKG * CG == THREADS, "threads must cover the tiles");
+  static_assert(2 * FB_KEYS * DP <= 4 * TILE_Q, "the partial sums must fit the Q, dO stages");
+};
+
+// dK and dV of one 64-key tile of one KV head, its walk split over the R
+// blocks of a thread-block cluster.  The key tile's items, (head gi, query
+// tile j) in the order gi * n_qt + j (fb_query_tiles), are cut into R
+// contiguous shares (fb_share); rank r walks its share with K and V in
+// shared memory, each item's Q, dO, lse and Delta copied two deep by
+// cp.async (the next item's while this one is computed).  Per item: S^T =
+// K Q^T and dP^T = V dO^T (AK x AQ a thread, 128-bit loads along d, 8 FMA
+// a load at AQ = 4); P = exp(S^T scale - lse) under the forward's mask,
+// P~ (bf16(P) when p_bf16, as the forward's PV product) and dS = P (dP -
+// Delta) into shared memory; then dV += P~^T dO and dK += dS^T Q (BK x 4
+// a thread, 128-bit loads along queries and along d, 10.7 FMA a load at
+// BK = 8).  At the end each rank leaves its partial dK and dV in its
+// stage buffers, and the ranks add them in rank order through distributed
+// shared memory, each rank a share of the tile, and store them, dK scaled
+// once (common.cuh: cluster_sum_rank_order_spread; the leader alone, as
+// cluster_sum_rank_order, ran slower at train_lm's shape): the GQA sum in
+// a fixed order, no atomics.  Blocks are issued key tile 0 first: under
+// the causal mask it has the most items.  What bounds it on the H100: its
+// FMA issue rate (15 % of its operation bound at train_lm's shape), not
+// its shared-memory loads (a layout with twice the FMA a load ran
+// slower), and there the busiest rank's 5 items.
 template <typename T, int D>
-__global__ void __launch_bounds__(FA_THREADS, 1)
+__global__ void __launch_bounds__(FbKv<D>::THREADS)
 flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const T* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
-                                T* __restrict__ dk, T* __restrict__ dv, int s_len, int t_len,
-                                int h, int kv, int causal, int window, float scale, int p_bf16) {
-  using L = FbLayout<D>;
-  extern __shared__ float smem[];
-  float* ks = smem;                     // [64][RS] the key tile
-  float* vs = ks + L::TILE;             // [64][RS] the value tile
-  float* qs = vs + L::TILE;             // [64][RS] a query tile
-  float* dos = qs + L::TILE;            // [64][RS] its dO tile
-  float* ps = dos + L::TILE;            // [64 keys][PS] P~
-  float* dss = ps + FB_TILE * L::PS;    // [64 keys][PS] dS
-  __shared__ float lse_s[FB_TILE], delta_s[FB_TILE];
+                                T* __restrict__ dk, T* __restrict__ dv, int n_bkv, int ranks,
+                                int s_len, int t_len, int h, int kv, int causal, int window,
+                                float scale, int p_bf16, int vec16) {
+  using L = FbKv<D>;
+  extern __shared__ __align__(16) float fb_smem[];
+  float* ks = fb_smem;                        // [64][DS] the key tile
+  float* vs = ks + L::TILE_K;                 // [64][DS] its values
+  float* qs = vs + L::TILE_K;                 // [2][32][DS] an item's queries
+  float* dos = qs + 2 * L::TILE_Q;            // [2][32][DS] their dO
+  float* ps = dos + 2 * L::TILE_Q;            // [64 keys][PS] P~^T
+  float* dss = ps + FB_KEYS * L::PS;          // [64 keys][PS] dS^T
+  float* lse_s = dss + FB_KEYS * L::PS;       // [2][32]
+  float* delta_s = lse_s + 2 * FB_QUERIES;    // [2][32]
 
   const int g = h / kv;
-  const int k0 = blockIdx.x * FB_TILE;
-  const int b = blockIdx.y / kv;
-  const int kvh = blockIdx.y % kv;
+  const int rank = static_cast<int>(blockIdx.x) % ranks;
+  const int tile = static_cast<int>(blockIdx.x) / ranks;
+  const int kt = tile / n_bkv;
+  const int bkv = tile % n_bkv;
+  const int b = bkv / kv, kvh = bkv % kv;
+  const int k0 = kt * FB_KEYS;
   const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
-  const size_t kv_base = static_cast<size_t>(b) * t_len * kv * D;
-  const size_t head_off = static_cast<size_t>(kvh) * D;
-  load_kv_tile<T, D>(k + kv_base, ks, k0, t_len, kv, head_off);
-  load_kv_tile<T, D>(v + kv_base, vs, k0, t_len, kv, head_off);
+  const size_t kv_off = static_cast<size_t>(b) * t_len * kv * D + static_cast<size_t>(kvh) * D;
+  const size_t q_row = static_cast<size_t>(h) * D;     // elements between a head's rows
+  const size_t k_row = static_cast<size_t>(kv) * D;
 
-  const int tc = threadIdx.x % 16;    // queries tc + 16 j; output columns tc + 16 j
-  const int tr = threadIdx.x / 16;    // keys tr + 16 i
-  float dk_acc[4][L::DC], dv_acc[4][L::DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < L::DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
+  int qt0 = 0, n_qt = 0;
+  fb_query_tiles(kt, s_len, t_len, causal, window, &qt0, &n_qt);
+  const int n_items = g * n_qt;
+  const int i0 = fb_share(n_items, rank, ranks), i1 = fb_share(n_items, rank + 1, ranks);
 
-  // query rows that keep a key of this tile: causal from k0 on, a window
-  // up to the last key + window - 1
-  const int k_last = min(k0 + FB_TILE, t_len) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(s_len - 1, k_last + window - 1) : s_len - 1;
+  // item i's Q, dO rows and their lse, Delta -> stage st
+  auto load_item = [&](int i, int st) {
+    const int head = kvh * g + i / n_qt;
+    const int q0 = (qt0 + i % n_qt) * FB_QUERIES;
+    const size_t off = q_base + static_cast<size_t>(head) * D;
+    fb_stage_rows<T, D, L::DS, L::THREADS>(qs + st * L::TILE_Q, q + off, q_row, q0, FB_QUERIES,
+                                           s_len, vec16);
+    fb_stage_rows<T, D, L::DS, L::THREADS>(dos + st * L::TILE_Q, dout + off, q_row, q0,
+                                           FB_QUERIES, s_len, vec16);
+    fb_stage_stats<L::THREADS>(lse_s + st * FB_QUERIES, delta_s + st * FB_QUERIES, lse, delta,
+                               (static_cast<size_t>(b) * h + head) * s_len, q0, s_len);
+  };
+  fb_stage_rows<T, D, L::DS, L::THREADS>(ks, k + kv_off, k_row, k0, FB_KEYS, t_len, vec16);
+  fb_stage_rows<T, D, L::DS, L::THREADS>(vs, v + kv_off, k_row, k0, FB_KEYS, t_len, vec16);
+  if (i0 < i1) load_item(i0, 0);
+  cp_async_commit();
 
-  for (int gi = 0; gi < g; ++gi) {
-    const int head = kvh * g + gi;
-    const size_t stat_base = (static_cast<size_t>(b) * h + head) * s_len;
-    for (int qt = q_lo / FB_TILE; q_lo <= q_hi && qt <= q_hi / FB_TILE; ++qt) {
-      const int q0 = qt * FB_TILE;
-      __syncthreads();                // the previous tile's reads of qs, dos, ps, dss are done
-      load_q_tile<T, D>(q + q_base, qs, q0, s_len, h, head);
-      load_q_tile<T, D>(dout + q_base, dos, q0, s_len, h, head);
-      if (threadIdx.x < FB_TILE) {
-        const int qpos = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qpos < s_len ? lse[stat_base + qpos] : 0.0f;
-        delta_s[threadIdx.x] = qpos < s_len ? delta[stat_base + qpos] : 0.0f;
-      }
-      __syncthreads();
+  const int qg = threadIdx.x % L::QG, kg = threadIdx.x / L::QG;     // S^T, dP^T
+  const int cg = threadIdx.x % L::CG, bkg = threadIdx.x / L::CG;    // dV, dK
+  float dk_acc[L::BK][4], dv_acc[L::BK][4];
+#pragma unroll
+  for (int i = 0; i < L::BK; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
 
-      float st[4][4], dpt[4][4];
+  for (int item = i0; item < i1; ++item) {
+    const int st = (item - i0) & 1;
+    cp_async_wait<0>();           // this thread's copies of the item have landed;
+    __syncthreads();              // everyone's, and the last item is done with stage st ^ 1,
+                                  // P~^T and dS^T
+    if (item + 1 < i1) load_item(item + 1, st ^ 1);
+    cp_async_commit();
+    const float* qt = qs + st * L::TILE_Q;
+    const float* dot = dos + st * L::TILE_Q;
+    const float* lse_t = lse_s + st * FB_QUERIES;
+    const float* delta_t = delta_s + st * FB_QUERIES;
+    const int q0 = (qt0 + item % n_qt) * FB_QUERIES;
+
+    float sT[L::AK][L::AQ], dpT[L::AK][L::AQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < L::AK; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.0f;
+      for (int j = 0; j < L::AQ; ++j) sT[i][j] = dpT[i][j] = 0.0f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kk[4], vv[4], qq[4], oo[4];
+    for (int d = 0; d < D; d += 4) {
+      float4 a[L::AK], bq[L::AQ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = ks[(tr + 16 * i) * L::RS + d];
-          vv[i] = vs[(tr + 16 * i) * L::RS + d];
-        }
+      for (int i = 0; i < L::AK; ++i) a[i] = ld4(ks + (kg + L::KG * i) * L::DS + d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qq[j] = qs[(tc + 16 * j) * L::RS + d];
-          oo[j] = dos[(tc + 16 * j) * L::RS + d];
-        }
+      for (int j = 0; j < L::AQ; ++j) bq[j] = ld4(qt + (qg + L::QG * j) * L::DS + d);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < L::AK; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(kk[i], qq[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], oo[j], dpt[i][j]);
-          }
+        for (int j = 0; j < L::AQ; ++j) sT[i][j] = dot4(a[i], bq[j], sT[i][j]);
+#pragma unroll
+      for (int i = 0; i < L::AK; ++i) a[i] = ld4(vs + (kg + L::KG * i) * L::DS + d);
+#pragma unroll
+      for (int j = 0; j < L::AQ; ++j) bq[j] = ld4(dot + (qg + L::QG * j) * L::DS + d);
+#pragma unroll
+      for (int i = 0; i < L::AK; ++i)
+#pragma unroll
+        for (int j = 0; j < L::AQ; ++j) dpT[i][j] = dot4(a[i], bq[j], dpT[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < L::AQ; ++j) {
+      const int qq = qg + L::QG * j;
+      const int qpos = q0 + qq;
+      const float l = lse_t[qq], dl = delta_t[qq];
+#pragma unroll
+      for (int i = 0; i < L::AK; ++i) {
+        const int key = kg + L::KG * i;
+        const bool ok = qpos < s_len && fa_keep(qpos, k0 + key, t_len, causal, window);
+        const float p = ok ? expf(sT[i][j] * scale - l) : 0.0f;
+        ps[key * L::PS + qq] = p_bf16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
+        dss[key * L::PS + qq] = p * (dpT[i][j] - dl);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int r = 0; r < FB_QUERIES; r += 4) {
+      float4 pv[L::BK], ov[4];
+#pragma unroll
+      for (int i = 0; i < L::BK; ++i) pv[i] = ld4(ps + (bkg + L::BKG * i) * L::PS + r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ov[e] = ld4(dot + (r + e) * L::DS + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < L::BK; ++i) {
+        axpy4(dv_acc[i], pv[i].x, ov[0]);
+        axpy4(dv_acc[i], pv[i].y, ov[1]);
+        axpy4(dv_acc[i], pv[i].z, ov[2]);
+        axpy4(dv_acc[i], pv[i].w, ov[3]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < L::BK; ++i) pv[i] = ld4(dss + (bkg + L::BKG * i) * L::PS + r);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kpos = k0 + tr + 16 * i;
-          const int qpos = q0 + tc + 16 * j;
-          const bool ok = qpos < s_len && fa_keep(qpos, kpos, t_len, causal, window);
-          const float p = ok ? expf(st[i][j] * scale - lse_s[tc + 16 * j]) : 0.0f;
-          ps[(tr + 16 * i) * L::PS + tc + 16 * j] =
-              p_bf16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
-          dss[(tr + 16 * i) * L::PS + tc + 16 * j] = p * (dpt[i][j] - delta_s[tc + 16 * j]);
-        }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < FB_TILE; ++r) {
-        float pv[4], dsv[4], oo[L::DC], qq[L::DC];
+      for (int e = 0; e < 4; ++e) ov[e] = ld4(qt + (r + e) * L::DS + 4 * cg);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = ps[(tr + 16 * i) * L::PS + r];
-          dsv[i] = dss[(tr + 16 * i) * L::PS + r];
-        }
-#pragma unroll
-        for (int j = 0; j < L::DC; ++j) {
-          oo[j] = dos[r * L::RS + tc + 16 * j];
-          qq[j] = qs[r * L::RS + tc + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < L::DC; ++j) {
-            dv_acc[i][j] = fmaf(pv[i], oo[j], dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(dsv[i], qq[j], dk_acc[i][j]);
-          }
+      for (int i = 0; i < L::BK; ++i) {
+        axpy4(dk_acc[i], pv[i].x, ov[0]);
+        axpy4(dk_acc[i], pv[i].y, ov[1]);
+        axpy4(dk_acc[i], pv[i].z, ov[2]);
+        axpy4(dk_acc[i], pv[i].w, ov[3]);
       }
     }
   }
 
+  // the partial sums -> the stage buffers ([2][64][CG] float4: dK's, then
+  // dV's), added over the cluster in rank order and stored
+  cp_async_wait<0>();
+  __syncthreads();                // every thread is done with the stages
+  float4* part = reinterpret_cast<float4*>(qs);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + tr + 16 * i;
-    if (kpos >= t_len) continue;
-    const size_t off = kv_base + static_cast<size_t>(kpos) * kv * D + head_off;
-#pragma unroll
-    for (int j = 0; j < L::DC; ++j) {
-      store_as(dk + off + tc + 16 * j, dk_acc[i][j] * scale);
-      store_as(dv + off + tc + 16 * j, dv_acc[i][j]);
-    }
+  for (int i = 0; i < L::BK; ++i) {
+    const int key = bkg + L::BKG * i;
+    part[key * L::CG + cg] = make_float4(dk_acc[i][0], dk_acc[i][1], dk_acc[i][2], dk_acc[i][3]);
+    part[(FB_KEYS + key) * L::CG + cg] =
+        make_float4(dv_acc[i][0], dv_acc[i][1], dv_acc[i][2], dv_acc[i][3]);
   }
+  cluster_sum_rank_order_spread(part, 2 * FB_KEYS * L::CG, [&](int e, float4 x) {
+    const int row = e / L::CG, c = (e % L::CG) * 4;
+    const int kpos = k0 + row % FB_KEYS;
+    if (c >= D || kpos >= t_len) return;
+    const bool is_dk = row < FB_KEYS;
+    const float f = is_dk ? scale : 1.0f;
+    T* dst = (is_dk ? dk : dv) + kv_off + static_cast<size_t>(kpos) * k_row + c;
+    store_as(dst, x.x * f);
+    store_as(dst + 1, x.y * f);
+    store_as(dst + 2, x.z * f);
+    store_as(dst + 3, x.w * f);
+  });
 }
 
-// dQ of one query tile of one head: the block loops over the key tiles the
-// forward reaches, S and dP by FMA (a 4 x 4 block of (query, key) pairs per
-// thread), dS = P (dP - Delta) into shared memory, then dQ += dS K; scaled
-// and written once at the end.
+// dQ's layout: the d side padded as dK/dV's.  S and dP: a thread forms AQ
+// = 4 queries x AK keys (queries qg + 8 j, keys kg + KG i, kg the fast
+// index, so a quarter warp shares its Q and dO loads); dQ: BQ queries x 4
+// columns.  Threads from 64 at D <= 32 to 256 at D >= 112, so that both
+// tiles keep at least 4 FMA a load.
+template <int D>
+struct FbQ {
+  static constexpr int DP = D == 112 ? 128 : D;
+  static constexpr int DS = DP + 4;
+  static constexpr int SS = FB_KEYS + 16;          // dS rows: 2 queries a warp, no conflict
+  static constexpr int THREADS = DP <= 32 ? 64 : (DP == 64 ? 128 : 256);
+  static constexpr int AQ = 4;
+  static constexpr int AK = FB_KEYS * FB_QUERIES / THREADS / AQ;   // 8, 4, 2
+  static constexpr int KG = FB_KEYS / AK;
+  static constexpr int QG = FB_QUERIES / AQ;
+  static constexpr int CG = DP / 4;
+  static constexpr int BQ = FB_QUERIES * CG / THREADS;              // 2 at D = 16, else 4
+  static constexpr int BQG = FB_QUERIES / BQ;
+  static constexpr int TILE_K = FB_KEYS * DS;
+  static constexpr int TILE_Q = FB_QUERIES * DS;
+  // Q, dO; two stages of (K, V); dS; lse, Delta
+  static constexpr int BYTES = (2 * TILE_Q + 4 * TILE_K + FB_QUERIES * SS + 2 * FB_QUERIES) * 4;
+  static_assert(QG * KG == THREADS && BQG * CG == THREADS, "threads must cover the tiles");
+};
+
+// dQ of 32 queries of one head: Q, dO, lse and Delta copied once, the key
+// tiles of the forward's range (64 keys) two deep by cp.async.  Per key
+// tile: S = Q K^T and dP = dO V^T (4 x AK a thread, 128-bit loads along
+// d); dS = P (dP - Delta) under the mask into shared memory; dQ += dS K
+// (BQ x 4 a thread, 128-bit loads along keys and d).  Scaled and stored
+// once.  Blocks are issued latest queries first (causal work grows with
+// the query position).  Each element sums over d, then over the keys in
+// order, tile by tile.  What bounds it on
+// the H100: its FMA issue rate (19 % of its operation bound at train_lm's
+// shape), and there 288 blocks, a little over one wave of 264 (two an SM).
 template <typename T, int D>
-__global__ void __launch_bounds__(FA_THREADS, 1)
+__global__ void __launch_bounds__(FbQ<D>::THREADS)
 flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              T* __restrict__ dq, int s_len, int t_len, int h, int kv,
-                              int causal, int window, float scale) {
-  using L = FbLayout<D>;
-  extern __shared__ float smem[];
-  float* qs = smem;                     // [64][RS] the query tile
-  float* dos = qs + L::TILE;            // [64][RS] its dO tile
-  float* ks = dos + L::TILE;            // [64][RS] a key tile
-  float* vs = ks + L::TILE;             // [64][RS] its value tile
-  float* dss = vs + L::TILE;            // [64 queries][PS] dS
-  __shared__ float lse_s[FB_TILE], delta_s[FB_TILE];
+                              T* __restrict__ dq, int n_bh, int s_len, int t_len, int h, int kv,
+                              int causal, int window, float scale, int vec16) {
+  using L = FbQ<D>;
+  extern __shared__ __align__(16) float fb_smem[];
+  float* qs = fb_smem;                        // [32][DS] the block's queries
+  float* dos = qs + L::TILE_Q;                // [32][DS] their dO
+  float* ks = dos + L::TILE_Q;                // [2][64][DS] a key tile
+  float* vs = ks + 2 * L::TILE_K;             // [2][64][DS] its values
+  float* dss = vs + 2 * L::TILE_K;            // [32][SS] dS
+  float* lse_s = dss + FB_QUERIES * L::SS;    // [32]
+  float* delta_s = lse_s + FB_QUERIES;        // [32]
 
   const int g = h / kv;
-  const int tile = gridDim.x - 1 - blockIdx.x;     // longest (latest q) first
-  const int q0 = tile * FB_TILE;
-  const int b = blockIdx.y / h;
-  const int head = blockIdx.y % h;
-  const int kvh = head / g;
-  const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
-  const size_t kv_base = static_cast<size_t>(b) * t_len * kv * D;
-  const size_t head_off = static_cast<size_t>(kvh) * D;
-  const size_t stat_base = (static_cast<size_t>(b) * h + head) * s_len;
-  load_q_tile<T, D>(q + q_base, qs, q0, s_len, h, head);
-  load_q_tile<T, D>(dout + q_base, dos, q0, s_len, h, head);
-  if (threadIdx.x < FB_TILE) {
-    const int qpos = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = qpos < s_len ? lse[stat_base + qpos] : 0.0f;
-    delta_s[threadIdx.x] = qpos < s_len ? delta[stat_base + qpos] : 0.0f;
-  }
-
-  const int tc = threadIdx.x % 16;    // keys tc + 16 j; output columns tc + 16 j
-  const int tr = threadIdx.x / 16;    // queries tr + 16 i
-  float dq_acc[4][L::DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < L::DC; ++j) dq_acc[i][j] = 0.0f;
+  const int n_tiles = (s_len + FB_QUERIES - 1) / FB_QUERIES;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) % n_bh;
+  const int b = bh / h, head = bh % h, kvh = head / g;
+  const int q0 = tile * FB_QUERIES;
+  const size_t q_off = static_cast<size_t>(b) * s_len * h * D + static_cast<size_t>(head) * D;
+  const size_t kv_off = static_cast<size_t>(b) * t_len * kv * D + static_cast<size_t>(kvh) * D;
+  const size_t q_row = static_cast<size_t>(h) * D;
+  const size_t k_row = static_cast<size_t>(kv) * D;
 
   // the forward's key range for these rows
-  const int q_hi = min(q0 + FB_TILE, s_len) - 1;
+  const int q_hi = min(q0 + FB_QUERIES, s_len) - 1;
   int k_hi = t_len - 1;
   if (causal) k_hi = min(k_hi, q_hi);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt0 = k_lo / FB_KEYS;
+  const int n_kt = k_lo <= k_hi ? k_hi / FB_KEYS - kt0 + 1 : 0;
 
-  for (int kt = k_lo / FB_TILE; k_lo <= k_hi && kt <= k_hi / FB_TILE; ++kt) {
-    const int k0 = kt * FB_TILE;
-    __syncthreads();                  // the previous tile's reads of ks, vs, dss are done
-    load_kv_tile<T, D>(k + kv_base, ks, k0, t_len, kv, head_off);
-    load_kv_tile<T, D>(v + kv_base, vs, k0, t_len, kv, head_off);
-    __syncthreads();
+  fb_stage_rows<T, D, L::DS, L::THREADS>(qs, q + q_off, q_row, q0, FB_QUERIES, s_len, vec16);
+  fb_stage_rows<T, D, L::DS, L::THREADS>(dos, dout + q_off, q_row, q0, FB_QUERIES, s_len, vec16);
+  fb_stage_stats<L::THREADS>(lse_s, delta_s, lse, delta,
+                             (static_cast<size_t>(b) * h + head) * s_len, q0, s_len);
+  if (n_kt > 0) {
+    fb_stage_rows<T, D, L::DS, L::THREADS>(ks, k + kv_off, k_row, kt0 * FB_KEYS, FB_KEYS, t_len,
+                                           vec16);
+    fb_stage_rows<T, D, L::DS, L::THREADS>(vs, v + kv_off, k_row, kt0 * FB_KEYS, FB_KEYS, t_len,
+                                           vec16);
+  }
+  cp_async_commit();
 
-    float sc[4][4], dp[4][4];
+  const int kg = threadIdx.x % L::KG, qg = threadIdx.x / L::KG;     // S, dP
+  const int cg = threadIdx.x % L::CG, bqg = threadIdx.x / L::CG;    // dQ
+  float acc[L::BQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < L::BQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.0f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    const int k0 = (kt0 + it) * FB_KEYS;
+    cp_async_wait<0>();
+    __syncthreads();              // the tile has landed; the last one is done with
+                                  // stage st ^ 1 and dS
+    if (it + 1 < n_kt) {          // the next key tile loads while this one is computed
+      fb_stage_rows<T, D, L::DS, L::THREADS>(ks + (st ^ 1) * L::TILE_K, k + kv_off, k_row,
+                                             k0 + FB_KEYS, FB_KEYS, t_len, vec16);
+      fb_stage_rows<T, D, L::DS, L::THREADS>(vs + (st ^ 1) * L::TILE_K, v + kv_off, k_row,
+                                             k0 + FB_KEYS, FB_KEYS, t_len, vec16);
+    }
+    cp_async_commit();
+    const float* kt = ks + st * L::TILE_K;
+    const float* vt = vs + st * L::TILE_K;
+
+    float sc[L::AQ][L::AK], dp[L::AQ][L::AK];
+#pragma unroll
+    for (int j = 0; j < L::AQ; ++j)
+#pragma unroll
+      for (int i = 0; i < L::AK; ++i) sc[j][i] = dp[j][i] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qq[4], oo[4], kk[4], vv[4];
+    for (int d = 0; d < D; d += 4) {
+      float4 a[L::AQ], bk[L::AK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qq[i] = qs[(tr + 16 * i) * L::RS + d];
-        oo[i] = dos[(tr + 16 * i) * L::RS + d];
-      }
+      for (int j = 0; j < L::AQ; ++j) a[j] = ld4(qs + (qg + L::QG * j) * L::DS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kk[j] = ks[(tc + 16 * j) * L::RS + d];
-        vv[j] = vs[(tc + 16 * j) * L::RS + d];
-      }
+      for (int i = 0; i < L::AK; ++i) bk[i] = ld4(kt + (kg + L::KG * i) * L::DS + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < L::AQ; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qq[i], kk[j], sc[i][j]);
-          dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
-        }
+        for (int i = 0; i < L::AK; ++i) sc[j][i] = dot4(a[j], bk[i], sc[j][i]);
+#pragma unroll
+      for (int j = 0; j < L::AQ; ++j) a[j] = ld4(dos + (qg + L::QG * j) * L::DS + d);
+#pragma unroll
+      for (int i = 0; i < L::AK; ++i) bk[i] = ld4(vt + (kg + L::KG * i) * L::DS + d);
+#pragma unroll
+      for (int j = 0; j < L::AQ; ++j)
+#pragma unroll
+        for (int i = 0; i < L::AK; ++i) dp[j][i] = dot4(a[j], bk[i], dp[j][i]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < L::AQ; ++j) {
+      const int qq = qg + L::QG * j;
+      const int qpos = q0 + qq;
+      const float l = lse_s[qq], dl = delta_s[qq];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qpos = q0 + tr + 16 * i;
-        const int kpos = k0 + tc + 16 * j;
-        const bool ok = qpos < s_len && fa_keep(qpos, kpos, t_len, causal, window);
-        const float p = ok ? expf(sc[i][j] * scale - lse_s[tr + 16 * i]) : 0.0f;
-        dss[(tr + 16 * i) * L::PS + tc + 16 * j] = p * (dp[i][j] - delta_s[tr + 16 * i]);
+      for (int i = 0; i < L::AK; ++i) {
+        const int key = kg + L::KG * i;
+        const bool ok = qpos < s_len && fa_keep(qpos, k0 + key, t_len, causal, window);
+        const float p = ok ? expf(sc[j][i] * scale - l) : 0.0f;
+        dss[qq * L::SS + key] = p * (dp[j][i] - dl);
       }
+    }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < FB_TILE; ++c) {
-      float dsv[4], kk[L::DC];
+    for (int r = 0; r < FB_KEYS; r += 4) {
+      float4 dsv[L::BQ], kr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(tr + 16 * i) * L::PS + c];
+      for (int i = 0; i < L::BQ; ++i) dsv[i] = ld4(dss + (bqg + L::BQG * i) * L::SS + r);
 #pragma unroll
-      for (int j = 0; j < L::DC; ++j) kk[j] = ks[c * L::RS + tc + 16 * j];
+      for (int e = 0; e < 4; ++e) kr[e] = ld4(kt + (r + e) * L::DS + 4 * cg);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < L::DC; ++j) dq_acc[i][j] = fmaf(dsv[i], kk[j], dq_acc[i][j]);
+      for (int i = 0; i < L::BQ; ++i) {
+        axpy4(acc[i], dsv[i].x, kr[0]);
+        axpy4(acc[i], dsv[i].y, kr[1]);
+        axpy4(acc[i], dsv[i].z, kr[2]);
+        axpy4(acc[i], dsv[i].w, kr[3]);
+      }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + tr + 16 * i;
-    if (qpos >= s_len) continue;
-    T* dst = dq + q_base + (static_cast<size_t>(qpos) * h + head) * D;
+  for (int i = 0; i < L::BQ; ++i) {
+    const int qpos = q0 + bqg + L::BQG * i;
+    if (qpos >= s_len || 4 * cg >= D) continue;
+    T* dst = dq + q_off + static_cast<size_t>(qpos) * q_row + 4 * cg;
 #pragma unroll
-    for (int j = 0; j < L::DC; ++j) store_as(dst + tc + 16 * j, dq_acc[i][j] * scale);
+    for (int c = 0; c < 4; ++c) store_as(dst + c, acc[i][c] * scale);
   }
+}
+
+// float32 operands all on the 16-byte grid (their rows then are too: D * 4
+// bytes is a multiple of 16) take 16-byte copies
+template <typename T>
+int fb_vec16(const void* q, const void* k, const void* v, const void* dout) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  return sizeof(T) == 4 && bits % 16 == 0;
+}
+
+// dK/dV's dynamic shared-memory limit raised once per device (float32 and
+// bf16 instantiations share the layout)
+template <typename T, int D>
+cudaError_t dkdv_ready() {
+  static std::atomic<bool> raised[MAX_DEVICES];
+  return allow_dynamic_smem(flash_attention_bwd_dkdv_kernel<T, D>, FbKv<D>::BYTES, raised);
 }
 
 template <typename T, int D>
@@ -975,33 +1224,67 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dou
                     const float* lse, const float* delta, void* dk, void* dv, int batch,
                     int s, int t, int h, int kv, int causal, int window, float scale,
                     int p_bf16, cudaStream_t stream) {
-  using L = FbLayout<D>;
-  static std::atomic<bool> raised[MAX_DEVICES];
-  const cudaError_t err = allow_dynamic_smem(flash_attention_bwd_dkdv_kernel<T, D>,
-                                             static_cast<int>(L::DKDV_BYTES), raised);
+  using L = FbKv<D>;
+  const cudaError_t err = dkdv_ready<T, D>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t + FB_TILE - 1) / FB_TILE, batch * kv);
-  flash_attention_bwd_dkdv_kernel<T, D><<<grid, FA_THREADS, L::DKDV_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s, t,
-      h, kv, causal, window, scale, p_bf16);
-  return static_cast<int>(cudaGetLastError());
+  const int ranks = fb_dkdv_ranks(batch, s, t, h, kv, D, causal, window);
+  const long long blocks =
+      static_cast<long long>(batch) * kv * ((t + FB_KEYS - 1) / FB_KEYS) * ranks;
+  if (blocks > MAX_GRID_X) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_clustered(
+      flash_attention_bwd_dkdv_kernel<T, D>, dim3(static_cast<unsigned>(blocks)), L::THREADS,
+      L::BYTES, ranks, stream, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), batch * kv, ranks, s, t, h, kv, causal, window, scale, p_bf16,
+      fb_vec16<T>(q, k, v, dout)));
+}
+
+// The plan of the dK/dV launch, for a test to hold against the Python one:
+// plan[0] = R, plan[1] = clusters of R blocks the device runs at once,
+// plan[2] = key tiles; then per key tile its first query tile, its query
+// tiles, and the R + 1 bounds of the ranks' shares.
+template <int D>
+int dkdv_plan(int batch, int s, int t, int h, int kv, int causal, int window, int* plan,
+              int plan_len) {
+  using L = FbKv<D>;
+  const int ranks = fb_dkdv_ranks(batch, s, t, h, kv, D, causal, window);
+  const int n_kt = (t + FB_KEYS - 1) / FB_KEYS;
+  if (plan_len < 3 + static_cast<long long>(n_kt) * (ranks + 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = dkdv_ready<float, D>();
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = max_active_clusters(flash_attention_bwd_dkdv_kernel<float, D>, L::THREADS, L::BYTES,
+                              ranks, &clusters);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = ranks;
+  plan[1] = clusters;
+  plan[2] = n_kt;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    int* p = plan + 3 + kt * (ranks + 3);
+    fb_query_tiles(kt, s, t, causal, window, &p[0], &p[1]);
+    for (int r = 0; r <= ranks; ++r) p[2 + r] = fb_share((h / kv) * p[1], r, ranks);
+  }
+  return 0;
 }
 
 template <typename T, int D>
 int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dq, int batch, int s, int t,
                   int h, int kv, int causal, int window, float scale, cudaStream_t stream) {
-  using L = FbLayout<D>;
+  using L = FbQ<D>;
   static std::atomic<bool> raised[MAX_DEVICES];
-  const cudaError_t err = allow_dynamic_smem(flash_attention_bwd_dq_kernel<T, D>,
-                                             static_cast<int>(L::DQ_BYTES), raised);
+  const cudaError_t err =
+      allow_dynamic_smem(flash_attention_bwd_dq_kernel<T, D>, L::BYTES, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + FB_TILE - 1) / FB_TILE, batch * h);
-  flash_attention_bwd_dq_kernel<T, D><<<grid, FA_THREADS, L::DQ_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), s, t, h, kv, causal, window,
-      scale);
+  const long long blocks =
+      static_cast<long long>(batch) * h * ((s + FB_QUERIES - 1) / FB_QUERIES);
+  if (blocks > MAX_GRID_X) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bwd_dq_kernel<T, D>
+      <<<static_cast<unsigned>(blocks), L::THREADS, L::BYTES, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), batch * h, s, t, h, kv,
+          causal, window, scale, fb_vec16<T>(q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1579,8 +1862,6 @@ flash_attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-constexpr long long MAX_GRID_X = 0x7fffffffLL;
-
 template <int D, bool P_BF16>
 int launch_bwd_dkdv_mma(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dk, void* dv, int batch,
@@ -1703,11 +1984,13 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k, const voi
 //
 // repro_flash_attention_bwd_dkdv: dk, dv (batch, t, kv, d) in q's dtype from
 // q, k, v, dout (the forward's operands and the output's gradient, one
-// dtype), the forward's lse and delta (batch, h, s) float32; one block per
-// (batch * kv head, 64-key tile), the G query heads' sum in a fixed order.
+// dtype), the forward's lse and delta (batch, h, s) float32; one cluster of
+// R blocks per (batch * kv head, 64-key tile), R from the shape
+// (repro_flash_attention_bwd_dkdv_clusters reports it), the G query heads'
+// sum in a fixed order.
 //
 // repro_flash_attention_bwd_dq: dq (batch, s, h, d) in q's dtype from the
-// same inputs; one block per (batch * head, 64-row tile).
+// same inputs; one block per (batch * head, 32 queries).
 //
 // causal, window, scale and p_bf16 are the forward's.  Each returns the
 // CUDA error code of its launch (0 = success); an empty input launches
@@ -1762,6 +2045,30 @@ extern "C" int repro_flash_attention_bwd_dq(const void* q, const void* k, const 
                                           batch, s, t, h, kv, d, causal, window, scale, 0, st)
       : launch_bwd_for_dim<float>(1, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, s,
                                   t, h, kv, d, causal, window, scale, 0, st);
+}
+
+// The plan of repro_flash_attention_bwd_dkdv's launch at a shape (the
+// arguments it shares with that entry point) into plan[0 .. plan_len):
+// plan[0] = R, the cluster size; plan[1] = how many clusters of R blocks
+// the current device runs at once; plan[2] = the key tiles n_kt; then per
+// key tile, R + 3 ints: its first query tile (of 32 queries), its number
+// of query tiles, and the R + 1 bounds of the ranks' shares of its items
+// (head gi, query tile j) in the order gi * n_qt + j.  Returns
+// cudaErrorInvalidValue when plan_len < 3 + n_kt (R + 3), else the CUDA
+// error of the occupancy query (0 = success).
+extern "C" int repro_flash_attention_bwd_dkdv_clusters(int batch, int s, int t, int h, int kv,
+                                                       int d, int causal, int window, int* plan,
+                                                       int plan_len) {
+  using namespace repro_torch;
+  if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return dkdv_plan<16>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 32: return dkdv_plan<32>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 64: return dkdv_plan<64>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 112: return dkdv_plan<112>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 128: return dkdv_plan<128>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The backward's bf16 tensor-core route (the wrapper's

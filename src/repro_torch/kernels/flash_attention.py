@@ -46,6 +46,7 @@ sum over a group's query heads is in a fixed order, without atomics.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -273,6 +274,78 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The "fma" route's tiles (csrc/flash_attention.cu, FB_*): a dK/dV block
+# owns FMA_BWD_KEYS keys and walks items of FMA_BWD_QUERIES queries of one
+# query head; its walk is split over a thread-block cluster of at most
+# FMA_BWD_MAX_RANKS blocks.  A dQ block owns FMA_BWD_QUERIES queries.
+FMA_BWD_KEYS, FMA_BWD_QUERIES, FMA_BWD_MAX_RANKS = 64, 32, 8
+
+
+def fma_dkdv_query_tiles(kt: int, s: int, t: int, causal: bool, window: int
+                         ) -> tuple[int, int]:
+    """``(qt0, n_qt)``: the query tiles ``[qt0, qt0 + n_qt)`` of
+    FMA_BWD_QUERIES rows whose rows keep a key of key tile ``kt`` (causal:
+    from its first key on; a window: up to its last key + window - 1).
+    The tile's items are (head gi, query tile qt0 + j) in the order ``gi *
+    n_qt + j``, gi over the G query heads of the KV head."""
+    k0 = kt * FMA_BWD_KEYS
+    k_last = min(k0 + FMA_BWD_KEYS, t) - 1
+    q_lo = k0 if causal else 0
+    q_hi = min(s - 1, k_last + window - 1) if window > 0 else s - 1
+    qt0 = q_lo // FMA_BWD_QUERIES
+    return qt0, (q_hi // FMA_BWD_QUERIES - qt0 + 1 if q_lo <= q_hi else 0)
+
+
+def fma_dkdv_ranks(batch: int, s: int, t: int, h: int, kv: int, d: int, causal: bool,
+                   window: int) -> int:
+    """The cluster size R of the "fma" dK/dV launch, a pure function of the
+    shape (``csrc/flash_attention.cu:fb_dkdv_ranks``): the largest power of
+    two up to FMA_BWD_MAX_RANKS that keeps the grid (batch * kv * key tiles
+    * R blocks) within one wave (build.split_ranks; at D >= 112 a block
+    fills an SM's shared memory, so half of ONE_WAVE_BLOCKS) and gives
+    every rank of the busiest key tile an item.  train_lm's attention (B =
+    4, S = T = 192, 12 heads over 4, D = 64, causal): 48 key tiles, the
+    busiest with 18 items, R = 4."""
+    n_kt = -(-t // FMA_BWD_KEYS)
+    most = max((h // kv * fma_dkdv_query_tiles(kt, s, t, causal, window)[1]
+                for kt in range(n_kt)), default=0)
+    wave = build.ONE_WAVE_BLOCKS // 2 if d >= 112 else build.ONE_WAVE_BLOCKS
+    return build.split_ranks(batch * kv * n_kt, FMA_BWD_MAX_RANKS, most, wave=wave)
+
+
+def fma_dkdv_plan(batch: int, s: int, t: int, h: int, kv: int, d: int, causal: bool,
+                  window: int) -> dict:
+    """The "fma" dK/dV launch's plan: ``ranks`` and, per key tile,
+    ``(qt0, n_qt, bounds)`` with ``bounds`` the R + 1 item indices that cut
+    the tile's items into the ranks' contiguous shares (rank r walks
+    ``[bounds[r], bounds[r + 1])``), as the kernel cuts them."""
+    ranks = fma_dkdv_ranks(batch, s, t, h, kv, d, causal, window)
+    tiles = []
+    for kt in range(-(-t // FMA_BWD_KEYS)):
+        qt0, n_qt = fma_dkdv_query_tiles(kt, s, t, causal, window)
+        n = h // kv * n_qt
+        tiles.append((qt0, n_qt, [n * r // ranks for r in range(ranks + 1)]))
+    return dict(ranks=ranks, tiles=tiles)
+
+
+def fma_dkdv_plan_on_device(batch: int, s: int, t: int, h: int, kv: int, d: int,
+                            causal: bool, window: int) -> dict:
+    """The plan the C launcher computes for the same shape
+    (``repro_flash_attention_bwd_dkdv_clusters``), in
+    :func:`fma_dkdv_plan`'s form, plus ``clusters_per_wave``: how many
+    clusters of R blocks the current CUDA device runs at once."""
+    n_kt = -(-t // FMA_BWD_KEYS)
+    buf = (ctypes.c_int * (3 + n_kt * (FMA_BWD_MAX_RANKS + 3)))()
+    build.load_library().call("repro_flash_attention_bwd_dkdv_clusters", batch, s, t, h, kv,
+                              d, int(causal), int(window), ctypes.addressof(buf), len(buf))
+    ranks, clusters = buf[0], buf[1]
+    tiles = []
+    for kt in range(buf[2]):
+        p = buf[3 + kt * (ranks + 3):3 + (kt + 1) * (ranks + 3)]
+        tiles.append((p[0], p[1], list(p[2:])))
+    return dict(ranks=ranks, tiles=tiles, clusters_per_wave=clusters)
+
+
 def _count_bwd(fn, dtype: torch.dtype, route: str | None = None) -> None:
     fn.launches += 1
     fn.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
@@ -318,10 +391,12 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True, wi
                              p_dtype: torch.dtype | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """dK and dV (B, T, KV, D) in k's dtype: one CUDA launch (counted, by
-    dtype and by route), a block per (batch, KV head, key tile), on the
-    tensor cores (``"mma"``: a block of 8 warps per 64 keys) or on float32
-    FMA (``"fma"``).  No fallback: a failed launch raises.  CUDA tensors
-    only, checked by :func:`flash_attention_bwd`."""
+    dtype and by route) per (batch, KV head, 64-key tile), on the tensor
+    cores (``"mma"``: a block of 8 warps) or on float32 FMA (``"fma"``: a
+    cluster of :func:`fma_dkdv_ranks` blocks that split the tile's (head,
+    32-query tile) items and add their sums in rank order).  No fallback:
+    a failed launch raises.  CUDA tensors only, checked by
+    :func:`flash_attention_bwd`."""
     route, ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     scale, p_bf16 = 1.0 / math.sqrt(dims[-1]), int(p_dtype == torch.bfloat16)
@@ -344,7 +419,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     """dQ (B, S, H, D) in q's dtype: one CUDA launch (counted, by dtype and
     by route), on the tensor cores (``"mma"``: a block of 8 warps per 128
     rows of the (q position, group member) index, as the forward) or on
-    float32 FMA (``"fma"``: a block per (batch, head, 64 rows)).  No
+    float32 FMA (``"fma"``: a block per (batch, head, 32 queries)).  No
     fallback.  CUDA tensors only, checked by :func:`flash_attention_bwd`."""
     route, ptrs, dims = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)

@@ -941,6 +941,79 @@ def test_flash_attention_bwd_mma_is_deterministic(cuda):
         assert torch.equal(a, c)
 
 
+# (b, s, t, h, kv, d, causal, window, p_bf16): the cases of
+# test_flash_attention_grad_runs_the_backward_kernels and a window at G = 48
+# with a ragged S = 515
+BWD_FMA_CASES = BWD_MMA_CASES[:7] + [(1, 515, 515, 48, 1, 64, True, 100, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_FMA_CASES)
+def test_flash_attention_bwd_fma_route(cuda, case):
+    """float32 inputs take the FMA backward (dK/dV split over a cluster,
+    dQ a block per 32 queries): one launch each of the dK/dV and dQ
+    kernels on "fma" and none on "mma", with the gradients within 1e-5 of
+    each array's largest element of the plain backward (1e-2 with p
+    rounded, as test_flash_attention_grad_runs_the_backward_kernels)."""
+    b, s, t, h, kv, d, causal, window, p_bf16 = case
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    do = torch.randn((b, s, h, d), generator=gen, device=cuda)
+    kw = dict(causal=causal, window=window, p_dtype=torch.bfloat16 if p_bf16 else None)
+    o, lse = k8.flash_attention_lse(q, k, v, **kw)
+    before = ops.launch_counts_bwd_by_route()
+    got = k8.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    after = ops.launch_counts_bwd_by_route()
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert after[name]["fma"] == before[name]["fma"] + 1, name
+        assert after[name]["mma"] == before[name]["mma"], name
+    want = k8.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float32
+        _bwd_close(g, w, 0.0, 1e-2 if p_bf16 else 1e-5, f"d{name} {case}")
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_fma_is_deterministic(cuda):
+    """Two float32 backward runs on the same inputs give the same bits (the
+    dK/dV split's partial sums added in rank order, no atomics), and so
+    does the dK/dV kernel called on its own."""
+    gen = torch.Generator(device=cuda).manual_seed(67)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((1, 515, 16, 64), (1, 515, 4, 64), (1, 515, 4, 64)))
+    do = torch.randn(q.shape, generator=gen, device=cuda)
+    o, lse = k8.flash_attention_lse(q, k, v)
+    assert k8.fma_dkdv_ranks(1, 515, 515, 16, 4, 64, True, 0) > 1
+    first = k8.flash_attention_bwd(q, k, v, o, lse, do)
+    second = k8.flash_attention_bwd(q, k, v, o, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    alone = k8.flash_attention_bwd_dkdv(q, k, v, do, lse, k8.flash_attention_bwd_delta(o, do))
+    for a, c in zip(alone, first[1:]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 192, 192, 12, 4, 64, True, 0),
+    (1, 2048, 2048, 32, 8, 128, True, 0),
+    (2, 515, 515, 8, 2, 112, True, 0),
+    (2, 515, 300, 8, 2, 32, False, 0),
+    (1, 515, 515, 48, 1, 64, True, 100),
+    (2, 515, 515, 8, 2, 16, True, 0),
+])
+def test_fma_dkdv_plan_matches_the_launcher(cuda, shape):
+    """The Python plan of the FMA dK/dV split (cluster size, each key
+    tile's query tiles and the ranks' shares) equals the one the C
+    launcher computes, and its clusters fit one wave on this card."""
+    plan = k8.fma_dkdv_plan(*shape)
+    on_card = k8.fma_dkdv_plan_on_device(*shape)
+    assert plan == {key: on_card[key] for key in ("ranks", "tiles")}
+    clusters = shape[0] * shape[4] * len(plan["tiles"])
+    assert plan["ranks"] == 1 or clusters <= on_card["clusters_per_wave"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3_8b", "whisper_base"])
 def test_train_step_on_the_card_matches_cpu(cuda, arch):
