@@ -100,24 +100,29 @@ non-zero:
    K7a and K7b each launched: ``spd_transform_arrays`` (K7a + K7b) on a
    dense n = 4096 system, ``crosspoint_mvm`` (K6) on its (8192, 8192)
    crossbar from ``crosspoint_layout`` at the DC node voltages, with 64
-   voltage vectors and in bf16, and 200 ``transient_step`` (K5) steps of
-   one dense n = 1024 circuit (nz = 8192) from 16 start states, one step
-   of it in bf16 and one on its step response alone, failing unless K7a
-   took its 16-byte route, K6's b = 1 product its GEMV route, the b = 64
-   float32 one its split-k route with 16-byte copies and the bf16 one its
-   tensor-core route, and K5's 16-column steps its split-k route with
-   16-byte copies and the one-column step its column route.  Then the
-   transform against float64, each kernel against its plain version
-   within a bar scaled to its largest output (K6 and K5 in bf16 element
-   by element), K7a bit for bit against its order in plain PyTorch,
-   planted faults that the bars must reject by more than 1000x (two for
-   K6 in bf16; a cluster rank's share left out of K7a, K6 in float32, K4
-   and K5), two launches of K7a, K6 float32, K4 and K5 bit for bit equal,
-   the splits of K6, K4 and K5 within one wave of the card's clusters,
-   K5's column 0 against 500 launches of K4, each kernel at ragged
-   shapes (K5 on every route in both dtypes, K6 on every route, K7a on
-   both routes, each also off the 16-byte grid), and the times of kernel,
-   plain version and library call;
+   voltage vectors and in bf16 (and at the DC voltages in bf16), and 200
+   ``transient_step`` (K5) steps of one dense n = 1024 circuit (nz =
+   8192) from 16 start states, one step of it in bf16 and one on its step
+   response alone in both dtypes, failing unless K7a took its 16-byte
+   route, K6's b = 1 products its GEMV route, the b = 64 float32 one its
+   split-k route with 16-byte copies and the bf16 one its tensor-core
+   route, and K5's 16-column steps its split-k route with 16-byte copies
+   and the one-column steps its column route, the GEMV (K6 b = 1, K5 nb =
+   1) on its 16-byte variant.  Then the transform against float64, each
+   kernel against its plain version within a bar scaled to its largest
+   output (K6 and K5 in bf16 element by element), K7a and the GEMV bit for
+   bit against their orders in plain PyTorch, planted faults that the bars
+   must reject by more than 1000x (two for K6 in bf16; a cluster rank's
+   share left out of K7a, K6 in float32, K4 and K5; one warp's rows left
+   unwritten by the GEMV of K6 and of K5), two launches of K7a, K6 float32,
+   K4, K5 and the GEMV bit for bit equal, the splits of K6, K4 and K5
+   within one wave of the card's clusters and the GEMV's plan (C) equal to
+   its Python plan and within one wave, K5's column 0 against 500 launches
+   of K4, each kernel at ragged shapes (K5 on every route in both dtypes,
+   K6 on every route, K7a on both routes, each also off the 16-byte grid;
+   the GEMV bit for bit against its order there too), and the times of
+   kernel (a Python loop and a CUDA graph), plain version and library call
+   (the same two ways);
 5. quickstart — the single-system flow of examples/quickstart.py at
    n = 24 on the card and on the CPU, which must agree;
 6. serve — the language-model serving path.  K8 (flash attention)
@@ -481,7 +486,8 @@ def ell_pair(n: int, dev, steps: int) -> dict:
     t_k2g = graph_ms(lambda: ek.ell_step(idx_t, w_t, z0, c), 100)
     t_k2p = cuda_ms(lambda: ek.ell_step_plain(idx_t, w_t, z0, c), 50)
     idx_l = idx_t.long()
-    t_k2l = cuda_ms(lambda: (w_t * z0.unsqueeze(1).expand(-1, k, -1).gather(2, idx_l)).sum(1), 50)
+    k2_lib = lambda: (w_t * z0.unsqueeze(1).expand(-1, k, -1).gather(2, idx_l)).sum(1)  # noqa: E731
+    t_k2l, t_k2lg = cuda_ms(k2_lib, 50), graph_ms(k2_lib, 50)
     op_bytes = bsz * nz * k * (4 + 4)
     vec_bytes = bsz * nz * 4
     k1_bytes = op_bytes + 3 * vec_bytes + bsz * 4
@@ -496,7 +502,7 @@ def ell_pair(n: int, dev, steps: int) -> dict:
             equals_k2_loop=True),
         ell_step=dict(
             shape=[bsz, k, nz], ms=t_k2, device_ms=t_k2g, plain_ms=t_k2p,
-            library_ms=t_k2l, max_abs_err=e2, max_abs_err_bf16=e2b,
+            library_ms=t_k2l, library_device_ms=t_k2lg, max_abs_err=e2, max_abs_err_bf16=e2b,
             bytes=k2_bytes, flops=bsz * nz * (2 * k + 2)),
         per_step={"route": route, "k1_ms_per_step": t_k1 / steps,
                   "k1_device_ms_per_step": t_k1g / steps,
@@ -618,6 +624,7 @@ def dense_pair(n: int, dev, steps: int) -> dict:
     t_k4p = cuda_ms(lambda: sk.transient_step_batched_plain(m, z0, c), 50)
     cz, zz = c.unsqueeze(-1), z0.unsqueeze(-1)
     t_k4l = cuda_ms(lambda: torch.baddbmm(cz, m, zz), 50)
+    t_k4lg = graph_ms(lambda: torch.baddbmm(cz, m, zz), 50)
     op_bytes = bsz * nz * nz * 4
     vec_bytes = bsz * nz * 4
     k3_bytes = op_bytes + 3 * vec_bytes + bsz * 4
@@ -631,7 +638,7 @@ def dense_pair(n: int, dev, steps: int) -> dict:
             flops=(steps + 1) * bsz * nz * (2 * nz + 2), layout=layout),
         transient_step_batched=dict(
             shape=[bsz, nz, nz], ms=t_k4, device_ms=t_k4g, plain_ms=t_k4p,
-            library_ms=t_k4l, max_abs_err=e4, bytes=k4_bytes,
+            library_ms=t_k4l, library_device_ms=t_k4lg, max_abs_err=e4, bytes=k4_bytes,
             flops=bsz * nz * (2 * nz + 2), split=split),
         per_step={"route": route, "k3_ms_per_step": t_k3 / steps,
                   "k3_device_ms_per_step": t_k3g / steps,
@@ -1506,7 +1513,8 @@ RAGGED_TRANSFORM = 4000
 # or the split-k FFMA product (float32) with 16-byte asynchronous copies
 # and m/k tails, and their masked-load variants (k or nb off the 8- or
 # 4-element grid).
-RAGGED_MVM = (((300, 513, 1), "fma", "fma"), ((300, 513, 5), "mma_scalar", "f32_scalar"),
+RAGGED_MVM = (((300, 513, 1), "fma", "fma"), ((4000, 4004, 1), "fma", "fma"),
+              ((300, 513, 5), "mma_scalar", "f32_scalar"),
               ((257, 130, 64), "mma_scalar", "f32_scalar"),
               ((1000, 1048, 24), "mma_async", "f32_async"),
               ((300, 520, 64), "mma_async", "f32_async"),
@@ -1524,7 +1532,8 @@ RAGGED_COLABS = (((4000, 4004), torch.bfloat16, "scalar"),
 # bf16 (transient_step_route): the column and wide tiles, and the narrow
 # split-k product with 16-byte copies and its masked-load variant (n or nb
 # off the 4- or 8-element grid)
-RAGGED_STEP = (((137, 1), "column", "column"), ((137, 17), "wide", "wide"),
+RAGGED_STEP = (((137, 1), "column", "column"), ((8190, 1), "column", "column"),
+               ((137, 17), "wide", "wide"),
                ((130, 33), "wide", "wide"), ((137, 5), "narrow_scalar", "narrow_scalar"),
                ((8190, 16), "narrow_scalar", "narrow_scalar"),
                ((8190, 2), "narrow_scalar", "narrow_scalar"),
@@ -1549,20 +1558,25 @@ TOL_MVM_F32, TOL_TRANSFORM = 5e-5, 1e-5
 # does not.
 MVM_BF16_RTOL, MVM_BF16_ATOL_OF_MAX = 1e-2, 1e-3
 API_KERNELS = ("transient_step", "crosspoint_mvm", "colabs", "assemble")
-# the routes the counted kernel-API run must take: K6's b = 1 product the
-# GEMV, its b = 64 float32 one the split-k product with 16-byte copies, its
-# bf16 one the tensor cores with 16-byte copies; K7a its 16-byte loads; K5's
-# 200 float32 steps and its bf16 step on 16 columns the split-k product with
-# 16-byte copies, its step on one column the column tile
+# the routes the counted kernel-API run must take: K6's b = 1 products
+# (float32 and bf16) the GEMV, its b = 64 float32 one the split-k product
+# with 16-byte copies, its bf16 one the tensor cores with 16-byte copies;
+# K7a its 16-byte loads; K5's 200 float32 steps and its bf16 step on 16
+# columns the split-k product with 16-byte copies, its steps on one column
+# (float32 and bf16) the GEMV
 API_ROUTES = {"crosspoint_mvm": dict(mma_async=1, mma_scalar=0, f32_async=1, f32_scalar=0,
-                                     fma=1),
+                                     fma=2),
               "colabs": dict(vec16=1, scalar=0),
-              "transient_step": dict(narrow_async=K5_STEPS + 1, narrow_scalar=0, column=1,
+              "transient_step": dict(narrow_async=K5_STEPS + 1, narrow_scalar=0, column=2,
                                      wide=0)}
 # K5's launches of that run by dtype and route: the 200 float32 steps and
 # the bf16 step share the narrow route's name
 API_K5_BY_DTYPE = {"float32": dict(narrow_async=K5_STEPS, narrow_scalar=0, column=1, wide=0),
-                   "bfloat16": dict(narrow_async=1, narrow_scalar=0, column=0, wide=0)}
+                   "bfloat16": dict(narrow_async=1, narrow_scalar=0, column=1, wide=0)}
+# the GEMV's launches of that run by variant (gemv.gemv_variant): each on
+# the 16-byte loads
+API_GEMV_VARIANTS = {"transient_step": dict(vec16=2, scalar=0),
+                     "crosspoint_mvm": dict(vec16=2, scalar=0)}
 # a planted K6 fault leaves out this many k (one 64-deep step) from the
 # rows past m / 2
 K6_FAULT_KSTEP = 64
@@ -1636,6 +1650,21 @@ def k6_f32_partial_dropped(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return mvm.crosspoint_mvm(g[:, :k0].contiguous(), v[:k0].contiguous())
 
 
+def gemv_warp_rows_skipped(gemv_fn, m: int, want: torch.Tensor) -> torch.Tensor:
+    """A planted fault: the GEMV (``gemv_fn()``, m rows) with the rows of
+    one warp, the one that owns the largest output, left unwritten
+    (zero)."""
+    from repro_torch.kernels import gemv
+
+    out = gemv_fn()
+    top = int(want.reshape(-1).abs().argmax())
+    plan = gemv.gemv_plan(m)
+    rows = next(rows for b in range(plan["blocks"]) for w in range(plan["warps"])
+                if top in (rows := gemv.gemv_rows_of(m, b, w)))
+    out.view(m, -1)[rows] = 0
+    return out
+
+
 def share_of_bar(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     """max |got - want| over the bar tol max |want| (above 1 fails)."""
     got, want = got.double(), want.double()
@@ -1676,35 +1705,46 @@ def api_operands(dev) -> dict:
     z = torch.as_tensor(z0, dtype=f32, device=dev)
     return dict(a=torch.as_tensor(a, dtype=f32, device=dev),
                 b=torch.as_tensor(b, dtype=f32, device=dev), tr64=tr64,
-                g=g, g_bf=g.bfloat16(), y=y, v=v, v_bf=v.bfloat16(), m=m, c=c, z=z,
-                m_bf=m.bfloat16(), c_bf=c.bfloat16(), z_bf=z.bfloat16(),
-                z_col=z[:, 0].contiguous(), c_col=c[:, 0].contiguous(), nz=nz, dt=dt)
+                g=g, g_bf=g.bfloat16(), y=y, y_bf=y.bfloat16(), v=v, v_bf=v.bfloat16(), m=m,
+                c=c, z=z, m_bf=m.bfloat16(), c_bf=c.bfloat16(), z_bf=z.bfloat16(),
+                z_col=z[:, 0].contiguous(), c_col=c[:, 0].contiguous(),
+                z_col_bf=z[:, 0].contiguous().bfloat16(),
+                c_col_bf=c[:, 0].contiguous().bfloat16(), nz=nz, dt=dt)
 
 
 def drive_api(op: dict) -> tuple[dict, dict, float]:
     """The kernel API's main path, once, with the launch counts reset just
     before and read just after: the fused transform, the crossbar at its
-    DC voltages, with 64 voltage vectors and in bf16, 200 steps of one
-    circuit from 16 start states, and one step of it in bf16 and one of
-    its step response alone (one column)."""
+    DC voltages (in float32 and bf16), with 64 voltage vectors and in bf16,
+    200 steps of one circuit from 16 start states, and one step of it in
+    bf16 and one of its step response alone (one column, in float32 and
+    bf16).  K6's GEMV launches are also split by dtype
+    (``crosspoint_mvm_fma_by_dtype``), read from its route count around
+    each call."""
     from repro_torch.kernels import ops
 
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = dict(transform=ops.spd_transform_arrays(op["a"], op["b"]),
-               i_dc=ops.crosspoint_mvm(op["g"], op["y"]),
-               i_v=ops.crosspoint_mvm(op["g"], op["v"]),
-               i_bf=ops.crosspoint_mvm(op["g_bf"], op["v_bf"]))
+               i_dc=ops.crosspoint_mvm(op["g"], op["y"]))
+    fma_f32 = mvm.crosspoint_mvm.launches_by_route["fma"]
+    out["i_dc_bf"] = ops.crosspoint_mvm(op["g_bf"], op["y_bf"])
+    fma_bf16 = mvm.crosspoint_mvm.launches_by_route["fma"] - fma_f32
+    out["i_v"] = ops.crosspoint_mvm(op["g"], op["v"])
+    out["i_bf"] = ops.crosspoint_mvm(op["g_bf"], op["v_bf"])
     z = op["z"]
     for _ in range(K5_STEPS):
         z = ops.transient_step(op["m"], z, op["c"], 1.0)
     out["z"] = z
     out["z_bf"] = ops.transient_step(op["m_bf"], op["z_bf"], op["c_bf"], 1.0)
     out["z_b1"] = ops.transient_step(op["m"], op["z_col"], op["c_col"], 1.0)
+    out["z_b1_bf"] = ops.transient_step(op["m_bf"], op["z_col_bf"], op["c_col_bf"], 1.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    counts["crosspoint_mvm_fma_by_dtype"] = dict(float32=fma_f32, bfloat16=fma_bf16)
     by_route = ops.launch_counts_by_route()
     for name in API_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched on the kernel-API path")
@@ -1714,6 +1754,9 @@ def drive_api(op: dict) -> tuple[dict, dict, float]:
     counts["transient_step_by_dtype"] = ops.launch_counts_by_dtype()
     check(counts["transient_step_by_dtype"] == API_K5_BY_DTYPE,
           f"K5 by dtype on the kernel-API path: {counts['transient_step_by_dtype']}")
+    counts["gemv_by_variant"] = ops.launch_counts_by_gemv_variant()
+    check(counts["gemv_by_variant"] == API_GEMV_VARIANTS,
+          f"the GEMV by variant on the kernel-API path: {counts['gemv_by_variant']}")
     return out, counts, wall
 
 
@@ -1723,8 +1766,10 @@ def ragged_checks(dev) -> dict:
     12, 16, > 16) and off the 16-byte grid, K6 in both dtypes once or more
     per route (RAGGED_MVM) and off the 16-byte grid, K7a on both routes
     (RAGGED_COLABS) and off the grid, bit for bit against its order in
-    plain PyTorch; each checked for the route it took."""
-    from repro_torch.kernels import ops
+    plain PyTorch, and the GEMV (K6 b = 1, K5 nb = 1) likewise, on both
+    variants; each checked for the route it took (the GEMV also for its
+    variant).  Returns the errors and the GEMV's bitwise checks."""
+    from repro_torch.kernels import build, gemv, ops
     from repro_torch.kernels import spd_transform as tr
 
     mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
@@ -1762,17 +1807,45 @@ def ragged_checks(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):     # a view off the 16-byte grid
         held_colabs(t(700 * 256 + 1, dtype)[1:].view(700, 256), "scalar",
                     f"K7a unaligned {dtype}")
+    bits: dict = {}
+
+    def gemv_held(label, got, want, variant, kernel, before):
+        # the GEMV bit for bit its order, on the variant gemv_variant names
+        bits[label] = bool(torch.equal(got, want))
+        check(bits[label], f"{label}: not bit for bit the GEMV's order in plain PyTorch")
+        moved = ops.launch_counts_by_gemv_variant()[kernel][variant] - before
+        check(moved == 1, f"{label} did not take the GEMV's {variant} variant")
+
+    def gemv_before(kernel, variant):
+        return ops.launch_counts_by_gemv_variant()[kernel][variant]
+
     for (m_, k_, nb), route_bf16, route_f32 in RAGGED_MVM:
         g, v = t((m_, k_)), t((k_, nb))
-        hold(errs, "crosspoint_mvm",
-             routed("crosspoint_mvm", route_f32, f"K6 f32 {(m_, k_, nb)}",
-                    lambda: mvm.crosspoint_mvm(g, v)),
-             mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
-        gb, vb = g.bfloat16(), v.bfloat16()
-        hold_mvm_bf16(errs, "crosspoint_mvm_bf16",
-                      routed("crosspoint_mvm", route_bf16, f"K6 bf16 {(m_, k_, nb)}",
-                             lambda: mvm.crosspoint_mvm(gb, vb)),
-                      mvm.crosspoint_mvm_plain(gb, vb))
+        for gd, vd, route in ((g, v, route_f32), (g.bfloat16(), v.bfloat16(), route_bf16)):
+            what = f"K6 {gd.dtype} {(m_, k_, nb)}"
+            variant = gemv.gemv_variant(gd.dtype, k_, True)
+            before = gemv_before("crosspoint_mvm", variant)
+            got = routed("crosspoint_mvm", route, what, lambda: mvm.crosspoint_mvm(gd, vd))
+            if gd.dtype == torch.float32:
+                hold(errs, "crosspoint_mvm", got, mvm.crosspoint_mvm_plain(gd, vd), TOL_MVM_F32)
+            else:
+                hold_mvm_bf16(errs, "crosspoint_mvm_bf16", got, mvm.crosspoint_mvm_plain(gd, vd))
+            if nb == 1:
+                gemv_held(what, got, mvm.crosspoint_mvm_in_kernel_order(gd, vd), variant,
+                          "crosspoint_mvm", before)
+    for dtype in (torch.float32, torch.bfloat16):     # the GEMV on views off the grid
+        g = t(300 * 1024 + 1, dtype)[1:].view(300, 1024)
+        v = t(1025, dtype)[1:, None]
+        check(not build.aligned16(g, v), "an off-grid view is aligned")
+        what = f"K6 {dtype} b = 1 unaligned"
+        before = gemv_before("crosspoint_mvm", "scalar")
+        got = routed("crosspoint_mvm", "fma", what, lambda: mvm.crosspoint_mvm(g, v))
+        gemv_held(what, got, mvm.crosspoint_mvm_in_kernel_order(g, v), "scalar",
+                  "crosspoint_mvm", before)
+        if dtype == torch.float32:
+            hold(errs, "crosspoint_mvm", got, mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
+        else:
+            hold_mvm_bf16(errs, "crosspoint_mvm_bf16", got, mvm.crosspoint_mvm_plain(g, v))
     g = t(300 * 1024 + 1)[1:].view(300, 1024)          # a float32 view off the grid
     v = t((1024, 64))
     hold(errs, "crosspoint_mvm",
@@ -1784,15 +1857,23 @@ def ragged_checks(dev) -> dict:
     for (n5, b5), route_f32, route_bf16 in RAGGED_STEP:
         m5 = t((n5, n5)) * (0.1 * min(1.0, (137 / n5) ** 0.5))
         z5, c5 = t((n5, b5)), t((n5, b5))
-        hold(errs, "transient_step",
-             routed("transient_step", route_f32, f"K5 f32 {(n5, b5)}",
-                    lambda: st.transient_step(m5, z5, c5, 1.0)),
-             st.transient_step_plain(m5, z5, c5, 1.0), TOL_MVM_F32)
+        variant = gemv.gemv_variant(torch.float32, n5, True)
+        before = gemv_before("transient_step", variant)
+        got = routed("transient_step", route_f32, f"K5 f32 {(n5, b5)}",
+                     lambda: st.transient_step(m5, z5, c5, 1.0))
+        hold(errs, "transient_step", got, st.transient_step_plain(m5, z5, c5, 1.0), TOL_MVM_F32)
+        if b5 == 1:
+            gemv_held(f"K5 f32 {(n5, b5)}", got, st.transient_step_in_kernel_order(
+                m5, z5, c5, 1.0), variant, "transient_step", before)
         mb, zb, cb = m5.bfloat16(), z5.bfloat16(), c5.bfloat16()
-        hold_mvm_bf16(errs, "transient_step_bf16",
-                      routed("transient_step", route_bf16, f"K5 bf16 {(n5, b5)}",
-                             lambda: st.transient_step(mb, zb, cb, 1.0)),
-                      st.transient_step_plain(mb, zb, cb, 1.0))
+        variant = gemv.gemv_variant(torch.bfloat16, n5, True)
+        before = gemv_before("transient_step", variant)
+        got = routed("transient_step", route_bf16, f"K5 bf16 {(n5, b5)}",
+                     lambda: st.transient_step(mb, zb, cb, 1.0))
+        hold_mvm_bf16(errs, "transient_step_bf16", got, st.transient_step_plain(mb, zb, cb, 1.0))
+        if b5 == 1:
+            gemv_held(f"K5 bf16 {(n5, b5)}", got, st.transient_step_in_kernel_order(
+                mb, zb, cb, 1.0), variant, "transient_step", before)
         del m5, mb
     m5 = (t(1000 * 1000 + 1) * 0.01)[1:].view(1000, 1000)   # a view off the grid
     z5, c5 = t((1000, 16)), t((1000, 16))
@@ -1800,7 +1881,32 @@ def ragged_checks(dev) -> dict:
          routed("transient_step", "narrow_scalar", "K5 f32 unaligned",
                 lambda: st.transient_step(m5, z5, c5, 1.0)),
          st.transient_step_plain(m5, z5, c5, 1.0), TOL_MVM_F32)
-    return errs
+    z5, c5 = t(1001)[1:, None], t((1000, 1))                 # the column route off the grid
+    before = gemv_before("transient_step", "scalar")
+    got = routed("transient_step", "column", "K5 f32 nb = 1 unaligned",
+                 lambda: st.transient_step(m5, z5, c5, 1.0))
+    hold(errs, "transient_step", got, st.transient_step_plain(m5, z5, c5, 1.0), TOL_MVM_F32)
+    gemv_held("K5 f32 nb = 1 unaligned", got, st.transient_step_in_kernel_order(m5, z5, c5, 1.0),
+              "scalar", "transient_step", before)
+    return errs, bits
+
+
+def gemv_bitwise(op: dict, out: dict) -> dict:
+    """The main path's GEMV outputs (K6 at the DC voltages, K5's step of
+    the step response, in float32 and bf16) against their orders in plain
+    PyTorch: True where bit for bit."""
+    mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
+    st = importlib.import_module("repro_torch.kernels.transient_step")
+    res = {}
+    for sfx, dtype in (("", "float32"), ("_bf", "bfloat16")):
+        g, y = op["g" + sfx], op["y" + sfx]
+        res[f"crosspoint_mvm_fma_{dtype}"] = torch.equal(
+            out["i_dc" + sfx], mvm.crosspoint_mvm_in_kernel_order(g, y[:, None])[:, 0])
+        m, z, c = op["m" + sfx], op["z_col" + sfx], op["c_col" + sfx]
+        res[f"transient_step_column_{dtype}"] = torch.equal(
+            out["z_b1" + sfx],
+            st.transient_step_in_kernel_order(m, z[:, None], c[:, None], 1.0)[:, 0])
+    return res
 
 
 def k5_rank_dropped(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -1820,7 +1926,7 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     shapes, and the times.  ``k4_split`` carries K4's split checks from the
     kernels phase into this phase's line.  Returns per-kernel rows and the
     launches."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gemv, ops
     from repro_torch.kernels import spd_transform as tr
 
     mvm = importlib.import_module("repro_torch.kernels.crosspoint_mvm")
@@ -1854,6 +1960,8 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     g, y, v = op["g"], op["y"], op["v"]
     hold(errs, "crosspoint_mvm_b1", out["i_dc"],
          mvm.crosspoint_mvm_plain(g, y[:, None])[:, 0], TOL_MVM_F32)
+    hold_mvm_bf16(errs, "crosspoint_mvm_b1_bf16", out["i_dc_bf"],
+                  mvm.crosspoint_mvm_plain(op["g_bf"], op["y_bf"][:, None])[:, 0])
     hold(errs, "crosspoint_mvm", out["i_v"], mvm.crosspoint_mvm_plain(g, v), TOL_MVM_F32)
     want_bf = mvm.crosspoint_mvm_plain(op["g_bf"], op["v_bf"])
     hold_mvm_bf16(errs, "crosspoint_mvm_bf16", out["i_bf"], want_bf)
@@ -1893,13 +2001,48 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
                     per_wave={r: st.narrow_clusters_per_wave(r) for r in (1, 2, 4, 8)})
     check(k5_waves["clusters"] <= k5_waves["per_wave"][ranks5],
           f"K5's split does not fit one wave: {k5_waves}")
+    # the GEMV (K6 b = 1, K5 nb = 1): bit for bit its order in plain
+    # PyTorch at the main shape; a warp's rows left unwritten, rejected by
+    # more than 1000x; its plan (C) the Python plan, within one wave
+    gemv_bits = gemv_bitwise(op, out)
+    for name, same in gemv_bits.items():
+        check(same, f"{name}: not bit for bit the GEMV's order in plain PyTorch")
+    zr, cr = z0[:, 1:2].contiguous(), c[:, :1].contiguous()
+    want_zr = st.transient_step_plain(m, zr, cr, 1.0)
+    want_dc = mvm.crosspoint_mvm_plain(g, y[:, None])
+    gemv_planted = {
+        "k6_gemv_warp_rows_skipped": share_of_bar(
+            gemv_warp_rows_skipped(lambda: mvm.crosspoint_mvm(g, y[:, None]), g.shape[0],
+                                   want_dc), want_dc, TOL_MVM_F32),
+        "k5_gemv_warp_rows_skipped": share_of_bar(
+            gemv_warp_rows_skipped(lambda: st.transient_step(m, zr, cr, 1.0), op["nz"], want_zr),
+            want_zr, TOL_MVM_F32)}
+    split_planted.update(gemv_planted)
+    for name, share in gemv_planted.items():
+        check(share > 1000, f"the bar passes the planted fault {name}, or fails it by "
+                            f"1000x or less: {share} of it")
+    gemv_plans = {}
+    for rows_m in (g.shape[0], op["nz"]):
+        got_plan = gemv.gemv_plan_on_device(rows_m)
+        gemv_plans[rows_m] = got_plan
+        check({key: got_plan[key] for key in gemv.gemv_plan(rows_m)} == gemv.gemv_plan(rows_m)
+              and got_plan["blocks"] <= got_plan["blocks_per_wave"],
+              f"the GEMV's plan at m = {rows_m}: C {got_plan}, Python {gemv.gemv_plan(rows_m)}")
     z1 = st.transient_step(m, z0, c, 1.0)
     deterministic = {"colabs": torch.equal(tr.colabs(a), colsum),
                      "crosspoint_mvm_f32": torch.equal(mvm.crosspoint_mvm(g, v), out["i_v"]),
                      "transient_step_narrow": torch.equal(st.transient_step(m, z0, c, 1.0), z1),
                      "transient_step_narrow_bf16": torch.equal(
                          st.transient_step(op["m_bf"], op["z_bf"], op["c_bf"], 1.0),
-                         out["z_bf"])}
+                         out["z_bf"]),
+                     "crosspoint_mvm_fma": torch.equal(ops.crosspoint_mvm(g, y), out["i_dc"]),
+                     "crosspoint_mvm_fma_bf16": torch.equal(
+                         ops.crosspoint_mvm(op["g_bf"], op["y_bf"]), out["i_dc_bf"]),
+                     "transient_step_column": torch.equal(
+                         ops.transient_step(m, op["z_col"], op["c_col"], 1.0), out["z_b1"]),
+                     "transient_step_column_bf16": torch.equal(
+                         ops.transient_step(op["m_bf"], op["z_col_bf"], op["c_col_bf"], 1.0),
+                         out["z_b1_bf"])}
     for name, same in deterministic.items():
         check(same, f"{name}: two launches on the same input differ")
     # K5: 200 steps against 200 plain steps, one step against the plain
@@ -1919,6 +2062,9 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     hold(errs, "transient_step_b1", out["z_b1"],
          st.transient_step_plain(m, op["z_col"][:, None], op["c_col"][:, None], 1.0)[:, 0],
          TOL_MVM_F32)
+    hold_mvm_bf16(errs, "transient_step_b1_bf16", out["z_b1_bf"],
+                  st.transient_step_plain(op["m_bf"], op["z_col_bf"][:, None],
+                                          op["c_col_bf"][:, None], 1.0)[:, 0])
     z5, c5 = z0[:, :1].contiguous(), c[:, :1].contiguous()
     m4 = ops.pad_rows(m[None], (1, 2)).contiguous()
     z4 = ops.pad_rows(z0[:, 0][None], (1,)).contiguous()
@@ -1935,11 +2081,14 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
         z5 = ops.transient_step(m, z5, c5, 1.0)
         z4, _ = st.transient_step_batched(m4, z4, c4, 1.0)
     hold(errs, "k5_vs_k4", z5[:, 0], z4[0, :op["nz"]], TOL_Z)
-    ragged = ragged_checks(dev)
+    ragged, ragged_gemv_bits = ragged_checks(dev)
     emit(dict(phase="kernel_api", case="vs_plain", main_path=errs, ragged=ragged,
               k6_bf16_bar=dict(rtol=MVM_BF16_RTOL, atol_of_max=MVM_BF16_ATOL_OF_MAX),
               k6_planted_faults=k6_planted, split_planted_faults_of_bar=split_planted,
               bitwise_equal_launches=deterministic, k6_f32_waves=k6_waves,
+              gemv_bitwise_order=gemv_bits, gemv_bitwise_order_ragged=ragged_gemv_bits,
+              gemv_planted_faults_of_bar=gemv_planted,
+              gemv_plans=gemv_plans,
               k4_waves=k4_split["waves"], k5_waves=k5_waves,
               k4_split_order_vs_plain=k4_split["order_vs_plain"],
               k5_max_z=float(zp.abs().max()), k5_vs_k4_max_z=float(z4.abs().max()),
@@ -1947,7 +2096,8 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
 
     # times at the main-path shapes (each input is larger than the 50 MB L2
     # except V, Z and C, so every call reads G, M or A from HBM).  Bytes:
-    # inputs read once and outputs written once.
+    # inputs read once and outputs written once.  The kernel and the library
+    # call each in a Python loop (ms) and in a CUDA graph (device ms).
     rows = {}
 
     def timed(key, shape, kern, plain, lib, nbytes, flops, err_keys, peak=F32_FLOPS_PER_S):
@@ -1955,6 +2105,7 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
         rows[key] = dict(
             shape=shape, ms=cuda_ms(kern, 20), device_ms=graph_ms(kern, 20),
             plain_ms=cuda_ms(plain, 10), library_ms=None if lib is None else cuda_ms(lib, 20),
+            library_device_ms=None if lib is None else graph_ms(lib, 20),
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
             max_abs_err=max(e[k]["max_abs_err"] for e in (errs, ragged) for k in err_keys
                             if k in e))
@@ -1972,6 +2123,12 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
           lambda: mvm.crosspoint_mvm_plain(g, y1), lambda: torch.matmul(g, y1),
           gm * gm * 4 + 2 * gm * 4, 2 * gm * gm,
           ("crosspoint_mvm_b1", "crosspoint_mvm"))
+    # bf16 inputs: bytes bound the GEMV at the bf16 rate too
+    yb1 = op["y_bf"][:, None]
+    timed("crosspoint_mvm_bf16", [gm, gm, 1], lambda: mvm.crosspoint_mvm(bf, yb1),
+          lambda: mvm.crosspoint_mvm_plain(bf, yb1), lambda: torch.matmul(bf, yb1),
+          gm * gm * 2 + 2 * gm * 2, 2 * gm * gm, ("crosspoint_mvm_b1_bf16",),
+          BF16_FLOPS_PER_S)
     timed("crosspoint_mvm_b64", [gm, gm, w], lambda: mvm.crosspoint_mvm(g, v),
           lambda: mvm.crosspoint_mvm_plain(g, v), lambda: torch.matmul(g, v),
           gm * gm * 4 + 2 * gm * w * 4, 2 * gm * gm * w, ("crosspoint_mvm",))
@@ -1984,11 +2141,21 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
           lambda: st.transient_step_plain(m, z0, c, 1.0), lambda: torch.addmm(zc, m, z0),
           nz * nz * 4 + 3 * nz * K5_COLUMNS * 4, nz * K5_COLUMNS * (2 * nz + 3),
           ("transient_step",))
+    # one library call: addmm with z + c made outside the timed call
     z1c, c1c = z0[:, :1].contiguous(), c[:, :1].contiguous()
+    zc1 = z1c + c1c
     timed("transient_step_b1", [nz, nz, 1], lambda: st.transient_step(m, z1c, c1c, 1.0),
           lambda: st.transient_step_plain(m, z1c, c1c, 1.0),
-          lambda: torch.addmm(z1c + c1c, m, z1c),
+          lambda: torch.addmm(zc1, m, z1c),
           nz * nz * 4 + 3 * nz * 4, nz * (2 * nz + 3), ("transient_step_b1",))
+    zb1, cb1 = op["z_col_bf"][:, None], op["c_col_bf"][:, None]
+    zcb1 = zb1 + cb1
+    timed("transient_step_b1_bf16", [nz, nz, 1],
+          lambda: st.transient_step(op["m_bf"], zb1, cb1, 1.0),
+          lambda: st.transient_step_plain(op["m_bf"], zb1, cb1, 1.0),
+          lambda: torch.addmm(zcb1, op["m_bf"], zb1),
+          nz * nz * 2 + 3 * nz * 2, nz * (2 * nz + 3), ("transient_step_b1_bf16",),
+          BF16_FLOPS_PER_S)
     # bf16 inputs: bytes bound it at the bf16 rate too, as in float32
     mb, zb, cb = op["m_bf"], op["z_bf"], op["c_bf"]
     zcb = zb + cb
@@ -3199,6 +3366,13 @@ def k8_bwd_times(q, k, v, do, errs: dict | None = None) -> dict:
         if fma_fn is not None and route == "mma":
             fma = cuda_ms_spread(fma_fn, K8_BWD_TIMING_CALLS)
             row.update(fma_ms=fma["median"], fma_spread_ms=fma, fma_device_ms=graph_ms(fma_fn, 5))
+        if name == "flash_attention_bwd_delta" and not bf16:
+            # Delta's one-call yardstick in float32 (in bf16 an einsum would
+            # round Delta to bf16: not the same function)
+            lib_delta = lambda: torch.einsum("bshd,bshd->bhs", do, o)  # noqa: E731
+            lib_t = cuda_ms_spread(lib_delta, K8_BWD_TIMING_CALLS)
+            row.update(library='torch.einsum("bshd,bshd->bhs", do, o)', library_ms=lib_t["median"],
+                       library_spread_ms=lib_t, library_device_ms=graph_ms(lib_delta, 5))
         out["kernels"][name] = row
     out["backward_ms"] = sum(r["ms"] for r in out["kernels"].values())
     out["dkdv_dq_device_ms"] = sum(out["kernels"][n]["device_ms"] for n in K8_BWD_ROUTED)
@@ -3587,8 +3761,9 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
     API for K5-K7b, the serving path for K8), for
     K5, K6 and K8 those of the row's route (``kernel_route``; K7a names
     its route too, K4 its split, K1 and K3 their cluster size, variant,
-    clusters per wave and main-path launches by variant; K5's rows count
-    their own dtype), and
+    clusters per wave and main-path launches by variant; K5's rows and
+    K6's GEMV rows count their own dtype, and the GEMV rows (K5 "column",
+    K6 "fma") carry its launches by variant), and
     K8's rows count by phase and family (``launches_by_family``): the
     tensor-core row at D = 128 the serve phase's and every family's but
     Zamba2's, the D = 112 row Zamba2's, the fma row at D = 128 the float32
@@ -3621,7 +3796,8 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=err, ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=k["library_ms"], shape=k["shape"], device_ms=k.get("device_ms"),
+            library_ms=k["library_ms"], library_device_ms=k.get("library_device_ms"),
+            shape=k["shape"], device_ms=k.get("device_ms"),
         ))
         if "layout" in k:
             # K1 (float32 slots) and K3: cluster size, variant, clusters per wave
@@ -3643,19 +3819,23 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
         if "split" in k:
             rows[-1]["ranks"] = k["split"]["ranks"]
             rows[-1]["device_ms_by_ranks"] = k["split"]["device_ms_by_ranks"]
-    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape",
-            "max_abs_err")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bound_by", "shape", "max_abs_err")
     k5_by_dtype = api_launches["transient_step_by_dtype"]
+    gemv_by_variant = api_launches["gemv_by_variant"]
     for key, label, dtype, kernel_route in (
             ("transient_step", "f32, nb = 16", "float32", "narrow_async"),
             ("transient_step_bf16", "bf16, nb = 16", "bfloat16", "narrow_async"),
-            ("transient_step_b1", "f32, nb = 1", "float32", "column")):
+            ("transient_step_b1", "f32, nb = 1", "float32", "column"),
+            ("transient_step_b1_bf16", "bf16, nb = 1", "bfloat16", "column")):
         rows.append(dict(name=f"K5 transient_step ({label})", route="cuda",
                          source="src/repro_torch/kernels/csrc/transient_step.cu",
                          replaces="src/repro/kernels/transient_step.py:99",
                          launches=k5_by_dtype[dtype][kernel_route], kernel_route=kernel_route,
                          launches_by_route=k5_by_dtype[dtype],
                          **{k: api_rows[key][k] for k in keys}))
+        if kernel_route == "column":
+            rows[-1]["launches_by_variant"] = gemv_by_variant["transient_step"]
     api = {
         "colabs": ("K7a", "src/repro_torch/kernels/csrc/spd_transform.cu",
                    "src/repro/kernels/spd_transform.py:48"),
@@ -3671,7 +3851,9 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
             row["launches_by_route"] = api_launches["colabs_by_route"]
         rows.append(row)
     by_route = api_launches["crosspoint_mvm_by_route"]
+    fma_by_dtype = api_launches["crosspoint_mvm_fma_by_dtype"]
     for key, label, kernel_route in (("crosspoint_mvm", "f32, b = 1", "fma"),
+                                     ("crosspoint_mvm_bf16", "bf16, b = 1", "fma"),
                                      ("crosspoint_mvm_b64", "f32, b = 64", "f32_async"),
                                      ("crosspoint_mvm_b64_bf16", "bf16, b = 64", "mma_async")):
         rows.append(dict(name=f"K6 crosspoint_mvm ({label})", route="cuda",
@@ -3679,6 +3861,10 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                          replaces="src/repro/kernels/crosspoint_mvm.py:48",
                          launches=by_route[kernel_route], kernel_route=kernel_route,
                          **{k: api_rows[key][k] for k in keys}))
+        if kernel_route == "fma":
+            rows[-1]["launches"] = fma_by_dtype["bfloat16" if "bf16" in label else "float32"]
+            rows[-1]["launches_by_route"] = by_route
+            rows[-1]["launches_by_variant"] = gemv_by_variant["crosspoint_mvm"]
     for key, row in k8_rows.items():
         by_family = k8_launches[key]
         rows.append(dict(name=f"K8 flash_attention ({row['dtype']}, D = {row['shape'][-1]})",
@@ -3688,7 +3874,6 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                          kernel_route=row["route"],
                          **{k: row[k] for k in keys},
                          f32_fma_bound_ms=row["f32_fma_bound_ms"],
-                         library_device_ms=row["library_device_ms"],
                          tflop_per_s=row["tflop_per_s"]))
     return rows + k8_bwd_line_rows(k8_bwd_rows, train_launches)
 
@@ -3699,9 +3884,9 @@ def k8_bwd_line_rows(k8_bwd_rows: dict, train_launches: dict) -> list[dict]:
     ``kernel_route`` "mma", with the FMA route's time at the same shape in
     ``fma_ms``; float32 on "fma"), timed at the row's shape, its launches
     the train phase's in that dtype (dK/dV and dQ: on that route) by case.
-    No single library call computes one kernel's part of the gradient
-    (``library_ms`` null); SDPA's whole backward is
-    ``library_backward_ms``."""
+    No single library call computes dK/dV's or dQ's part of the gradient
+    (``library_ms`` null); float32 Delta's is one einsum (``library_ms``);
+    SDPA's whole backward is ``library_backward_ms``."""
     rows = []
     for row in k8_bwd_rows.values():
         dtype = row["dtype"]
@@ -3713,7 +3898,8 @@ def k8_bwd_line_rows(k8_bwd_rows: dict, train_launches: dict) -> list[dict]:
             else:
                 by_phase = {case: counts["backward_by_dtype"][name][dtype]
                             for case, counts in train_launches.items()}
-            extra = {key: k[key] for key in ("fma_ms", "fma_device_ms", "spread_ms") if key in k}
+            extra = {key: k[key] for key in ("fma_ms", "fma_device_ms", "spread_ms",
+                                             "library_device_ms") if key in k}
             if name in K8_BWD_ROUTED:
                 extra["kernel_route"] = row["route"]
             rows.append(dict(
@@ -3725,7 +3911,7 @@ def k8_bwd_line_rows(k8_bwd_rows: dict, train_launches: dict) -> list[dict]:
                 launches_by_phase=by_phase, max_abs_err=row["max_abs_err"][name],
                 ms=k["ms"], device_ms=k["device_ms"], plain_ms=row["plain_ms"],
                 plain_covers=row["plain_covers"], bound_ms=k["bound_ms"],
-                bound_by=k["bound_by"], library_ms=None,
+                bound_by=k["bound_by"], library_ms=k.get("library_ms"),
                 library_backward_ms=row["library_backward_ms"],
                 library_backward_device_ms=row["library_backward_device_ms"], shape=row["shape"],
                 tflop_per_s=k["tflop_per_s"]))

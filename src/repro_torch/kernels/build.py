@@ -105,14 +105,16 @@ _SIGNATURES = {
     "repro_dense_step": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     # ranks, clusters (int*)
     "repro_dense_step_clusters": ((_I, _P), _I),
-    # m, z, c, is_bf16, z_out, n, nb, dt, stream
-    "repro_transient_step": ((_P, _P, _P, _I, _P, _I, _I, _F, _P), _I),
+    # m, z, c, is_bf16, z_out, n, nb, vec16, dt, stream
+    "repro_transient_step": ((_P, _P, _P, _I, _P, _I, _I, _I, _F, _P), _I),
     # m, z, c, is_bf16, z_out, n, nb, ranks, vec16, dt, stream
     "repro_transient_step_narrow": ((_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P), _I),
     # ranks, clusters (int*)
     "repro_transient_step_narrow_clusters": ((_I, _P), _I),
-    # g, v, is_bf16, out, m, k, nb, stream
+    # g, v, is_bf16, out, m, k, vec16, stream
     "repro_crosspoint_mvm": ((_P, _P, _I, _P, _I, _I, _I, _P), _I),
+    # m, plan (int*), plan_len
+    "repro_gemv_plan": ((_I, _P, _I), _I),
     # g, v, out, m, k, nb, vec16, stream
     "repro_crosspoint_mvm_mma": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     # g, v, out, m, k, nb, ranks, vec16, stream

@@ -18,14 +18,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemv
 
 # "mma_async": bf16 tensor cores fed by 16-byte asynchronous copies;
 # "mma_scalar": the same product staged through masked scalar loads;
 # "f32_async": the float32 FFMA product split over k across a thread-block
 # cluster, fed by 16-byte asynchronous copies; "f32_scalar": the same
 # product staged through masked scalar loads; "fma": the GEMV at nb = 1
-# (common.cuh:tile_product)
+# (common.cuh:gemv_rows, in the variant of gemv.gemv_variant)
 ROUTES = ("mma_async", "mma_scalar", "f32_async", "f32_scalar", "fma")
 
 # The float32 route's tile (csrc/crosspoint_mvm.cu: F32_BM, F32_BN, F32_BK)
@@ -42,7 +42,8 @@ def crosspoint_mvm_route(dtype: torch.dtype, m: int, k: int, nb: int, aligned: b
     alignment (``aligned``: both base pointers on 16-byte boundaries).
 
     ``nb == 1`` (the crossbar's GEMV, where neither tiles nor tensor
-    cores buy anything) takes ``"fma"`` in both dtypes.  bf16 with
+    cores buy anything) takes ``"fma"`` in both dtypes, in the variant of
+    :func:`repro_torch.kernels.gemv.gemv_variant`.  bf16 with
     ``nb >= 2`` takes the tensor cores: ``"mma_async"`` where every
     8-element chunk of G's and V's rows lies wholly inside or outside the
     matrix (``k % 8 == 0``, ``nb % 8 == 0``) and the bases are aligned,
@@ -104,6 +105,15 @@ def crosspoint_mvm_in_split_order(g: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return out.to(v.dtype)
 
 
+def crosspoint_mvm_in_kernel_order(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The fma route (nb = 1) in plain PyTorch, bit for bit: the GEMV's
+    float32 sums (:func:`repro_torch.kernels.gemv.gemv_in_kernel_order`)
+    rounded to ``v``'s dtype."""
+    if v.shape[1] != 1:
+        raise ValueError(f"the GEMV's order needs nb = 1, got v {tuple(v.shape)}")
+    return gemv.gemv_in_kernel_order(g, v[:, 0]).to(v.dtype)[:, None]
+
+
 def crosspoint_mvm_plain(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`crosspoint_mvm`.
 
@@ -125,7 +135,9 @@ def crosspoint_mvm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     operations past nb ~ 40 in float32 (``csrc/crosspoint_mvm.cu``).  The
     float32 routes split k over the blocks of a cluster
     (:func:`crosspoint_mvm_split`, :func:`k_ranges`) and add the partials
-    in rank order: the same bits from launch to launch.
+    in rank order: the same bits from launch to launch.  At nb = 1 the
+    GEMV streams G once in a fixed order
+    (:func:`crosspoint_mvm_in_kernel_order` gives its bits).
     """
     dev = build.check_tensors(build.FLOAT_DTYPES, g=g, v=v)
     if g.ndim != 2 or v.ndim != 2 or g.shape[1] != v.shape[0] or g.dtype != v.dtype:
@@ -140,8 +152,11 @@ def crosspoint_mvm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = build.current_stream(dev)
         if route == "fma":
+            variant = gemv.gemv_variant(v.dtype, k, build.aligned16(g, v))
             lib.call("repro_crosspoint_mvm", g.data_ptr(), v.data_ptr(),
-                     int(v.dtype == torch.bfloat16), out.data_ptr(), m, k, nb, stream)
+                     int(v.dtype == torch.bfloat16), out.data_ptr(), m, k,
+                     int(variant == "vec16"), stream)
+            crosspoint_mvm.launches_by_variant[variant] += 1
         elif route.startswith("f32"):
             lib.call("repro_crosspoint_mvm_f32", g.data_ptr(), v.data_ptr(), out.data_ptr(),
                      m, k, nb, crosspoint_mvm_split(m, k, nb), int(route == "f32_async"),
@@ -154,7 +169,8 @@ def crosspoint_mvm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# launch counts of the CUDA kernel, in all and by route (plain-version
-# calls do not count)
+# launch counts of the CUDA kernel, in all, by route and, on the fma route,
+# by the GEMV's variant (plain-version calls do not count)
 crosspoint_mvm.launches = 0
 crosspoint_mvm.launches_by_route = dict.fromkeys(ROUTES, 0)
+crosspoint_mvm.launches_by_variant = dict.fromkeys(gemv.VARIANTS, 0)

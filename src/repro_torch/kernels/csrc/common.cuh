@@ -1,5 +1,6 @@
 // Device helpers shared by the Hopper kernels: the reductions of the
-// settle sweeps (K1-K4), the tiled dense product of K5 and K6's GEMV, the
+// settle sweeps (K1-K4), the tiled dense product of K5 (b > 16), the GEMV
+// of K5 and K6 (b = 1), the
 // rank-ordered sum over a thread-block cluster (K4, K5 on narrow state,
 // K6 float32, K7a; spread over the ranks, K8's float32 dK/dV), and the
 // state shared across a cluster by the persistent sweeps (K1, K3).
@@ -331,7 +332,7 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled dense product (K5 at b = 1 and b > 16; K6 crosspoint_mvm at b = 1)
+// Tiled dense product (K5 at b > 16)
 // ---------------------------------------------------------------------------
 //
 // One thread block of 256 threads owns a BM x BN tile of C = A B, for A
@@ -346,32 +347,23 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
 // A thread owns rows pr + i * (BM / TM) and columns pc + j * (BN / TN):
 // neighbouring lanes take neighbouring columns (and rows), which keeps
 // the shared-memory reads free of bank conflicts (A's tile rows are
-// padded by one word).  Where the tile has fewer outputs than threads
-// (the single-column case, BN = 1) the threads split each BK step into
-// KSPLIT contiguous chunks, and the chunks' partial sums are added in
-// chunk order at the end, so every block stays fully busy.
+// padded by one word).
 template <int BM_, int BK_, int BN_, int TM_, int TN_>
 struct ProdConfig {
   static constexpr int BM = BM_, BK = BK_, BN = BN_, TM = TM_, TN = TN_;
   static constexpr int THREADS = 256;
   static constexpr int ROWS = BM / TM;        // thread positions along rows
   static constexpr int COLS = BN / TN;        // ... and along columns
-  static constexpr int SLOTS = ROWS * COLS;
-  static constexpr int KSPLIT = THREADS / SLOTS;
-  static constexpr int KCHUNK = BK / KSPLIT;
   static constexpr int A_LOADS = BM * BK / THREADS;
   static constexpr int B_LOADS = (BK * BN + THREADS - 1) / THREADS;
   static_assert(BM % TM == 0 && BN % TN == 0, "tile must split into thread tiles");
-  static_assert(SLOTS * KSPLIT == THREADS && BK % KSPLIT == 0, "threads must cover the tile");
+  static_assert(ROWS * COLS == THREADS, "threads must cover the tile");
   static_assert((BM * BK) % THREADS == 0, "A tile must split evenly over the threads");
-  static_assert(THREADS * TM * TN <= BM * (BK + 1), "chunk partials must fit A's tile");
 };
 
-// b = 1, the crossbar's own operation: 32-row tiles (256 blocks for
-// m = 8192, two per SM), 128-deep steps split over 8 chunks.
-using ProdColumn = ProdConfig<32, 128, 1, 1, 1>;
 // b > 16 (K5 only: K6's products with b >= 2 and K5's with 2 <= b <= 16
-// take the split-k kernels of crosspoint_mvm.cu and transient_step.cu)
+// take the split-k kernels of crosspoint_mvm.cu and transient_step.cu, and
+// both at b = 1 the GEMV below)
 using ProdWide = ProdConfig<64, 64, 64, 4, 4>;
 
 template <typename C, typename T>
@@ -397,20 +389,16 @@ __device__ __forceinline__ void prod_load(const T* __restrict__ a, const T* __re
 }
 
 // acc[i][j] = sum_k A[row0 + pr + i*ROWS, k] * B[k, col0 + pc + j*COLS].
-// Every thread of the block must call it.  Returns false for the threads
-// whose acc holds only a chunk's partial sum (KSPLIT > 1): they write
-// nothing.
+// Every thread of the block must call it.
 template <typename C, typename T>
-__device__ __forceinline__ bool tile_product(const T* __restrict__ a, const T* __restrict__ b,
+__device__ __forceinline__ void tile_product(const T* __restrict__ a, const T* __restrict__ b,
                                              int m, int k, int nb, int row0, int col0,
                                              float (&acc)[C::TM][C::TN], int& pr, int& pc) {
   __shared__ float as[C::BM][C::BK + 1];
   __shared__ float bs[C::BK][C::BN];
   const int t = threadIdx.x;
-  const int slot = t % C::SLOTS;
-  const int chunk = t / C::SLOTS;
-  pr = slot / C::COLS;
-  pc = slot % C::COLS;
+  pr = t / C::COLS;
+  pc = t % C::COLS;
 #pragma unroll
   for (int i = 0; i < C::TM; ++i)
 #pragma unroll
@@ -433,8 +421,7 @@ __device__ __forceinline__ bool tile_product(const T* __restrict__ a, const T* _
     __syncthreads();
     if (k0 + C::BK < k) prod_load<C>(a, b, m, k, nb, row0, col0, k0 + C::BK, ar, br);
 #pragma unroll 8
-    for (int s = 0; s < C::KCHUNK; ++s) {
-      const int kk = chunk * C::KCHUNK + s;
+    for (int kk = 0; kk < C::BK; ++kk) {
       float av[C::TM], bv[C::TN];
 #pragma unroll
       for (int i = 0; i < C::TM; ++i) av[i] = as[pr + i * C::ROWS][kk];
@@ -446,25 +433,216 @@ __device__ __forceinline__ bool tile_product(const T* __restrict__ a, const T* _
         for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
-  if constexpr (C::KSPLIT > 1) {
-    // add the chunks' partials in chunk order, through A's tile
-    float* part = &as[0][0];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j)
-        part[((chunk * C::SLOTS + slot) * C::TM + i) * C::TN + j] = acc[i][j];
-    __syncthreads();
-    if (chunk != 0) return false;
-    for (int g = 1; g < C::KSPLIT; ++g)
-#pragma unroll
-      for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-        for (int j = 0; j < C::TN; ++j)
-          acc[i][j] += part[((g * C::SLOTS + slot) * C::TM + i) * C::TN + j];
+}
+
+// ---------------------------------------------------------------------------
+// GEMV (K6 at b = 1, K5 at nb = 1): y = A x, A streamed once from HBM
+// ---------------------------------------------------------------------------
+//
+// What bounds it: bytes.  Every element of A (m, k) is used once, for 2
+// flops, so the kernel is the time to stream A: 268 MB of float32 at
+// m = k = 8192, 80 us at 3.35 TB/s.  What that asks of the card: about 25
+// KB in flight on each SM without a break (3.35 TB/s x ~1 us of latency
+// over 132 SMs), and every SM busy to the end.  So:
+// * A goes from HBM into registers, never through shared memory: each
+//   element is used once, so staging buys nothing.  A lane loads 16 bytes
+//   (4 float32 or 8 bf16) with a streaming hint (ld.global.nc with
+//   L1::no_allocate, so A does not evict x from L1) in batches of
+//   GEMV_UNROLL chunks of each of GEMV_ROWS rows, the next batch issued
+//   before the current one is added (GEMV_PIPE): 4 to 8 KB in flight per
+//   warp, 64 to 128 KB per SM, and no barrier anywhere in the kernel.  (A
+//   ring of shared-memory stages per warp filled by 1-D TMA bulk copies,
+//   the other design, ran at 78-80 % of the HBM rate on an H100 against
+//   this one's 90-92 %, and other rows, depths and grids within 1 %:
+//   scripts/gemv_times.py --sweep, PERF.md);
+// * x (32 KB at k = 8192) comes through the read-only path, each chunk
+//   once per GEMV_ROWS rows, from L1 after a block's first pass;
+// * one wave, finishing together: the grid is min(m, GEMV_SMS) blocks of
+//   GEMV_WARPS warps (gemv_plan), block b owning rows [b m / B, (b + 1) m /
+//   B), so no block holds more than one row above the mean (63 against
+//   62.06 at m = 8192); its warps walk groups of GEMV_ROWS rows, warp w
+//   the groups w, w + warps, ...
+// The order of every sum is fixed (kernels/gemv.py:gemv_in_kernel_order
+// repeats it in plain PyTorch, bit for bit): lane l adds the chunks
+// c = l + 32 j of a row, j ascending, one float32 accumulator per element
+// of a chunk, each product rounded before its add (no FMA, so that plain
+// PyTorch can repeat it); the chunk's accumulators are added pairwise
+// ((a0 + a1) + (a2 + a3)), and the lanes by a shuffle tree, lane l + o
+// into lane l for o = 16, 8, 4, 2, 1.  No atomics: two launches give the
+// same bits.  A chunk past the row's end (ragged k, the scalar variant)
+// adds 0 x 0.
+//
+// Variants: VEC16 (k a multiple of 4 in float32, of 8 in bf16, A and x
+// 16-byte aligned: every chunk whole, every row on the 16-byte grid) and
+// the masked scalar loads of the same chunks, in the same order.
+constexpr int GEMV_SMS = 132;     // H100 SXM: the grid's blocks at most, one an SM
+constexpr int GEMV_WARPS = 16;    // warps of a block, at most
+constexpr int GEMV_ROWS = 2;      // rows a warp walks at once, sharing x's chunks
+constexpr int GEMV_UNROLL = 4;    // chunks of each row in a lane's batch of loads
+constexpr bool GEMV_PIPE = true;  // the next batch's loads issued before the current adds
+constexpr int GEMV_THREADS = 32 * GEMV_WARPS;
+
+// The split of m rows: blocks, warps a block, rows of the largest block,
+// rows the busiest warp walks (kernels/gemv.py:gemv_plan, the same
+// function in Python).
+struct GemvPlan {
+  int blocks, warps, rows_per_block, rows_per_warp;
+};
+
+inline GemvPlan gemv_plan(int m) {
+  GemvPlan p;
+  p.blocks = m < GEMV_SMS ? m : GEMV_SMS;
+  p.rows_per_block = (m + p.blocks - 1) / p.blocks;
+  const int groups = (p.rows_per_block + GEMV_ROWS - 1) / GEMV_ROWS;
+  p.warps = groups < GEMV_WARPS ? groups : GEMV_WARPS;
+  const int walked = (groups + p.warps - 1) / p.warps * GEMV_ROWS;
+  p.rows_per_warp = walked < p.rows_per_block ? walked : p.rows_per_block;
+  return p;
+}
+
+// A 16-byte chunk of A: streamed, not kept in L1
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
+template <typename T>
+struct Chunk;   // the elements of a 16-byte chunk, as float32
+
+template <>
+struct Chunk<float> {
+  static constexpr int E = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[E]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
   }
-  return true;
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int E = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[E]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);           // the lower element
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// Chunk c of `row` (k elements), zero past the end.  VEC16: one 16-byte
+// load (streamed when STREAM); otherwise E masked scalar loads.
+template <typename T, bool VEC16, bool STREAM>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ row, int c, int k, bool ok) {
+  constexpr int E = Chunk<T>::E;
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (!ok) return u;
+  if constexpr (VEC16) {
+    const T* p = row + static_cast<size_t>(c) * E;
+    if constexpr (STREAM) return ld_stream16(p);
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    uint32_t w[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = c * E + e;
+      if constexpr (sizeof(T) == 4) {
+        w[e] = i < k ? __float_as_uint(__ldg(reinterpret_cast<const float*>(row) + i)) : 0u;
+      } else {
+        w[e] = i < k ? static_cast<uint32_t>(
+                           __ldg(reinterpret_cast<const unsigned short*>(row) + i)) : 0u;
+      }
+    }
+    if constexpr (sizeof(T) == 4) return make_uint4(w[0], w[1], w[2], w[3]);
+    return make_uint4(w[0] | w[1] << 16, w[2] | w[3] << 16, w[4] | w[5] << 16,
+                      w[6] | w[7] << 16);
+  }
+}
+
+// y[r] for the rows of this block, handed to epi(r, y[r]) by lane 0 of the
+// warp that adds it.  ROWS and UNROLL as GEMV_ROWS and GEMV_UNROLL; PIPE
+// issues the next batch of chunks before adding the current one (two
+// batches of registers), so that a warp keeps loads in flight while it
+// adds; the grid and block sizes are the launch's (gemv_plan).
+template <typename T, bool VEC16, int ROWS, int UNROLL, bool PIPE, typename Epilogue>
+__device__ __forceinline__ void gemv_rows(const T* __restrict__ a, const T* __restrict__ x,
+                                          int m, int k, Epilogue epi) {
+  constexpr int E = Chunk<T>::E;
+  struct Batch {
+    uint4 g[UNROLL][ROWS], x[UNROLL];
+  };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int r0 = static_cast<int>(static_cast<long long>(blockIdx.x) * m / gridDim.x);
+  const int r1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * m / gridDim.x);
+  const int nc = (k + E - 1) / E;          // chunks of a row
+  const int steps = (nc + 31) / 32;        // chunks a lane adds of each row
+  for (int row = r0 + warp * ROWS; row < r1; row += warps * ROWS) {
+    float acc[ROWS][E];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] = 0.0f;
+    // the chunks lane + 32 (j0 + u), u < UNROLL, of x and of the group's rows
+    auto load = [&](Batch& bt, int j0) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int c = lane + 32 * (j0 + u);
+        bt.x[u] = load_chunk<T, VEC16, false>(x, c, k, c < nc);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+          bt.g[u][i] = load_chunk<T, VEC16, true>(a + static_cast<size_t>(row + i) * k, c, k,
+                                                  c < nc && row + i < r1);
+      }
+    };
+    auto add = [&](const Batch& bt, int j0) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (j0 + u >= steps) break;       // warp-uniform
+        float xf[E];
+        Chunk<T>::unpack(bt.x[u], xf);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          float gf[E];
+          Chunk<T>::unpack(bt.g[u][i], gf);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[i][e] = __fadd_rn(acc[i][e], __fmul_rn(gf[e], xf[e]));
+        }
+      }
+    };
+    Batch b0;
+    if constexpr (PIPE) {
+      Batch b1;
+      load(b0, 0);
+      for (int j0 = 0; j0 < steps; j0 += 2 * UNROLL) {
+        load(b1, j0 + UNROLL);            // past the end: no load
+        add(b0, j0);
+        load(b0, j0 + 2 * UNROLL);
+        add(b1, j0 + UNROLL);
+      }
+    } else {
+      for (int j0 = 0; j0 < steps; j0 += UNROLL) {
+        load(b0, j0);
+        add(b0, j0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+      for (int w = E / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int e = 0; e < w; ++e) acc[i][e] = __fadd_rn(acc[i][2 * e], acc[i][2 * e + 1]);
+      float s = acc[i][0];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, o));
+      if (lane == 0 && row + i < r1) epi(row + i, s);
+    }
+  }
 }
 
 }  // namespace repro_torch

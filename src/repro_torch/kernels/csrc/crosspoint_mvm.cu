@@ -26,7 +26,10 @@
 //   crosspoint_mvm_f32_kernel<false>, the same kernel staging its tiles
 //   through masked scalar loads;
 // * "fma": nb = 1 in both dtypes (the crossbar's own GEMV) ->
-//   crosspoint_mvm_kernel on common.cuh's tile_product (ProdColumn).
+//   crosspoint_mvm_kernel<T, VEC16> on common.cuh's gemv_rows, in the
+//   variant of kernels/gemv.py:gemv_variant: "vec16" (k a multiple of 4
+//   in float32, of 8 in bf16, both bases 16-byte aligned) streams G in
+//   16-byte loads, "scalar" reads the same chunks by masked scalar loads.
 //
 // What bounds it on an H100.  For the crossbar's own operation, nb = 1,
 // bytes: G is read once (268 MB of float32 at m = k = 8192, 80 us at
@@ -90,10 +93,17 @@
 // the same with one block per SM or two, with 8 x 8 register tiles (half
 // the shared-memory loads per FFMA) and with 64- or 128-deep k steps;
 // cuBLAS's float32 product of the same shape is somewhat faster (PERF.md).
-// The fma route (b = 1): the tiled product of common.cuh (tile_product),
-// 32 x 1 tiles with each 128-deep step split over 8 thread chunks, so a
-// block's 256 threads all read and add G; G is read once, at 82 % of the
-// HBM rate.
+// The fma route (b = 1), the crossbar's own operation: bound by bytes, G
+// read once (268 MB of float32 at m = k = 8192: 80 us; bf16 half that).
+// It used to be a tiled GEMM used as a GEMV (32 x 128 tiles of G staged
+// through shared memory by scalar loads, two block barriers a step, at
+// most one tile in flight a block: 84 % of the HBM rate).  Now it is
+// common.cuh's gemv_rows, designed for the memory system: G streams from
+// HBM into registers in 16-byte loads, 4 to 8 KB in flight per warp and no
+// barrier, V through the read-only path, one wave of min(m, 132) blocks
+// of balanced row ranges (gemv_plan), the order of every sum fixed
+// (kernels/gemv.py:gemv_in_kernel_order gives its bits).  The epilogue
+// rounds the float32 sum to the output's dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,33 +114,25 @@
 namespace repro_torch {
 namespace {
 
-template <typename C, typename T>
-__global__ void __launch_bounds__(256)
+// the fma route's epilogue: the float32 sum rounded to the output's dtype
+template <typename T>
+struct StoreRow {
+  T* out;
+  __device__ void operator()(int r, float acc) const { store_as(out + r, acc); }
+};
+
+template <typename T, bool VEC16>
+__global__ void __launch_bounds__(GEMV_THREADS)
 crosspoint_mvm_kernel(const T* __restrict__ g, const T* __restrict__ v, T* __restrict__ out,
-                      int m, int k, int nb) {
-  const int row0 = blockIdx.x * C::BM;
-  const int col0 = blockIdx.y * C::BN;
-  float acc[C::TM][C::TN];
-  int pr, pc;
-  if (!tile_product<C>(g, v, m, k, nb, row0, col0, acc, pr, pc)) return;
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int r = row0 + pr + i * C::ROWS;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      const int cj = col0 + pc + j * C::COLS;
-      if (cj < nb) store_as(out + static_cast<size_t>(r) * nb + cj, acc[i][j]);
-    }
-  }
+                      int m, int k) {
+  gemv_rows<T, VEC16, GEMV_ROWS, GEMV_UNROLL, GEMV_PIPE>(g, v, m, k, StoreRow<T>{out});
 }
 
-template <typename C, typename T>
-int launch(const void* g, const void* v, void* out, int m, int k, int nb,
-           cudaStream_t stream) {
-  const dim3 grid((m + C::BM - 1) / C::BM, (nb + C::BN - 1) / C::BN);
-  crosspoint_mvm_kernel<C, T><<<grid, C::THREADS, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(v), static_cast<T*>(out), m, k, nb);
+template <typename T, bool VEC16>
+int launch_gemv(const void* g, const void* v, void* out, int m, int k, cudaStream_t stream) {
+  const GemvPlan plan = gemv_plan(m);
+  crosspoint_mvm_kernel<T, VEC16><<<plan.blocks, 32 * plan.warps, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(v), static_cast<T*>(out), m, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -465,15 +467,42 @@ int launch_f32(const float* g, const float* v, float* out, int m, int k, int nb,
 // is_bf16), out (m, nb) of the same dtype.  Each returns the CUDA error
 // code of its launch (0 = success); an empty output launches nothing.
 //
-// The fma route: nb must be 1 (the crossbar's GEMV).
+// The fma route, nb = 1 (the crossbar's GEMV): g (m, k), v (k), out (m).
+// vec16 != 0 takes the 16-byte loads, which need k a multiple of 4
+// (float32) or 8 (bf16) and g and v 16-byte aligned (gemv_variant decides).
 extern "C" int repro_crosspoint_mvm(const void* g, const void* v, int is_bf16, void* out,
-                                    int m, int k, int nb, void* stream) {
+                                    int m, int k, int vec16, void* stream) {
   using namespace repro_torch;
-  if (m == 0 || nb == 0) return 0;
-  if (nb != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<ProdColumn, __nv_bfloat16>(g, v, out, m, k, nb, s)
-                 : launch<ProdColumn, float>(g, v, out, m, k, nb, s);
+  if (is_bf16)
+    return vec16 ? launch_gemv<__nv_bfloat16, true>(g, v, out, m, k, s)
+                 : launch_gemv<__nv_bfloat16, false>(g, v, out, m, k, s);
+  return vec16 ? launch_gemv<float, true>(g, v, out, m, k, s)
+               : launch_gemv<float, false>(g, v, out, m, k, s);
+}
+
+// The GEMV's split of m rows (common.cuh:gemv_plan, the plan of K6's fma
+// route and K5's column route) into plan[0..3]: blocks, warps a block,
+// rows of the largest block, rows of the busiest warp; and into plan[4]
+// how many of its blocks the current device runs at once (float32, 16-byte
+// variant: SMs x cudaOccupancyMaxActiveBlocksPerMultiprocessor).  len must
+// be 5.  Returns the CUDA error code (0 = success).
+extern "C" int repro_gemv_plan(int m, int* plan, int len) {
+  using namespace repro_torch;
+  if (m < 1 || len != 5) return static_cast<int>(cudaErrorInvalidValue);
+  const GemvPlan p = gemv_plan(m);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, crosspoint_mvm_kernel<float, true>,
+                                                        32 * p.warps, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int out[5] = {p.blocks, p.warps, p.rows_per_block, p.rows_per_warp, sms * per_sm};
+  for (int i = 0; i < 5; ++i) plan[i] = out[i];
+  return 0;
 }
 
 // The float32 route, nb >= 2: k split over `ranks` blocks of a cluster (1

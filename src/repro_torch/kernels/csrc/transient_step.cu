@@ -4,6 +4,7 @@
 //   K3  transient_sweep_pallas         (_sweep_kernel)
 //   K4  transient_step_batched_pallas  (_step_batched_kernel)
 //   K5  transient_step_pallas          (_step_kernel), at the end of this file
+//       (its column route, nb = 1, on common.cuh's GEMV)
 //
 // K3 and K4, the settle sweeps of a batch of systems, compute per system b
 //     dz = M z + c        z' = z + dt * dz        res = max_i |dz_i|
@@ -600,13 +601,12 @@ int launch_narrow(const void* m, const void* z, const void* c, void* z_out, int 
       static_cast<T*>(z_out), n, nb, dt, k_chunk));
 }
 
-// K5 on one column (ProdColumn) and on more than 16 (ProdWide): K6's
-// tiled product of common.cuh with the step as its epilogue.  Z is read
-// twice, as the contraction operand and in the epilogue, and the result
-// goes to a separate buffer, as the Pallas kernel passes Z twice and
-// writes a new array.  The epilogue rounds z + dt * (acc + c) step by
-// step, as the plain version does.  Ragged n and nb are masked.  Bound by
-// bytes at nb = 1 (M once: 268 MB at n = 8192, 80 us), by float32
+// K5 on more than 16 columns (ProdWide): K6's old tiled product of
+// common.cuh with the step as its epilogue.  Z is read twice, as the
+// contraction operand and in the epilogue, and the result goes to a
+// separate buffer, as the Pallas kernel passes Z twice and writes a new
+// array.  The epilogue rounds z + dt * (acc + c) step by step, as the
+// plain version does.  Ragged n and nb are masked.  Bound by float32
 // operations past nb ~ 40.
 template <typename C, typename T>
 __global__ void __launch_bounds__(256)
@@ -617,7 +617,7 @@ transient_step_kernel(const T* __restrict__ m, const T* __restrict__ z,
   const int col0 = blockIdx.y * C::BN;
   float acc[C::TM][C::TN];
   int pr, pc;
-  if (!tile_product<C>(m, z, n, n, nb, row0, col0, acc, pr, pc)) return;
+  tile_product<C>(m, z, n, n, nb, row0, col0, acc, pr, pc);
 #pragma unroll
   for (int i = 0; i < C::TM; ++i) {
     const int r = row0 + pr + i * C::ROWS;
@@ -643,6 +643,47 @@ int launch_step(const void* m, const void* z, const void* c, void* z_out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 on one column (the "column" route): one Euler step of one circuit,
+// bound by bytes (M read once: 268 MB of float32 at n = 8192, 80 us).
+// It used to be the tiled product above with 32 x 1 tiles (84 % of the
+// HBM rate: G staged through shared memory by scalar loads, two barriers
+// a step).  Now it is common.cuh's gemv_rows, K6's fma route with this
+// epilogue: M streams from HBM into registers in 16-byte loads with no
+// barrier, z through the read-only path, one wave of balanced row ranges
+// (gemv_plan), the sum in a fixed order (kernels/gemv.py:
+// gemv_in_kernel_order).  The epilogue reads z and c at the row and writes
+// z + dt * (acc + c), rounded step by step as the plain version rounds it,
+// to a separate buffer.
+template <typename T>
+struct StepRow {
+  const T* z;
+  const T* c;
+  T* z_out;
+  float dt;
+  __device__ void operator()(int r, float acc) const {
+    const float dz = __fadd_rn(acc, to_f32(c[r]));
+    store_as(z_out + r, __fadd_rn(to_f32(z[r]), __fmul_rn(dt, dz)));
+  }
+};
+
+template <typename T, bool VEC16>
+__global__ void __launch_bounds__(GEMV_THREADS)
+transient_step_column_kernel(const T* __restrict__ m, const T* __restrict__ z,
+                             const T* __restrict__ c, T* __restrict__ z_out, int n, float dt) {
+  gemv_rows<T, VEC16, GEMV_ROWS, GEMV_UNROLL, GEMV_PIPE>(m, z, n, n,
+                                                         StepRow<T>{z, c, z_out, dt});
+}
+
+template <typename T, bool VEC16>
+int launch_column(const void* m, const void* z, const void* c, void* z_out, int n, float dt,
+                  cudaStream_t stream) {
+  const GemvPlan plan = gemv_plan(n);
+  transient_step_column_kernel<T, VEC16><<<plan.blocks, 32 * plan.warps, 0, stream>>>(
+      static_cast<const T*>(m), static_cast<const T*>(z), static_cast<const T*>(c),
+      static_cast<T*>(z_out), n, dt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -653,16 +694,23 @@ int launch_step(const void* m, const void* z, const void* c, void* z_out, int n,
 // K5 on the column (nb = 1) and wide (nb > 16) routes: m (n, n),
 // z/c/z_out (n, nb), one dtype (float32, or bfloat16 when is_bf16); any n.
 // An empty state launches nothing; 2 <= nb <= 16 is the narrow route's.
+// On the column route vec16 != 0 takes the GEMV's 16-byte loads, which
+// need n a multiple of 4 (float32) or 8 (bf16) and m and z 16-byte aligned
+// (kernels/gemv.py:gemv_variant decides); the wide route ignores it.
 extern "C" int repro_transient_step(const void* m, const void* z, const void* c,
-                                    int is_bf16, void* z_out, int n, int nb, float dt,
-                                    void* stream) {
+                                    int is_bf16, void* z_out, int n, int nb, int vec16,
+                                    float dt, void* stream) {
   using namespace repro_torch;
   if (n == 0 || nb == 0) return 0;
   if (nb >= 2 && nb <= NS_BN) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (nb == 1)
-    return is_bf16 ? launch_step<ProdColumn, __nv_bfloat16>(m, z, c, z_out, n, nb, dt, s)
-                   : launch_step<ProdColumn, float>(m, z, c, z_out, n, nb, dt, s);
+  if (nb == 1) {
+    if (is_bf16)
+      return vec16 ? launch_column<__nv_bfloat16, true>(m, z, c, z_out, n, dt, s)
+                   : launch_column<__nv_bfloat16, false>(m, z, c, z_out, n, dt, s);
+    return vec16 ? launch_column<float, true>(m, z, c, z_out, n, dt, s)
+                 : launch_column<float, false>(m, z, c, z_out, n, dt, s);
+  }
   return is_bf16 ? launch_step<ProdWide, __nv_bfloat16>(m, z, c, z_out, n, nb, dt, s)
                  : launch_step<ProdWide, float>(m, z, c, z_out, n, nb, dt, s);
 }

@@ -393,6 +393,9 @@ _KERNELS = (_ell.ell_sweep, _ell.ell_step, _st.transient_sweep,
 _ROUTED = (_st.transient_step, _mvm.crosspoint_mvm, _tr.colabs, _fa.flash_attention)
 # the persistent sweeps, and their launch counts by variant
 _SWEEPS = (_ell.ell_sweep, _st.transient_sweep)
+# the kernels of the GEMV (K5's column route, K6's fma route), and their
+# launch counts by the GEMV's variant
+_GEMVS = (_st.transient_step, _mvm.crosspoint_mvm)
 
 
 def launch_counts() -> dict[str, int]:
@@ -415,6 +418,13 @@ def launch_counts_by_variant() -> dict[str, dict[str, int]]:
     reset: "resident" (the rank's share of the operator in shared memory,
     ``ell_sweep_variant`` / ``dense_sweep_variant``) or "streamed"."""
     return {fn.__name__: dict(fn.launches_by_variant) for fn in _SWEEPS}
+
+
+def launch_counts_by_gemv_variant() -> dict[str, dict[str, int]]:
+    """Launches of the GEMV by variant since the last reset: K5's on its
+    "column" route and K6's on its "fma" route, "vec16" (16-byte loads) or
+    "scalar" (``gemv.gemv_variant``)."""
+    return {fn.__name__: dict(fn.launches_by_variant) for fn in _GEMVS}
 
 
 def launch_counts_by_dtype() -> dict[str, dict[str, int]]:
@@ -443,7 +453,7 @@ def reset_launch_counts() -> None:
         fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
     for fn in (*_ROUTED, *_fa.BWD_ROUTED):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
-    for fn in _SWEEPS:
+    for fn in (*_SWEEPS, *_GEMVS):
         fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
     _st.transient_step.launches_by_dtype = {
         dt: dict.fromkeys(by_route, 0)

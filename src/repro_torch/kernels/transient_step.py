@@ -17,8 +17,9 @@ are ``csrc/transient_step.cu``):
   single operator ``M`` (n, n) on ``nb`` state columns, float32 or
   bfloat16 operands with a float32 accumulator, on the route of
   :func:`transient_step_route`: for 2 <= nb <= 16 a product split over k
-  across a cluster (:func:`transient_step_split`), else K6's tiled
-  product with the step as its epilogue.
+  across a cluster (:func:`transient_step_split`), at nb = 1 K6's GEMV
+  (:mod:`repro_torch.kernels.gemv`) and past 16 a tiled product, each
+  with the step as its epilogue.
 
 Each wrapper launches its kernel for tensors on a CUDA device and runs
 its plain PyTorch version (``*_plain``) for tensors on the CPU.  K3 and
@@ -32,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemv
 
 ROW_BLOCK = 128
 
@@ -45,7 +46,9 @@ DENSE_STEP_MAX_SPLIT = 8
 # K5's routes (csrc/transient_step.cu): "narrow_async", 2 <= nb <= 16 split
 # over k across a cluster and fed by 16-byte asynchronous copies;
 # "narrow_scalar", the same kernel staging its tiles through masked scalar
-# loads; "column", nb = 1, and "wide", nb > 16, on common.cuh:tile_product.
+# loads; "column", nb = 1, on the GEMV of K6's fma route (common.cuh:
+# gemv_rows, in the variant of gemv.gemv_variant), and "wide", nb > 16, on
+# common.cuh:tile_product.
 STEP_ROUTES = ("narrow_async", "narrow_scalar", "column", "wide")
 # The narrow route's tile (NS_BM x NS_BN), its k steps (128 bytes of each
 # M row: 32 float32 or 64 bf16 k, a sixteen-byte slice to each of 8
@@ -296,7 +299,12 @@ def narrow_clusters_per_wave(ranks: int) -> int:
 
 
 def transient_step_in_kernel_order(m, z, c, dt: float):
-    """The narrow route's order of the sum in plain PyTorch: within each
+    """The column route's step (nb = 1) in plain PyTorch, bit for bit: the
+    GEMV's float32 sums (:func:`repro_torch.kernels.gemv.
+    gemv_in_kernel_order`) and the step rounded as the plain version rounds
+    it.
+
+    On the narrow route (2 <= nb <= 16) the order of the sum: within each
     rank's k range (:func:`narrow_k_ranges`) warp w adds the k whose
     offset from the range's start falls in the w-th sixteen bytes of a
     128-byte step, the warps' partials are added in warp order, then the
@@ -305,6 +313,9 @@ def transient_step_in_kernel_order(m, z, c, dt: float):
     order a library need not keep: this holds the split's rounding, not
     the kernel's bits."""
     n, nb = z.shape
+    if nb == 1:
+        acc = gemv.gemv_in_kernel_order(m, z[:, 0])[:, None]
+        return (z.float() + dt * (acc + c.float())).to(z.dtype)
     per_warp = 16 // m.element_size()
     step = NARROW_WARPS * per_warp
     acc = None
@@ -353,20 +364,26 @@ def transient_step(m: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
                      is_bf16, out.data_ptr(), n, nb, transient_step_split(n),
                      int(route == "narrow_async"), float(dt), stream)
         else:
+            variant = gemv.gemv_variant(z.dtype, n, build.aligned16(m, z))
             lib.call("repro_transient_step", m.data_ptr(), z.data_ptr(), c.data_ptr(),
-                     is_bf16, out.data_ptr(), n, nb, float(dt), stream)
+                     is_bf16, out.data_ptr(), n, nb, int(variant == "vec16"), float(dt),
+                     stream)
+            if route == "column":
+                transient_step.launches_by_variant[variant] += 1
     transient_step.launches += 1
     transient_step.launches_by_route[route] += 1
     transient_step.launches_by_dtype[str(z.dtype).removeprefix("torch.")][route] += 1
     return out
 
 
-# launch counts of the CUDA kernels, K3's by variant, and K5's by route
-# and by dtype and route (plain-version calls do not count)
+# launch counts of the CUDA kernels, K3's by variant, and K5's by route,
+# by dtype and route, and on the column route by the GEMV's variant
+# (plain-version calls do not count)
 transient_sweep.launches = 0
 transient_sweep.launches_by_variant = dict.fromkeys(build.SWEEP_VARIANTS, 0)
 transient_step_batched.launches = 0
 transient_step.launches = 0
 transient_step.launches_by_route = dict.fromkeys(STEP_ROUTES, 0)
+transient_step.launches_by_variant = dict.fromkeys(gemv.VARIANTS, 0)   # the column route's
 transient_step.launches_by_dtype = {dt: dict.fromkeys(STEP_ROUTES, 0)
                                     for dt in ("float32", "bfloat16")}

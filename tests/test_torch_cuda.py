@@ -21,6 +21,7 @@ from repro_torch.core.network import build_proposed_batch  # noqa: E402
 from repro_torch.data.spd import random_rhs_from_solution, random_spd  # noqa: E402
 from repro_torch.kernels import ell_transient as ell  # noqa: E402
 from repro_torch.kernels import flash_attention as k8  # noqa: E402
+from repro_torch.kernels import build, gemv  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spd_transform as tr  # noqa: E402
 
@@ -600,6 +601,99 @@ def test_transient_step_narrow_bar_fails_a_dropped_partial_and_fits_one_wave(cud
     dropped = got - torch.matmul(m[:, k0:k1], z[k0:k1])
     assert _share(dropped, st.transient_step_plain(m, z, z, 1.0), 5e-5) > 1000
     assert -(-n // st.NARROW_BM) <= st.narrow_clusters_per_wave(ranks)
+
+
+# the GEMV (K6 at b = 1, K5 at nb = 1): (m, k) on each variant, the
+# smoke's main shape among them; ragged rows, k off the 4- and 8-element
+# grids, fewer rows than blocks
+GEMV_SHAPES = [(8192, 8192), (4096, 4096), (8190, 8190), (300, 513), (137, 137),
+               (4000, 4004), (100, 8), (1, 5)]
+
+
+def _gemv_operands(cuda, m, k, dtype, seed, offset=0):
+    rng = np.random.default_rng(seed)
+    g = torch.as_tensor(rng.standard_normal(m * k + offset) * k ** -0.5,
+                        device=cuda).to(dtype)[offset:].view(m, k)
+    v = torch.as_tensor(rng.standard_normal(k + offset), device=cuda).to(dtype)[offset:]
+    return g, v[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemv_is_its_order_bit_for_bit(cuda, shape, dtype):
+    """K6 at b = 1 and K5 at nb = 1 equal gemv_in_kernel_order's bits (the
+    same order in plain PyTorch), twice; each counted on its route and on
+    the variant gemv_variant names."""
+    m, k = shape
+    g, v = _gemv_operands(cuda, m, k, dtype, 41 + m)
+    variant = gemv.gemv_variant(dtype, k, True)
+    before = ops.launch_counts_by_gemv_variant()
+    got = mvm.crosspoint_mvm(g, v)
+    assert torch.equal(got, mvm.crosspoint_mvm_in_kernel_order(g, v))
+    assert torch.equal(mvm.crosspoint_mvm(g, v), got)
+    if m == k:
+        c = v.flip(0).contiguous()
+        z1 = st.transient_step(g, v, c, 0.75)
+        assert torch.equal(z1, st.transient_step_in_kernel_order(g, v, c, 0.75))
+        assert torch.equal(st.transient_step(g, v, c, 0.75), z1)
+    after = ops.launch_counts_by_gemv_variant()
+    assert after["crosspoint_mvm"][variant] == before["crosspoint_mvm"][variant] + 2
+    assert after["transient_step"][variant] == before["transient_step"][variant] + 2 * (m == k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemv_off_the_grid_takes_the_scalar_variant(cuda, dtype):
+    """Views off the 16-byte grid, at shapes the 16-byte variant would take
+    aligned, go to the masked scalar loads, give the same order's bits and
+    hold the plain version's bar (5e-5 of max in float32; bf16 element by
+    element, 1e-2 |want| + 1e-3 max|want|)."""
+    for m, k in ((300, 1024), (4096, 4096)):
+        g, v = _gemv_operands(cuda, m, k, dtype, 43, offset=1)
+        assert gemv.gemv_variant(dtype, k, build.aligned16(g, v)) == "scalar"
+        before = ops.launch_counts_by_gemv_variant()
+        got = mvm.crosspoint_mvm(g, v)
+        assert torch.equal(got, mvm.crosspoint_mvm_in_kernel_order(g, v))
+        want = mvm.crosspoint_mvm_plain(g, v)
+        if dtype == torch.float32:
+            assert _share(got, want, 5e-5) <= 1
+        else:
+            assert _mvm_bf16_share(got, want) <= 1
+        if m == k:
+            c = v.flip(0).contiguous()
+            z1 = st.transient_step(g, v, c, 1.0)
+            assert torch.equal(z1, st.transient_step_in_kernel_order(g, v, c, 1.0))
+        after = ops.launch_counts_by_gemv_variant()
+        assert after["crosspoint_mvm"]["scalar"] == before["crosspoint_mvm"]["scalar"] + 1
+        assert after["transient_step"]["scalar"] == before["transient_step"]["scalar"] + (m == k)
+
+
+@pytest.mark.cuda
+def test_gemv_plan_on_device_is_the_python_plan(cuda):
+    """The plan the kernels launch (repro_gemv_plan, C) equals gemv_plan
+    (Python), and its grid fits one wave of the card."""
+    for m in (1, 5, 131, 132, 133, 137, 1000, 4096, 8190, 8192, 16384, 100_003):
+        got = gemv.gemv_plan_on_device(m)
+        assert {key: got[key] for key in gemv.gemv_plan(m)} == gemv.gemv_plan(m), m
+        assert got["blocks"] <= got["blocks_per_wave"], got
+
+
+@pytest.mark.cuda
+def test_gemv_bar_fails_a_warp_whose_rows_are_skipped(cuda):
+    """The float32 bar (5e-5 of max|want|) rejects a GEMV that leaves the
+    rows of one warp, the one owning the largest output, unwritten (zero)
+    by more than 1000x."""
+    g, v = _gemv_operands(cuda, 4096, 4096, torch.float32, 47)
+    want = mvm.crosspoint_mvm_plain(g, v)
+    got = mvm.crosspoint_mvm(g, v)
+    assert _share(got, want, 5e-5) <= 1
+    top = int(want.abs().argmax())
+    plan = gemv.gemv_plan(4096)
+    rows = next(rows for b in range(plan["blocks"]) for w in range(plan["warps"])
+                if top in (rows := gemv.gemv_rows_of(4096, b, w)))
+    got[rows] = 0.0
+    assert _share(got, want, 5e-5) > 1000
 
 
 @pytest.mark.cuda

@@ -83,7 +83,7 @@ def test_crosspoint_mvm_route_of_ragged_shapes(m, k, nb, route):
     (300, 513, 64, "f32_scalar"),     # k off the 4-element grid
     (300, 520, 5, "f32_scalar"),      # nb off the grid
     (257, 130, 64, "f32_scalar"),
-    (300, 513, 1, "fma"),             # the GEMV stays on tile_product
+    (300, 513, 1, "fma"),             # the GEMV (common.cuh:gemv_rows)
     (1, 4, 4, "f32_async"),           # m does not change the route
 ])
 def test_crosspoint_mvm_f32_route_of_ragged_shapes(m, k, nb, route):
