@@ -148,7 +148,14 @@ non-zero:
    InternVL2's G = 7, Mixtral's G = 6 with its 4096 window at S = 6000,
    Whisper's non-causal encoder and cross attention at T = 1500), and a
    planted fault at D = 112 (the short column group left unnormalized)
-   must fail the bar by more than 1000x;
+   must fail the bar by more than 1000x.  At every case on the FMA route
+   the output with the row lse must be the output without it, bit for
+   bit, and the forward's plan in Python (``fma_forward_plan``) the C
+   launcher's, its grid within one wave at train_lm's shape; two launches
+   at train_lm's shape must agree bit for bit, and two planted faults
+   there (the last row tile without the last key tile of its reach; the
+   last row tile left unnormalized) must fail the float32 bar by more
+   than 1000x;
 7. families — every other model family at its published width, bf16,
    seeded random weights on the card, greedy: InternVL2-1B (24 layers,
    256 patch embeddings and 300-1200 text tokens, through ``prefill_into``
@@ -182,8 +189,12 @@ non-zero:
    through a view off the 16-byte grid, and every case run twice for the
    same bits; at every case on "fma" the dK/dV split's plan in Python
    against the C launcher's, its grid within one wave; the forward's lse
-   against the plain one; a planted fault (a GQA head left out of dK/dV)
-   that the bar must reject by more than 1000x; each kernel's time on
+   against the plain one; Delta bit for bit against
+   ``delta_in_kernel_order`` at every case, and through views off the
+   16-byte grid (its scalar variant, counted as such) at the main and
+   D = 112 cases; planted faults (a GQA head left out of dK/dV; one
+   lane's chunk left out of Delta at train_lm's shape) that the bars must
+   reject by more than 1000x; each kernel's time on
    each route at the main shape (the median of 20 calls after a warm-up,
    with its spread), its operation bound and the plain backward's and
    ``scaled_dot_product_attention``'s backward times (comparison only);
@@ -216,7 +227,8 @@ non-zero:
    at the main shape and at train_lm's, the latter the train phase's;
    K8's backward kernels a row each per dtype and route (bf16 on the
    tensor cores, float32 on FMA), with the train phase's launches by
-   case), the nvidia-smi line, and the contract's last line.
+   case, Delta's also by variant and with the device time of its launch
+   over zero rows), the nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 outside a checkout (no ``src/repro_torch`` beside it), it exits with
@@ -2296,6 +2308,10 @@ K8_CASES = (
     # examples/train_lm.py's attention (lm_100m: 12 heads over 4, D = 64),
     # where training launches the FMA forward
     ("train_f32_d64", F32, 4, 192, 192, 12, 4, 64, True, 0, None),
+    # the FMA route with p rounded to bf16 (held at the bf16 bar, and
+    # closer to the plain version that rounds p than to the one that does
+    # not: fma_p_bf16_checks)
+    ("f32_d64_p_bf16", F32, 2, 515, 515, 8, 2, 64, True, 0, BF16),
 )
 # the same shape in float32: the FMA route's row of the kernels line
 K8_MAIN_F32 = ("main_f32", F32, *K8_MAIN[2:])
@@ -2378,6 +2394,59 @@ def k8_heads_swapped(q, k, v, **kw):
 K8_FAULTS = {"tile_dropped_late_rows": k8_tile_dropped, "gqa_heads_swapped": k8_heads_swapped}
 
 
+def fma_tile_rows(q, k, tile_index: int) -> torch.Tensor:
+    """The (S, H) selection of the rows of the FMA forward's row tile that
+    its plan issues ``tile_index``-th (0: the last row tile), in every
+    batch and KV head: row R = qpos G + (head % G) of the tile's range."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    r0, r1, _kt0, _n_kt = fa.fma_forward_plan(b, s, t, h, kv, d, True, 0)["tiles"][tile_index]
+    rows = (torch.arange(s, device=q.device)[:, None] * g
+            + torch.arange(h, device=q.device)[None, :] % g)
+    return (rows >= r0) & (rows < r1)
+
+
+def k8_fma_last_key_tile_dropped(q, k, v, **kw):
+    """A planted fault of the FMA forward (causal): its last row tile with
+    the last key tile of its reach left out."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    _r0, _r1, kt0, n_kt = fa.fma_forward_plan(b, s, t, h, kv, d, True, 0)["tiles"][0]
+    out = fa.flash_attention(q, k, v, **kw)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    last = (kpos >= (kt0 + n_kt - 1) * fa.KV_TILE) & (kpos < (kt0 + n_kt) * fa.KV_TILE)
+    dropped = attention_masked(q, k, v, (kpos <= qpos) & ~last)
+    sel = fma_tile_rows(q, k, 0)
+    out[:, sel] = dropped[:, sel]
+    return out
+
+
+def k8_fma_tile_unnormalized(q, k, v, **kw):
+    """A planted fault of the FMA forward (causal): its last row tile left
+    unnormalized, acc instead of acc / l (l from a float32 score matrix)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    out = fa.flash_attention(q, k, v, **kw)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    sc = torch.einsum("bqhgd,bkhd->bqhgk", q.float().reshape(b, s, kv, h // kv, d),
+                      k.float()) / np.sqrt(d)
+    keep = torch.arange(k.shape[1], device=q.device)[None, :] <= \
+        torch.arange(s, device=q.device)[:, None]
+    sc = sc.masked_fill(~keep[None, :, None, None, :], -np.inf)
+    l = torch.exp(sc - sc.amax(dim=-1, keepdim=True)).sum(dim=-1).reshape(b, s, h)
+    sel = fma_tile_rows(q, k, 0)
+    out[:, sel] = (out.float() * l[..., None])[:, sel].to(out.dtype)
+    return out
+
+
+K8_FMA_FAULTS = {"last_key_tile_dropped_last_row_tile": k8_fma_last_key_tile_dropped,
+                 "last_row_tile_unnormalized": k8_fma_tile_unnormalized}
+
+
 def k8_last_group_unnormalized(q, k, v, **kw):
     """A planted fault at D = 112: K8 with its last 16 output columns (in
     the short second group of V's columns, which D = 112 alone has) left
@@ -2414,12 +2483,19 @@ def phase_k8() -> dict:
     the FMA route ("fma_train")."""
     from repro_torch.kernels import ops
 
+    from repro_torch.kernels import build
+
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    # the forward's FMA kernel, by its mangled name (22 = its length)
+    emit(dict(phase="serve", case="k8_fma_registers",
+              ptxas={key[2:]: use for key, use in ptxas_usage(build.load_library().log,
+                                                               "22flash_attention").items()}))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs: dict = {}
     routes: dict = {}
+    fma: dict = {}
     for case in K8_CASES:
-        label, dtype, _b, _s, _t, _h, _kv, d, causal, window, p_dtype = case
+        label, dtype, b_, s_, t_, h_, kv_, d, causal, window, p_dtype = case
         q, k, v = k8_operands(case, gen)
         route = fa.flash_attention_route(dtype, d, True)
         before = ops.launch_counts_by_route()["flash_attention"][route]
@@ -2433,8 +2509,24 @@ def phase_k8() -> dict:
         routes[label] = route
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, p_dtype=p_dtype)
         check(got.dtype == dtype and got.shape == q.shape, f"K8 {label}: dtype/shape")
-        hold_close(errs, label, got, want, *K8_BARS[dtype])
+        # p rounded to bf16 takes the bf16 bar in either dtype: a p whose
+        # rounding flips between two orders moves an output by 2^-8 p / l |v|
+        hold_close(errs, label, got, want, *K8_BARS[BF16 if p_dtype == BF16 else dtype])
+        if route == "fma":
+            fma[label] = fma_forward_checks(q, k, v, got, (b_, s_, t_, h_, kv_, d, causal, window),
+                                            causal=causal, window=window, p_dtype=p_dtype)
+            if p_dtype == BF16:
+                fma[label].update(fma_p_bf16_checks(q, k, v, got, want, causal, window))
     emit(dict(phase="serve", case="k8_vs_plain", bars=bars_json(), errors=errs, routes=routes))
+    q, k, v = k8_operands(K8_TRAIN_F32, gen)
+    again = [fa.flash_attention(q, k, v) for _ in range(2)]
+    fma["train_f32_d64"]["same_bits_twice"] = torch.equal(again[0].view(torch.int32),
+                                                          again[1].view(torch.int32))
+    check(fma["train_f32_d64"]["waves"] <= 1, f"K8 fma at train_lm's shape: the grid takes "
+                                              f"more than one wave: {fma['train_f32_d64']}")
+    check(fma["train_f32_d64"]["same_bits_twice"], "K8 fma at train_lm's shape: two launches "
+                                                   "differ")
+    emit(dict(phase="serve", case="k8_fma_forward", cases=fma))
 
     # the bar must fail a wrong kernel: planted faults at the main-path shape
     dtype = K8_MAIN[1]
@@ -2447,21 +2539,77 @@ def phase_k8() -> dict:
         check(share > 1, f"K8's bar passes the planted fault {name}: {share} of it")
     # the short column group at D = 112: a fault there must fail the bar by
     # more than 1000x
-    q, k, v = k8_operands(K8_D112, gen)
-    err, share = bar_share(k8_last_group_unnormalized(q, k, v),
-                           fa.flash_attention_plain(q, k, v), *K8_BARS[BF16])
+    d112 = k8_operands(K8_D112, gen)
+    err, share = bar_share(k8_last_group_unnormalized(*d112),
+                           fa.flash_attention_plain(*d112), *K8_BARS[BF16])
     planted["d112_last_group_unnormalized"] = dict(max_abs_err=err, of_bar=share)
     check(share > 1000, f"K8's bar passes the D = 112 planted fault, or fails it by 1000x "
                         f"or less: {share} of it")
+    # the FMA forward's faults at train_lm's shape, each past 1000x the
+    # float32 bar
+    q, k, v = k8_operands(K8_TRAIN_F32, gen)
+    want = fa.flash_attention_plain(q, k, v)
+    for name, fault in K8_FMA_FAULTS.items():
+        err, share = bar_share(fault(q, k, v), want, *K8_BARS[F32])
+        planted[f"fma_train_{name}"] = dict(max_abs_err=err, of_bar=share)
+        check(share > 1000, f"K8's float32 bar passes the planted fault {name}, or fails it by "
+                            f"1000x or less: {share} of it")
     emit(dict(phase="serve", case="k8_planted_faults", faults=planted))
 
-    rows = {"mma_d112": k8_times(q, k, v, errs, routes)}
+    rows = {"mma_d112": k8_times(*d112, errs, routes)}
     rows["mma"] = k8_times(*k8_operands(K8_MAIN, gen), errs, routes)
     rows["fma"] = k8_times(*k8_operands(K8_MAIN_F32, gen), errs, routes)
     rows["fma_train"] = k8_times(*k8_operands(K8_TRAIN_F32, gen), errs, routes)
     for row in rows.values():
         emit(dict(phase="serve", case="k8_times", **row))
     return rows
+
+
+def fma_plan_held(shape: tuple) -> dict:
+    """The FMA forward's plan at ``shape`` (b, s, t, h, kv, d, causal,
+    window) as the C launcher reports it (fma_forward_plan_on_device: rows,
+    threads, shared memory, blocks, row tiles, blocks per SM on this card),
+    held against the plan in Python (fma_forward_plan), and the waves it
+    takes."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    plan, on_card = fa.fma_forward_plan(*shape), fa.fma_forward_plan_on_device(*shape)
+    keys = ("rows", "threads", "smem_bytes", "blocks", "row_tiles")
+    equal = all(plan[key] == on_card[key] for key in keys) and \
+        [tile[2:] for tile in plan["tiles"]] == on_card["key_tiles"]
+    check(equal, f"K8 fma {shape}: the plan in Python and in C differ")
+    return dict(plan_equal_c=equal, **{key: on_card[key] for key in keys + ("blocks_per_sm",)},
+                waves=on_card["blocks"] / (torch.cuda.get_device_properties(0).multi_processor_count
+                                           * on_card["blocks_per_sm"]))
+
+
+def fma_forward_checks(q, k, v, got, shape: tuple, **kw) -> dict:
+    """At a case on the FMA route: the output with lse bit for bit the
+    output without it, and the plan in Python equal to the C launcher's
+    (fma_plan_held)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    with_lse, _ = fa.flash_attention_lse(q, k, v, **kw)
+    bits = torch.int16 if q.dtype == BF16 else torch.int32
+    same = torch.equal(with_lse.view(bits), got.view(bits))
+    check(same, f"K8 fma {shape}: the output with lse differs from the one without")
+    return dict(same_bits_with_lse=same, **fma_plan_held(shape))
+
+
+def fma_p_bf16_checks(q, k, v, got, want, causal: bool, window: int) -> dict:
+    """At a float32 case with p rounded to bf16: the output differs from
+    the launch with p float32, and its mean |error| against the plain
+    version that rounds p (``want``) is under a quarter of that against
+    the plain version that does not, which a kernel ignoring p_bf16 fails."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    unrounded = fa.flash_attention(q, k, v, causal=causal, window=window)
+    differs = not torch.equal(got, unrounded)
+    to_rounded = float((got - want).abs().mean())
+    to_unrounded = float((got - fa.flash_attention_plain(q, k, v, causal=causal,
+                                                         window=window)).abs().mean())
+    check(differs and to_rounded * 4 < to_unrounded,
+          f"K8 fma with p rounded: the same as p float32 ({not differs}) or not closer to the "
+          f"plain version that rounds p ({to_rounded} against {to_unrounded})")
+    return dict(p_bf16_differs_from_p_f32=differs, p_bf16_mean_err_to_rounded=to_rounded,
+                p_bf16_mean_err_to_unrounded=to_unrounded)
 
 
 def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> dict:
@@ -2485,6 +2633,9 @@ def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> d
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
     prof = device_breakdown(lambda: [sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
                                      for _ in range(20)])
+    extra = {}
+    if route == "fma":
+        extra["fma_plan"] = fma_plan_held((b, s, t, h, kv, d, True, 0))
     return dict(
         shape=[b, s, t, h, kv, d], causal=True, dtype=str(q.dtype).removeprefix("torch."),
         route=route, ms=ms, device_ms=graph_ms(lambda: fa.flash_attention(q, k, v), 20),
@@ -2498,7 +2649,7 @@ def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> d
         tflop_per_s=flops / (ms * 1e-3) / 1e12,
         max_abs_err=(max(e["max_abs_err"] for label, e in errs.items()
                          if routes[label] == route) if errs is not None else None),
-        library_max_abs_err=lib_err,
+        library_max_abs_err=lib_err, **extra,
     )
 
 
@@ -3117,7 +3268,34 @@ K8_BWD_ROUTED = ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 # cases also run on the FMA route through a view off the 16-byte grid
 K8_BWD_FMA_VIEW = ("bwd_main", "bwd_d112")
 K8_BWD_TIMING_CALLS = 20
+# Delta's device ms is, as every kernel's, the graph of 5 launches; its
+# ~4 us is close to a graph replay's own cost, so a graph of 50 is timed
+# beside it (device_ms_graph_of_50, and the same for its einsum and its
+# launch over zero rows)
+DELTA_GRAPH_CALLS = 50
 K8_BWD_REPLACES = "none: replaces jax.grad through src/repro/models/attention.py:42"
+
+
+def delta_bits(o, do, delta, label: str) -> dict:
+    """Delta bit for bit against delta_in_kernel_order (its sum order in
+    plain PyTorch) on the 16-byte grid ("vec16") and, at the cases of
+    K8_BWD_FMA_VIEW, through views off it ("scalar"), each launch counted
+    on its variant."""
+    from repro_torch.kernels import ops
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    want = fa.delta_in_kernel_order(o, do).view(torch.int32)
+    out = {"vec16_bit_equal": torch.equal(delta.view(torch.int32), want),
+           "plan_equal_c": delta_plan_held(o)["plan_equal_c"]}
+    if label in K8_BWD_FMA_VIEW:
+        dt = str(o.dtype).removeprefix("torch.")
+        before = ops.launch_counts_bwd_delta_by_variant()[dt]["scalar"]
+        got = fa.flash_attention_bwd_delta(off_grid(o), off_grid(do))
+        check(ops.launch_counts_bwd_delta_by_variant()[dt]["scalar"] == before + 1,
+              f"Delta {label} off the grid did not take the scalar variant")
+        out["scalar_bit_equal"] = torch.equal(got.view(torch.int32), want)
+    check(all(out.values()), f"Delta {label}: not bit for bit its kernel order: {out}")
+    return out
 
 
 def bwd_share(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_rel: float
@@ -3266,7 +3444,7 @@ def phase_k8_bwd() -> dict:
         delta = fa.flash_attention_bwd_delta(o, do)
         e, sh = bwd_share(delta, (do.float() * o.float()).sum(-1).transpose(1, 2), 0.0, 1e-5)
         check(sh <= 1, f"K8 backward {label} delta: {e}, {sh} of its bar")
-        row["delta"] = dict(max_abs_err=e, of_bar=sh)
+        row["delta"] = dict(max_abs_err=e, of_bar=sh, **delta_bits(o, do, delta, label))
         errs[label] = row
     emit(dict(phase="train", case="k8_bwd_vs_plain",
               bars={str(dt).removeprefix("torch."): dict(rtol=r, atol_of_max=a)
@@ -3280,8 +3458,19 @@ def phase_k8_bwd() -> dict:
     err, share = bwd_share(dk, want[1], *K8_BWD_BARS[BF16])
     check(share > 1000, f"K8 backward's bar passes the planted fault, or fails it by 1000x or "
                         f"less: {share} of it")
-    emit(dict(phase="train", case="k8_bwd_planted_fault",
-              faults={"gqa_head_dropped_dk": dict(max_abs_err=err, of_bar=share)}))
+    faults = {"gqa_head_dropped_dk": dict(max_abs_err=err, of_bar=share)}
+    # Delta with one lane's chunk (row elements 4 .. 7 in float32) left
+    # out, at train_lm's shape, against Delta's bar
+    q, k, v, do = k8_bwd_operands(K8_BWD_F32, gen)
+    o, _ = fa.flash_attention_lse(q, k, v)
+    e = 16 // o.element_size()
+    dropped = fa.flash_attention_bwd_delta(o, do) - \
+        (do[..., e:2 * e].float() * o[..., e:2 * e].float()).sum(-1).transpose(1, 2)
+    err, share = bwd_share(dropped, (do.float() * o.float()).sum(-1).transpose(1, 2), 0.0, 1e-5)
+    check(share > 1000, f"Delta's bar passes the planted fault, or fails it by 1000x or less: "
+                        f"{share} of it")
+    faults["delta_lane_chunk_dropped"] = dict(max_abs_err=err, of_bar=share)
+    emit(dict(phase="train", case="k8_bwd_planted_fault", faults=faults))
 
     rows = {}
     for key, case in (("bf16", K8_BWD_MAIN), ("f32", K8_BWD_F32)):
@@ -3361,18 +3550,23 @@ def k8_bwd_times(q, k, v, do, errs: dict | None = None) -> dict:
         spread = cuda_ms_spread(fn, K8_BWD_TIMING_CALLS)
         ms = spread["median"]
         row = dict(kernel_route=route if fma_fn is not None else None, ms=ms, spread_ms=spread,
-                   device_ms=graph_ms(fn, 5), bound_ms=bound_ms, bound_by=bound_by,
+                   device_ms=graph_ms(fn, 5),
+                   bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, flops=flops, tflop_per_s=flops / (ms * 1e-3) / 1e12)
         if fma_fn is not None and route == "mma":
             fma = cuda_ms_spread(fma_fn, K8_BWD_TIMING_CALLS)
             row.update(fma_ms=fma["median"], fma_spread_ms=fma, fma_device_ms=graph_ms(fma_fn, 5))
-        if name == "flash_attention_bwd_delta" and not bf16:
-            # Delta's one-call yardstick in float32 (in bf16 an einsum would
-            # round Delta to bf16: not the same function)
+        if name == "flash_attention_bwd_delta":
+            # Delta's one-call yardstick (in bf16 the einsum's result is
+            # bf16, Delta's float32: the same sum, rounded once more)
             lib_delta = lambda: torch.einsum("bshd,bshd->bhs", do, o)  # noqa: E731
             lib_t = cuda_ms_spread(lib_delta, K8_BWD_TIMING_CALLS)
-            row.update(library='torch.einsum("bshd,bshd->bhs", do, o)', library_ms=lib_t["median"],
-                       library_spread_ms=lib_t, library_device_ms=graph_ms(lib_delta, 5))
+            row.update(library='torch.einsum("bshd,bshd->bhs", do, o)'
+                       + (" (bf16 result)" if bf16 else ""), library_ms=lib_t["median"],
+                       library_spread_ms=lib_t,
+                       library_device_ms=graph_ms(lib_delta, 5),
+                       library_device_ms_graph_of_50=graph_ms(lib_delta, DELTA_GRAPH_CALLS),
+                       device_ms_graph_of_50=graph_ms(fn, DELTA_GRAPH_CALLS), **delta_fixed_ms(o))
         out["kernels"][name] = row
     out["backward_ms"] = sum(r["ms"] for r in out["kernels"].values())
     out["dkdv_dq_device_ms"] = sum(out["kernels"][n]["device_ms"] for n in K8_BWD_ROUTED)
@@ -3387,6 +3581,39 @@ def k8_bwd_times(q, k, v, do, errs: dict | None = None) -> dict:
                                       if case_dtype(lbl) == q.dtype),
     }
     return out
+
+
+def delta_plan_held(o: torch.Tensor) -> dict:
+    """Delta's grid for ``o`` as the C entry point reports it
+    (delta_plan_on_device: lanes, warps a block, blocks), held against the
+    plan in Python (delta_plan)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s, h, d = o.shape
+    plan, on_card = fa.delta_plan(o.dtype, d, b * s * h), fa.delta_plan_on_device(o.dtype, b, s,
+                                                                                   h, d)
+    equal = {key: plan[key] for key in on_card} == on_card
+    check(equal, f"Delta {tuple(o.shape)}: the plan in Python {plan} and in C {on_card} differ")
+    return dict(plan_equal_c=equal, **on_card)
+
+
+def delta_fixed_ms(o: torch.Tensor) -> dict:
+    """Delta's launch over zero rows on the grid it takes for ``o`` (the C
+    entry point's, delta_plan_held), in CUDA graphs of 5 and of 50 (device
+    ms): the launch's fixed cost, which weighs at train_lm's 4.7 MB."""
+    from repro_torch.kernels import build
+
+    b, s, h, d = o.shape
+    plan = delta_plan_held(o)
+    lib = build.load_library()
+    is_bf16 = int(o.dtype == BF16)
+
+    def empty():
+        lib.call("repro_flash_attention_bwd_delta_empty", is_bf16, b, s, h, d,
+                 build.current_stream(o.device))
+
+    return dict(fixed_device_ms=graph_ms(empty, 5),
+                fixed_device_ms_graph_of_50=graph_ms(empty, DELTA_GRAPH_CALLS),
+                fixed_blocks=plan["blocks"], fixed_warps_a_block=plan["warps"])
 
 
 def case_dtype(label: str) -> torch.dtype:
@@ -3433,6 +3660,7 @@ def k8_counts() -> dict:
     counts = ops.launch_counts()
     return dict(forward_by_route=ops.launch_counts_by_route()["flash_attention"],
                 backward={n: counts[n] for n in K8_BWD_KERNELS},
+                delta_by_variant=ops.launch_counts_bwd_delta_by_variant(),
                 backward_by_dtype=ops.launch_counts_bwd_by_dtype(),
                 backward_by_route=ops.launch_counts_bwd_by_route())
 
@@ -3874,7 +4102,8 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                          kernel_route=row["route"],
                          **{k: row[k] for k in keys},
                          f32_fma_bound_ms=row["f32_fma_bound_ms"],
-                         tflop_per_s=row["tflop_per_s"]))
+                         tflop_per_s=row["tflop_per_s"],
+                         **({"fma_plan": row["fma_plan"]} if "fma_plan" in row else {})))
     return rows + k8_bwd_line_rows(k8_bwd_rows, train_launches)
 
 
@@ -3899,9 +4128,17 @@ def k8_bwd_line_rows(k8_bwd_rows: dict, train_launches: dict) -> list[dict]:
                 by_phase = {case: counts["backward_by_dtype"][name][dtype]
                             for case, counts in train_launches.items()}
             extra = {key: k[key] for key in ("fma_ms", "fma_device_ms", "spread_ms",
-                                             "library_device_ms") if key in k}
+                                             "library_device_ms", "device_ms_graph_of_50",
+                                             "library_device_ms_graph_of_50", "fixed_device_ms",
+                                             "fixed_device_ms_graph_of_50", "fixed_blocks",
+                                             "fixed_warps_a_block") if key in k}
             if name in K8_BWD_ROUTED:
                 extra["kernel_route"] = row["route"]
+            else:
+                # Delta's launches of the row's dtype by variant, by case
+                extra["launches_by_variant"] = {
+                    case: counts["delta_by_variant"][dtype]
+                    for case, counts in train_launches.items()}
             rows.append(dict(
                 name=f"K8 {name} ({dtype}, D = {row['shape'][-1]}"
                      + (f", {row['route']})" if name in K8_BWD_ROUTED else ")"),

@@ -19,8 +19,10 @@ the 16-byte grid (the tensor-core route where the package has it).
 (a), examples/train_lm.py's default run (300 AnalogNewton steps, float32).
 ``--compare`` prints, per output, whether two saved runs (for example two
 commits of the package on one card) agree bit for bit, and for each that
-differs how much: the largest |a - b| over max |b| of an array, the
-largest |a - b| of the loss curve; it exits 1 if any differs.  To compare
+differs how much: the largest |a - b| over max |b| of an array and its
+largest share of K8's float32 bar 1e-6 + 1e-5 |b| (``of_f32_bar``), the
+largest |a - b| of the loss curve; it exits 1 if any differs.  Each
+forward case also saves its row lse (``{label}_lse``).  To compare
 two commits, run this script of one tree twice, once with each tree's
 ``src`` first on the path, so that both runs take the same cases.
 """
@@ -107,8 +109,9 @@ def save(path: str, train: bool) -> None:
             out[label] = got.view(torch.int16 if dtype == smoke.BF16 else torch.int32
                                   ).cpu().numpy()
             if hasattr(fa, "flash_attention_lse"):
-                with_lse, _ = fa.flash_attention_lse(q, k, v, causal=causal, window=window,
-                                                     p_dtype=p_dtype)
+                with_lse, lse = fa.flash_attention_lse(q, k, v, causal=causal, window=window,
+                                                       p_dtype=p_dtype)
+                out[label + "_lse"] = bits(lse)
                 report[label + "_same_with_lse"] = bool(torch.equal(
                     with_lse.view(torch.int16 if dtype == smoke.BF16 else torch.int32),
                     got.view(torch.int16 if dtype == smoke.BF16 else torch.int32)))
@@ -124,6 +127,10 @@ def save(path: str, train: bool) -> None:
                       "cases": len(out), **report, **curve}))
     if not all(report.values()):
         sys.exit(1)
+
+
+# K8's float32 bar (chip_smoke.K8_BARS): |a - b| <= 1e-6 + 1e-5 |b|
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
 
 
 def values(x: np.ndarray) -> np.ndarray:
@@ -147,8 +154,10 @@ def compare(a: str, b: str) -> int:
         if key == "train_lm_loss_curve":
             differ[key] = {"max_abs_diff": float(np.abs(va - vb).max())}
         else:
-            differ[key] = {"max_abs_diff_of_max": float(np.abs(va - vb).max())
-                           / max(float(np.abs(vb).max()), 1e-30)}
+            err = np.abs(va - vb)
+            differ[key] = {"max_abs_diff_of_max": float(err.max())
+                           / max(float(np.abs(vb).max()), 1e-30),
+                           "of_f32_bar": float((err / (F32_ATOL + F32_RTOL * np.abs(vb))).max())}
     print(json.dumps({"compare": [a, b], "bit_equal": same, "differ": differ,
                       "missing": sorted(set(x.files) ^ set(y.files)),
                       "all": all(same.values())}))

@@ -128,11 +128,20 @@ _SIGNATURES = {
     # q, k, v, is_bf16, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
     "repro_flash_attention": ((_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _I, _P), _I),
+    # q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, rows, stream
+    "repro_flash_attention_fma_rows": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _F, _I, _I, _P), _I),
+    # batch, s, t, h, kv, d, causal, window, plan (int*), plan_len
+    "repro_flash_attention_fma_plan": ((_I, _I, _I, _I, _I, _I, _I, _I, _P, _I), _I),
     # q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, stream
     "repro_flash_attention_mma": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                    _I, _P), _I),
-    # o, dout, is_bf16, delta, batch, s, h, d, stream
-    "repro_flash_attention_bwd_delta": ((_P, _P, _I, _P, _I, _I, _I, _I, _P), _I),
+    # o, dout, is_bf16, delta, batch, s, h, d, vec16, stream
+    "repro_flash_attention_bwd_delta": ((_P, _P, _I, _P, _I, _I, _I, _I, _I, _P), _I),
+    # is_bf16, batch, s, h, d, stream
+    "repro_flash_attention_bwd_delta_empty": ((_I, _I, _I, _I, _I, _P), _I),
+    # is_bf16, batch, s, h, d, plan (int*), plan_len
+    "repro_flash_attention_bwd_delta_plan": ((_I, _I, _I, _I, _I, _P, _I), _I),
     # q, k, v, dout, is_bf16, lse, delta, dk, dv, batch, s, t, h, kv, d, causal, window,
     # scale, p_bf16, stream
     "repro_flash_attention_bwd_dkdv": ((_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -85,12 +85,26 @@
 // TMA with the 128-byte swizzle, a producer warp, and one tile's softmax
 // overlapped with the next tile's products.
 //
-// Design of the fma route (the first port).  A block of 256 threads owns
-// 64 rows; per 64-key tile the K tile is staged in shared memory
-// (converted to float32, zero past T), every thread forms a 4 x 4 block
-// of scores with float32 FMA, the row max and sum are reduced over the
-// 16 lanes that share a row, the probabilities go to shared memory, the
-// V tile replaces the K tile, and every thread adds its 4 x D/16 outputs.
+// Design of the fma route (redesigned for Hopper; float32 FMA only, TF32
+// stays off).  A block owns a row tile of the plan's size (ff_plan,
+// kernels/flash_attention.py:fma_forward_plan: the largest multiple of a
+// warp's rows whose grid keeps FF_FILL_BLOCKS blocks; 48 at train_lm's
+// shape, 128 at the serving shape), a thread 4 of its rows by 1 / KG of
+// each key tile (FfLayout).  Q is copied once; K and V stream through a
+// ring of 64-key buffers by 16-byte cp.async (bf16 element by element, off
+// the grid 4 bytes at a time), a key tile's K and V a tile ahead of their
+// use behind one block barrier a tile (three buffers and two barriers at
+// D >= 112, where a fourth does not fit beside 128 rows).  S comes from
+// register tiles of 4 rows x 4 or 8 keys over 128-bit shared loads; the
+// online softmax runs in the log2 domain (one multiply by scale log2(e),
+// exp2f), with the mask on edge tiles only and each lane's share of the
+// row sum added up once, at the end; P passes through shared memory to the
+// same warp's PV product, 4 rows x D / KG columns from 128-bit (64-bit at
+// D <= 32 and 112) loads.  What bounds it on an H100: at the serving shape
+// the shared-memory pipe that feeds the FMA (1.0 ms against the 0.51 ms
+// FMA bound); at train_lm's shape the latency of each block's chain of up
+// to 3 key tiles (about 4 us a tile for one block alone: its products,
+// softmax and barrier) and the launch, against a 3.4 us bound.
 // Both routes can also write each row's log-sum-exp lse = m + log(l) of
 // the scaled scores, float32 (B, H, S), for the backward; without it they
 // compute and store exactly what they did before the output existed.
@@ -142,225 +156,499 @@
 namespace repro_torch {
 namespace {
 
-constexpr int FA_THREADS = 256;
-constexpr int FA_ROWS = 64;       // rows (q position, group member) per block
 constexpr int FA_KB = 64;         // keys per tile
 constexpr float FA_NEG_INF = -1e30f;
 constexpr long long MAX_GRID_X = 0x7fffffffLL;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
-struct FaLayout {
-  static constexpr int QS = D + 1;       // padded row strides, in floats: the
-  static constexpr int KS = D + 1;       // 16 lanes of a row read 16 banks
-  static constexpr int PS = FA_KB + 1;
-  static constexpr int DC = D / 16;      // output columns per thread
-  static constexpr size_t FLOATS = FA_ROWS * QS + FA_KB * KS + FA_ROWS * PS;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-};
+// ---------------------------------------------------------------------------
+// float32 FMA helpers, shared by the fma route's forward and backward
+// ---------------------------------------------------------------------------
 
-// the max/sum over the 16 lanes of a half warp (the threads of one row)
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ bool fa_keep(int qpos, int kpos, int t_len, int causal, int window) {
+  bool ok = kpos < t_len;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && kpos > qpos - window;
+  return ok;
 }
 
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// rows [0, FA_KB) of a (T, KV, D) slab starting at key k0 -> dst, float32,
-// zero past key T
-template <typename T, int D>
-__device__ __forceinline__ void load_kv_tile(const T* __restrict__ src, float* dst, int k0,
-                                             int t_len, int kv, size_t head_off) {
-  for (int e = threadIdx.x; e < FA_KB * D; e += FA_THREADS) {
-    const int r = e / D;
-    const int c = e % D;
-    const int kpos = k0 + r;
-    dst[r * FaLayout<D>::KS + c] =
-        kpos < t_len ? to_f32(src[(static_cast<size_t>(kpos) * kv) * D + head_off + c]) : 0.0f;
+// c + a . b, the four terms in order
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// acc[0..3] += s * x
+__device__ __forceinline__ void axpy4(float (&acc)[4], float s, const float4 x) {
+  acc[0] = fmaf(s, x.x, acc[0]);
+  acc[1] = fmaf(s, x.y, acc[1]);
+  acc[2] = fmaf(s, x.z, acc[2]);
+  acc[3] = fmaf(s, x.w, acc[3]);
+}
+
+// Rows [r0, r0 + n_rows) of D elements, `row_stride` elements apart from
+// `src` on, -> dst [n_rows][DS] float32, zero from row `limit` on, by the
+// `nt` threads tid = 0 .. nt - 1.  float32 by cp.async: 16-byte copies
+// when vec16 (every base on the 16-byte grid), else 4-byte ones; bf16
+// element by element (a load and a conversion).  The caller commits the
+// copies.
+template <typename T, int D, int DS>
+__device__ __forceinline__ void fb_stage_rows_by(int tid, int nt, float* dst,
+                                                 const T* __restrict__ src, size_t row_stride,
+                                                 int r0, int n_rows, int limit, int vec16) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec16) {
+      constexpr int CH = D / 4;
+      for (int e = tid; e < n_rows * CH; e += nt) {
+        const int r = e / CH, c = (e % CH) * 4;
+        const bool ok = r0 + r < limit;
+        const T* p = ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src;
+        cp_async16(dst + r * DS + c, p, ok ? 16 : 0);
+      }
+      return;
+    }
+    for (int e = tid; e < n_rows * D; e += nt) {
+      const int r = e / D, c = e % D;
+      const bool ok = r0 + r < limit;
+      const T* p = ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src;
+      cp_async4(dst + r * DS + c, p, ok ? 4 : 0);
+    }
+  } else {
+    for (int e = tid; e < n_rows * D; e += nt) {
+      const int r = e / D, c = e % D;
+      dst[r * DS + c] =
+          r0 + r < limit ? to_f32(src[static_cast<size_t>(r0 + r) * row_stride + c]) : 0.0f;
+    }
   }
 }
 
+// fb_stage_rows_by over the block's THREADS threads
+template <typename T, int D, int DS, int THREADS>
+__device__ __forceinline__ void fb_stage_rows(float* dst, const T* __restrict__ src,
+                                              size_t row_stride, int r0, int n_rows, int limit,
+                                              int vec16) {
+  fb_stage_rows_by<T, D, DS>(threadIdx.x, THREADS, dst, src, row_stride, r0, n_rows, limit,
+                             vec16);
+}
+
+// ---------------------------------------------------------------------------
+// fma route: float32 FMA from register tiles over shared-memory tiles
+// ---------------------------------------------------------------------------
+
+// The forward's layout at head size D.  A thread owns AR = 4 rows of the
+// block (rows rg + RG i, RG = rows / 4 the block's row groups) and, with
+// the KG lanes of its row group (KG consecutive lanes of one warp: the row
+// max is a shuffle tree, and P passes between the products by a
+// __syncwarp), forms S over AK = 64 / KG keys (keys kg + KG j) and
+// then the same 4 rows' outputs over CPT = D / KG columns (chunks of VEC
+// columns at VEC (kg + KG jj)).  KG = 16 at D = 32 and 64 (a 4 x 4 S tile,
+// half the work a thread of an 8-lane group does: the longest block's
+// critical path at train_lm's shape), 8 at D = 16, 112 and 128 (4 x 8,
+// 10.7 FMA a 128-bit load).  Every tile keeps at least 4 FMA a shared
+// load: S 8 or 10.7; PV 4 (D = 16, 32), 8 (64), 7 (112: float2 chunks, no
+// padding), 12.8 (128).  Q, K and V rows are padded by 4 floats (TS), so
+// that the 8 or 16 key rows a quarter or half warp reads by 128-bit loads
+// fall in distinct banks; P rows by KG floats (PS), so that the 32 lanes'
+// scalar stores of P do.
+template <int D>
+struct FfLayout {
+  static constexpr int KG = (D == 32 || D == 64) ? 16 : 8;
+  static constexpr int AR = 4;
+  static constexpr int AK = FA_KB / KG;
+  static constexpr int CPT = D / KG;
+  static constexpr int VEC = CPT % 4 == 0 ? 4 : 2;
+  static constexpr int NCH = CPT / VEC;
+  static constexpr int TS = D + 4;
+  static constexpr int PS = FA_KB + KG;
+  static constexpr int MAX_THREADS = 256;
+  static constexpr int MAX_ROWS = MAX_THREADS / KG * AR;    // 64 at KG = 16, 128 at KG = 8
+  static constexpr int ROW_STEP = AR * 32 / KG;              // rows a warp holds: 8 or 16
+  static constexpr int NB = D >= 112 ? 3 : 4;               // ring buffers of 64 keys
+  static_assert(CPT % VEC == 0 && KG * AK == FA_KB, "threads must cover the tiles");
+};
+
+constexpr int FF_MIN_ROWS = 16;
+// The plan takes the largest row tile whose grid has at least this many
+// blocks, about 1.5 an SM (chosen by sweeping the row tile at train_lm's
+// shape on the card, where 48 rows, 192 blocks, ran as fast as any and
+// fit one wave: scripts/k8_fma_times.py --sweep)
+constexpr int FF_FILL_BLOCKS = 192;
+
+template <int D>
+constexpr int ff_smem_bytes(int rows) {
+  using L = FfLayout<D>;
+  return (rows * L::TS + L::NB * FA_KB * L::TS + rows * L::PS) * 4;
+}
+
+// The forward's plan at a shape, a pure function of it
+// (kernels/flash_attention.py:fma_forward_plan): rows per block, threads,
+// shared memory, row tiles and blocks.  `rows` > 0 forces a row tile (a
+// multiple of the layout's ROW_STEP from FF_MIN_ROWS to its MAX_ROWS).
+struct FfPlan {
+  int rows, threads, smem, row_tiles, blocks;
+};
+
+template <int D>
+inline FfPlan ff_plan(int batch, int s, int h, int kv, int rows) {
+  using L = FfLayout<D>;
+  const long long n_rows = static_cast<long long>(s) * (h / kv);
+  const long long n_bkv = static_cast<long long>(batch) * kv;
+  auto tiles = [&](int r) { return (n_rows + r - 1) / r; };
+  if (rows <= 0) {
+    rows = L::MAX_ROWS;
+    while (rows > FF_MIN_ROWS && tiles(rows) * n_bkv < FF_FILL_BLOCKS) rows -= L::ROW_STEP;
+  }
+  FfPlan p;
+  p.rows = rows;
+  p.threads = rows / L::AR * L::KG;
+  p.smem = ff_smem_bytes<D>(rows);
+  const long long t = tiles(rows);
+  p.row_tiles = static_cast<int>(t);
+  p.blocks = t * n_bkv > MAX_GRID_X ? -1 : static_cast<int>(t * n_bkv);
+  return p;
+}
+
+// The key tiles [*kt0, *kt0 + *n_kt) of 64 keys that hold an unmasked key
+// for some row of rows [r0, r0 + rows) of the (q position, group member)
+// index: the mask's reach
+__host__ __device__ inline void ff_key_tiles(int r0, int rows, int n_rows, int g, int t_len,
+                                             int causal, int window, int* kt0, int* n_kt) {
+  const int q_lo = r0 / g;
+  const int q_hi = ((r0 + rows < n_rows ? r0 + rows : n_rows) - 1) / g;
+  int k_hi = t_len - 1;
+  if (causal && q_hi < k_hi) k_hi = q_hi;
+  const int k_lo = window > 0 ? (q_lo - window + 1 > 0 ? q_lo - window + 1 : 0) : 0;
+  *kt0 = k_lo / FA_KB;
+  *n_kt = k_lo <= k_hi ? k_hi / FA_KB - *kt0 + 1 : 0;
+}
+
+// Rows [r0, r0 + rows) of the (q position, group member) index of KV head
+// kvh (q position r / g, query head kvh g + r % g) -> qs [rows][TS]
+// float32, zero past n_rows: 16-byte cp.async when vec16, 4-byte ones for
+// float32 off the grid, bf16 element by element.  The caller commits.
 template <typename T, int D>
-__global__ void __launch_bounds__(FA_THREADS, 2)
+__device__ __forceinline__ void ff_stage_q(float* qs, const T* __restrict__ q, int r0, int rows,
+                                           int n_rows, int g, int h, int kvh, int vec16) {
+  constexpr int TS = FfLayout<D>::TS;
+  const int nt = blockDim.x;
+  auto src = [&](int r) {
+    const int row = r0 + r;
+    return q + (static_cast<size_t>(row / g) * h + kvh * g + row % g) * D;
+  };
+  if constexpr (sizeof(T) == 4) {
+    if (vec16) {
+      constexpr int CH = D / 4;
+      for (int e = threadIdx.x; e < rows * CH; e += nt) {
+        const int r = e / CH, c = (e % CH) * 4;
+        const bool ok = r0 + r < n_rows;
+        cp_async16(qs + r * TS + c, ok ? src(r) + c : q, ok ? 16 : 0);
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < rows * D; e += nt) {
+      const int r = e / D, c = e % D;
+      const bool ok = r0 + r < n_rows;
+      cp_async4(qs + r * TS + c, ok ? src(r) + c : q, ok ? 4 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * D; e += nt) {
+      const int r = e / D, c = e % D;
+      qs[r * TS + c] = r0 + r < n_rows ? to_f32(src(r)[c]) : 0.0f;
+    }
+  }
+}
+
+// the max / sum over the KG lanes of a row group
+template <int KG>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = KG / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int KG>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = KG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One block per (row tile, batch * KV head), row tiles longest first
+// (blockIdx.x / n_bkv counts down from the last tile).  Q is copied once;
+// the block's key tiles stream through a ring of NB 64-key buffers by
+// cp.async (16-byte copies on the grid), ring entry n (K of key tile
+// kt0 + n / 2 when n is even, its V when odd) in buffer n % NB.  Per key
+// tile: S = Q K^T, the mask (on tiles that straddle the diagonal, the
+// window edge or T only), the online softmax in the log2 domain and P into
+// shared memory, then O += P V.  P's rows are the row group's own (its KG
+// lanes, one warp), so a __syncwarp passes them from one product to the
+// other.  NB = 4 (D <= 64): a key tile's K and V are copied together a
+// tile ahead, one block barrier a tile.  NB = 3 (D >= 112, where a fourth
+// buffer does not fit beside 128 rows): each entry two entries ahead, a
+// barrier before each product.
+template <typename T, int D>
+__global__ void __launch_bounds__(FfLayout<D>::MAX_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                       int s_len, int t_len, int h, int kv, int causal, int window,
-                       float scale, int p_bf16) {
-  using L = FaLayout<D>;
-  extern __shared__ float smem[];
-  float* qs = smem;                           // [FA_ROWS][QS]
-  float* kvs = qs + FA_ROWS * L::QS;          // [FA_KB][KS], K then V
-  float* ps = kvs + FA_KB * L::KS;            // [FA_ROWS][PS]
+                       int n_bkv, int rows, int s_len, int t_len, int h, int kv, int causal,
+                       int window, float scale, int p_bf16, int vec16) {
+  using L = FfLayout<D>;
+  extern __shared__ __align__(16) float ff_smem[];
+  float* qs = ff_smem;                              // [rows][TS]
+  float* ring = qs + rows * L::TS;                  // [NB][64][TS]
+  float* ps = ring + L::NB * FA_KB * L::TS;         // [rows][PS]
 
   const int g = h / kv;
   const int n_rows = s_len * g;
-  const int tile = gridDim.x - 1 - blockIdx.x;     // longest (latest q) first
-  const int r0 = tile * FA_ROWS;
-  const int b = blockIdx.y / kv;
-  const int kvh = blockIdx.y % kv;
+  const int n_tiles = (n_rows + rows - 1) / rows;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / n_bkv;
+  const int bkv = static_cast<int>(blockIdx.x) % n_bkv;
+  const int b = bkv / kv, kvh = bkv % kv;
+  const int r0 = tile * rows;
   const size_t q_base = static_cast<size_t>(b) * s_len * h * D;
-  const size_t kv_base = static_cast<size_t>(b) * t_len * kv * D;
+  const size_t kv_off = static_cast<size_t>(b) * t_len * kv * D + static_cast<size_t>(kvh) * D;
+  const size_t k_row = static_cast<size_t>(kv) * D;
+  const int n_rg = rows / L::AR;
+  const int rg = threadIdx.x / L::KG, kg = threadIdx.x % L::KG;
+  const float scale2 = scale * LOG2E;     // exp(x scale - m) = exp2(x scale log2(e) - m')
 
-  // the q tile, float32; rows past S * G are zero and never written
-  for (int e = threadIdx.x; e < FA_ROWS * D; e += FA_THREADS) {
-    const int r = e / D;
-    const int c = e % D;
-    const int row = r0 + r;
-    float x = 0.0f;
-    if (row < n_rows) {
-      const int qpos = row / g;
-      const int head = kvh * g + row % g;
-      x = to_f32(q[q_base + (static_cast<size_t>(qpos) * h + head) * D + c]);
-    }
-    qs[r * L::QS + c] = x;
-  }
+  int kt0 = 0, n_kt = 0;
+  ff_key_tiles(r0, rows, n_rows, g, t_len, causal, window, &kt0, &n_kt);
+  const int q_lo = r0 / g;
+  const int q_hi = (min(r0 + rows, n_rows) - 1) / g;
 
-  const int tc = threadIdx.x % 16;    // score columns tc + 16 j, output columns tc + 16 j
-  const int tr = threadIdx.x / 16;    // rows tr + 16 i
-  int qpos[4];
-  float m_i[4], l_i[4], acc[4][L::DC];
+  // ring entry n, nothing past the last
+  auto issue = [&](int n) {
+    if (n < 2 * n_kt)
+      fb_stage_rows_by<T, D, L::TS>(threadIdx.x, blockDim.x, ring + (n % L::NB) * FA_KB * L::TS,
+                                    ((n & 1) ? v : k) + kv_off, k_row, (kt0 + n / 2) * FA_KB,
+                                    FA_KB, t_len, vec16);
+  };
+  ff_stage_q<T, D>(qs, q + q_base, r0, rows, n_rows, g, h, kvh, vec16);
+  issue(0);
+  if constexpr (L::NB == 3) cp_async_commit();      // groups: Q + K(0), V(0)
+  issue(1);
+  cp_async_commit();                                // NB = 4: one group, Q + tile 0
+
+  int lr[L::AR], qpos[L::AR];
+  float m_i[L::AR], l_i[L::AR], acc[L::AR][L::CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + tr + 16 * i;
+  for (int i = 0; i < L::AR; ++i) {
+    lr[i] = rg + n_rg * i;
+    const int row = r0 + lr[i];
     qpos[i] = row < n_rows ? row / g : 0;
     m_i[i] = FA_NEG_INF;
     l_i[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < L::DC; ++j) acc[i][j] = 0.0f;
+    for (int c = 0; c < L::CPT; ++c) acc[i][c] = 0.0f;
   }
 
-  // key range that holds an unmasked key for some row of the block
-  const int q_lo = r0 / g;
-  const int q_hi = (min(r0 + FA_ROWS, n_rows) - 1) / g;
-  int k_hi = t_len - 1;
-  if (causal) k_hi = min(k_hi, q_hi);
-  const int k_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const size_t head_off = static_cast<size_t>(kvh) * D;
+  for (int jt = 0; jt < n_kt; ++jt) {
+    const int k0 = (kt0 + jt) * FA_KB;
+    if constexpr (L::NB == 4) {
+      cp_async_wait<0>();             // K(jt), V(jt) have landed for this thread;
+      __syncthreads();                // for all, and tile jt - 1's buffers are free
+      issue(2 * jt + 2);
+      issue(2 * jt + 3);
+    } else {
+      cp_async_wait<1>();             // K(jt) has landed for this thread;
+      __syncthreads();                // for all, and V(jt - 1)'s buffer is free
+      issue(2 * jt + 2);
+    }
+    cp_async_commit();
+    const float* kt = ring + ((2 * jt) % L::NB) * FA_KB * L::TS;
 
-  for (int kt = k_lo / FA_KB; k_lo <= k_hi && kt <= k_hi / FA_KB; ++kt) {
-    const int k0 = kt * FA_KB;
-    __syncthreads();                  // the previous tile's reads of kvs and ps are done
-    load_kv_tile<T, D>(k + kv_base, kvs, k0, t_len, kv, head_off);
-    __syncthreads();
-
-    float sc[4][4];
+    float sc[L::AR][L::AK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < L::AR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
+      for (int j = 0; j < L::AK; ++j) sc[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 a[L::AR], bk[L::AK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(tr + 16 * i) * L::QS + d];
+      for (int i = 0; i < L::AR; ++i) a[i] = ld4(qs + lr[i] * L::TS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = kvs[(tc + 16 * j) * L::KS + d];
+      for (int j = 0; j < L::AK; ++j) bk[j] = ld4(kt + (kg + L::KG * j) * L::TS + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < L::AR; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
+        for (int j = 0; j < L::AK; ++j) sc[i][j] = dot4(a[i], bk[j], sc[i][j]);
     }
 
-    // mask, online softmax, rescale the accumulator
+    // scale, mask (edge tiles only), online softmax in the log2 domain,
+    // P (rounded to bf16 when p_bf16) into shared memory, rescale
+    const bool edge = k0 + FA_KB > t_len || (causal && k0 + FA_KB - 1 > q_lo) ||
+                      (window > 0 && k0 <= q_hi - window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < L::AR; ++i) {
       float mx = FA_NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tc + 16 * j;
-        bool ok = kpos < t_len;
-        if (causal) ok = ok && kpos <= qpos[i];
-        if (window > 0) ok = ok && kpos > qpos[i] - window;
-        sc[i][j] = ok ? sc[i][j] * scale : FA_NEG_INF;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int j = 0; j < L::AK; ++j) {
+        float x = sc[i][j] * scale2;
+        if (edge && !fa_keep(qpos[i], k0 + kg + L::KG * j, t_len, causal, window))
+          x = FA_NEG_INF;
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m_i[i], row_max16(mx));
-      const float alpha = expf(m_i[i] - m_new);
+      const float m_new = fmaxf(m_i[i], group_max<L::KG>(mx));
+      const float alpha = exp2f(m_i[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = expf(sc[i][j] - m_new);
-        sum += sc[i][j];
+      for (int j = 0; j < L::AK; ++j) {
+        const float p = exp2f(sc[i][j] - m_new);
+        sum += p;
+        ps[lr[i] * L::PS + kg + L::KG * j] =
+            p_bf16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
       }
-      l_i[i] = l_i[i] * alpha + row_sum16(sum);
+      l_i[i] = l_i[i] * alpha + sum;  // this lane's share; the group's sum once, at the end
       m_i[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < L::DC; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < L::CPT; ++c) acc[i][c] *= alpha;
     }
-
-    __syncthreads();                  // every thread is done reading the K tile
+    if constexpr (L::NB == 4) {
+      __syncwarp();                   // P is written
+    } else {
+      cp_async_wait<1>();             // V(jt) has landed for this thread;
+      __syncthreads();                // for all, P is written, K(jt)'s buffer is free
+      issue(2 * jt + 3);
+      cp_async_commit();
+    }
+    const float* vt = ring + ((2 * jt + 1) % L::NB) * FA_KB * L::TS;
+#pragma unroll 2
+    for (int c = 0; c < FA_KB; c += 4) {
+      float4 p4[L::AR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < L::AR; ++i) p4[i] = ld4(ps + lr[i] * L::PS + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = p_bf16 ? __bfloat162float(__float2bfloat16_rn(sc[i][j])) : sc[i][j];
-        ps[(tr + 16 * i) * L::PS + tc + 16 * j] = p;
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = vt + (c + e) * L::TS;
+        float vv[L::CPT];
+#pragma unroll
+        for (int jj = 0; jj < L::NCH; ++jj) {
+          const int col = L::VEC * (kg + L::KG * jj);
+          if constexpr (L::VEC == 4) {
+            const float4 x = ld4(vr + col);
+            vv[4 * jj] = x.x, vv[4 * jj + 1] = x.y, vv[4 * jj + 2] = x.z, vv[4 * jj + 3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(vr + col);
+            vv[2 * jj] = x.x, vv[2 * jj + 1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < L::AR; ++i) {
+          const float p = e == 0 ? p4[i].x : e == 1 ? p4[i].y : e == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+          for (int cc = 0; cc < L::CPT; ++cc) acc[i][cc] = fmaf(p, vv[cc], acc[i][cc]);
+        }
       }
-    load_kv_tile<T, D>(v + kv_base, kvs, k0, t_len, kv, head_off);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < FA_KB; ++c) {
-      float pv[4], vv[L::DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(tr + 16 * i) * L::PS + c];
-#pragma unroll
-      for (int j = 0; j < L::DC; ++j) vv[j] = kvs[c * L::KS + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < L::DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + tr + 16 * i;
+  for (int i = 0; i < L::AR; ++i) l_i[i] = group_sum<L::KG>(l_i[i]);
+#pragma unroll
+  for (int i = 0; i < L::AR; ++i) {
+    const int row = r0 + lr[i];
     if (row >= n_rows) continue;
     const float l = fmaxf(l_i[i], 1e-30f);
     const int head = kvh * g + row % g;
     T* dst = o + q_base + (static_cast<size_t>(qpos[i]) * h + head) * D;
 #pragma unroll
-    for (int j = 0; j < L::DC; ++j) store_as(dst + tc + 16 * j, acc[i][j] / l);
-    if (lse != nullptr && tc == 0)
-      lse[(static_cast<size_t>(b) * h + head) * s_len + qpos[i]] = m_i[i] + logf(l);
+    for (int jj = 0; jj < L::NCH; ++jj)
+#pragma unroll
+      for (int u = 0; u < L::VEC; ++u)
+        store_as(dst + L::VEC * (kg + L::KG * jj) + u, acc[i][L::VEC * jj + u] / l);
+    // the row log-sum-exp in natural units: m is in the log2 domain
+    if (lse != nullptr && kg == 0)
+      lse[(static_cast<size_t>(b) * h + head) * s_len + qpos[i]] = m_i[i] * LN2 + logf(l);
   }
+}
+
+// float32 operands all on the 16-byte grid (their rows then are too: D * 4
+// bytes is a multiple of 16) take 16-byte copies
+template <typename T>
+int fb_vec16(const void* q, const void* k, const void* v, const void* dout) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  return sizeof(T) == 4 && bits % 16 == 0;
+}
+
+// the forward's dynamic shared-memory limit raised once per device, to its
+// largest row tile's
+template <typename T, int D>
+cudaError_t ff_ready() {
+  static std::atomic<bool> raised[MAX_DEVICES];
+  return allow_dynamic_smem(flash_attention_kernel<T, D>,
+                            ff_smem_bytes<D>(FfLayout<D>::MAX_ROWS), raised);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int s,
-           int t, int h, int kv, int causal, int window, float scale, int p_bf16,
+           int t, int h, int kv, int causal, int window, float scale, int p_bf16, int rows,
            cudaStream_t stream) {
-  using L = FaLayout<D>;
-  static std::atomic<bool> raised[MAX_DEVICES];   // past 48 KB of shared memory
-  const cudaError_t err = allow_dynamic_smem(flash_attention_kernel<T, D>,
-                                             static_cast<int>(L::BYTES), raised);
+  using L = FfLayout<D>;
+  if (rows > 0 && (rows < FF_MIN_ROWS || rows > L::MAX_ROWS || rows % L::ROW_STEP != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = ff_ready<T, D>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_rows = s * (h / kv);
-  const dim3 grid((n_rows + FA_ROWS - 1) / FA_ROWS, batch * kv);
-  flash_attention_kernel<T, D><<<grid, FA_THREADS, L::BYTES, stream>>>(
+  const FfPlan p = ff_plan<D>(batch, s, h, kv, rows);
+  if (p.blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_kernel<T, D><<<p.blocks, p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, s, t, h, kv, causal, window, scale, p_bf16);
+      static_cast<T*>(o), lse, batch * kv, p.rows, s, t, h, kv, causal, window, scale, p_bf16,
+      fb_vec16<T>(q, k, v, v));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_for_dim(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
                    int s, int t, int h, int kv, int d, int causal, int window, float scale,
-                   int p_bf16, cudaStream_t stream) {
+                   int p_bf16, int rows, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 112: return launch<T, 112>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, rows, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, rows, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, rows, stream);
+    case 112: return launch<T, 112>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, rows, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, batch, s, t, h, kv, causal, window, scale, p_bf16, rows, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The forward's plan at a shape into plan[0 .. plan_len): rows, threads,
+// shared-memory bytes, blocks, row tiles, blocks of it resident per SM on
+// the current device; then per row tile in issue order (the last first)
+// its first key tile and its key tiles.
+template <int D>
+int fma_plan(int batch, int s, int t, int h, int kv, int causal, int window, int* plan,
+             int plan_len) {
+  const FfPlan p = ff_plan<D>(batch, s, h, kv, 0);
+  if (p.blocks < 0 || plan_len < 6 + 2 * static_cast<long long>(p.row_tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = ff_ready<float, D>();
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_attention_kernel<float, D>,
+                                                        p.threads, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = p.rows;
+  plan[1] = p.threads;
+  plan[2] = p.smem;
+  plan[3] = p.blocks;
+  plan[4] = p.row_tiles;
+  plan[5] = per_sm;
+  const int g = h / kv;
+  for (int i = 0; i < p.row_tiles; ++i) {
+    const int tile = p.row_tiles - 1 - i;
+    ff_key_tiles(tile * p.rows, p.rows, s * g, g, t, causal, window, &plan[6 + 2 * i],
+                 &plan[7 + 2 * i]);
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -370,8 +658,6 @@ int launch_for_dim(const void* q, const void* k, const void* v, void* o, float* 
 constexpr int FM_WARPS = 8;
 constexpr int FM_THREADS = FM_WARPS * 32;
 constexpr int FM_ROWS = FM_WARPS * 16;   // rows per block, 16 per warp
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct FmLayout {
@@ -666,13 +952,6 @@ constexpr int FB_QUERIES = 32;
 constexpr int FB_MAX_RANKS = 8;        // dK/dV's cluster size: at most the portable 8
 constexpr int FB_WAVE_BLOCKS = 240;    // build.ONE_WAVE_BLOCKS: two blocks an SM
 
-__device__ __forceinline__ bool fa_keep(int qpos, int kpos, int t_len, int causal, int window) {
-  bool ok = kpos < t_len;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && kpos > qpos - window;
-  return ok;
-}
-
 // The query tiles [*qt0, *qt0 + *n_qt) of FB_QUERIES rows that hold a row
 // keeping a key of key tile kt: causal from k0 on, a window up to the last
 // key + window - 1.  The items of key tile kt are (head gi, query tile
@@ -717,58 +996,6 @@ inline int fb_dkdv_ranks(int batch, int s, int t, int h, int kv, int d, int caus
   return ranks;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// c + a . b, the four terms in order
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float c) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
-}
-
-// acc[0..3] += s * x
-__device__ __forceinline__ void axpy4(float (&acc)[4], float s, const float4 x) {
-  acc[0] = fmaf(s, x.x, acc[0]);
-  acc[1] = fmaf(s, x.y, acc[1]);
-  acc[2] = fmaf(s, x.z, acc[2]);
-  acc[3] = fmaf(s, x.w, acc[3]);
-}
-
-// Rows [r0, r0 + n_rows) of D elements, `row_stride` elements apart from
-// `src` on, -> dst [n_rows][DS] float32, zero from row `limit` on.  float32
-// by cp.async: 16-byte copies when vec16 (every base on the 16-byte grid),
-// else 4-byte ones; bf16 element by element (a load and a conversion).
-// The caller commits the copies.
-template <typename T, int D, int DS, int THREADS>
-__device__ __forceinline__ void fb_stage_rows(float* dst, const T* __restrict__ src,
-                                              size_t row_stride, int r0, int n_rows, int limit,
-                                              int vec16) {
-  if constexpr (sizeof(T) == 4) {
-    if (vec16) {
-      constexpr int CH = D / 4;
-      for (int e = threadIdx.x; e < n_rows * CH; e += THREADS) {
-        const int r = e / CH, c = (e % CH) * 4;
-        const bool ok = r0 + r < limit;
-        const T* p = ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src;
-        cp_async16(dst + r * DS + c, p, ok ? 16 : 0);
-      }
-      return;
-    }
-    for (int e = threadIdx.x; e < n_rows * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const bool ok = r0 + r < limit;
-      const T* p = ok ? src + static_cast<size_t>(r0 + r) * row_stride + c : src;
-      cp_async4(dst + r * DS + c, p, ok ? 4 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < n_rows * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      dst[r * DS + c] =
-          r0 + r < limit ? to_f32(src[static_cast<size_t>(r0 + r) * row_stride + c]) : 0.0f;
-    }
-  }
-}
-
 // lse and Delta of rows [q0, q0 + FB_QUERIES) of one head (float32 (B, H,
 // S), `stat` the head's first row) -> lse_d, delta_d, zero past s_len
 template <int THREADS>
@@ -784,28 +1011,120 @@ __device__ __forceinline__ void fb_stage_stats(float* lse_d, float* delta_d,
   }
 }
 
-// Delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in float32: one warp
-// per row, rows in (b, s, h) order
+// Delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in float32, rows in
+// (b, s, h) order.  What bounds it: bytes (both inputs read once), so the
+// design keeps many 16-byte loads in flight.  A row's E-element chunks (4
+// float32 or 8 bf16, 16 bytes) go one to a lane, LPR lanes a row (the
+// chunks' count rounded up to a power of two; lanes past it add 0, D =
+// 112 in float32 masks 4 of 32), 32 / LPR rows a warp at a time; each
+// warp loads FD_GROUPS such groups of rows, both inputs, before it adds
+// any, and walks its groups by grid stride.  The grid (fd_plan) is at
+// most one wave, with about one block an SM on a small input (train_lm's
+// 9216 rows: 128 blocks of 18 warps): a launch's fixed cost grows with its
+// blocks, and an SM with one block more than the others sets the time.
+// Fixed order (delta_in_kernel_order in kernels/flash_attention.py): a
+// lane's E products, each rounded (no FMA), added pairwise ((p0 + p1) +
+// (p2 + p3)), then the LPR lanes by a shuffle tree.  VEC16: 16-byte loads
+// (o and dout on the 16-byte grid; D * itemsize is a multiple of 16 at
+// every head size, so every row is); otherwise masked scalar loads of the
+// same chunks, the same sums.
+constexpr int FD_GROUPS = 2;        // groups a warp loads at once: 2 ran faster than 4 and 8
+constexpr int FD_SMS = 132;          // H100 SXM
+constexpr int FD_SM_WARPS = 64;      // resident warps an SM
+constexpr int FD_MAX_WARPS = 32;     // warps a block
+
+// the lanes a row takes at head size d: its chunks rounded up to a power of two
 template <typename T>
-__global__ void flash_attention_bwd_delta_kernel(const T* __restrict__ o,
-                                                 const T* __restrict__ dout,
-                                                 float* __restrict__ delta, long long n_rows,
-                                                 int s_len, int h, int d) {
-  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+__host__ __device__ inline int fd_lanes(int d) {
+  const int chunks = d / (16 / static_cast<int>(sizeof(T)));
+  int lanes = 1;
+  while (lanes < chunks) lanes <<= 1;
+  return lanes;
+}
+
+// Delta's launch over n_rows rows (kernels/flash_attention.py:delta_plan):
+// the warps' passes (FD_GROUPS groups of rows each) spread over about one
+// block an SM, up to FD_MAX_WARPS warps a block, at most one wave
+struct FdPlan {
+  int warps, blocks;
+};
+
+template <typename T>
+inline FdPlan fd_plan(long long n_rows, int d) {
+  const long long per_pass = static_cast<long long>(32 / fd_lanes<T>(d)) * FD_GROUPS;
+  const long long passes = (n_rows + per_pass - 1) / per_pass;
+  const long long warps = std::min<long long>(
+      std::max<long long>((passes + FD_SMS - 1) / FD_SMS, 1), FD_MAX_WARPS);
+  FdPlan p;
+  p.warps = static_cast<int>(warps);
+  p.blocks = static_cast<int>(std::min<long long>((passes + warps - 1) / warps,
+                                                  FD_SMS * (FD_SM_WARPS / warps)));
+  return p;
+}
+
+template <typename T, bool VEC16>
+__global__ void __launch_bounds__(32 * FD_MAX_WARPS)
+flash_attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                                 float* __restrict__ delta, int n_rows, int s_len, int h,
+                                 int d) {
+  constexpr int E = Chunk<T>::E;
+  const int chunks = d / E;
+  const int lanes = fd_lanes<T>(d);
+  const int rpw = 32 / lanes;                       // rows a warp adds at a time
   const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const T* orow = o + row * d;
-  const T* drow = dout + row * d;
-  float sum = 0.0f;
-  for (int c = lane; c < d; c += 32) sum = fmaf(to_f32(drow[c]), to_f32(orow[c]), sum);
-  sum = warp_sum(sum);
-  if (lane == 0) {
-    const long long bs = row / h;           // b * s_len + s
-    const int head = static_cast<int>(row % h);
-    const long long b = bs / s_len;
-    const int s = static_cast<int>(bs % s_len);
-    delta[(b * h + head) * s_len + s] = sum;
+  const int sub = lane / lanes, c = lane % lanes;   // the lane's row of the group, its chunk
+  const int warp = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int warps = static_cast<int>((gridDim.x * blockDim.x) >> 5);
+  const int step = rpw * FD_GROUPS;
+  for (int base = warp * step; base < n_rows; base += warps * step) {   // warp-uniform
+    uint4 uo[FD_GROUPS], ud[FD_GROUPS];
+#pragma unroll
+    for (int u = 0; u < FD_GROUPS; ++u) {
+      const int row = base + u * rpw + sub;
+      const bool ok = row < n_rows && c < chunks;
+      const size_t off = ok ? static_cast<size_t>(row) * d : 0;
+      uo[u] = load_chunk<T, VEC16, true>(o + off, c, d, ok);
+      ud[u] = load_chunk<T, VEC16, true>(dout + off, c, d, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < FD_GROUPS; ++u) {
+      float fo[E], fd[E];
+      Chunk<T>::unpack(uo[u], fo);
+      Chunk<T>::unpack(ud[u], fd);
+#pragma unroll
+      for (int e = 0; e < E; ++e) fo[e] = __fmul_rn(fd[e], fo[e]);
+#pragma unroll
+      for (int w = E / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int e = 0; e < w; ++e) fo[e] = __fadd_rn(fo[2 * e], fo[2 * e + 1]);
+      float sum = fo[0];
+      for (int off = lanes / 2; off > 0; off >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+      const int row = base + u * rpw + sub;
+      if (c == 0 && row < n_rows) {
+        const int bs = row / h, head = row - bs * h;   // bs = b * s_len + s
+        const int b = bs / s_len, s = bs - b * s_len;
+        delta[(static_cast<size_t>(b) * h + head) * s_len + s] = sum;
+      }
+    }
   }
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, long long n_rows,
+                 long long plan_rows, int s, int h, int d, int vec16, cudaStream_t stream) {
+  if (n_rows > 0x7fffffffLL - 32 * FD_GROUPS || plan_rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FdPlan p = fd_plan<T>(plan_rows, d);
+  if (p.blocks <= 0) return 0;
+  const int rows = static_cast<int>(n_rows);
+  if (vec16)
+    flash_attention_bwd_delta_kernel<T, true><<<p.blocks, 32 * p.warps, 0, stream>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, s, h, d);
+  else
+    flash_attention_bwd_delta_kernel<T, false><<<p.blocks, 32 * p.warps, 0, stream>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, s, h, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dK/dV's layout.  The d side is padded to DP (D = 112 -> 128: columns
@@ -1200,15 +1519,6 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) store_as(dst + c, acc[i][c] * scale);
   }
-}
-
-// float32 operands all on the 16-byte grid (their rows then are too: D * 4
-// bytes is a multiple of 16) take 16-byte copies
-template <typename T>
-int fb_vec16(const void* q, const void* k, const void* v, const void* dout) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
-  return sizeof(T) == 4 && bits % 16 == 0;
 }
 
 // dK/dV's dynamic shared-memory limit raised once per device (float32 and
@@ -1941,7 +2251,8 @@ int launch_bwd_mma(int which, const void* q, const void* k, const void* v, const
 // kernel computes and writes exactly what it did without the output.  d is
 // 16, 32, 64, 112 or 128 and kv divides h; window = 0 means no window.
 // Returns the CUDA error code of the launch (0 = success); an empty output
-// launches nothing.
+// launches nothing.  The row tile is the plan's
+// (repro_flash_attention_fma_plan).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, int is_bf16,
                                      void* o, float* lse, int batch, int s, int t, int h, int kv, int d,
                                      int causal, int window, float scale, int p_bf16,
@@ -1951,8 +2262,46 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch_for_dim<__nv_bfloat16>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st)
-      : launch_for_dim<float>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, st);
+      ? launch_for_dim<__nv_bfloat16>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, 0, st)
+      : launch_for_dim<float>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale, p_bf16, 0, st);
+}
+
+// For a sweep of the row tile only (scripts/k8_fma_times.py --sweep): the
+// float32 launch of repro_flash_attention with the row tile forced to
+// `rows`, a multiple of 8 (d = 32, 64) or 16 from 16 to the head size's
+// largest (64 at d = 32 and 64, else 128).  Nothing of the package calls it.
+extern "C" int repro_flash_attention_fma_rows(const void* q, const void* k, const void* v,
+                                              void* o, float* lse, int batch, int s, int t, int h,
+                                              int kv, int d, int causal, int window, float scale,
+                                              int p_bf16, int rows, void* stream) {
+  using namespace repro_torch;
+  if (batch == 0 || s == 0 || h == 0) return 0;
+  if (rows <= 0 || kv <= 0 || h % kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_for_dim<float>(q, k, v, o, lse, batch, s, t, h, kv, d, causal, window, scale,
+                               p_bf16, rows, static_cast<cudaStream_t>(stream));
+}
+
+// The plan of repro_flash_attention's launch at a shape (rows = 0; the
+// arguments it shares with that entry point) into plan[0 .. plan_len):
+// rows per block, threads, dynamic shared-memory bytes, blocks, row tiles,
+// and how many of its blocks the current device holds on one SM; then per
+// row tile in issue order (the last row tile first) two ints: its first
+// key tile of 64 keys and its number of key tiles.  Returns
+// cudaErrorInvalidValue when plan_len < 6 + 2 * row tiles, else the CUDA
+// error of the occupancy query (0 = success).
+extern "C" int repro_flash_attention_fma_plan(int batch, int s, int t, int h, int kv, int d,
+                                              int causal, int window, int* plan, int plan_len) {
+  using namespace repro_torch;
+  if (batch <= 0 || s <= 0 || kv <= 0 || h % kv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return fma_plan<16>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 32: return fma_plan<32>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 64: return fma_plan<64>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 112: return fma_plan<112>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    case 128: return fma_plan<128>(batch, s, t, h, kv, causal, window, plan, plan_len);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The bf16 tensor-core route: the arguments of repro_flash_attention for
@@ -1980,7 +2329,9 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k, const voi
 // The backward (bound with ctypes), three launches in this order:
 //
 // repro_flash_attention_bwd_delta: delta (batch, h, s) float32 = the row
-// sums of dout * o, both (batch, s, h, d) in one dtype.
+// sums of dout * o, both (batch, s, h, d) in one dtype; vec16 when both
+// start on the 16-byte grid (16-byte loads), else the scalar variant (the
+// same chunks and sums by element loads).
 //
 // repro_flash_attention_bwd_dkdv: dk, dv (batch, t, kv, d) in q's dtype from
 // q, k, v, dout (the forward's operands and the output's gradient, one
@@ -1997,21 +2348,43 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k, const voi
 // nothing.
 extern "C" int repro_flash_attention_bwd_delta(const void* o, const void* dout, int is_bf16,
                                                float* delta, int batch, int s, int h, int d,
-                                               void* stream) {
+                                               int vec16, void* stream) {
   using namespace repro_torch;
   const long long n_rows = static_cast<long long>(batch) * s * h;
   if (n_rows == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n_rows * 32 + threads - 1) / threads;
+  if (d <= 0 || d % 8 != 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_attention_bwd_delta_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta,
-        n_rows, s, h, d);
-  else
-    flash_attention_bwd_delta_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), delta, n_rows, s, h, d);
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_delta<__nv_bfloat16>(o, dout, delta, n_rows, n_rows, s, h, d, vec16, st)
+                 : launch_delta<float>(o, dout, delta, n_rows, n_rows, s, h, d, vec16, st);
+}
+
+// Delta's launch for (batch, s, h, d) into plan[0 .. 3): lanes a row,
+// warps a block, blocks (kernels/flash_attention.py:delta_plan computes the
+// same).  Returns cudaErrorInvalidValue on a bad head size or plan_len < 3.
+extern "C" int repro_flash_attention_bwd_delta_plan(int is_bf16, int batch, int s, int h, int d,
+                                                    int* plan, int plan_len) {
+  using namespace repro_torch;
+  const long long n_rows = static_cast<long long>(batch) * s * h;
+  if (d <= 0 || d % 8 != 0 || d > 128 || plan_len < 3 || n_rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FdPlan p = is_bf16 ? fd_plan<__nv_bfloat16>(n_rows, d) : fd_plan<float>(n_rows, d);
+  plan[0] = is_bf16 ? fd_lanes<__nv_bfloat16>(d) : fd_lanes<float>(d);
+  plan[1] = p.warps;
+  plan[2] = p.blocks;
+  return 0;
+}
+
+// Delta's kernel launched on the grid it takes for (batch, s, h, d) but
+// over zero rows (its fixed cost, for a timing beside a launch over the
+// rows): reads and writes nothing.
+extern "C" int repro_flash_attention_bwd_delta_empty(int is_bf16, int batch, int s, int h, int d,
+                                                     void* stream) {
+  using namespace repro_torch;
+  const long long n_rows = static_cast<long long>(batch) * s * h;
+  if (d <= 0 || d % 8 != 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_delta<__nv_bfloat16>(nullptr, nullptr, nullptr, 0, n_rows, 1, 1, d, 1, st)
+                 : launch_delta<float>(nullptr, nullptr, nullptr, 0, n_rows, 1, 1, d, 1, st);
 }
 
 extern "C" int repro_flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,

@@ -82,6 +82,96 @@ def flash_attention_bwd_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
     return flash_attention_route(dtype, d, aligned)
 
 
+# The "fma" forward's layout and plan (csrc/flash_attention.cu: FfLayout,
+# ff_plan, FF_*): the largest row tile from FMA_FWD_MIN_ROWS up whose grid
+# keeps FMA_FWD_FILL_BLOCKS blocks; an H100 SM's shared memory, threads
+# and blocks for the one-wave estimate (registers are the card's to
+# report: fma_forward_plan_on_device).
+FMA_FWD_MIN_ROWS, FMA_FWD_FILL_BLOCKS = 16, 192
+FMA_FWD_ROWS_PER_THREAD, FMA_FWD_MAX_THREADS = 4, 256
+H100_SMS, SM_SMEM, SM_BLOCK_RESERVED, SM_THREADS, SM_BLOCKS = 132, 233_472, 1024, 2048, 32
+
+
+def fma_forward_layout(d: int) -> dict:
+    """The "fma" forward's register tiles at head size ``d``: ``kg`` lanes
+    share a row group of 4 rows (16 at D = 32 and 64, else 8), each forms
+    ``ak`` = 64 / kg keys of S and ``cpt`` = d / kg output columns in
+    chunks of ``vec``; ``ts`` and ``ps`` are the padded row strides of the
+    Q/K/V tiles and of P (floats); ``max_rows`` the largest row tile (256
+    threads) and ``row_step`` the rows of a warp (row tiles are multiples of
+    it); ``nb`` the 64-key buffers of the K/V ring (4: a key tile's K and V
+    a tile ahead; 3 at D >= 112, where a fourth does not fit beside 128
+    rows)."""
+    kg = 16 if d in (32, 64) else 8
+    cpt = d // kg
+    return dict(kg=kg, ak=KV_TILE // kg, cpt=cpt, vec=4 if cpt % 4 == 0 else 2, ts=d + 4,
+                ps=KV_TILE + kg, max_rows=FMA_FWD_MAX_THREADS // kg * FMA_FWD_ROWS_PER_THREAD,
+                row_step=FMA_FWD_ROWS_PER_THREAD * 32 // kg, nb=3 if d >= 112 else 4)
+
+
+def fma_forward_key_tiles(r0: int, rows: int, n_rows: int, g: int, t: int, causal: bool,
+                          window: int) -> tuple[int, int]:
+    """``(kt0, n_kt)``: the key tiles of 64 keys that hold an unmasked key
+    for some row of rows ``[r0, r0 + rows)`` of the (q position, group
+    member) index (``csrc/flash_attention.cu:ff_key_tiles``)."""
+    q_lo, q_hi = r0 // g, (min(r0 + rows, n_rows) - 1) // g
+    k_hi = min(t - 1, q_hi) if causal else t - 1
+    k_lo = max(0, q_lo - window + 1) if window > 0 else 0
+    kt0 = k_lo // KV_TILE
+    return kt0, (k_hi // KV_TILE - kt0 + 1 if k_lo <= k_hi else 0)
+
+
+def fma_forward_plan(batch: int, s: int, t: int, h: int, kv: int, d: int, causal: bool,
+                     window: int) -> dict:
+    """The "fma" forward's launch at a shape, a pure function of it (the
+    same function as ``csrc/flash_attention.cu:ff_plan``, which
+    :func:`fma_forward_plan_on_device` reads): ``rows`` per block, the
+    largest multiple of the layout's ``row_step`` up to its ``max_rows``
+    whose grid keeps FMA_FWD_FILL_BLOCKS blocks, else FMA_FWD_MIN_ROWS
+    (train_lm's attention: 48 rows, 192 blocks); ``threads`` (a
+    thread per 4 rows x kg lanes); ``smem_bytes``; ``blocks`` (row tiles x
+    batch x kv, one per (row tile, batch * KV head), block i taking row
+    tile ``row_tiles - 1 - i // (batch kv)``: the longest first);
+    ``tiles``, per row tile in that issue order, ``(r0, r1, kt0, n_kt)``:
+    its rows and the key tiles the mask lets it reach; ``blocks_per_sm``,
+    an H100 SM's room by shared memory and threads, and ``waves``."""
+    lay = fma_forward_layout(d)
+    g = h // kv
+    n_rows, n_bkv = s * g, batch * kv
+    rows = lay["max_rows"]
+    while rows > FMA_FWD_MIN_ROWS and -(-n_rows // rows) * n_bkv < FMA_FWD_FILL_BLOCKS:
+        rows -= lay["row_step"]
+    n_tiles = -(-n_rows // rows)
+    smem = (rows * lay["ts"] + lay["nb"] * KV_TILE * lay["ts"] + rows * lay["ps"]) * 4
+    threads = rows // FMA_FWD_ROWS_PER_THREAD * lay["kg"]
+    per_sm = min(SM_SMEM // (smem + SM_BLOCK_RESERVED), SM_THREADS // threads, SM_BLOCKS)
+    tiles = []
+    for tile in reversed(range(n_tiles)):
+        r0 = tile * rows
+        tiles.append((r0, min(r0 + rows, n_rows),
+                      *fma_forward_key_tiles(r0, rows, n_rows, g, t, causal, window)))
+    blocks = n_tiles * n_bkv
+    return dict(rows=rows, threads=threads, smem_bytes=smem, blocks=blocks, row_tiles=n_tiles,
+                tiles=tiles, blocks_per_sm=per_sm, waves=blocks / (H100_SMS * per_sm))
+
+
+def fma_forward_plan_on_device(batch: int, s: int, t: int, h: int, kv: int, d: int,
+                               causal: bool, window: int) -> dict:
+    """The plan the C launcher computes for the same shape
+    (``repro_flash_attention_fma_plan``): ``rows``, ``threads``,
+    ``smem_bytes``, ``blocks``, ``row_tiles`` and per row tile in issue
+    order ``(kt0, n_kt)`` under ``key_tiles``, plus ``blocks_per_sm``:
+    how many of its blocks the current CUDA device holds on one SM."""
+    n_rows = s * (h // kv)
+    buf = (ctypes.c_int * (6 + 2 * -(-n_rows // FMA_FWD_MIN_ROWS)))()
+    build.load_library().call("repro_flash_attention_fma_plan", batch, s, t, h, kv, d,
+                              int(causal), int(window), ctypes.addressof(buf), len(buf))
+    out = dict(zip(("rows", "threads", "smem_bytes", "blocks", "row_tiles", "blocks_per_sm"),
+                   buf[:6]))
+    out["key_tiles"] = [(buf[6 + 2 * i], buf[7 + 2 * i]) for i in range(out["row_tiles"])]
+    return out
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p_dtype,
            window: int) -> torch.device:
     dev = build.check_tensors(build.FLOAT_DTYPES, q=q, k=k, v=v)
@@ -353,9 +443,79 @@ def _count_bwd(fn, dtype: torch.dtype, route: str | None = None) -> None:
         fn.launches_by_route[route] += 1
 
 
+# Delta's kernel (csrc/flash_attention.cu, FD_*): each warp loads
+# DELTA_GROUPS groups of rows before it adds any; the passes spread over
+# about one block an SM of an H100 (DELTA_SMS), up to DELTA_MAX_WARPS warps
+# a block, 64 resident warps an SM, one wave at most
+DELTA_GROUPS, DELTA_SMS, DELTA_MAX_WARPS, DELTA_SM_WARPS = 2, 132, 32, 64
+DELTA_VARIANTS = ("vec16", "scalar")
+
+
+def delta_variant(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """Delta's variant, a pure function of dtype, head size and alignment
+    (``aligned``: o's and dO's bases on 16-byte boundaries): ``"vec16"``
+    (16-byte loads) where every row is a whole number of 16-byte chunks
+    and the bases are aligned, else ``"scalar"`` (masked element loads of
+    the same chunks, the same sums)."""
+    return "vec16" if d % (16 // dtype.itemsize) == 0 and aligned else "scalar"
+
+
+def delta_plan(dtype: torch.dtype, d: int, n_rows: int) -> dict:
+    """Delta's launch for ``n_rows`` rows of head size ``d``
+    (``csrc/flash_attention.cu:fd_plan``): ``lanes`` a row (its 16-byte
+    chunks rounded up to a power of two), ``rows_per_warp`` at a time;
+    ``passes`` of DELTA_GROUPS such groups; ``warps`` a block, about the
+    passes over DELTA_SMS (at most DELTA_MAX_WARPS); ``blocks``, within one
+    wave (warps walk their passes by grid stride)."""
+    chunks = d // (16 // dtype.itemsize)
+    lanes = 1 << max(chunks - 1, 0).bit_length()
+    passes = -(-n_rows // (32 // lanes * DELTA_GROUPS))
+    warps = min(max(-(-passes // DELTA_SMS), 1), DELTA_MAX_WARPS)
+    return dict(lanes=lanes, rows_per_warp=32 // lanes, passes=passes, warps=warps,
+                blocks=min(-(-passes // warps), DELTA_SMS * (DELTA_SM_WARPS // warps)))
+
+
+def delta_plan_on_device(dtype: torch.dtype, batch: int, s: int, h: int, d: int) -> dict:
+    """The launch the C entry point makes for Delta at (batch, s, h, d)
+    (``repro_flash_attention_bwd_delta_plan``): ``lanes``, ``warps`` and
+    ``blocks``, to hold :func:`delta_plan` against."""
+    buf = (ctypes.c_int * 3)()
+    build.load_library().call("repro_flash_attention_bwd_delta_plan",
+                              int(dtype == torch.bfloat16), batch, s, h, d,
+                              ctypes.addressof(buf), len(buf))
+    return dict(zip(("lanes", "warps", "blocks"), buf[:3]))
+
+
+def delta_in_kernel_order(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``Delta = rowsum(dO * O)`` (float32 (B, H, S)) as Delta's kernel
+    adds it, in plain PyTorch: the same bits on any device.
+
+    Each row's 16-byte chunks (4 float32 or 8 bf16 elements) go one to a
+    lane; a lane rounds its E products in float32 (no FMA) and adds them
+    pairwise, ``(p0 + p1) + (p2 + p3)``; lanes past the row's chunks add
+    0; then the lanes by a shuffle tree, lane l + o into lane l for o =
+    lanes / 2, ..., 1 (:func:`delta_plan`'s ``lanes``).  Every step is one
+    elementwise float32 operation, which rounds the same on every device.
+    """
+    b, s, h, d = o.shape
+    e = 16 // o.element_size()
+    lanes = delta_plan(o.dtype, d, 1)["lanes"]
+    acc = (do.float() * o.float()).reshape(b * s * h, d // e, e)
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    acc = torch.nn.functional.pad(acc[..., 0], (0, lanes - d // e))
+    width = lanes // 2
+    while width:
+        acc = acc[:, :width] + acc[:, width:2 * width]
+        width //= 2
+    return acc[:, 0].reshape(b, s, h).permute(0, 2, 1).contiguous()
+
+
 def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``Delta = rowsum(dO * O)``, float32 (B, H, S), for ``o`` and ``do``
-    (B, S, H, D) of one dtype: one CUDA launch (counted), plain on the CPU."""
+    (B, S, H, D) of one dtype: one CUDA launch (counted, by dtype, and by
+    dtype and :func:`delta_variant`), bit for bit
+    :func:`delta_in_kernel_order`; plain on the CPU."""
     dev = build.check_tensors(build.FLOAT_DTYPES, o=o, do=do)
     if o.shape != do.shape or o.dtype != do.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
@@ -363,13 +523,18 @@ def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor
     b, s, h, d = o.shape
     if dev.type == "cpu":
         return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} not supported; the kernel takes {HEAD_DIMS}")
+    variant = delta_variant(o.dtype, d, build.aligned16(o, do))
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         build.load_library().call(
             "repro_flash_attention_bwd_delta", o.data_ptr(), do.data_ptr(),
             int(o.dtype == torch.bfloat16), delta.data_ptr(), b, s, h, d,
-            build.current_stream(dev))
+            int(variant == "vec16"), build.current_stream(dev))
     _count_bwd(flash_attention_bwd_delta, o.dtype)
+    by_variant = flash_attention_bwd_delta.launches_by_variant
+    by_variant[str(o.dtype).removeprefix("torch.")][variant] += 1
     return delta
 
 
@@ -462,8 +627,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 
 
 # the backward's CUDA kernels; each counts its launches, in all and by the
-# inputs' dtype, and dK/dV and dQ also by route (plain-version calls do
-# not count)
+# inputs' dtype, dK/dV and dQ also by route and Delta by variant
+# (plain-version calls do not count)
 BWD_KERNELS = (flash_attention_bwd_delta, flash_attention_bwd_dkdv, flash_attention_bwd_dq)
 BWD_ROUTED = (flash_attention_bwd_dkdv, flash_attention_bwd_dq)
 BWD_DTYPES = ("float32", "bfloat16")
@@ -472,6 +637,8 @@ for _fn in BWD_KERNELS:
     _fn.launches_by_dtype = dict.fromkeys(BWD_DTYPES, 0)
 for _fn in BWD_ROUTED:
     _fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd_delta.launches_by_variant = {dt: dict.fromkeys(DELTA_VARIANTS, 0)
+                                                  for dt in BWD_DTYPES}
 
 
 class FlashAttention(torch.autograd.Function):

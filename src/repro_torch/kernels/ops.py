@@ -446,6 +446,14 @@ def launch_counts_bwd_by_route() -> dict[str, dict[str, int]]:
     return {fn.__name__: dict(fn.launches_by_route) for fn in _fa.BWD_ROUTED}
 
 
+def launch_counts_bwd_delta_by_variant() -> dict[str, dict[str, int]]:
+    """K8's Delta kernel's launches by the inputs' dtype ("float32",
+    "bfloat16") and variant since the last reset:
+    ``flash_attention.delta_variant``'s "vec16" (16-byte loads) or
+    "scalar"."""
+    return {dt: dict(by) for dt, by in _fa.flash_attention_bwd_delta.launches_by_variant.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in _KERNELS:
         fn.launches = 0
@@ -455,6 +463,9 @@ def reset_launch_counts() -> None:
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     for fn in (*_SWEEPS, *_GEMVS):
         fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+    _fa.flash_attention_bwd_delta.launches_by_variant = {
+        dt: dict.fromkeys(by, 0)
+        for dt, by in _fa.flash_attention_bwd_delta.launches_by_variant.items()}
     _st.transient_step.launches_by_dtype = {
         dt: dict.fromkeys(by_route, 0)
         for dt, by_route in _st.transient_step.launches_by_dtype.items()}

@@ -56,6 +56,7 @@ PALLAS_GRID = [
     (100, 4, 1, 32, True, 0),       # ragged, MQA
     (100, 2, 2, 112, True, 0),      # Zamba2's head size, ragged
     (64, 14, 2, 16, False, 0),      # G = 7, non-causal
+    (130, 12, 4, 64, True, 0),      # train_lm's heads (G = 3, D = 64), ragged S
 ]
 
 

@@ -1167,3 +1167,125 @@ def test_train_step_on_the_card_matches_cpu(cuda, arch):
     for name in ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                  "flash_attention_bwd_dq"):
         assert after[name] > before[name], name
+
+
+# K8's float32 forward ("fma", redesigned): every head size, ragged S and
+# T, causal, windows and non-causal, G from 1 to 48, p rounded or not
+FMA_FWD_CASES = [  # b, s, t, h, kv, d, causal, window, p_bf16
+    (2, 131, 131, 4, 2, 16, True, 0, False),
+    (1, 100, 100, 4, 1, 16, True, 0, True),
+    (2, 515, 300, 8, 2, 32, False, 0, False),
+    (4, 192, 192, 12, 4, 64, True, 0, False),
+    (1, 192, 192, 8, 2, 64, True, 64, True),
+    (1, 515, 515, 48, 1, 64, True, 100, False),
+    (1, 77, 200, 8, 8, 112, False, 0, False),
+    (2, 131, 131, 4, 4, 112, True, 0, True),
+    (1, 700, 700, 12, 2, 128, True, 256, False),
+    (1, 300, 300, 32, 8, 128, True, 0, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FMA_FWD_CASES)
+def test_flash_attention_fma_forward_at_every_head_size(cuda, case):
+    """The float32 forward against its plain version within 1e-5 |want| +
+    1e-6 (sums in other orders, exp2 of the log2-domain scores; with p
+    rounded to bf16 the bf16 bars, 1e-2 |want| + 1e-3, since a p whose
+    rounding flips between the two moves an output by 2^-8 p / l |v|),
+    one launch on "fma" each; its lse within 1e-5 of the largest |lse|;
+    with lse the same output bits as without.  With p rounded, the output
+    also differs from the launch with p float32 and lies closer (mean
+    |error|, by more than 4x) to the plain version that rounds p than to
+    the one that does not, which a kernel ignoring p_bf16 would not."""
+    b, s, t, h, kv, d, causal, window, p_bf16 = case
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    kw = dict(causal=causal, window=window, p_dtype=torch.bfloat16 if p_bf16 else None)
+    before = ops.launch_counts_by_route()["flash_attention"]["fma"]
+    got = k8.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts_by_route()["flash_attention"]["fma"] == before + 1
+    want, lse_want = k8.flash_attention_plain_lse(q, k, v, **kw)
+    rtol, atol = (1e-2, 1e-3) if p_bf16 else (1e-5, 1e-6)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{case}: {m}")
+    with_lse, lse = k8.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(with_lse.view(torch.int32), got.view(torch.int32))
+    _bwd_close(lse, lse_want, 0.0, 1e-5, f"lse {case}")
+    if p_bf16:
+        unrounded = k8.flash_attention(q, k, v, causal=causal, window=window)
+        assert not torch.equal(got, unrounded)
+        to_rounded = float((got - want).abs().mean())
+        to_unrounded = float((got - k8.flash_attention_plain(q, k, v, causal=causal,
+                                                             window=window)).abs().mean())
+        assert to_rounded * 4 < to_unrounded, (case, to_rounded, to_unrounded)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fma_forward_is_deterministic(cuda):
+    """Two launches at train_lm's shape give the same bits, and so does a
+    bf16 view off the 16-byte grid twice (the scalar staging of the same
+    schedule)."""
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((4, 192, 12, 64), (4, 192, 4, 64), (4, 192, 4, 64)))
+    assert torch.equal(k8.flash_attention(q, k, v), k8.flash_attention(q, k, v))
+    views = []
+    for x in (q, k, v):
+        y = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(x.shape)
+        views.append(y.copy_(x))
+    first, second = k8.flash_attention(*views), k8.flash_attention(*views)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), k8.flash_attention_plain(*views).float(),
+                               rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[:8] for c in FMA_FWD_CASES] + [
+    (1, 2048, 2048, 32, 8, 128, True, 0), (1, 6000, 6000, 48, 8, 128, True, 4096)])
+def test_fma_forward_plan_matches_the_launcher(cuda, case):
+    """The Python plan of the float32 forward (row tile, threads, shared
+    memory, blocks, each row tile's key tiles) equals the C launcher's,
+    and the card holds at least one block an SM."""
+    plan, on_card = k8.fma_forward_plan(*case), k8.fma_forward_plan_on_device(*case)
+    for key in ("rows", "threads", "smem_bytes", "blocks", "row_tiles"):
+        assert plan[key] == on_card[key], key
+    assert [tile[2:] for tile in plan["tiles"]] == on_card["key_tiles"]
+    assert on_card["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 77, 6, 16), (4, 192, 12, 64), (1, 2048, 32, 128),
+                                   (2, 515, 8, 112), (8, 4096, 32, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_delta_plan_matches_the_launcher(cuda, shape, dtype):
+    """Delta's Python plan (lanes, warps a block, blocks) equals the grid
+    the C entry point launches, within one wave."""
+    b, s, h, d = shape
+    plan, on_card = k8.delta_plan(dtype, d, b * s * h), k8.delta_plan_on_device(dtype, b, s, h, d)
+    assert {key: plan[key] for key in on_card} == on_card
+    assert on_card["blocks"] * on_card["warps"] <= 132 * 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", k8.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["vec16", "scalar"])
+def test_delta_is_its_order_bit_for_bit(cuda, d, dtype, variant):
+    """Delta equals delta_in_kernel_order bit for bit, in both variants
+    (off the 16-byte grid: the scalar loads of the same chunks), counted
+    by variant."""
+    gen = torch.Generator(device=cuda).manual_seed(79)
+    o, do = (torch.randn((2, 77, 6, d), generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    if variant == "scalar":
+        views = []
+        for x in (o, do):
+            y = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(x.shape)
+            views.append(y.copy_(x))
+        o, do = views
+    assert k8.delta_variant(dtype, d, build.aligned16(o, do)) == variant
+    name = str(dtype).removeprefix("torch.")
+    before = ops.launch_counts_bwd_delta_by_variant()[name][variant]
+    got = k8.flash_attention_bwd_delta(o, do)
+    assert ops.launch_counts_bwd_delta_by_variant()[name][variant] == before + 1
+    assert torch.equal(got.view(torch.int32), k8.delta_in_kernel_order(o, do).view(torch.int32))
