@@ -218,6 +218,25 @@ non-zero:
    gradients, updated parameters within the CPU parity bars); ms per
    step, the refresh wall, the loss curve, K8's launches and peak memory
    are printed;
+8b. dryrun — the dry run and the roofline counter
+   (``repro_torch.launch.dryrun``, ``repro_torch.roofline``): (a) every
+   arch x shape cell (10 x 4) traced on ``meta`` on ``single_card`` with
+   the card's spec, in DRYRUN_WORKERS processes, each ``ok`` or
+   ``skipped`` with the reference's reason (``long_500k`` on a
+   full-attention arch), its dominant term, bound and ``temp_size_b``
+   printed with the phase's host seconds; (b) the counter held against
+   the card on Qwen3-8B's 1974-token prefill and one decode step after it
+   (36 layers, bf16), a Qwen3-8B train step at 2 layers (bf16, AdamW, B =
+   1, S = 2048) and train_lm's step (float32, B = 4, S = 192) under AdamW:
+   each step counted on ``meta`` and on the card, failing unless both
+   counts' FLOPs and bytes are equal and the step's kernel time under the
+   profiler is at least its roofline bound and the modelled peak of live
+   bytes is within PEAK_RTOL (and PEAK_ATOL_BYTES) of what the step added
+   to ``torch.cuda.memory_allocated`` at its peak, with the share (bound
+   over kernel time) and the peak of temporaries printed; (c) K8's
+   counted FLOPs and bytes (on ``meta`` at each K8 row's shape) equal to
+   the kernels line's, whose K8 rows take them from the same formulas
+   (``flash_attention.forward_cost``/``backward_costs``);
 9. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
@@ -250,10 +269,6 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet), used for bound_ms
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12  # dense, on the tensor cores
 SEED = 99
 BATCH = 4
 MAX_STEPS = 30_000
@@ -404,16 +419,26 @@ def start_state(c: torch.Tensor) -> torch.Tensor:
     return (torch.rand(c.shape, generator=g) - 0.5).to(c.device)
 
 
+def card_spec():
+    """The card's data-sheet peaks (``repro_torch.roofline.analysis``,
+    chosen by the card's name; an unknown card raises)."""
+    from repro_torch.roofline.analysis import spec_for_card
+
+    return spec_for_card(torch.cuda.get_device_name(0))
+
+
 def bound(bytes_moved: float, flops: float,
-          peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
-    """Least time of one call: its inputs read once and outputs written
-    once at the HBM rate, or its flops at ``peak`` (the f32 peak unless
-    the inputs are bf16), the larger.  A
-    cold call brings its inputs from HBM; where the timing loop keeps
-    them in L2 (the ELL operands, small dense ones) the bound is loose."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+          dtype: torch.dtype = torch.float32) -> tuple[float, str]:
+    """Least time of one call (``repro_torch.roofline.analysis.bound``):
+    its inputs read once and outputs written once at the card's HBM rate,
+    or its flops at the card's peak for ``dtype`` (the inputs' type:
+    float32 on FMA, bf16 on the tensor cores), the larger.  A cold call
+    brings its inputs from HBM; where the timing loop keeps them in L2
+    (the ELL operands, small dense ones) the bound is loose."""
+    from repro_torch.roofline.analysis import bound as roofline_bound
+
+    hw = card_spec()
+    return roofline_bound(bytes_moved, flops, hw.flops_s(dtype), hw)
 
 
 # f32 reassociation (kernel: sequential slot/column order; plain: torch's
@@ -2112,8 +2137,8 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     # call each in a Python loop (ms) and in a CUDA graph (device ms).
     rows = {}
 
-    def timed(key, shape, kern, plain, lib, nbytes, flops, err_keys, peak=F32_FLOPS_PER_S):
-        bound_ms, bound_by = bound(nbytes, flops, peak)
+    def timed(key, shape, kern, plain, lib, nbytes, flops, err_keys, dtype=torch.float32):
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
         rows[key] = dict(
             shape=shape, ms=cuda_ms(kern, 20), device_ms=graph_ms(kern, 20),
             plain_ms=cuda_ms(plain, 10), library_ms=None if lib is None else cuda_ms(lib, 20),
@@ -2140,7 +2165,7 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     timed("crosspoint_mvm_bf16", [gm, gm, 1], lambda: mvm.crosspoint_mvm(bf, yb1),
           lambda: mvm.crosspoint_mvm_plain(bf, yb1), lambda: torch.matmul(bf, yb1),
           gm * gm * 2 + 2 * gm * 2, 2 * gm * gm, ("crosspoint_mvm_b1_bf16",),
-          BF16_FLOPS_PER_S)
+          BF16)
     timed("crosspoint_mvm_b64", [gm, gm, w], lambda: mvm.crosspoint_mvm(g, v),
           lambda: mvm.crosspoint_mvm_plain(g, v), lambda: torch.matmul(g, v),
           gm * gm * 4 + 2 * gm * w * 4, 2 * gm * gm * w, ("crosspoint_mvm",))
@@ -2148,7 +2173,7 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
     timed("crosspoint_mvm_b64_bf16", [gm, gm, w], lambda: mvm.crosspoint_mvm(bf, vbf),
           lambda: mvm.crosspoint_mvm_plain(bf, vbf), lambda: torch.matmul(bf, vbf),
           gm * gm * 2 + 2 * gm * w * 2, 2 * gm * gm * w, ("crosspoint_mvm_bf16",),
-          BF16_FLOPS_PER_S)
+          BF16)
     timed("transient_step", [nz, nz, K5_COLUMNS], lambda: st.transient_step(m, z0, c, 1.0),
           lambda: st.transient_step_plain(m, z0, c, 1.0), lambda: torch.addmm(zc, m, z0),
           nz * nz * 4 + 3 * nz * K5_COLUMNS * 4, nz * K5_COLUMNS * (2 * nz + 3),
@@ -2167,14 +2192,14 @@ def phase_kernel_api(dev, k4_split: dict) -> tuple[dict, dict]:
           lambda: st.transient_step_plain(op["m_bf"], zb1, cb1, 1.0),
           lambda: torch.addmm(zcb1, op["m_bf"], zb1),
           nz * nz * 2 + 3 * nz * 2, nz * (2 * nz + 3), ("transient_step_b1_bf16",),
-          BF16_FLOPS_PER_S)
+          BF16)
     # bf16 inputs: bytes bound it at the bf16 rate too, as in float32
     mb, zb, cb = op["m_bf"], op["z_bf"], op["c_bf"]
     zcb = zb + cb
     timed("transient_step_bf16", [nz, nz, K5_COLUMNS], lambda: st.transient_step(mb, zb, cb, 1.0),
           lambda: st.transient_step_plain(mb, zb, cb, 1.0), lambda: torch.addmm(zcb, mb, zb),
           nz * nz * 2 + 3 * nz * K5_COLUMNS * 2, nz * K5_COLUMNS * (2 * nz + 3),
-          ("transient_step_bf16",), BF16_FLOPS_PER_S)
+          ("transient_step_bf16",), BF16)
     emit(dict(phase="kernel_api", case="times", rows=rows))
     return rows, launches
 
@@ -2317,17 +2342,6 @@ K8_CASES = (
 K8_MAIN_F32 = ("main_f32", F32, *K8_MAIN[2:])
 # the FMA route at train_lm's shape: its own row of the kernels line
 K8_TRAIN_F32 = next(c for c in K8_CASES if c[0] == "train_f32_d64")
-
-
-def attn_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask leaves: the work this input needs."""
-    qpos, kpos = np.arange(s)[:, None], np.arange(t)[None, :]
-    ok = np.ones((s, t), dtype=bool)
-    if causal:
-        ok &= kpos <= qpos
-    if window:
-        ok &= kpos > qpos - window
-    return int(ok.sum())
 
 
 def bar_share(got: torch.Tensor, want: torch.Tensor, rtol: float,
@@ -2627,9 +2641,8 @@ def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> d
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
     lib_err = float((lib_out.float() - fa.flash_attention(q, k, v).float()).abs().max())
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
-    flops = 4 * b * h * d * attn_pairs(s, t, True, 0)
-    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+    flops, nbytes = fa.forward_cost(q, k, v, True, 0, False)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
     prof = device_breakdown(lambda: [sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
                                      for _ in range(20)])
@@ -2645,7 +2658,7 @@ def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> d
         bound_ms=bound_ms, bound_by=bound_by,
         bound_peak=("bf16 tensor cores, 989 TFLOP/s" if bf16 else "float32 FMA, 67 TFLOP/s")
         + " (the inputs' type)",
-        f32_fma_bound_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops,
+        f32_fma_bound_ms=flops / card_spec().f32_flops * 1e3, bytes=nbytes, flops=flops,
         tflop_per_s=flops / (ms * 1e-3) / 1e12,
         max_abs_err=(max(e["max_abs_err"] for label, e in errs.items()
                          if routes[label] == route) if errs is not None else None),
@@ -3496,29 +3509,20 @@ def k8_bwd_times(q, k, v, do, errs: dict | None = None) -> dict:
     t, kv = k.shape[1], k.shape[2]
     bf16 = q.dtype == BF16
     dtype = str(q.dtype).removeprefix("torch.")
-    esize = q.element_size()
     o, lse = fa.flash_attention_lse(q, k, v)
     lse = lse.contiguous()
     delta = fa.flash_attention_bwd_delta(o, do)
-    pairs = attn_pairs(s, t, True, 0)
-    peak = BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S
-    qkvo = (q.numel() + k.numel() + v.numel() + do.numel()) * esize
-    stats = 2 * b * h * s * 4
     route = fa.flash_attention_bwd_route(q.dtype, d, True)
     qu, ku, vu, dou = (off_grid(x) for x in (q, k, v, do))
     calls = {
-        "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(o, do),
-                                      2 * o.numel() * esize + b * h * s * 4,
-                                      2 * o.numel(), None),
+        "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(o, do), None),
         "flash_attention_bwd_dkdv": (lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta),
-                                     qkvo + stats + 2 * k.numel() * esize,
-                                     8 * d * pairs * b * h,
                                      lambda: fa.flash_attention_bwd_dkdv(qu, ku, vu, dou, lse,
                                                                          delta)),
         "flash_attention_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-                                   qkvo + stats + q.numel() * esize, 6 * d * pairs * b * h,
                                    lambda: fa.flash_attention_bwd_dq(qu, ku, vu, dou, lse, delta)),
     }
+    costs = fa.backward_costs(q, k, v, True, 0)
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                                 enable_gqa=True)
@@ -3545,8 +3549,9 @@ def k8_bwd_times(q, k, v, do, errs: dict | None = None) -> dict:
                library_max_abs_err_dq=float((lib_dq.float() - got_dq.float()).abs().max()),
                timing=f"median of {K8_BWD_TIMING_CALLS} calls after 3, each between two events",
                kernels={})
-    for name, (fn, nbytes, flops, fma_fn) in calls.items():
-        bound_ms, bound_by = bound(nbytes, flops, peak)
+    for name, (fn, fma_fn) in calls.items():
+        flops, nbytes = costs[name]
+        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
         spread = cuda_ms_spread(fn, K8_BWD_TIMING_CALLS)
         ms = spread["median"]
         row = dict(kernel_route=route if fma_fn is not None else None, ms=ms, spread_ms=spread,
@@ -3976,6 +3981,256 @@ def phase_train(dev) -> dict:
     return {case: r["k8"] for case, r in res.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: the dry run and the roofline counter
+# ---------------------------------------------------------------------------
+
+# the dry run's cells are traced on meta in this many processes (host work)
+DRYRUN_WORKERS = 4
+# serve: the 1974-token prefill of one prompt into a cache of the serve
+# phase's length, then one decode step at position 1974
+COUNTED_PROMPT = 1974
+# the counter's modelled peak (what a step adds to what it found
+# allocated) against the card's max_memory_allocated() less
+# memory_allocated() before the step: the caching allocator rounds every
+# block up to 512 bytes and may hand a request above 1 MiB a larger block
+# it does not split, so 5 % of the card's figure, and 16 MiB for the
+# small steps
+PEAK_RTOL = 0.05
+PEAK_ATOL_BYTES = 16 * 2**20
+
+
+def dryrun_cells() -> dict:
+    """Case (a): ``repro_torch.launch.dryrun`` over every arch x shape on
+    ``single_card``, the card's spec modelled.  Each cell must be ``ok``,
+    or ``skipped`` with the reference's reason where the reference skips
+    it (``long_500k`` on a full-attention arch)."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
+    from repro_torch.launch import dryrun
+
+    cells = [(arch, shape) for arch in ARCH_IDS for shape in SHAPES]
+    t0 = time.perf_counter()
+    results = dryrun.run_cells(cells, workers=DRYRUN_WORKERS, hw=card_spec())
+    host_s = time.perf_counter() - t0
+    out, bad = {}, []
+    for (arch, shape), r in zip(cells, results):
+        applies, reason = shape_applicable(get_config(arch), SHAPES[shape])
+        if r["status"] == "ok" and applies:
+            roof = r["roofline"]
+            out[f"{arch}__{shape}"] = dict(
+                dominant=roof["dominant"], bound_s=roof["step_time_lower_bound_s"],
+                temp_size_b=r["memory"]["temp_size_b"], host_s=r["host_s"])
+        elif r["status"] == "skipped" and not applies and r["reason"] == reason:
+            out[f"{arch}__{shape}"] = dict(skipped=r["reason"])
+        else:
+            bad.append(dict(cell=f"{arch}__{shape}", status=r["status"],
+                            error=r.get("error"), traceback=r.get("traceback")))
+    res = dict(phase="dryrun", case="cells", hw=card_spec().name, workers=DRYRUN_WORKERS,
+               host_s=host_s, ok=sum("dominant" in c for c in out.values()),
+               skipped=sum("skipped" in c for c in out.values()), cells=out, failed=bad)
+    emit(res)
+    check(not bad and len(out) == len(cells), f"dry run: cells failed: {bad}")
+    return res
+
+
+def counted_tokens(device, shape: tuple, vocab: int) -> torch.Tensor:
+    """int32 tokens: seeded on the card, shape and dtype alone on meta."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return torch.randint(0, vocab, shape, generator=gen, device=device, dtype=torch.int32)
+
+
+def counted_params(cfg, device):
+    from repro_torch.models.model import init_params
+
+    meta = torch.device(device).type == "meta"
+    return init_params(cfg, None if meta else torch.Generator(device=device).manual_seed(SEED),
+                       device=device)
+
+
+def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> dict:
+    """One step, counted by ``repro_torch.roofline.cost.CostCounter`` on
+    meta and on the card.  ``build(device)`` returns ``(step, params)``:
+    ``step()`` runs the step once.  On the card one uncounted step first
+    (libraries load), then the counted step under torch.profiler.  Fails
+    unless both counts' FLOPs and bytes are equal, the step's kernel time
+    (the profiler's sum) is at least the roofline bound, and the modelled
+    peak of live bytes is within PEAK_RTOL and PEAK_ATOL_BYTES of what the
+    step added to the card's allocated memory at its peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import model_flops
+    from repro_torch.roofline.analysis import roofline_report
+    from repro_torch.roofline.cost import CostCounter
+
+    # each step's outputs are held until its counter ends: they are not
+    # temporaries
+    step, _ = build("meta")
+    with CostCounter(device="meta") as on_meta:
+        out = step()
+    del step, out
+    step, params = build(dev)
+    step()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with CostCounter(device="cuda") as on_card:
+            out = step()
+        torch.cuda.synchronize()
+    del out
+    peak = torch.cuda.max_memory_allocated()
+    device_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    roof = roofline_report(flops=float(on_card.flops), bytes_accessed=float(on_card.bytes),
+                           collective_bytes=0.0, n_chips=1,
+                           model_flops=model_flops(params, cfg, n_tokens, train=train),
+                           hw=card_spec(), dtype=cfg.act_dtype())
+    bound_ms = roof["step_time_lower_bound_s"] * 1e3
+    # operators whose FLOPs or bytes differ ([calls, flops, bytes]); the
+    # kernels' wrappers allocate their outputs (no bytes) in their own ways
+    differ = {op: dict(meta=on_meta.by_op.get(op), card=on_card.by_op.get(op))
+              for op in set(on_meta.by_op) | set(on_card.by_op)
+              if (on_meta.by_op.get(op) or [0, 0, 0])[1:]
+              != (on_card.by_op.get(op) or [0, 0, 0])[1:]}
+    res = dict(phase="dryrun", case=label, flops=on_card.flops, bytes=on_card.bytes,
+               meta_flops=on_meta.flops, meta_bytes=on_meta.bytes, ops_that_differ=differ,
+               compute_ms=roof["compute_s"] * 1e3, memory_ms=roof["memory_s"] * 1e3,
+               dominant=roof["dominant"], bound_ms=bound_ms, device_ms=device_ms,
+               share=bound_ms / device_ms if device_ms else None,
+               useful_flops_ratio=roof["useful_flops_ratio"],
+               modelled_peak_live_bytes=on_card.peak_live_bytes,
+               meta_peak_live_bytes=on_meta.peak_live_bytes,
+               card_peak_live_bytes=peak - held,
+               modelled_peak_temp_bytes=on_card.peak_temp_bytes,
+               meta_peak_temp_bytes=on_meta.peak_temp_bytes,
+               max_memory_allocated_bytes=peak, allocated_before_step_bytes=held,
+               kernels=on_card.kernels, hw=roof["hw"], compute_dtype=roof["compute_dtype"])
+    emit(res)
+    del step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not differ and on_meta.flops == on_card.flops and on_meta.bytes == on_card.bytes,
+          f"{label}: meta and the card counted differently: {differ}")
+    check(device_ms >= bound_ms > 0,
+          f"{label}: the card's kernel time {device_ms} ms is under the bound {bound_ms} ms")
+    check(abs(on_card.peak_live_bytes - (peak - held))
+          <= PEAK_RTOL * (peak - held) + PEAK_ATOL_BYTES,
+          f"{label}: modelled peak {on_card.peak_live_bytes} B against the card's "
+          f"{peak - held} B")
+    return res
+
+
+def counted_cases(dev) -> dict:
+    """Case (b): the counter against the card on the steps the smoke runs
+    at full width: Qwen3-8B's 1974-token prefill and one decode step after
+    it (bf16, 36 layers), a Qwen3-8B train step at 2 layers (bf16, AdamW,
+    B = 1, S = 2048) and train_lm's step (lm_100m, float32, B = 4, S =
+    192) under AdamW."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, init_decode_cache, prefill
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = get_config(SERVE_ARCH)
+
+    def prefill_step(device):
+        params = counted_params(cfg, device)
+        batch = {"tokens": counted_tokens(device, (1, COUNTED_PROMPT), cfg.vocab)}
+        return (lambda: prefill(params, batch, cfg, SERVE_MAX_SEQ)), params
+
+    def decode(device):
+        params = counted_params(cfg, device)
+        if torch.device(device).type == "meta":
+            cache = init_decode_cache(cfg, 1, SERVE_MAX_SEQ, device="meta")
+        else:
+            batch = {"tokens": counted_tokens(device, (1, COUNTED_PROMPT), cfg.vocab)}
+            cache = prefill(params, batch, cfg, SERVE_MAX_SEQ)[1]
+        token = counted_tokens(device, (1, 1), cfg.vocab)
+        pos = torch.full((), COUNTED_PROMPT, dtype=torch.int32, device=device)
+        return (lambda: decode_step(params, token, pos, cache, cfg)), params
+
+    def train(tcfg, batch, seq):
+        def build(device):
+            opt = adamw(3e-4)
+            meta = torch.device(device).type == "meta"
+            state = init_train_state(
+                tcfg, opt, None if meta else torch.Generator(device=device).manual_seed(SEED),
+                device=device)
+            step_fn = make_train_step(tcfg, opt)
+            data = {k: counted_tokens(device, (batch, seq), tcfg.vocab)
+                    for k in ("tokens", "targets")}
+            return (lambda: step_fn(state, data)), state["params"]
+        return build
+
+    res = {}
+    res["qwen3_8b_prefill"] = count_step("qwen3_8b_prefill_1974", prefill_step, dev, cfg,
+                                         train=False, n_tokens=COUNTED_PROMPT)
+    res["qwen3_8b_decode"] = count_step("qwen3_8b_decode_step", decode, dev, cfg, train=False,
+                                        n_tokens=1)
+    wide = dataclasses.replace(get_config(WIDE_ARCH), n_layers=WIDE_LAYERS)
+    res["qwen3_8b_train"] = count_step(
+        "qwen3_8b_width_2_layers_train", train(wide, WIDE_BATCH, WIDE_SEQ), dev, wide,
+        train=True, n_tokens=WIDE_BATCH * WIDE_SEQ)
+    lm = load_example("train_lm_torch").lm_100m()
+    res["train_lm"] = count_step("train_lm_100m_adamw", train(lm, TRAIN_BATCH, TRAIN_SEQ), dev,
+                                 lm, train=True, n_tokens=TRAIN_BATCH * TRAIN_SEQ)
+    return res
+
+
+def k8_counted_terms(k8_rows: dict, k8_bwd_rows: dict) -> dict:
+    """Case (c): K8's operations as the counter records them (on meta, at
+    each K8 row's shape of the kernels line: causal, p float32) equal to
+    the row's ``flops`` and ``bytes``."""
+    from repro_torch.roofline.cost import CostCounter
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def operands(shape, dtype):
+        b, s, t, h, kv, d = shape
+        return [torch.empty(dims, dtype=dtype, device="meta")
+                for dims in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+    out, bad = {}, []
+    for key, row in k8_rows.items():
+        q, k, v = operands(row["shape"], getattr(torch, row["dtype"]))
+        with CostCounter(device="meta") as c:
+            fa.flash_attention(q, k, v)
+        got = c.kernels["flash_attention"]
+        out[f"forward_{key}"] = dict(counted=[got["flops"], got["bytes"]],
+                                     line=[row["flops"], row["bytes"]])
+    for key, row in k8_bwd_rows.items():
+        q, k, v = operands(row["shape"], getattr(torch, row["dtype"]))
+        lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                          device="meta")
+        with CostCounter(device="meta") as c:
+            fa.flash_attention_bwd(q, k, v, torch.empty_like(q), lse, torch.empty_like(q))
+        for name, k_row in row["kernels"].items():
+            got = c.kernels[name]
+            out[f"{name}_{key}"] = dict(counted=[got["flops"], got["bytes"]],
+                                        line=[k_row["flops"], k_row["bytes"]])
+    bad = [k for k, r in out.items() if r["counted"] != r["line"]]
+    emit(dict(phase="dryrun", case="k8_terms", rows=out, differ=bad))
+    check(not bad, f"K8's counted flops/bytes differ from the kernels line's: {bad}")
+    return out
+
+
+def phase_dryrun(dev, k8_rows: dict, k8_bwd_rows: dict) -> dict:
+    """The dry run over every cell (a), the counter against the card (b)
+    and K8's counted terms against the kernels line (c)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = dict(cells=dryrun_cells(), steps=counted_cases(dev),
+               k8=k8_counted_terms(k8_rows, k8_bwd_rows))
+    emit(dict(phase="dryrun", case="wall", wall_s=time.perf_counter() - t0))
+    return res
+
+
 def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                  service_launches: dict, analysis_launches: dict, api_rows: dict,
                  api_launches: dict, k8_rows: dict, k8_launches: dict, k8_bwd_rows: dict,
@@ -4196,6 +4451,7 @@ def main() -> int:
     serve_launches = phase_serve(dev)
     families = phase_families(dev)
     train_launches = phase_train(dev)
+    phase_dryrun(dev, k8_rows, k8_bwd_rows)
     # K8's launches by row: the tensor-core rows split by head size (D =
     # 112 is Zamba2's alone), the FMA rows the float32 SMOKE configs' card
     # runs in serving (the D = 128 row) and the train phase's (train_lm's

@@ -12,7 +12,7 @@ at b = 1 and K5 at nb = 1, at m = k = 8192 and 4096 in float32 and bf16
 (every A larger than the 50 MB L2): the median of 20 calls, each between
 two events (``ms``), the device time a call in a CUDA graph
 (``device_ms``), each call on one of enough copies of A that none is
-found in the L2, the bytes bound at 3.35 TB/s, and the library call timed
+found in the L2, the bytes bound at the card's HBM rate, and the library call timed
 the same two ways: ``torch.matmul(g, y[:, None])`` and ``torch.addmm(zc,
 m, z)`` with ``zc = z + c`` made outside the timed call.  ``--save`` also
 writes the outputs of K5's narrow and wide routes and K6's b = 64 routes
@@ -103,7 +103,7 @@ def times() -> dict:
                      lambda i: torch.matmul(a[i], y), k6_bytes),
                     ("transient_step", lambda i: st.transient_step(a[i], y, c, 1.0),
                      lambda i: torch.addmm(zc, a[i], y), k5_bytes)):
-                bound_ms = nbytes / smoke.HBM_BYTES_PER_S * 1e3
+                bound_ms = nbytes / smoke.card_spec().hbm_bw * 1e3
                 row = dict(shape=[n, n, 1], dtype=dtype_name(dtype), bytes=nbytes,
                            bound_ms=bound_ms, **timed(kern, copies))
                 lib_t = timed(lib, copies)
@@ -212,7 +212,7 @@ def sweep() -> dict:
             x = randn(gen, (n,), dtype)
             want = gemv.gemv_in_kernel_order(a[0], x)
             out = torch.empty(n, device="cuda")
-            bound_ms = (n * n + 2 * n) * es / smoke.HBM_BYTES_PER_S * 1e3
+            bound_ms = (n * n + 2 * n) * es / smoke.card_spec().hbm_bw * 1e3
             configs = [("loads", c) for c in PROBE_LOADS]
             if dtype == torch.float32:
                 configs += [("tma", c) for c in PROBE_TMA]

@@ -2,7 +2,10 @@
 
 Every entry point takes ``device=`` and runs on the CUDA card unless the
 caller asks for the CPU.  Without a CUDA device and without an explicit
-``device="cpu"`` it raises; it never carries on quietly on the CPU.
+``device="cpu"`` it raises; it never carries on quietly on the CPU.  A
+caller may also ask for ``device="meta"``: tensors of shapes and dtypes
+without data, on which the dry run (:mod:`repro_torch.launch.dryrun`)
+traces a step and counts its work.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``device`` as a :class:`torch.device`; ``None`` means ``"cuda"``."""
+    """``device`` as a :class:`torch.device`; ``None`` means ``"cuda"``.
+    ``"meta"`` only when asked for by name."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -23,7 +27,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "device is available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -9,12 +9,17 @@ by a hash of the sources and flags, so an unchanged checkout loads the
 library an earlier process built, with that build's nvcc/ptxas log,
 kept beside it.
 
+:class:`KernelCounter` and :func:`record_operation` are the hook through
+which a wrapper reports its kernel's operation to a counting dispatch
+mode (the roofline's), which the launch itself bypasses.
+
 Nothing here runs at import: the CPU tests import every module, and
 this machine need not have ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,8 +29,10 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ell_transient.cu", "transient_step.cu", "crosspoint_mvm.cu",
@@ -196,13 +203,16 @@ def aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def check_tensors(dtypes: tuple[torch.dtype, ...], **tensors: torch.Tensor) -> torch.device:
+def check_tensors(dtypes: tuple[torch.dtype, ...], *, allow_meta: bool = False,
+                  **tensors: torch.Tensor) -> torch.device:
     """The device the named tensors share; raise unless the wrappers take them.
 
     Every tensor must be a strided tensor of one of ``dtypes`` on the
-    one CPU or CUDA device of the first, with dimensions in the kernels'
-    ``int`` range, and contiguous on CUDA (the kernels take row-major
-    operands without strides).
+    one CPU or CUDA device of the first (or ``meta``, where a dry run
+    traces the card's path without data, when the wrapper passes
+    ``allow_meta``), with dimensions in the kernels' ``int`` range, and
+    contiguous on CUDA and ``meta`` (the kernels take row-major operands
+    without strides).
     """
     dev = None
     for name, t in tensors.items():
@@ -215,12 +225,12 @@ def check_tensors(dtypes: tuple[torch.dtype, ...], **tensors: torch.Tensor) -> t
             raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
         if dev is None:
             dev = t.device
-            if dev.type not in ("cpu", "cuda"):
+            if dev.type not in ("cpu", "cuda") and not (allow_meta and dev.type == "meta"):
                 raise ValueError(f"unsupported device {dev}")
         elif t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the other operands on {dev}")
-        if dev.type == "cuda" and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on CUDA")
+        if dev.type in ("cuda", "meta") and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev.type}")
     return dev
 
 
@@ -234,6 +244,54 @@ def current_stream(dev: torch.device) -> int:
     if raw is not None:
         return raw(dev.index)
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+class KernelCounter(TorchDispatchMode):
+    """A dispatch mode that also counts the operations of the hand-written
+    kernels, which run outside the dispatcher (a ``ctypes`` launch) or
+    not at all (``meta``): their wrappers report each operation through
+    :func:`record_operation`.  A subclass (the roofline's
+    ``CostCounter``) defines :meth:`record_kernel`; while ``paused`` is
+    above 0 it counts nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.paused = 0
+
+    def record_kernel(self, name: str, flops: int, nbytes: int) -> None:
+        raise NotImplementedError
+
+
+def kernel_counters() -> list[KernelCounter]:
+    """The kernel counters active on this thread (the autograd engine
+    carries the mode stack into its backward threads)."""
+    if not torch._C._len_torch_dispatch_stack():
+        return []
+    return [m for m in _get_current_dispatch_mode_stack() if isinstance(m, KernelCounter)]
+
+
+def record_operation(name: str, cost: Callable[[], tuple[int, int]]) -> None:
+    """Report one kernel operation to every active kernel counter;
+    ``cost()`` gives its (flops, bytes) and runs only when one is active."""
+    counters = kernel_counters()
+    if counters:
+        flops, nbytes = cost()
+        for c in counters:
+            c.record_kernel(name, flops, nbytes)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Count nothing inside the block: the plain version that stands in
+    for a kernel whose operation :func:`record_operation` reported."""
+    counters = kernel_counters()
+    for c in counters:
+        c.paused += 1
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.paused -= 1
 
 
 _LIB: KernelLibrary | None = None

@@ -42,6 +42,17 @@ operand (``P`` rounded to bf16 when ``p_dtype`` is bf16), ``dS = P (dP -
 Delta)`` with the float32 ``P`` (``jax.grad`` passes a cast's cotangent
 straight through), ``dQ = scale dS K``, ``dK = scale dS^T Q``; the GQA
 sum over a group's query heads is in a fixed order, without atomics.
+
+Counting.  Under a counting dispatch mode (:class:`build.KernelCounter`,
+the roofline's ``CostCounter``) the forward and each of the backward's
+three kernels report one operation (:func:`build.record_operation`) by
+formula (:func:`forward_cost`, :func:`backward_costs`: the work the mask
+leaves, :func:`attn_pairs`, each operand read once and each result
+written once) on every device; the plain version that stands in on the
+CPU runs uncounted.  With no such mode active the formulas are not
+evaluated.  On
+``meta`` tensors (a dry run) the wrappers return empty results of the
+right shapes and dtypes, launch nothing and run no plain version.
 """
 
 from __future__ import annotations
@@ -174,7 +185,7 @@ def fma_forward_plan_on_device(batch: int, s: int, t: int, h: int, kv: int, d: i
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p_dtype,
            window: int) -> torch.device:
-    dev = build.check_tensors(build.FLOAT_DTYPES, q=q, k=k, v=v)
+    dev = build.check_tensors(build.FLOAT_DTYPES, allow_meta=True, q=q, k=k, v=v)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B, S, H, D) and k, v (B, T, KV, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -255,6 +266,65 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype), lse
 
 
+def _pairs_at(q: int, t: int, causal: bool, window: int) -> int:
+    hi = min(q, t - 1) if causal else t - 1
+    lo = max(0, q - window + 1) if window > 0 else 0
+    return max(0, hi - lo + 1)
+
+
+def attn_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the mask leaves for ``s`` queries at
+    positions 0..s-1 against ``t`` keys at 0..t-1: ``kpos <= qpos`` when
+    causal, ``kpos > qpos - window`` when ``window > 0``.  The work this
+    input needs, in closed form: a query's count is linear in its
+    position between the kinks at t (the causal edge reaches the last
+    key), window (the window starts to cut) and t + window - 1 (nothing
+    left), so each stretch is an arithmetic series."""
+    if s <= 0 or t <= 0:
+        return 0
+    cuts = {0, s}
+    for c in (t, window, t + window - 1) if window > 0 else (t,):
+        if 0 < c < s:
+            cuts.add(c)
+    cuts = sorted(cuts)
+    total = 0
+    for a, b in zip(cuts, cuts[1:]):
+        total += (_pairs_at(a, t, causal, window) + _pairs_at(b - 1, t, causal, window)) \
+            * (b - a) // 2
+    return total
+
+
+def forward_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 window: int, lse: bool) -> tuple[int, int]:
+    """(flops, bytes) of one forward: 4 D flops a (query head, key) pair
+    the mask leaves (S and PV); q, k and v read once, the output (and the
+    row lse) written once."""
+    b, s, h, d = q.shape
+    flops = 4 * b * h * d * attn_pairs(s, k.shape[1], causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return flops, nbytes + (b * h * s * 4 if lse else 0)
+
+
+def backward_costs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                   window: int) -> dict[str, tuple[int, int]]:
+    """(flops, bytes) of each backward kernel by name: Delta (2 flops and
+    two elements of O and dO read a product, the float32 row written);
+    dK/dV (8 D flops a pair: S, dP, dV and dK) and dQ (6 D: S, dP, dQ),
+    each reading q, k, v, dO, lse and Delta once and writing its results
+    once."""
+    b, s, h, d = q.shape
+    pairs = attn_pairs(s, k.shape[1], causal, window)
+    esize = q.element_size()
+    qkvo = (2 * q.numel() + k.numel() + v.numel()) * esize
+    stats = 2 * b * h * s * 4
+    return {
+        "flash_attention_bwd_delta": (2 * q.numel(), 2 * q.numel() * esize + b * h * s * 4),
+        "flash_attention_bwd_dkdv": (8 * d * pairs * b * h,
+                                     qkvo + stats + (k.numel() + v.numel()) * esize),
+        "flash_attention_bwd_dq": (6 * d * pairs * b * h, qkvo + stats + q.numel() * esize),
+    }
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     p_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -284,14 +354,21 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, H, S)) from the same launch; ``(out, None)`` without it, the
     kernel then writing exactly what it wrote before that output existed.
     Launches for CUDA tensors (counted as :func:`flash_attention`'s), runs
-    :func:`flash_attention_plain_lse` for CPU tensors.  No autograd."""
+    :func:`flash_attention_plain_lse` for CPU tensors and returns empty
+    results for ``meta`` tensors.  No autograd."""
     dev = _check(q, k, v, p_dtype, window)
-    if dev.type == "cpu":
-        out, row_lse = flash_attention_plain_lse(q, k, v, causal=causal, window=window,
-                                                 p_dtype=p_dtype)
-        return out, (row_lse if lse else None)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
+    build.record_operation("flash_attention",
+                           lambda: forward_cost(q, k, v, causal, window, lse))
+    if dev.type == "meta":
+        return torch.empty_like(q), (torch.empty((b, h, s), dtype=torch.float32, device=dev)
+                                     if lse else None)
+    if dev.type == "cpu":
+        with build.uncounted():
+            out, row_lse = flash_attention_plain_lse(q, k, v, causal=causal, window=window,
+                                                     p_dtype=p_dtype)
+        return out, (row_lse if lse else None)
     route = flash_attention_route(q.dtype, d, build.aligned16(q, k, v))
     lib = build.load_library()
     out = torch.empty_like(q)
@@ -607,17 +684,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     (float32 (B, H, S)) and the output's gradient ``do`` (taken in q's
     dtype).  For CUDA tensors three launches (Delta, dK/dV, dQ; the last two
     on :func:`flash_attention_bwd_route`'s route); for CPU tensors
-    :func:`flash_attention_bwd_plain`."""
+    :func:`flash_attention_bwd_plain`; for ``meta`` tensors empty
+    gradients.  Each of the three kernels records its operation under a
+    counter (:func:`backward_costs`), on every device."""
     dev = _check(q, k, v, p_dtype, window)
     do = do.to(q.dtype).contiguous()
-    build.check_tensors(build.FLOAT_DTYPES, q=q, o=o, do=do)
+    build.check_tensors(build.FLOAT_DTYPES, allow_meta=True, q=q, o=o, do=do)
     b, s, h, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, s):
         raise ValueError(f"need o and do {tuple(q.shape)} and lse {(b, h, s)}, got "
                          f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
+    for fn in BWD_KERNELS:
+        build.record_operation(fn.__name__, lambda name=fn.__name__: backward_costs(
+            q, k, v, causal, window)[name])
+    if dev.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dev.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
-                                         p_dtype=p_dtype)
+        with build.uncounted():
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                             window=window, p_dtype=p_dtype)
     lse = lse.float().contiguous()
     delta = flash_attention_bwd_delta(o.to(q.dtype), do)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal, window=window,

@@ -15,10 +15,11 @@ block's ``conv_*``, ``dt_bias``, ``a_log`` and ``d_skip``) stay float32
 at any ``param_dtype``.
 
 Initialization draws float32 normals from an explicit
-:class:`torch.Generator` on its own device, scales them and casts to the
-parameter dtype, tensor by tensor, with the reference's shapes and
-scales; the values differ from the reference's (another RNG), so parity
-tests carry the reference's weights across with
+:class:`torch.Generator` on its own device (or, without one, makes
+``meta`` tensors of the same shapes and dtypes for a dry run), scales
+them and casts to the parameter dtype, tensor by tensor, with the
+reference's shapes and scales; the values differ from the reference's
+(another RNG), so parity tests carry the reference's weights across with
 :func:`repro_torch.convert.lm_params_from_arrays`.
 """
 
@@ -36,8 +37,15 @@ from repro_torch.models.moe import moe_ffn, moe_ffn_grouped
 from repro_torch.models.ssm import mamba2_decode, mamba2_forward
 
 
+def _draw_device(generator: torch.Generator | None) -> torch.device:
+    """Where parameters are drawn: on the generator's device, or on
+    ``meta`` (shapes and dtypes, no data) without a generator."""
+    return torch.device("meta") if generator is None else generator.device
+
+
 def _normal(generator: torch.Generator, shape, dtype: torch.dtype, std: float) -> torch.Tensor:
-    x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    x = torch.randn(shape, generator=generator, device=_draw_device(generator),
+                    dtype=torch.float32)
     return (x.mul_(std)).to(dtype)
 
 
@@ -141,8 +149,8 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, out_scale: float) ->
     dt = cfg.p_dtype()
     norms = {}
     if cfg.qk_norm:
-        norms = dict(q_norm=torch.ones(dh, dtype=dt, device=generator.device),
-                     k_norm=torch.ones(dh, dtype=dt, device=generator.device))
+        norms = dict(q_norm=torch.ones(dh, dtype=dt, device=_draw_device(generator)),
+                     k_norm=torch.ones(dh, dtype=dt, device=_draw_device(generator)))
     return Attention(
         _normal(generator, (d, h, dh), dt, d ** -0.5),
         _normal(generator, (d, kv, dh), dt, d ** -0.5),
@@ -235,7 +243,7 @@ def init_dense_block(generator: torch.Generator, cfg: ModelConfig) -> DenseBlock
         _normal(generator, (d, f), dt, d ** -0.5),
         _normal(generator, (f, d), dt, out_scale * f ** -0.5),
     )
-    ones = torch.ones(d, dtype=dt, device=generator.device)
+    ones = torch.ones(d, dtype=dt, device=_draw_device(generator))
     return DenseBlock(ones, attn, ones.clone(), mlp)
 
 
@@ -277,7 +285,7 @@ def init_moe_block(generator: torch.Generator, cfg: ModelConfig) -> MoEBlock:
         _normal(generator, (e, d, f), dt, d ** -0.5),
         _normal(generator, (e, f, d), dt, out_scale * f ** -0.5),
     )
-    ones = torch.ones(d, dtype=dt, device=generator.device)
+    ones = torch.ones(d, dtype=dt, device=_draw_device(generator))
     return MoEBlock(ones, attn, ones.clone(), moe)
 
 
@@ -313,7 +321,8 @@ def moe_block_decode(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, cache_k: to
 # --------------------------------------------------------------------------
 
 def _uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    u = torch.rand(shape, generator=generator, device=_draw_device(generator),
+                   dtype=torch.float32)
     return u.mul_(hi - lo).add_(lo)
 
 
@@ -321,7 +330,7 @@ def init_mamba_block(generator: torch.Generator, cfg: ModelConfig) -> MambaBlock
     d, d_in = cfg.d_model, cfg.d_inner
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     dt, f32 = cfg.p_dtype(), torch.float32
-    dev = generator.device
+    dev = _draw_device(generator)
     out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
     # dt_bias = softplus^-1(dt0), dt0 log-uniform in [1e-3, 1e-1]
     dt0 = torch.exp(_uniform(generator, (h,), math.log(1e-3), math.log(1e-1)))
@@ -376,7 +385,7 @@ def _init_ln(d: int, dt: torch.dtype, device) -> LayerNorm:
 def init_encdec_block(generator: torch.Generator, cfg: ModelConfig, *,
                       cross: bool) -> EncDecBlock:
     d, f = cfg.d_model, cfg.d_ff
-    dt, dev = cfg.p_dtype(), generator.device
+    dt, dev = cfg.p_dtype(), _draw_device(generator)
     out_scale = 1.0 / math.sqrt(2 * (cfg.n_layers + cfg.n_enc_layers))
     attn = init_attn(generator, cfg, out_scale)
     mlp = GeluMLP(

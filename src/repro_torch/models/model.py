@@ -110,19 +110,25 @@ def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
 # parameter initialization
 # ===========================================================================
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> LanguageModel:
+def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
+                device=None) -> LanguageModel:
     """Random parameters at ``cfg``'s shapes, dtypes and the reference's
     scales.
 
     ``generator`` must live on ``device`` (default ``"cuda"``): every
     tensor is drawn there, one at a time, so a full-size model never
-    holds more than one float32 tensor beside its parameters.
+    holds more than one float32 tensor beside its parameters.  On
+    ``device="meta"`` (a dry run) the parameters are shapes and dtypes
+    without data and ``generator`` must be None.
     """
     family = family_of(cfg)
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator is on {generator.device}, parameters go to {dev}: "
-                         "pass a generator of the target device")
+    if dev.type == "meta":
+        if generator is not None:
+            raise ValueError("meta parameters are drawn from no generator: pass None")
+    elif generator is None or generator.device.type != dev.type:
+        raise ValueError(f"generator is on {getattr(generator, 'device', None)}, parameters "
+                         f"go to {dev}: pass a generator of the target device")
     dt = cfg.p_dtype()
     d = cfg.d_model
     embed = B._normal(generator, (cfg.vocab_padded, d), dt, 0.02)
@@ -273,7 +279,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device=None
     * encdec: ``k``, ``v`` and the cross ``xk``, ``xv`` (n_layers, batch,
       enc_len, KV, dh).
 
-    Everything but ``ssm`` is in the activation dtype.
+    Everything but ``ssm`` is in the activation dtype.  On
+    ``device="meta"`` the leaves are shapes and dtypes without data.
     """
     family = family_of(cfg)
     dev = resolve_device(device)
@@ -349,7 +356,9 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
     def put_kv(i, k, v):
         for name, new in (("k", k), ("v", v)):
             cache[name][i, rows, :s_total] = new
-            cache[name][i, rows, s_total:] = 0
+            # zero_, not "= 0": a scalar setitem is a fill_ on the card but
+            # a copy_ of a scalar tensor on meta, which the dry run counts
+            cache[name][i, rows, s_total:].zero_()
 
     def mamba(i, x):
         p = params.blocks[i]
