@@ -237,17 +237,32 @@ non-zero:
    counted FLOPs and bytes (on ``meta`` at each K8 row's shape) equal to
    the kernels line's, whose K8 rows take them from the same formulas
    (``flash_attention.forward_cost``/``backward_costs``);
+8c. distributed — the sharded train step
+   (``repro_torch.training.step.make_sharded_train_step``) on a world of
+   one: NCCL with a ``FileStore`` rendezvous in a temporary directory,
+   ``make_debug_mesh((1, 1))`` on cuda:0; the SMOKE Qwen3-8B (float32,
+   K8's FMA route forward and backward), AdamW(1e-3), tokens = targets =
+   3 (4 x 32): two steps, ``plan_mesh`` of the world, a re-shard under
+   ``make_rules(cfg, model_axis=1)``, two more steps, launch counts reset
+   just before and read just after (failing unless K8's forward and every
+   backward kernel launched), the losses and the parameters after steps 2
+   and 4 held against the one-device step on the card from the same
+   state bit for bit, or, where they differ, with why (whether the
+   one-device step repeats itself bit for bit) and within the CPU test's
+   bars (tests/test_torch_distributed.py); ``compress_int8`` on the card
+   against the CPU over three rounds of error feedback;
 9. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
    form and of the solve service's and the analysis phase's settling
    tickets, ``launches_by_phase``; K8's rows theirs by phase and family,
    ``launches_by_family``, with a row at D = 112 and the FMA route's rows
-   at the main shape and at train_lm's, the latter the train phase's;
-   K8's backward kernels a row each per dtype and route (bf16 on the
-   tensor cores, float32 on FMA), with the train phase's launches by
-   case, Delta's also by variant and with the device time of its launch
-   over zero rows), the nvidia-smi line, and the contract's last line.
+   at the main shape (which also counts the distributed phase's) and at
+   train_lm's, the latter the train phase's; K8's backward kernels a row
+   each per dtype and route (bf16 on the tensor cores, float32 on FMA),
+   with the train and the distributed phases' launches by case, Delta's
+   also by variant and with the device time of its launch over zero
+   rows), the nvidia-smi line, and the contract's last line.
 
 It imports no JAX and nothing of the JAX package.  Without CUDA, or
 outside a checkout (no ``src/repro_torch`` beside it), it exits with
@@ -4231,6 +4246,174 @@ def phase_dryrun(dev, k8_rows: dict, k8_bwd_rows: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8c: the distributed runtime on a world of one
+# ---------------------------------------------------------------------------
+
+DIST_LR = 1e-3
+# the CPU test's bars: losses 1e-5 relative, parameters 1e-5 of their
+# leaf's max|p|, but a leaf whose step-1 gradient is under DIST_NOISE_SHARE
+# of the model's largest (zero in exact arithmetic, float32 rounding) is
+# held to Adam's own step, 2 lr a step
+DIST_NOISE_SHARE = 1e-6
+
+
+def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
+    """Four AdamW steps of ``cfg`` on the card from the seeded state: on
+    one device, or sharded (two on the (1, 1) mesh, plan_mesh of the
+    world, a re-shard, two more).  Losses and the parameters after steps 2
+    and 4."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.elastic import plan_mesh
+    from repro_torch.distributed.rules import make_rules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training.step import (
+        full_params,
+        init_train_state,
+        make_sharded_train_step,
+        make_train_step,
+        shard_train_state,
+    )
+
+    opt = adamw(DIST_LR)
+    state = init_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    losses, params = [], {}
+    if not sharded:
+        step = make_train_step(cfg, opt)
+        for i in range(4):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            params[i + 1] = {n: p.detach().clone()
+                             for n, p in state["params"].named_parameters()}
+        return dict(losses=losses, params=params)
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    state = shard_train_state(state, cfg, mesh, {**make_rules(cfg, model_axis=1),
+                                                 "batch": "data"})
+    step = make_sharded_train_step(cfg, opt, mesh)
+    for i in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    params[2] = full_params(state)
+    plan = plan_mesh(dist.get_world_size())
+    mesh2 = plan.build()
+    state = shard_train_state(state, cfg, mesh2, {**make_rules(cfg, model_axis=plan.model),
+                                                  "batch": "data"})
+    step = make_sharded_train_step(cfg, opt, mesh2)
+    for i in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    params[4] = full_params(state)
+    return dict(losses=losses, params=params, plan=[plan.pods, plan.data, plan.model],
+                placements={n: [str(x) for x in state["params"][n].placements]
+                            for n in ("embed", "blocks.0.attn.wq", "final_norm")})
+
+
+def dist_compare(got: dict, want: dict, noise: set) -> dict:
+    """Bit for bit or not; the largest loss error (relative) and
+    parameter error (of the leaf's max|p|, and in lr for noise leaves)."""
+    bitwise = got["losses"] == want["losses"] and all(
+        torch.equal(got["params"][k][n], want["params"][k][n])
+        for k in (2, 4) for n in want["params"][k])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    param_err, noise_err_lr, worst = 0.0, 0.0, None
+    for k in (2, 4):
+        for n, w in want["params"][k].items():
+            err = float((got["params"][k][n] - w).abs().max())
+            if n in noise:
+                noise_err_lr = max(noise_err_lr, err / DIST_LR / k)
+            elif err / float(w.abs().max()) > param_err:
+                param_err, worst = err / float(w.abs().max()), f"{n} after step {k}"
+    return dict(bitwise=bitwise, loss_err=loss_err, param_err_of_max=param_err,
+                worst_leaf=worst, noise_leaf_err_in_lr_a_step=noise_err_lr)
+
+
+def compress_on_card(dev) -> dict:
+    """compress_int8 on the card and on the CPU, three rounds of error
+    feedback on seeded gradients (per-layer names share a scale): bit
+    for bit, or within one float32 ulp of max|g + e|."""
+    from repro_torch.distributed.compression import compress_int8
+
+    rng = np.random.default_rng(SEED)
+    shapes = {"embed": (512, 64), "blocks.0.attn.wq": (64, 4, 16),
+              "blocks.1.attn.wq": (64, 4, 16), "final_norm": (64,)}
+    err = {"cpu": None, "cuda": None}
+    bitwise, worst = True, 0.0
+    for _ in range(3):
+        g = {n: torch.from_numpy((rng.standard_normal(s) * 10.0 ** rng.uniform(-6, 1))
+                                 .astype(np.float32)) for n, s in shapes.items()}
+        c_cpu, err["cpu"] = compress_int8(g, err["cpu"])
+        c_gpu, err["cuda"] = compress_int8({n: x.to(dev) for n, x in g.items()}, err["cuda"])
+        for n in g:
+            for a, b in ((c_gpu[n].cpu(), c_cpu[n]), (err["cuda"][n].cpu(), err["cpu"][n])):
+                bitwise &= torch.equal(a, b)
+                scale = float(c_cpu[n].abs().max() + err["cpu"][n].abs().max())
+                worst = max(worst, float((a - b).abs().max()) / (scale * 2.0 ** -23))
+    return dict(bitwise=bitwise, err_in_f32_ulps_of_max=worst)
+
+
+def phase_distributed(dev) -> dict:
+    """Phase 8c (see the module docstring).  Returns K8's launches of the
+    sharded run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training.step import AUX_WEIGHT, init_train_state, loss_and_grads
+
+    t0 = time.perf_counter()
+    cfg = get_smoke_config("qwen3_8b")
+    tokens = torch.zeros((4, 32), dtype=torch.int32, device=dev) + 3
+    batch = {"tokens": tokens, "targets": tokens}
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory(prefix="repro_dist_smoke_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            one = dist_run(dev, cfg, batch, sharded=False)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            sharded = dist_run(dev, cfg, batch, sharded=True)
+            torch.cuda.synchronize()
+            launches = k8_counts()
+            backend = str(dist.get_backend())
+        finally:
+            dist.destroy_process_group()
+    again = dist_run(dev, cfg, batch, sharded=False)
+    state = init_train_state(cfg, adamw(DIST_LR), torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    _, grads = loss_and_grads(state["params"], batch, cfg, AUX_WEIGHT)
+    gmax = {n: float(g.abs().max()) for n, g in grads.items()}
+    noise = {n for n, g in gmax.items() if g < DIST_NOISE_SHARE * max(gmax.values())}
+    held = dist_compare(sharded, one, noise)
+    repeat = dist_compare(again, one, noise)
+    comp = compress_on_card(dev)
+    res = dict(phase="distributed", case="sharded_step_world_1", backend=backend,
+               mesh=[1, 1], plan=sharded["plan"], placements=sharded["placements"],
+               losses=sharded["losses"], one_device_losses=one["losses"], held=held,
+               one_device_repeats_bitwise=repeat["bitwise"], one_device_repeat=repeat,
+               noise_leaves=sorted(noise), k8=launches, compress_int8=comp,
+               wall_s=time.perf_counter() - t0)
+    if not held["bitwise"]:
+        res["why_not_bitwise"] = (
+            "the one-device step does not repeat itself bit for bit on the card"
+            if not repeat["bitwise"] else
+            "the sharded step differs from a one-device step that repeats itself")
+    emit(res)
+    check(launches["forward_by_route"]["fma"] > 0
+          and all(launches["backward"][n] > 0 for n in K8_BWD_KERNELS),
+          f"distributed: K8 forward/backward not launched: {launches}")
+    check(held["bitwise"] or (held["loss_err"] <= 1e-5 and held["param_err_of_max"] <= 1e-5
+                              and held["noise_leaf_err_in_lr_a_step"] <= 2),
+          f"distributed: the sharded step against the one-device step: {held}")
+    check(comp["err_in_f32_ulps_of_max"] <= 1, f"distributed: compress_int8 card vs CPU {comp}")
+    return launches
+
+
 def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
                  service_launches: dict, analysis_launches: dict, api_rows: dict,
                  api_launches: dict, k8_rows: dict, k8_launches: dict, k8_bwd_rows: dict,
@@ -4250,11 +4433,12 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
     K8's rows count by phase and family (``launches_by_family``): the
     tensor-core row at D = 128 the serve phase's and every family's but
     Zamba2's, the D = 112 row Zamba2's, the fma row at D = 128 the float32
-    SMOKE configs' serving runs on the card, the fma row at train_lm's
-    shape the train phase's; the tensor-core rows also the train phase's.  K8's backward
+    SMOKE configs' serving runs on the card and the distributed phase's,
+    the fma row at train_lm's shape the train phase's; the tensor-core
+    rows also the train and the distributed phases'.  K8's backward
     kernels have a row each per dtype (bf16 at the forward's main shape,
     float32 at train_lm's), their launches those of the train phase by
-    case, ``launches_by_phase``."""
+    case and of the distributed phase, ``launches_by_phase``."""
     replaces = {
         "ell_sweep": ("K1", "src/repro_torch/kernels/csrc/ell_transient.cu",
                       "src/repro/kernels/ell_transient.py:89"),
@@ -4452,25 +4636,28 @@ def main() -> int:
     families = phase_families(dev)
     train_launches = phase_train(dev)
     phase_dryrun(dev, k8_rows, k8_bwd_rows)
+    dist_launches = phase_distributed(dev)
     # K8's launches by row: the tensor-core rows split by head size (D =
     # 112 is Zamba2's alone), the FMA rows the float32 SMOKE configs' card
     # runs in serving (the D = 128 row) and the train phase's (train_lm's
     # shape); each by the phase or family that made them
     train_fwd = {route: sum(c["forward_by_route"][route] for c in train_launches.values())
                  for route in ("mma", "fma")}
+    dist_fwd = dist_launches["forward_by_route"]
     k8_launches = {
         "mma": {"serve": serve_launches["mma"],
                 **{a: r["mma"] for a, r in families.items() if r["head_dim"] != 112},
-                "train": train_fwd["mma"]},
+                "train": train_fwd["mma"], "distributed": dist_fwd["mma"]},
         "mma_d112": {a: r["mma"] for a, r in families.items() if r["head_dim"] == 112},
-        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()}},
+        "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()},
+                "distributed": dist_fwd["fma"]},
         "fma_train": {"train": train_fwd["fma"]},
     }
 
     emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,
                                   analysis_launches,
                                   api_rows, api_launches, k8_rows, k8_launches, k8_bwd_rows,
-                                  train_launches)})
+                                  {**train_launches, "distributed": dist_launches})})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,21 @@
-"""Solver meshes, solve-service streams and the per-stream circuit breaker.
+"""Logical-axis sharding rules, solver meshes, solve-service streams and
+the per-stream circuit breaker (counterpart of
+:mod:`repro.distributed.sharding`).
 
-Counterpart of the solver part of :mod:`repro.distributed.sharding`
-(``solver_mesh``, ``stream_devices``, ``StreamBreaker`` and
-``shard_system_batch``).  The logical-axis rules of the model stack are
-not ported here.
+**Logical axes.**  A parameter or activation names a logical axis per
+dimension (``("embed", "q_heads", "head_dim")``); the rules map each name
+to a mesh axis, a tuple of mesh axes, or None (replicated).  A *spec* is
+the reference's ``PartitionSpec`` as a plain tuple, one entry per tensor
+dimension, and :func:`placements` turns it into DTensor placements on a
+named :class:`~torch.distributed.device_mesh.DeviceMesh`.  The placement
+policy is the reference's: ``embed`` over ``"data"`` (FSDP), heads,
+``ff``, ``vocab`` and ``inner`` over ``"model"``, ``batch`` over
+``"data"`` or ``("pod", "data")``.  The port's models carry no sharding
+hints (:mod:`repro_torch.models.blocks`), so the rules place state and
+no more: :func:`logical_constraint` and :func:`boundary_pin` are for
+callers holding DTensors, and without rules return their input itself.
 
-JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
+**The solver mesh.**  JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
 PyTorch has no such array, so the port's mesh is a plain tuple of
 :class:`torch.device` and "sharding" a batch means splitting its axis 0
 into contiguous parts, one per device; a caller runs each part where it
@@ -15,15 +25,142 @@ lies and gathers the results in order (see
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
-from typing import Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import active_mesh
+
+# ---------------------------------------------------------------------------
+# Logical-axis rules of the model stack
+# ---------------------------------------------------------------------------
+
+LOGICAL_RULES_SINGLE_POD: dict[str, object] = {
+    "batch": "data",
+    "embed": "data",       # FSDP shard dim
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ff": "model",
+    "vocab": "model",
+    "inner": "model",      # mamba d_inner
+    "expert": None,        # flipped to "model" by EP configs
+    "moe_grp": "data",     # hierarchical MoE dispatch groups
+    "seq": None,
+    "state": None,
+}
+
+LOGICAL_RULES_MULTI_POD: dict[str, object] = {
+    **LOGICAL_RULES_SINGLE_POD,
+    "batch": ("pod", "data"),
+}
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.rules: Optional[Mapping[str, object]] = None
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use_rules(rules: Mapping[str, object]):
+    """Make ``rules`` the active rules of this thread inside the block."""
+    prev = _CTX.rules
+    _CTX.rules = rules
+    try:
+        yield
+    finally:
+        _CTX.rules = prev
+
+
+def active_rules() -> Optional[Mapping[str, object]]:
+    return _CTX.rules
+
+
+def logical_spec(axes: Sequence[Optional[str]],
+                 rules: Optional[Mapping[str, object]] = None) -> tuple:
+    """The spec of ``axes`` under ``rules`` (default: the active rules):
+    one mesh-axis entry per dimension; ``()`` without rules."""
+    rules = rules if rules is not None else _CTX.rules
+    if rules is None:
+        return ()
+    return tuple(rules.get(a) if a is not None else None for a in axes)
+
+
+def placements(spec: Sequence, mesh) -> tuple:
+    """DTensor placements of ``spec`` on the named ``mesh``: for each mesh
+    dimension, in mesh order, ``Shard(d)`` where the spec names that axis
+    at tensor dimension ``d`` (alone or in a tuple: ``("pod", "data")``
+    shards one dimension over both), else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    where: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is None:
+                continue
+            if axis not in names:
+                raise ValueError(f"spec {tuple(spec)} names mesh axis {axis!r}; the mesh "
+                                 f"has {names}")
+            if axis in where:
+                raise ValueError(f"spec {tuple(spec)} names mesh axis {axis!r} twice")
+            where[axis] = d
+    return tuple(Shard(where[n]) if n in where else Replicate() for n in names)
+
+
+def with_sharding_constraint(x, spec: Sequence):
+    """The port's ``jax.lax.with_sharding_constraint``: a DTensor on the
+    active mesh (:func:`repro_torch.launch.mesh.mesh_context`) is
+    redistributed to ``spec``'s placements; anything else is returned as
+    it is (a plain tensor lies whole on its device)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = active_mesh()
+    if mesh is None or not isinstance(x, DTensor) or x.device_mesh != mesh:
+        return x
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def logical_constraint(x, axes: Sequence[Optional[str]]):
+    """with_sharding_constraint by logical axes; ``x`` itself without
+    rules."""
+    if _CTX.rules is None:
+        return x
+    return with_sharding_constraint(x, logical_spec(axes))
+
+
+def boundary_pin(x, axes: Sequence[Optional[str]]):
+    """The constraint applied only where the attention batch layout
+    differs from the batch layout (the reference's lever for archs whose
+    heads do not divide the model axis); ``x`` itself without rules or
+    where the two layouts match."""
+    rules = _CTX.rules
+    if rules is None:
+        return x
+    if rules.get("attn_batch", rules.get("batch")) == rules.get("batch"):
+        return x
+    return with_sharding_constraint(x, logical_spec(axes))
+
+
+def param_specs(logical_tree, rules: Mapping[str, object]):
+    """Map a tree (dicts) of logical-axis tuples to specs."""
+    if isinstance(logical_tree, tuple):
+        return logical_spec(logical_tree, rules)
+    return {k: param_specs(v, rules) for k, v in logical_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Solver-side meshes and streams
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

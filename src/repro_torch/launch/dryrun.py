@@ -14,8 +14,10 @@ launched and no plain version runs in K8's place.
 
 Only ``single_card`` is ported: nothing is sharded, and no collective
 runs (its bytes are 0).  The production meshes ``single_pod`` and
-``multi_pod`` and the attention batch layout wait on the sharding rules,
-ROADMAP Queue 1 item 12.9, and raise :class:`NotImplementedError`.
+``multi_pod``, and the attention batch layout that applies on them, wait
+on the sharded trace of ROADMAP Queue 1 item 13 and raise
+:class:`NotImplementedError`; the sharding rules they use are ported
+(:mod:`repro_torch.distributed`).
 
 Usage (the CPU suffices; nothing runs on a card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -58,7 +60,7 @@ from repro_torch.training.step import init_train_state, make_train_step
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun"
 MESHES = ("single_card",)
-# the reference's production meshes: they need the sharding rules
+# the reference's production meshes: they need item 13's sharded trace
 SHARDED_MESHES = ("single_pod", "multi_pod")
 # the card the port targets: the spec the dry run models unless told
 TARGET_CARD = "NVIDIA H100 80GB HBM3"
@@ -66,8 +68,8 @@ TARGET_CARD = "NVIDIA H100 80GB HBM3"
 
 def _sharding_missing(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} needs the sharding rules, which are not ported yet (ROADMAP Queue 1 "
-        "item 12.9); the port's dry run runs on mesh 'single_card'")
+        f"{what} needs the production meshes' sharded trace, which is not ported yet "
+        "(ROADMAP Queue 1 item 13); the port's dry run runs on mesh 'single_card'")
 
 
 def tensor_tree_bytes(tree) -> int:

@@ -1,7 +1,7 @@
 """Training driver: config -> data -> fault-tolerant loop, on one device.
 
-Counterpart of :mod:`repro.launch.train` (without its mesh, a later
-slice).  Features exercised here:
+Counterpart of :mod:`repro.launch.train`, whose loop, too, builds no
+mesh.  Features exercised here:
 
 * auto-resume from the latest checkpoint (params + optimizer + data
   iterator state),

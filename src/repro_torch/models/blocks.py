@@ -9,7 +9,11 @@ reference's dict keys (``attn.wq``, ``mlp.w_gate``, ``moe.w_router``,
 ``ln1.scale``, ...), so a state dict maps one to one onto the
 reference's parameter tree; the forward functions are plain functions on
 tensors, as in the reference.  The reference's sharding hints (``lc``,
-``boundary_pin``) are dropped: without mesh rules they are no-ops.
+``boundary_pin``) are dropped: without mesh rules they are no-ops, and
+with them the port places state, not activations
+(:func:`repro_torch.training.step.make_sharded_train_step`).  Each
+``*_axes`` function gives its block's leaves' logical axes, keyed as the
+block's parameters, as the reference's does.
 The float32 leaves of the reference (``moe.w_router``, the Mamba
 block's ``conv_*``, ``dt_bias``, ``a_log`` and ``d_skip``) stay float32
 at any ``param_dtype``.
@@ -160,6 +164,19 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, out_scale: float) ->
     )
 
 
+def attn_axes(cfg: ModelConfig) -> dict:
+    p = {
+        "wq": ("embed", "q_heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("q_heads", "head_dim", "embed"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
     d, heads, dh = w.shape
@@ -247,6 +264,19 @@ def init_dense_block(generator: torch.Generator, cfg: ModelConfig) -> DenseBlock
     return DenseBlock(ones, attn, ones.clone(), mlp)
 
 
+def dense_block_axes(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": (None,),
+        "attn": attn_axes(cfg),
+        "ln2": (None,),
+        "mlp": {
+            "w_gate": ("embed", "ff"),
+            "w_up": ("embed", "ff"),
+            "w_down": ("ff", "embed"),
+        },
+    }
+
+
 def dense_block_forward(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig,
                         positions: torch.Tensor, *, causal: bool = True):
     if cfg.parallel_block:
@@ -287,6 +317,22 @@ def init_moe_block(generator: torch.Generator, cfg: ModelConfig) -> MoEBlock:
     )
     ones = torch.ones(d, dtype=dt, device=_draw_device(generator))
     return MoEBlock(ones, attn, ones.clone(), moe)
+
+
+def moe_block_axes(cfg: ModelConfig) -> dict:
+    ep = cfg.moe_parallel == "ep"
+    ff_axis = None if ep else "ff"      # EP: the rules map "expert" to "model"
+    return {
+        "ln1": (None,),
+        "attn": attn_axes(cfg),
+        "ln2": (None,),
+        "moe": {
+            "w_router": ("embed", None),
+            "w_gate": ("expert", "embed", ff_axis),
+            "w_up": ("expert", "embed", ff_axis),
+            "w_down": ("expert", ff_axis, "embed"),
+        },
+    }
 
 
 def moe_block_forward(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, positions: torch.Tensor):
@@ -352,6 +398,25 @@ def init_mamba_block(generator: torch.Generator, cfg: ModelConfig) -> MambaBlock
     )
 
 
+def mamba_block_axes(cfg: ModelConfig) -> dict:
+    return {
+        "ln": (None,),
+        "w_z": ("embed", "inner"),
+        "w_x": ("embed", "inner"),
+        "w_bc": ("embed", None),
+        "w_dt": ("embed", None),
+        "conv_x_w": (None, "inner"),
+        "conv_x_b": ("inner",),
+        "conv_bc_w": (None, None),
+        "conv_bc_b": (None,),
+        "dt_bias": (None,),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "norm_scale": ("inner",),
+        "w_out": ("inner", "embed"),
+    }
+
+
 def mamba_block_forward(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig):
     """Returns (x + Mamba2(rms_norm(x)), final ssm state)."""
     y, state = mamba2_forward(rms_norm(x, p.ln, cfg.norm_eps), p, cfg)
@@ -398,6 +463,25 @@ def init_encdec_block(generator: torch.Generator, cfg: ModelConfig, *,
     if cross:
         cross_parts = dict(ln_x=_init_ln(d, dt, dev), xattn=init_attn(generator, cfg, out_scale))
     return EncDecBlock(_init_ln(d, dt, dev), attn, _init_ln(d, dt, dev), mlp, **cross_parts)
+
+
+def encdec_block_axes(cfg: ModelConfig, *, cross: bool) -> dict:
+    ln = {"scale": (None,), "bias": (None,)}
+    p = {
+        "ln1": dict(ln),
+        "attn": attn_axes(cfg),
+        "ln2": dict(ln),
+        "mlp": {
+            "w_up": ("embed", "ff"),
+            "b_up": ("ff",),
+            "w_down": ("ff", "embed"),
+            "b_down": (None,),
+        },
+    }
+    if cross:
+        p["ln_x"] = dict(ln)
+        p["xattn"] = attn_axes(cfg)
+    return p
 
 
 def _ln(x: torch.Tensor, p: LayerNorm, cfg: ModelConfig) -> torch.Tensor:

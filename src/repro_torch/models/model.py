@@ -153,6 +153,62 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
     return LanguageModel(embed, torch.ones(d, dtype=dt, device=dev), lm_head=lm_head, **parts)
 
 
+def _flat_axes(tree: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_axes(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """Each parameter's logical axes, keyed by its state-dict name (the
+    counterpart of ``repro/models/model.py:78``): the reference's leaf
+    axes, without the leading ``"layers"`` of the subtrees the port holds
+    one module per layer (:data:`STACKED`)."""
+    family = family_of(cfg)
+    axes: dict = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+
+    def per_layer(name: str, block: dict, n: int) -> None:
+        for i in range(n):
+            axes[f"{name}.{i}"] = block
+
+    if family in ("dense", "vlm"):
+        per_layer("blocks", B.dense_block_axes(cfg), cfg.n_layers)
+    elif family == "moe":
+        per_layer("blocks", B.moe_block_axes(cfg), cfg.n_layers)
+    elif family in ("ssm", "hybrid"):
+        per_layer("blocks", B.mamba_block_axes(cfg), cfg.n_layers)
+        if family == "hybrid":
+            axes["shared_attn"] = B.dense_block_axes(cfg)
+    else:
+        per_layer("enc_blocks", B.encdec_block_axes(cfg, cross=False), cfg.n_enc_layers)
+        per_layer("dec_blocks", B.encdec_block_axes(cfg, cross=True), cfg.n_layers)
+        axes["enc_final_norm"] = (None,)
+    return _flat_axes(axes, "")
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """Logical axes of the decode cache, keyed as :func:`init_decode_cache`
+    (the counterpart of ``repro/models/model.py:491``; the cache keeps the
+    reference's leading layer axis)."""
+    family = family_of(cfg)
+    attn = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    if family in ("dense", "moe", "vlm"):
+        return {"k": attn, "v": attn}
+    ssm = {"conv": ("layers", "batch", None, None),
+           "ssm": ("layers", "batch", "ssm_heads", None, "state")}
+    if family == "ssm":
+        return ssm
+    if family == "hybrid":
+        return {**ssm, "k": attn, "v": attn}
+    return {"k": attn, "v": attn, "xk": attn, "xv": attn}
+
+
 def _device_of(params: LanguageModel) -> torch.device:
     return params.embed.device
 

@@ -26,13 +26,22 @@ class Optimizer(NamedTuple):
     update: Callable       # (grads, state, params) -> (updates, state)
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], grad_clip: float
-                        ) -> dict[str, torch.Tensor]:
+def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The float32 L2 norm of every leaf together (the sum over leaves in
+    dict order)."""
+    g32 = (g.float() for g in grads.values())
+    return torch.sqrt(sum(torch.sum(g * g) for g in g32))
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], grad_clip: float,
+                        gnorm: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """Float32 copies of ``grads`` scaled by ``min(1, clip / max(|g|,
-    1e-12))``, ``|g|`` the global L2 norm (the sum over leaves in dict
-    order)."""
+    1e-12))``, ``|g|`` the global norm: :func:`global_norm` of ``grads``,
+    or ``gnorm`` where the caller holds shards of the gradients and took
+    the norm of the whole (the sharded step)."""
     g32 = {n: g.float() for n, g in grads.items()}
-    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in g32.values()))
+    if gnorm is None:
+        gnorm = global_norm(g32)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     return {n: g * scale for n, g in g32.items()}
 
@@ -53,9 +62,10 @@ def adamw(lr: float | Callable[[int], float], *, b1: float = 0.9, b2: float = 0.
             "step": 0,
         }
 
-    def update(grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
+    def update(grads: dict, state: dict, params: dict, *, gnorm: torch.Tensor | None = None
+               ) -> tuple[dict, dict]:
         step = state["step"] + 1
-        g32 = clip_by_global_norm(grads, grad_clip)
+        g32 = clip_by_global_norm(grads, grad_clip, gnorm)
         f32 = torch.float32
         bc1 = 1 - torch.tensor(b1, dtype=f32) ** torch.tensor(step, dtype=f32)
         bc2 = 1 - torch.tensor(b2, dtype=f32) ** torch.tensor(step, dtype=f32)

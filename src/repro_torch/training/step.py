@@ -8,18 +8,39 @@ model's state-dict names, and the step is a Python int.  The step is
 family-agnostic (:func:`~repro_torch.models.model.forward_train`
 dispatches) and runs where the model lies: every attention through K8
 and its hand-written backward on the card.
+
+:func:`make_sharded_train_step` is the step on a mesh
+(:mod:`repro_torch.launch.mesh`), the port of the reference's step under
+``jit`` with parameter shardings: FSDP storage and data-parallel compute.
+Parameters and AdamW moments live as DTensors placed by
+``param_specs(param_logical_axes(cfg), rules)`` (:func:`shard_train_state`).
+Each rank gathers every leaf whole and runs the unchanged one-device
+forward and backward on its rows of the batch; the gradients are averaged
+over the mesh's batch axes (every axis but ``"model"``, weighted by each
+rank's token count) with ``all_reduce``; AdamW's global-norm clip is taken
+over the whole averaged gradients, as on one device; and each rank
+updates its own shards.  The ``"model"`` axis places state only: its
+ranks compute the same thing.  So the step's arithmetic is the one-device
+step's but for the order of the batch sums, and the models need no
+sharding hints.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.elastic import reshard_state
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import forward_train, init_params
-from repro_torch.optim.adamw import Optimizer, apply_updates
+from repro_torch.models.model import forward_train, init_params, param_logical_axes
+from repro_torch.optim.adamw import Optimizer, apply_updates, global_norm
 from repro_torch.training.loss import cross_entropy_loss
+
+# the MoE load-balancing loss's weight in the train loss (zero aux elsewhere)
+AUX_WEIGHT = 0.01
 
 
 def named_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -36,7 +57,27 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, generator: torch.Ge
     return {"params": params, "opt_state": optimizer.init(named_params(params)), "step": 0}
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, aux_weight: float = 0.01,
+def loss_and_grads(model: torch.nn.Module, batch: dict, cfg: ModelConfig, aux_weight: float
+                   ) -> tuple[dict, dict[str, torch.Tensor]]:
+    """The loss ``ce + aux_weight * aux`` of ``batch`` and its gradient
+    for every parameter (zeros where none flows), the model's own
+    gradients cleared.  Metrics as :func:`make_train_step`'s, not yet
+    detached."""
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        logits, aux = forward_train(model, batch, cfg)
+        ce, metrics = cross_entropy_loss(logits, batch["targets"], cfg.vocab)
+        loss = ce + aux_weight * aux
+        metrics["aux"] = aux
+        metrics["loss"] = loss
+        loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in named_params(model).items()}
+    model.zero_grad(set_to_none=True)
+    return metrics, grads
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, aux_weight: float = AUX_WEIGHT,
                     compressor: Optional[Callable] = None):
     """``train_step(state, batch) -> (state, metrics)``: the loss ``ce +
     aux_weight * aux``, its gradients, then ``optimizer.update`` and the
@@ -46,28 +87,15 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, aux_weight: float
     plus ``aux`` and ``loss``, as 0-d tensors.
 
     compressor: optional ``(grads, error_state) -> (grads, error_state)``
-    (int8 error feedback in the reference's ``distributed.compression``);
-    its error state rides in ``opt_state["comp_err"]``.
+    (int8 error feedback:
+    :func:`repro_torch.distributed.compression.compress_int8`); its error
+    state rides in ``opt_state["comp_err"]``.
     """
-
-    def loss_fn(params, batch):
-        logits, aux = forward_train(params, batch, cfg)
-        ce, metrics = cross_entropy_loss(logits, batch["targets"], cfg.vocab)
-        loss = ce + aux_weight * aux
-        metrics["aux"] = aux
-        metrics["loss"] = loss
-        return loss, metrics
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         model = state["params"]
-        model.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss, metrics = loss_fn(model, batch)
-            loss.backward()
+        metrics, grads = loss_and_grads(model, batch, cfg, aux_weight)
         params = named_params(model)
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        model.zero_grad(set_to_none=True)
         if compressor is not None:
             grads, err = compressor(grads, state["opt_state"].get("comp_err"))
         updates, opt_state = optimizer.update(grads, state["opt_state"], params)
@@ -77,5 +105,125 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, aux_weight: float
         apply_updates(params, updates)
         new_state = {"params": model, "opt_state": opt_state, "step": state["step"] + 1}
         return new_state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the step on a mesh
+# ---------------------------------------------------------------------------
+
+def shard_train_state(state: dict, cfg: ModelConfig, mesh, rules) -> dict:
+    """An AdamW train state placed on ``mesh`` under ``rules``: ``params``,
+    ``mu`` and ``nu`` as ``{name: DTensor}`` by their logical axes
+    (:func:`~repro_torch.distributed.elastic.reshard_state`), the steps
+    as ints.  ``state`` is a one-device state (:func:`init_train_state`)
+    or a sharded one of any mesh, which is how the elastic path re-shards;
+    every rank of the old and the new mesh calls it."""
+    opt = state["opt_state"]
+    if set(opt) != {"mu", "nu", "step"}:
+        raise ValueError(f"the sharded step holds AdamW's state (mu, nu, step); got {sorted(opt)}")
+    params = state["params"]
+    if isinstance(params, torch.nn.Module):
+        params = {n: p.detach() for n, p in named_params(params).items()}
+    axes = param_logical_axes(cfg)
+    return {"params": reshard_state(params, axes, mesh, rules),
+            "opt_state": {"mu": reshard_state(opt["mu"], axes, mesh, rules),
+                          "nu": reshard_state(opt["nu"], axes, mesh, rules),
+                          "step": opt["step"]},
+            "step": state["step"]}
+
+
+def full_params(state: dict) -> dict[str, torch.Tensor]:
+    """Copies of a sharded state's parameters gathered whole (a collective
+    over its mesh; a replicated leaf's ``full_tensor()`` is its storage,
+    which the next step updates in place)."""
+    return {n: p.full_tensor().clone() for n, p in state["params"].items()}
+
+
+def _like(local: torch.Tensor, like):
+    """``local`` as the local shard of a DTensor placed as ``like``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def _local_shard(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's shard of ``full``, placed as ``like``: a local slice."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    whole = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return whole.redistribute(mesh, like.placements).to_local()
+
+
+def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
+    """``train_step(state, batch) -> (state, metrics)`` on ``mesh``, for a
+    state from :func:`shard_train_state` and an optimizer whose update
+    takes ``gnorm=`` (AdamW).  Every member rank calls it with the same
+    global ``batch``; each takes its rows, split contiguously over the
+    mesh's batch axes (every axis but ``"model"``, in mesh order), whose
+    product must divide the batch.  Metrics are the token-weighted means
+    of the ranks' (``tokens`` their sum), equal on every rank; an MoE's
+    aux loss and capacity act per rank, as in data parallelism."""
+    names = mesh.mesh_dim_names
+    batch_axes = [a for a in names if a != "model"]
+    groups = [mesh.get_group(a) for a in batch_axes]
+    n_shards = math.prod(mesh.size(names.index(a)) for a in batch_axes)
+    coord = 0
+    for a in batch_axes:
+        coord = coord * mesh.size(names.index(a)) + mesh.get_local_rank(a)
+    model = None            # the model the step runs, built at the first call
+
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+    def rows(x):
+        if x.shape[0] % n_shards:
+            raise ValueError(f"a batch of {x.shape[0]} does not split over {n_shards} ranks")
+        k = x.shape[0] // n_shards
+        return x[coord * k:(coord + 1) * k]
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        nonlocal model
+        sharded = state["params"]
+        if model is None:
+            dev = next(iter(sharded.values())).to_local().device
+            model = init_params(cfg, None, device="meta").to_empty(device=dev)
+            model.requires_grad_(True)
+        for n, p in named_params(model).items():
+            p.data = sharded[n].full_tensor()
+        metrics, grads = loss_and_grads(model, {k: rows(x) for k, x in batch.items()}, cfg,
+                                        AUX_WEIGHT)
+        for p in model.parameters():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)   # drop the gathered leaves
+        tokens = metrics["tokens"].detach()
+        total = reduce(tokens.clone())
+        w = tokens / total
+        for g in grads.values():
+            reduce(g.mul_(w.to(g.dtype)))
+        metrics = {k: total if k == "tokens" else reduce(v.detach() * w)
+                   for k, v in metrics.items()}
+        gnorm = global_norm(grads)
+        opt = state["opt_state"]
+        local = {n: p.to_local() for n, p in sharded.items()}
+        local_state = {"mu": {n: m.to_local() for n, m in opt["mu"].items()},
+                       "nu": {n: v.to_local() for n, v in opt["nu"].items()},
+                       "step": opt["step"]}
+        local_grads = {n: _local_shard(grads.pop(n), sharded[n]) for n in list(grads)}
+        updates, local_state = optimizer.update(local_grads, local_state, local, gnorm=gnorm)
+        del local_grads
+        apply_updates(local, updates)
+        new_state = {
+            "params": {n: _like(local[n], p) for n, p in sharded.items()},
+            "opt_state": {"mu": {n: _like(local_state["mu"][n], p) for n, p in sharded.items()},
+                          "nu": {n: _like(local_state["nu"][n], p) for n, p in sharded.items()},
+                          "step": local_state["step"]},
+            "step": state["step"] + 1,
+        }
+        return new_state, metrics
 
     return train_step

@@ -169,14 +169,14 @@ def test_run_cell_counts_what_the_cell_needs():
 
 @pytest.mark.parametrize("mesh", ["single_pod", "multi_pod"])
 def test_sharded_meshes_wait_on_the_sharding_rules(mesh):
-    with pytest.raises(NotImplementedError, match="12.9"):
+    with pytest.raises(NotImplementedError, match="production meshes.*item 13"):
         dryrun.run_cell("qwen3_8b", "decode_32k", mesh, smoke=True)
-    with pytest.raises(NotImplementedError, match="12.9"):
+    with pytest.raises(NotImplementedError, match="production meshes.*item 13"):
         dryrun.main(["--mesh", mesh, "--arch", "qwen3_8b", "--shape", "decode_32k"])
 
 
 def test_attention_batch_layout_waits_on_the_sharding_rules():
-    with pytest.raises(NotImplementedError, match="12.9"):
+    with pytest.raises(NotImplementedError, match="production meshes.*item 13"):
         dryrun.run_cell("qwen3_8b", "decode_32k", attn_batch_layout=True, smoke=True)
 
 
