@@ -220,14 +220,21 @@ non-zero:
    are printed;
 8b. dryrun — the dry run and the roofline counter
    (``repro_torch.launch.dryrun``, ``repro_torch.roofline``): (a) every
-   arch x shape cell (10 x 4) traced on ``meta`` on ``single_card`` with
-   the card's spec, in DRYRUN_WORKERS processes, each ``ok`` or
-   ``skipped`` with the reference's reason (``long_500k`` on a
-   full-attention arch), its dominant term, bound and ``temp_size_b``
-   printed with the phase's host seconds; (b) the counter held against
-   the card on Qwen3-8B's 1974-token prefill and one decode step after it
-   (36 layers, bf16), a Qwen3-8B train step at 2 layers (bf16, AdamW, B =
-   1, S = 2048) and train_lm's step (float32, B = 4, S = 192) under AdamW:
+   arch x shape cell (10 x 4) traced on ``meta`` on ``single_card`` and
+   on both production meshes (``single_pod`` and ``multi_pod``, one rank
+   of a fake process group of 512, the attention batch layout on) with
+   the card's spec, 120 cells in DRYRUN_WORKERS spawned processes while
+   (b) and (c) run on the card, each ``ok`` or ``skipped`` with the
+   reference's reason (``long_500k`` on a full-attention arch), a
+   production mesh's ok cell with its ranks (256 or 512), collectives
+   counted and at least one leaf gathered; its dominant term, bound,
+   ``temp_size_b`` and collective bytes printed with the host seconds;
+   (b) the counter held against the card on Qwen3-8B's 1974-token
+   prefill and one decode step after it (36 layers, bf16), one rank's
+   decode step of its ``decode_32k`` on ``single_pod`` at full shape (8
+   rows over a 32,768-token cache), a Qwen3-8B train step at 2 layers
+   (bf16, AdamW, B = 1, S = 2048) and train_lm's step (float32, B = 4,
+   S = 192) under AdamW:
    each step counted on ``meta`` and on the card, failing unless both
    counts' FLOPs and bytes are equal and the step's kernel time under the
    profiler is at least its roofline bound and the modelled peak of live
@@ -236,7 +243,8 @@ non-zero:
    over kernel time) and the peak of temporaries printed; (c) K8's
    counted FLOPs and bytes (on ``meta`` at each K8 row's shape) equal to
    the kernels line's, whose K8 rows take them from the same formulas
-   (``flash_attention.forward_cost``/``backward_costs``);
+   (``flash_attention.forward_cost``/``backward_costs``); the phase's
+   wall printed;
 8c. distributed — the sharded train step
    (``repro_torch.training.step.make_sharded_train_step``) on a world of
    one: NCCL with a ``FileStore`` rendezvous in a temporary directory,
@@ -250,7 +258,9 @@ non-zero:
    state bit for bit, or, where they differ, with why (whether the
    one-device step repeats itself bit for bit) and within the CPU test's
    bars (tests/test_torch_distributed.py); ``compress_int8`` on the card
-   against the CPU over three rounds of error feedback;
+   against the CPU over three rounds of error feedback, bit for bit (and
+   within one float32 ulp), with each round's scales on both devices by
+   a tensor divisor and by a Python-scalar one;
 9. the kernels line (K1-K8; K5, K6 and K8 one row per route, K4 with its
    split, K1 and K3 with their cluster layout, K7a with its route; K1-K4
    count the launches of the slice and of the settling phase's predicted
@@ -4000,8 +4010,10 @@ def phase_train(dev) -> dict:
 # phase 8b: the dry run and the roofline counter
 # ---------------------------------------------------------------------------
 
-# the dry run's cells are traced on meta in this many processes (host work)
-DRYRUN_WORKERS = 4
+# the dry run's cells are traced on meta in this many processes (host work,
+# one core each: the machine's eight), while the counted steps of case (b)
+# run on the card
+DRYRUN_WORKERS = 8
 # serve: the 1974-token prefill of one prompt into a cache of the serve
 # phase's length, then one decode step at position 1974
 COUNTED_PROMPT = 1974
@@ -4013,39 +4025,70 @@ COUNTED_PROMPT = 1974
 # small steps
 PEAK_RTOL = 0.05
 PEAK_ATOL_BYTES = 16 * 2**20
+# one rank's step of a production mesh run on the card at its full shape
+RANK_ARCH, RANK_SHAPE, RANK_MESH = "qwen3_8b", "decode_32k", "single_pod"
+N_CHIPS = {"single_pod": 256, "multi_pod": 512}
 
 
-def dryrun_cells() -> dict:
-    """Case (a): ``repro_torch.launch.dryrun`` over every arch x shape on
-    ``single_card``, the card's spec modelled.  Each cell must be ``ok``,
-    or ``skipped`` with the reference's reason where the reference skips
-    it (``long_500k`` on a full-attention arch)."""
-    from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
+def dryrun_jobs() -> list[tuple]:
+    """Every arch x shape cell on ``single_card`` and on both production
+    meshes (the attention batch layout on, as the dry run's CLI runs
+    them): ``repro_torch.launch.dryrun.cell_or_error``'s arguments."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
     from repro_torch.launch import dryrun
 
-    cells = [(arch, shape) for arch in ARCH_IDS for shape in SHAPES]
-    t0 = time.perf_counter()
-    results = dryrun.run_cells(cells, workers=DRYRUN_WORKERS, hw=card_spec())
-    host_s = time.perf_counter() - t0
-    out, bad = {}, []
-    for (arch, shape), r in zip(cells, results):
+    return [(arch, shape, mesh, False, card_spec(), mesh != "single_card")
+            for mesh in dryrun.MESHES for arch in ARCH_IDS for shape in SHAPES]
+
+
+def start_cells(pool) -> dict:
+    """The cells of :func:`dryrun_jobs` submitted to ``pool``, by (mesh,
+    arch, shape)."""
+    from repro_torch.launch import dryrun
+
+    return {(job[2], job[0], job[1]): pool.submit(dryrun.cell_or_error, *job)
+            for job in dryrun_jobs()}
+
+
+def dryrun_cells(results: dict, host_s: float) -> dict:
+    """Case (a): ``repro_torch.launch.dryrun`` over every arch x shape on
+    ``single_card`` and both production meshes, the card's spec modelled.
+    Each cell must be ``ok``, or ``skipped`` with the reference's reason
+    where the reference skips it (``long_500k`` on a full-attention arch);
+    an ok cell of a production mesh must trace its mesh's ranks, count
+    collectives and gather at least one leaf."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.launch import dryrun
+
+    out = {mesh: {} for mesh in dryrun.MESHES}
+    bad = []
+    for (mesh, arch, shape), r in results.items():
         applies, reason = shape_applicable(get_config(arch), SHAPES[shape])
-        if r["status"] == "ok" and applies:
+        sharded_ok = mesh == "single_card" or r.get("status") != "ok" or (
+            r["n_chips"] == N_CHIPS[mesh] and r["collectives"]["total"] > 0
+            and r["collectives"]["all-gather"] > 0 and r["compute"] == "replicated over model")
+        if r["status"] == "ok" and applies and sharded_ok:
             roof = r["roofline"]
-            out[f"{arch}__{shape}"] = dict(
+            out[mesh][f"{arch}__{shape}"] = dict(
                 dominant=roof["dominant"], bound_s=roof["step_time_lower_bound_s"],
-                temp_size_b=r["memory"]["temp_size_b"], host_s=r["host_s"])
+                temp_size_b=r["memory"]["temp_size_b"],
+                argument_size_b=r["memory"]["argument_size_b"],
+                collective_b=r["collectives"]["total"],
+                useful_flops_ratio=roof["useful_flops_ratio"], host_s=r["host_s"])
         elif r["status"] == "skipped" and not applies and r["reason"] == reason:
-            out[f"{arch}__{shape}"] = dict(skipped=r["reason"])
+            out[mesh][f"{arch}__{shape}"] = dict(skipped=r["reason"])
         else:
-            bad.append(dict(cell=f"{arch}__{shape}", status=r["status"],
+            bad.append(dict(cell=f"{mesh}/{arch}__{shape}", status=r["status"],
                             error=r.get("error"), traceback=r.get("traceback")))
-    res = dict(phase="dryrun", case="cells", hw=card_spec().name, workers=DRYRUN_WORKERS,
-               host_s=host_s, ok=sum("dominant" in c for c in out.values()),
-               skipped=sum("skipped" in c for c in out.values()), cells=out, failed=bad)
-    emit(res)
-    check(not bad and len(out) == len(cells), f"dry run: cells failed: {bad}")
-    return res
+    for mesh, cells in out.items():
+        emit(dict(phase="dryrun", case="cells" if mesh == "single_card" else f"cells_{mesh}",
+                  mesh=mesh, hw=card_spec().name, workers=DRYRUN_WORKERS,
+                  ok=sum("dominant" in c for c in cells.values()),
+                  skipped=sum("skipped" in c for c in cells.values()), cells=cells))
+    emit(dict(phase="dryrun", case="cells_host", host_s=host_s, cells=len(results),
+              failed=bad))
+    check(not bad and len(results) == len(dryrun_jobs()), f"dry run: cells failed: {bad}")
+    return out
 
 
 def counted_tokens(device, shape: tuple, vocab: int) -> torch.Tensor:
@@ -4141,12 +4184,18 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
 def counted_cases(dev) -> dict:
     """Case (b): the counter against the card on the steps the smoke runs
     at full width: Qwen3-8B's 1974-token prefill and one decode step after
-    it (bf16, 36 layers), a Qwen3-8B train step at 2 layers (bf16, AdamW,
-    B = 1, S = 2048) and train_lm's step (lm_100m, float32, B = 4, S =
-    192) under AdamW."""
+    it (bf16, 36 layers), one rank's decode step of Qwen3-8B's
+    ``decode_32k`` on ``single_pod`` at its full shape (8 rows over a
+    32,768-token cache, bf16: 38.6 GB of cache and 16.4 GB of weights), a
+    Qwen3-8B train step at 2 layers (bf16, AdamW, B = 1, S = 2048) and
+    train_lm's step (lm_100m, float32, B = 4, S = 192) under AdamW."""
     import dataclasses
+    import math
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import rule_axes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_axis_sizes
     from repro_torch.models.model import decode_step, init_decode_cache, prefill
     from repro_torch.optim.adamw import adamw
     from repro_torch.training import init_train_state, make_train_step
@@ -4182,11 +4231,29 @@ def counted_cases(dev) -> dict:
             return (lambda: step_fn(state, data)), state["params"]
         return build
 
+    # one rank of decode_32k on single_pod: its rows of the batch over a
+    # whole cache, the step the sharded decode runs after its gathers
+    rank_shape = SHAPES[RANK_SHAPE]
+    rules = dryrun.cell_rules(cfg, rank_shape, RANK_MESH, True)
+    sizes = production_axis_sizes(multi_pod=RANK_MESH == "multi_pod")
+    rank_batch = rank_shape.global_batch // math.prod(sizes[a]
+                                                      for a in rule_axes(rules["batch"]))
+
+    def decode_rank(device):
+        params = counted_params(cfg, device)
+        cache = init_decode_cache(cfg, rank_batch, rank_shape.seq_len, device=device)
+        token = counted_tokens(device, (rank_batch, 1), cfg.vocab)
+        pos = torch.full((), rank_shape.seq_len - 1, dtype=torch.int32, device=device)
+        return (lambda: decode_step(params, token, pos, cache, cfg)), params
+
     res = {}
     res["qwen3_8b_prefill"] = count_step("qwen3_8b_prefill_1974", prefill_step, dev, cfg,
                                          train=False, n_tokens=COUNTED_PROMPT)
     res["qwen3_8b_decode"] = count_step("qwen3_8b_decode_step", decode, dev, cfg, train=False,
                                         n_tokens=1)
+    res["qwen3_8b_decode_rank"] = count_step(
+        f"{RANK_ARCH}_{RANK_SHAPE}_{RANK_MESH}_rank", decode_rank, dev, cfg, train=False,
+        n_tokens=rank_batch)
     wide = dataclasses.replace(get_config(WIDE_ARCH), n_layers=WIDE_LAYERS)
     res["qwen3_8b_train"] = count_step(
         "qwen3_8b_width_2_layers_train", train(wide, WIDE_BATCH, WIDE_SEQ), dev, wide,
@@ -4235,13 +4302,26 @@ def k8_counted_terms(k8_rows: dict, k8_bwd_rows: dict) -> dict:
 
 
 def phase_dryrun(dev, k8_rows: dict, k8_bwd_rows: dict) -> dict:
-    """The dry run over every cell (a), the counter against the card (b)
-    and K8's counted terms against the kernels line (c)."""
+    """The dry run over every cell of the three meshes (a), traced in
+    DRYRUN_WORKERS spawned processes (a production mesh's fake process
+    group lives in the process that traces the cell, so the distributed
+    phase's NCCL world still opens here) while the counter is held
+    against the card (b) and K8's counted terms against the kernels line
+    (c)."""
+    import concurrent.futures
+    import multiprocessing
+
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = dict(cells=dryrun_cells(), steps=counted_cases(dev),
-               k8=k8_counted_terms(k8_rows, k8_bwd_rows))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=DRYRUN_WORKERS,
+                                                mp_context=ctx) as pool:
+        futures = start_cells(pool)
+        steps = counted_cases(dev)
+        k8 = k8_counted_terms(k8_rows, k8_bwd_rows)
+        results = {key: f.result() for key, f in futures.items()}
+    res = dict(cells=dryrun_cells(results, time.perf_counter() - t0), steps=steps, k8=k8)
     emit(dict(phase="dryrun", case="wall", wall_s=time.perf_counter() - t0))
     return res
 
@@ -4332,17 +4412,26 @@ def dist_compare(got: dict, want: dict, noise: set) -> dict:
 def compress_on_card(dev) -> dict:
     """compress_int8 on the card and on the CPU, three rounds of error
     feedback on seeded gradients (per-layer names share a scale): bit
-    for bit, or within one float32 ulp of max|g + e|."""
-    from repro_torch.distributed.compression import compress_int8
+    for bit, or within one float32 ulp of max|g + e|.  Beside it the
+    scale of each round's groups on both devices, by the divisor a
+    tensor on the device (``compression.int8_scale``) and by the Python
+    scalar 127.0 (a CUDA division by a host scalar multiplies by its
+    reciprocal), as hex floats, and the same on 4096 seeded amaxes."""
+    from repro_torch.distributed.compression import compress_int8, int8_scale, scale_group
 
     rng = np.random.default_rng(SEED)
     shapes = {"embed": (512, 64), "blocks.0.attn.wq": (64, 4, 16),
               "blocks.1.attn.wq": (64, 4, 16), "final_norm": (64,)}
     err = {"cpu": None, "cuda": None}
-    bitwise, worst = True, 0.0
+    bitwise, worst, amax = True, 0.0, []
     for _ in range(3):
         g = {n: torch.from_numpy((rng.standard_normal(s) * 10.0 ** rng.uniform(-6, 1))
                                  .astype(np.float32)) for n, s in shapes.items()}
+        groups: dict[str, float] = {}
+        for n, x in g.items():
+            m = float((x if err["cpu"] is None else x + err["cpu"][n]).abs().max())
+            groups[scale_group(n)] = max(groups.get(scale_group(n), 0.0), m)
+        amax.extend(groups.values())
         c_cpu, err["cpu"] = compress_int8(g, err["cpu"])
         c_gpu, err["cuda"] = compress_int8({n: x.to(dev) for n, x in g.items()}, err["cuda"])
         for n in g:
@@ -4350,7 +4439,26 @@ def compress_on_card(dev) -> dict:
                 bitwise &= torch.equal(a, b)
                 scale = float(c_cpu[n].abs().max() + err["cpu"][n].abs().max())
                 worst = max(worst, float((a - b).abs().max()) / (scale * 2.0 ** -23))
-    return dict(bitwise=bitwise, err_in_f32_ulps_of_max=worst)
+
+    def scales(a: torch.Tensor) -> dict:
+        # the product with float32's 1/127, what CUDA computes for a divisor
+        # that is a host scalar, if that is the cause
+        reciprocal = torch.clamp(a, min=1e-30) * (torch.tensor(1.0) / torch.tensor(127.0))
+        out = {"tensor_cpu": int8_scale(a), "tensor_card": int8_scale(a.to(dev)).cpu(),
+               "scalar_cpu": torch.clamp(a, min=1e-30) / 127.0,
+               "scalar_card": (torch.clamp(a.to(dev), min=1e-30) / 127.0).cpu()}
+        return {**out, "differ_tensor": int((out["tensor_cpu"] != out["tensor_card"]).sum()),
+                "differ_scalar": int((out["scalar_cpu"] != out["scalar_card"]).sum()),
+                "differ_reciprocal_cpu": int((reciprocal != out["scalar_cpu"]).sum()),
+                "scalar_card_is_reciprocal": bool(torch.equal(out["scalar_card"], reciprocal))}
+
+    rounds = scales(torch.tensor(amax, dtype=torch.float32))
+    wide = scales(torch.from_numpy((rng.uniform(1.0, 2.0, 4096)
+                                    * 10.0 ** rng.integers(-6, 2, 4096)).astype(np.float32)))
+    return dict(bitwise=bitwise, err_in_f32_ulps_of_max=worst,
+                round_scales={k: [float(x).hex() for x in v] if torch.is_tensor(v) else v
+                              for k, v in rounds.items()},
+                seeded_amax_4096={k: v for k, v in wide.items() if not torch.is_tensor(v)})
 
 
 def phase_distributed(dev) -> dict:
@@ -4411,6 +4519,7 @@ def phase_distributed(dev) -> dict:
                               and held["noise_leaf_err_in_lr_a_step"] <= 2),
           f"distributed: the sharded step against the one-device step: {held}")
     check(comp["err_in_f32_ulps_of_max"] <= 1, f"distributed: compress_int8 card vs CPU {comp}")
+    check(comp["bitwise"], f"distributed: compress_int8 on the card is not the CPU's bits {comp}")
     return launches
 
 

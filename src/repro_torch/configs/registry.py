@@ -72,9 +72,11 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, per_pod_batch: int | None = None
+                ) -> dict:
     """Every model input of a cell as ``meta`` tensors (shapes and dtypes,
-    no data), the reference's shapes and dtypes.
+    no data), the reference's shapes and dtypes; ``per_pod_batch`` takes
+    the place of the shape's global batch, as in the reference.
 
     train: ``tokens``, ``targets`` (B, S) int32; prefill: ``tokens``; a vlm
     also takes ``patches`` (B, n_patches, d) and S - n_patches text tokens,
@@ -84,7 +86,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     :func:`~repro_torch.models.model.init_decode_cache` at ``seq_len``
     (its leaves carry the reference's names).
     """
-    bsz = shape.global_batch
+    bsz = per_pod_batch if per_pod_batch is not None else shape.global_batch
     s = shape.seq_len
     act = cfg.act_dtype()
 

@@ -35,6 +35,16 @@ def init_error_state(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
             for n, p in params.items()}
 
 
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-30) / 127`` rounded once, as float32 division rounds
+    it on every device.  The divisor is a tensor on ``amax``'s device: a
+    CUDA tensor divided by a Python scalar is multiplied by the scalar's
+    reciprocal, which can round the scale one ulp away from the CPU's
+    (and flip an int8 level at a half-level tie)."""
+    return torch.clamp(amax, min=1e-30) / torch.full((), 127.0, dtype=amax.dtype,
+                                                     device=amax.device)
+
+
 def compress_int8(grads: dict[str, torch.Tensor], error_state: dict | None
                   ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """Quantize (grad + error) to int8, one scale per reference leaf
@@ -50,7 +60,7 @@ def compress_int8(grads: dict[str, torch.Tensor], error_state: dict | None
         amax[key] = torch.maximum(amax[key], m) if key in amax else m
     out, err = {}, {}
     for n, g in grads.items():
-        scale = torch.clamp(amax[scale_group(n)], min=1e-30) / 127.0
+        scale = int8_scale(amax[scale_group(n)])
         q = torch.clamp(torch.round(g32[n] / scale), -127, 127).to(torch.int8)
         deq = q.float() * scale
         out[n] = deq.to(g.dtype)

@@ -10,10 +10,14 @@ dimension, and :func:`placements` turns it into DTensor placements on a
 named :class:`~torch.distributed.device_mesh.DeviceMesh`.  The placement
 policy is the reference's: ``embed`` over ``"data"`` (FSDP), heads,
 ``ff``, ``vocab`` and ``inner`` over ``"model"``, ``batch`` over
-``"data"`` or ``("pod", "data")``.  The port's models carry no sharding
-hints (:mod:`repro_torch.models.blocks`), so the rules place state and
-no more: :func:`logical_constraint` and :func:`boundary_pin` are for
-callers holding DTensors, and without rules return their input itself.
+``"data"`` or ``("pod", "data")``.  The port's models carry one
+sharding hint, the attention batch layout at the attention's boundary
+(:func:`attn_batch_split`, a no-op without rules and a mesh); otherwise
+the rules place state: :func:`logical_constraint` and
+:func:`boundary_pin` are for callers holding DTensors, and without rules
+return their input itself.  :func:`rank_rows` and :func:`place_rows`
+take a rank's rows of a batch and place a step's outputs for the sharded
+steps, whose compute is replicated over ``"model"``.
 
 **The solver mesh.**  JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
 PyTorch has no such array, so the port's mesh is a plain tuple of
@@ -156,6 +160,184 @@ def param_specs(logical_tree, rules: Mapping[str, object]):
     if isinstance(logical_tree, tuple):
         return logical_spec(logical_tree, rules)
     return {k: param_specs(v, rules) for k, v in logical_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# A rank's rows of the batch, and the attention batch layout
+# ---------------------------------------------------------------------------
+
+def rule_axes(entry) -> tuple[str, ...]:
+    """A rule's mesh axes as a tuple: None gives (), ``"data"`` gives
+    ``("data",)``, a tuple itself."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def rank_share(mesh, axes: Sequence[str]) -> tuple[int, int]:
+    """This rank's index among the ranks of ``axes`` (flattened in the
+    given order, the first axis major) and their number."""
+    names = mesh.mesh_dim_names
+    index, count = 0, 1
+    for a in axes:
+        n = mesh.size(names.index(a))
+        index, count = index * n + mesh.get_local_rank(a), count * n
+    return index, count
+
+
+def rank_rows(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torch.Tensor:
+    """This rank's contiguous share of ``x`` along ``dim`` when that
+    dimension is split over the mesh ``axes`` (a view); ``x`` itself for
+    no axes."""
+    index, count = rank_share(mesh, axes)
+    if x.shape[dim] % count:
+        raise ValueError(f"{x.shape[dim]} rows do not split over {count} ranks of {tuple(axes)}")
+    k = x.shape[dim] // count
+    return x.narrow(dim, index * k, k)
+
+
+def place_rows(local: torch.Tensor, mesh, axes: Sequence[str], dim: int, spec: Sequence):
+    """A DTensor placed by ``spec`` from ``local``, this rank's rows along
+    ``dim`` (split over the mesh ``axes``, as :func:`rank_rows` takes
+    them) and whole along every other dimension, as every rank of the
+    other axes holds them: the reference's ``out_shardings`` of a step
+    whose compute is replicated there.  A spec that shards another
+    dimension keeps this rank's slice of it (a local copy, no
+    collective)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    held = [Shard(dim) if a in axes else Replicate() for a in mesh.mesh_dim_names]
+    shape = list(local.shape)
+    shape[dim] *= rank_share(mesh, axes)[1]
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    whole = DTensor.from_local(local, mesh, held, run_check=False, shape=torch.Size(shape),
+                               stride=tuple(stride))
+    return whole.redistribute(mesh, placements(spec, mesh))
+
+
+_c10d = torch.ops._c10d_functional
+
+
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along dimension 0 over ``group``."""
+    return _c10d.wait_tensor(_c10d.all_gather_into_tensor(x.contiguous(), group.size(),
+                                                          group.group_name))
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    return _c10d.wait_tensor(_c10d.all_reduce(x.contiguous(), "sum", group.group_name))
+
+
+class _SliceRows(torch.autograd.Function):
+    """Forward: this rank's share of the rows, a view.  Backward: the
+    shares' gradients gathered over the group, so that the input's
+    gradient is whole on every rank, as the input is."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.narrow(0, split.index * (x.shape[0] // split.count), x.shape[0] // split.count)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.split.gather(grad), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: the ranks' shares gathered over the group.  Backward: this
+    rank's share of the gradient, which every rank holds whole (the
+    compute after the gather is replicated), with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        k = grad.shape[0] // ctx.split.count
+        return grad.narrow(0, ctx.split.index * k, k), None
+
+
+class _SumGradients(torch.autograd.Function):
+    """Forward: the tensor itself.  Backward: its gradient summed over the
+    group, since each rank took only its share of the rows."""
+
+    @staticmethod
+    def forward(ctx, w, split):
+        ctx.split = split
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.split.group), None
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBatchSplit:
+    """The attention batch layout of the active rules on the active mesh:
+    the batch of attention is split over one more mesh axis than the
+    batch (``rules["attn_batch"]`` is ``rules["batch"]`` plus ``axis``).
+
+    The port computes everything outside attention replicated over
+    ``"model"`` (:func:`repro_torch.training.step.make_sharded_train_step`),
+    so the layout means: each rank of ``axis`` takes its share of the
+    rank's rows (:meth:`enter`), runs the attention on them, and the
+    outputs are gathered over ``axis`` (:meth:`exit`): one all-gather of
+    the attention's output a layer, the reference's one activation
+    re-shard.  Under autograd the gather's gradient is a local slice,
+    the slice's gradient an all-gather, and the attention's weights'
+    gradients are summed over ``axis`` (an all-reduce each)."""
+
+    axis: str
+    group: object
+    index: int
+    count: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _gather_rows(x, self.group)
+
+    def enter(self, x: torch.Tensor, positions: torch.Tensor, params: dict):
+        """``x`` (B, S, d) and ``positions`` (B, S) cut to this rank's
+        rows, and ``params`` (name: tensor) with their gradients summed
+        over ``axis``."""
+        if x.shape[0] % self.count:
+            raise ValueError(f"the attention batch layout splits {x.shape[0]} rows over "
+                             f"{self.count} ranks of {self.axis!r}")
+        k = x.shape[0] // self.count
+        return (_SliceRows.apply(x, self), positions.narrow(0, self.index * k, k),
+                {n: None if w is None else _SumGradients.apply(w, self)
+                 for n, w in params.items()})
+
+    def exit(self, out: torch.Tensor) -> torch.Tensor:
+        """The attention's output of every rank's rows, gathered."""
+        return _GatherRows.apply(out, self)
+
+
+def attn_batch_split() -> Optional[AttnBatchSplit]:
+    """The attention batch layout of the active rules on the active mesh
+    (:func:`use_rules`, :func:`repro_torch.launch.mesh.mesh_context`);
+    None without both, or where the layout is the batch's own (every
+    one-device path, and every rule-set that
+    :func:`repro_torch.distributed.rules.apply_attn_batch_layout` left as
+    it was)."""
+    rules, mesh = _CTX.rules, active_mesh()
+    if rules is None or mesh is None:
+        return None
+    batch = rule_axes(rules.get("batch"))
+    extra = [a for a in rule_axes(rules.get("attn_batch", rules.get("batch")))
+             if a not in batch]
+    if not extra:
+        return None
+    if len(extra) > 1:
+        raise NotImplementedError(f"an attention batch layout over more than one axis beyond "
+                                  f"the batch's: {extra}")
+    (axis,) = extra
+    names = mesh.mesh_dim_names
+    return AttnBatchSplit(axis=axis, group=mesh.get_group(axis),
+                          index=mesh.get_local_rank(axis), count=mesh.size(names.index(axis)))
 
 
 # ---------------------------------------------------------------------------

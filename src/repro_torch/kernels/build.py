@@ -283,7 +283,9 @@ def record_operation(name: str, cost: Callable[[], tuple[int, int]]) -> None:
 @contextlib.contextmanager
 def uncounted():
     """Count nothing inside the block: the plain version that stands in
-    for a kernel whose operation :func:`record_operation` reported."""
+    for a kernel whose operation :func:`record_operation` reported, or
+    set-up that is not the step's work (a sharded step's model built
+    before its leaves are gathered into it)."""
     counters = kernel_counters()
     for c in counters:
         c.paused += 1

@@ -12,7 +12,10 @@ members.  Building a mesh is collective: every rank of the world calls it.
 
 :func:`mesh_context` makes a mesh the active one of this thread, as
 :func:`repro_torch.distributed.sharding.use_rules` does rules;
-:func:`~repro_torch.distributed.sharding.logical_constraint` reads it.
+:func:`~repro_torch.distributed.sharding.logical_constraint` and the
+attention batch layout (:func:`~repro_torch.distributed.sharding.attn_batch_split`)
+read it.  :func:`fake_world` builds a production mesh in one process,
+over a process group that moves no data, for the dry run.
 """
 
 from __future__ import annotations
@@ -67,12 +70,50 @@ def _make_mesh(shape: tuple, axes: tuple):
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
+# the reference's production meshes: shape and axis names
+PRODUCTION_MESHES = {"single_pod": ((16, 16), ("data", "model")),
+                     "multi_pod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def production_axis_sizes(multi_pod: bool = False) -> dict[str, int]:
+    """Each axis of a production mesh and its size."""
+    shape, axes = PRODUCTION_MESHES["multi_pod" if multi_pod else "single_pod"]
+    return dict(zip(axes, shape))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production mesh: (16, 16) ``("data", "model")``, or
     (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``."""
-    if multi_pod:
-        return _make_mesh((2, 16, 16), ("pod", "data", "model"))
-    return _make_mesh((16, 16), ("data", "model"))
+    return _make_mesh(*PRODUCTION_MESHES["multi_pod" if multi_pod else "single_pod"])
+
+
+# the ranks of the fake world: the larger production mesh's
+FAKE_WORLD = 512
+
+
+@contextlib.contextmanager
+def fake_world(*, multi_pod: bool = False):
+    """A production mesh (:func:`make_production_mesh`) seen from rank 0 of
+    a ``"fake"`` process group of :data:`FAKE_WORLD` ranks, in this process
+    alone; the group is destroyed when the block ends.
+
+    The fake group takes every collective and moves nothing, so the dry
+    run traces a rank's step on ``meta`` tensors with its collectives in
+    place (``single_pod`` takes the world's first 256 ranks).  It refuses
+    to open while a process group is initialized: that group belongs to
+    someone else (the smoke's NCCL world, the 8-process gloo tests), and
+    the process has one default group, which this would replace and then
+    destroy."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialized in this "
+                           "process; trace the production meshes in a process of their own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=FAKE_WORLD)
+    try:
+        yield make_production_mesh(multi_pod=multi_pod)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_debug_mesh(shape: tuple = (2, 2), axes: tuple = ("data", "model")):

@@ -8,9 +8,12 @@ encoder and decoder blocks.  Parameters live in small
 reference's dict keys (``attn.wq``, ``mlp.w_gate``, ``moe.w_router``,
 ``ln1.scale``, ...), so a state dict maps one to one onto the
 reference's parameter tree; the forward functions are plain functions on
-tensors, as in the reference.  The reference's sharding hints (``lc``,
-``boundary_pin``) are dropped: without mesh rules they are no-ops, and
-with them the port places state, not activations
+tensors, as in the reference.  Of the reference's sharding hints one
+stands: the attention batch layout at the attention's boundary
+(:func:`attn_forward`, where the reference pins ``attn_batch``), which
+without active rules and a mesh returns its input unchanged, so every
+one-device path keeps its bits.  The others (``lc``) are dropped: the
+port places state, not activations
 (:func:`repro_torch.training.step.make_sharded_train_step`).  Each
 ``*_axes`` function gives its block's leaves' logical axes, keyed as the
 block's parameters, as the reference's does.
@@ -30,10 +33,12 @@ reference's shapes and scales; the values differ from the reference's
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import attn_batch_split
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, gelu_mlp, layer_norm, rms_norm, swiglu_mlp
@@ -200,7 +205,23 @@ def _out(o: torch.Tensor, p: Attention) -> torch.Tensor:
 def attn_forward(x: torch.Tensor, p: Attention, cfg: ModelConfig, *,
                  positions: torch.Tensor, causal: bool = True, use_rope: bool = True):
     """Full-sequence attention.  Returns ``(out, (k, v))`` — k/v are the
-    cache entries a prefill caller stores."""
+    cache entries a prefill caller stores.
+
+    Under the attention batch layout of the active rules and mesh
+    (:func:`~repro_torch.distributed.sharding.attn_batch_split`), which
+    only a train batch takes (no cell's prefill batch covers the data and
+    model axes), the attention runs on this rank's share of the rows,
+    ``out`` is gathered over the layout's axis and k/v, which no training
+    caller keeps, are None."""
+    split = attn_batch_split()
+    if split is not None:
+        if not torch.is_grad_enabled():
+            raise NotImplementedError("the attention batch layout outside training: a "
+                                      "prefill would need its k and v gathered")
+        x, positions, leaves = split.enter(
+            x, positions, {n: getattr(p, n) for n in ("wq", "wk", "wv", "wo", "q_norm",
+                                                      "k_norm")})
+        p = types.SimpleNamespace(**leaves)
     q, k, v = _qkv(x, p, cfg)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -209,7 +230,9 @@ def attn_forward(x: torch.Tensor, p: Attention, cfg: ModelConfig, *,
         q, k, v, causal=causal, window=cfg.sliding_window,
         p_dtype=torch.bfloat16 if cfg.attn_p_bf16 else None,
     )
-    return _out(o, p), (k, v)
+    if split is None:
+        return _out(o, p), (k, v)
+    return split.exit(_out(o, p)), None
 
 
 def pos_vector(pos, batch: int, device=None) -> torch.Tensor:

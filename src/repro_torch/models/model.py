@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import uncounted
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -207,6 +208,30 @@ def cache_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
     if family == "hybrid":
         return {**ssm, "k": attn, "v": attn}
     return {"k": attn, "v": attn, "xk": attn, "xv": attn}
+
+
+def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None = None
+                  ) -> LanguageModel:
+    """A model whose parameters are the DTensors of ``sharded`` (keyed by
+    state-dict name) gathered whole: a collective over their mesh, which
+    every member rank calls.  ``model`` (one from an earlier call) is
+    reused; a new one is built on the shards' device, trainable, and a
+    counter of the step (:mod:`repro_torch.roofline.cost`) does not count
+    the building."""
+    if model is None:
+        dev = next(iter(sharded.values())).to_local().device
+        with uncounted():
+            model = init_params(cfg, None, device="meta").to_empty(device=dev)
+        model.requires_grad_(True)
+    for n, p in model.named_parameters():
+        p.data = sharded[n].full_tensor()
+    return model
+
+
+def release_params(model: LanguageModel) -> None:
+    """Drop the gathered leaves of :func:`gather_params`'s model."""
+    for p in model.parameters():
+        p.data = torch.empty(0, dtype=p.dtype, device=p.device)
 
 
 def _device_of(params: LanguageModel) -> torch.device:

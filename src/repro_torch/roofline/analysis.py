@@ -1,4 +1,4 @@
-"""Three-term roofline of a model step on one card.
+"""Three-term roofline of a model step, per card.
 
 Counterpart of :mod:`repro.roofline.analysis`:
 
@@ -8,11 +8,14 @@ Counterpart of :mod:`repro.roofline.analysis`:
 
 The reference reads FLOPs, bytes and collective bytes from compiled HLO.
 The port has no HLO: :mod:`repro_torch.roofline.cost` counts the step's
-products and the bytes of its operators while it runs (on the ``meta``
-device for a dry run, or on the card), so
-``collective_bytes_from_hlo`` has no counterpart here.  No collective
-runs on one card; counting them comes with the sharded step (ROADMAP
-Queue 1 item 12.9).
+products, the bytes of its operators and the result bytes of its
+collectives by kind while it runs (on the ``meta`` device for a dry run,
+on one card or on a production mesh of a fake process group), so
+``collective_bytes_from_hlo`` has no counterpart here.  The collective
+term divides a rank's collective bytes by one card's NVLink rate, the
+reference's one link rate: a job of 256 cards spans nodes, whose links
+between them are slower, so on such a mesh the term is a lower bound
+that is looser still.
 
 The peaks are NVIDIA's data-sheet figures of the card, without
 sparsity, at its full power limit.  Unlike the reference's single peak,

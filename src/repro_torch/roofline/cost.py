@@ -38,8 +38,18 @@ operator, forward and backward:
   step both allocated and freed, neither arguments nor outputs: the
   counterpart of XLA's ``temp_size_in_bytes``.
 
-Collectives are not counted: no collective runs on one card (ROADMAP
-Queue 1 item 12.9).  ``hlo_parse.host_callback_ops`` has no counterpart:
+* **collectives**: the c10d operators the step issues on a mesh (the
+  functional ones of ``torch.distributed._functional_collectives`` and
+  DTensor, ``_c10d_functional.*``, and the in-place ones of
+  ``torch.distributed``, ``c10d.*_``) go by kind into the reference's
+  keys (:data:`COLLECTIVES`), each adding its result's bytes to its kind
+  and to ``bytes``, as the reference's parse of an HLO collective does
+  (``hlo_parse.py:257-263``); waits count zero, and an operator of
+  those namespaces that the counter does not know raises.  The dry run
+  sees them on a fake process group (:func:`repro_torch.launch.mesh.fake_world`);
+  on one card there are none.
+
+``hlo_parse.host_callback_ops`` has no counterpart:
 it serves the reference's ``CompileWatch``, which the port leaves out
 (ROADMAP Queue 1 item 11).
 """
@@ -51,8 +61,6 @@ import math
 import weakref
 
 import torch
-from torch.utils._pytree import tree_leaves
-
 from repro_torch.kernels.build import KernelCounter
 
 aten = torch.ops.aten
@@ -79,6 +87,21 @@ _SCATTERS = {aten.scatter_.src, aten.scatter_.value, aten.scatter_add_.default,
              aten.scatter_reduce_.two}
 
 
+# collectives by namespace and name: the reference's kind of each
+_COLLECTIVE_KINDS = {
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("c10d", "allgather_"): "all-gather",
+    ("c10d", "allreduce_"): "all-reduce",
+    ("c10d", "reduce_scatter_"): "reduce-scatter",
+}
+# the collectives' namespaces, and their operators that move nothing
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d")
+_COLLECTIVE_FREE = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
 _BACKEND_KEYS = ("CPU", "CUDA", "Meta", "CompositeExplicitAutograd",
                  "CompositeExplicitAutogradNonFunctional")
 
@@ -103,7 +126,20 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 
 def _tensors(x) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+    """The tensors in an operator's arguments or results (nested lists,
+    tuples and dicts).  No recursive closure: its reference cycle would
+    keep the tensors alive until the garbage collector runs."""
+    out: list[torch.Tensor] = []
+    stack = [x]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (list, tuple)):
+            stack.extend(v)
+        elif isinstance(v, dict):
+            stack.extend(v.values())
+    return out
 
 
 def _product_flops(func, args, out) -> int:
@@ -168,11 +204,29 @@ def _op_bytes(func, args, kwargs, out) -> int:
     return total
 
 
+def _collective_kind(func) -> str | None:
+    """The reference's kind of a c10d operator, ``""`` for one that moves
+    nothing (a wait), None for any other operator."""
+    namespace = func.namespace
+    if namespace not in _COLLECTIVE_NAMESPACES:
+        return None
+    name = func.overloadpacket.__name__
+    if name in _COLLECTIVE_FREE:
+        return ""
+    try:
+        return _COLLECTIVE_KINDS[(namespace, name)]
+    except KeyError:
+        raise NotImplementedError(f"CostCounter: collective {func} has no kind; add it to "
+                                  "_COLLECTIVE_KINDS") from None
+
+
 class CostCounter(KernelCounter):
     """``with CostCounter() as c: step()``; then ``c.flops``, ``c.bytes``,
-    ``c.peak_live_bytes``, ``c.peak_temp_bytes`` and ``c.kernels`` (K8's
-    recorded operations by name: calls, flops, bytes).  ``c.by_op`` holds
-    flops and bytes by aten operator (K8's under its kernel names).
+    ``c.peak_live_bytes``, ``c.peak_temp_bytes``, ``c.kernels`` (K8's
+    recorded operations by name: calls, flops, bytes) and
+    ``c.collectives()`` (bytes by kind).  ``c.by_op`` holds flops and
+    bytes by aten operator (K8's under its kernel names, a collective
+    under its own).
 
     ``device`` (a device type, ``"cuda"`` or ``"meta"``) counts only the
     operators that touch a tensor there, and tracks only its storages:
@@ -187,6 +241,7 @@ class CostCounter(KernelCounter):
         self.bytes = 0
         self.by_op: dict[str, list[int]] = {}
         self.kernels: dict[str, dict] = {}
+        self.collective_bytes = dict.fromkeys(COLLECTIVES, 0)
         self.live_bytes = 0
         self.peak_live_bytes = 0
         self._live: dict[int, tuple[int, int]] = {}   # storage: (serial, bytes), made here
@@ -217,8 +272,10 @@ class CostCounter(KernelCounter):
         return peak
 
     def collectives(self) -> dict:
-        """Collective bytes by kind, the reference's keys: 0 on one card."""
-        return {**dict.fromkeys(COLLECTIVES, 0.0), "total": 0.0}
+        """Collective bytes by kind and their ``total``, the reference's
+        keys, as floats (0 on one card)."""
+        out = {k: float(v) for k, v in self.collective_bytes.items()}
+        return {**out, "total": float(sum(self.collective_bytes.values()))}
 
     def _add(self, name: str, flops: int, nbytes: int) -> None:
         self.flops += flops
@@ -240,6 +297,8 @@ class CostCounter(KernelCounter):
         k["bytes"] += nbytes
 
     def _free(self, key: int) -> None:
+        if key not in self._live:
+            return                  # moved to the storage of an alias (_follow)
         serial, nbytes = self._live.pop(key)
         self.live_bytes -= nbytes
         if self._depth:
@@ -247,6 +306,21 @@ class CostCounter(KernelCounter):
 
     def _free_before(self, key: int) -> None:
         self.live_bytes -= self._before.pop(key)
+
+    def _follow(self, args, out) -> None:
+        """A collective's wait or autograd wrap returns, on the card, its
+        input's storage (a wrapper of it); on meta the wrap makes a new
+        one.  The input's allocation then follows the output, so that the
+        gathered buffer counts once and lives as long as what holds it."""
+        src = [t for t in _tensors(args) if self._mine(t)]
+        dst = [t for t in _tensors(out) if self._mine(t)]
+        if len(src) != 1 or len(dst) != 1:
+            return
+        old, new = src[0].untyped_storage(), dst[0].untyped_storage()
+        if old._cdata not in self._live or new._cdata in self._live or new._cdata == old._cdata:
+            return
+        self._live[new._cdata] = self._live.pop(old._cdata)
+        weakref.finalize(new, self._free, new._cdata)
 
     def _mine(self, t: torch.Tensor) -> bool:
         return self.device is None or t.device.type == self.device
@@ -291,7 +365,18 @@ class CostCounter(KernelCounter):
         if self.paused or (self.device is not None and not any(
                 t.device.type == self.device for t in _tensors((args, kwargs, out)))):
             return out
-        flops = _product_flops(func, args, out) if func in _PRODUCTS else 0
-        self._add(str(func.overloadpacket.__name__), flops, _op_bytes(func, args, kwargs, out))
+        name = str(func.overloadpacket.__name__)
+        kind = _collective_kind(func)
+        if kind is None:
+            flops = _product_flops(func, args, out) if func in _PRODUCTS else 0
+            self._add(name, flops, _op_bytes(func, args, kwargs, out))
+        elif kind:
+            # the result's bytes, to its kind and to the step's bytes
+            nbytes = sum(tensor_bytes(t) for t in _tensors(out))
+            self.collective_bytes[kind] += nbytes
+            self._add(name, 0, nbytes)
+        else:
+            self._follow(args, out)
+            return out
         self._track(func, args, kwargs, out)
         return out

@@ -16,26 +16,34 @@ Parameters and AdamW moments live as DTensors placed by
 ``param_specs(param_logical_axes(cfg), rules)`` (:func:`shard_train_state`).
 Each rank gathers every leaf whole and runs the unchanged one-device
 forward and backward on its rows of the batch; the gradients are averaged
-over the mesh's batch axes (every axis but ``"model"``, weighted by each
-rank's token count) with ``all_reduce``; AdamW's global-norm clip is taken
-over the whole averaged gradients, as on one device; and each rank
-updates its own shards.  The ``"model"`` axis places state only: its
-ranks compute the same thing.  So the step's arithmetic is the one-device
-step's but for the order of the batch sums, and the models need no
-sharding hints.
+over the mesh's batch axes (every axis but ``"model"``, weighted by
+each rank's token count) with ``all_reduce``;
+AdamW's global-norm clip is taken over the whole averaged gradients, as
+on one device; and each rank updates its own shards.  The ``"model"``
+axis places state only: its ranks compute the same thing, except inside
+attention under the attention batch layout of the active rules
+(:func:`repro_torch.distributed.sharding.attn_batch_split`).  So the
+step's arithmetic is the one-device step's but for the order of the
+batch sums.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.elastic import reshard_state
+from repro_torch.distributed.sharding import rank_rows
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import forward_train, init_params, param_logical_axes
+from repro_torch.models.model import (
+    forward_train,
+    gather_params,
+    init_params,
+    param_logical_axes,
+    release_params,
+)
 from repro_torch.optim.adamw import Optimizer, apply_updates, global_norm
 from repro_torch.training.loss import cross_entropy_loss
 
@@ -167,13 +175,8 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
     product must divide the batch.  Metrics are the token-weighted means
     of the ranks' (``tokens`` their sum), equal on every rank; an MoE's
     aux loss and capacity act per rank, as in data parallelism."""
-    names = mesh.mesh_dim_names
-    batch_axes = [a for a in names if a != "model"]
+    batch_axes = [a for a in mesh.mesh_dim_names if a != "model"]
     groups = [mesh.get_group(a) for a in batch_axes]
-    n_shards = math.prod(mesh.size(names.index(a)) for a in batch_axes)
-    coord = 0
-    for a in batch_axes:
-        coord = coord * mesh.size(names.index(a)) + mesh.get_local_rank(a)
     model = None            # the model the step runs, built at the first call
 
     def reduce(t: torch.Tensor) -> torch.Tensor:
@@ -181,25 +184,14 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
             dist.all_reduce(t, group=g)
         return t
 
-    def rows(x):
-        if x.shape[0] % n_shards:
-            raise ValueError(f"a batch of {x.shape[0]} does not split over {n_shards} ranks")
-        k = x.shape[0] // n_shards
-        return x[coord * k:(coord + 1) * k]
-
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         nonlocal model
         sharded = state["params"]
-        if model is None:
-            dev = next(iter(sharded.values())).to_local().device
-            model = init_params(cfg, None, device="meta").to_empty(device=dev)
-            model.requires_grad_(True)
-        for n, p in named_params(model).items():
-            p.data = sharded[n].full_tensor()
-        metrics, grads = loss_and_grads(model, {k: rows(x) for k, x in batch.items()}, cfg,
-                                        AUX_WEIGHT)
-        for p in model.parameters():
-            p.data = torch.empty(0, dtype=p.dtype, device=p.device)   # drop the gathered leaves
+        model = gather_params(cfg, sharded, model)
+        metrics, grads = loss_and_grads(
+            model, {k: rank_rows(x, mesh, batch_axes) for k, x in batch.items()}, cfg,
+            AUX_WEIGHT)
+        release_params(model)
         tokens = metrics["tokens"].detach()
         total = reduce(tokens.clone())
         w = tokens / total

@@ -453,6 +453,21 @@ def test_compress_int8_rounds_half_to_even_and_keeps_the_ratio():
     assert compression.compression_ratio() == jcomp.compression_ratio() == 2.0
 
 
+def test_int8_scale_is_the_correctly_rounded_quotient():
+    """The scale is ``amax / 127`` rounded once in float32 (numpy's float32
+    division), on amaxes where the product with the rounded reciprocal
+    ``1/127`` (what CUDA computes for a Python-scalar divisor) differs
+    from it, and at the clamp."""
+    rng = np.random.default_rng(0)
+    amax = (rng.uniform(1.0, 2.0, 4096) * 10.0 ** rng.integers(-6, 2, 4096)).astype(np.float32)
+    want = amax / np.float32(127.0)
+    assert (amax * (np.float32(1.0) / np.float32(127.0)) != want).sum() > 100
+    got = compression.int8_scale(torch.from_numpy(amax)).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    zero = compression.int8_scale(torch.zeros((), dtype=torch.float32))
+    assert zero.item() == np.float32(1e-30) / np.float32(127.0)
+
+
 def test_error_feedback_removes_the_bias():
     """tests/test_training_optim.py:126 on the port: the mean of 50
     dequantized copies of one gradient converges to it."""
@@ -638,3 +653,30 @@ def test_sharded_step_and_elastic_reshard_match_the_one_device_step(sharded_run,
             err = float((res[key][n] - want).abs().max())
             bar = 2 * LR * k if n in noise else 1e-5 * float(want.abs().max())
             assert err <= bar, (key, n, err, bar)
+
+
+def test_attention_batch_layout_keeps_the_one_device_step(sharded_run):
+    """Two steps on (2, 4) with the attention batch layout (each "model"
+    rank runs attention on 1 of its "data" rank's 4 rows, the output
+    all-gathered, the gathered gradient sliced, the slice's gradient
+    gathered, the attention weights' gradients summed over "model"):
+    each loss within 1e-5 of the one-device step's and every parameter
+    within 1e-5 of its leaf's max|p| (the seeded batch has no noise leaf);
+    3 all-gathers a layer a step (the forward's, block remat's recompute,
+    the slice's gradient)."""
+    cfg = get_smoke_config("qwen3_8b")
+    res = sharded_run["layout"]
+    opt = adamw(LR)
+    state = init_train_state(cfg, opt, torch.Generator().manual_seed(worker.SEED),
+                             device="cpu")
+    step, losses = make_train_step(cfg, opt), []
+    for _ in range(2):
+        state, m = step(state, worker.layout_batch(cfg.vocab))
+        losses.append(float(m["loss"]))
+    assert res["gathers"] == 3 * cfg.n_layers * 2
+    for got, want in zip(res["losses"], losses, strict=True):
+        assert abs(got - want) <= 1e-5 * abs(want), (res["losses"], losses)
+    for n, want in state["params"].named_parameters():
+        want = want.detach()
+        err = float((res["params_2"][n] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (n, err)

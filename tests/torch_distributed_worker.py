@@ -8,8 +8,9 @@ mesh, then ``plan_mesh(4)``, a re-shard to (2, 2) under
 ``make_rules(cfg, model_axis=2)`` and two more steps on its ranks (the
 others only take part in the re-shard), as the reference's
 tests/test_distributed.py does on 8 forced host devices; once on its
-batch (every token 3) and once on a seeded one (:func:`batches`).  Rank
-0 writes, per batch, the four losses, the parameters after each phase
+batch (every token 3) and once on a seeded one (:func:`batches`).  Then
+two steps on (2, 4) with the attention batch layout (:func:`layout_sequence`).
+Rank 0 writes, per batch, the losses, the parameters after each phase
 gathered whole, and the local shard shapes of a few leaves to
 OUT_DIR/rank0.pt.
 """
@@ -24,6 +25,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.elastic import plan_mesh
 from repro_torch.distributed.rules import make_rules
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import use_rules
 from repro_torch.launch.mesh import make_debug_mesh, mesh_context
 from repro_torch.optim.adamw import adamw
@@ -81,6 +83,44 @@ def sequence(cfg, batch: dict) -> dict:
     return out
 
 
+def layout_batch(vocab: int) -> dict:
+    """A seeded batch of 8 rows: 4 a "data" rank, 1 a "model" rank in
+    attention."""
+    tokens = np.random.default_rng(SEED + 1).integers(0, vocab, (8, 33)).astype(np.int32)
+    return {"tokens": torch.from_numpy(tokens[:, :-1].copy()),
+            "targets": torch.from_numpy(tokens[:, 1:].copy())}
+
+
+def layout_sequence(cfg) -> dict:
+    """Two AdamW steps on (2, 4) with the attention batch layout (attention
+    on each "model" rank's share of its "data" rank's rows, the output
+    all-gathered): the losses, the parameters gathered whole, and the
+    number of the layout's all-gathers."""
+    opt = adamw(1e-3)
+    state = init_train_state(cfg, opt, torch.Generator().manual_seed(SEED), device="cpu")
+    mesh = make_debug_mesh((2, 4), ("data", "model"))
+    rules = {**make_rules(cfg, model_axis=4), "batch": "data", "attn_batch": ("data", "model")}
+    gathers, gather = [], sharding.AttnBatchSplit.gather
+
+    def counted(split, x):
+        gathers.append(tuple(x.shape))
+        return gather(split, x)
+
+    sharding.AttnBatchSplit.gather = counted
+    losses = []
+    try:
+        with mesh_context(mesh), use_rules(rules):
+            state = shard_train_state(state, cfg, mesh, rules)
+            step = make_sharded_train_step(cfg, opt, mesh)
+            for _ in range(2):
+                state, metrics = step(state, layout_batch(cfg.vocab))
+                losses.append(float(metrics["loss"]))
+            params = full_params(state)
+    finally:
+        sharding.AttnBatchSplit.gather = gather
+    return {"losses": losses, "params_2": params, "gathers": len(gathers)}
+
+
 def main(rank: int, world: int, store_file: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world), rank=rank,
@@ -90,6 +130,7 @@ def main(rank: int, world: int, store_file: str, out_dir: str) -> None:
         results = {}
         for name, batch in batches(cfg.vocab).items():
             results[name] = sequence(cfg, batch)
+        results["layout"] = layout_sequence(cfg)
         if rank == 0:
             torch.save(results, Path(out_dir) / "rank0.pt")
         dist.barrier()
