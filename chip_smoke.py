@@ -146,8 +146,10 @@ non-zero:
    (float32, K8's FMA route) on the card against the CPU.  K8's cases
    include the families' shapes (Zamba2's D = 112 on both routes,
    InternVL2's G = 7, Mixtral's G = 6 with its 4096 window at S = 6000,
-   Whisper's non-causal encoder and cross attention at T = 1500), and a
-   planted fault at D = 112 (the short column group left unnormalized)
+   Whisper's non-causal encoder and cross attention at T = 1500) and a
+   tensor-parallel rank's heads (2, 4 and 3 q heads over one kv head at
+   D = 128: Qwen3-8B's, Command-R's and Granite-20B's on 16 "model"
+   ranks), and a planted fault at D = 112 (the short column group left unnormalized)
    must fail the bar by more than 1000x.  At every case on the FMA route
    the output with the row lse must be the output without it, bit for
    bit, and the forward's plan in Python (``fma_forward_plan``) the C
@@ -227,12 +229,17 @@ non-zero:
    (b) and (c) run on the card, each ``ok`` or ``skipped`` with the
    reference's reason (``long_500k`` on a full-attention arch), a
    production mesh's ok cell with its ranks (256 or 512), collectives
-   counted and at least one leaf gathered; its dominant term, bound,
+   counted, at least one leaf gathered and its compute (``"tensor
+   parallel over model"`` for the dense family, ``"replicated over
+   model"`` for the rest); its dominant term, bound,
    ``temp_size_b`` and collective bytes printed with the host seconds;
    (b) the counter held against the card on Qwen3-8B's 1974-token
-   prefill and one decode step after it (36 layers, bf16), one rank's
-   decode step of its ``decode_32k`` on ``single_pod`` at full shape (8
-   rows over a 32,768-token cache), a Qwen3-8B train step at 2 layers
+   prefill and one decode step after it (36 layers, bf16), one
+   tensor-parallel rank's decode step of its ``decode_32k`` on
+   ``single_pod`` at full shape (8 rows over its 8 of each head's 128
+   columns of a 32,768-token cache, its share of every leaf, the
+   collectives on a fake world of TP_RANKS "model" ranks, which moves
+   nothing; its share printed), a Qwen3-8B train step at 2 layers
    (bf16, AdamW, B = 1, S = 2048) and train_lm's step (float32, B = 4,
    S = 192) under AdamW:
    each step counted on ``meta`` and on the card, failing unless both
@@ -243,21 +250,29 @@ non-zero:
    over kernel time) and the peak of temporaries printed; (c) K8's
    counted FLOPs and bytes (on ``meta`` at each K8 row's shape) equal to
    the kernels line's, whose K8 rows take them from the same formulas
-   (``flash_attention.forward_cost``/``backward_costs``); the phase's
-   wall printed;
+   (``flash_attention.forward_cost``/``backward_costs``); (d) for
+   Qwen3-8B, Command-R and Granite-20B at full width and 2 layers, a
+   tensor-parallel rank's prefill of 2048 tokens in heads mode (2, 4 and
+   3 q heads over one kv head, on the fake world), K8 launched at the
+   rank's heads once a layer (these shapes' K8 rows of the kernels line,
+   held against the plain version in phase 6, count these launches); the
+   phase's wall printed;
 8c. distributed — the sharded train step
    (``repro_torch.training.step.make_sharded_train_step``) on a world of
    one: NCCL with a ``FileStore`` rendezvous in a temporary directory,
-   ``make_debug_mesh((1, 1))`` on cuda:0; the SMOKE Qwen3-8B (float32,
-   K8's FMA route forward and backward), AdamW(1e-3), tokens = targets =
-   3 (4 x 32): two steps, ``plan_mesh`` of the world, a re-shard under
-   ``make_rules(cfg, model_axis=1)``, two more steps, launch counts reset
-   just before and read just after (failing unless K8's forward and every
-   backward kernel launched), the losses and the parameters after steps 2
-   and 4 held against the one-device step on the card from the same
-   state bit for bit, or, where they differ, with why (whether the
-   one-device step repeats itself bit for bit) and within the CPU test's
-   bars (tests/test_torch_distributed.py); ``compress_int8`` on the card
+   ``make_debug_mesh((1, 1))`` on cuda:0; for each of DIST_ARCHS, the
+   SMOKE Qwen3-8B (dense: tensor parallel over a "model" axis of one) and
+   the SMOKE Granite-MoE 1B (moe: every leaf gathered whole, the compute
+   replicated over "model"), both float32 (K8's FMA route forward and
+   backward), AdamW(1e-3), tokens = targets = 3 (4 x 32): two steps,
+   ``plan_mesh`` of the world, a re-shard under ``make_rules(cfg,
+   model_axis=1)``, two more steps, launch counts reset just before and
+   read just after (failing unless K8's forward and every backward
+   kernel launched), the losses and the parameters after steps 2 and 4
+   held against the one-device step on the card from the same state bit
+   for bit, or, where they differ, with why (whether the one-device step
+   repeats itself bit for bit) and within the CPU test's bars
+   (tests/test_torch_distributed.py); ``compress_int8`` on the card
    against the CPU over three rounds of error feedback, bit for bit (and
    within one float32 ulp), with each round's scales on both devices by
    a tensor divisor and by a Python-scalar one;
@@ -268,7 +283,9 @@ non-zero:
    tickets, ``launches_by_phase``; K8's rows theirs by phase and family,
    ``launches_by_family``, with a row at D = 112 and the FMA route's rows
    at the main shape (which also counts the distributed phase's) and at
-   train_lm's, the latter the train phase's; K8's backward kernels a row
+   train_lm's, the latter the train phase's, and a row at each
+   tensor-parallel rank's heads, phase 8b's rank prefills' launches;
+   K8's backward kernels a row
    each per dtype and route (bf16 on the tensor cores, float32 on FMA),
    with the train and the distributed phases' launches by case, Delta's
    also by variant and with the device time of its launch over zero
@@ -2327,6 +2344,13 @@ TOL_SMOKE_LOGITS = 1e-4
 # through ops.flash_attention
 BF16, F32 = torch.bfloat16, torch.float32
 K8_MAIN = ("main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
+# the dense archs whose tensor-parallel rank (16 "model" ranks, heads
+# mode) runs K8 on its own heads: q heads over the one kv head they read,
+# at the main path's S = 2048 (phase 8b's rank prefills launch them)
+TP_RANKS = 16
+K8_TP_CASES = {arch: (f"tp_{arch}_{h}_{kv}", BF16, 1, 2048, 2048, h, kv, 128, True, 0, None)
+               for arch, h, kv in (("qwen3_8b", 2, 1), ("command_r_35b", 4, 1),
+                                   ("granite_20b", 3, 1))}
 # Zamba2-7B's shared attention at a 2048-token prompt: D = 112, G = 1
 K8_D112 = ("d112_zamba", BF16, 1, 2048, 2048, 32, 32, 112, True, 0, None)
 K8_CASES = (
@@ -2362,6 +2386,9 @@ K8_CASES = (
     # closer to the plain version that rounds p than to the one that does
     # not: fma_p_bf16_checks)
     ("f32_d64_p_bf16", F32, 2, 515, 515, 8, 2, 64, True, 0, BF16),
+    # a tensor-parallel rank's heads in heads mode (16 "model" ranks): the
+    # q heads of its share over the one kv head they read
+    *K8_TP_CASES.values(),
 )
 # the same shape in float32: the FMA route's row of the kernels line
 K8_MAIN_F32 = ("main_f32", F32, *K8_MAIN[2:])
@@ -2599,6 +2626,11 @@ def phase_k8() -> dict:
     rows["mma"] = k8_times(*k8_operands(K8_MAIN, gen), errs, routes)
     rows["fma"] = k8_times(*k8_operands(K8_MAIN_F32, gen), errs, routes)
     rows["fma_train"] = k8_times(*k8_operands(K8_TRAIN_F32, gen), errs, routes)
+    for arch, case in K8_TP_CASES.items():
+        rows[f"tp_{arch}"] = dict(k8_times(*k8_operands(case, gen)),
+                                  max_abs_err=errs[case[0]]["max_abs_err"],
+                                  heads=f"{case[5]} q / {case[6]} kv heads, a tensor-parallel "
+                                        f"rank of {arch}")
     for row in rows.values():
         emit(dict(phase="serve", case="k8_times", **row))
     return rows
@@ -4027,6 +4059,8 @@ PEAK_RTOL = 0.05
 PEAK_ATOL_BYTES = 16 * 2**20
 # one rank's step of a production mesh run on the card at its full shape
 RANK_ARCH, RANK_SHAPE, RANK_MESH = "qwen3_8b", "decode_32k", "single_pod"
+# case (d): the depth of each tensor-parallel rank's prefill (K8_TP_CASES)
+TP_PREFILL_LAYERS = 2
 N_CHIPS = {"single_pod": 256, "multi_pod": 512}
 
 
@@ -4066,7 +4100,8 @@ def dryrun_cells(results: dict, host_s: float) -> dict:
         applies, reason = shape_applicable(get_config(arch), SHAPES[shape])
         sharded_ok = mesh == "single_card" or r.get("status") != "ok" or (
             r["n_chips"] == N_CHIPS[mesh] and r["collectives"]["total"] > 0
-            and r["collectives"]["all-gather"] > 0 and r["compute"] == "replicated over model")
+            and r["collectives"]["all-gather"] > 0
+            and r["compute"] == dryrun.sharded_compute(get_config(arch)))
         if r["status"] == "ok" and applies and sharded_ok:
             roof = r["roofline"]
             out[mesh][f"{arch}__{shape}"] = dict(
@@ -4181,21 +4216,108 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
     return res
 
 
+def tp_rank_model(cfg, mesh, rules, device):
+    """Rank 0's tensor-parallel model on ``mesh`` (a fake world: its
+    collectives move nothing) under ``rules``: each leaf its shard,
+    gathered over "data" alone, drawn from SEED on the card (norms 1,
+    weights N(0, 0.02)), shapes and dtypes alone on meta; its ``split``
+    says how the rank computes its share."""
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.models.model import gather_params, init_params, param_logical_axes
+
+    params = dict(init_params(cfg, None, device="meta").named_parameters())
+    model = gather_params(cfg, reshard_state(params, param_logical_axes(cfg), mesh, rules))
+    if torch.device(device).type == "meta":
+        return model
+    model = model.to_empty(device=device).requires_grad_(False)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for p in model.parameters():
+        if p.ndim == 1:
+            p.fill_(1.0)
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+    return model
+
+
+def tp_share(cfg, rules, mesh) -> dict:
+    """What a tensor-parallel rank holds under ``rules``: its split (the
+    attention's mode, its q and kv heads, ff columns and vocab rows) and
+    its leaves' bytes against the whole model's."""
+    from repro_torch.models.model import init_params
+
+    model = tp_rank_model(cfg, mesh, rules, "meta")
+    sp = model.split
+
+    def nbytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+
+    return dict(attn=sp.attn, ranks=sp.count, heads=sp.heads, kv_heads=sp.kv_heads,
+                kv_sliced=sp.kv_sliced, ff=sp.ff, vocab=sp.vocab, leaf_bytes=nbytes(model),
+                model_bytes=nbytes(init_params(cfg, None, device="meta")))
+
+
+def tp_rank_prefills(dev) -> dict:
+    """Case (d): each dense arch of K8_TP_CASES at full width, cut to
+    TP_PREFILL_LAYERS layers, one tensor-parallel rank's prefill (heads
+    mode on 16 "model" ranks of a fake world: its q heads over the kv head
+    they read, a sixteenth of ff and of the vocab; one prompt of
+    K8_TP_CASES' 2048 tokens) on the card: K8 launched at the rank's
+    heads, each layer once, counted from zero over the prefill; its share
+    and the rank's logits' finiteness printed.  Returns the launches by
+    arch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.rules import make_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.model import prefill
+
+    out = {}
+    for arch, case in K8_TP_CASES.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=TP_PREFILL_LAYERS)
+        rules = {**make_rules(cfg, job="prefill"), "batch": "data"}
+        t0 = time.perf_counter()
+        with fake_world(mesh_shape=(1, TP_RANKS)) as mesh:
+            model = tp_rank_model(cfg, mesh, rules, dev)
+            check((model.split.attn, model.split.heads, model.split.kv_heads)
+                  == ("heads", case[5], case[6]),
+                  f"{arch}: a rank's heads are not {case[5]} q / {case[6]} kv: {model.split}")
+            tokens = counted_tokens(dev, (case[2], case[3]), cfg.vocab)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            logits, _ = prefill(model, {"tokens": tokens}, cfg, case[3])
+            torch.cuda.synchronize()
+            launches = ops.launch_counts_by_route()["flash_attention"]["mma"]
+            share = tp_share(cfg, rules, mesh)
+        del model
+        out[arch] = launches
+        emit(dict(phase="dryrun", case=f"tp_rank_prefill_{arch}", layers=TP_PREFILL_LAYERS,
+                  tokens=case[3], k8_launches=launches, share=share,
+                  logits_shape=list(logits.shape), logits_finite=bool(logits.isfinite().all()),
+                  wall_s=time.perf_counter() - t0))
+        check(launches == TP_PREFILL_LAYERS, f"{arch}: K8 launched {launches} times in a rank's "
+                                             f"prefill of {TP_PREFILL_LAYERS} layers")
+    return out
+
+
 def counted_cases(dev) -> dict:
     """Case (b): the counter against the card on the steps the smoke runs
     at full width: Qwen3-8B's 1974-token prefill and one decode step after
-    it (bf16, 36 layers), one rank's decode step of Qwen3-8B's
-    ``decode_32k`` on ``single_pod`` at its full shape (8 rows over a
-    32,768-token cache, bf16: 38.6 GB of cache and 16.4 GB of weights), a
-    Qwen3-8B train step at 2 layers (bf16, AdamW, B = 1, S = 2048) and
-    train_lm's step (lm_100m, float32, B = 4, S = 192) under AdamW."""
+    it (bf16, 36 layers), one tensor-parallel rank's decode step of
+    Qwen3-8B's ``decode_32k`` on ``single_pod`` at its full shape (8 rows
+    over its head_dim columns of a 32,768-token cache, bf16: 2.4 GB of
+    cache and its 1.0 GB share of the weights, its collectives on a fake
+    world of 16 "model" ranks), a Qwen3-8B train step at 2 layers (bf16,
+    AdamW, B = 1, S = 2048) and train_lm's step (lm_100m, float32, B = 4,
+    S = 192) under AdamW."""
     import dataclasses
     import math
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import rule_axes
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import production_axis_sizes
+    from repro_torch.launch.mesh import fake_world, production_axis_sizes
     from repro_torch.models.model import decode_step, init_decode_cache, prefill
     from repro_torch.optim.adamw import adamw
     from repro_torch.training import init_train_state, make_train_step
@@ -4231,8 +4353,10 @@ def counted_cases(dev) -> dict:
             return (lambda: step_fn(state, data)), state["params"]
         return build
 
-    # one rank of decode_32k on single_pod: its rows of the batch over a
-    # whole cache, the step the sharded decode runs after its gathers
+    # one rank of decode_32k on single_pod: its rows of the batch, its
+    # tensor-parallel share (head_dim mode: its 8 of each head's 128
+    # columns, of the cache too; a sixteenth of ff and of the vocab), the
+    # step the sharded decode runs after its gathers over "data"
     rank_shape = SHAPES[RANK_SHAPE]
     rules = dryrun.cell_rules(cfg, rank_shape, RANK_MESH, True)
     sizes = production_axis_sizes(multi_pod=RANK_MESH == "multi_pod")
@@ -4240,20 +4364,24 @@ def counted_cases(dev) -> dict:
                                                       for a in rule_axes(rules["batch"]))
 
     def decode_rank(device):
-        params = counted_params(cfg, device)
-        cache = init_decode_cache(cfg, rank_batch, rank_shape.seq_len, device=device)
+        model = tp_rank_model(cfg, mesh, rules, device)
+        cache = {n: torch.zeros((cfg.n_layers, rank_batch, rank_shape.seq_len, cfg.n_kv_heads,
+                                 cfg.head_dim // TP_RANKS), dtype=cfg.act_dtype(), device=device)
+                 for n in ("k", "v")}
         token = counted_tokens(device, (rank_batch, 1), cfg.vocab)
         pos = torch.full((), rank_shape.seq_len - 1, dtype=torch.int32, device=device)
-        return (lambda: decode_step(params, token, pos, cache, cfg)), params
+        return (lambda: decode_step(model, token, pos, cache, cfg)), model
 
     res = {}
     res["qwen3_8b_prefill"] = count_step("qwen3_8b_prefill_1974", prefill_step, dev, cfg,
                                          train=False, n_tokens=COUNTED_PROMPT)
     res["qwen3_8b_decode"] = count_step("qwen3_8b_decode_step", decode, dev, cfg, train=False,
                                         n_tokens=1)
-    res["qwen3_8b_decode_rank"] = count_step(
-        f"{RANK_ARCH}_{RANK_SHAPE}_{RANK_MESH}_rank", decode_rank, dev, cfg, train=False,
-        n_tokens=rank_batch)
+    with fake_world(mesh_shape=(1, TP_RANKS)) as mesh:
+        res["qwen3_8b_decode_rank"] = count_step(
+            f"{RANK_ARCH}_{RANK_SHAPE}_{RANK_MESH}_rank", decode_rank, dev, cfg, train=False,
+            n_tokens=rank_batch)
+        res["qwen3_8b_decode_rank"]["share"] = tp_share(cfg, rules, mesh)
     wide = dataclasses.replace(get_config(WIDE_ARCH), n_layers=WIDE_LAYERS)
     res["qwen3_8b_train"] = count_step(
         "qwen3_8b_width_2_layers_train", train(wide, WIDE_BATCH, WIDE_SEQ), dev, wide,
@@ -4320,8 +4448,10 @@ def phase_dryrun(dev, k8_rows: dict, k8_bwd_rows: dict) -> dict:
         futures = start_cells(pool)
         steps = counted_cases(dev)
         k8 = k8_counted_terms(k8_rows, k8_bwd_rows)
+        tp_prefill = tp_rank_prefills(dev)
         results = {key: f.result() for key, f in futures.items()}
-    res = dict(cells=dryrun_cells(results, time.perf_counter() - t0), steps=steps, k8=k8)
+    res = dict(cells=dryrun_cells(results, time.perf_counter() - t0), steps=steps, k8=k8,
+               tp_prefill=tp_prefill)
     emit(dict(phase="dryrun", case="wall", wall_s=time.perf_counter() - t0))
     return res
 
@@ -4336,6 +4466,10 @@ DIST_LR = 1e-3
 # of the model's largest (zero in exact arithmetic, float32 rounding) is
 # held to Adam's own step, 2 lr a step
 DIST_NOISE_SHARE = 1e-6
+# the SMOKE configs of the sharded steps: a dense one (tensor parallel over
+# "model") and one of another family (every leaf gathered whole, the
+# compute replicated over "model")
+DIST_ARCHS = ("qwen3_8b", "granite_moe_1b_a400m")
 
 
 def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
@@ -4462,62 +4596,74 @@ def compress_on_card(dev) -> dict:
 
 
 def phase_distributed(dev) -> dict:
-    """Phase 8c (see the module docstring).  Returns K8's launches of the
-    sharded run."""
+    """Phase 8c (see the module docstring).  Returns K8's launches of each
+    config's sharded run, by case."""
     import tempfile
 
     import torch.distributed as dist
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
+    from repro_torch.models.model import tensor_parallel
     from repro_torch.optim.adamw import adamw
     from repro_torch.training.step import AUX_WEIGHT, init_train_state, loss_and_grads
 
     t0 = time.perf_counter()
-    cfg = get_smoke_config("qwen3_8b")
     tokens = torch.zeros((4, 32), dtype=torch.int32, device=dev) + 3
     batch = {"tokens": tokens, "targets": tokens}
     torch.cuda.set_device(dev)
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="repro_dist_smoke_") as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
                                 rank=0, world_size=1)
         try:
-            one = dist_run(dev, cfg, batch, sharded=False)
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            sharded = dist_run(dev, cfg, batch, sharded=True)
-            torch.cuda.synchronize()
-            launches = k8_counts()
+            for arch in DIST_ARCHS:
+                cfg = get_smoke_config(arch)
+                one = dist_run(dev, cfg, batch, sharded=False)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                sharded = dist_run(dev, cfg, batch, sharded=True)
+                torch.cuda.synchronize()
+                runs[arch] = (cfg, one, sharded, k8_counts())
             backend = str(dist.get_backend())
         finally:
             dist.destroy_process_group()
-    again = dist_run(dev, cfg, batch, sharded=False)
-    state = init_train_state(cfg, adamw(DIST_LR), torch.Generator(device=dev).manual_seed(SEED),
-                             device=dev)
-    _, grads = loss_and_grads(state["params"], batch, cfg, AUX_WEIGHT)
-    gmax = {n: float(g.abs().max()) for n, g in grads.items()}
-    noise = {n for n, g in gmax.items() if g < DIST_NOISE_SHARE * max(gmax.values())}
-    held = dist_compare(sharded, one, noise)
-    repeat = dist_compare(again, one, noise)
+    launches = {}
+    for arch, (cfg, one, sharded, k8) in runs.items():
+        again = dist_run(dev, cfg, batch, sharded=False)
+        state = init_train_state(cfg, adamw(DIST_LR),
+                                 torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        _, grads = loss_and_grads(state["params"], batch, cfg, AUX_WEIGHT)
+        gmax = {n: float(g.abs().max()) for n, g in grads.items()}
+        noise = {n for n, g in gmax.items() if g < DIST_NOISE_SHARE * max(gmax.values())}
+        held = dist_compare(sharded, one, noise)
+        repeat = dist_compare(again, one, noise)
+        compute = ("tensor parallel over model" if tensor_parallel(cfg)
+                   else "replicated over model")
+        res = dict(phase="distributed", case=f"sharded_step_world_1_{arch}", arch=arch,
+                   family=cfg.family, compute=compute, backend=backend, mesh=[1, 1],
+                   plan=sharded["plan"], placements=sharded["placements"],
+                   losses=sharded["losses"], one_device_losses=one["losses"], held=held,
+                   one_device_repeats_bitwise=repeat["bitwise"], one_device_repeat=repeat,
+                   noise_leaves=sorted(noise), k8=k8)
+        if not held["bitwise"]:
+            res["why_not_bitwise"] = (
+                "the one-device step does not repeat itself bit for bit on the card"
+                if not repeat["bitwise"] else
+                "the sharded step differs from a one-device step that repeats itself")
+        emit(res)
+        check(k8["forward_by_route"]["fma"] > 0
+              and all(k8["backward"][n] > 0 for n in K8_BWD_KERNELS),
+              f"distributed {arch}: K8 forward/backward not launched: {k8}")
+        check(held["bitwise"] or (held["loss_err"] <= 1e-5 and held["param_err_of_max"] <= 1e-5
+                                  and held["noise_leaf_err_in_lr_a_step"] <= 2),
+              f"distributed {arch}: the sharded step against the one-device step: {held}")
+        launches[f"distributed_{arch}"] = k8
+    check([tensor_parallel(runs[a][0]) for a in DIST_ARCHS] == [True, False],
+          f"distributed: {DIST_ARCHS} should take the tensor-parallel and the replicated route")
     comp = compress_on_card(dev)
-    res = dict(phase="distributed", case="sharded_step_world_1", backend=backend,
-               mesh=[1, 1], plan=sharded["plan"], placements=sharded["placements"],
-               losses=sharded["losses"], one_device_losses=one["losses"], held=held,
-               one_device_repeats_bitwise=repeat["bitwise"], one_device_repeat=repeat,
-               noise_leaves=sorted(noise), k8=launches, compress_int8=comp,
-               wall_s=time.perf_counter() - t0)
-    if not held["bitwise"]:
-        res["why_not_bitwise"] = (
-            "the one-device step does not repeat itself bit for bit on the card"
-            if not repeat["bitwise"] else
-            "the sharded step differs from a one-device step that repeats itself")
-    emit(res)
-    check(launches["forward_by_route"]["fma"] > 0
-          and all(launches["backward"][n] > 0 for n in K8_BWD_KERNELS),
-          f"distributed: K8 forward/backward not launched: {launches}")
-    check(held["bitwise"] or (held["loss_err"] <= 1e-5 and held["param_err_of_max"] <= 1e-5
-                              and held["noise_leaf_err_in_lr_a_step"] <= 2),
-          f"distributed: the sharded step against the one-device step: {held}")
+    emit(dict(phase="distributed", case="compress_int8", compress_int8=comp,
+              wall_s=time.perf_counter() - t0))
     check(comp["err_in_f32_ulps_of_max"] <= 1, f"distributed: compress_int8 card vs CPU {comp}")
     check(comp["bitwise"], f"distributed: compress_int8 on the card is not the CPU's bits {comp}")
     return launches
@@ -4643,7 +4789,9 @@ def kernels_line(pairs: dict, launches: dict, settling_launches: dict,
             rows[-1]["launches_by_variant"] = gemv_by_variant["crosspoint_mvm"]
     for key, row in k8_rows.items():
         by_family = k8_launches[key]
-        rows.append(dict(name=f"K8 flash_attention ({row['dtype']}, D = {row['shape'][-1]})",
+        heads = f", {row['heads']}" if "heads" in row else ""
+        rows.append(dict(name=f"K8 flash_attention ({row['dtype']}, D = {row['shape'][-1]}"
+                              f"{heads})",
                          route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
                          replaces="src/repro/kernels/flash_attention.py:103",
                          launches=sum(by_family.values()), launches_by_family=by_family,
@@ -4744,7 +4892,7 @@ def main() -> int:
     serve_launches = phase_serve(dev)
     families = phase_families(dev)
     train_launches = phase_train(dev)
-    phase_dryrun(dev, k8_rows, k8_bwd_rows)
+    tp_launches = phase_dryrun(dev, k8_rows, k8_bwd_rows)["tp_prefill"]
     dist_launches = phase_distributed(dev)
     # K8's launches by row: the tensor-core rows split by head size (D =
     # 112 is Zamba2's alone), the FMA rows the float32 SMOKE configs' card
@@ -4752,21 +4900,22 @@ def main() -> int:
     # shape); each by the phase or family that made them
     train_fwd = {route: sum(c["forward_by_route"][route] for c in train_launches.values())
                  for route in ("mma", "fma")}
-    dist_fwd = dist_launches["forward_by_route"]
     k8_launches = {
         "mma": {"serve": serve_launches["mma"],
                 **{a: r["mma"] for a, r in families.items() if r["head_dim"] != 112},
-                "train": train_fwd["mma"], "distributed": dist_fwd["mma"]},
+                "train": train_fwd["mma"],
+                **{case: c["forward_by_route"]["mma"] for case, c in dist_launches.items()}},
         "mma_d112": {a: r["mma"] for a, r in families.items() if r["head_dim"] == 112},
         "fma": {"serve": serve_launches["fma"], **{a: r["fma"] for a, r in families.items()},
-                "distributed": dist_fwd["fma"]},
+                **{case: c["forward_by_route"]["fma"] for case, c in dist_launches.items()}},
         "fma_train": {"train": train_fwd["fma"]},
+        **{f"tp_{arch}": {"dryrun_tp_rank_prefill": n} for arch, n in tp_launches.items()},
     }
 
     emit({"kernels": kernels_line(pairs, launches, settling_launches, service_launches,
                                   analysis_launches,
                                   api_rows, api_launches, k8_rows, k8_launches, k8_bwd_rows,
-                                  {**train_launches, "distributed": dist_launches})})
+                                  {**train_launches, **dist_launches})})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,10 @@ the rules place state: :func:`logical_constraint` and
 :func:`boundary_pin` are for callers holding DTensors, and without rules
 return their input itself.  :func:`rank_rows` and :func:`place_rows`
 take a rank's rows of a batch and place a step's outputs for the sharded
-steps, whose compute is replicated over ``"model"``.
+steps.  :class:`ModelSplit` is a dense model's tensor parallelism over
+``"model"`` (Megatron's f and g, the vocab-parallel lookup and
+logsumexp, the head_dim gather and RoPE's exchange), which the other
+families' sharded steps, replicated over ``"model"``, do not use.
 
 **The solver mesh.**  JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
 PyTorch has no such array, so the port's mesh is a plain tuple of
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import time
 from typing import Mapping, Optional, Sequence
@@ -196,19 +200,25 @@ def rank_rows(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torch
     return x.narrow(dim, index * k, k)
 
 
-def place_rows(local: torch.Tensor, mesh, axes: Sequence[str], dim: int, spec: Sequence):
+def place_rows(local: torch.Tensor, mesh, axes: Sequence[str], dim: int, spec: Sequence,
+               model_dim: Optional[int] = None):
     """A DTensor placed by ``spec`` from ``local``, this rank's rows along
     ``dim`` (split over the mesh ``axes``, as :func:`rank_rows` takes
-    them) and whole along every other dimension, as every rank of the
-    other axes holds them: the reference's ``out_shardings`` of a step
-    whose compute is replicated there.  A spec that shards another
-    dimension keeps this rank's slice of it (a local copy, no
-    collective)."""
+    them), with ``model_dim`` this rank's share over ``"model"`` (a
+    tensor-parallel step's output), and whole along every other
+    dimension, as every rank of the other axes holds them: the
+    reference's ``out_shardings`` of a step whose compute is replicated
+    there.  A spec that shards another dimension keeps this rank's slice
+    of it (a local copy, no collective)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    held = [Shard(dim) if a in axes else Replicate() for a in mesh.mesh_dim_names]
+    held = [Shard(dim) if a in axes else Shard(model_dim)
+            if a == "model" and model_dim is not None else Replicate()
+            for a in mesh.mesh_dim_names]
     shape = list(local.shape)
     shape[dim] *= rank_share(mesh, axes)[1]
+    if model_dim is not None:
+        shape[model_dim] *= rank_share(mesh, ("model",))[1]
     stride = [1] * len(shape)
     for d in range(len(shape) - 2, -1, -1):
         stride[d] = stride[d + 1] * shape[d + 1]
@@ -226,8 +236,24 @@ def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
                                                           group.group_name))
 
 
-def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
-    return _c10d.wait_tensor(_c10d.all_reduce(x.contiguous(), "sum", group.group_name))
+def _reduce_over(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    return _c10d.wait_tensor(_c10d.all_reduce(x.contiguous(), op, group.group_name))
+
+
+def _scatter_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (group size, ...) summed over the group, this rank's row of
+    the sum: a reduce-scatter along dimension 0."""
+    return _c10d.wait_tensor(_c10d.reduce_scatter_tensor(x.contiguous(), "sum", group.size(),
+                                                         group.group_name))
+
+
+def _all_to_all(x: torch.Tensor, group, sizes=None) -> torch.Tensor:
+    """Row block ``i`` of ``x`` (split along dimension 0 by ``sizes``, even
+    without) sent to rank ``i`` of the group; the blocks received, by
+    sender, in the same order."""
+    sizes = [x.shape[0] // group.size()] * group.size() if sizes is None else list(sizes)
+    return _c10d.wait_tensor(_c10d.all_to_all_single(x.contiguous(), sizes, sizes,
+                                                     group.group_name))
 
 
 class _SliceRows(torch.autograd.Function):
@@ -272,7 +298,244 @@ class _SumGradients(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum_over(grad, ctx.split.group), None
+        return _reduce_over(grad, ctx.split.group), None
+
+
+class _SumPartials(torch.autograd.Function):
+    """Megatron's g.  Forward: the ranks' partial sums summed over the
+    group.  Backward: the gradient itself, which every rank holds whole
+    (the compute after the sum is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        return _reduce_over(x, split.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward: the ranks' shares of the last dimension gathered, in rank
+    order.  Backward: the gradient summed over the group and cut to this
+    rank's share (a reduce-scatter), since each rank's gradient of the
+    gathered tensor is its own contribution."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        parts = _gather_rows(x.unsqueeze(0), split.group)          # (m, ..., c)
+        return parts.movedim(0, -2).contiguous().flatten(-2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = grad.unflatten(-1, (ctx.split.count, -1)).movedim(-2, 0)
+        return _scatter_sum(parts, ctx.split.group)[0], None
+
+
+class _Exchange(torch.autograd.Function):
+    """Forward: ``x`` sent to rank ``partner`` of the group and the
+    partner's received (an all-to-all in which each rank sends to one
+    rank).  Backward: the same exchange, the pairing being symmetric."""
+
+    @staticmethod
+    def forward(ctx, x, split, partner):
+        ctx.split, ctx.partner = split, partner
+        return _exchange(x, split, partner)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.split, ctx.partner), None, None
+
+
+def _exchange(x: torch.Tensor, split, partner: int) -> torch.Tensor:
+    sizes = [0] * split.count
+    sizes[partner] = 1
+    return _all_to_all(x.unsqueeze(0), split.group, sizes)[0]
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over a last dimension split over the group, in
+    ``torch.logsumexp``'s own steps (the max, masked where infinite, the
+    sum of ``exp(x - max)``, its log plus the max), the max and the sum
+    reduced over the group; the gradient is its own, ``g exp(x - lse)``,
+    local to each rank's share (the result is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        maxes = _reduce_over(torch.amax(x, -1, keepdim=True), split.group, "max")
+        maxes.masked_fill_(maxes.abs() == math.inf, 0)
+        out = _reduce_over(torch.sum((x - maxes).exp_(), -1), split.group)
+        out = out.log_().add_(maxes.squeeze(-1))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad.unsqueeze(-1) * (x - out.unsqueeze(-1)).exp(), None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """Tensor parallelism over the ``"model"`` axis of a rank's step, as
+    GSPMD splits the reference's step under its rules: the rank holds its
+    ``"model"`` shard of every leaf (``q_heads`` or ``head_dim``, ``ff``,
+    ``vocab``) and computes its share.
+
+    Megatron's regions: :meth:`enter` (f) is the identity forward and an
+    all-reduce of the gradient, at the entry of a region whose first
+    product is column-parallel; :meth:`exit` (g) all-reduces the partial
+    sums of its row-parallel last product, the gradient passing through.
+    A leaf replicated over ``"model"`` that a rank uses only in part (the
+    q/k norms, a K/V projection whose ``kv_heads`` are not on the axis)
+    takes its gradient summed over the group (:meth:`enter` too);
+    the norms of the residual stream see a replicated input and need
+    nothing.  ``attn`` is the attention's mode, from the rules' placing
+    of ``wq``: ``"heads"`` (this rank's q heads and the kv heads they
+    read), ``"head_dim"`` (this rank's columns of every head) or
+    ``"replicated"`` (whole heads on every rank: neither divides the
+    axis, or the attention batch layout).  ``heads``, ``kv_heads`` and
+    ``kv_first`` are this rank's q heads, kv heads and its first kv
+    head (``kv_sliced``: taken from K/V projections held whole, whose
+    ``kv_heads`` are not on the axis), ``q_per_kv`` the q heads a kv head
+    serves; ``ff`` and ``vocab`` its columns of the MLP and rows of the
+    padded vocab.  With ``count`` 1 every operator is the one-device
+    arithmetic."""
+
+    group: object
+    index: int
+    count: int
+    attn: str
+    head_dim: int
+    heads: int
+    kv_heads: int
+    kv_first: int
+    kv_sliced: bool
+    q_per_kv: int
+    ff: int
+    vocab: int
+
+    @property
+    def attn_partial(self) -> bool:
+        """Whether the attention's output is a partial sum over the group."""
+        return self.attn != "replicated"
+
+    @property
+    def vocab_offset(self) -> int:
+        return self.index * self.vocab
+
+    @property
+    def shards_head_dim(self) -> bool:
+        """Whether the decode rules put ``head_dim`` on the axis (it
+        divides): the decode cache's layout, a rank's columns of every
+        head, or whole heads on every rank."""
+        return self.head_dim % self.count == 0
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f (and what a replicated leaf that each rank uses in
+        part needs: its gradient summed over the group)."""
+        return _SumGradients.apply(x, self)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g."""
+        return _SumPartials.apply(x, self)
+
+    def reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced over the group, outside autograd."""
+        return _reduce_over(x, self.group, op)
+
+    def take_kv(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's kv heads of a K/V projection ``w`` (d, KV, dh) held
+        whole: a view, its gradient summed over the group."""
+        if not self.kv_sliced:
+            return w
+        return self.enter(w).narrow(1, self.kv_first, self.kv_heads)
+
+    def head_dim_shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of the last (head_dim) dimension: a view."""
+        c = x.shape[-1] // self.count
+        return x.narrow(-1, self.index * c, c)
+
+    def cache_columns(self, new: torch.Tensor) -> torch.Tensor:
+        """A prefill's new k or v (..., kv heads, head_dim) as this rank's
+        cache takes it: in heads mode cut into the ranks' blocks of
+        columns (..., count, head_dim / count) that
+        :meth:`heads_to_head_dim` sends on; else the rank's own columns,
+        or whole heads where the axis does not divide ``head_dim``."""
+        if self.attn == "heads":
+            return new.unflatten(-1, (self.count, -1))
+        return self.head_dim_shard(new) if self.shards_head_dim else new
+
+    def gather_head_dim(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's columns of the last dimension gathered (whole heads
+        from ``head_dim`` shards); the gradient reduce-scattered."""
+        return _GatherLast.apply(x, self)
+
+    def rope_partner(self, x: torch.Tensor) -> torch.Tensor:
+        """The columns that RoPE pairs with this rank's (half-split: column
+        ``i`` with ``i + head_dim / 2``), from the rank that holds them."""
+        if self.count % 2:
+            raise NotImplementedError(f"RoPE on head_dim split over {self.count} ranks: the "
+                                      "pairs must fall on two ranks")
+        return _Exchange.apply(x, self, (self.index + self.count // 2) % self.count)
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """A lookup in a table split by rows (vocab) over the group: each
+        rank looks up the ids in its rows, zeros elsewhere, and the rows
+        are summed."""
+        local = tokens - self.vocab_offset
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)]
+        return self.exit(torch.where(inside[..., None], rows, 0))
+
+    def logsumexp(self, x: torch.Tensor) -> torch.Tensor:
+        """``logsumexp`` over the last dimension, split over the group."""
+        return _VocabLogSumExp.apply(x, self)
+
+    def pick(self, x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+        """``x``'s element at ``index`` in the whole last dimension, split
+        over the group: the rank that holds it gives it, the others zero,
+        and the sum is taken (Megatron's g)."""
+        local = index - self.vocab_offset
+        inside = (local >= 0) & (local < x.shape[-1])
+        mine = torch.gather(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        return self.exit(torch.where(inside, mine, 0.0))
+
+    def argmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The index in the whole last dimension of its largest element
+        (the first of equal ones), outside autograd."""
+        idx = x.argmax(-1)
+        top = x.gather(-1, idx[..., None])[..., 0]
+        best = self.reduce(top, "max")
+        limit = torch.iinfo(torch.int64).max
+        return self.reduce(torch.where(top == best, idx + self.vocab_offset, limit), "min")
+
+    def kv_source(self, j: int) -> tuple[int, int]:
+        """The first rank that holds kv head ``j`` in heads mode, and its
+        index among that rank's kv heads."""
+        rank = next(r for r in range(self.count)
+                    if self._kv_first_of(r) <= j < self._kv_first_of(r) + self.kv_heads)
+        return rank, j - self._kv_first_of(rank)
+
+    def _kv_first_of(self, rank: int) -> int:
+        # global q head h reads kv head h // q_per_kv
+        if self.kv_sliced:
+            return rank * self.heads // self.q_per_kv
+        return rank * self.kv_heads
+
+    def heads_to_head_dim(self, send: torch.Tensor, kv_total: int) -> torch.Tensor:
+        """K/V in heads mode to the decode cache's layout (every kv head,
+        this rank's ``head_dim`` columns) in one all-to-all: ``send`` is
+        (count, ..., kv_heads, c), block ``i`` this rank's kv heads at rank
+        ``i``'s columns; returns (..., kv_total, c), each kv head from the
+        first rank that holds it."""
+        recv = _all_to_all(send, self.group)
+        out = recv.new_empty((*recv.shape[1:-2], kv_total, recv.shape[-1]))
+        for j in range(kv_total):
+            rank, local = self.kv_source(j)
+            out[..., j, :] = recv[rank, ..., local, :]
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,8 +544,9 @@ class AttnBatchSplit:
     the batch of attention is split over one more mesh axis than the
     batch (``rules["attn_batch"]`` is ``rules["batch"]`` plus ``axis``).
 
-    The port computes everything outside attention replicated over
-    ``"model"`` (:func:`repro_torch.training.step.make_sharded_train_step`),
+    Outside attention the step is replicated over ``"model"``, or for a
+    dense model tensor parallel with the attention's output whole on
+    every rank (:func:`repro_torch.training.step.make_sharded_train_step`),
     so the layout means: each rank of ``axis`` takes its share of the
     rank's rows (:meth:`enter`), runs the attention on them, and the
     outputs are gathered over ``axis`` (:meth:`exit`): one all-gather of

@@ -24,27 +24,34 @@ every collective and moves nothing.  The rules are the reference's:
 ``param_specs`` (AdamW's moments as the parameters) and a decode cache
 by ``cache_logical_axes`` under the decode rules, as DTensors: the
 counterpart of ``in_shardings``.  The counted step is the port's sharded
-step, FSDP storage with compute replicated over ``"model"``:
-:func:`~repro_torch.training.step.make_sharded_train_step` (each leaf
-gathered, the one-device forward and backward on the rank's rows,
-gradients all-reduced over the batch axes, AdamW on the shards), and
-:mod:`repro_torch.serving.sharded` for prefill and decode (leaves and,
-for decode, the cache's ``"model"`` shard gathered, the one-device step
-on the rank's rows, the outputs kept as the reference's
-``out_shardings`` place them).  The rank's rows follow the batch rule
-(``long_500k``'s batch of 1 is replicated).  With the attention batch
-layout (``train_4k`` on ``single_pod`` for yi_34b, internvl2_1b and
-whisper_base) each ``"model"`` rank runs attention on its 1/16 of the
-rows and the output is all-gathered (``models/blocks.py:attn_forward``).
+step: :func:`~repro_torch.training.step.make_sharded_train_step`
+(gradients all-reduced over the batch axes, AdamW on the shards) and
+:mod:`repro_torch.serving.sharded` for prefill and decode (the outputs
+kept as the reference's ``out_shardings`` place them), on the rank's
+rows.  The dense family's rank is tensor parallel over ``"model"``, as
+GSPMD splits the reference's: its leaves gathered over the batch axes
+alone, its share computed (heads mode: its q heads; head_dim mode in
+decode: its columns of q, k, v and the cache; head_dim mode in train and
+prefill, yi_34b's: q, k and v gathered to whole heads, attention
+replicated over ``"model"``, item 14.5), the MLP and the logits split,
+partial sums all-reduced.  The other families' ranks gather every leaf
+and, for decode, the cache's ``"model"`` shard whole and run the
+one-device step, replicated over ``"model"`` (items 14.2-14.4).  The
+rank's rows follow the batch rule (``long_500k``'s batch of 1 is
+replicated).  With the attention batch layout (``train_4k`` on
+``single_pod`` for yi_34b, internvl2_1b and whisper_base) each
+``"model"`` rank runs attention on its 1/16 of the rows and the output is
+all-gathered (``models/blocks.py:attn_forward``).
 
 The result keeps the reference's keys, per rank: ``n_chips``,
 ``collectives`` (result bytes by kind, from the counter), ``roofline``
 (``roofline_report(n_chips=...)``) and ``memory`` (``argument_size_b``
-the local shards and the rank's rows, ``temp_size_b`` with the whole
-leaves the rank gathers).  A rank's FLOPs are the one-device step's on
-its rows, not the reference's tensor-parallel share, so its
-``useful_flops_ratio`` is about 1/16 of one card's; the result says so
-(``"compute": "replicated over model"``).
+the local shards and the rank's rows, ``temp_size_b`` with the leaves
+the rank gathers).  ``"compute"`` says how a rank computes:
+``"tensor parallel over model"`` (dense; ``"attention"`` then names the
+attention's mode) or ``"replicated over model"`` (the rest, whose FLOPs
+are the one-device step's on the rank's rows, about 16x the reference's
+share).
 
 Usage (the CPU suffices; nothing runs on a card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -88,6 +95,7 @@ from repro_torch.models.model import (
     model_flops,
     param_logical_axes,
     prefill,
+    tensor_parallel,
 )
 from repro_torch.optim.adamw import adamw
 from repro_torch.roofline.analysis import HardwareSpec, roofline_report, spec_for_card
@@ -104,8 +112,32 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun"
 # the reference's production meshes, traced over a fake process group
 SHARDED_MESHES = ("single_pod", "multi_pod")
 MESHES = ("single_card",) + SHARDED_MESHES
-# what a rank of a production mesh computes (the result's "compute")
-SHARDED_COMPUTE = "replicated over model"
+
+
+def sharded_compute(cfg) -> str:
+    """The result's ``"compute"`` of a cell of ``cfg`` on a production
+    mesh: a :func:`~repro_torch.models.model.tensor_parallel` model's
+    rank computes its share, another family's rank its whole step on its
+    rows."""
+    return "tensor parallel over model" if tensor_parallel(cfg) else "replicated over model"
+
+
+def attention_mode(shape, rules) -> str:
+    """How a tensor-parallel rank's attention splits under ``rules`` (the
+    result's ``"attention"``): over its q heads, over head_dim (decode),
+    replicated over ``"model"`` with q, k and v gathered whole (head_dim
+    rules in train and prefill), on its share of the rows (the attention
+    batch layout), or replicated (neither heads nor head_dim on the
+    axis)."""
+    if "model" in rule_axes(rules.get("attn_batch")):
+        return "batch layout over model"
+    if rules.get("q_heads") == "model":
+        return "heads"
+    if rules.get("head_dim") == "model":
+        if shape.kind == "decode":
+            return "head_dim"
+        return "replicated over model (head_dim: q, k, v gathered)"
+    return "replicated over model"
 # the card the port targets: the spec the dry run models unless told
 TARGET_CARD = "NVIDIA H100 80GB HBM3"
 
@@ -287,7 +319,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single_card", *,
         "kernels": counter.kernels,
     }
     if mesh_name != "single_card":
-        res["compute"] = SHARDED_COMPUTE
+        res["compute"] = sharded_compute(cfg)
+        if tensor_parallel(cfg):
+            res["attention"] = attention_mode(shape, rules)
     return res
 
 

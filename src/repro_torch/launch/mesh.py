@@ -92,10 +92,13 @@ FAKE_WORLD = 512
 
 
 @contextlib.contextmanager
-def fake_world(*, multi_pod: bool = False):
+def fake_world(*, multi_pod: bool = False, mesh_shape: tuple | None = None):
     """A production mesh (:func:`make_production_mesh`) seen from rank 0 of
     a ``"fake"`` process group of :data:`FAKE_WORLD` ranks, in this process
-    alone; the group is destroyed when the block ends.
+    alone; the group is destroyed when the block ends.  ``mesh_shape``
+    takes another mesh instead, ``("data", "model")`` or, of three axes,
+    ``("pod", "data", "model")``, over a fake group of its own size (the
+    (2, 4) debug mesh of the tests).
 
     The fake group takes every collective and moves nothing, so the dry
     run traces a rank's step on ``meta`` tensors with its collectives in
@@ -109,9 +112,14 @@ def fake_world(*, multi_pod: bool = False):
     if dist.is_initialized():
         raise RuntimeError("fake_world: a process group is already initialized in this "
                            "process; trace the production meshes in a process of their own")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=FAKE_WORLD)
+    world = FAKE_WORLD if mesh_shape is None else math.prod(mesh_shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     try:
-        yield make_production_mesh(multi_pod=multi_pod)
+        if mesh_shape is None:
+            yield make_production_mesh(multi_pod=multi_pod)
+        else:
+            yield _make_mesh(tuple(mesh_shape), ("data", "model") if len(mesh_shape) == 2
+                             else ("pod", "data", "model"))
     finally:
         dist.destroy_process_group()
 

@@ -34,19 +34,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, *, head_dim: int | None = None,
+                     reduce_scores=None) -> torch.Tensor:
     """Single-step cached attention.
 
     q: (B, 1, H, D); caches: (B, S, KV, D); pos: () or (B,) — keys at
     index > pos are masked out (the row at ``pos``, just written, is
     included).  Scores and softmax in float32.
+
+    With D a shard of the heads' columns (tensor parallelism over
+    ``head_dim``), ``head_dim`` is the whole heads' size, which the
+    scores' scale ``1 / sqrt(head_dim)`` reads, and ``reduce_scores``
+    sums the float32 partial scores over the shards before the scale;
+    the output is this shard's columns.
     """
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(head_dim or d)
     qg = q.reshape(b, kv, g, d).float()
-    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    if reduce_scores is not None:
+        scores = reduce_scores(scores)
+    scores = scores * scale
     kpos = torch.arange(s, device=q.device)
     valid = kpos[None, :] <= pos.reshape(-1, 1)                  # (B or 1, S)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)

@@ -14,7 +14,10 @@ stands: the attention batch layout at the attention's boundary
 without active rules and a mesh returns its input unchanged, so every
 one-device path keeps its bits.  The others (``lc``) are dropped: the
 port places state, not activations
-(:func:`repro_torch.training.step.make_sharded_train_step`).  Each
+(:func:`repro_torch.training.step.make_sharded_train_step`), and a dense
+block under tensor parallelism (``tp``, a
+:class:`~repro_torch.distributed.sharding.ModelSplit`) computes the
+rank's share of what GSPMD splits under them.  Each
 ``*_axes`` function gives its block's leaves' logical axes, keyed as the
 block's parameters, as the reference's does.
 The float32 leaves of the reference (``moe.w_router``, the Mamba
@@ -41,7 +44,14 @@ from torch import nn
 from repro_torch.distributed.sharding import attn_batch_split
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, gelu_mlp, layer_norm, rms_norm, swiglu_mlp
+from repro_torch.models.layers import (
+    apply_rope,
+    apply_rope_columns,
+    gelu_mlp,
+    layer_norm,
+    rms_norm,
+    swiglu_mlp,
+)
 from repro_torch.models.moe import moe_ffn, moe_ffn_grouped
 from repro_torch.models.ssm import mamba2_decode, mamba2_forward
 
@@ -188,12 +198,26 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, heads * dh)).reshape(*x.shape[:-1], heads, dh)
 
 
-def _qkv(x: torch.Tensor, p: Attention, cfg: ModelConfig):
+def _qkv(x: torch.Tensor, p: Attention, cfg: ModelConfig, *, whole=None, cols=None):
+    """q, k and v of ``x``.  ``whole`` (a head_dim shard to whole heads)
+    is applied to each projection before the q/k norms; with ``cols`` (a
+    :class:`~repro_torch.distributed.sharding.ModelSplit` in head_dim
+    mode) the projections stay the rank's columns, whose norms take the
+    mean square over ``"model"``."""
     q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
+    if whole is not None:
+        q, k, v = whole(q), whole(k), whole(v)
     if cfg.qk_norm:
         # rms_norm over head_dim per head, before RoPE
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q_norm, k_norm, mean_over = p.q_norm, p.k_norm, None
+        if cols is not None:
+            q_norm, k_norm = cols.head_dim_shard(q_norm), cols.head_dim_shard(k_norm)
+
+            def mean_over(var):
+                return cols.reduce(var) / cols.count
+
+        q = rms_norm(q, q_norm, cfg.norm_eps, mean_over=mean_over)
+        k = rms_norm(k, k_norm, cfg.norm_eps, mean_over=mean_over)
     return q, k, v
 
 
@@ -202,8 +226,34 @@ def _out(o: torch.Tensor, p: Attention) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], h * dh) @ p.wo.reshape(h * dh, d)
 
 
+def _leaves(p: Attention) -> dict:
+    return {n: getattr(p, n) for n in ("wq", "wk", "wv", "wo", "q_norm", "k_norm")}
+
+
+def _split_leaves(p: Attention, tp) -> types.SimpleNamespace:
+    """The attention's leaves as a rank uses them under tensor parallelism
+    ``tp`` (a :class:`~repro_torch.distributed.sharding.ModelSplit` whose
+    attention is split): in heads mode the kv heads its q heads read, of
+    K/V projections held whole; the q/k norms, of which each rank uses a
+    part, with their gradients summed over ``"model"``."""
+    leaves = _leaves(p)
+    if tp.attn == "heads":
+        leaves["wk"], leaves["wv"] = tp.take_kv(p.wk), tp.take_kv(p.wv)
+    for n in ("q_norm", "k_norm"):
+        if leaves[n] is not None:
+            leaves[n] = tp.enter(leaves[n])
+    return types.SimpleNamespace(**leaves)
+
+
+def _partial(tp) -> bool:
+    """Whether the attention's output is a rank's partial sum under
+    tensor parallelism ``tp`` (None on one device)."""
+    return tp is not None and tp.attn_partial
+
+
 def attn_forward(x: torch.Tensor, p: Attention, cfg: ModelConfig, *,
-                 positions: torch.Tensor, causal: bool = True, use_rope: bool = True):
+                 positions: torch.Tensor, causal: bool = True, use_rope: bool = True,
+                 tp=None):
     """Full-sequence attention.  Returns ``(out, (k, v))`` — k/v are the
     cache entries a prefill caller stores.
 
@@ -212,17 +262,29 @@ def attn_forward(x: torch.Tensor, p: Attention, cfg: ModelConfig, *,
     only a train batch takes (no cell's prefill batch covers the data and
     model axes), the attention runs on this rank's share of the rows,
     ``out`` is gathered over the layout's axis and k/v, which no training
-    caller keeps, are None."""
+    caller keeps, are None.
+
+    Under tensor parallelism ``tp`` whose attention is split (``x`` the
+    region's input, after f), ``out`` is this rank's partial sum over
+    ``"model"``: in heads mode its q heads over the kv heads they read
+    (k/v those kv heads); in head_dim mode q, k and v are projected to
+    the rank's columns and all-gathered to whole heads, the attention
+    runs on every head (replicated over ``"model"``) and the rank keeps
+    its columns of the output for ``wo`` (k/v whole)."""
     split = attn_batch_split()
+    head_dim = _partial(tp) and tp.attn == "head_dim"
     if split is not None:
+        if _partial(tp):
+            raise ValueError("the attention batch layout over \"model\" with the attention's "
+                             "leaves split there: its rules place them off the axis")
         if not torch.is_grad_enabled():
             raise NotImplementedError("the attention batch layout outside training: a "
                                       "prefill would need its k and v gathered")
-        x, positions, leaves = split.enter(
-            x, positions, {n: getattr(p, n) for n in ("wq", "wk", "wv", "wo", "q_norm",
-                                                      "k_norm")})
+        x, positions, leaves = split.enter(x, positions, _leaves(p))
         p = types.SimpleNamespace(**leaves)
-    q, k, v = _qkv(x, p, cfg)
+    elif _partial(tp):
+        p = _split_leaves(p, tp)
+    q, k, v = _qkv(x, p, cfg, whole=tp.gather_head_dim if head_dim else None)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -230,6 +292,8 @@ def attn_forward(x: torch.Tensor, p: Attention, cfg: ModelConfig, *,
         q, k, v, causal=causal, window=cfg.sliding_window,
         p_dtype=torch.bfloat16 if cfg.attn_p_bf16 else None,
     )
+    if head_dim:
+        o = tp.head_dim_shard(o)
     if split is None:
         return _out(o, p), (k, v)
     return split.exit(_out(o, p)), None
@@ -254,18 +318,43 @@ def _cache_row_write(cache: torch.Tensor, new: torch.Tensor, pos_vec: torch.Tens
     cache[torch.arange(b, device=cache.device), pos_vec] = new[:, 0].to(cache.dtype)
 
 
+def _rope_decode(q: torch.Tensor, k: torch.Tensor, pos_vec: torch.Tensor, cfg: ModelConfig,
+                 tp=None):
+    """RoPE of one decode step's q and k; under tensor parallelism ``tp``
+    over more than one rank, each column's partner (``head_dim / 2`` away)
+    comes from the rank that holds it."""
+    if tp is None or tp.count == 1:
+        return (apply_rope(q, pos_vec[:, None], cfg.rope_theta),
+                apply_rope(k, pos_vec[:, None], cfg.rope_theta))
+    h, first = q.shape[2], tp.index * q.shape[-1]
+    partner = tp.rope_partner(torch.cat([q, k], dim=2))
+    return tuple(apply_rope_columns(x, part, pos_vec[:, None], cfg.rope_theta, tp.head_dim, first)
+                 for x, part in ((q, partner[:, :, :h]), (k, partner[:, :, h:])))
+
+
 def attn_decode(x: torch.Tensor, p: Attention, cfg: ModelConfig, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, pos) -> torch.Tensor:
+                cache_v: torch.Tensor, pos, *, tp=None) -> torch.Tensor:
     """One-token step; cache_k/v (B, S, KV, dh) are updated in place at
-    each sequence's position; pos: () or (B,)."""
+    each sequence's position; pos: () or (B,).
+
+    Under tensor parallelism ``tp`` in head_dim mode (the decode rules'),
+    the rank's share: q, k and v are its columns of every head, the cache
+    its columns (B, S, KV, dh / m); the q/k norms' mean squares and the
+    float32 scores are summed over ``"model"``, RoPE takes the paired
+    columns from the rank that holds them, the scale is the whole head's,
+    and the output is the partial sum of ``wo``'s rows."""
+    cols = tp if _partial(tp) else None
+    if cols is not None and cols.attn != "head_dim":
+        raise NotImplementedError("a decode step with q heads on \"model\": the decode "
+                                  "rules place head_dim there")
     b = x.shape[0]
-    q, k, v = _qkv(x, p, cfg)
+    q, k, v = _qkv(x, p, cfg, cols=cols)
     pos_vec = pos_vector(pos, b, x.device)
-    q = apply_rope(q, pos_vec[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos_vec[:, None], cfg.rope_theta)
+    q, k = _rope_decode(q, k, pos_vec, cfg, cols)
     _cache_row_write(cache_k, k, pos_vec)
     _cache_row_write(cache_v, v, pos_vec)
-    o = attn_lib.decode_attention(q, cache_k, cache_v, pos_vec)
+    o = attn_lib.decode_attention(q, cache_k, cache_v, pos_vec, head_dim=cfg.head_dim,
+                                  reduce_scores=None if cols is None else cols.reduce)
     return _out(o, p)
 
 
@@ -301,26 +390,54 @@ def dense_block_axes(cfg: ModelConfig) -> dict:
 
 
 def dense_block_forward(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig,
-                        positions: torch.Tensor, *, causal: bool = True):
+                        positions: torch.Tensor, *, causal: bool = True, tp=None):
+    """``(x + block(x), (k, v))``.  Under tensor parallelism ``tp`` (a
+    :class:`~repro_torch.distributed.sharding.ModelSplit`) the MLP is
+    Megatron's, f at its entry, ``w_gate``/``w_up`` column- and ``w_down``
+    row-parallel, g at its exit, and so is a split attention (``wo``
+    row-parallel); a parallel block's two branches share one f and one
+    g."""
+    return _dense_block(x, p, cfg, tp, lambda h: attn_forward(
+        h, p.attn, cfg, positions=positions, causal=causal, tp=tp))
+
+
+def _dense_block(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig, tp, attention):
+    """A dense block, or a rank's share of it under tensor parallelism
+    ``tp``; ``attention(h)`` returns the attention's ``(out, kv)``, a
+    partial sum where the attention is split.  Without ``tp``, f and g
+    are the identity and the sums are the one-device block's."""
+    def f(h):
+        return h if tp is None else tp.enter(h)
+
+    def g(h):
+        return h if tp is None else tp.exit(h)
+
     if cfg.parallel_block:
         h = rms_norm(x, p.ln1, cfg.norm_eps)
-        a, kvc = attn_forward(h, p.attn, cfg, positions=positions, causal=causal)
-        return x + a + swiglu_mlp(h, p.mlp), kvc
-    a, kvc = attn_forward(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg,
-                          positions=positions, causal=causal)
-    x = x + a
-    return x + swiglu_mlp(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp), kvc
+        hf = f(h)
+        if _partial(tp):
+            a, kvc = attention(hf)
+            return x + g(a + swiglu_mlp(hf, p.mlp)), kvc
+        a, kvc = attention(h)
+        return x + a + g(swiglu_mlp(hf, p.mlp)), kvc
+    # the norm's output is not held past the attention
+    if _partial(tp):
+        a, kvc = attention(f(rms_norm(x, p.ln1, cfg.norm_eps)))
+        x = x + g(a)
+    else:
+        a, kvc = attention(rms_norm(x, p.ln1, cfg.norm_eps))
+        x = x + a
+    return x + g(swiglu_mlp(f(rms_norm(x, p.ln2, cfg.norm_eps)), p.mlp)), kvc
 
 
 def dense_block_decode(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig,
-                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos) -> torch.Tensor:
-    """One token through one block; the caches are updated in place."""
-    if cfg.parallel_block:
-        h = rms_norm(x, p.ln1, cfg.norm_eps)
-        a = attn_decode(h, p.attn, cfg, cache_k, cache_v, pos)
-        return x + a + swiglu_mlp(h, p.mlp)
-    x = x + attn_decode(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg, cache_k, cache_v, pos)
-    return x + swiglu_mlp(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp)
+                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos, *,
+                       tp=None) -> torch.Tensor:
+    """One token through one block; the caches are updated in place.
+    Under tensor parallelism ``tp``, the rank's share, as
+    :func:`dense_block_forward`'s."""
+    return _dense_block(x, p, cfg, tp, lambda h: (
+        attn_decode(h, p.attn, cfg, cache_k, cache_v, pos, tp=tp), None))[0]
 
 
 # --------------------------------------------------------------------------

@@ -13,9 +13,16 @@ import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
+             mean_over=None) -> torch.Tensor:
+    """RMS norm over the last axis in float32.  ``mean_over`` takes the
+    mean square of a last axis split into equal shards (tensor
+    parallelism over ``head_dim``): it averages the shards' mean squares,
+    and ``scale`` is this shard's."""
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if mean_over is not None:
+        var = mean_over(var)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -47,6 +54,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope_columns(x: torch.Tensor, partner: torch.Tensor, positions: torch.Tensor,
+                       theta: float, d_head: int, first: int) -> torch.Tensor:
+    """:func:`apply_rope` on columns ``first .. first + c`` of heads of
+    ``d_head`` columns (``x`` (..., seq, heads, c), a ``head_dim`` shard
+    within one half), given ``partner``, the columns ``d_head / 2`` away
+    that the half-split rotation pairs with them: each element is the
+    one-device rotation's."""
+    half, c = d_head // 2, x.shape[-1]
+    if (first % half) + c > half:
+        raise ValueError(f"columns {first}..{first + c} straddle the halves of {d_head}")
+    freqs = rope_frequencies(d_head, theta, device=x.device)[first % half:first % half + c]
+    angles = positions[..., None].float() * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x32, p32 = x.float(), partner.float()
+    out = x32 * cos - p32 * sin if first < half else x32 * cos + p32 * sin
+    return out.to(x.dtype)
 
 
 def swiglu_mlp(x: torch.Tensor, p) -> torch.Tensor:

@@ -65,6 +65,8 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import check_chunk
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the families whose sharded steps are tensor parallel over "model"
+TENSOR_PARALLEL_FAMILIES = ("dense",)
 # the subtrees the reference stacks on a leading layer axis; here each
 # layer is its own module, named ``blocks.{i}`` and so on
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -88,6 +90,9 @@ class LanguageModel(nn.Module):
         self.enc_blocks = None if enc_blocks is None else nn.ModuleList(enc_blocks)
         self.dec_blocks = None if dec_blocks is None else nn.ModuleList(dec_blocks)
         self.enc_final_norm = None if enc_final_norm is None else B._param(enc_final_norm)
+        # a rank's tensor parallelism over "model" (gather_params), None on
+        # one device
+        self.split = None
 
 
 # the dense decoder's name since the first LM slice
@@ -210,21 +215,88 @@ def cache_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
     return {"k": attn, "v": attn, "xk": attn, "xv": attn}
 
 
+def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
+    """The rank's :class:`~repro_torch.distributed.sharding.ModelSplit`
+    from how the rules placed the leaves on the mesh (``wq``'s dimension
+    on ``"model"`` gives the attention's mode, ``wk``'s whether kv heads
+    are split) and its local shards' sizes; None on a mesh without a
+    ``"model"`` axis."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import ModelSplit
+
+    wq = sharded["blocks.0.attn.wq"]
+    mesh = wq.device_mesh
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    axis = names.index("model")
+
+    def model_dim(name):
+        p = sharded[name].placements[axis]
+        return p.dim if isinstance(p, Shard) else None
+
+    attn = {1: "heads", 2: "head_dim", None: "replicated"}[model_dim("blocks.0.attn.wq")]
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    count, index = mesh.size(axis), mesh.get_local_rank("model")
+    heads, kv_heads, kv_first, sliced = h, kv, 0, False
+    if attn == "heads":
+        heads = local["blocks.0.attn.wq"].shape[1]
+        g = h // kv
+        if model_dim("blocks.0.attn.wk") == 1:
+            kv_heads = local["blocks.0.attn.wk"].shape[1]
+            kv_first = index * kv_heads
+        elif g % heads == 0 or heads % g == 0:
+            kv_heads, kv_first, sliced = max(1, heads // g), index * heads // g, True
+        else:
+            raise NotImplementedError(f"{heads} q heads a rank over kv groups of {g}: a rank's "
+                                      "q heads must read whole kv heads")
+    return ModelSplit(group=mesh.get_group("model"), index=index, count=count, attn=attn,
+                      head_dim=cfg.head_dim, heads=heads, kv_heads=kv_heads, kv_first=kv_first,
+                      kv_sliced=sliced, q_per_kv=h // kv,
+                      ff=local["blocks.0.mlp.w_gate"].shape[1], vocab=local["embed"].shape[0])
+
+
+def tensor_parallel(cfg: ModelConfig) -> bool:
+    """Whether the sharded steps of ``cfg`` split its compute over
+    ``"model"`` (:class:`~repro_torch.distributed.sharding.ModelSplit`):
+    the dense family's do; the others' compute is replicated there."""
+    return family_of(cfg) in TENSOR_PARALLEL_FAMILIES
+
+
 def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None = None
                   ) -> LanguageModel:
     """A model whose parameters are the DTensors of ``sharded`` (keyed by
     state-dict name) gathered whole: a collective over their mesh, which
-    every member rank calls.  ``model`` (one from an earlier call) is
-    reused; a new one is built on the shards' device, trainable, and a
-    counter of the step (:mod:`repro_torch.roofline.cost`) does not count
-    the building."""
+    every member rank calls.  A model that is :func:`tensor_parallel`
+    gathers each leaf over every mesh axis but ``"model"`` and keeps its
+    ``"model"`` shard, and its ``split`` says how the rank computes its
+    share (:func:`_model_split`).  ``model`` (one from an earlier call)
+    is reused; a new one is built on the shards' device, trainable,
+    holding nothing until its leaves are gathered, and a counter of the
+    step (:mod:`repro_torch.roofline.cost`) does not count the
+    building."""
+    from torch.distributed.tensor import Replicate
+
+    split = tensor_parallel(cfg)
     if model is None:
         dev = next(iter(sharded.values())).to_local().device
         with uncounted():
-            model = init_params(cfg, None, device="meta").to_empty(device=dev)
-        model.requires_grad_(True)
+            model = init_params(cfg, None, device="meta")
+            for module in model.modules():
+                for name, p in list(module.named_parameters(recurse=False)):
+                    setattr(module, name, nn.Parameter(torch.empty(0, dtype=p.dtype, device=dev)))
+    local = {}
     for n, p in model.named_parameters():
-        p.data = sharded[n].full_tensor()
+        leaf = sharded[n]
+        if split:
+            keep = [pl if a == "model" else Replicate()
+                    for a, pl in zip(leaf.device_mesh.mesh_dim_names, leaf.placements)]
+            local[n] = leaf.redistribute(leaf.device_mesh, keep).to_local()
+        else:
+            local[n] = leaf.full_tensor()
+        p.data = local[n]
+    model.split = _model_split(cfg, sharded, local) if split else None
     return model
 
 
@@ -238,9 +310,21 @@ def _device_of(params: LanguageModel) -> torch.device:
     return params.embed.device
 
 
+def _embed(params: LanguageModel, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings; under tensor parallelism a lookup in the
+    rank's vocab rows, summed over ``"model"``."""
+    if params.split is not None:
+        return params.split.embed(tokens, params.embed)
+    return embed_tokens(tokens, params.embed)
+
+
 def _logits(params: LanguageModel, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocab; under tensor parallelism the rank's
+    vocab columns (the input enters through f)."""
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     table = params.embed.T if cfg.tie_embeddings else params.lm_head
+    if params.split is not None:
+        x = params.split.enter(x)
     return unembed(x, table)
 
 
@@ -292,20 +376,24 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
     Runs under autograd: every attention goes through K8 and its
     hand-written backward on the card.  The aux loss is the MoE's
     load-balancing loss summed over layers (zero for the other families).
+    Under tensor parallelism (``params.split``, the dense family) the
+    logits are the rank's vocab columns.
     """
     family = family_of(cfg)
     dev = _device_of(params)
     tokens = _tokens(batch["tokens"], dev)
     bsz, s_text = tokens.shape
-    x = embed_tokens(tokens, params.embed)
+    x = _embed(params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     if family == "vlm":
         x = torch.cat([_embeddings(batch["patches"], dev, x.dtype), x], dim=1)
     s_total = x.shape[1]
     positions = torch.arange(s_total, device=dev).expand(bsz, s_total)
 
+    split = params.split
+
     def dense(p):
-        return _remat(lambda h: B.dense_block_forward(h, p, cfg, positions)[0], cfg)
+        return _remat(lambda h: B.dense_block_forward(h, p, cfg, positions, tp=split)[0], cfg)
 
     def mamba(p):
         return _remat(lambda h: B.mamba_block_forward(h, p, cfg)[0], cfg)
@@ -416,7 +504,8 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
     tokens = _tokens(tokens, dev)
     bsz, s = tokens.shape
     rows = slice(slot, slot + bsz)
-    x = embed_tokens(tokens, params.embed)
+    split = params.split
+    x = _embed(params, tokens)
     if family == "vlm":
         if patches is None:
             raise ValueError("a vlm prefill needs patches (B, n_patches, d_model)")
@@ -436,7 +525,7 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
 
     def put_kv(i, k, v):
         for name, new in (("k", k), ("v", v)):
-            cache[name][i, rows, :s_total] = new
+            cache[name][i, rows, :s_total] = new if split is None else split.cache_columns(new)
             # zero_, not "= 0": a scalar setitem is a fill_ on the card but
             # a copy_ of a scalar tensor on meta, which the dry run counts
             cache[name][i, rows, s_total:].zero_()
@@ -449,7 +538,7 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
 
     if family in ("dense", "vlm"):
         for i, p in enumerate(params.blocks):
-            x, (k, v) = B.dense_block_forward(x, p, cfg, positions)
+            x, (k, v) = B.dense_block_forward(x, p, cfg, positions, tp=split)
             put_kv(i, k, v)
     elif family == "moe":
         for i, p in enumerate(params.blocks):
@@ -496,13 +585,49 @@ def prefill(params: LanguageModel, batch: dict, cfg: ModelConfig, max_seq: int):
 
     ``batch["tokens"]`` (B, S), with ``batch["patches"]`` for a vlm and
     ``batch["frames"]`` for an encdec.  Returns (last-token logits
-    (B, vocab_padded), cache padded to ``max_seq``).
+    (B, vocab_padded), cache padded to ``max_seq``).  Under tensor
+    parallelism (``params.split``, the dense family) the logits are the
+    rank's vocab columns and the cache its share in the decode rules'
+    layout (:func:`_split_prefill_cache`).
     """
     tokens = batch["tokens"]
-    cache = init_decode_cache(cfg, len(tokens), max_seq, device=_device_of(params))
+    split, dev = params.split, _device_of(params)
+    send = None
+    if split is None:
+        cache = init_decode_cache(cfg, len(tokens), max_seq, device=dev)
+    else:
+        cache, send = _split_prefill_cache(split, cfg, len(tokens), max_seq, dev)
     logits = prefill_into(params, tokens, cfg, cache, patches=batch.get("patches"),
                           frames=batch.get("frames"))
+    if send is not None:
+        cache = dict(zip(("k", "v"), split.heads_to_head_dim(send, cfg.n_kv_heads)))
     return logits, cache
+
+
+def _split_prefill_cache(split, cfg: ModelConfig, batch: int, max_seq: int, dev):
+    """A tensor-parallel rank's prefill cache and, in heads mode, the
+    buffer that one all-to-all sends on (None otherwise).  The decode
+    rules' layout is every kv head and the rank's ``head_dim`` columns
+    (its whole heads where the axis does not divide ``head_dim``).  In
+    heads mode the rank holds only its kv heads, whole: its cache is a
+    view (n_layers, B, max_seq, its kv heads, ranks, columns) of the
+    buffer (ranks, 2, n_layers, B, max_seq, its kv heads, columns), which
+    :meth:`~repro_torch.distributed.sharding.ModelSplit.heads_to_head_dim`
+    turns into the decode layout; in head_dim mode (k/v gathered whole)
+    and with replicated attention the rank writes its columns.  Every row
+    is written by :func:`prefill_into`."""
+    kv, dh, m = cfg.n_kv_heads, cfg.head_dim, split.count
+    c = dh // m if split.shards_head_dim else dh
+    dt = cfg.act_dtype()
+    if split.attn != "heads":
+        return {n: torch.empty((cfg.n_layers, batch, max_seq, kv, c), dtype=dt, device=dev)
+                for n in ("k", "v")}, None
+    if not split.shards_head_dim:
+        raise NotImplementedError(f"a heads-mode prefill whose cache keeps whole heads: "
+                                  f"head_dim {dh} over {m} ranks")
+    send = torch.empty((m, 2, cfg.n_layers, batch, max_seq, split.kv_heads, c), dtype=dt,
+                       device=dev)
+    return {"k": send[:, 0].movedim(0, -2), "v": send[:, 1].movedim(0, -2)}, send
 
 
 @torch.inference_mode()
@@ -519,7 +644,8 @@ def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig
     dev = _device_of(params)
     token = _tokens(token, dev)
     pos_vec = B.pos_vector(pos, token.shape[0], dev)
-    x = embed_tokens(token, params.embed)
+    x = _embed(params, token)
+    split = params.split
 
     def mamba(i, x):
         x, cache["conv"][i], cache["ssm"][i] = B.mamba_block_decode(
@@ -528,7 +654,7 @@ def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig
 
     if family in ("dense", "vlm"):
         for i, p in enumerate(params.blocks):
-            x = B.dense_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec)
+            x = B.dense_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec, tp=split)
     elif family == "moe":
         for i, p in enumerate(params.blocks):
             x = B.moe_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec)

@@ -26,11 +26,12 @@ class Optimizer(NamedTuple):
     update: Callable       # (grads, state, params) -> (updates, state)
 
 
-def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: dict[str, torch.Tensor], reduce=None) -> torch.Tensor:
     """The float32 L2 norm of every leaf together (the sum over leaves in
-    dict order)."""
-    g32 = (g.float() for g in grads.values())
-    return torch.sqrt(sum(torch.sum(g * g) for g in g32))
+    dict order).  ``reduce`` takes the leaves' sums of squares and returns
+    the whole gradients' (the leaves being a rank's shards)."""
+    sums = [torch.sum(g * g) for g in (g.float() for g in grads.values())]
+    return torch.sqrt(sum(sums if reduce is None else reduce(sums)))
 
 
 def clip_by_global_norm(grads: dict[str, torch.Tensor], grad_clip: float,

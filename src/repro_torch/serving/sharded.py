@@ -1,19 +1,26 @@
 """Prefill and decode on a mesh, in the style of the sharded train step
 (:func:`repro_torch.training.step.make_sharded_train_step`): FSDP storage,
-replicated compute over ``"model"``.
+and for the dense family tensor parallelism over ``"model"``.
 
 The reference runs ``prefill`` and ``decode_step`` under ``jit`` with
 parameter, batch and cache shardings, and GSPMD splits the work.  Here
 the parameters are DTensors placed by ``param_specs`` and a decode
-cache by ``cache_logical_axes``; each rank gathers every parameter whole
-and, for decode, its rows of the cache whole over ``"model"``, runs the
-unchanged one-device :func:`~repro_torch.models.model.prefill` or
+cache by ``cache_logical_axes``, and each rank runs
+:func:`~repro_torch.models.model.prefill` or
 :func:`~repro_torch.models.model.decode_step` on its rows of the batch
-(split over the batch rule's axes), and keeps of the results what the
-reference's ``out_shardings`` give it (``repro/launch/dryrun.py:165,
-180``): logits sharded as ``(batch, "model")``, the cache by its logical
-axes, local slices without a collective.  K8 sees plain tensors only.
-The dry run traces these steps on ``meta`` (:mod:`repro_torch.launch.dryrun`).
+(split over the batch rule's axes).  A dense model's rank gathers each
+leaf over the batch axes alone and computes its ``"model"`` share
+(:func:`~repro_torch.models.model.gather_params`): prefill in heads mode
+(its q heads) emits the cache by the decode rules, every kv head and its
+``head_dim`` columns, in one all-to-all; decode in head_dim mode works on
+its columns of the cache, which it keeps, with no gather.  The other
+families gather every parameter whole and, for decode, their rows of the
+cache whole over ``"model"``, and compute replicated there.  Each rank
+keeps of the results what the reference's ``out_shardings`` give it
+(``repro/launch/dryrun.py:165, 180``): logits sharded as ``(batch,
+"model")``, the cache by its logical axes, local slices without a
+collective.  K8 sees plain tensors only.  The dry run traces these steps
+on ``meta`` (:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -36,21 +43,35 @@ from repro_torch.models.model import (
 CACHE_BATCH_DIM = 1
 
 
-def _cache_rows(cache: dict, mesh, axes) -> dict:
+def _cache_rows(cache: dict, mesh, axes, keep_model: bool = False) -> dict:
     """This rank's rows of every cache leaf (DTensors placed by their
-    logical axes), gathered whole over the other mesh axes."""
+    logical axes), gathered whole over the other mesh axes, or with
+    ``keep_model`` over the others but ``"model"``, whose shard each rank
+    keeps."""
     from torch.distributed.tensor import Replicate, Shard
 
-    held = [Shard(CACHE_BATCH_DIM) if a in axes else Replicate() for a in mesh.mesh_dim_names]
-    return {n: c.redistribute(mesh, held).to_local() for n, c in cache.items()}
+    def held(c):
+        return [Shard(CACHE_BATCH_DIM) if a in axes else p if keep_model and a == "model"
+                else Replicate() for a, p in zip(mesh.mesh_dim_names, c.placements)]
+
+    return {n: c.redistribute(mesh, held(c)).to_local() for n, c in cache.items()}
 
 
 def _place_outputs(cfg: ModelConfig, mesh, rules: Mapping, cache_rules: Mapping, logits,
-                   cache: dict):
+                   cache: dict, split=None):
+    """The step's logits and cache as the reference's ``out_shardings``
+    place them, from this rank's rows (under tensor parallelism ``split``
+    its vocab columns of the logits, and its ``head_dim`` columns of the
+    cache where the cache rules put head_dim on ``"model"``)."""
     axes = rule_axes(rules["batch"])
     specs = param_specs(cache_logical_axes(cfg), cache_rules)
-    return (place_rows(logits, mesh, axes, 0, (rules["batch"], "model")),
-            {n: place_rows(c, mesh, axes, CACHE_BATCH_DIM, specs[n]) for n, c in cache.items()})
+    vocab_dim = cache_dim = None
+    if split is not None:
+        vocab_dim = 1
+        cache_dim = 4 if split.shards_head_dim else None
+    return (place_rows(logits, mesh, axes, 0, (rules["batch"], "model"), vocab_dim),
+            {n: place_rows(c, mesh, axes, CACHE_BATCH_DIM, specs[n], cache_dim)
+             for n, c in cache.items()})
 
 
 def make_sharded_prefill(cfg: ModelConfig, mesh, rules: Mapping, cache_rules: Mapping,
@@ -69,7 +90,7 @@ def make_sharded_prefill(cfg: ModelConfig, mesh, rules: Mapping, cache_rules: Ma
         logits, cache = prefill(model, {k: rank_rows(x, mesh, axes) for k, x in batch.items()},
                                 cfg, max_seq)
         release_params(model)
-        return _place_outputs(cfg, mesh, rules, cache_rules, logits, cache)
+        return _place_outputs(cfg, mesh, rules, cache_rules, logits, cache, model.split)
 
     return prefill_step
 
@@ -78,9 +99,12 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Mapping):
     """``decode(params, token, pos, cache) -> (logits, cache)`` on ``mesh``:
     ``params`` and ``cache`` are DTensors (the cache placed by
     ``cache_logical_axes`` under ``rules``, the decode rules), ``token``
-    the global (B, 1) tokens, ``pos`` replicated.  Each rank gathers its
-    cache rows over ``"model"``, steps them, and keeps its shard of the
-    updated cache (a new DTensor; the input's shards are not written)."""
+    the global (B, 1) tokens, ``pos`` replicated.  Each rank steps its
+    rows of the cache (a dense model's rank its ``head_dim`` columns of
+    them; another family's gathered whole over ``"model"``) and keeps its
+    shard of the updated cache (a new DTensor; the input's shards of a
+    replicated rank are not written, a dense rank's are written in
+    place)."""
     axes = rule_axes(rules["batch"])
     model = None
 
@@ -88,8 +112,8 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Mapping):
         nonlocal model
         model = gather_params(cfg, params, model)
         logits, rows = decode_step(model, rank_rows(token, mesh, axes), pos,
-                                   _cache_rows(cache, mesh, axes), cfg)
+                                   _cache_rows(cache, mesh, axes, model.split is not None), cfg)
         release_params(model)
-        return _place_outputs(cfg, mesh, rules, rules, logits, rows)
+        return _place_outputs(cfg, mesh, rules, rules, logits, rows, model.split)
 
     return decode

@@ -14,17 +14,24 @@ and its hand-written backward on the card.
 ``jit`` with parameter shardings: FSDP storage and data-parallel compute.
 Parameters and AdamW moments live as DTensors placed by
 ``param_specs(param_logical_axes(cfg), rules)`` (:func:`shard_train_state`).
-Each rank gathers every leaf whole and runs the unchanged one-device
-forward and backward on its rows of the batch; the gradients are averaged
-over the mesh's batch axes (every axis but ``"model"``, weighted by
-each rank's token count) with ``all_reduce``;
-AdamW's global-norm clip is taken over the whole averaged gradients, as
-on one device; and each rank updates its own shards.  The ``"model"``
-axis places state only: its ranks compute the same thing, except inside
+Each rank takes its rows of the batch, split over the mesh's batch axes
+(every axis but ``"model"``).  The dense family runs tensor parallel over
+``"model"``, as GSPMD splits the reference's step under its rules: each
+leaf is gathered over the batch axes alone and keeps its ``"model"``
+shard (its q heads or head_dim columns, ``ff`` columns, vocab rows:
+:func:`~repro_torch.models.model.gather_params`), and the rank computes
+its share, Megatron's regions meeting in all-reduces over ``"model"``
+(:class:`~repro_torch.distributed.sharding.ModelSplit`), the loss
+vocab-parallel.  The other families gather every leaf whole and run the
+one-device forward and backward, replicated over ``"model"`` but inside
 attention under the attention batch layout of the active rules
-(:func:`repro_torch.distributed.sharding.attn_batch_split`).  So the
-step's arithmetic is the one-device step's but for the order of the
-batch sums.
+(:func:`repro_torch.distributed.sharding.attn_batch_split`).  The
+gradients, whole or a rank's ``"model"`` shards, are averaged over the
+batch axes (weighted by each rank's token count) with ``all_reduce``;
+AdamW's global-norm clip is taken over the whole averaged gradients, a
+sharded leaf's sum of squares summed over ``"model"``; and each rank
+updates its own shards.  So the step's arithmetic is the one-device
+step's but for the order of the sums (bit for bit on a mesh of one).
 """
 
 from __future__ import annotations
@@ -74,7 +81,8 @@ def loss_and_grads(model: torch.nn.Module, batch: dict, cfg: ModelConfig, aux_we
     model.zero_grad(set_to_none=True)
     with torch.enable_grad():
         logits, aux = forward_train(model, batch, cfg)
-        ce, metrics = cross_entropy_loss(logits, batch["targets"], cfg.vocab)
+        ce, metrics = cross_entropy_loss(logits, batch["targets"], cfg.vocab,
+                                         split=getattr(model, "split", None))
         loss = ce + aux_weight * aux
         metrics["aux"] = aux
         metrics["loss"] = loss
@@ -157,13 +165,36 @@ def _like(local: torch.Tensor, like):
                               shape=like.shape, stride=like.stride())
 
 
-def _local_shard(full: torch.Tensor, like) -> torch.Tensor:
-    """This rank's shard of ``full``, placed as ``like``: a local slice."""
+def _local_shard(full: torch.Tensor, like, model_shard: bool = False) -> torch.Tensor:
+    """This rank's shard of ``full``, placed as ``like``: a local slice.
+    ``full`` is whole, or with ``model_shard`` whole but for its
+    ``"model"`` shard (a tensor-parallel gradient)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     mesh = like.device_mesh
-    whole = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    held = [p if model_shard and a == "model" else Replicate()
+            for a, p in zip(mesh.mesh_dim_names, like.placements)]
+    whole = DTensor.from_local(full, mesh, held, run_check=False, shape=like.shape,
+                               stride=like.stride())
     return whole.redistribute(mesh, like.placements).to_local()
+
+
+def _model_sums(split, on_model: list):
+    """:func:`~repro_torch.optim.adamw.global_norm`'s ``reduce`` for
+    gradients held as ``"model"`` shards (the leaves where ``on_model``
+    is true) or whole: each sharded leaf's sum of squares summed over
+    ``"model"``, a whole one counted once."""
+    def reduce(sums: list) -> list:
+        return split.reduce(torch.stack([s if m or split.index == 0 else torch.zeros_like(s)
+                                         for s, m in zip(sums, on_model)])).unbind()
+
+    return reduce
+
+
+def _on_model(leaf) -> bool:
+    """Whether a DTensor is sharded over its mesh's ``"model"`` axis."""
+    names = leaf.device_mesh.mesh_dim_names
+    return "model" in names and leaf.placements[names.index("model")].is_shard()
 
 
 def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
@@ -174,7 +205,9 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
     mesh's batch axes (every axis but ``"model"``, in mesh order), whose
     product must divide the batch.  Metrics are the token-weighted means
     of the ranks' (``tokens`` their sum), equal on every rank; an MoE's
-    aux loss and capacity act per rank, as in data parallelism."""
+    aux loss and capacity act per rank, as in data parallelism.  A dense
+    model's step is tensor parallel over ``"model"`` (the module's
+    docstring)."""
     batch_axes = [a for a in mesh.mesh_dim_names if a != "model"]
     groups = [mesh.get_group(a) for a in batch_axes]
     model = None            # the model the step runs, built at the first call
@@ -188,6 +221,7 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
         nonlocal model
         sharded = state["params"]
         model = gather_params(cfg, sharded, model)
+        split = model.split
         metrics, grads = loss_and_grads(
             model, {k: rank_rows(x, mesh, batch_axes) for k, x in batch.items()}, cfg,
             AUX_WEIGHT)
@@ -199,13 +233,15 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
             reduce(g.mul_(w.to(g.dtype)))
         metrics = {k: total if k == "tokens" else reduce(v.detach() * w)
                    for k, v in metrics.items()}
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, None if split is None else
+                            _model_sums(split, [_on_model(sharded[n]) for n in grads]))
         opt = state["opt_state"]
         local = {n: p.to_local() for n, p in sharded.items()}
         local_state = {"mu": {n: m.to_local() for n, m in opt["mu"].items()},
                        "nu": {n: v.to_local() for n, v in opt["nu"].items()},
                        "step": opt["step"]}
-        local_grads = {n: _local_shard(grads.pop(n), sharded[n]) for n in list(grads)}
+        local_grads = {n: _local_shard(grads.pop(n), sharded[n], split is not None)
+                       for n in list(grads)}
         updates, local_state = optimizer.update(local_grads, local_state, local, gnorm=gnorm)
         del local_grads
         apply_updates(local, updates)

@@ -199,9 +199,11 @@ def rank_batch(arch: str, shape: str, mesh: str) -> int:
 
 
 @functools.cache
-def one_device_flops(arch: str, shape: str, batch: int) -> int:
+def one_device_flops(arch: str, shape: str, batch: int) -> tuple[int, int]:
+    """The one-device step's FLOPs at ``batch`` rows, and K8's share."""
     spec = dataclasses.replace(SHAPES[shape], global_batch=batch)
-    return dryrun.trace_cell(get_smoke_config(arch), spec)[0].flops
+    counter = dryrun.trace_cell(get_smoke_config(arch), spec)[0]
+    return counter.flops, sum(k["flops"] for k in counter.kernels.values())
 
 
 # the SSM families' train and prefill traces run a Python loop over chunks
@@ -217,9 +219,15 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
     """Every cell on both production meshes (the attention batch layout on,
     as the CLI runs them): the reference's status and skip reason,
     ``n_chips``, the result keys, collectives counted (every step gathers
-    its leaves), and a rank's FLOPs exactly the one-device step's at the
-    rank's rows (``global_batch`` over the batch rule's axes; AdamW adds
-    no products), wherever the layout leaves the rules as they were."""
+    its leaves), and, wherever the layout leaves the rules as they were, a
+    rank's FLOPs against the one-device step's at the rank's rows
+    (``global_batch`` over the batch rule's axes; AdamW adds no
+    products): equal for the families whose compute is replicated over
+    "model"; for the dense family, tensor parallel, the products' share
+    of them over the model axis (every product splits: the projections
+    and ``wo`` over head_dim at SMOKE's 4 heads, the MLP over ``ff``, the
+    logits over the vocab) and K8's whole, its q, k and v gathered (head
+    mode would split it too)."""
     res = sharded_cell(arch, shape, mesh)
     applies, reason = jshape_applicable(jget_smoke(arch), JSHAPES[shape])
     if not applies:
@@ -227,21 +235,40 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
                        "reason": reason}
         return
     assert res["status"] == "ok", res.get("traceback")
-    assert REF_KEYS | {"host_s", "kernels", "compute"} == set(res)
+    cfg = get_smoke_config(arch)
+    dense = cfg.family == "dense"
+    assert REF_KEYS | {"host_s", "kernels", "compute"} | ({"attention"} if dense else set()) \
+        == set(res)
     assert res["n_chips"] == res["roofline"]["n_chips"] == N_CHIPS[mesh]
-    assert res["compute"] == "replicated over model"
+    assert res["compute"] == ("tensor parallel over model" if dense else "replicated over model")
     coll = res["collectives"]
     assert jax_roofline_keys() <= set(res["roofline"])
     assert coll["all-gather"] > 0 and coll["total"] == sum(
         v for k, v in coll.items() if k != "total")
     assert res["roofline"]["collective_s"] == coll["total"] / analysis.H100_SXM.link_bw
     assert res["memory"]["temp_size_b"] > 0 and res["memory"]["argument_size_b"] > 0
-    cfg = get_smoke_config(arch)
     spec = SHAPES[shape]
     if (dryrun.cell_rules(cfg, spec, mesh, True) == dryrun.cell_rules(cfg, spec, mesh, False)
             and (arch, shape) not in SLOW_TRACES):
-        assert res["cost"]["flops"] == one_device_flops(arch, shape,
-                                                        rank_batch(arch, shape, mesh))
+        flops, k8 = one_device_flops(arch, shape, rank_batch(arch, shape, mesh))
+        if dense:
+            model = AXIS_SIZES["model"]
+            heads = res["attention"] == "heads"
+            assert res["attention"] in ("head_dim",
+                                        "replicated over model (head_dim: q, k, v gathered)")
+            # decode's attention over the cache, 4 B H D S a layer: the scores
+            # contract a rank's one head_dim column, an elementwise product
+            # and a sum (in the reference's count too), so only the values'
+            # product, half of it, stays a product
+            attn = 0
+            if spec.kind == "decode":
+                attn = (4 * rank_batch(arch, shape, mesh) * cfg.n_heads * cfg.head_dim
+                        * spec.seq_len * cfg.n_layers)
+                assert cfg.head_dim == model
+            assert (flops - k8 - attn) % model == 0
+            flops = ((flops - k8 - attn) // model + attn // 2 // model
+                     + (k8 // model if heads else k8))
+        assert res["cost"]["flops"] == flops
 
 
 def _gathers(shape, itemsize: int, spec, mesh_names) -> tuple[int, int]:
@@ -272,25 +299,66 @@ def _param_gathers(cfg, rules, mesh_names) -> tuple[int, int, int]:
     return calls, gathered, whole
 
 
+def _tp_param_gathers(cfg, rules) -> tuple[int, int, int]:
+    """A tensor-parallel step's gathers of the parameters over "data" alone
+    (each leaf keeps its "model" shard): their number and result bytes,
+    and the bytes of the leaves a rank then holds (its gradients')."""
+    params = tmodel.init_params(cfg, None, device="meta")
+    axes = tmodel.param_logical_axes(cfg)
+    calls = gathered = held = 0
+    for name, p in params.named_parameters():
+        spec = [a for entry in sharding.logical_spec(axes[name], rules) for a in rule_axes(entry)]
+        share = p.numel() * p.element_size() // (AXIS_SIZES["model"] if "model" in spec else 1)
+        held += share
+        if "data" in spec:
+            calls, gathered = calls + 1, gathered + share
+    return calls, gathered, held
+
+
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_sharded_collective_bytes_equal_a_count_by_hand(shape):
-    """qwen3_8b at SMOKE size on single_pod without the layout: every step
-    gathers each parameter whole (a leaf sharded over both axes in two
-    all-gathers); train all-reduces each float32 gradient and its six
-    scalar metrics over "data"; decode all-gathers its rows of the cache
-    over "model" (head_dim); prefill's outputs are local slices."""
+    """qwen3_8b at SMOKE size on single_pod without the layout, tensor
+    parallel over "model" (4 heads on 16 ranks: head_dim mode, a rank's
+    one column of each head): every step gathers each parameter over
+    "data" alone; the embedding's lookup and each layer's attention and
+    MLP end in an all-reduce of the residual stream (g).  Train and
+    prefill all-gather q, k and v to whole heads each layer; train also
+    repeats the forward's gathers and the attention's all-reduce in block
+    remat's recompute (which stops before the block's last operator, the
+    MLP's all-reduce), all-reduces the gradient of each region's input (f: a
+    layer's attention and MLP, the logits) and of the q/k norms,
+    reduce-scatters q's, k's and v's gradients, reduces the
+    vocab-parallel loss's row max, sum of exponentials, target logit and
+    argmax (a max and an int64 min), all-reduces each gradient (a
+    rank's "model" shard) and its six scalar metrics over "data", and the
+    global norm's per-leaf sums over "model".  Decode all-reduces the q/k
+    norms' mean squares and the float32 scores each layer and exchanges
+    RoPE's paired columns of q and k in one all-to-all; the cache stays
+    in place.  Prefill's outputs are local slices."""
     cfg = get_smoke_config("qwen3_8b")
     spec = SHAPES[shape]
     rules = dryrun.cell_rules(cfg, spec, "single_pod", False)
-    names = ("data", "model")
-    _, gathered, whole = _param_gathers(cfg, rules, names)
-    want = {"all-gather": gathered, "all-reduce": 0}
+    _, gathered, held = _tp_param_gathers(cfg, rules)
+    m = AXIS_SIZES["model"]
+    rows = rank_batch("qwen3_8b", shape, "single_pod")
+    tokens = rows * (1 if spec.kind == "decode" else spec.seq_len)
+    act = torch.empty((), dtype=cfg.act_dtype()).element_size()
+    n_l, h, kv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    resid = tokens * cfg.d_model * act
+    qkv = tokens * (h + 2 * kv) * dh * act
+    want = {"all-gather": gathered, "all-reduce": resid * (1 + 2 * n_l), "reduce-scatter": 0,
+            "all-to-all": 0}
     if spec.kind == "train":
-        want["all-reduce"] = whole + 6 * 4
-    if spec.kind == "decode":
-        rows = rank_batch("qwen3_8b", shape, "single_pod")
-        cache = tmodel.init_decode_cache(cfg, rows, spec.seq_len, device="meta")
-        want["all-gather"] += sum(c.numel() * c.element_size() for c in cache.values())
+        n_leaves = len(list(tmodel.init_params(cfg, None, device="meta").parameters()))
+        want["all-gather"] += 2 * n_l * qkv
+        want["all-reduce"] += (resid * (n_l + 2 * n_l + 1) + n_l * 2 * dh * 4
+                               + tokens * (4 + 4 + 4 + 4 + 8) + held + 6 * 4 + n_leaves * 4)
+        want["reduce-scatter"] = n_l * qkv // m
+    elif spec.kind == "prefill":
+        want["all-gather"] += n_l * qkv
+    else:
+        want["all-reduce"] += n_l * (rows * (h + kv) * 4 + rows * h * spec.seq_len * 4)
+        want["all-to-all"] = n_l * rows * (h + kv) * (dh // m) * act
     got = sharded_cell("qwen3_8b", shape, "single_pod", False)["collectives"]
     assert got == {**dict.fromkeys(cost.COLLECTIVES, 0.0), **want,
                    "total": float(sum(want.values()))}
@@ -303,8 +371,16 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
     each layer adds three all-gathers of the attention's output rows (the
     forward's, the one of block remat's recompute, and the one of the
     input slice's gradient) and an all-reduce of each attention weight's
-    gradient over "model"."""
+    gradient over "model".  yi_34b's step is tensor parallel (the dense
+    family): without the layout its attention is in head_dim mode, so
+    each layer also all-gathers q, k and v (the forward's and remat's
+    recompute) and all-reduces the attention's partial sums (g, and g
+    again in the recompute) and its input's gradient (f), which the
+    layout, whose attention is replicated over "model", does not; the
+    step all-reduces each gradient as a rank holds it, the attention's
+    weights whole under the layout and 1/16 without."""
     cfg = get_smoke_config(arch)
+    dense = cfg.family == "dense"
     spec = SHAPES["train_4k"]
     runs, params = {}, {}
     for layout in (False, True):
@@ -312,7 +388,8 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
         with mesh_lib.fake_world() as mesh:
             counter, _ = dryrun.trace_sharded_cell(cfg, spec, mesh, rules)
         runs[layout] = counter
-        params[layout] = _param_gathers(cfg, rules, ("data", "model"))
+        params[layout] = (_tp_param_gathers(cfg, rules) if dense
+                          else _param_gathers(cfg, rules, ("data", "model")))
     assert rules["attn_batch"] == ("data", "model")
     base, lay = runs[False], runs[True]
     assert set(base.kernels) == set(lay.kernels) == {
@@ -325,21 +402,33 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
     # rules), so the parameters' own gathers differ: count them apart
     rows = rank_batch(arch, "train_4k", "single_pod")
     act = torch.empty((), dtype=cfg.act_dtype()).element_size()
-    extra = 3 * cfg.n_layers
+    n_l = cfg.n_layers
+    extra = 3 * n_l
+    resid = rows * spec.seq_len * cfg.d_model * act
+    qkv = rows * spec.seq_len * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim * act
     for layout, c in runs.items():
         n, b, _ = params[layout]
-        assert c.by_op["all_gather_into_tensor"][0] == n + extra * layout
+        tp_gathers = 0 if layout or not dense else 2 * n_l
+        assert c.by_op["all_gather_into_tensor"][0] == n + extra * layout + 3 * tp_gathers
         assert c.collective_bytes["all-gather"] == (
-            b + extra * layout * rows * spec.seq_len * cfg.d_model * act)
+            b + extra * layout * resid + tp_gathers * qkv)
     attn = tmodel.init_params(cfg, None, device="meta").blocks[0].attn
     weights = list(attn.parameters())
+    attn_bytes = n_l * sum(w.numel() * w.element_size() for w in weights)
     # the step's own all-reduces are torch.distributed's in place (allreduce_),
-    # the layout's functional (all_reduce)
-    assert "all_reduce" not in base.by_op
-    assert lay.by_op["all_reduce"][0] == cfg.n_layers * len(weights)
+    # the layout's functional (all_reduce), as are tensor parallelism's
     assert lay.by_op["allreduce_"][0] == base.by_op["allreduce_"][0]
+    if not dense:
+        assert "all_reduce" not in base.by_op
+        assert lay.by_op["all_reduce"][0] == n_l * len(weights)
+        assert (lay.collective_bytes["all-reduce"] - base.collective_bytes["all-reduce"]
+                == attn_bytes)
+        return
+    assert not cfg.qk_norm
+    assert lay.by_op["all_reduce"][0] == base.by_op["all_reduce"][0] + n_l * (len(weights) - 3)
     assert (lay.collective_bytes["all-reduce"] - base.collective_bytes["all-reduce"]
-            == cfg.n_layers * sum(w.numel() * w.element_size() for w in weights))
+            == attn_bytes - 3 * n_l * resid + params[True][2] - params[False][2])
+    assert params[True][2] - params[False][2] == attn_bytes * 15 // 16
 
 
 def test_attention_batch_layout_waits_on_rules_and_a_mesh():

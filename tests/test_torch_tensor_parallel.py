@@ -1,0 +1,421 @@
+"""Port parity: the dense family's tensor parallelism over ``"model"`` in
+the sharded train, prefill and decode steps, held against the port's
+one-device steps and the reference's, and its per-rank work against the
+reference's SPMD program.
+
+Eight gloo processes (``tests/torch_distributed_worker.py`` with
+``tensor_parallel``) run the SMOKE configs of qwen3_8b (GQA, qk_norm),
+command_r_35b (parallel block) and granite_20b (MQA) on the (2, 4)
+``("data", "model")`` mesh under ``make_rules(..., model_axis=4)``, from
+the reference's parameters (``jax.random.PRNGKey(0)``) carried across by
+``repro_torch.convert``.  The SMOKE heads (4, with 2 or 1 kv heads) put
+train and prefill in heads mode (a rank's one q head and the kv head it
+reads) and decode in head_dim mode (a rank's 4 of each head's 16
+columns); qwen3_8b also trains in forced head_dim mode (yi_34b's route:
+q, k and v gathered whole).
+
+Bars, relative to each array's largest element: losses 1e-5, every
+element of the step-1 gradients 1e-5, and every parameter after each of
+three AdamW steps 1e-5, but within 2 lr a step where Adam's first step,
+u = g / (|g| + eps), turns the two step-1 gradients' float32 rounding
+into steps further apart than that bar (a gradient within a few eps of
+zero; ``worker.adam_first_step_gap``), and in a leaf whose gradient is
+rounding noise (under 1e-6 of the model's largest).  Those elements are
+counted, recorded as the test's ``adam_amplified_elements`` property,
+and held under AMPLIFIED_SHARE of the model's.  Logits and the cache
+1e-5 (float32 sums in another order through two layers), greedy tokens
+equal.  The processes rendezvous through a ``FileStore`` under the
+test's own directory.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch_distributed_worker as worker  # noqa: E402
+
+from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.training.loss import cross_entropy_loss as jcross_entropy  # noqa: E402
+from repro.optim.adamw import adamw as jadamw  # noqa: E402
+from repro.training.step import make_train_step as jmake_step  # noqa: E402
+
+from repro_torch.configs import SHAPES, get_smoke_config  # noqa: E402
+from repro_torch.convert import lm_params_from_arrays, reference_leaf  # noqa: E402
+from repro_torch.distributed.rules import make_rules  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import fake_world  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.optim.adamw import adamw  # noqa: E402
+from repro_torch.training.step import (  # noqa: E402
+    AUX_WEIGHT,
+    loss_and_grads,
+    make_train_step,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = Path(__file__).resolve().parent / "torch_distributed_worker.py"
+WORLD = 8
+TIME_LIMIT_S = 240      # all 8 ranks together; about 15 s alone
+TOL = 1e-5
+# a leaf whose largest gradient is under this share of the model's largest
+# is rounding noise (zero in exact arithmetic)
+NOISE_SHARE = 1e-6
+# the elements held to 2 lr a step stay under this share of the model's
+AMPLIFIED_SHARE = 1e-3
+TRAIN_CASES = [(arch, "heads") for arch in worker.TP_ARCHS] + [("qwen3_8b", "head_dim")]
+
+
+@pytest.fixture(scope="module")
+def references():
+    """Per arch: the reference's parameters (numpy tree) and config."""
+    out = {}
+    for arch in worker.TP_ARCHS:
+        jcfg = jget_smoke(arch)
+        jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+        out[arch] = (jcfg, jp, jax.tree.map(np.asarray, jp))
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_run(tmp_path_factory, references):
+    """The 8 gloo ranks of the worker's tensor-parallel cases, within
+    TIME_LIMIT_S together, from the reference's parameters; rank 0's
+    results."""
+    out = tmp_path_factory.mktemp("tensor_parallel")
+    for arch, (_, _, tree) in references.items():
+        model = lm_params_from_arrays(tree, get_smoke_config(arch), "cpu")
+        torch.save(model.state_dict(), out / f"params_{arch}.pt")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(WORLD),
+                               str(out / "store"), str(out), "tensor_parallel"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+                              cwd=str(ROOT))
+             for r in range(WORLD)]
+    logs, deadline = [], time.monotonic() + TIME_LIMIT_S
+    try:
+        for p in procs:
+            log = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0]
+            logs.append(log.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, logs[r][-3000:]) for r, p in enumerate(procs) if p.returncode]
+    assert not bad, bad
+    return torch.load(out / "tp_rank0.pt", weights_only=True)
+
+
+def _rel(got, want) -> float:
+    got = got.detach().double().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _one_device_train(cfg, references, arch, batch: dict):
+    """The port's one-device steps and the reference's from the same
+    parameters: losses, parameters after each step and step-1
+    gradients."""
+    jcfg, jp, tree = references[arch]
+    model = lm_params_from_arrays(tree, cfg, "cpu").requires_grad_(True)
+    _, grads = loss_and_grads(model, batch, cfg, AUX_WEIGHT)
+    opt = adamw(worker.LR)
+    state = {"params": model, "opt_state": opt.init(dict(model.named_parameters())), "step": 0}
+    jopt = jadamw(worker.LR)
+    jstate = {"params": jp, "opt_state": jopt.init(jp), "step": jnp.zeros((), jnp.int32)}
+    step, jstep = make_train_step(cfg, opt), jax.jit(jmake_step(jcfg, jopt))
+    jbatch = {k: jnp.asarray(x.numpy()) for k, x in batch.items()}
+
+    def jloss(p):
+        logits, aux = jmodel.forward_train(p, jbatch, jcfg)
+        return jcross_entropy(logits, jbatch["targets"], jcfg.vocab)[0] + AUX_WEIGHT * aux
+
+    jgrads = jax.jit(jax.grad(jloss))(jp)
+    port = {"losses": [], "params": [], "grads": grads}
+    ref = {"losses": [], "params": [],
+           "grads": {n: torch.from_numpy(np.array(reference_leaf(jgrads, n), np.float32))
+                     for n in grads}}
+    for _ in range(worker.TP_STEPS):
+        state, m = step(state, batch)
+        jstate, jm = jstep(jstate, jbatch)
+        port["losses"].append(float(m["loss"]))
+        port["params"].append({n: p.detach().clone()
+                               for n, p in state["params"].named_parameters()})
+        ref["losses"].append(float(jm["loss"]))
+        ref["params"].append({n: torch.from_numpy(np.array(reference_leaf(jstate["params"], n),
+                                                           np.float32))
+                              for n in port["params"][-1]})
+    return port, ref
+
+
+@pytest.mark.parametrize("arch,mode", TRAIN_CASES)
+def test_tensor_parallel_train_steps_match_one_device_and_reference(tp_run, references, arch,
+                                                                    mode, request):
+    """Three AdamW steps on (2, 4), tensor parallel (heads mode, or forced
+    head_dim mode), against the port's one-device steps and the
+    reference's: each loss within 1e-5, every element of the step-1
+    gradients within 1e-5 of its leaf's max|g|, and every parameter after
+    each step within 1e-5 of its leaf's max|p|, rounding-noise leaves and
+    the elements that Adam's first step drives apart within 2 lr a step
+    (their number recorded and bounded)."""
+    cfg = get_smoke_config(arch)
+    got = tp_run[arch]["train" if mode == "heads" else "train_head_dim"]
+    port, ref = _one_device_train(cfg, references, arch, worker.tp_batches(cfg.vocab)["train"])
+    amplified = {}
+    for against, want in (("port", port), ("reference", ref)):
+        for g, w in zip(got["losses"], want["losses"], strict=True):
+            assert abs(g - w) <= TOL * abs(w), (got["losses"], want["losses"])
+        gmax = {n: float(g.abs().max()) for n, g in want["grads"].items()}
+        noise = {n for n, g in gmax.items() if g < NOISE_SHARE * max(gmax.values())}
+        for n, w in want["grads"].items():
+            bar = TOL * (max(gmax.values()) if n in noise else gmax[n])
+            err = float((got["grads_1"][n] - w).abs().max())
+            assert err <= bar, (against, "step-1 gradient", n, err, bar)
+        gap = worker.adam_first_step_gap(got["grads_1"], want["grads"])
+        for k, (snap, wsnap) in enumerate(zip(got["params"], want["params"], strict=True)):
+            free = {n: torch.ones_like(w, dtype=torch.bool) if n in noise
+                    else gap[n] > TOL * float(w.abs().max()) for n, w in wsnap.items()}
+            for n, w in wsnap.items():
+                bar = torch.where(free[n], 2 * worker.LR * (k + 1), TOL * float(w.abs().max()))
+                err = (snap[n] - w).abs()
+                assert bool((err <= bar).all()), (against, k, n, float((err - bar).max()))
+            amplified[against, k + 1] = sum(int(f.sum()) for n, f in free.items()
+                                            if n not in noise)
+        total = sum(w.numel() for n, w in want["params"][0].items() if n not in noise)
+        assert amplified[against, 1] <= AMPLIFIED_SHARE * total, (against, amplified, total)
+    request.node.user_properties.append(("adam_amplified_elements", amplified))
+
+
+@pytest.mark.parametrize("arch", worker.TP_ARCHS)
+def test_tensor_parallel_prefill_and_decode_match_one_device_and_reference(tp_run, references,
+                                                                           arch):
+    """A sharded prefill (heads mode: one all-to-all sends each rank its
+    head_dim columns of every kv head) and four greedy decode steps
+    (head_dim mode) on (2, 4): the vocab-sharded logits gathered and the
+    head_dim-sharded cache within 1e-5 of the port's one-device steps'
+    and the reference's, each rank's cache shard a quarter of head_dim
+    over half the rows, and the greedy tokens equal."""
+    cfg = get_smoke_config(arch)
+    jcfg, jp, tree = references[arch]
+    got = tp_run[arch]
+    prompts = worker.tp_batches(cfg.vocab)["prompts"]
+    model = lm_params_from_arrays(tree, cfg, "cpu")
+    logits, cache = tmodel.prefill(model, {"tokens": prompts}, cfg, worker.TP_MAX_SEQ)
+    jlogits, jcache = jmodel.prefill(jp, {"tokens": jnp.asarray(prompts.numpy())}, jcfg,
+                                     max_seq=worker.TP_MAX_SEQ)
+    for want in (logits, jlogits):
+        assert _rel(got["prefill_logits"], want) <= TOL
+    for name in ("k", "v"):
+        shape = (cfg.n_layers, 2, worker.TP_MAX_SEQ, cfg.n_kv_heads, cfg.head_dim // 4)
+        assert got["cache_local"][name] == shape
+        for want in (cache[name], jcache[name]):
+            assert _rel(got["cache"][name], want) <= TOL, name
+    token = logits.argmax(-1)[:, None].to(torch.int32)
+    jtoken = jnp.argmax(jlogits, axis=-1)[:, None].astype(jnp.int32)
+    for i in range(worker.TP_DECODES):
+        assert torch.equal(got["tokens"][i], token)
+        assert np.array_equal(np.asarray(jtoken), token.numpy())
+        pos = worker.TP_PROMPT + i
+        logits, cache = tmodel.decode_step(model, token, pos, cache, cfg)
+        jlogits, jcache = jmodel.decode_step(jp, jtoken, jnp.asarray(pos, jnp.int32), jcache,
+                                             jcfg)
+        for want in (logits, jlogits):
+            assert _rel(got["decode_logits"][i], want) <= TOL, i
+        token = logits.argmax(-1)[:, None].to(torch.int32)
+        jtoken = jnp.argmax(jlogits, axis=-1)[:, None].astype(jnp.int32)
+    assert torch.equal(got["tokens"][-1], token)
+
+
+def test_head_dim_decode_attention_by_hand(tp_run):
+    """One head_dim-mode decode attention, each of 4 ranks holding 4 of 16
+    columns: RoPE's pairs (column i with i + 8) fetched from the rank 2
+    away, the scores summed over the ranks before the scale, the scale
+    1/sqrt(16) of the whole head (not of a rank's 4 columns), and the
+    ranks' output columns gathered, against numpy."""
+    h = tp_run["hand"]
+    q, k, ck, cv = (h[n].double().numpy() for n in ("q", "k", "cache_k", "cache_v"))
+    pos, theta = h["pos"].numpy(), h["theta"]
+    b, s, kv, dh = ck.shape
+    freqs = 1.0 / theta ** (np.arange(0, dh, 2) / dh)
+
+    def rope(x):
+        ang = (pos[:, None] * freqs)[:, None, None, :]
+        x1, x2 = x[..., :dh // 2], x[..., dh // 2:]
+        return np.concatenate([x1 * np.cos(ang) - x2 * np.sin(ang),
+                               x2 * np.cos(ang) + x1 * np.sin(ang)], axis=-1)
+
+    qr, kr = rope(q), rope(k)
+    ck = ck.copy()
+    ck[np.arange(b), pos] = kr[:, 0]
+    g = q.shape[2] // kv
+    scores = np.einsum("bhgd,bkhd->bhgk", qr.reshape(b, kv, g, dh), ck) / np.sqrt(dh)
+    scores = np.where(np.arange(s)[None, None, None, :] <= pos[:, None, None, None], scores,
+                      -np.inf)
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    want = np.einsum("bhgk,bkhd->bhgd", p, cv).reshape(b, 1, q.shape[2], dh)
+    assert _rel(h["out"], want) <= 1e-5
+    wrong_scale = np.einsum("bhgd,bkhd->bhgk", qr.reshape(b, kv, g, dh), ck) / np.sqrt(dh // 4)
+    assert not np.allclose(scores[np.isfinite(scores)], wrong_scale[np.isfinite(scores)])
+
+
+# ------------------------------------------ a rank's work against GSPMD's
+
+REF_B, REF_S = 4, 64
+
+_REFERENCE_PROG = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import dataclasses, json, sys
+    import jax
+    from jax.sharding import NamedSharding as NS, PartitionSpec as P
+    from repro.configs import SHAPES, get_smoke_config, input_specs
+    from repro.distributed.rules import make_rules
+    from repro.distributed.sharding import param_specs, use_rules
+    from repro.launch.mesh import make_debug_mesh, mesh_context
+    from repro.models.model import (cache_logical_axes, decode_step, init_params,
+                                    param_logical_axes, prefill)
+    from repro.roofline.hlo_parse import loop_aware_costs
+
+    arch, b, s = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    cfg = get_smoke_config(arch)
+    mesh = make_debug_mesh((2, 4), ("data", "model"))
+
+    def tree(t):
+        return jax.tree.map(lambda x: NS(mesh, x), t, is_leaf=lambda x: isinstance(x, P))
+
+    params = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
+    dec = {**make_rules(cfg, job="decode", model_axis=4), "batch": "data"}
+    out = {}
+    for kind in ("prefill", "decode"):
+        shape = dataclasses.replace(SHAPES[kind + "_32k"], seq_len=s, global_batch=b)
+        rules = {**make_rules(cfg, job=kind, model_axis=4), "batch": "data"}
+        with mesh_context(mesh), use_rules(rules):
+            specs = input_specs(cfg, shape)
+            p_specs = tree(param_specs(param_logical_axes(cfg), rules))
+            cache = param_specs(cache_logical_axes(cfg), dec)
+            if kind == "prefill":
+                lowered = jax.jit(
+                    lambda p, bt: prefill(p, bt, cfg, max_seq=s),
+                    in_shardings=(p_specs, tree({"tokens": P("data", None)})),
+                    out_shardings=tree((P("data", "model"), cache))).lower(params, specs)
+            else:
+                lowered = jax.jit(
+                    lambda p, t, pos, c: decode_step(p, t, pos, c, cfg),
+                    in_shardings=(p_specs, NS(mesh, P("data", None)), NS(mesh, P()),
+                                  tree(cache)),
+                    out_shardings=tree((P("data", "model"), cache))).lower(
+                        params, specs["token"], specs["pos"], specs["cache"])
+            out[kind] = loop_aware_costs(lowered.compile().as_text())["flops"]
+    print(json.dumps(out))
+""")
+
+
+def _reference_flops(arch: str) -> dict:
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", _REFERENCE_PROG, arch, str(REF_B), str(REF_S)],
+                         capture_output=True, text=True, env=env, timeout=600, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", worker.TP_ARCHS)
+def test_per_rank_flops_match_the_references_spmd_program(arch):
+    """Prefill and decode of the SMOKE config (4 rows, 64 positions) on the
+    (2, 4) mesh: the port's counter on rank 0 of a fake (2, 4) world
+    against ``loop_aware_costs`` of the reference's program lowered with
+    its ``in_shardings``/``out_shardings`` on 8 host devices (per
+    device).  Decode's FLOPs are equal.  Prefill's are equal outside the
+    attention's block term (the reference's whole 512-blocks, K8's mask
+    pairs: both taken out) but for one product GSPMD partitions
+    otherwise: the K/V projection, whose ``kv_heads`` the rules leave
+    off "model", it computes for every kv head on every device, where a
+    port rank computes the kv head its q head reads (qwen3_8b and
+    command_r_35b: 2 kv heads, 2 x 2 rows x 64 x 64 x 16 x 2 FLOPs a
+    projection and layer more in the reference; granite_20b has one)."""
+    cfg = get_smoke_config(arch)
+    ref = _reference_flops(arch)
+    rows, heads = REF_B // 2, cfg.n_heads // 4
+    for kind in ("prefill", "decode"):
+        shape = dataclasses.replace(SHAPES[kind + "_32k"], seq_len=REF_S, global_batch=REF_B)
+        rules = {**make_rules(cfg, job=kind, model_axis=4), "batch": "data"}
+        with fake_world(mesh_shape=(2, 4)) as mesh:
+            counter, _ = dryrun.trace_sharded_cell(cfg, shape, mesh, rules)
+        k8 = sum(k["flops"] for k in counter.kernels.values())
+        if kind == "decode":
+            assert k8 == 0 and counter.flops == ref["decode"]
+            continue
+        block = 4 * rows * heads * cfg.head_dim * REF_S * REF_S * cfg.n_layers
+        kv_local = 1
+        kv_extra = 2 * cfg.n_layers * 2 * rows * REF_S * cfg.d_model * cfg.head_dim * (
+            cfg.n_kv_heads - kv_local)
+        assert k8 == 4 * rows * heads * cfg.head_dim * cfg.n_layers * (REF_S * (REF_S + 1) // 2)
+        assert counter.flops - k8 + kv_extra == ref["prefill"] - block, (
+            arch, counter.flops - k8, ref["prefill"] - block, kv_extra)
+
+
+def test_a_rank_holds_its_share_of_every_leaf():
+    """On rank 0 of a fake (2, 4) world, the tensor-parallel model of each
+    mode holds each leaf gathered over "data" alone (its "model" shard):
+    heads mode a q head of wq and wo, the K/V projections whole (their
+    kv_heads off "model"; the rank reads kv head 0), a quarter of ff and
+    of the vocab; head_dim mode a quarter of every head's columns."""
+    from repro_torch.distributed.elastic import reshard_state
+
+    cfg = get_smoke_config("qwen3_8b")
+    params = dict(tmodel.init_params(cfg, None, device="meta").named_parameters())
+    axes = tmodel.param_logical_axes(cfg)
+    for job, mode in (("prefill", "heads"), ("decode", "head_dim")):
+        rules = {**make_rules(cfg, job=job, model_axis=4), "batch": "data"}
+        with fake_world(mesh_shape=(2, 4)) as mesh:
+            model = tmodel.gather_params(cfg, reshard_state(params, axes, mesh, rules))
+        split = model.split
+        assert (split.attn, split.index, split.count) == (mode, 0, 4)
+        attn = model.blocks[0].attn
+        d, dh = cfg.d_model, cfg.head_dim
+        if mode == "heads":
+            assert (split.heads, split.kv_heads, split.kv_first, split.kv_sliced) == (1, 1, 0,
+                                                                                    True)
+            assert attn.wq.shape == (d, 1, dh) and attn.wo.shape == (1, dh, d)
+            assert attn.wk.shape == (d, cfg.n_kv_heads, dh)
+        else:
+            assert attn.wq.shape == (d, cfg.n_heads, dh // 4)
+            assert attn.wk.shape == (d, cfg.n_kv_heads, dh // 4)
+            assert attn.wo.shape == (cfg.n_heads, dh // 4, d)
+        assert model.blocks[0].mlp.w_gate.shape == (d, cfg.d_ff // 4) == (d, split.ff)
+        assert model.embed.shape == (cfg.vocab_padded // 4, d) == (split.vocab, d)
+        assert model.final_norm.shape == (d,)
+
+
+def test_one_device_paths_have_no_split():
+    """A model from init_params has no split; gather_params gives a split
+    to a dense model alone (tensor_parallel), none to another family's,
+    whose compute stays replicated over "model"."""
+    from repro_torch.distributed.elastic import reshard_state
+
+    cfg = get_smoke_config("qwen3_8b")
+    assert tmodel.init_params(cfg, None, device="meta").split is None
+    assert [a for a in ("qwen3_8b", "mixtral_8x22b", "mamba2_370m", "internvl2_1b")
+            if tmodel.tensor_parallel(get_smoke_config(a))] == ["qwen3_8b"]
+    moe = get_smoke_config("mixtral_8x22b")
+    params = dict(tmodel.init_params(moe, None, device="meta").named_parameters())
+    rules = {**make_rules(moe, model_axis=4), "batch": "data"}
+    with fake_world(mesh_shape=(2, 4)) as mesh:
+        sharded = reshard_state(params, tmodel.param_logical_axes(moe), mesh, rules)
+        model = tmodel.gather_params(moe, sharded)
+    assert model.split is None
+    assert model.blocks[0].attn.wq.shape == (moe.d_model, moe.n_heads, moe.head_dim)

@@ -3,6 +3,10 @@
 
     python tests/torch_distributed_worker.py RANK WORLD STORE_FILE OUT_DIR
 
+and, with a fifth argument ``tensor_parallel``, of the dense family's
+tensor-parallel steps (run by tests/test_torch_tensor_parallel.py;
+:func:`tensor_parallel_main`).
+
 Two AdamW steps of the SMOKE Qwen3-8B on the (2, 4) ("data", "model")
 mesh, then ``plan_mesh(4)``, a re-shard to (2, 2) under
 ``make_rules(cfg, model_axis=2)`` and two more steps on its ranks (the
@@ -11,8 +15,8 @@ tests/test_distributed.py does on 8 forced host devices; once on its
 batch (every token 3) and once on a seeded one (:func:`batches`).  Then
 two steps on (2, 4) with the attention batch layout (:func:`layout_sequence`).
 Rank 0 writes, per batch, the losses, the parameters after each phase
-gathered whole, and the local shard shapes of a few leaves to
-OUT_DIR/rank0.pt.
+and the step-1 gradients gathered whole, and the local shard shapes of a
+few leaves to OUT_DIR/rank0.pt.
 """
 
 import sys
@@ -28,7 +32,9 @@ from repro_torch.distributed.rules import make_rules
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import use_rules
 from repro_torch.launch.mesh import make_debug_mesh, mesh_context
-from repro_torch.optim.adamw import adamw
+from repro_torch.models import model as tmodel
+from repro_torch.optim.adamw import Optimizer, adamw
+from repro_torch.serving.sharded import make_sharded_decode_step, make_sharded_prefill
 from repro_torch.training.step import (
     full_params,
     init_train_state,
@@ -37,7 +43,47 @@ from repro_torch.training.step import (
 )
 
 SEED = 0
+LR = 1e-3
 LEAVES = ("embed", "blocks.0.attn.wq", "blocks.0.attn.wk")
+
+
+def recording(opt: Optimizer, out: dict) -> Optimizer:
+    """``opt``, whose first update keeps the gradients it is given (the
+    rank's shards of the gradients averaged over the batch axes, before
+    the clip) in ``out["grads"]``."""
+    def update(grads, state, params, **kw):
+        if "grads" not in out:
+            out["grads"] = {n: g.detach().clone() for n, g in grads.items()}
+        return opt.update(grads, state, params, **kw)
+
+    return Optimizer(init=opt.init, update=update)
+
+
+def gathered(local: dict, like: dict) -> dict:
+    """Shards placed as the DTensors of ``like`` gathered whole (a
+    collective over their mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return {n: DTensor.from_local(g, like[n].device_mesh, like[n].placements, run_check=False,
+                                  shape=like[n].shape, stride=like[n].stride()).full_tensor()
+            for n, g in local.items()}
+
+
+def adam_first_step_gap(got: dict, want: dict, lr: float = LR, eps: float = 1e-8,
+                        clip: float = 1.0) -> dict:
+    """Per leaf and element, how far AdamW's first step from the step-1
+    gradients ``got`` lands from its step from ``want``: lr |u(got) -
+    u(want)|, u = g / (|g| + eps) of the gradients clipped by their global
+    norm.  Where a gradient is within a few eps of zero, u turns its
+    rounding into a step of any size up to lr."""
+    def u(grads: dict) -> dict:
+        g64 = {n: g.double() for n, g in grads.items()}
+        norm = float(torch.sqrt(sum(torch.sum(g * g) for g in g64.values())))
+        c = min(1.0, clip / max(norm, 1e-12))
+        return {n: g * c / ((g * c).abs() + eps) for n, g in g64.items()}
+
+    ug, uw = u(got), u(want)
+    return {n: lr * (ug[n] - uw[n]).abs() for n in want}
 
 
 def batches(vocab: int) -> dict:
@@ -51,8 +97,8 @@ def batches(vocab: int) -> dict:
 
 
 def sequence(cfg, batch: dict) -> dict:
-    opt = adamw(1e-3)
-    losses, out = [], {}
+    losses, out, rec = [], {}, {}
+    opt = recording(adamw(1e-3), rec)
     state = init_train_state(cfg, opt, torch.Generator().manual_seed(SEED), device="cpu")
     mesh = make_debug_mesh((2, 4), ("data", "model"))
     rules = {**make_rules(cfg, model_axis=4), "batch": "data"}
@@ -64,6 +110,7 @@ def sequence(cfg, batch: dict) -> dict:
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
         out["params_2"] = full_params(state)
+        out["grads_1"] = gathered(rec["grads"], state["params"])
 
     plan = plan_mesh(4)
     mesh2 = plan.build()
@@ -94,12 +141,17 @@ def layout_batch(vocab: int) -> dict:
 def layout_sequence(cfg) -> dict:
     """Two AdamW steps on (2, 4) with the attention batch layout (attention
     on each "model" rank's share of its "data" rank's rows, the output
-    all-gathered): the losses, the parameters gathered whole, and the
-    number of the layout's all-gathers."""
-    opt = adamw(1e-3)
+    all-gathered): the losses, the parameters gathered whole, the step-1
+    gradients gathered whole, and the number of the layout's
+    all-gathers."""
+    rec = {}
+    opt = recording(adamw(1e-3), rec)
     state = init_train_state(cfg, opt, torch.Generator().manual_seed(SEED), device="cpu")
     mesh = make_debug_mesh((2, 4), ("data", "model"))
-    rules = {**make_rules(cfg, model_axis=4), "batch": "data", "attn_batch": ("data", "model")}
+    # the layout's rules as apply_attn_batch_layout makes them: attention's
+    # leaves off "model", the rest tensor parallel
+    rules = {**make_rules(cfg, model_axis=4), "batch": "data", "attn_batch": ("data", "model"),
+             "q_heads": None, "kv_heads": None, "head_dim": None}
     gathers, gather = [], sharding.AttnBatchSplit.gather
 
     def counted(split, x):
@@ -116,16 +168,170 @@ def layout_sequence(cfg) -> dict:
                 state, metrics = step(state, layout_batch(cfg.vocab))
                 losses.append(float(metrics["loss"]))
             params = full_params(state)
+            grads = gathered(rec["grads"], state["params"])
     finally:
         sharding.AttnBatchSplit.gather = gather
-    return {"losses": losses, "params_2": params, "gathers": len(gathers)}
+    return {"losses": losses, "params_2": params, "grads_1": grads, "gathers": len(gathers)}
 
 
-def main(rank: int, world: int, store_file: str, out_dir: str) -> None:
+# ------------------------------------------------ tensor parallelism
+
+TP_ARCHS = ("qwen3_8b", "command_r_35b", "granite_20b")
+TP_STEPS = 3
+TP_PROMPT, TP_MAX_SEQ, TP_DECODES = 12, 24, 4
+
+
+def tp_batches(vocab: int) -> dict:
+    """The seeded train batch (next-token targets) and prompts of the
+    tensor-parallel cases."""
+    rng = np.random.default_rng(SEED + 2)
+    tokens = rng.integers(0, vocab, (4, 33)).astype(np.int32)
+    return {"train": {"tokens": torch.from_numpy(tokens[:, :-1].copy()),
+                      "targets": torch.from_numpy(tokens[:, 1:].copy())},
+            "prompts": torch.from_numpy(rng.integers(0, vocab, (4, TP_PROMPT))
+                                        .astype(np.int32))}
+
+
+def tp_rules(cfg, job: str, head_dim_mode: bool = False) -> dict:
+    """The reference's rules of ``job`` on the (2, 4) mesh; with
+    ``head_dim_mode`` the head_dim rules that heads not dividing the
+    axis give (yi_34b's route, forced)."""
+    rules = {**make_rules(cfg, job=job, model_axis=4), "batch": "data"}
+    if head_dim_mode:
+        rules.update(q_heads=None, kv_heads=None, head_dim="model")
+    return rules
+
+
+def _model(cfg, params: dict):
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    model.load_state_dict(params)
+    return model
+
+
+def tp_train(cfg, params: dict, mesh, rules, batch: dict) -> dict:
+    """TP_STEPS AdamW steps on ``mesh``: the losses, every parameter
+    gathered whole after each step, and the step-1 gradients gathered
+    whole."""
+    rec = {}
+    opt = recording(adamw(LR), rec)
+    model = _model(cfg, params).requires_grad_(True)
+    state = {"params": model, "opt_state": opt.init(dict(model.named_parameters())),
+             "step": 0}
+    losses, snaps = [], []
+    with mesh_context(mesh), use_rules(rules):
+        state = shard_train_state(state, cfg, mesh, rules)
+        step = make_sharded_train_step(cfg, opt, mesh)
+        for _ in range(TP_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            snaps.append(full_params(state))
+        grads = gathered(rec["grads"], state["params"])
+    return {"losses": losses, "params": snaps, "grads_1": grads}
+
+
+def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor) -> dict:
+    """A sharded prefill (heads mode, the cache out by the decode rules)
+    and TP_DECODES greedy decode steps (head_dim mode): the logits
+    gathered whole, the cache after the prefill gathered whole, the
+    tokens."""
+    from repro_torch.distributed.elastic import reshard_state
+
+    pre, dec = tp_rules(cfg, "prefill"), tp_rules(cfg, "decode")
+    named = {n: p.detach() for n, p in _model(cfg, params).named_parameters()}
+    axes = tmodel.param_logical_axes(cfg)
+    with mesh_context(mesh), use_rules(pre):
+        step = make_sharded_prefill(cfg, mesh, pre, dec, TP_MAX_SEQ)
+        logits, cache = step(reshard_state(named, axes, mesh, pre), {"tokens": prompts})
+    out = {"prefill_logits": logits.full_tensor(),
+           "cache": {n: c.full_tensor() for n, c in cache.items()},
+           "cache_local": {n: tuple(c.to_local().shape) for n, c in cache.items()},
+           "decode_logits": [], "tokens": []}
+    sharded = reshard_state(named, axes, mesh, dec)
+    token = logits.full_tensor().argmax(-1)[:, None].to(torch.int32)
+    with mesh_context(mesh), use_rules(dec):
+        step = make_sharded_decode_step(cfg, mesh, dec)
+        for i in range(TP_DECODES):
+            out["tokens"].append(token)
+            logits, cache = step(sharded, token, torch.tensor(TP_PROMPT + i), cache)
+            whole = logits.full_tensor()
+            out["decode_logits"].append(whole)
+            token = whole.argmax(-1)[:, None].to(torch.int32)
+    out["tokens"].append(token)
+    return out
+
+
+def tp_hand_case(mesh) -> dict:
+    """The head_dim decode attention of one layer by hand: seeded q (B, 1,
+    H, dh), a cache and positions, each "model" rank its dh / 4 columns;
+    RoPE's exchange and apply_rope_columns, then decode_attention with the
+    whole head's scale and the scores summed over "model"; the ranks'
+    output columns gathered.  The test computes the same in numpy."""
+    from repro_torch.distributed.sharding import ModelSplit
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.layers import apply_rope_columns
+
+    b, s, h, kv, dh, theta = 2, 10, 4, 2, 16, 1e4
+    rng = np.random.default_rng(SEED + 3)
+    q, k = (torch.from_numpy(rng.standard_normal((b, 1, n, dh)).astype(np.float32))
+            for n in (h, kv))
+    cache_k, cache_v = (torch.from_numpy(rng.standard_normal((b, s, kv, dh)).astype(np.float32))
+                        for _ in range(2))
+    pos = torch.tensor([6, 9])
+    group = mesh.get_group("model")
+    index, count = mesh.get_local_rank("model"), mesh.size(1)
+    split = ModelSplit(group=group, index=index, count=count, attn="head_dim", head_dim=dh,
+                       heads=h, kv_heads=kv, kv_first=0, kv_sliced=False, q_per_kv=h // kv,
+                       ff=0, vocab=0)
+    c = dh // count
+    cols = slice(index * c, (index + 1) * c)
+    partner = split.rope_partner(torch.cat([q[..., cols], k[..., cols]], dim=2))
+    qr = apply_rope_columns(q[..., cols], partner[:, :, :h], pos[:, None], theta, dh,
+                            index * c)
+    kr = apply_rope_columns(k[..., cols], partner[:, :, h:], pos[:, None], theta, dh,
+                            index * c)
+    ck = cache_k[..., cols].clone()
+    ck[torch.arange(b), pos] = kr[:, 0]
+    o = decode_attention(qr, ck, cache_v[..., cols].contiguous(), pos, head_dim=dh,
+                         reduce_scores=split.reduce)
+    parts = [torch.empty_like(o) for _ in range(count)]
+    dist.all_gather(parts, o.contiguous(), group=group)
+    return {"q": q, "k": k, "cache_k": cache_k, "cache_v": cache_v, "pos": pos,
+            "theta": theta, "out": torch.cat(parts, dim=-1)}
+
+
+def tensor_parallel_main(rank: int, out_dir: str) -> None:
+    """Each arch of TP_ARCHS from the parameters the test wrote
+    (OUT_DIR/params_<arch>.pt, the reference's converted): TP_STEPS
+    train steps in heads mode, and for qwen3_8b in forced head_dim mode,
+    the prefill and decode steps, on the (2, 4) mesh; and the hand case.
+    Rank 0 writes OUT_DIR/tp_rank0.pt."""
+    mesh = make_debug_mesh((2, 4), ("data", "model"))
+    results = {"hand": tp_hand_case(mesh)}
+    for arch in TP_ARCHS:
+        cfg = get_smoke_config(arch)
+        params = torch.load(Path(out_dir) / f"params_{arch}.pt", weights_only=True)
+        data = tp_batches(cfg.vocab)
+        res = {"train": tp_train(cfg, params, mesh, tp_rules(cfg, "train"), data["train"]),
+               **tp_serve(cfg, params, mesh, data["prompts"])}
+        if arch == "qwen3_8b":
+            res["train_head_dim"] = tp_train(cfg, params, mesh,
+                                             tp_rules(cfg, "train", head_dim_mode=True),
+                                             data["train"])
+        results[arch] = res
+    if rank == 0:
+        torch.save(results, Path(out_dir) / "tp_rank0.pt")
+
+
+def main(rank: int, world: int, store_file: str, out_dir: str,
+         tensor_parallel: bool = False) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world), rank=rank,
                             world_size=world)
     try:
+        if tensor_parallel:
+            tensor_parallel_main(rank, out_dir)
+            dist.barrier()
+            return
         cfg = get_smoke_config("qwen3_8b")
         results = {}
         for name, batch in batches(cfg.vocab).items():
@@ -139,4 +345,5 @@ def main(rank: int, world: int, store_file: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+         sys.argv[5:] == ["tensor_parallel"])
