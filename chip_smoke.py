@@ -230,8 +230,10 @@ non-zero:
    reference's reason (``long_500k`` on a full-attention arch), a
    production mesh's ok cell with its ranks (256 or 512), collectives
    counted, at least one leaf gathered and its compute (``"tensor
-   parallel over model"`` for the dense family, ``"replicated over
-   model"`` for the rest); its dominant term, bound,
+   parallel over model"`` for the dense family, ``"expert parallel over
+   model"`` for Granite-MoE, ``"tensor parallel inside experts over
+   model"`` for Mixtral, ``"replicated over model"`` for the rest); its
+   dominant term, bound,
    ``temp_size_b`` and collective bytes printed with the host seconds;
    (b) the counter held against the card on Qwen3-8B's 1974-token
    prefill and one decode step after it (36 layers, bf16), one
@@ -255,16 +257,25 @@ non-zero:
    tensor-parallel rank's prefill of 2048 tokens in heads mode (2, 4 and
    3 q heads over one kv head, on the fake world), K8 launched at the
    rank's heads once a layer (these shapes' K8 rows of the kernels line,
-   held against the plain version in phase 6, count these launches); the
-   phase's wall printed;
+   held against the plain version in phase 6, count these launches); (e)
+   for Mixtral-8x22B and Granite-MoE at full width and 2 layers, a
+   rank's prefill of 2048 tokens on the same fake world (heads mode: 3 q
+   heads and 1 q head over one kv head; Mixtral's 1,024 of each expert's
+   16,384 ff columns, Granite-MoE's 2 of 32 experts), counted as (b)'s
+   steps, with its kernel time by kind (the expert products under
+   ``aten::bmm``, K8, the rest) and K8's launches, once a layer, counted
+   from zero over the counted prefill; the phase's wall printed;
 8c. distributed — the sharded train step
    (``repro_torch.training.step.make_sharded_train_step``) on a world of
    one: NCCL with a ``FileStore`` rendezvous in a temporary directory,
    ``make_debug_mesh((1, 1))`` on cuda:0; for each of DIST_ARCHS, the
-   SMOKE Qwen3-8B (dense: tensor parallel over a "model" axis of one) and
-   the SMOKE Granite-MoE 1B (moe: every leaf gathered whole, the compute
-   replicated over "model"), both float32 (K8's FMA route forward and
-   backward), AdamW(1e-3), tokens = targets = 3 (4 x 32): two steps,
+   SMOKE Qwen3-8B (dense: tensor parallel over a "model" axis of one),
+   the SMOKE Granite-MoE 1B (expert parallel), the SMOKE Mixtral (tensor
+   parallel inside the experts) and the SMOKE Zamba2 (hybrid: every leaf
+   gathered whole, the compute replicated over "model"), each failing
+   unless the dry run names its route so, all float32 (K8's FMA route
+   forward and backward), AdamW(1e-3), tokens = targets = 3 (4 x 32): two
+   steps,
    ``plan_mesh`` of the world, a re-shard under ``make_rules(cfg,
    model_axis=1)``, two more steps, launch counts reset just before and
    read just after (failing unless K8's forward and every backward
@@ -2344,13 +2355,19 @@ TOL_SMOKE_LOGITS = 1e-4
 # through ops.flash_attention
 BF16, F32 = torch.bfloat16, torch.float32
 K8_MAIN = ("main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
-# the dense archs whose tensor-parallel rank (16 "model" ranks, heads
-# mode) runs K8 on its own heads: q heads over the one kv head they read,
-# at the main path's S = 2048 (phase 8b's rank prefills launch them)
+# the dense and MoE archs whose tensor-parallel rank (16 "model" ranks,
+# heads mode) runs K8 on its own heads: q heads over the one kv head they
+# read, at the main path's S = 2048 (phase 8b's rank prefills launch them);
+# Mixtral's window of 4096 does not bind at 2048
 TP_RANKS = 16
-K8_TP_CASES = {arch: (f"tp_{arch}_{h}_{kv}", BF16, 1, 2048, 2048, h, kv, 128, True, 0, None)
-               for arch, h, kv in (("qwen3_8b", 2, 1), ("command_r_35b", 4, 1),
-                                   ("granite_20b", 3, 1))}
+K8_TP_CASES = {arch: (f"tp_{arch}_{h}_{kv}", BF16, 1, 2048, 2048, h, kv, d, True, window, None)
+               for arch, h, kv, d, window in (
+                   ("qwen3_8b", 2, 1, 128, 0), ("command_r_35b", 4, 1, 128, 0),
+                   ("granite_20b", 3, 1, 128, 0), ("mixtral_8x22b", 3, 1, 128, 4096),
+                   ("granite_moe_1b_a400m", 1, 1, 64, 0))}
+# the MoE archs of K8_TP_CASES, whose rank prefills phase 8b also counts
+# on meta and on the card
+TP_MOE_ARCHS = ("mixtral_8x22b", "granite_moe_1b_a400m")
 # Zamba2-7B's shared attention at a 2048-token prompt: D = 112, G = 1
 K8_D112 = ("d112_zamba", BF16, 1, 2048, 2048, 32, 32, 112, True, 0, None)
 K8_CASES = (
@@ -4150,9 +4167,13 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
     unless both counts' FLOPs and bytes are equal, the step's kernel time
     (the profiler's sum) is at least the roofline bound, and the modelled
     peak of live bytes is within PEAK_RTOL and PEAK_ATOL_BYTES of what the
-    step added to the card's allocated memory at its peak."""
+    step added to the card's allocated memory at its peak.  Beside it the
+    kernel time by kind (K8, the kernels under ``aten::bmm``: an MoE's
+    expert products in a prefill or train step; the rest) and K8's
+    launches by route in the counted step, counted from zero."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
     from repro_torch.models.model import model_flops
     from repro_torch.roofline.analysis import roofline_report
     from repro_torch.roofline.cost import CostCounter
@@ -4169,14 +4190,22 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with CostCounter(device="cuda") as on_card:
             out = step()
         torch.cuda.synchronize()
+    k8_launches = ops.launch_counts_by_route()["flash_attention"]
     del out
     peak = torch.cuda.max_memory_allocated()
-    device_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+    events = prof.key_averages()
+    device_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    k8_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "flash_attention" in e.key) / 1e3
+    bmm_ms = sum(getattr(e, "device_time_total", 0.0) for e in events
+                 if e.key == "aten::bmm") / 1e3
     roof = roofline_report(flops=float(on_card.flops), bytes_accessed=float(on_card.bytes),
                            collective_bytes=0.0, n_chips=1,
                            model_flops=model_flops(params, cfg, n_tokens, train=train),
@@ -4200,6 +4229,8 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
                modelled_peak_temp_bytes=on_card.peak_temp_bytes,
                meta_peak_temp_bytes=on_meta.peak_temp_bytes,
                max_memory_allocated_bytes=peak, allocated_before_step_bytes=held,
+               device_ms_by_kind=dict(k8=k8_ms, bmm=bmm_ms, other=device_ms - k8_ms - bmm_ms),
+               k8_launches=k8_launches,
                kernels=on_card.kernels, hw=roof["hw"], compute_dtype=roof["compute_dtype"])
     emit(res)
     del step, params
@@ -4252,7 +4283,8 @@ def tp_share(cfg, rules, mesh) -> dict:
         return sum(p.numel() * p.element_size() for p in m.parameters())
 
     return dict(attn=sp.attn, ranks=sp.count, heads=sp.heads, kv_heads=sp.kv_heads,
-                kv_sliced=sp.kv_sliced, ff=sp.ff, vocab=sp.vocab, leaf_bytes=nbytes(model),
+                kv_sliced=sp.kv_sliced, ff=sp.ff, vocab=sp.vocab, moe=sp.moe,
+                experts=sp.experts, leaf_bytes=nbytes(model),
                 model_bytes=nbytes(init_params(cfg, None, device="meta")))
 
 
@@ -4273,8 +4305,10 @@ def tp_rank_prefills(dev) -> dict:
     from repro_torch.launch.mesh import fake_world
     from repro_torch.models.model import prefill
 
-    out = {}
+    out = moe_rank_prefills(dev)
     for arch, case in K8_TP_CASES.items():
+        if arch in TP_MOE_ARCHS:
+            continue
         cfg = dataclasses.replace(get_config(arch), n_layers=TP_PREFILL_LAYERS)
         rules = {**make_rules(cfg, job="prefill"), "batch": "data"}
         t0 = time.perf_counter()
@@ -4298,6 +4332,56 @@ def tp_rank_prefills(dev) -> dict:
                   wall_s=time.perf_counter() - t0))
         check(launches == TP_PREFILL_LAYERS, f"{arch}: K8 launched {launches} times in a rank's "
                                              f"prefill of {TP_PREFILL_LAYERS} layers")
+    return out
+
+
+def moe_rank_prefills(dev) -> dict:
+    """Case (e): each MoE arch of TP_MOE_ARCHS at full width, cut to
+    TP_PREFILL_LAYERS layers, one rank's prefill on 16 "model" ranks of a
+    fake world (heads mode: its q heads over the kv head they read; its
+    experts' share: Granite-MoE's 2 of 32 experts, Mixtral's 1,024 of
+    each expert's 16,384 ff columns; one prompt of K8_TP_CASES' 2048
+    tokens in the config's 16 dispatch groups), counted on meta and on the
+    card by :func:`count_step` (its kernel time by kind: the expert
+    products, K8, the rest; the bound and share; the modelled peak), K8
+    launched at the rank's heads once a layer in the counted prefill.
+    Returns the launches by arch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.rules import make_rules
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.model import prefill
+
+    out = {}
+    for arch in TP_MOE_ARCHS:
+        case = K8_TP_CASES[arch]
+        cfg = dataclasses.replace(get_config(arch), n_layers=TP_PREFILL_LAYERS)
+        rules = {**make_rules(cfg, job="prefill"), "batch": "data"}
+        t0 = time.perf_counter()
+        with fake_world(mesh_shape=(1, TP_RANKS)) as mesh:
+            def build(device):
+                model = tp_rank_model(cfg, mesh, rules, device)
+                tokens = counted_tokens(device, (case[2], case[3]), cfg.vocab)
+                return (lambda: prefill(model, {"tokens": tokens}, cfg, case[3])), model
+
+            sp = tp_rank_model(cfg, mesh, rules, "meta").split
+            want = ("heads", case[5], case[6],
+                    "experts" if cfg.moe_parallel == "ep" else "ff")
+            check((sp.attn, sp.heads, sp.kv_heads, sp.moe) == want,
+                  f"{arch}: a rank's split is not {want}: {sp}")
+            res = count_step(f"moe_rank_prefill_{arch}", build, dev, cfg, train=False,
+                             n_tokens=case[2] * case[3])
+            res["share_of_model"] = tp_share(cfg, rules, mesh)
+        launches = res["k8_launches"]["mma"]
+        out[arch] = launches
+        emit(dict(phase="dryrun", case=f"moe_rank_prefill_{arch}_summary",
+                  layers=TP_PREFILL_LAYERS, tokens=case[3], k8_launches=launches,
+                  device_ms_by_kind=res["device_ms_by_kind"], bound_ms=res["bound_ms"],
+                  device_ms=res["device_ms"], share=res["share"],
+                  share_of_model=res["share_of_model"], wall_s=time.perf_counter() - t0))
+        check(launches == TP_PREFILL_LAYERS, f"{arch}: K8 launched {launches} times in a "
+                                             f"rank's prefill of {TP_PREFILL_LAYERS} layers")
     return out
 
 
@@ -4466,10 +4550,18 @@ DIST_LR = 1e-3
 # of the model's largest (zero in exact arithmetic, float32 rounding) is
 # held to Adam's own step, 2 lr a step
 DIST_NOISE_SHARE = 1e-6
-# the SMOKE configs of the sharded steps: a dense one (tensor parallel over
-# "model") and one of another family (every leaf gathered whole, the
-# compute replicated over "model")
-DIST_ARCHS = ("qwen3_8b", "granite_moe_1b_a400m")
+# the SMOKE configs of the sharded steps, by how a rank computes: a dense
+# one (tensor parallel over "model"), the two MoE modes (expert parallel;
+# tensor parallel inside the experts) and a family still replicated over
+# "model" (every leaf gathered whole) that launches K8 (Zamba2's shared
+# attention)
+DIST_ARCHS = {"qwen3_8b": "tensor parallel over model",
+              "granite_moe_1b_a400m": "expert parallel over model",
+              "mixtral_8x22b": "tensor parallel inside experts over model",
+              "zamba2_7b": "replicated over model"}
+# the dimension of an MoE's experts' w_gate (E, d, ff) that its route puts on
+# "model": 0 expert parallel, 2 tensor parallel inside the experts
+DIST_MOE_DIMS = {"granite_moe_1b_a400m": 0, "mixtral_8x22b": 2}
 
 
 def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
@@ -4519,9 +4611,13 @@ def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
     params[4] = full_params(state)
+    leaves = [n for n in ("embed", "blocks.0.attn.wq", "blocks.0.moe.w_gate", "final_norm")
+              if n in state["params"]]
+    axis = mesh2.mesh_dim_names.index("model")
     return dict(losses=losses, params=params, plan=[plan.pods, plan.data, plan.model],
-                placements={n: [str(x) for x in state["params"][n].placements]
-                            for n in ("embed", "blocks.0.attn.wq", "final_norm")})
+                placements={n: [str(x) for x in state["params"][n].placements] for n in leaves},
+                model_dims={n: getattr(state["params"][n].placements[axis], "dim", None)
+                            for n in leaves})
 
 
 def dist_compare(got: dict, want: dict, noise: set) -> dict:
@@ -4604,7 +4700,7 @@ def phase_distributed(dev) -> dict:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
-    from repro_torch.models.model import tensor_parallel
+    from repro_torch.launch.dryrun import sharded_compute
     from repro_torch.optim.adamw import adamw
     from repro_torch.training.step import AUX_WEIGHT, init_train_state, loss_and_grads
 
@@ -4638,8 +4734,7 @@ def phase_distributed(dev) -> dict:
         noise = {n for n, g in gmax.items() if g < DIST_NOISE_SHARE * max(gmax.values())}
         held = dist_compare(sharded, one, noise)
         repeat = dist_compare(again, one, noise)
-        compute = ("tensor parallel over model" if tensor_parallel(cfg)
-                   else "replicated over model")
+        compute = sharded_compute(cfg)
         res = dict(phase="distributed", case=f"sharded_step_world_1_{arch}", arch=arch,
                    family=cfg.family, compute=compute, backend=backend, mesh=[1, 1],
                    plan=sharded["plan"], placements=sharded["placements"],
@@ -4659,8 +4754,14 @@ def phase_distributed(dev) -> dict:
                                   and held["noise_leaf_err_in_lr_a_step"] <= 2),
               f"distributed {arch}: the sharded step against the one-device step: {held}")
         launches[f"distributed_{arch}"] = k8
-    check([tensor_parallel(runs[a][0]) for a in DIST_ARCHS] == [True, False],
-          f"distributed: {DIST_ARCHS} should take the tensor-parallel and the replicated route")
+    computes = {a: sharded_compute(runs[a][0]) for a in DIST_ARCHS}
+    check(computes == DIST_ARCHS, f"distributed: the configs' routes {computes}, not "
+                                  f"{DIST_ARCHS}")
+    # the route the MoE steps took: their experts' w_gate split over "model"
+    # on the expert dimension (expert parallel) or on ff (inside the experts)
+    taken = {a: runs[a][2]["model_dims"]["blocks.0.moe.w_gate"] for a in DIST_MOE_DIMS}
+    check(taken == DIST_MOE_DIMS, f"distributed: the MoE steps' w_gate split over model on "
+                                  f"dims {taken}, not {DIST_MOE_DIMS}")
     comp = compress_on_card(dev)
     emit(dict(phase="distributed", case="compress_int8", compress_int8=comp,
               wall_s=time.perf_counter() - t0))

@@ -17,10 +17,12 @@ the rules place state: :func:`logical_constraint` and
 :func:`boundary_pin` are for callers holding DTensors, and without rules
 return their input itself.  :func:`rank_rows` and :func:`place_rows`
 take a rank's rows of a batch and place a step's outputs for the sharded
-steps.  :class:`ModelSplit` is a dense model's tensor parallelism over
-``"model"`` (Megatron's f and g, the vocab-parallel lookup and
-logsumexp, the head_dim gather and RoPE's exchange), which the other
-families' sharded steps, replicated over ``"model"``, do not use.
+steps, and :class:`BatchShard` tells an MoE's dispatch where the rank's
+rows lie.  :class:`ModelSplit` is a dense or MoE model's tensor
+parallelism over ``"model"`` (Megatron's f and g, the vocab-parallel
+lookup and logsumexp, the head_dim gather, RoPE's exchange, the experts'
+gather), which the other families' sharded steps, replicated over
+``"model"``, do not use.
 
 **The solver mesh.**  JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
 PyTorch has no such array, so the port's mesh is a plain tuple of
@@ -187,6 +189,35 @@ def rank_share(mesh, axes: Sequence[str]) -> tuple[int, int]:
         n = mesh.size(names.index(a))
         index, count = index * n + mesh.get_local_rank(a), count * n
     return index, count
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This rank's place among the shards of a sharded step's batch:
+    ``index`` of ``count`` contiguous shares (:func:`rank_rows`) over the
+    batch axes, whose process groups are ``groups`` (in mesh order).  The
+    MoE's dispatch groups read it (:mod:`repro_torch.models.moe`)."""
+
+    groups: tuple
+    index: int
+    count: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every shard's ``x`` stacked in shard order, (count, *x.shape),
+        outside autograd: gathered over the innermost axis first."""
+        out = x.unsqueeze(0)
+        for group in reversed(self.groups):
+            out = _gather_rows(out, group)
+        return out
+
+
+def batch_shard(mesh, axes: Sequence[str]) -> Optional[BatchShard]:
+    """This rank's :class:`BatchShard` over the mesh ``axes``; None where
+    the batch is not split (no axes, or one shard)."""
+    index, count = rank_share(mesh, axes)
+    if count == 1:
+        return None
+    return BatchShard(groups=tuple(mesh.get_group(a) for a in axes), index=index, count=count)
 
 
 def rank_rows(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torch.Tensor:
@@ -399,9 +430,15 @@ class ModelSplit:
     ``kv_first`` are this rank's q heads, kv heads and its first kv
     head (``kv_sliced``: taken from K/V projections held whole, whose
     ``kv_heads`` are not on the axis), ``q_per_kv`` the q heads a kv head
-    serves; ``ff`` and ``vocab`` its columns of the MLP and rows of the
-    padded vocab.  With ``count`` 1 every operator is the one-device
-    arithmetic."""
+    serves; ``ff`` and ``vocab`` its columns of the MLP (of every expert
+    in an MoE) and rows of the padded vocab.  ``moe`` is an MoE's mode,
+    from the rules' placing of its experts' ``w_gate``: ``"experts"``
+    (expert parallel: the rank's ``experts`` experts from
+    ``expert_first``, whole), ``"ff"`` (tensor parallel inside the
+    experts: its ``ff`` columns of every expert), and ``"replicated"``
+    for the other families (the rules put an MoE's experts or their
+    ``ff`` on the axis).  With ``count`` 1
+    every operator is the one-device arithmetic."""
 
     group: object
     index: int
@@ -415,6 +452,9 @@ class ModelSplit:
     q_per_kv: int
     ff: int
     vocab: int
+    moe: str = "replicated"
+    experts: int = 0
+    expert_first: int = 0
 
     @property
     def attn_partial(self) -> bool:
@@ -444,6 +484,18 @@ class ModelSplit:
     def reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``x`` reduced over the group, outside autograd."""
         return _reduce_over(x, self.group, op)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along dimension 0, outside
+        autograd."""
+        return _gather_rows(x, self.group)
+
+    def gather_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' experts' outputs (its experts first along dimension
+        0) gathered into every expert's, in expert order; the gradient
+        this rank's slice, since the compute after the gather is
+        replicated."""
+        return _GatherRows.apply(x, self)
 
     def take_kv(self, w: torch.Tensor) -> torch.Tensor:
         """This rank's kv heads of a K/V projection ``w`` (d, KV, dh) held
@@ -545,8 +597,8 @@ class AttnBatchSplit:
     batch (``rules["attn_batch"]`` is ``rules["batch"]`` plus ``axis``).
 
     Outside attention the step is replicated over ``"model"``, or for a
-    dense model tensor parallel with the attention's output whole on
-    every rank (:func:`repro_torch.training.step.make_sharded_train_step`),
+    dense or MoE model tensor parallel with the attention's output whole
+    on every rank (:func:`repro_torch.training.step.make_sharded_train_step`),
     so the layout means: each rank of ``axis`` takes its share of the
     rank's rows (:meth:`enter`), runs the attention on them, and the
     outputs are gathered over ``axis`` (:meth:`exit`): one all-gather of

@@ -15,9 +15,11 @@ without active rules and a mesh returns its input unchanged, so every
 one-device path keeps its bits.  The others (``lc``) are dropped: the
 port places state, not activations
 (:func:`repro_torch.training.step.make_sharded_train_step`), and a dense
-block under tensor parallelism (``tp``, a
+or MoE block under tensor parallelism (``tp``, a
 :class:`~repro_torch.distributed.sharding.ModelSplit`) computes the
-rank's share of what GSPMD splits under them.  Each
+rank's share of what GSPMD splits under them; an MoE block on a mesh
+also takes the rank's place in the batch (``shard``), since its
+dispatch groups are the global batch's.  Each
 ``*_axes`` function gives its block's leaves' logical axes, keyed as the
 block's parameters, as the reference's does.
 The float32 leaves of the reference (``moe.w_router``, the Mamba
@@ -52,7 +54,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu_mlp,
 )
-from repro_torch.models.moe import moe_ffn, moe_ffn_grouped
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba2_decode, mamba2_forward
 
 
@@ -420,14 +422,21 @@ def _dense_block(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig, tp, attention
             return x + g(a + swiglu_mlp(hf, p.mlp)), kvc
         a, kvc = attention(h)
         return x + a + g(swiglu_mlp(hf, p.mlp)), kvc
-    # the norm's output is not held past the attention
-    if _partial(tp):
-        a, kvc = attention(f(rms_norm(x, p.ln1, cfg.norm_eps)))
-        x = x + g(a)
-    else:
-        a, kvc = attention(rms_norm(x, p.ln1, cfg.norm_eps))
-        x = x + a
+    x, kvc = _attention_half(x, p, cfg, tp, attention)
     return x + g(swiglu_mlp(f(rms_norm(x, p.ln2, cfg.norm_eps)), p.mlp)), kvc
+
+
+def _attention_half(x: torch.Tensor, p, cfg: ModelConfig, tp, attention):
+    """``x`` plus the attention of its norm, and the attention's kv: a
+    sequential block's first half (dense or MoE).  ``attention(h)``
+    returns ``(out, kv)``, under a split attention a partial sum, which
+    enters through f and leaves through g.  The norm's output is not held
+    past the attention."""
+    if _partial(tp):
+        a, kvc = attention(tp.enter(rms_norm(x, p.ln1, cfg.norm_eps)))
+        return x + tp.exit(a), kvc
+    a, kvc = attention(rms_norm(x, p.ln1, cfg.norm_eps))
+    return x + a, kvc
 
 
 def dense_block_decode(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig,
@@ -475,30 +484,37 @@ def moe_block_axes(cfg: ModelConfig) -> dict:
     }
 
 
-def moe_block_forward(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, positions: torch.Tensor):
+def moe_block_forward(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, positions: torch.Tensor,
+                      *, tp=None, shard=None):
     """Returns ``(out, aux, (k, v))``: the reference's ``(out, aux)`` and
-    the attention's k/v, the cache entries of a prefill."""
-    a, kvc = attn_forward(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg, positions=positions)
-    x = x + a
+    the attention's k/v, the cache entries of a prefill.  The FFN
+    dispatches the reference's ``dispatch_groups`` groups of the batch,
+    of which ``x`` is the share ``shard`` on a mesh (aux then the rank's
+    share of the batch's).  Under tensor parallelism ``tp`` the attention
+    is :func:`dense_block_forward`'s and the experts compute the rank's
+    share (:mod:`repro_torch.models.moe`)."""
+    x, kvc = _attention_half(x, p, cfg, tp, lambda h: attn_forward(
+        h, p.attn, cfg, positions=positions, tp=tp))
     h = rms_norm(x, p.ln2, cfg.norm_eps)
     b, s, d = h.shape
-    if cfg.dispatch_groups > 1:
-        y, aux = moe_ffn_grouped(h.reshape(b * s, d), p.moe, n_experts=cfg.n_experts,
-                                 top_k=cfg.top_k, groups=cfg.dispatch_groups)
-    else:
-        y, aux = moe_ffn(h.reshape(b * s, d), p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k)
+    y, aux = moe_ffn(h.reshape(b * s, d), p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     groups=cfg.dispatch_groups, shard=shard, tp=tp)
     return x + y.reshape(b, s, d), aux, kvc
 
 
 def moe_block_decode(x: torch.Tensor, p: MoEBlock, cfg: ModelConfig, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos) -> torch.Tensor:
-    """One token through one MoE block: flat dispatch at capacity factor
-    2, as the reference decodes; the caches are updated in place."""
-    x = x + attn_decode(rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg, cache_k, cache_v, pos)
+                     cache_v: torch.Tensor, pos, *, tp=None, shard=None) -> torch.Tensor:
+    """One token through one MoE block: flat dispatch of the whole batch
+    (of which ``x`` is the share ``shard`` on a mesh) at capacity factor
+    2, as the reference decodes; the caches are updated in place.  Under
+    tensor parallelism ``tp``, the rank's share, as
+    :func:`moe_block_forward`'s."""
+    x, _ = _attention_half(x, p, cfg, tp, lambda h: (
+        attn_decode(h, p.attn, cfg, cache_k, cache_v, pos, tp=tp), None))
     h = rms_norm(x, p.ln2, cfg.norm_eps)
     b, _, d = h.shape
     y, _ = moe_ffn(h.reshape(b, d), p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                   capacity_factor=2.0)
+                   capacity_factor=2.0, shard=shard, tp=tp)
     return x + y.reshape(b, 1, d)
 
 

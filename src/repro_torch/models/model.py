@@ -66,7 +66,7 @@ from repro_torch.models.ssm import check_chunk
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 # the families whose sharded steps are tensor parallel over "model"
-TENSOR_PARALLEL_FAMILIES = ("dense",)
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
 # the subtrees the reference stacks on a leading layer axis; here each
 # layer is its own module, named ``blocks.{i}`` and so on
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -90,9 +90,10 @@ class LanguageModel(nn.Module):
         self.enc_blocks = None if enc_blocks is None else nn.ModuleList(enc_blocks)
         self.dec_blocks = None if dec_blocks is None else nn.ModuleList(dec_blocks)
         self.enc_final_norm = None if enc_final_norm is None else B._param(enc_final_norm)
-        # a rank's tensor parallelism over "model" (gather_params), None on
-        # one device
+        # a rank's tensor parallelism over "model" and its share of the
+        # batch (gather_params), None on one device
         self.split = None
+        self.batch_shard = None
 
 
 # the dense decoder's name since the first LM slice
@@ -219,7 +220,8 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
     """The rank's :class:`~repro_torch.distributed.sharding.ModelSplit`
     from how the rules placed the leaves on the mesh (``wq``'s dimension
     on ``"model"`` gives the attention's mode, ``wk``'s whether kv heads
-    are split) and its local shards' sizes; None on a mesh without a
+    are split, an MoE's ``w_gate``'s whether its experts or their ``ff``
+    columns are) and its local shards' sizes; None on a mesh without a
     ``"model"`` axis."""
     from torch.distributed.tensor import Shard
 
@@ -251,32 +253,51 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
         else:
             raise NotImplementedError(f"{heads} q heads a rank over kv groups of {g}: a rank's "
                                       "q heads must read whole kv heads")
+    moe, experts, expert_first = "replicated", 0, 0
+    if cfg.family == "moe":
+        w_gate = local["blocks.0.moe.w_gate"]
+        moe = {0: "experts", 2: "ff"}.get(model_dim("blocks.0.moe.w_gate"))
+        if moe is None:
+            raise NotImplementedError("an MoE whose experts' w_gate is not split over "
+                                      "\"model\" on its expert or ff dimension")
+        ff, experts = w_gate.shape[2], w_gate.shape[0]
+        if moe == "experts":
+            # the leaves split as torch.chunk does: ceil(E / count) a rank,
+            # the last ranks' shares short or empty
+            expert_first = min(index * -(-cfg.n_experts // count), cfg.n_experts)
+    else:
+        ff = local["blocks.0.mlp.w_gate"].shape[1]
     return ModelSplit(group=mesh.get_group("model"), index=index, count=count, attn=attn,
                       head_dim=cfg.head_dim, heads=heads, kv_heads=kv_heads, kv_first=kv_first,
-                      kv_sliced=sliced, q_per_kv=h // kv,
-                      ff=local["blocks.0.mlp.w_gate"].shape[1], vocab=local["embed"].shape[0])
+                      kv_sliced=sliced, q_per_kv=h // kv, ff=ff, vocab=local["embed"].shape[0],
+                      moe=moe, experts=experts, expert_first=expert_first)
 
 
 def tensor_parallel(cfg: ModelConfig) -> bool:
     """Whether the sharded steps of ``cfg`` split its compute over
     ``"model"`` (:class:`~repro_torch.distributed.sharding.ModelSplit`):
-    the dense family's do; the others' compute is replicated there."""
+    the dense and MoE families' do; the others' compute is replicated
+    there."""
     return family_of(cfg) in TENSOR_PARALLEL_FAMILIES
 
 
-def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None = None
-                  ) -> LanguageModel:
+def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None = None,
+                  batch_axes=()) -> LanguageModel:
     """A model whose parameters are the DTensors of ``sharded`` (keyed by
     state-dict name) gathered whole: a collective over their mesh, which
     every member rank calls.  A model that is :func:`tensor_parallel`
     gathers each leaf over every mesh axis but ``"model"`` and keeps its
     ``"model"`` shard, and its ``split`` says how the rank computes its
-    share (:func:`_model_split`).  ``model`` (one from an earlier call)
-    is reused; a new one is built on the shards' device, trainable,
-    holding nothing until its leaves are gathered, and a counter of the
-    step (:mod:`repro_torch.roofline.cost`) does not count the
-    building."""
+    share (:func:`_model_split`).  ``batch_axes`` are the mesh axes the
+    step splits its batch over; the model's ``batch_shard`` is the rank's
+    place among them (None where there is one shard), which an MoE's
+    dispatch reads.  ``model`` (one from an earlier call) is reused; a
+    new one is built on the shards' device, trainable, holding nothing
+    until its leaves are gathered, and a counter of the step
+    (:mod:`repro_torch.roofline.cost`) does not count the building."""
     from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import batch_shard
 
     split = tensor_parallel(cfg)
     if model is None:
@@ -297,6 +318,7 @@ def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None =
             local[n] = leaf.full_tensor()
         p.data = local[n]
     model.split = _model_split(cfg, sharded, local) if split else None
+    model.batch_shard = batch_shard(next(iter(sharded.values())).device_mesh, batch_axes)
     return model
 
 
@@ -375,9 +397,10 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
     (B, n_patches, d) and an encdec ``batch["frames"]`` (B, enc_len, d).
     Runs under autograd: every attention goes through K8 and its
     hand-written backward on the card.  The aux loss is the MoE's
-    load-balancing loss summed over layers (zero for the other families).
-    Under tensor parallelism (``params.split``, the dense family) the
-    logits are the rank's vocab columns.
+    load-balancing loss summed over layers (zero for the other families),
+    on a mesh the rank's share of the global batch's.  Under tensor
+    parallelism (``params.split``, the dense and MoE families) the logits
+    are the rank's vocab columns.
     """
     family = family_of(cfg)
     dev = _device_of(params)
@@ -403,7 +426,8 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
             x = dense(p)(x)
     elif family == "moe":
         for p in params.blocks:
-            x, a = _remat(lambda h, p=p: B.moe_block_forward(h, p, cfg, positions)[:2], cfg)(x)
+            x, a = _remat(lambda h, p=p: B.moe_block_forward(
+                h, p, cfg, positions, tp=split, shard=params.batch_shard)[:2], cfg)(x)
             aux = aux + a
     elif family == "ssm":
         for p in params.blocks:
@@ -541,9 +565,13 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
             x, (k, v) = B.dense_block_forward(x, p, cfg, positions, tp=split)
             put_kv(i, k, v)
     elif family == "moe":
+        if cfg.qk_norm and split is not None:
+            raise NotImplementedError("a tensor-parallel MoE prefill with qk_norm: its cache "
+                                      "would need the rank's un-normed k")
         for i, p in enumerate(params.blocks):
             h = x
-            x, _, (k, v) = B.moe_block_forward(x, p, cfg, positions)
+            x, _, (k, v) = B.moe_block_forward(x, p, cfg, positions, tp=split,
+                                               shard=params.batch_shard)
             if cfg.qk_norm:
                 # the reference caches the un-normed k (model.py:400-410);
                 # without qk_norm, as in every MoE config, that is the
@@ -586,9 +614,9 @@ def prefill(params: LanguageModel, batch: dict, cfg: ModelConfig, max_seq: int):
     ``batch["tokens"]`` (B, S), with ``batch["patches"]`` for a vlm and
     ``batch["frames"]`` for an encdec.  Returns (last-token logits
     (B, vocab_padded), cache padded to ``max_seq``).  Under tensor
-    parallelism (``params.split``, the dense family) the logits are the
-    rank's vocab columns and the cache its share in the decode rules'
-    layout (:func:`_split_prefill_cache`).
+    parallelism (``params.split``, the dense and MoE families) the logits
+    are the rank's vocab columns and the cache its share in the decode
+    rules' layout (:func:`_split_prefill_cache`).
     """
     tokens = batch["tokens"]
     split, dev = params.split, _device_of(params)
@@ -657,7 +685,8 @@ def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig
             x = B.dense_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec, tp=split)
     elif family == "moe":
         for i, p in enumerate(params.blocks):
-            x = B.moe_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec)
+            x = B.moe_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], pos_vec, tp=split,
+                                   shard=params.batch_shard)
     elif family == "ssm":
         for i in range(cfg.n_layers):
             x = mamba(i, x)

@@ -1,6 +1,6 @@
 """Prefill and decode on a mesh, in the style of the sharded train step
 (:func:`repro_torch.training.step.make_sharded_train_step`): FSDP storage,
-and for the dense family tensor parallelism over ``"model"``.
+and for the dense and MoE families tensor parallelism over ``"model"``.
 
 The reference runs ``prefill`` and ``decode_step`` under ``jit`` with
 parameter, batch and cache shardings, and GSPMD splits the work.  Here
@@ -8,14 +8,18 @@ the parameters are DTensors placed by ``param_specs`` and a decode
 cache by ``cache_logical_axes``, and each rank runs
 :func:`~repro_torch.models.model.prefill` or
 :func:`~repro_torch.models.model.decode_step` on its rows of the batch
-(split over the batch rule's axes).  A dense model's rank gathers each
-leaf over the batch axes alone and computes its ``"model"`` share
-(:func:`~repro_torch.models.model.gather_params`): prefill in heads mode
-(its q heads) emits the cache by the decode rules, every kv head and its
-``head_dim`` columns, in one all-to-all; decode in head_dim mode works on
-its columns of the cache, which it keeps, with no gather.  The other
-families gather every parameter whole and, for decode, their rows of the
-cache whole over ``"model"``, and compute replicated there.  Each rank
+(split over the batch rule's axes).  A dense or MoE model's rank gathers
+each leaf over the batch axes alone and computes its ``"model"`` share
+(:func:`~repro_torch.models.model.gather_params`; an MoE's experts, or
+their ``ff`` columns): prefill in heads mode (its q heads) emits the
+cache by the decode rules, every kv head and its ``head_dim`` columns,
+in one all-to-all; decode in head_dim mode works on its columns of the
+cache (``_cache_rows(keep_model=True)``), which it keeps, with no
+gather.  An MoE dispatches the reference's groups of the global batch,
+in decode one flat group at capacity factor 2
+(:mod:`repro_torch.models.moe`).  The other families gather every
+parameter whole and, for decode, their rows of the cache whole over
+``"model"``, and compute replicated there.  Each rank
 keeps of the results what the reference's ``out_shardings`` give it
 (``repro/launch/dryrun.py:165, 180``): logits sharded as ``(batch,
 "model")``, the cache by its logical axes, local slices without a
@@ -86,7 +90,7 @@ def make_sharded_prefill(cfg: ModelConfig, mesh, rules: Mapping, cache_rules: Ma
 
     def prefill_step(params: dict, batch: dict):
         nonlocal model
-        model = gather_params(cfg, params, model)
+        model = gather_params(cfg, params, model, axes)
         logits, cache = prefill(model, {k: rank_rows(x, mesh, axes) for k, x in batch.items()},
                                 cfg, max_seq)
         release_params(model)
@@ -100,17 +104,17 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Mapping):
     ``params`` and ``cache`` are DTensors (the cache placed by
     ``cache_logical_axes`` under ``rules``, the decode rules), ``token``
     the global (B, 1) tokens, ``pos`` replicated.  Each rank steps its
-    rows of the cache (a dense model's rank its ``head_dim`` columns of
-    them; another family's gathered whole over ``"model"``) and keeps its
-    shard of the updated cache (a new DTensor; the input's shards of a
-    replicated rank are not written, a dense rank's are written in
-    place)."""
+    rows of the cache (a dense or MoE model's rank its ``head_dim``
+    columns of them; another family's gathered whole over ``"model"``)
+    and keeps its shard of the updated cache (a new DTensor; the input's
+    shards of a replicated rank are not written, a tensor-parallel rank's
+    are written in place)."""
     axes = rule_axes(rules["batch"])
     model = None
 
     def decode(params: dict, token: torch.Tensor, pos, cache: dict):
         nonlocal model
-        model = gather_params(cfg, params, model)
+        model = gather_params(cfg, params, model, axes)
         logits, rows = decode_step(model, rank_rows(token, mesh, axes), pos,
                                    _cache_rows(cache, mesh, axes, model.split is not None), cfg)
         release_params(model)

@@ -8,6 +8,12 @@ import torch
 IGNORE_ID = -1
 
 
+def token_count(targets: torch.Tensor) -> torch.Tensor:
+    """The loss's denominator: the targets that are not :data:`IGNORE_ID`,
+    counted as a 0-d float32 tensor of at least 1."""
+    return (targets != IGNORE_ID).float().sum().clamp_min(1.0)
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, vocab: int, *,
                        z_loss: float = 1e-4, split=None) -> tuple[torch.Tensor, dict]:
     """``logits`` (B, S, vocab_padded), ``targets`` (B, S) with
@@ -42,7 +48,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, vocab: int, 
     nll = lse - true_logit
 
     mask = (targets != IGNORE_ID).float()
-    denom = mask.sum().clamp_min(1.0)
+    denom = token_count(targets)
     ce = (nll * mask).sum() / denom
     zl = z_loss * ((lse * mask) ** 2).sum() / denom
     acc = ((top == tgt).float() * mask).sum() / denom

@@ -15,14 +15,17 @@ and its hand-written backward on the card.
 Parameters and AdamW moments live as DTensors placed by
 ``param_specs(param_logical_axes(cfg), rules)`` (:func:`shard_train_state`).
 Each rank takes its rows of the batch, split over the mesh's batch axes
-(every axis but ``"model"``).  The dense family runs tensor parallel over
-``"model"``, as GSPMD splits the reference's step under its rules: each
-leaf is gathered over the batch axes alone and keeps its ``"model"``
-shard (its q heads or head_dim columns, ``ff`` columns, vocab rows:
+(every axis but ``"model"``).  The dense and MoE families run tensor
+parallel over ``"model"``, as GSPMD splits the reference's step under its
+rules: each leaf is gathered over the batch axes alone and keeps its
+``"model"`` shard (its q heads or head_dim columns, ``ff`` columns, an
+MoE's experts or their ``ff`` columns, vocab rows:
 :func:`~repro_torch.models.model.gather_params`), and the rank computes
 its share, Megatron's regions meeting in all-reduces over ``"model"``
 (:class:`~repro_torch.distributed.sharding.ModelSplit`), the loss
-vocab-parallel.  The other families gather every leaf whole and run the
+vocab-parallel.  An MoE dispatches the reference's groups of the global
+batch (:mod:`repro_torch.models.moe`), and its aux loss is the global
+batch's.  The other families gather every leaf whole and run the
 one-device forward and backward, replicated over ``"model"`` but inside
 attention under the attention batch layout of the active rules
 (:func:`repro_torch.distributed.sharding.attn_batch_split`).  The
@@ -52,7 +55,7 @@ from repro_torch.models.model import (
     release_params,
 )
 from repro_torch.optim.adamw import Optimizer, apply_updates, global_norm
-from repro_torch.training.loss import cross_entropy_loss
+from repro_torch.training.loss import cross_entropy_loss, token_count
 
 # the MoE load-balancing loss's weight in the train loss (zero aux elsewhere)
 AUX_WEIGHT = 0.01
@@ -204,10 +207,12 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
     global ``batch``; each takes its rows, split contiguously over the
     mesh's batch axes (every axis but ``"model"``, in mesh order), whose
     product must divide the batch.  Metrics are the token-weighted means
-    of the ranks' (``tokens`` their sum), equal on every rank; an MoE's
-    aux loss and capacity act per rank, as in data parallelism.  A dense
-    model's step is tensor parallel over ``"model"`` (the module's
-    docstring)."""
+    of the ranks' (``tokens`` their sum), equal on every rank.  An MoE's
+    dispatch groups, capacity and aux loss are the global batch's, as the
+    reference's: each rank's aux loss is its share, taken at ``1 / w`` of
+    its weight ``w`` in the loss, so that the token weights leave the
+    global aux loss and its gradient whole.  A dense or MoE model's step
+    is tensor parallel over ``"model"`` (the module's docstring)."""
     batch_axes = [a for a in mesh.mesh_dim_names if a != "model"]
     groups = [mesh.get_group(a) for a in batch_axes]
     model = None            # the model the step runs, built at the first call
@@ -217,18 +222,20 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
             dist.all_reduce(t, group=g)
         return t
 
+    def weight(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        total = reduce(tokens.clone())
+        return total, tokens / total
+
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         nonlocal model
         sharded = state["params"]
-        model = gather_params(cfg, sharded, model)
+        model = gather_params(cfg, sharded, model, batch_axes)
         split = model.split
-        metrics, grads = loss_and_grads(
-            model, {k: rank_rows(x, mesh, batch_axes) for k, x in batch.items()}, cfg,
-            AUX_WEIGHT)
+        rows = {k: rank_rows(x, mesh, batch_axes) for k, x in batch.items()}
+        total, w = weight(token_count(rows["targets"]))
+        metrics, grads = loss_and_grads(model, rows, cfg, AUX_WEIGHT / w)
         release_params(model)
-        tokens = metrics["tokens"].detach()
-        total = reduce(tokens.clone())
-        w = tokens / total
+        metrics["aux"] = metrics["aux"] / w
         for g in grads.values():
             reduce(g.mul_(w.to(g.dtype)))
         metrics = {k: total if k == "tokens" else reduce(v.detach() * w)

@@ -212,6 +212,42 @@ SLOW_TRACES = {("mamba2_370m", "train_4k"), ("mamba2_370m", "prefill_32k"),
                ("zamba2_7b", "train_4k"), ("zamba2_7b", "prefill_32k")}
 
 
+def moe_expert_flops(cfg, spec, mesh: str, rows: int) -> tuple[int, int, int]:
+    """An MoE cell's products at a rank's ``rows`` rows that do not split
+    over "model" as the rest: the router's, which every rank runs whole;
+    the experts' of the one-device step at those rows (its own dispatch
+    groups of them); and a rank's (its experts, or its ``ff`` columns of
+    every expert, over the global batch's dispatch groups).  A rank of R
+    batch shards, of a global batch that the reference cuts into G
+    groups (one where G does not divide its tokens), holds G / R whole
+    groups of ``cap`` slots an expert where R divides G, else its share
+    of one group of R / G ranks, at most its own tokens an expert of the
+    group's ``cap`` (no token picks an expert twice).  Training runs
+    each product four times (forward, remat's recompute, the backward's
+    two)."""
+    from repro.models.moe import moe_capacity
+
+    rules = dryrun.cell_rules(cfg, spec, mesh, False)
+    shards = math.prod(AXIS_SIZES[a] for a in rule_axes(rules["batch"]))
+    model = AXIS_SIZES["model"]
+    decode = spec.kind == "decode"
+    n = rows * (1 if decode else spec.seq_len)
+    passes = 4 if spec.kind == "train" else 1
+    groups, factor = (1, 2.0) if decode else (cfg.dispatch_groups, 1.25)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def experts(count: int, e_r: int, f_r: int) -> int:
+        total = n * count
+        g = groups if total % groups == 0 else 1
+        cap = moe_capacity(total // g, e, cfg.top_k, factor)
+        local, block = (g // count, cap) if g % count == 0 else (1, min(cap, n))
+        return passes * 3 * 2 * e_r * local * block * d * f_r * cfg.n_layers
+
+    e_r, f_r = (min(-(-e // model), e), f) if cfg.moe_parallel == "ep" else (e, f // model)
+    return (passes * 2 * n * d * e * cfg.n_layers, experts(1, e, f),
+            experts(shards, e_r, f_r))
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("mesh", dryrun.SHARDED_MESHES)
@@ -227,7 +263,9 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
     of them over the model axis (every product splits: the projections
     and ``wo`` over head_dim at SMOKE's 4 heads, the MLP over ``ff``, the
     logits over the vocab) and K8's whole, its q, k and v gathered (head
-    mode would split it too)."""
+    mode would split it too); for the MoE family the same, but the
+    router whole and the experts' products the rank's
+    (:func:`moe_expert_flops`)."""
     res = sharded_cell(arch, shape, mesh)
     applies, reason = jshape_applicable(jget_smoke(arch), JSHAPES[shape])
     if not applies:
@@ -236,11 +274,15 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
         return
     assert res["status"] == "ok", res.get("traceback")
     cfg = get_smoke_config(arch)
-    dense = cfg.family == "dense"
+    dense = cfg.family in ("dense", "moe")
     assert REF_KEYS | {"host_s", "kernels", "compute"} | ({"attention"} if dense else set()) \
         == set(res)
     assert res["n_chips"] == res["roofline"]["n_chips"] == N_CHIPS[mesh]
-    assert res["compute"] == ("tensor parallel over model" if dense else "replicated over model")
+    assert res["compute"] == {"dense": "tensor parallel over model",
+                              "moe": {"ep": "expert parallel over model",
+                                      "tp": "tensor parallel inside experts over model"}.get(
+                                          cfg.moe_parallel)}.get(cfg.family,
+                                                                 "replicated over model")
     coll = res["collectives"]
     assert jax_roofline_keys() <= set(res["roofline"])
     assert coll["all-gather"] > 0 and coll["total"] == sum(
@@ -265,9 +307,13 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
                 attn = (4 * rank_batch(arch, shape, mesh) * cfg.n_heads * cfg.head_dim
                         * spec.seq_len * cfg.n_layers)
                 assert cfg.head_dim == model
-            assert (flops - k8 - attn) % model == 0
-            flops = ((flops - k8 - attn) // model + attn // 2 // model
-                     + (k8 // model if heads else k8))
+            whole = mine = 0
+            if cfg.family == "moe":
+                whole, one, mine = moe_expert_flops(cfg, spec, mesh, rank_batch(arch, shape, mesh))
+                flops -= one
+            assert (flops - k8 - attn - whole) % model == 0
+            flops = ((flops - k8 - attn - whole) // model + attn // 2 // model
+                     + (k8 // model if heads else k8) + whole + mine)
         assert res["cost"]["flops"] == flops
 
 

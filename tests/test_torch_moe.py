@@ -126,8 +126,7 @@ def test_moe_ffn_grouped_matches_reference(n, groups):
     x = rng.standard_normal((n, d)).astype(np.float32)
     jp, tp = _pair(_params(2, e, d, f))
     jy, jaux = jmoe.moe_ffn_grouped(jnp.asarray(x), jp, n_experts=e, top_k=k, groups=groups)
-    ty, taux = tmoe.moe_ffn_grouped(torch.from_numpy(x), tp, n_experts=e, top_k=k,
-                                    groups=groups)
+    ty, taux = tmoe.moe_ffn(torch.from_numpy(x), tp, n_experts=e, top_k=k, groups=groups)
     _close(ty, jy)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
     if n % groups == 0:

@@ -58,7 +58,9 @@ from repro_torch.convert import lm_params_from_arrays, reference_leaf  # noqa: E
 from repro_torch.distributed.rules import make_rules  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_world  # noqa: E402
+from repro_torch.models import blocks as tblocks  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim.adamw import adamw  # noqa: E402
 from repro_torch.training.step import (  # noqa: E402
     AUX_WEIGHT,
@@ -126,10 +128,27 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _one_device_train(cfg, references, arch, batch: dict):
+def _reference_tree(like, named: dict):
+    """The reference's parameter tree, shaped and typed as ``like``, from
+    the port's state-dict tensors ``named`` (:func:`reference_leaf`'s
+    names, a stacked leaf's layers stacked again)."""
+    def build(node, path: tuple):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        names = ([".".join((path[0], str(i)) + path[1:]) for i in range(node.shape[0])]
+                 if path[0] in tmodel.STACKED else [".".join(path)])
+        arr = np.stack([named[n].detach().float().numpy() for n in names])
+        return jnp.asarray(arr if path[0] in tmodel.STACKED else arr[0], node.dtype)
+
+    return build(like, ())
+
+
+def _one_device_train(cfg, references, arch, batch: dict, every_step: bool = False):
     """The port's one-device steps and the reference's from the same
-    parameters: losses, parameters after each step and step-1
-    gradients."""
+    parameters: losses, aux losses, parameters after each step and step-1
+    gradients; with ``every_step`` each step's gradients too
+    (``grads_steps``), and ``grads_at``: the gradients at given
+    parameters (a state dict)."""
     jcfg, jp, tree = references[arch]
     model = lm_params_from_arrays(tree, cfg, "cpu").requires_grad_(True)
     _, grads = loss_and_grads(model, batch, cfg, AUX_WEIGHT)
@@ -144,22 +163,85 @@ def _one_device_train(cfg, references, arch, batch: dict):
         logits, aux = jmodel.forward_train(p, jbatch, jcfg)
         return jcross_entropy(logits, jbatch["targets"], jcfg.vocab)[0] + AUX_WEIGHT * aux
 
-    jgrads = jax.jit(jax.grad(jloss))(jp)
-    port = {"losses": [], "params": [], "grads": grads}
-    ref = {"losses": [], "params": [],
-           "grads": {n: torch.from_numpy(np.array(reference_leaf(jgrads, n), np.float32))
-                     for n in grads}}
+    jgrad = jax.jit(jax.grad(jloss))
+
+    def jgrads_of(p):
+        jg = jgrad(p)
+        return {n: torch.from_numpy(np.array(reference_leaf(jg, n), np.float32)) for n in grads}
+
+    def port_grads_at(named: dict) -> dict:
+        at = lm_params_from_arrays(tree, cfg, "cpu")
+        with torch.no_grad():
+            for n, p in at.named_parameters():
+                p.copy_(named[n])
+        return loss_and_grads(at.requires_grad_(True), batch, cfg, AUX_WEIGHT)[1]
+
+    port = {"losses": [], "aux": [], "params": [], "grads": grads, "grads_steps": [],
+            "grads_at": port_grads_at}
+    ref = {"losses": [], "aux": [], "params": [], "grads": jgrads_of(jp), "grads_steps": [],
+           "grads_at": lambda named: jgrads_of(_reference_tree(jp, named))}
     for _ in range(worker.TP_STEPS):
+        if every_step:
+            port["grads_steps"].append(loss_and_grads(state["params"], batch, cfg, AUX_WEIGHT)[1])
+            ref["grads_steps"].append(jgrads_of(jstate["params"]))
         state, m = step(state, batch)
         jstate, jm = jstep(jstate, jbatch)
         port["losses"].append(float(m["loss"]))
+        port["aux"].append(float(m["aux"]))
         port["params"].append({n: p.detach().clone()
                                for n, p in state["params"].named_parameters()})
         ref["losses"].append(float(jm["loss"]))
+        ref["aux"].append(float(jm["aux"]))
         ref["params"].append({n: torch.from_numpy(np.array(reference_leaf(jstate["params"], n),
                                                            np.float32))
                               for n in port["params"][-1]})
     return port, ref
+
+
+def hold_train(got: dict, port: dict, ref: dict, every_step: bool = False) -> dict:
+    """A sharded run's losses, step-1 gradients (with ``every_step``, both
+    runs' ``grads_steps`` given: each step's gradients, held after step 1
+    to theirs at the sharded run's parameters of that step) and
+    parameters after each step against the port's one-device steps and
+    the reference's (:func:`_one_device_train`), at the module's bars.  The
+    elements held to 2 lr a step are those that Adam's first step drives
+    apart or, with ``every_step``, those that its update at that step or
+    an earlier one drives apart (``worker.adam_step_gaps``), each step's
+    number bounded.  Returns them, by (against, step)."""
+    amplified = {}
+    for against, want in (("port", port), ("reference", ref)):
+        for g, w in zip(got["losses"], want["losses"], strict=True):
+            assert abs(g - w) <= TOL * abs(w), (got["losses"], want["losses"])
+        gmax = {n: float(g.abs().max()) for n, g in want["grads"].items()}
+        noise = {n for n, g in gmax.items() if g < NOISE_SHARE * max(gmax.values())}
+        steps = [(got["grads_1"], want["grads"])]
+        if every_step:
+            steps += [(g, want["grads_at"](snap))
+                      for g, snap in zip(got["grads_steps"][1:], got["params"], strict=False)]
+        for k, (grads, wgrads) in enumerate(steps, start=1):
+            kmax = {n: float(g.abs().max()) for n, g in wgrads.items()}
+            for n, w in wgrads.items():
+                bar = TOL * (max(kmax.values()) if n in noise else kmax[n])
+                err = float((grads[n] - w).abs().max())
+                assert err <= bar, (against, f"step-{k} gradient", n, err, bar)
+        gaps = (worker.adam_step_gaps(got["grads_steps"], want["grads_steps"]) if every_step
+                else [worker.adam_first_step_gap(got["grads_1"], want["grads"])])
+        free = {}
+        for k, (snap, wsnap) in enumerate(zip(got["params"], want["params"], strict=True)):
+            gap = gaps[min(k, len(gaps) - 1)]
+            free = {n: torch.ones_like(w, dtype=torch.bool) if n in noise
+                    else (gap[n] > TOL * float(w.abs().max())) | free.get(n, False)
+                    for n, w in wsnap.items()}
+            for n, w in wsnap.items():
+                bar = torch.where(free[n], 2 * worker.LR * (k + 1), TOL * float(w.abs().max()))
+                err = (snap[n] - w).abs()
+                assert bool((err <= bar).all()), (against, k, n, float((err - bar).max()))
+            amplified[against, k + 1] = sum(int(f.sum()) for n, f in free.items()
+                                            if n not in noise)
+        total = sum(w.numel() for n, w in want["params"][0].items() if n not in noise)
+        last = len(got["params"]) if every_step else 1
+        assert amplified[against, last] <= AMPLIFIED_SHARE * total, (against, amplified, total)
+    return amplified
 
 
 @pytest.mark.parametrize("arch,mode", TRAIN_CASES)
@@ -175,43 +257,17 @@ def test_tensor_parallel_train_steps_match_one_device_and_reference(tp_run, refe
     cfg = get_smoke_config(arch)
     got = tp_run[arch]["train" if mode == "heads" else "train_head_dim"]
     port, ref = _one_device_train(cfg, references, arch, worker.tp_batches(cfg.vocab)["train"])
-    amplified = {}
-    for against, want in (("port", port), ("reference", ref)):
-        for g, w in zip(got["losses"], want["losses"], strict=True):
-            assert abs(g - w) <= TOL * abs(w), (got["losses"], want["losses"])
-        gmax = {n: float(g.abs().max()) for n, g in want["grads"].items()}
-        noise = {n for n, g in gmax.items() if g < NOISE_SHARE * max(gmax.values())}
-        for n, w in want["grads"].items():
-            bar = TOL * (max(gmax.values()) if n in noise else gmax[n])
-            err = float((got["grads_1"][n] - w).abs().max())
-            assert err <= bar, (against, "step-1 gradient", n, err, bar)
-        gap = worker.adam_first_step_gap(got["grads_1"], want["grads"])
-        for k, (snap, wsnap) in enumerate(zip(got["params"], want["params"], strict=True)):
-            free = {n: torch.ones_like(w, dtype=torch.bool) if n in noise
-                    else gap[n] > TOL * float(w.abs().max()) for n, w in wsnap.items()}
-            for n, w in wsnap.items():
-                bar = torch.where(free[n], 2 * worker.LR * (k + 1), TOL * float(w.abs().max()))
-                err = (snap[n] - w).abs()
-                assert bool((err <= bar).all()), (against, k, n, float((err - bar).max()))
-            amplified[against, k + 1] = sum(int(f.sum()) for n, f in free.items()
-                                            if n not in noise)
-        total = sum(w.numel() for n, w in want["params"][0].items() if n not in noise)
-        assert amplified[against, 1] <= AMPLIFIED_SHARE * total, (against, amplified, total)
+    amplified = hold_train(got, port, ref)
     request.node.user_properties.append(("adam_amplified_elements", amplified))
 
 
-@pytest.mark.parametrize("arch", worker.TP_ARCHS)
-def test_tensor_parallel_prefill_and_decode_match_one_device_and_reference(tp_run, references,
-                                                                           arch):
-    """A sharded prefill (heads mode: one all-to-all sends each rank its
-    head_dim columns of every kv head) and four greedy decode steps
-    (head_dim mode) on (2, 4): the vocab-sharded logits gathered and the
-    head_dim-sharded cache within 1e-5 of the port's one-device steps'
-    and the reference's, each rank's cache shard a quarter of head_dim
-    over half the rows, and the greedy tokens equal."""
+def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4)) -> None:
+    """A sharded prefill and greedy decode on ``mesh`` (``worker.tp_serve``)
+    against the port's one-device steps and the reference's: the logits
+    gathered and the cache within TOL, each rank's cache shard its rows
+    and its head_dim columns, the greedy tokens equal."""
     cfg = get_smoke_config(arch)
     jcfg, jp, tree = references[arch]
-    got = tp_run[arch]
     prompts = worker.tp_batches(cfg.vocab)["prompts"]
     model = lm_params_from_arrays(tree, cfg, "cpu")
     logits, cache = tmodel.prefill(model, {"tokens": prompts}, cfg, worker.TP_MAX_SEQ)
@@ -220,7 +276,8 @@ def test_tensor_parallel_prefill_and_decode_match_one_device_and_reference(tp_ru
     for want in (logits, jlogits):
         assert _rel(got["prefill_logits"], want) <= TOL
     for name in ("k", "v"):
-        shape = (cfg.n_layers, 2, worker.TP_MAX_SEQ, cfg.n_kv_heads, cfg.head_dim // 4)
+        shape = (cfg.n_layers, len(prompts) // mesh[0], worker.TP_MAX_SEQ, cfg.n_kv_heads,
+                 cfg.head_dim // mesh[1])
         assert got["cache_local"][name] == shape
         for want in (cache[name], jcache[name]):
             assert _rel(got["cache"][name], want) <= TOL, name
@@ -238,6 +295,18 @@ def test_tensor_parallel_prefill_and_decode_match_one_device_and_reference(tp_ru
         token = logits.argmax(-1)[:, None].to(torch.int32)
         jtoken = jnp.argmax(jlogits, axis=-1)[:, None].astype(jnp.int32)
     assert torch.equal(got["tokens"][-1], token)
+
+
+@pytest.mark.parametrize("arch", worker.TP_ARCHS)
+def test_tensor_parallel_prefill_and_decode_match_one_device_and_reference(tp_run, references,
+                                                                           arch):
+    """A sharded prefill (heads mode: one all-to-all sends each rank its
+    head_dim columns of every kv head) and four greedy decode steps
+    (head_dim mode) on (2, 4): the vocab-sharded logits gathered and the
+    head_dim-sharded cache within 1e-5 of the port's one-device steps'
+    and the reference's, each rank's cache shard a quarter of head_dim
+    over half the rows, and the greedy tokens equal."""
+    hold_serving(tp_run[arch], references, arch)
 
 
 def test_head_dim_decode_attention_by_hand(tp_run):
@@ -333,20 +402,58 @@ def _reference_flops(arch: str) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("arch", worker.TP_ARCHS)
+def _moe_products(cfg, kind: str) -> tuple[int, int]:
+    """The products of an MoE rank that GSPMD computes otherwise on (2, 4),
+    a layer: (the reference's FLOPs, a port rank's), read from the
+    reference's lowered HLO and the port's counter at REF_B x REF_S.
+
+    Prefill: the K/V projections.  The reference's program projects K
+    and V on each device in two products of half a kv head's columns and
+    one of every kv head's (its MoE prefill recomputes k and v for the
+    cache, ``repro/models/model.py:403-409``): 2 t d (2 (dh / 2) + KV dh)
+    for t = 128 rows' tokens; a port rank projects K and V of the kv head
+    its q head reads: 2 t d (2 dh).
+
+    Decode: the router, whose contraction over d GSPMD splits over
+    "model" (2 b (d / 4) E, b = 2 rows) where a port rank runs it whole
+    (2 b d E); and the experts' three products, which the reference runs
+    on the whole batch's capacity (``moe_capacity(4, E, k, 2.0)`` = 8
+    slots an expert, the contraction over d split over "data": 3 x 2 E_r 8
+    (d / 2) f_r) where a port rank fills only its own kept pairs (min(8,
+    b) = 2 slots: 3 x 2 E_r 2 d f_r), E_r and f_r the rank's experts and
+    ``ff`` columns."""
+    from repro_torch.models.moe import moe_capacity
+
+    d, dh, e = cfg.d_model, cfg.head_dim, cfg.n_experts
+    if kind == "prefill":
+        t = REF_B // 2 * REF_S
+        return 2 * t * d * (2 * (dh // 2) + cfg.n_kv_heads * dh), 2 * t * d * 2 * dh
+    b = REF_B // 2
+    ep = cfg.moe_parallel == "ep"
+    e_r, f_r = (e // 4, cfg.d_ff) if ep else (e, cfg.d_ff // 4)
+    cap = moe_capacity(REF_B, e, cfg.top_k, 2.0)
+    return (2 * b * (d // 4) * e + 3 * 2 * e_r * cap * (d // 2) * f_r,
+            2 * b * d * e + 3 * 2 * e_r * min(cap, b) * d * f_r)
+
+
+@pytest.mark.parametrize("arch", worker.TP_ARCHS + worker.EP_ARCHS)
 def test_per_rank_flops_match_the_references_spmd_program(arch):
     """Prefill and decode of the SMOKE config (4 rows, 64 positions) on the
     (2, 4) mesh: the port's counter on rank 0 of a fake (2, 4) world
     against ``loop_aware_costs`` of the reference's program lowered with
     its ``in_shardings``/``out_shardings`` on 8 host devices (per
-    device).  Decode's FLOPs are equal.  Prefill's are equal outside the
-    attention's block term (the reference's whole 512-blocks, K8's mask
-    pairs: both taken out) but for one product GSPMD partitions
+    device).  A dense rank's decode FLOPs are equal.  Prefill's are equal
+    outside the attention's block term (the reference's whole 512-blocks,
+    K8's mask pairs: both taken out) but for one product GSPMD partitions
     otherwise: the K/V projection, whose ``kv_heads`` the rules leave
     off "model", it computes for every kv head on every device, where a
     port rank computes the kv head its q head reads (qwen3_8b and
     command_r_35b: 2 kv heads, 2 x 2 rows x 64 x 64 x 16 x 2 FLOPs a
-    projection and layer more in the reference; granite_20b has one)."""
+    projection and layer more in the reference; granite_20b has one).
+    An MoE rank (Granite-MoE's two of 8 experts, Mixtral's 32 of 128
+    ``ff`` columns of its 4 experts) computes the reference's share of
+    the experts in prefill; the products GSPMD computes otherwise are
+    :func:`_moe_products`', each with both counts."""
     cfg = get_smoke_config(arch)
     ref = _reference_flops(arch)
     rows, heads = REF_B // 2, cfg.n_heads // 4
@@ -356,16 +463,22 @@ def test_per_rank_flops_match_the_references_spmd_program(arch):
         with fake_world(mesh_shape=(2, 4)) as mesh:
             counter, _ = dryrun.trace_sharded_cell(cfg, shape, mesh, rules)
         k8 = sum(k["flops"] for k in counter.kernels.values())
+        extra = 0
+        if cfg.family == "moe":
+            ref_layer, port_layer = _moe_products(cfg, kind)
+            extra = cfg.n_layers * (ref_layer - port_layer)
         if kind == "decode":
-            assert k8 == 0 and counter.flops == ref["decode"]
+            assert k8 == 0 and counter.flops + extra == ref["decode"], (
+                arch, counter.flops, ref["decode"], extra)
             continue
         block = 4 * rows * heads * cfg.head_dim * REF_S * REF_S * cfg.n_layers
         kv_local = 1
-        kv_extra = 2 * cfg.n_layers * 2 * rows * REF_S * cfg.d_model * cfg.head_dim * (
-            cfg.n_kv_heads - kv_local)
+        if cfg.family != "moe":
+            extra = 2 * cfg.n_layers * 2 * rows * REF_S * cfg.d_model * cfg.head_dim * (
+                cfg.n_kv_heads - kv_local)
         assert k8 == 4 * rows * heads * cfg.head_dim * cfg.n_layers * (REF_S * (REF_S + 1) // 2)
-        assert counter.flops - k8 + kv_extra == ref["prefill"] - block, (
-            arch, counter.flops - k8, ref["prefill"] - block, kv_extra)
+        assert counter.flops - k8 + extra == ref["prefill"] - block, (
+            arch, counter.flops - k8, ref["prefill"] - block, extra)
 
 
 def test_a_rank_holds_its_share_of_every_leaf():
@@ -399,23 +512,57 @@ def test_a_rank_holds_its_share_of_every_leaf():
         assert model.blocks[0].mlp.w_gate.shape == (d, cfg.d_ff // 4) == (d, split.ff)
         assert model.embed.shape == (cfg.vocab_padded // 4, d) == (split.vocab, d)
         assert model.final_norm.shape == (d,)
+        assert split.moe == "replicated"
+    # an MoE rank's experts: Granite-MoE's 2 of 8 (expert parallel),
+    # Mixtral's 32 of 128 ff columns of each of its 4 (inside the experts);
+    # the router whole; its place among the 2 batch shards
+    for arch, mode, experts, ff in (("granite_moe_1b_a400m", "experts", 2, 64),
+                                    ("mixtral_8x22b", "ff", 4, 32)):
+        cfg = get_smoke_config(arch)
+        params = dict(tmodel.init_params(cfg, None, device="meta").named_parameters())
+        rules = {**make_rules(cfg, model_axis=4), "batch": "data"}
+        with fake_world(mesh_shape=(2, 4)) as mesh:
+            model = tmodel.gather_params(cfg, reshard_state(
+                params, tmodel.param_logical_axes(cfg), mesh, rules), batch_axes=("data",))
+        split, moe, d = model.split, model.blocks[0].moe, cfg.d_model
+        assert (split.moe, split.experts, split.expert_first, split.ff) == (mode, experts, 0, ff)
+        assert moe.w_gate.shape == moe.w_up.shape == (experts, d, ff)
+        assert moe.w_down.shape == (experts, ff, d)
+        assert moe.w_router.shape == (d, cfg.n_experts)
+        assert model.blocks[0].attn.wq.shape == (d, 1, cfg.head_dim)
+        assert (model.batch_shard.index, model.batch_shard.count) == (0, 2)
 
 
 def test_one_device_paths_have_no_split():
-    """A model from init_params has no split; gather_params gives a split
-    to a dense model alone (tensor_parallel), none to another family's,
-    whose compute stays replicated over "model"."""
+    """A model from init_params has no split and no batch shard, and its
+    MoE blocks run with neither (the one-device arithmetic);
+    gather_params gives a split to a dense or MoE model
+    (tensor_parallel), none to another family's, whose compute stays
+    replicated over "model"."""
     from repro_torch.distributed.elastic import reshard_state
 
-    cfg = get_smoke_config("qwen3_8b")
-    assert tmodel.init_params(cfg, None, device="meta").split is None
+    for arch in ("qwen3_8b", "granite_moe_1b_a400m"):
+        model = tmodel.init_params(get_smoke_config(arch), None, device="meta")
+        assert model.split is None and model.batch_shard is None
     assert [a for a in ("qwen3_8b", "mixtral_8x22b", "mamba2_370m", "internvl2_1b")
-            if tmodel.tensor_parallel(get_smoke_config(a))] == ["qwen3_8b"]
-    moe = get_smoke_config("mixtral_8x22b")
-    params = dict(tmodel.init_params(moe, None, device="meta").named_parameters())
-    rules = {**make_rules(moe, model_axis=4), "batch": "data"}
+            if tmodel.tensor_parallel(get_smoke_config(a))] == ["qwen3_8b", "mixtral_8x22b"]
+    cfg = get_smoke_config("granite_moe_1b_a400m")
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    p, positions = model.blocks[0], torch.arange(8).expand(2, 8)
+    with torch.no_grad():
+        out, aux, _ = tblocks.moe_block_forward(x, p, cfg, positions)
+        a, _ = tblocks.attn_forward(tblocks.rms_norm(x, p.ln1, cfg.norm_eps), p.attn, cfg,
+                                    positions=positions)
+        h = tblocks.rms_norm(x + a, p.ln2, cfg.norm_eps).reshape(16, cfg.d_model)
+        y, want_aux = tmoe.moe_ffn(h, p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                   groups=cfg.dispatch_groups)
+    assert torch.equal(out, x + a + y.reshape(2, 8, -1)) and torch.equal(aux, want_aux)
+    ssm = get_smoke_config("mamba2_370m")
+    params = dict(tmodel.init_params(ssm, None, device="meta").named_parameters())
+    rules = {**make_rules(ssm, model_axis=4), "batch": "data"}
     with fake_world(mesh_shape=(2, 4)) as mesh:
-        sharded = reshard_state(params, tmodel.param_logical_axes(moe), mesh, rules)
-        model = tmodel.gather_params(moe, sharded)
+        sharded = reshard_state(params, tmodel.param_logical_axes(ssm), mesh, rules)
+        model = tmodel.gather_params(ssm, sharded)
     assert model.split is None
-    assert model.blocks[0].attn.wq.shape == (moe.d_model, moe.n_heads, moe.head_dim)
+    assert model.blocks[0].w_x.shape == (ssm.d_model, ssm.d_inner)

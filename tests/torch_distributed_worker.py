@@ -5,7 +5,9 @@
 
 and, with a fifth argument ``tensor_parallel``, of the dense family's
 tensor-parallel steps (run by tests/test_torch_tensor_parallel.py;
-:func:`tensor_parallel_main`).
+:func:`tensor_parallel_main`), or with ``expert_parallel`` of the MoE
+family's (run by tests/test_torch_expert_parallel.py;
+:func:`expert_parallel_main`).
 
 Two AdamW steps of the SMOKE Qwen3-8B on the (2, 4) ("data", "model")
 mesh, then ``plan_mesh(4)``, a re-shard to (2, 2) under
@@ -50,10 +52,11 @@ LEAVES = ("embed", "blocks.0.attn.wq", "blocks.0.attn.wk")
 def recording(opt: Optimizer, out: dict) -> Optimizer:
     """``opt``, whose first update keeps the gradients it is given (the
     rank's shards of the gradients averaged over the batch axes, before
-    the clip) in ``out["grads"]``."""
+    the clip) in ``out["grads"]``, and every update's in
+    ``out["steps"]``."""
     def update(grads, state, params, **kw):
-        if "grads" not in out:
-            out["grads"] = {n: g.detach().clone() for n, g in grads.items()}
+        out.setdefault("steps", []).append({n: g.detach().clone() for n, g in grads.items()})
+        out.setdefault("grads", out["steps"][0])
         return opt.update(grads, state, params, **kw)
 
     return Optimizer(init=opt.init, update=update)
@@ -84,6 +87,33 @@ def adam_first_step_gap(got: dict, want: dict, lr: float = LR, eps: float = 1e-8
 
     ug, uw = u(got), u(want)
     return {n: lr * (ug[n] - uw[n]).abs() for n in want}
+
+
+def adam_step_gaps(got: list, want: list, lr: float = LR, eps: float = 1e-8, clip: float = 1.0,
+                   b1: float = 0.9, b2: float = 0.95) -> list:
+    """:func:`adam_first_step_gap` at every step: per step, leaf and
+    element, lr |u_k(got) - u_k(want)| of AdamW's update u_k = m^ /
+    (sqrt(v^) + eps) from each run's own gradients of steps 1..k
+    (``got``/``want``: one dict a step), each step's clipped by its global
+    norm.  At step 1 it is :func:`adam_first_step_gap`; later, where the
+    moments nearly cancel (a gradient that changes sign near zero), u
+    turns the two runs' rounding into steps of any size up to lr."""
+    def updates(seq: list) -> list:
+        mu, nu, out = {}, {}, []
+        for k, grads in enumerate(seq, start=1):
+            g64 = {n: g.double() for n, g in grads.items()}
+            norm = float(torch.sqrt(sum(torch.sum(g * g) for g in g64.values())))
+            c = min(1.0, clip / max(norm, 1e-12))
+            step = {}
+            for n, g in g64.items():
+                mu[n] = b1 * mu.get(n, 0.0) + (1 - b1) * g * c
+                nu[n] = b2 * nu.get(n, 0.0) + (1 - b2) * (g * c) ** 2
+                step[n] = (mu[n] / (1 - b1 ** k)) / (torch.sqrt(nu[n] / (1 - b2 ** k)) + eps)
+            out.append(step)
+        return out
+
+    return [{n: lr * (ug[n] - uw[n]).abs() for n in uw}
+            for ug, uw in zip(updates(got), updates(want), strict=True)]
 
 
 def batches(vocab: int) -> dict:
@@ -192,11 +222,12 @@ def tp_batches(vocab: int) -> dict:
                                         .astype(np.int32))}
 
 
-def tp_rules(cfg, job: str, head_dim_mode: bool = False) -> dict:
-    """The reference's rules of ``job`` on the (2, 4) mesh; with
-    ``head_dim_mode`` the head_dim rules that heads not dividing the
-    axis give (yi_34b's route, forced)."""
-    rules = {**make_rules(cfg, job=job, model_axis=4), "batch": "data"}
+def tp_rules(cfg, job: str, head_dim_mode: bool = False, model_axis: int = 4) -> dict:
+    """The reference's rules of ``job`` on a mesh of ``model_axis``
+    "model" ranks ((2, 4) by default); with ``head_dim_mode`` the
+    head_dim rules that heads not dividing the axis give (yi_34b's
+    route, forced)."""
+    rules = {**make_rules(cfg, job=job, model_axis=model_axis), "batch": "data"}
     if head_dim_mode:
         rules.update(q_heads=None, kv_heads=None, head_dim="model")
     return rules
@@ -209,34 +240,37 @@ def _model(cfg, params: dict):
 
 
 def tp_train(cfg, params: dict, mesh, rules, batch: dict) -> dict:
-    """TP_STEPS AdamW steps on ``mesh``: the losses, every parameter
-    gathered whole after each step, and the step-1 gradients gathered
-    whole."""
+    """TP_STEPS AdamW steps on ``mesh``: the losses and aux losses, every
+    parameter gathered whole after each step, and the step-1 gradients
+    gathered whole."""
     rec = {}
     opt = recording(adamw(LR), rec)
     model = _model(cfg, params).requires_grad_(True)
     state = {"params": model, "opt_state": opt.init(dict(model.named_parameters())),
              "step": 0}
-    losses, snaps = [], []
+    losses, aux, snaps = [], [], []
     with mesh_context(mesh), use_rules(rules):
         state = shard_train_state(state, cfg, mesh, rules)
         step = make_sharded_train_step(cfg, opt, mesh)
         for _ in range(TP_STEPS):
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
+            aux.append(float(metrics["aux"]))
             snaps.append(full_params(state))
-        grads = gathered(rec["grads"], state["params"])
-    return {"losses": losses, "params": snaps, "grads_1": grads}
+        grads = [gathered(g, state["params"]) for g in rec["steps"]]
+    return {"losses": losses, "aux": aux, "params": snaps, "grads_1": grads[0],
+            "grads_steps": grads}
 
 
-def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor) -> dict:
+def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor, model_axis: int = 4) -> dict:
     """A sharded prefill (heads mode, the cache out by the decode rules)
-    and TP_DECODES greedy decode steps (head_dim mode): the logits
-    gathered whole, the cache after the prefill gathered whole, the
-    tokens."""
+    and TP_DECODES greedy decode steps (head_dim mode) on a mesh of
+    ``model_axis`` "model" ranks: the logits gathered whole, the cache
+    after the prefill gathered whole, the tokens."""
     from repro_torch.distributed.elastic import reshard_state
 
-    pre, dec = tp_rules(cfg, "prefill"), tp_rules(cfg, "decode")
+    pre = tp_rules(cfg, "prefill", model_axis=model_axis)
+    dec = tp_rules(cfg, "decode", model_axis=model_axis)
     named = {n: p.detach() for n, p in _model(cfg, params).named_parameters()}
     axes = tmodel.param_logical_axes(cfg)
     with mesh_context(mesh), use_rules(pre):
@@ -322,14 +356,63 @@ def tensor_parallel_main(rank: int, out_dir: str) -> None:
         torch.save(results, Path(out_dir) / "tp_rank0.pt")
 
 
-def main(rank: int, world: int, store_file: str, out_dir: str,
-         tensor_parallel: bool = False) -> None:
+# ------------------------------------------------ expert parallelism
+
+EP_ARCHS = ("granite_moe_1b_a400m", "mixtral_8x22b")
+# (2, 4): 2 batch shards and 2 dispatch groups, a group a rank; (4, 2): a
+# group spans two ranks (decode's one group spans four)
+EP_MESHES = ((2, 4), (4, 2))
+
+
+def spread_over_model(grads: dict, mesh) -> dict:
+    """For each router's gradient (replicated over "model"), the largest
+    difference between a "model" rank's and rank 0's, relative to its
+    largest element."""
+    group, out = mesh.get_group("model"), {}
+    for n, g in grads.items():
+        if n.endswith("moe.w_router"):
+            parts = [torch.empty_like(g) for _ in range(group.size())]
+            dist.all_gather(parts, g.contiguous(), group=group)
+            out[n] = max(float((q - parts[0]).abs().max()) for q in parts) / float(
+                parts[0].abs().max())
+    return out
+
+
+def expert_parallel_main(rank: int, out_dir: str) -> None:
+    """Each arch of EP_ARCHS from the parameters the test wrote
+    (OUT_DIR/params_<arch>.pt, the reference's converted) on each mesh of
+    EP_MESHES: TP_STEPS train steps on the seeded batch and on the
+    reference's (every token 3: the capacity binds), the spread of the
+    routers' step-1 gradients over "model", then the prefill and decode
+    steps.  Rank 0 writes OUT_DIR/ep_rank0.pt, keyed by (mesh, arch)."""
+    results = {}
+    for shape in EP_MESHES:
+        mesh = make_debug_mesh(shape, ("data", "model"))
+        m = shape[1]
+        for arch in EP_ARCHS:
+            cfg = get_smoke_config(arch)
+            params = torch.load(Path(out_dir) / f"params_{arch}.pt", weights_only=True)
+            data = tp_batches(cfg.vocab)
+            rules = tp_rules(cfg, "train", model_axis=m)
+            train = tp_train(cfg, params, mesh, rules, data["train"])
+            results[shape, arch] = {
+                "train": train,
+                "train_threes": tp_train(cfg, params, mesh, rules,
+                                         batches(cfg.vocab)["threes"]),
+                "router_grad_spread": spread_over_model(train["grads_1"], mesh),
+                **tp_serve(cfg, params, mesh, data["prompts"], model_axis=m)}
+    if rank == 0:
+        torch.save(results, Path(out_dir) / "ep_rank0.pt")
+
+
+def main(rank: int, world: int, store_file: str, out_dir: str, mode: str = "") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world), rank=rank,
                             world_size=world)
     try:
-        if tensor_parallel:
-            tensor_parallel_main(rank, out_dir)
+        if mode:
+            {"tensor_parallel": tensor_parallel_main,
+             "expert_parallel": expert_parallel_main}[mode](rank, out_dir)
             dist.barrier()
             return
         cfg = get_smoke_config("qwen3_8b")
@@ -345,5 +428,4 @@ def main(rank: int, world: int, store_file: str, out_dir: str,
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-         sys.argv[5:] == ["tensor_parallel"])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], *sys.argv[5:6])
