@@ -230,9 +230,10 @@ non-zero:
    reference's reason (``long_500k`` on a full-attention arch), a
    production mesh's ok cell with its ranks (256 or 512), collectives
    counted, at least one leaf gathered and its compute (``"tensor
-   parallel over model"`` for the dense family, ``"expert parallel over
-   model"`` for Granite-MoE, ``"tensor parallel inside experts over
-   model"`` for Mixtral, ``"replicated over model"`` for the rest); its
+   parallel over model"`` for the dense, SSM and hybrid families,
+   ``"expert parallel over model"`` for Granite-MoE, ``"tensor parallel
+   inside experts over model"`` for Mixtral, ``"replicated over model"``
+   for the vlm and encdec); its
    dominant term, bound,
    ``temp_size_b`` and collective bytes printed with the host seconds;
    (b) the counter held against the card on Qwen3-8B's 1974-token
@@ -264,18 +265,29 @@ non-zero:
    16,384 ff columns, Granite-MoE's 2 of 32 experts), counted as (b)'s
    steps, with its kernel time by kind (the expert products under
    ``aten::bmm``, K8, the rest) and K8's launches, once a layer, counted
-   from zero over the counted prefill; the phase's wall printed;
+   from zero over the counted prefill; (f) for Zamba2-7B at full width
+   and 6 layers (one shared-attention application and its 6 Mamba
+   blocks), a rank's prefill of 2048 tokens on the same fake world (its 7
+   of 112 SSM heads and 448 of 7,168 ``inner`` columns; the shared
+   attention in heads mode, 2 q and 2 kv heads, D = 112), counted as
+   (b)'s steps, with its kernel time by kind (the SSD's products under
+   ``aten::bmm``, K8, the rest) and K8's one launch; the phase's wall
+   printed;
 8c. distributed — the sharded train step
    (``repro_torch.training.step.make_sharded_train_step``) on a world of
    one: NCCL with a ``FileStore`` rendezvous in a temporary directory,
    ``make_debug_mesh((1, 1))`` on cuda:0; for each of DIST_ARCHS, the
    SMOKE Qwen3-8B (dense: tensor parallel over a "model" axis of one),
    the SMOKE Granite-MoE 1B (expert parallel), the SMOKE Mixtral (tensor
-   parallel inside the experts) and the SMOKE Zamba2 (hybrid: every leaf
-   gathered whole, the compute replicated over "model"), each failing
-   unless the dry run names its route so, all float32 (K8's FMA route
-   forward and backward), AdamW(1e-3), tokens = targets = 3 (4 x 32): two
-   steps,
+   parallel inside the experts), the SMOKE Zamba2 (hybrid: its Mamba
+   blocks and shared attention tensor parallel) and the SMOKE InternVL2
+   (vlm: every leaf gathered whole, the compute replicated over
+   "model"), each failing unless the dry run names its route so and the
+   step's leaves took it (``blocks.0.moe.w_gate`` on "model" at dim 0
+   for Granite-MoE and 2 for Mixtral, ``blocks.0.w_x`` at dim 1 for
+   Zamba2), all float32 (K8's FMA route forward and backward),
+   AdamW(1e-3), tokens = targets = 3 (4 x 32), InternVL2 with seeded
+   patch embeddings: two steps,
    ``plan_mesh`` of the world, a re-shard under ``make_rules(cfg,
    model_axis=1)``, two more steps, launch counts reset just before and
    read just after (failing unless K8's forward and every backward
@@ -295,7 +307,8 @@ non-zero:
    ``launches_by_family``, with a row at D = 112 and the FMA route's rows
    at the main shape (which also counts the distributed phase's) and at
    train_lm's, the latter the train phase's, and a row at each
-   tensor-parallel rank's heads, phase 8b's rank prefills' launches;
+   tensor-parallel rank's heads (Zamba2's at D = 112), phase 8b's rank
+   prefills' launches;
    K8's backward kernels a row
    each per dtype and route (bf16 on the tensor cores, float32 on FMA),
    with the train and the distributed phases' launches by case, Delta's
@@ -2355,19 +2368,24 @@ TOL_SMOKE_LOGITS = 1e-4
 # through ops.flash_attention
 BF16, F32 = torch.bfloat16, torch.float32
 K8_MAIN = ("main", BF16, 1, 2048, 2048, 32, 8, 128, True, 0, None)
-# the dense and MoE archs whose tensor-parallel rank (16 "model" ranks,
-# heads mode) runs K8 on its own heads: q heads over the one kv head they
-# read, at the main path's S = 2048 (phase 8b's rank prefills launch them);
-# Mixtral's window of 4096 does not bind at 2048
+# the dense, MoE and hybrid archs whose tensor-parallel rank (16 "model"
+# ranks, heads mode) runs K8 on its own heads: q heads over the kv heads
+# they read, at the main path's S = 2048 (phase 8b's rank prefills launch
+# them); Mixtral's window of 4096 does not bind at 2048; Zamba2's shared
+# attention keeps a kv head a q head (32 of each), D = 112
 TP_RANKS = 16
 K8_TP_CASES = {arch: (f"tp_{arch}_{h}_{kv}", BF16, 1, 2048, 2048, h, kv, d, True, window, None)
                for arch, h, kv, d, window in (
                    ("qwen3_8b", 2, 1, 128, 0), ("command_r_35b", 4, 1, 128, 0),
                    ("granite_20b", 3, 1, 128, 0), ("mixtral_8x22b", 3, 1, 128, 4096),
-                   ("granite_moe_1b_a400m", 1, 1, 64, 0))}
+                   ("granite_moe_1b_a400m", 1, 1, 64, 0), ("zamba2_7b", 2, 2, 112, 0))}
 # the MoE archs of K8_TP_CASES, whose rank prefills phase 8b also counts
 # on meta and on the card
 TP_MOE_ARCHS = ("mixtral_8x22b", "granite_moe_1b_a400m")
+# the hybrid arch of K8_TP_CASES, whose rank prefill phase 8b counts on meta
+# and on the card at TP_HYBRID_LAYERS layers: one group of attn_every (6)
+# Mamba blocks behind one application of the shared attention
+TP_HYBRID_ARCH, TP_HYBRID_LAYERS = "zamba2_7b", 6
 # Zamba2-7B's shared attention at a 2048-token prompt: D = 112, G = 1
 K8_D112 = ("d112_zamba", BF16, 1, 2048, 2048, 32, 32, 112, True, 0, None)
 K8_CASES = (
@@ -4305,9 +4323,9 @@ def tp_rank_prefills(dev) -> dict:
     from repro_torch.launch.mesh import fake_world
     from repro_torch.models.model import prefill
 
-    out = moe_rank_prefills(dev)
+    out = {**moe_rank_prefills(dev), **hybrid_rank_prefill(dev)}
     for arch, case in K8_TP_CASES.items():
-        if arch in TP_MOE_ARCHS:
+        if arch in TP_MOE_ARCHS or arch == TP_HYBRID_ARCH:
             continue
         cfg = dataclasses.replace(get_config(arch), n_layers=TP_PREFILL_LAYERS)
         rules = {**make_rules(cfg, job="prefill"), "batch": "data"}
@@ -4383,6 +4401,62 @@ def moe_rank_prefills(dev) -> dict:
         check(launches == TP_PREFILL_LAYERS, f"{arch}: K8 launched {launches} times in a "
                                              f"rank's prefill of {TP_PREFILL_LAYERS} layers")
     return out
+
+
+def hybrid_rank_prefill(dev) -> dict:
+    """Case (f): Zamba2-7B at full width, cut to TP_HYBRID_LAYERS layers
+    (one shared-attention application and its group of Mamba blocks), one
+    rank's prefill on 16 "model" ranks of a fake world (its 7 of 112 SSM
+    heads, 448 of 7,168 ``inner`` columns; the shared attention in heads
+    mode, 2 q and 2 kv heads; one prompt of K8_TP_CASES' 2048 tokens, 8
+    SSD chunks of 256), counted on meta and on the card by
+    :func:`count_step` (its kernel time by kind: the SSD's products under
+    ``aten::bmm``, K8, the rest; the bound and share; the modelled peak),
+    K8 launched at the rank's heads once, for the one application, in the
+    counted prefill.  Returns the launches by arch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.rules import make_rules
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.model import hybrid_groups, prefill
+
+    arch, case = TP_HYBRID_ARCH, K8_TP_CASES[TP_HYBRID_ARCH]
+    cfg = dataclasses.replace(get_config(arch), n_layers=TP_HYBRID_LAYERS)
+    rules = {**make_rules(cfg, job="prefill"), "batch": "data"}
+    applications = hybrid_groups(cfg)[0]
+    t0 = time.perf_counter()
+    with fake_world(mesh_shape=(1, TP_RANKS)) as mesh:
+        def build(device):
+            model = tp_rank_model(cfg, mesh, rules, device)
+            tokens = counted_tokens(device, (case[2], case[3]), cfg.vocab)
+            return (lambda: prefill(model, {"tokens": tokens}, cfg, case[3])), model
+
+        model = tp_rank_model(cfg, mesh, rules, "meta")
+        sp, inner = model.split, model.blocks[0].w_x.shape[1]
+        want = ("heads", case[5], case[6], "heads", cfg.ssm_heads // TP_RANKS,
+                cfg.d_inner // TP_RANKS)
+        got = (sp.attn, sp.heads, sp.kv_heads, sp.ssm, sp.ssm_heads, inner)
+        check(got == want, f"{arch}: a rank's split is not {want}: {got}")
+        res = count_step(f"hybrid_rank_prefill_{arch}", build, dev, cfg, train=False,
+                         n_tokens=case[2] * case[3])
+        res["share_of_model"] = tp_share(cfg, rules, mesh)
+    launches = res["k8_launches"]["mma"]
+    by_kind = res["device_ms_by_kind"]
+    emit(dict(phase="dryrun", case=f"hybrid_rank_prefill_{arch}_summary",
+              layers=TP_HYBRID_LAYERS, attention_applications=applications, tokens=case[3],
+              ssm_heads=sp.ssm_heads, inner_columns=inner, k8_launches=launches,
+              device_ms_by_kind=dict(ssd_products=by_kind["bmm"], k8=by_kind["k8"],
+                                     other=by_kind["other"]),
+              bound_ms=res["bound_ms"], device_ms=res["device_ms"], share=res["share"],
+              flops=res["flops"], meta_flops=res["meta_flops"], bytes=res["bytes"],
+              meta_bytes=res["meta_bytes"],
+              modelled_peak_live_bytes=res["modelled_peak_live_bytes"],
+              card_peak_live_bytes=res["card_peak_live_bytes"],
+              share_of_model=res["share_of_model"], wall_s=time.perf_counter() - t0))
+    check(launches == applications, f"{arch}: K8 launched {launches} times in a rank's prefill "
+                                    f"of {applications} shared-attention applications")
+    return {arch: launches}
 
 
 def counted_cases(dev) -> dict:
@@ -4552,16 +4626,34 @@ DIST_LR = 1e-3
 DIST_NOISE_SHARE = 1e-6
 # the SMOKE configs of the sharded steps, by how a rank computes: a dense
 # one (tensor parallel over "model"), the two MoE modes (expert parallel;
-# tensor parallel inside the experts) and a family still replicated over
-# "model" (every leaf gathered whole) that launches K8 (Zamba2's shared
-# attention)
+# tensor parallel inside the experts), the hybrid (its Mamba blocks and
+# shared attention tensor parallel) and a family still replicated over
+# "model" (every leaf gathered whole) that launches K8 (InternVL2's
+# dense stack over its patches)
 DIST_ARCHS = {"qwen3_8b": "tensor parallel over model",
               "granite_moe_1b_a400m": "expert parallel over model",
               "mixtral_8x22b": "tensor parallel inside experts over model",
-              "zamba2_7b": "replicated over model"}
-# the dimension of an MoE's experts' w_gate (E, d, ff) that its route puts on
-# "model": 0 expert parallel, 2 tensor parallel inside the experts
-DIST_MOE_DIMS = {"granite_moe_1b_a400m": 0, "mixtral_8x22b": 2}
+              "zamba2_7b": "tensor parallel over model",
+              "internvl2_1b": "replicated over model"}
+# the route each config's step took: the dimension of a leaf that its
+# route puts on "model": an MoE's experts' w_gate (E, d, ff), 0 expert
+# parallel and 2 tensor parallel inside the experts; a Mamba block's w_x
+# (d, d_inner), 1 (its inner columns)
+DIST_ROUTE_DIMS = {"granite_moe_1b_a400m": ("blocks.0.moe.w_gate", 0),
+                   "mixtral_8x22b": ("blocks.0.moe.w_gate", 2),
+                   "zamba2_7b": ("blocks.0.w_x", 1)}
+
+
+def dist_batch(cfg, dev) -> dict:
+    """Phase 8c's batch: tokens = targets = 3 (4 x 32), and a vlm's seeded
+    patch embeddings (4, n_patches, d) float32."""
+    tokens = torch.zeros((4, 32), dtype=torch.int32, device=dev) + 3
+    batch = {"tokens": tokens, "targets": tokens}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        batch["patches"] = torch.randn((4, cfg.n_patches, cfg.d_model), generator=gen,
+                                       device=dev)
+    return batch
 
 
 def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
@@ -4611,8 +4703,8 @@ def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
     params[4] = full_params(state)
-    leaves = [n for n in ("embed", "blocks.0.attn.wq", "blocks.0.moe.w_gate", "final_norm")
-              if n in state["params"]]
+    leaves = [n for n in ("embed", "blocks.0.attn.wq", "blocks.0.moe.w_gate", "blocks.0.w_x",
+                          "final_norm") if n in state["params"]]
     axis = mesh2.mesh_dim_names.index("model")
     return dict(losses=losses, params=params, plan=[plan.pods, plan.data, plan.model],
                 placements={n: [str(x) for x in state["params"][n].placements] for n in leaves},
@@ -4705,8 +4797,6 @@ def phase_distributed(dev) -> dict:
     from repro_torch.training.step import AUX_WEIGHT, init_train_state, loss_and_grads
 
     t0 = time.perf_counter()
-    tokens = torch.zeros((4, 32), dtype=torch.int32, device=dev) + 3
-    batch = {"tokens": tokens, "targets": tokens}
     torch.cuda.set_device(dev)
     runs = {}
     with tempfile.TemporaryDirectory(prefix="repro_dist_smoke_") as tmp:
@@ -4715,17 +4805,18 @@ def phase_distributed(dev) -> dict:
         try:
             for arch in DIST_ARCHS:
                 cfg = get_smoke_config(arch)
+                batch = dist_batch(cfg, dev)
                 one = dist_run(dev, cfg, batch, sharded=False)
                 torch.cuda.synchronize()
                 ops.reset_launch_counts()
                 sharded = dist_run(dev, cfg, batch, sharded=True)
                 torch.cuda.synchronize()
-                runs[arch] = (cfg, one, sharded, k8_counts())
+                runs[arch] = (cfg, batch, one, sharded, k8_counts())
             backend = str(dist.get_backend())
         finally:
             dist.destroy_process_group()
     launches = {}
-    for arch, (cfg, one, sharded, k8) in runs.items():
+    for arch, (cfg, batch, one, sharded, k8) in runs.items():
         again = dist_run(dev, cfg, batch, sharded=False)
         state = init_train_state(cfg, adamw(DIST_LR),
                                  torch.Generator(device=dev).manual_seed(SEED), device=dev)
@@ -4757,11 +4848,13 @@ def phase_distributed(dev) -> dict:
     computes = {a: sharded_compute(runs[a][0]) for a in DIST_ARCHS}
     check(computes == DIST_ARCHS, f"distributed: the configs' routes {computes}, not "
                                   f"{DIST_ARCHS}")
-    # the route the MoE steps took: their experts' w_gate split over "model"
-    # on the expert dimension (expert parallel) or on ff (inside the experts)
-    taken = {a: runs[a][2]["model_dims"]["blocks.0.moe.w_gate"] for a in DIST_MOE_DIMS}
-    check(taken == DIST_MOE_DIMS, f"distributed: the MoE steps' w_gate split over model on "
-                                  f"dims {taken}, not {DIST_MOE_DIMS}")
+    # the route the MoE and hybrid steps took: their experts' w_gate split
+    # over "model" on the expert dimension (expert parallel) or on ff
+    # (inside the experts), a Mamba block's w_x on its inner columns
+    taken = {a: (leaf, runs[a][3]["model_dims"][leaf])
+             for a, (leaf, _) in DIST_ROUTE_DIMS.items()}
+    check(taken == DIST_ROUTE_DIMS, f"distributed: the steps' leaves split over model on "
+                                    f"dims {taken}, not {DIST_ROUTE_DIMS}")
     comp = compress_on_card(dev)
     emit(dict(phase="distributed", case="compress_int8", compress_int8=comp,
               wall_s=time.perf_counter() - t0))

@@ -18,10 +18,11 @@ the rules place state: :func:`logical_constraint` and
 return their input itself.  :func:`rank_rows` and :func:`place_rows`
 take a rank's rows of a batch and place a step's outputs for the sharded
 steps, and :class:`BatchShard` tells an MoE's dispatch where the rank's
-rows lie.  :class:`ModelSplit` is a dense or MoE model's tensor
-parallelism over ``"model"`` (Megatron's f and g, the vocab-parallel
-lookup and logsumexp, the head_dim gather, RoPE's exchange, the experts'
-gather), which the other families' sharded steps, replicated over
+rows lie.  :class:`ModelSplit` is a dense, MoE, SSM or hybrid model's
+tensor parallelism over ``"model"`` (Megatron's f and g, the
+vocab-parallel lookup and logsumexp, the head_dim gather, RoPE's
+exchange, the experts' gather, the gated norm's mean square summed both
+ways), which the vlm and encdec families' sharded steps, replicated over
 ``"model"``, do not use.
 
 **The solver mesh.**  JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
@@ -346,6 +347,22 @@ class _SumPartials(torch.autograd.Function):
         return grad, None
 
 
+class _SumShares(torch.autograd.Function):
+    """Forward: the ranks' shares summed over the group.  Backward: the
+    gradient summed over the group as well, since every rank's result
+    depends on every rank's share (a statistic of a dimension split over
+    the group, such as a norm's mean square)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _reduce_over(x, split.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_over(grad, ctx.split.group), None
+
+
 class _GatherLast(torch.autograd.Function):
     """Forward: the ranks' shares of the last dimension gathered, in rank
     order.  Backward: the gradient summed over the group and cut to this
@@ -412,21 +429,23 @@ class ModelSplit:
     """Tensor parallelism over the ``"model"`` axis of a rank's step, as
     GSPMD splits the reference's step under its rules: the rank holds its
     ``"model"`` shard of every leaf (``q_heads`` or ``head_dim``, ``ff``,
-    ``vocab``) and computes its share.
+    ``vocab``, ``inner``) and computes its share.
 
     Megatron's regions: :meth:`enter` (f) is the identity forward and an
     all-reduce of the gradient, at the entry of a region whose first
     product is column-parallel; :meth:`exit` (g) all-reduces the partial
     sums of its row-parallel last product, the gradient passing through.
     A leaf replicated over ``"model"`` that a rank uses only in part (the
-    q/k norms, a K/V projection whose ``kv_heads`` are not on the axis)
-    takes its gradient summed over the group (:meth:`enter` too);
+    q/k norms, a K/V projection whose ``kv_heads`` are not on the axis, a
+    Mamba block's ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip`` and its B/C
+    leaves) takes its gradient summed over the group (:meth:`enter` too);
     the norms of the residual stream see a replicated input and need
     nothing.  ``attn`` is the attention's mode, from the rules' placing
-    of ``wq``: ``"heads"`` (this rank's q heads and the kv heads they
-    read), ``"head_dim"`` (this rank's columns of every head) or
-    ``"replicated"`` (whole heads on every rank: neither divides the
-    axis, or the attention batch layout).  ``heads``, ``kv_heads`` and
+    of ``wq`` (a hybrid's shared block's): ``"heads"`` (this rank's q
+    heads and the kv heads they read), ``"head_dim"`` (this rank's columns
+    of every head), ``"replicated"`` (whole heads on every rank: neither
+    divides the axis, or the attention batch layout) or ``"none"`` (a
+    model without attention).  ``heads``, ``kv_heads`` and
     ``kv_first`` are this rank's q heads, kv heads and its first kv
     head (``kv_sliced``: taken from K/V projections held whole, whose
     ``kv_heads`` are not on the axis), ``q_per_kv`` the q heads a kv head
@@ -437,8 +456,12 @@ class ModelSplit:
     ``expert_first``, whole), ``"ff"`` (tensor parallel inside the
     experts: its ``ff`` columns of every expert), and ``"replicated"``
     for the other families (the rules put an MoE's experts or their
-    ``ff`` on the axis).  With ``count`` 1
-    every operator is the one-device arithmetic."""
+    ``ff`` on the axis).  ``ssm`` is a Mamba block's mode, from the
+    rules' placing of ``w_x``: ``"heads"`` (its ``inner`` columns, which
+    are its ``ssm_heads`` SSM heads from ``ssm_first``, whole),
+    ``"replicated"`` (``inner`` off the axis: the block computes
+    replicated) or ``"none"`` (a model without Mamba blocks).  With
+    ``count`` 1 every operator is the one-device arithmetic."""
 
     group: object
     index: int
@@ -455,11 +478,19 @@ class ModelSplit:
     moe: str = "replicated"
     experts: int = 0
     expert_first: int = 0
+    ssm: str = "none"
+    ssm_heads: int = 0
+    ssm_first: int = 0
 
     @property
     def attn_partial(self) -> bool:
         """Whether the attention's output is a partial sum over the group."""
-        return self.attn != "replicated"
+        return self.attn in ("heads", "head_dim")
+
+    @property
+    def ssm_partial(self) -> bool:
+        """Whether a Mamba block's output is a partial sum over the group."""
+        return self.ssm == "heads"
 
     @property
     def vocab_offset(self) -> int:
@@ -482,8 +513,21 @@ class ModelSplit:
         return _SumPartials.apply(x, self)
 
     def reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``x`` reduced over the group, outside autograd."""
+        """``x`` reduced over the group, for a value that takes no gradient
+        (decode's norms and scores, the global norm's sums, the vocab
+        argmax): its backward is not this module's to set (PyTorch's
+        functional all_reduce has one of its own in some releases), so a
+        reduction that takes a gradient goes through :meth:`enter`,
+        :meth:`exit` or :meth:`mean_over`."""
         return _reduce_over(x, self.group, op)
+
+    def mean_over(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the group of each rank's ``x``, a mean over its
+        equal share of a split dimension (the gated norm's mean square
+        over ``inner``), its gradient summed over the group: every rank's
+        output depends on every rank's share, so the sum is an all-reduce
+        forward and backward."""
+        return _SumShares.apply(x, self) / self.count
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` concatenated along dimension 0, outside
@@ -519,9 +563,10 @@ class ModelSplit:
             return new.unflatten(-1, (self.count, -1))
         return self.head_dim_shard(new) if self.shards_head_dim else new
 
-    def gather_head_dim(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's columns of the last dimension gathered (whole heads
-        from ``head_dim`` shards); the gradient reduce-scattered."""
+    def gather_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's columns of the last dimension gathered in rank order
+        (whole heads from ``head_dim`` shards, the whole ``inner`` from its
+        shards); the gradient reduce-scattered."""
         return _GatherLast.apply(x, self)
 
     def rope_partner(self, x: torch.Tensor) -> torch.Tensor:
@@ -597,7 +642,7 @@ class AttnBatchSplit:
     batch (``rules["attn_batch"]`` is ``rules["batch"]`` plus ``axis``).
 
     Outside attention the step is replicated over ``"model"``, or for a
-    dense or MoE model tensor parallel with the attention's output whole
+    tensor-parallel model tensor parallel with the attention's output whole
     on every rank (:func:`repro_torch.training.step.make_sharded_train_step`),
     so the layout means: each rank of ``axis`` takes its share of the
     rank's rows (:meth:`enter`), runs the attention on them, and the

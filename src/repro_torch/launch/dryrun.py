@@ -28,19 +28,22 @@ step: :func:`~repro_torch.training.step.make_sharded_train_step`
 (gradients all-reduced over the batch axes, AdamW on the shards) and
 :mod:`repro_torch.serving.sharded` for prefill and decode (the outputs
 kept as the reference's ``out_shardings`` place them), on the rank's
-rows.  The dense and MoE families' ranks are tensor parallel over
-``"model"``, as GSPMD splits the reference's: their leaves gathered over
-the batch axes alone, their share computed (heads mode: its q heads;
-head_dim mode in decode: its columns of q, k, v and the cache; head_dim
-mode in train and prefill, yi_34b's: q, k and v gathered to whole
-heads, attention replicated over ``"model"``, item 14.5), the MLP and
-the logits split, partial sums all-reduced; an MoE rank's experts are
-its own (Granite-MoE, expert parallel: the experts' outputs gathered)
-or its ``ff`` columns of every expert (Mixtral: their partial sums
-all-reduced), and its dispatch groups the global batch's.  The other
-families' ranks gather every leaf and, for decode, the cache's
-``"model"`` shard whole and run the one-device step, replicated over
-``"model"`` (items 14.3-14.4).  The
+rows.  The dense, MoE, SSM and hybrid families' ranks are tensor
+parallel over ``"model"``, as GSPMD splits the reference's: their leaves
+gathered over the batch axes alone, their share computed (heads mode:
+its q heads; head_dim mode in decode: its columns of q, k, v and the
+cache; head_dim mode in train and prefill, yi_34b's: q, k and v gathered
+to whole heads, attention replicated over ``"model"``, item 14.5), the
+MLP and the logits split, partial sums all-reduced; an MoE rank's experts
+are its own (Granite-MoE, expert parallel: the experts' outputs
+gathered) or its ``ff`` columns of every expert (Mixtral: their partial
+sums all-reduced), and its dispatch groups the global batch's; a Mamba
+block's rank its ``inner`` columns and SSM heads (the gated norm's mean
+square all-reduced, the conv window's new columns gathered), Zamba2's
+shared block as the dense family's.  The vlm and encdec families' ranks
+gather every leaf and, for decode, the cache's ``"model"`` shard whole
+and run the one-device step, replicated over ``"model"`` (item 14.4).
+The
 rank's rows follow the batch rule (``long_500k``'s batch of 1 is
 replicated).  With the attention batch layout (``train_4k`` on
 ``single_pod`` for yi_34b, internvl2_1b and whisper_base) each
@@ -52,11 +55,12 @@ The result keeps the reference's keys, per rank: ``n_chips``,
 (``roofline_report(n_chips=...)``) and ``memory`` (``argument_size_b``
 the local shards and the rank's rows, ``temp_size_b`` with the leaves
 the rank gathers).  ``"compute"`` says how a rank computes:
-``"tensor parallel over model"`` (dense), ``"expert parallel over
-model"`` (Granite-MoE), ``"tensor parallel inside experts over model"``
-(Mixtral), with ``"attention"`` naming the attention's mode, or
-``"replicated over model"`` (the rest, whose FLOPs are the one-device
-step's on the rank's rows, about 16x the reference's share).
+``"tensor parallel over model"`` (dense, SSM, hybrid), ``"expert parallel
+over model"`` (Granite-MoE), ``"tensor parallel inside experts over
+model"`` (Mixtral), with ``"attention"`` naming the attention's mode
+(none for Mamba2, which has no attention), or ``"replicated over
+model"`` (vlm, encdec: FLOPs the one-device step's on the rank's rows,
+about 16x the reference's share).
 
 Usage (the CPU suffices; nothing runs on a card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -123,8 +127,8 @@ def sharded_compute(cfg) -> str:
     """The result's ``"compute"`` of a cell of ``cfg`` on a production
     mesh: a :func:`~repro_torch.models.model.tensor_parallel` model's
     rank computes its share (an MoE's experts by its ``moe_parallel``:
-    its experts, or its ``ff`` columns of every expert), another
-    family's rank its whole step on its rows."""
+    its experts, or its ``ff`` columns of every expert), a vlm's or an
+    encdec's rank its whole step on its rows."""
     if not tensor_parallel(cfg):
         return "replicated over model"
     if cfg.family == "moe":
@@ -331,7 +335,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single_card", *,
     }
     if mesh_name != "single_card":
         res["compute"] = sharded_compute(cfg)
-        if tensor_parallel(cfg):
+        if tensor_parallel(cfg) and not cfg.is_attention_free:
             res["attention"] = attention_mode(shape, rules)
     return res
 

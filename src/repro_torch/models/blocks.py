@@ -14,8 +14,8 @@ stands: the attention batch layout at the attention's boundary
 without active rules and a mesh returns its input unchanged, so every
 one-device path keeps its bits.  The others (``lc``) are dropped: the
 port places state, not activations
-(:func:`repro_torch.training.step.make_sharded_train_step`), and a dense
-or MoE block under tensor parallelism (``tp``, a
+(:func:`repro_torch.training.step.make_sharded_train_step`), and a dense,
+MoE or Mamba block under tensor parallelism (``tp``, a
 :class:`~repro_torch.distributed.sharding.ModelSplit`) computes the
 rank's share of what GSPMD splits under them; an MoE block on a mesh
 also takes the rank's place in the batch (``shard``), since its
@@ -286,7 +286,7 @@ def attn_forward(x: torch.Tensor, p: Attention, cfg: ModelConfig, *,
         p = types.SimpleNamespace(**leaves)
     elif _partial(tp):
         p = _split_leaves(p, tp)
-    q, k, v = _qkv(x, p, cfg, whole=tp.gather_head_dim if head_dim else None)
+    q, k, v = _qkv(x, p, cfg, whole=tp.gather_columns if head_dim else None)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -573,24 +573,33 @@ def mamba_block_axes(cfg: ModelConfig) -> dict:
     }
 
 
-def mamba_block_forward(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig):
-    """Returns (x + Mamba2(rms_norm(x)), final ssm state)."""
-    y, state = mamba2_forward(rms_norm(x, p.ln, cfg.norm_eps), p, cfg)
+def mamba_block_forward(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig, *, tp=None):
+    """Returns (x + Mamba2(rms_norm(x)), final ssm state).  Under tensor
+    parallelism ``tp`` the rank's share (:mod:`repro_torch.models.ssm`):
+    the state of its SSM heads, the block's output whole."""
+    y, state = mamba2_forward(rms_norm(x, p.ln, cfg.norm_eps), p, cfg, tp=tp)
     return x + y, state
 
 
-def mamba_conv_tail(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig) -> torch.Tensor:
+def mamba_conv_tail(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig, *,
+                    tp=None) -> torch.Tensor:
     """The decode conv window a prefill leaves: the pre-conv ``[x | B C]``
-    in-projections of the last K-1 tokens of the block's input ``x``."""
+    in-projections of the last K-1 tokens of the block's input ``x``.
+    Under tensor parallelism ``tp`` the rank's ``inner`` columns of x are
+    gathered over ``"model"``: the window is replicated there."""
     tail = rms_norm(x[:, -(cfg.ssm_conv - 1):, :], p.ln, cfg.norm_eps)
-    return torch.cat([tail @ p.w_x, tail @ p.w_bc], dim=-1)
+    xs = tail @ p.w_x
+    if tp is not None and tp.ssm_partial:
+        xs = tp.gather_columns(xs)
+    return torch.cat([xs, tail @ p.w_bc], dim=-1)
 
 
 def mamba_block_decode(x: torch.Tensor, p: MambaBlock, cfg: ModelConfig,
-                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
-    """Returns (out, new conv_state, new ssm_state)."""
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor, *, tp=None):
+    """Returns (out, new conv_state, new ssm_state); under tensor
+    parallelism ``tp`` the rank's share, as :func:`mamba_block_forward`'s."""
     y, conv_state, ssm_state = mamba2_decode(rms_norm(x, p.ln, cfg.norm_eps), p, cfg,
-                                             conv_state, ssm_state)
+                                             conv_state, ssm_state, tp=tp)
     return x + y, conv_state, ssm_state
 
 

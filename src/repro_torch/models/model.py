@@ -66,7 +66,7 @@ from repro_torch.models.ssm import check_chunk
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 # the families whose sharded steps are tensor parallel over "model"
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the subtrees the reference stacks on a leading layer axis; here each
 # layer is its own module, named ``blocks.{i}`` and so on
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -219,16 +219,21 @@ def cache_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
 def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
     """The rank's :class:`~repro_torch.distributed.sharding.ModelSplit`
     from how the rules placed the leaves on the mesh (``wq``'s dimension
-    on ``"model"`` gives the attention's mode, ``wk``'s whether kv heads
-    are split, an MoE's ``w_gate``'s whether its experts or their ``ff``
-    columns are) and its local shards' sizes; None on a mesh without a
-    ``"model"`` axis."""
+    on ``"model"``, a hybrid's shared block's, gives the attention's mode,
+    ``wk``'s whether kv heads are split, an MoE's ``w_gate``'s whether its
+    experts or their ``ff`` columns are, a Mamba block's ``w_x``'s whether
+    its ``inner`` columns are) and its local shards' sizes; None on a mesh
+    without a ``"model"`` axis.  A model without attention (Mamba2) has
+    the mode ``"none"``.  A split the port cannot follow raises
+    :class:`NotImplementedError`: ``inner`` on the axis while the SSM heads
+    do not divide it (a rank's columns would cut across heads), or a
+    rank's heads that neither hold whole groups of B and C nor lie in
+    one."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed.sharding import ModelSplit
 
-    wq = sharded["blocks.0.attn.wq"]
-    mesh = wq.device_mesh
+    mesh = sharded["embed"].device_mesh
     names = mesh.mesh_dim_names
     if "model" not in names:
         return None
@@ -238,15 +243,20 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
         p = sharded[name].placements[axis]
         return p.dim if isinstance(p, Shard) else None
 
-    attn = {1: "heads", 2: "head_dim", None: "replicated"}[model_dim("blocks.0.attn.wq")]
-    h, kv = cfg.n_heads, cfg.n_kv_heads
+    family = cfg.family
     count, index = mesh.size(axis), mesh.get_local_rank("model")
-    heads, kv_heads, kv_first, sliced = h, kv, 0, False
+    block = "shared_attn" if family == "hybrid" else "blocks.0"
+    attn, q_per_kv, ff = "none", 0, 0
+    heads, kv_heads, kv_first, sliced = 0, 0, 0, False
+    if not cfg.is_attention_free:
+        wq, wk = f"{block}.attn.wq", f"{block}.attn.wk"
+        attn = {1: "heads", 2: "head_dim", None: "replicated"}[model_dim(wq)]
+        heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
+        q_per_kv = heads // kv_heads
     if attn == "heads":
-        heads = local["blocks.0.attn.wq"].shape[1]
-        g = h // kv
-        if model_dim("blocks.0.attn.wk") == 1:
-            kv_heads = local["blocks.0.attn.wk"].shape[1]
+        heads, g = local[wq].shape[1], q_per_kv
+        if model_dim(wk) == 1:
+            kv_heads = local[wk].shape[1]
             kv_first = index * kv_heads
         elif g % heads == 0 or heads % g == 0:
             kv_heads, kv_first, sliced = max(1, heads // g), index * heads // g, True
@@ -254,7 +264,7 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
             raise NotImplementedError(f"{heads} q heads a rank over kv groups of {g}: a rank's "
                                       "q heads must read whole kv heads")
     moe, experts, expert_first = "replicated", 0, 0
-    if cfg.family == "moe":
+    if family == "moe":
         w_gate = local["blocks.0.moe.w_gate"]
         moe = {0: "experts", 2: "ff"}.get(model_dim("blocks.0.moe.w_gate"))
         if moe is None:
@@ -265,19 +275,36 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
             # the leaves split as torch.chunk does: ceil(E / count) a rank,
             # the last ranks' shares short or empty
             expert_first = min(index * -(-cfg.n_experts // count), cfg.n_experts)
-    else:
-        ff = local["blocks.0.mlp.w_gate"].shape[1]
+    elif not cfg.is_attention_free:
+        ff = local[f"{block}.mlp.w_gate"].shape[1]
+    ssm, ssm_heads, ssm_first = "none", 0, 0
+    if family in ("ssm", "hybrid"):
+        ssm = "heads" if model_dim("blocks.0.w_x") == 1 else "replicated"
+        ssm_heads = cfg.ssm_heads
+    if ssm == "heads":
+        if cfg.d_inner % count or cfg.ssm_heads % count:
+            raise NotImplementedError(
+                f"{cfg.d_inner} inner columns over {count} \"model\" ranks with {cfg.ssm_heads} "
+                f"SSM heads of {cfg.ssm_head_dim}: a rank's columns would cut across SSM heads")
+        ssm_heads = cfg.ssm_heads // count
+        ssm_first = index * ssm_heads
+        rep = cfg.ssm_heads // cfg.ssm_groups
+        if cfg.ssm_groups > 1 and ssm_heads % rep and rep % ssm_heads:
+            raise NotImplementedError(
+                f"{ssm_heads} SSM heads a rank over {cfg.ssm_groups} groups of {rep} heads: a "
+                "rank's heads must hold whole groups of B and C or lie in one")
     return ModelSplit(group=mesh.get_group("model"), index=index, count=count, attn=attn,
                       head_dim=cfg.head_dim, heads=heads, kv_heads=kv_heads, kv_first=kv_first,
-                      kv_sliced=sliced, q_per_kv=h // kv, ff=ff, vocab=local["embed"].shape[0],
-                      moe=moe, experts=experts, expert_first=expert_first)
+                      kv_sliced=sliced, q_per_kv=q_per_kv, ff=ff, vocab=local["embed"].shape[0],
+                      moe=moe, experts=experts, expert_first=expert_first, ssm=ssm,
+                      ssm_heads=ssm_heads, ssm_first=ssm_first)
 
 
 def tensor_parallel(cfg: ModelConfig) -> bool:
     """Whether the sharded steps of ``cfg`` split its compute over
     ``"model"`` (:class:`~repro_torch.distributed.sharding.ModelSplit`):
-    the dense and MoE families' do; the others' compute is replicated
-    there."""
+    the dense, MoE, SSM and hybrid families' do; the vlm and encdec
+    families' compute is replicated there."""
     return family_of(cfg) in TENSOR_PARALLEL_FAMILIES
 
 
@@ -399,8 +426,8 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
     hand-written backward on the card.  The aux loss is the MoE's
     load-balancing loss summed over layers (zero for the other families),
     on a mesh the rank's share of the global batch's.  Under tensor
-    parallelism (``params.split``, the dense and MoE families) the logits
-    are the rank's vocab columns.
+    parallelism (``params.split``, the dense, MoE, SSM and hybrid
+    families) the logits are the rank's vocab columns.
     """
     family = family_of(cfg)
     dev = _device_of(params)
@@ -419,7 +446,7 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
         return _remat(lambda h: B.dense_block_forward(h, p, cfg, positions, tp=split)[0], cfg)
 
     def mamba(p):
-        return _remat(lambda h: B.mamba_block_forward(h, p, cfg)[0], cfg)
+        return _remat(lambda h: B.mamba_block_forward(h, p, cfg, tp=split)[0], cfg)
 
     if family in ("dense", "vlm"):
         for p in params.blocks:
@@ -556,8 +583,8 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
 
     def mamba(i, x):
         p = params.blocks[i]
-        cache["conv"][i, rows] = B.mamba_conv_tail(x, p, cfg)
-        x, cache["ssm"][i, rows] = B.mamba_block_forward(x, p, cfg)
+        cache["conv"][i, rows] = B.mamba_conv_tail(x, p, cfg, tp=split)
+        x, cache["ssm"][i, rows] = B.mamba_block_forward(x, p, cfg, tp=split)
         return x
 
     if family in ("dense", "vlm"):
@@ -585,7 +612,7 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
     elif family == "hybrid":
         g, _ = hybrid_groups(cfg)
         for j in range(g):
-            x, (k, v) = B.dense_block_forward(x, params.shared_attn, cfg, positions)
+            x, (k, v) = B.dense_block_forward(x, params.shared_attn, cfg, positions, tp=split)
             put_kv(j, k, v)
             for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
                 x = mamba(i, x)
@@ -614,9 +641,9 @@ def prefill(params: LanguageModel, batch: dict, cfg: ModelConfig, max_seq: int):
     ``batch["tokens"]`` (B, S), with ``batch["patches"]`` for a vlm and
     ``batch["frames"]`` for an encdec.  Returns (last-token logits
     (B, vocab_padded), cache padded to ``max_seq``).  Under tensor
-    parallelism (``params.split``, the dense and MoE families) the logits
-    are the rank's vocab columns and the cache its share in the decode
-    rules' layout (:func:`_split_prefill_cache`).
+    parallelism (``params.split``, the dense, MoE, SSM and hybrid
+    families) the logits are the rank's vocab columns and the cache its
+    share in the decode rules' layout (:func:`_split_prefill_cache`).
     """
     tokens = batch["tokens"]
     split, dev = params.split, _device_of(params)
@@ -628,34 +655,49 @@ def prefill(params: LanguageModel, batch: dict, cfg: ModelConfig, max_seq: int):
     logits = prefill_into(params, tokens, cfg, cache, patches=batch.get("patches"),
                           frames=batch.get("frames"))
     if send is not None:
-        cache = dict(zip(("k", "v"), split.heads_to_head_dim(send, cfg.n_kv_heads)))
+        cache.update(zip(("k", "v"), split.heads_to_head_dim(send, cfg.n_kv_heads)))
     return logits, cache
 
 
 def _split_prefill_cache(split, cfg: ModelConfig, batch: int, max_seq: int, dev):
     """A tensor-parallel rank's prefill cache and, in heads mode, the
     buffer that one all-to-all sends on (None otherwise).  The decode
-    rules' layout is every kv head and the rank's ``head_dim`` columns
-    (its whole heads where the axis does not divide ``head_dim``).  In
-    heads mode the rank holds only its kv heads, whole: its cache is a
-    view (n_layers, B, max_seq, its kv heads, ranks, columns) of the
-    buffer (ranks, 2, n_layers, B, max_seq, its kv heads, columns), which
-    :meth:`~repro_torch.distributed.sharding.ModelSplit.heads_to_head_dim`
+    rules' layout of K/V (one row a layer, a hybrid's one a
+    shared-attention application) is every kv head and the rank's
+    ``head_dim`` columns (its whole heads where the axis does not divide
+    ``head_dim``).  In heads mode the rank holds only its kv heads, whole:
+    its cache is a view (rows, B, max_seq, its kv heads, ranks, columns)
+    of the buffer (ranks, 2, rows, B, max_seq, its kv heads, columns),
+    which :meth:`~repro_torch.distributed.sharding.ModelSplit.heads_to_head_dim`
     turns into the decode layout; in head_dim mode (k/v gathered whole)
-    and with replicated attention the rank writes its columns.  Every row
-    is written by :func:`prefill_into`."""
+    and with replicated attention the rank writes its columns.  An SSM or
+    hybrid rank's ``ssm`` state is its SSM heads' (all of them where its
+    Mamba blocks compute replicated) and its ``conv`` window whole, as the
+    rules place them.  Every row is written by :func:`prefill_into`."""
+    dt = cfg.act_dtype()
+    cache, send = {}, None
+    if cfg.family in ("ssm", "hybrid"):
+        heads = split.ssm_heads if split.ssm_partial else cfg.ssm_heads
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache["conv"] = torch.empty((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dt,
+                                    device=dev)
+        cache["ssm"] = torch.empty((cfg.n_layers, batch, heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                   dtype=torch.float32, device=dev)
+    if cfg.family == "ssm":
+        return cache, send
+    rows = hybrid_groups(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
     kv, dh, m = cfg.n_kv_heads, cfg.head_dim, split.count
     c = dh // m if split.shards_head_dim else dh
-    dt = cfg.act_dtype()
     if split.attn != "heads":
-        return {n: torch.empty((cfg.n_layers, batch, max_seq, kv, c), dtype=dt, device=dev)
-                for n in ("k", "v")}, None
+        cache.update({n: torch.empty((rows, batch, max_seq, kv, c), dtype=dt, device=dev)
+                      for n in ("k", "v")})
+        return cache, send
     if not split.shards_head_dim:
         raise NotImplementedError(f"a heads-mode prefill whose cache keeps whole heads: "
                                   f"head_dim {dh} over {m} ranks")
-    send = torch.empty((m, 2, cfg.n_layers, batch, max_seq, split.kv_heads, c), dtype=dt,
-                       device=dev)
-    return {"k": send[:, 0].movedim(0, -2), "v": send[:, 1].movedim(0, -2)}, send
+    send = torch.empty((m, 2, rows, batch, max_seq, split.kv_heads, c), dtype=dt, device=dev)
+    cache.update(k=send[:, 0].movedim(0, -2), v=send[:, 1].movedim(0, -2))
+    return cache, send
 
 
 @torch.inference_mode()
@@ -677,7 +719,7 @@ def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig
 
     def mamba(i, x):
         x, cache["conv"][i], cache["ssm"][i] = B.mamba_block_decode(
-            x, params.blocks[i], cfg, cache["conv"][i], cache["ssm"][i])
+            x, params.blocks[i], cfg, cache["conv"][i], cache["ssm"][i], tp=split)
         return x
 
     if family in ("dense", "vlm"):
@@ -694,7 +736,7 @@ def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig
         g, _ = hybrid_groups(cfg)
         for j in range(g):
             x = B.dense_block_decode(x, params.shared_attn, cfg, cache["k"][j], cache["v"][j],
-                                     pos_vec)
+                                     pos_vec, tp=split)
             for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
                 x = mamba(i, x)
         for i in range(g * cfg.attn_every, cfg.n_layers):

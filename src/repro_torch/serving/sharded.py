@@ -1,6 +1,7 @@
 """Prefill and decode on a mesh, in the style of the sharded train step
 (:func:`repro_torch.training.step.make_sharded_train_step`): FSDP storage,
-and for the dense and MoE families tensor parallelism over ``"model"``.
+and for the dense, MoE, SSM and hybrid families tensor parallelism over
+``"model"``.
 
 The reference runs ``prefill`` and ``decode_step`` under ``jit`` with
 parameter, batch and cache shardings, and GSPMD splits the work.  Here
@@ -8,23 +9,27 @@ the parameters are DTensors placed by ``param_specs`` and a decode
 cache by ``cache_logical_axes``, and each rank runs
 :func:`~repro_torch.models.model.prefill` or
 :func:`~repro_torch.models.model.decode_step` on its rows of the batch
-(split over the batch rule's axes).  A dense or MoE model's rank gathers
-each leaf over the batch axes alone and computes its ``"model"`` share
-(:func:`~repro_torch.models.model.gather_params`; an MoE's experts, or
-their ``ff`` columns): prefill in heads mode (its q heads) emits the
-cache by the decode rules, every kv head and its ``head_dim`` columns,
-in one all-to-all; decode in head_dim mode works on its columns of the
-cache (``_cache_rows(keep_model=True)``), which it keeps, with no
-gather.  An MoE dispatches the reference's groups of the global batch,
-in decode one flat group at capacity factor 2
-(:mod:`repro_torch.models.moe`).  The other families gather every
-parameter whole and, for decode, their rows of the cache whole over
-``"model"``, and compute replicated there.  Each rank
-keeps of the results what the reference's ``out_shardings`` give it
-(``repro/launch/dryrun.py:165, 180``): logits sharded as ``(batch,
-"model")``, the cache by its logical axes, local slices without a
-collective.  K8 sees plain tensors only.  The dry run traces these steps
-on ``meta`` (:mod:`repro_torch.launch.dryrun`).
+(split over the batch rule's axes).  A tensor-parallel model's rank
+gathers each leaf over the batch axes alone and computes its ``"model"``
+share (:func:`~repro_torch.models.model.gather_params`; an MoE's
+experts, or their ``ff`` columns; a Mamba block's ``inner`` columns and
+SSM heads): prefill in heads mode (its q heads) emits the K/V cache by
+the decode rules, every kv head and its ``head_dim`` columns, in one
+all-to-all; decode in head_dim mode works on its columns of the cache
+(``_cache_rows(keep_model=True)``), which it keeps, with no gather.  A
+Mamba block's rank prefills and steps the ``ssm`` state of its SSM heads
+(``ssm_heads`` on ``"model"``), with no gather, and keeps the ``conv``
+window whole, as the rules replicate it: prefill gathers its columns of
+the window's x-seg, decode its columns of each new x-seg.  An MoE
+dispatches the reference's groups of the global batch, in decode one
+flat group at capacity factor 2 (:mod:`repro_torch.models.moe`).  The
+vlm and encdec families gather every parameter whole and, for decode,
+their rows of the cache whole over ``"model"``, and compute replicated
+there.  Each rank keeps of the results what the reference's
+``out_shardings`` give it (``repro/launch/dryrun.py:165, 180``): logits
+sharded as ``(batch, "model")``, the cache by its logical axes, local
+slices without a collective.  K8 sees plain tensors only.  The dry run
+traces these steps on ``meta`` (:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -65,16 +70,20 @@ def _place_outputs(cfg: ModelConfig, mesh, rules: Mapping, cache_rules: Mapping,
                    cache: dict, split=None):
     """The step's logits and cache as the reference's ``out_shardings``
     place them, from this rank's rows (under tensor parallelism ``split``
-    its vocab columns of the logits, and its ``head_dim`` columns of the
-    cache where the cache rules put head_dim on ``"model"``)."""
+    its vocab columns of the logits, and of each cache leaf its share on
+    the dimension that the cache rules put on ``"model"``: the K/V
+    cache's ``head_dim`` columns, the ``ssm`` state's SSM heads)."""
     axes = rule_axes(rules["batch"])
     specs = param_specs(cache_logical_axes(cfg), cache_rules)
-    vocab_dim = cache_dim = None
-    if split is not None:
-        vocab_dim = 1
-        cache_dim = 4 if split.shards_head_dim else None
-    return (place_rows(logits, mesh, axes, 0, (rules["batch"], "model"), vocab_dim),
-            {n: place_rows(c, mesh, axes, CACHE_BATCH_DIM, specs[n], cache_dim)
+
+    def model_dim(spec):
+        if split is None:
+            return None
+        return next((d for d, entry in enumerate(spec) if "model" in rule_axes(entry)), None)
+
+    return (place_rows(logits, mesh, axes, 0, (rules["batch"], "model"),
+                       None if split is None else 1),
+            {n: place_rows(c, mesh, axes, CACHE_BATCH_DIM, specs[n], model_dim(specs[n]))
              for n, c in cache.items()})
 
 
@@ -104,11 +113,12 @@ def make_sharded_decode_step(cfg: ModelConfig, mesh, rules: Mapping):
     ``params`` and ``cache`` are DTensors (the cache placed by
     ``cache_logical_axes`` under ``rules``, the decode rules), ``token``
     the global (B, 1) tokens, ``pos`` replicated.  Each rank steps its
-    rows of the cache (a dense or MoE model's rank its ``head_dim``
-    columns of them; another family's gathered whole over ``"model"``)
-    and keeps its shard of the updated cache (a new DTensor; the input's
-    shards of a replicated rank are not written, a tensor-parallel rank's
-    are written in place)."""
+    rows of the cache (a tensor-parallel model's rank its ``"model"``
+    share of them: the K/V cache's ``head_dim`` columns, the ``ssm``
+    state's SSM heads, the ``conv`` window whole; a vlm's or encdec's
+    gathered whole over ``"model"``) and keeps its shard of the updated
+    cache (a new DTensor; the input's shards of a replicated rank are not
+    written, a tensor-parallel rank's are written in place)."""
     axes = rule_axes(rules["batch"])
     model = None
 

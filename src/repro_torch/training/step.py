@@ -15,25 +15,30 @@ and its hand-written backward on the card.
 Parameters and AdamW moments live as DTensors placed by
 ``param_specs(param_logical_axes(cfg), rules)`` (:func:`shard_train_state`).
 Each rank takes its rows of the batch, split over the mesh's batch axes
-(every axis but ``"model"``).  The dense and MoE families run tensor
-parallel over ``"model"``, as GSPMD splits the reference's step under its
-rules: each leaf is gathered over the batch axes alone and keeps its
-``"model"`` shard (its q heads or head_dim columns, ``ff`` columns, an
-MoE's experts or their ``ff`` columns, vocab rows:
+(every axis but ``"model"``).  The dense, MoE, SSM and hybrid families
+run tensor parallel over ``"model"``, as GSPMD splits the reference's
+step under its rules: each leaf is gathered over the batch axes alone
+and keeps its ``"model"`` shard (its q heads or head_dim columns, ``ff``
+columns, an MoE's experts or their ``ff`` columns, a Mamba block's
+``inner`` columns, vocab rows:
 :func:`~repro_torch.models.model.gather_params`), and the rank computes
 its share, Megatron's regions meeting in all-reduces over ``"model"``
 (:class:`~repro_torch.distributed.sharding.ModelSplit`), the loss
-vocab-parallel.  An MoE dispatches the reference's groups of the global
-batch (:mod:`repro_torch.models.moe`), and its aux loss is the global
-batch's.  The other families gather every leaf whole and run the
-one-device forward and backward, replicated over ``"model"`` but inside
-attention under the attention batch layout of the active rules
+vocab-parallel.  A leaf replicated over ``"model"`` that a rank uses in
+part (a Mamba block's ``w_bc``, B/C conv, ``w_dt``, ``dt_bias``,
+``a_log``, ``d_skip``) has its gradient summed there in the backward,
+so it is whole and equal on every rank.  An MoE dispatches the
+reference's groups of the global batch (:mod:`repro_torch.models.moe`),
+and its aux loss is the global batch's.  The vlm and encdec families
+gather every leaf whole and run the one-device forward and backward,
+replicated over ``"model"`` but inside attention under the attention
+batch layout of the active rules
 (:func:`repro_torch.distributed.sharding.attn_batch_split`).  The
 gradients, whole or a rank's ``"model"`` shards, are averaged over the
 batch axes (weighted by each rank's token count) with ``all_reduce``;
 AdamW's global-norm clip is taken over the whole averaged gradients, a
-sharded leaf's sum of squares summed over ``"model"``; and each rank
-updates its own shards.  So the step's arithmetic is the one-device
+sharded leaf's sum of squares summed over ``"model"`` and a replicated
+leaf's counted once; and each rank updates its own shards.  So the step's arithmetic is the one-device
 step's but for the order of the sums (bit for bit on a mesh of one).
 """
 
@@ -211,8 +216,9 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
     dispatch groups, capacity and aux loss are the global batch's, as the
     reference's: each rank's aux loss is its share, taken at ``1 / w`` of
     its weight ``w`` in the loss, so that the token weights leave the
-    global aux loss and its gradient whole.  A dense or MoE model's step
-    is tensor parallel over ``"model"`` (the module's docstring)."""
+    global aux loss and its gradient whole.  A dense, MoE, SSM or hybrid
+    model's step is tensor parallel over ``"model"`` (the module's
+    docstring)."""
     batch_axes = [a for a in mesh.mesh_dim_names if a != "model"]
     groups = [mesh.get_group(a) for a in batch_axes]
     model = None            # the model the step runs, built at the first call

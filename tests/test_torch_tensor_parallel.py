@@ -198,7 +198,8 @@ def _one_device_train(cfg, references, arch, batch: dict, every_step: bool = Fal
     return port, ref
 
 
-def hold_train(got: dict, port: dict, ref: dict, every_step: bool = False) -> dict:
+def hold_train(got: dict, port: dict, ref: dict, every_step: bool = False,
+               cumulative: bool = False, grad_tols: tuple = ()) -> dict:
     """A sharded run's losses, step-1 gradients (with ``every_step``, both
     runs' ``grads_steps`` given: each step's gradients, held after step 1
     to theirs at the sharded run's parameters of that step) and
@@ -206,8 +207,12 @@ def hold_train(got: dict, port: dict, ref: dict, every_step: bool = False) -> di
     the reference's (:func:`_one_device_train`), at the module's bars.  The
     elements held to 2 lr a step are those that Adam's first step drives
     apart or, with ``every_step``, those that its update at that step or
-    an earlier one drives apart (``worker.adam_step_gaps``), each step's
-    number bounded.  Returns them, by (against, step)."""
+    an earlier one drives apart (``worker.adam_step_gaps``), or with
+    ``cumulative`` those whose updates' gaps summed over the steps so far
+    pass the bar (a parameter's difference after k steps is at most that
+    sum), each step's number bounded.  ``grad_tols`` are (leaf-name
+    suffix, bar) pairs that hold those leaves' gradients at their own bar
+    in place of TOL.  Returns the elements, by (against, step)."""
     amplified = {}
     for against, want in (("port", port), ("reference", ref)):
         for g, w in zip(got["losses"], want["losses"], strict=True):
@@ -221,14 +226,17 @@ def hold_train(got: dict, port: dict, ref: dict, every_step: bool = False) -> di
         for k, (grads, wgrads) in enumerate(steps, start=1):
             kmax = {n: float(g.abs().max()) for n, g in wgrads.items()}
             for n, w in wgrads.items():
-                bar = TOL * (max(kmax.values()) if n in noise else kmax[n])
+                tol = next((t for suffix, t in grad_tols if n.endswith(suffix)), TOL)
+                bar = tol * (max(kmax.values()) if n in noise else kmax[n])
                 err = float((grads[n] - w).abs().max())
                 assert err <= bar, (against, f"step-{k} gradient", n, err, bar)
         gaps = (worker.adam_step_gaps(got["grads_steps"], want["grads_steps"]) if every_step
                 else [worker.adam_first_step_gap(got["grads_1"], want["grads"])])
-        free = {}
+        free, spent = {}, {}
         for k, (snap, wsnap) in enumerate(zip(got["params"], want["params"], strict=True)):
             gap = gaps[min(k, len(gaps) - 1)]
+            if cumulative:
+                spent = gap = {n: gap[n] + spent.get(n, 0.0) for n in wsnap}
             free = {n: torch.ones_like(w, dtype=torch.bool) if n in noise
                     else (gap[n] > TOL * float(w.abs().max())) | free.get(n, False)
                     for n, w in wsnap.items()}
@@ -261,11 +269,18 @@ def test_tensor_parallel_train_steps_match_one_device_and_reference(tp_run, refe
     request.node.user_properties.append(("adam_amplified_elements", amplified))
 
 
+# the dimension of each cache leaf that the decode rules put on "model"
+# (where it divides): the K/V cache's head_dim, the SSD state's SSM heads;
+# the conv window is replicated there
+CACHE_MODEL_DIMS = {"k": 4, "v": 4, "ssm": 2}
+
+
 def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4)) -> None:
     """A sharded prefill and greedy decode on ``mesh`` (``worker.tp_serve``)
     against the port's one-device steps and the reference's: the logits
-    gathered and the cache within TOL, each rank's cache shard its rows
-    and its head_dim columns, the greedy tokens equal."""
+    gathered and every cache leaf, after the prefill and after the last
+    decode step, within TOL, each rank's cache shard its rows and its
+    share on CACHE_MODEL_DIMS, the greedy tokens equal."""
     cfg = get_smoke_config(arch)
     jcfg, jp, tree = references[arch]
     prompts = worker.tp_batches(cfg.vocab)["prompts"]
@@ -275,10 +290,13 @@ def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4)) -> None
                                      max_seq=worker.TP_MAX_SEQ)
     for want in (logits, jlogits):
         assert _rel(got["prefill_logits"], want) <= TOL
-    for name in ("k", "v"):
-        shape = (cfg.n_layers, len(prompts) // mesh[0], worker.TP_MAX_SEQ, cfg.n_kv_heads,
-                 cfg.head_dim // mesh[1])
-        assert got["cache_local"][name] == shape
+    assert set(got["cache"]) == set(cache) == set(jcache)
+    for name in cache:
+        shape = list(cache[name].shape)
+        shape[1] //= mesh[0]
+        if name in CACHE_MODEL_DIMS:
+            shape[CACHE_MODEL_DIMS[name]] //= mesh[1]
+        assert got["cache_local"][name] == tuple(shape), name
         for want in (cache[name], jcache[name]):
             assert _rel(got["cache"][name], want) <= TOL, name
     token = logits.argmax(-1)[:, None].to(torch.int32)
@@ -295,6 +313,9 @@ def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4)) -> None
         token = logits.argmax(-1)[:, None].to(torch.int32)
         jtoken = jnp.argmax(jlogits, axis=-1)[:, None].astype(jnp.int32)
     assert torch.equal(got["tokens"][-1], token)
+    for name in cache:
+        for want in (cache[name], jcache[name]):
+            assert _rel(got["decode_cache"][name], want) <= TOL, ("after decode", name)
 
 
 @pytest.mark.parametrize("arch", worker.TP_ARCHS)
@@ -436,7 +457,34 @@ def _moe_products(cfg, kind: str) -> tuple[int, int]:
             2 * b * d * e + 3 * 2 * e_r * min(cap, b) * d * f_r)
 
 
-@pytest.mark.parametrize("arch", worker.TP_ARCHS + worker.EP_ARCHS)
+def _ssm_products(cfg, kind: str) -> tuple[int, int]:
+    """The products of a Mamba block's rank that GSPMD computes otherwise
+    on (2, 4), a layer: (the reference's FLOPs, a port rank's), read from
+    the reference's lowered HLO and the port's counter at REF_B x REF_S
+    (b = 2 rows a rank, t = 128 tokens).  GSPMD splits B and C over
+    "model" (``w_bc``'s 2GN columns, a quarter each) where a port rank
+    computes them whole (every head of a group reads them):
+
+    Prefill: the B/C in-projection, 2 t d 2GN / 4 against 2 t d 2GN; the
+    conv tail's, 2 b (K - 1) d 2GN / 4 against 2 b (K - 1) d 2GN; and the
+    SSD's inter-chunk output, whose contraction over the state N GSPMD
+    splits with C: 2 t (H / 4) P N / 4 against 2 t (H / 4) P N.
+
+    Decode: the B/C in-projection, 2 b d 2GN / 4 against 2 b d 2GN, and
+    the conv window's product over its K taps on B and C's columns (a
+    product in both lowerings), 2 b K 2GN / 4 against 2 b K 2GN."""
+    d, k, m = cfg.d_model, cfg.ssm_conv, 4
+    gn2, b = 2 * cfg.ssm_groups * cfg.ssm_state, REF_B // 2
+    if kind == "prefill":
+        t = b * REF_S
+        port = (2 * t * d * gn2, 2 * b * (k - 1) * d * gn2,
+                2 * t * (cfg.ssm_heads // m) * cfg.ssm_head_dim * cfg.ssm_state)
+    else:
+        port = (2 * b * d * gn2, 2 * b * k * gn2)
+    return sum(x // m for x in port), sum(port)
+
+
+@pytest.mark.parametrize("arch", worker.TP_ARCHS + worker.EP_ARCHS + worker.SSM_ARCHS)
 def test_per_rank_flops_match_the_references_spmd_program(arch):
     """Prefill and decode of the SMOKE config (4 rows, 64 positions) on the
     (2, 4) mesh: the port's counter on rank 0 of a fake (2, 4) world
@@ -453,10 +501,16 @@ def test_per_rank_flops_match_the_references_spmd_program(arch):
     An MoE rank (Granite-MoE's two of 8 experts, Mixtral's 32 of 128
     ``ff`` columns of its 4 experts) computes the reference's share of
     the experts in prefill; the products GSPMD computes otherwise are
-    :func:`_moe_products`', each with both counts."""
+    :func:`_moe_products`', each with both counts.  A Mamba block's rank
+    (2 of the 8 SSM heads) computes the reference's share but for B and
+    C, which GSPMD splits over "model" and a port rank computes whole
+    (:func:`_ssm_products`, each with both counts); Zamba2's shared
+    attention (its kv heads on "model") is the dense family's."""
     cfg = get_smoke_config(arch)
     ref = _reference_flops(arch)
     rows, heads = REF_B // 2, cfg.n_heads // 4
+    n_attn = (0 if cfg.family == "ssm" else tmodel.hybrid_groups(cfg)[0]
+              if cfg.family == "hybrid" else cfg.n_layers)
     for kind in ("prefill", "decode"):
         shape = dataclasses.replace(SHAPES[kind + "_32k"], seq_len=REF_S, global_batch=REF_B)
         rules = {**make_rules(cfg, job=kind, model_axis=4), "batch": "data"}
@@ -467,16 +521,19 @@ def test_per_rank_flops_match_the_references_spmd_program(arch):
         if cfg.family == "moe":
             ref_layer, port_layer = _moe_products(cfg, kind)
             extra = cfg.n_layers * (ref_layer - port_layer)
+        elif cfg.family in ("ssm", "hybrid"):
+            ref_layer, port_layer = _ssm_products(cfg, kind)
+            extra = cfg.n_layers * (ref_layer - port_layer)
         if kind == "decode":
             assert k8 == 0 and counter.flops + extra == ref["decode"], (
                 arch, counter.flops, ref["decode"], extra)
             continue
-        block = 4 * rows * heads * cfg.head_dim * REF_S * REF_S * cfg.n_layers
+        block = 4 * rows * heads * cfg.head_dim * REF_S * REF_S * n_attn
         kv_local = 1
-        if cfg.family != "moe":
+        if cfg.family == "dense":
             extra = 2 * cfg.n_layers * 2 * rows * REF_S * cfg.d_model * cfg.head_dim * (
                 cfg.n_kv_heads - kv_local)
-        assert k8 == 4 * rows * heads * cfg.head_dim * cfg.n_layers * (REF_S * (REF_S + 1) // 2)
+        assert k8 == 4 * rows * heads * cfg.head_dim * n_attn * (REF_S * (REF_S + 1) // 2)
         assert counter.flops - k8 + extra == ref["prefill"] - block, (
             arch, counter.flops - k8, ref["prefill"] - block, extra)
 
@@ -486,7 +543,9 @@ def test_a_rank_holds_its_share_of_every_leaf():
     mode holds each leaf gathered over "data" alone (its "model" shard):
     heads mode a q head of wq and wo, the K/V projections whole (their
     kv_heads off "model"; the rank reads kv head 0), a quarter of ff and
-    of the vocab; head_dim mode a quarter of every head's columns."""
+    of the vocab; head_dim mode a quarter of every head's columns; an
+    MoE's experts or their ff columns; a Mamba block's quarter of inner
+    and the leaves replicated over "model" whole."""
     from repro_torch.distributed.elastic import reshard_state
 
     cfg = get_smoke_config("qwen3_8b")
@@ -531,21 +590,59 @@ def test_a_rank_holds_its_share_of_every_leaf():
         assert moe.w_router.shape == (d, cfg.n_experts)
         assert model.blocks[0].attn.wq.shape == (d, 1, cfg.head_dim)
         assert (model.batch_shard.index, model.batch_shard.count) == (0, 2)
+    # a Mamba block's rank: its quarter of inner (2 of the 8 SSM heads, 32
+    # of 128 columns) in w_z, w_x, the x conv, norm_scale and w_out; w_bc,
+    # w_dt, the B/C conv and the per-head leaves whole; Zamba2's shared
+    # block as the dense family's (train and prefill: a q head, the kv head
+    # it reads, a quarter of ff; decode: a quarter of head_dim)
+    for arch, job in (("mamba2_370m", "train"), ("zamba2_7b", "prefill"),
+                      ("zamba2_7b", "decode")):
+        cfg = get_smoke_config(arch)
+        params = dict(tmodel.init_params(cfg, None, device="meta").named_parameters())
+        rules = {**make_rules(cfg, job=job, model_axis=4), "batch": "data"}
+        with fake_world(mesh_shape=(2, 4)) as mesh:
+            model = tmodel.gather_params(cfg, reshard_state(
+                params, tmodel.param_logical_axes(cfg), mesh, rules))
+        split, p = model.split, model.blocks[-1]
+        d, d_in, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+        gn2, k = 2 * cfg.ssm_groups * cfg.ssm_state, cfg.ssm_conv
+        assert (split.ssm, split.ssm_heads, split.ssm_first) == ("heads", h // 4, 0)
+        assert {n: tuple(x.shape) for n, x in p.named_parameters()} == {
+            "ln": (d,), "w_z": (d, d_in // 4), "w_x": (d, d_in // 4), "w_bc": (d, gn2),
+            "w_dt": (d, h), "conv_x_w": (k, d_in // 4), "conv_x_b": (d_in // 4,),
+            "conv_bc_w": (k, gn2), "conv_bc_b": (gn2,), "dt_bias": (h,), "a_log": (h,),
+            "d_skip": (h,), "norm_scale": (d_in // 4,), "w_out": (d_in // 4, d)}
+        assert model.embed.shape == (cfg.vocab_padded // 4, d) == (split.vocab, d)
+        if arch == "mamba2_370m":
+            assert (split.attn, split.heads, split.ff, model.shared_attn) == ("none", 0, 0, None)
+            continue
+        attn = model.shared_attn.attn
+        if job == "prefill":
+            assert (split.attn, split.heads, split.kv_heads, split.kv_sliced) == ("heads", 1, 1,
+                                                                                False)
+            assert attn.wq.shape == attn.wk.shape == (d, 1, cfg.head_dim)
+        else:
+            assert split.attn == "head_dim"
+            assert attn.wq.shape == (d, cfg.n_heads, cfg.head_dim // 4)
+        assert model.shared_attn.mlp.w_gate.shape == (d, cfg.d_ff // 4) == (d, split.ff)
 
 
 def test_one_device_paths_have_no_split():
     """A model from init_params has no split and no batch shard, and its
-    MoE blocks run with neither (the one-device arithmetic);
-    gather_params gives a split to a dense or MoE model
-    (tensor_parallel), none to another family's, whose compute stays
-    replicated over "model"."""
+    MoE and Mamba blocks run with neither (the one-device arithmetic:
+    every leaf whole, no collective); gather_params gives a split to a
+    dense, MoE, SSM or hybrid model (tensor_parallel), none to a vlm's or
+    an encdec's, whose compute stays replicated over "model"."""
     from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.models import ssm as tssm
 
-    for arch in ("qwen3_8b", "granite_moe_1b_a400m"):
+    for arch in ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m", "zamba2_7b"):
         model = tmodel.init_params(get_smoke_config(arch), None, device="meta")
         assert model.split is None and model.batch_shard is None
-    assert [a for a in ("qwen3_8b", "mixtral_8x22b", "mamba2_370m", "internvl2_1b")
-            if tmodel.tensor_parallel(get_smoke_config(a))] == ["qwen3_8b", "mixtral_8x22b"]
+    archs = ("qwen3_8b", "mixtral_8x22b", "mamba2_370m", "zamba2_7b", "internvl2_1b",
+             "whisper_base")
+    assert [a for a in archs if tmodel.tensor_parallel(get_smoke_config(a))] == [
+        "qwen3_8b", "mixtral_8x22b", "mamba2_370m", "zamba2_7b"]
     cfg = get_smoke_config("granite_moe_1b_a400m")
     model = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
@@ -558,11 +655,35 @@ def test_one_device_paths_have_no_split():
         y, want_aux = tmoe.moe_ffn(h, p.moe, n_experts=cfg.n_experts, top_k=cfg.top_k,
                                    groups=cfg.dispatch_groups)
     assert torch.equal(out, x + a + y.reshape(2, 8, -1)) and torch.equal(aux, want_aux)
+    # a Mamba block without a split: its own leaves, whole, and the block's
+    # one-device sums (the conv tail and the decode window whole too)
     ssm = get_smoke_config("mamba2_370m")
-    params = dict(tmodel.init_params(ssm, None, device="meta").named_parameters())
-    rules = {**make_rules(ssm, model_axis=4), "batch": "data"}
+    model = tmodel.init_params(ssm, torch.Generator().manual_seed(0), device="cpu")
+    p = model.blocks[0]
+    assert tssm.rank_leaves(p, None) is p
+    x = torch.randn((2, 32, ssm.d_model), generator=torch.Generator().manual_seed(1))
+    conv = torch.randn((2, ssm.ssm_conv - 1, ssm.d_inner + 2 * ssm.ssm_state),
+                       generator=torch.Generator().manual_seed(2))
+    state = torch.randn((2, ssm.ssm_heads, ssm.ssm_head_dim, ssm.ssm_state),
+                        generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        out, final = tblocks.mamba_block_forward(x, p, ssm)
+        hn = tblocks.rms_norm(x, p.ln, ssm.norm_eps)
+        y, want_final = tssm.mamba2_forward(hn, p, ssm)
+        assert torch.equal(out, x + y) and torch.equal(final, want_final)
+        assert final.shape == (2, ssm.ssm_heads, ssm.ssm_head_dim, ssm.ssm_state)
+        tail = hn[:, -(ssm.ssm_conv - 1):]
+        assert torch.equal(tblocks.mamba_conv_tail(x, p, ssm),
+                           torch.cat([tail @ p.w_x, tail @ p.w_bc], dim=-1))
+        step, new_conv, new_state = tblocks.mamba_block_decode(x[:, :1], p, ssm, conv, state)
+        y, want_conv, want_state = tssm.mamba2_decode(hn[:, :1], p, ssm, conv, state)
+        assert torch.equal(step, x[:, :1] + y) and torch.equal(new_conv, want_conv)
+        assert torch.equal(new_state, want_state) and new_conv.shape == conv.shape
+    vlm = get_smoke_config("internvl2_1b")
+    params = dict(tmodel.init_params(vlm, None, device="meta").named_parameters())
+    rules = {**make_rules(vlm, model_axis=4), "batch": "data"}
     with fake_world(mesh_shape=(2, 4)) as mesh:
-        sharded = reshard_state(params, tmodel.param_logical_axes(ssm), mesh, rules)
-        model = tmodel.gather_params(ssm, sharded)
+        sharded = reshard_state(params, tmodel.param_logical_axes(vlm), mesh, rules)
+        model = tmodel.gather_params(vlm, sharded)
     assert model.split is None
-    assert model.blocks[0].w_x.shape == (ssm.d_model, ssm.d_inner)
+    assert model.blocks[0].attn.wq.shape == (vlm.d_model, vlm.n_heads, vlm.head_dim)

@@ -5,9 +5,11 @@
 
 and, with a fifth argument ``tensor_parallel``, of the dense family's
 tensor-parallel steps (run by tests/test_torch_tensor_parallel.py;
-:func:`tensor_parallel_main`), or with ``expert_parallel`` of the MoE
+:func:`tensor_parallel_main`), with ``expert_parallel`` of the MoE
 family's (run by tests/test_torch_expert_parallel.py;
-:func:`expert_parallel_main`).
+:func:`expert_parallel_main`), or with ``ssm_parallel`` of the SSM and
+hybrid families' (run by tests/test_torch_ssm_parallel.py;
+:func:`ssm_parallel_main`).
 
 Two AdamW steps of the SMOKE Qwen3-8B on the (2, 4) ("data", "model")
 mesh, then ``plan_mesh(4)``, a re-shard to (2, 2) under
@@ -211,11 +213,11 @@ TP_STEPS = 3
 TP_PROMPT, TP_MAX_SEQ, TP_DECODES = 12, 24, 4
 
 
-def tp_batches(vocab: int) -> dict:
-    """The seeded train batch (next-token targets) and prompts of the
-    tensor-parallel cases."""
+def tp_batches(vocab: int, seq: int = 32) -> dict:
+    """The seeded train batch (next-token targets, ``seq`` tokens a row)
+    and prompts of the tensor-parallel cases."""
     rng = np.random.default_rng(SEED + 2)
-    tokens = rng.integers(0, vocab, (4, 33)).astype(np.int32)
+    tokens = rng.integers(0, vocab, (4, seq + 1)).astype(np.int32)
     return {"train": {"tokens": torch.from_numpy(tokens[:, :-1].copy()),
                       "targets": torch.from_numpy(tokens[:, 1:].copy())},
             "prompts": torch.from_numpy(rng.integers(0, vocab, (4, TP_PROMPT))
@@ -239,8 +241,8 @@ def _model(cfg, params: dict):
     return model
 
 
-def tp_train(cfg, params: dict, mesh, rules, batch: dict) -> dict:
-    """TP_STEPS AdamW steps on ``mesh``: the losses and aux losses, every
+def tp_train(cfg, params: dict, mesh, rules, batch: dict, steps: int = TP_STEPS) -> dict:
+    """``steps`` AdamW steps on ``mesh``: the losses and aux losses, every
     parameter gathered whole after each step, and the step-1 gradients
     gathered whole."""
     rec = {}
@@ -252,7 +254,7 @@ def tp_train(cfg, params: dict, mesh, rules, batch: dict) -> dict:
     with mesh_context(mesh), use_rules(rules):
         state = shard_train_state(state, cfg, mesh, rules)
         step = make_sharded_train_step(cfg, opt, mesh)
-        for _ in range(TP_STEPS):
+        for _ in range(steps):
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
             aux.append(float(metrics["aux"]))
@@ -266,7 +268,8 @@ def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor, model_axis: int = 4
     """A sharded prefill (heads mode, the cache out by the decode rules)
     and TP_DECODES greedy decode steps (head_dim mode) on a mesh of
     ``model_axis`` "model" ranks: the logits gathered whole, the cache
-    after the prefill gathered whole, the tokens."""
+    after the prefill and after the last decode step gathered whole, the
+    tokens."""
     from repro_torch.distributed.elastic import reshard_state
 
     pre = tp_rules(cfg, "prefill", model_axis=model_axis)
@@ -290,6 +293,7 @@ def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor, model_axis: int = 4
             whole = logits.full_tensor()
             out["decode_logits"].append(whole)
             token = whole.argmax(-1)[:, None].to(torch.int32)
+        out["decode_cache"] = {n: c.full_tensor() for n, c in cache.items()}
     out["tokens"].append(token)
     return out
 
@@ -364,13 +368,14 @@ EP_ARCHS = ("granite_moe_1b_a400m", "mixtral_8x22b")
 EP_MESHES = ((2, 4), (4, 2))
 
 
-def spread_over_model(grads: dict, mesh) -> dict:
-    """For each router's gradient (replicated over "model"), the largest
+def spread_over_model(grads: dict, mesh, suffixes=("moe.w_router",)) -> dict:
+    """For each gradient of a leaf replicated over "model" whose name ends
+    in one of ``suffixes`` (by default the routers'), the largest
     difference between a "model" rank's and rank 0's, relative to its
     largest element."""
     group, out = mesh.get_group("model"), {}
     for n, g in grads.items():
-        if n.endswith("moe.w_router"):
+        if n.endswith(suffixes):
             parts = [torch.empty_like(g) for _ in range(group.size())]
             dist.all_gather(parts, g.contiguous(), group=group)
             out[n] = max(float((q - parts[0]).abs().max()) for q in parts) / float(
@@ -405,6 +410,95 @@ def expert_parallel_main(rank: int, out_dir: str) -> None:
         torch.save(results, Path(out_dir) / "ep_rank0.pt")
 
 
+# ------------------------------------------------ SSM and hybrid tensor parallelism
+
+SSM_ARCHS = ("mamba2_370m", "zamba2_7b")
+# (2, 4): SMOKE's 8 SSM heads 2 a rank, Zamba2's 4 attention heads 1 a rank
+# and in decode 4 of head_dim's 16 columns; (4, 2): 4 SSM heads, 2
+# attention heads and 8 columns a rank
+SSM_MESHES = ((2, 4), (4, 2))
+# the train sequence: two of SMOKE's 32-token SSD chunks, so that the
+# inter-chunk scan runs
+SSM_SEQ = 64
+# a Mamba block's leaves replicated over "model" (whole on every rank),
+# whose gradients must come out whole and equal on every "model" rank
+WHOLE_LEAVES = ("ln", "w_bc", "conv_bc_w", "conv_bc_b", "w_dt", "dt_bias", "a_log", "d_skip")
+# the gated norm's mean square taken two wrong ways: each rank's own
+# columns' (no sum), and summed outside autograd, its gradient passed
+# through unsummed (Megatron's g, ModelSplit.exit).  ModelSplit.reduce is no
+# such sum here: PyTorch's functional all_reduce, which it calls, has a
+# backward of its own once torch.distributed._functional_collectives is
+# imported (an all-reduce of the gradient, in torch 2.13)
+BROKEN_NORMS = {"rank_local": lambda split, x: x,
+                "outside_autograd": lambda split, x: split.exit(x) / split.count}
+
+
+def held_leaves(cfg, sharded: dict) -> dict:
+    """The local shapes of the first Mamba block's leaves as a rank's
+    tensor-parallel model holds them (``gather_params`` over "data"), and
+    its split's SSM and attention fields."""
+    model = tmodel.gather_params(cfg, sharded, batch_axes=("data",))
+    sp = model.split
+    return {"shapes": {n: tuple(p.shape) for n, p in model.blocks[0].named_parameters()},
+            "split": {k: getattr(sp, k) for k in ("ssm", "ssm_heads", "ssm_first", "attn",
+                                                    "heads", "kv_heads", "count", "index")}}
+
+
+def broken_norm_grads(cfg, params: dict, mesh, rules, batch: dict) -> dict:
+    """The step-1 gradient of ``blocks.0.w_x`` (gathered whole) under each
+    of BROKEN_NORMS in place of ``ModelSplit.mean_over``."""
+    from repro_torch.distributed.sharding import ModelSplit
+
+    saved, out = ModelSplit.mean_over, {}
+    try:
+        for name, broken in BROKEN_NORMS.items():
+            ModelSplit.mean_over = broken
+            out[name] = tp_train(cfg, params, mesh, rules, batch, steps=1)["grads_1"][
+                "blocks.0.w_x"]
+    finally:
+        ModelSplit.mean_over = saved
+    return out
+
+
+def ssm_parallel_main(rank: int, out_dir: str) -> None:
+    """Each arch of SSM_ARCHS from the parameters the test wrote
+    (OUT_DIR/params_<arch>.pt, the reference's converted) on each mesh of
+    SSM_MESHES: TP_STEPS train steps on a seeded batch of SSM_SEQ tokens a
+    row, the spread over "model" of the step-1 gradients of the leaves
+    replicated there, the leaves a rank holds, then the prefill and decode
+    steps on the tensor-parallel cases' prompts; on (2, 4) the SMOKE Mamba2's step-1 gradient of ``w_x`` with
+    the gated norm's sum broken.  Rank 0 writes OUT_DIR/ssm_rank0.pt,
+    keyed by (mesh, arch)."""
+    from repro_torch.distributed.elastic import reshard_state
+
+    results = {}
+    for shape in SSM_MESHES:
+        mesh = make_debug_mesh(shape, ("data", "model"))
+        m = shape[1]
+        for arch in SSM_ARCHS:
+            cfg = get_smoke_config(arch)
+            params = torch.load(Path(out_dir) / f"params_{arch}.pt", weights_only=True)
+            rules = tp_rules(cfg, "train", model_axis=m)
+            train = tp_train(cfg, params, mesh, rules, tp_batches(cfg.vocab, SSM_SEQ)["train"])
+            named = {n: p.detach() for n, p in _model(cfg, params).named_parameters()}
+            with mesh_context(mesh):
+                held = held_leaves(cfg, reshard_state(named, tmodel.param_logical_axes(cfg),
+                                                      mesh, rules))
+            results[shape, arch] = {
+                "train": train, "held": held,
+                "whole_grad_spread": spread_over_model(
+                    train["grads_1"], mesh, tuple("." + n for n in WHOLE_LEAVES)),
+                **tp_serve(cfg, params, mesh, tp_batches(cfg.vocab)["prompts"],
+                           model_axis=m)}
+    cfg = get_smoke_config("mamba2_370m")
+    mesh = make_debug_mesh((2, 4), ("data", "model"))
+    results["broken_norms"] = broken_norm_grads(
+        cfg, torch.load(Path(out_dir) / "params_mamba2_370m.pt", weights_only=True), mesh,
+        tp_rules(cfg, "train"), tp_batches(cfg.vocab, SSM_SEQ)["train"])
+    if rank == 0:
+        torch.save(results, Path(out_dir) / "ssm_rank0.pt")
+
+
 def main(rank: int, world: int, store_file: str, out_dir: str, mode: str = "") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world), rank=rank,
@@ -412,7 +506,8 @@ def main(rank: int, world: int, store_file: str, out_dir: str, mode: str = "") -
     try:
         if mode:
             {"tensor_parallel": tensor_parallel_main,
-             "expert_parallel": expert_parallel_main}[mode](rank, out_dir)
+             "expert_parallel": expert_parallel_main,
+             "ssm_parallel": ssm_parallel_main}[mode](rank, out_dir)
             dist.barrier()
             return
         cfg = get_smoke_config("qwen3_8b")
