@@ -230,10 +230,9 @@ non-zero:
    reference's reason (``long_500k`` on a full-attention arch), a
    production mesh's ok cell with its ranks (256 or 512), collectives
    counted, at least one leaf gathered and its compute (``"tensor
-   parallel over model"`` for the dense, SSM and hybrid families,
-   ``"expert parallel over model"`` for Granite-MoE, ``"tensor parallel
-   inside experts over model"`` for Mixtral, ``"replicated over model"``
-   for the vlm and encdec); its
+   parallel over model"`` for the dense, vlm, SSM, hybrid and encdec
+   families, ``"expert parallel over model"`` for Granite-MoE, ``"tensor
+   parallel inside experts over model"`` for Mixtral); its
    dominant term, bound,
    ``temp_size_b`` and collective bytes printed with the host seconds;
    (b) the counter held against the card on Qwen3-8B's 1974-token
@@ -271,8 +270,17 @@ non-zero:
    of 112 SSM heads and 448 of 7,168 ``inner`` columns; the shared
    attention in heads mode, 2 q and 2 kv heads, D = 112), counted as
    (b)'s steps, with its kernel time by kind (the SSD's products under
-   ``aten::bmm``, K8, the rest) and K8's one launch; the phase's wall
-   printed;
+   ``aten::bmm``, K8, the rest) and K8's one launch; (g) for
+   Whisper-base at full width and depth (6 encoder and 6 decoder
+   layers), a rank's prefill of its 1,500 frames and a 64-token prompt
+   on the same fake world (head_dim mode: its 4 of each head's 64
+   columns, q, k and v gathered to whole heads; 128 of 2,048 ``ff``
+   columns; a sixteenth of the padded vocab), counted as (b)'s steps,
+   with its kernel time by kind (K8, the GELU MLP under its
+   ``record_function`` range, the rest) and K8's 18 launches at whole
+   heads (6 in the encoder, 6 in the decoder's self-attention, 6 in its
+   cross attention, counted by attention in one more prefill); the
+   phase's wall printed;
 8c. distributed — the sharded train step
    (``repro_torch.training.step.make_sharded_train_step``) on a world of
    one: NCCL with a ``FileStore`` rendezvous in a temporary directory,
@@ -280,14 +288,17 @@ non-zero:
    SMOKE Qwen3-8B (dense: tensor parallel over a "model" axis of one),
    the SMOKE Granite-MoE 1B (expert parallel), the SMOKE Mixtral (tensor
    parallel inside the experts), the SMOKE Zamba2 (hybrid: its Mamba
-   blocks and shared attention tensor parallel) and the SMOKE InternVL2
-   (vlm: every leaf gathered whole, the compute replicated over
-   "model"), each failing unless the dry run names its route so and the
-   step's leaves took it (``blocks.0.moe.w_gate`` on "model" at dim 0
-   for Granite-MoE and 2 for Mixtral, ``blocks.0.w_x`` at dim 1 for
-   Zamba2), all float32 (K8's FMA route forward and backward),
-   AdamW(1e-3), tokens = targets = 3 (4 x 32), InternVL2 with seeded
-   patch embeddings: two steps,
+   blocks and shared attention tensor parallel), the SMOKE InternVL2
+   (vlm: its dense blocks tensor parallel) and the SMOKE Whisper
+   (encdec: its encoder, decoder and cross attention and its GELU MLPs
+   tensor parallel), each failing unless the dry run names its route so
+   and the step's leaves took it (``blocks.0.moe.w_gate`` on "model" at
+   dim 0 for Granite-MoE and 2 for Mixtral, ``blocks.0.w_x`` at dim 1
+   for Zamba2, ``blocks.0.mlp.w_gate`` at dim 1 for InternVL2,
+   ``dec_blocks.0.mlp.w_up`` at dim 1 for Whisper), all float32 (K8's
+   FMA route forward and backward), AdamW(1e-3), tokens = targets = 3
+   (4 x 32), InternVL2 with seeded patch embeddings and Whisper with
+   seeded frame embeddings: two steps,
    ``plan_mesh`` of the world, a re-shard under ``make_rules(cfg,
    model_axis=1)``, two more steps, launch counts reset just before and
    read just after (failing unless K8's forward and every backward
@@ -307,8 +318,9 @@ non-zero:
    ``launches_by_family``, with a row at D = 112 and the FMA route's rows
    at the main shape (which also counts the distributed phase's) and at
    train_lm's, the latter the train phase's, and a row at each
-   tensor-parallel rank's heads (Zamba2's at D = 112), phase 8b's rank
-   prefills' launches;
+   tensor-parallel rank's heads (Zamba2's at D = 112; Whisper's rank one
+   a row for its encoder, decoder and cross attention, non-causal but the
+   decoder's), phase 8b's rank prefills' launches;
    K8's backward kernels a row
    each per dtype and route (bf16 on the tensor cores, float32 on FMA),
    with the train and the distributed phases' launches by case, Delta's
@@ -322,6 +334,7 @@ code 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
 import json
@@ -2386,6 +2399,20 @@ TP_MOE_ARCHS = ("mixtral_8x22b", "granite_moe_1b_a400m")
 # and on the card at TP_HYBRID_LAYERS layers: one group of attn_every (6)
 # Mamba blocks behind one application of the shared attention
 TP_HYBRID_ARCH, TP_HYBRID_LAYERS = "zamba2_7b", 6
+# case (g): Whisper-base at full width and depth, one rank's prefill of its
+# 1,500 frames and a prompt of TP_ENCDEC_PROMPT tokens; in head_dim mode its
+# K8 launches run at whole heads (q, k and v gathered), the one-device
+# shapes: the encoder's non-causal 1500 x 1500, the decoder's causal
+# self-attention and its cross attention against the 1,500 frames, a row
+# each of the kernels line
+TP_ENCDEC_ARCH, TP_ENCDEC_PROMPT = "whisper_base", 64
+K8_TP_WHISPER = {
+    "encoder": ("encoder_whisper", BF16, 1, 1500, 1500, 8, 8, 64, False, 0, None),
+    "decoder": ("tp_whisper_decoder", BF16, 1, TP_ENCDEC_PROMPT, TP_ENCDEC_PROMPT, 8, 8, 64,
+                True, 0, None),
+    "cross": ("tp_whisper_cross", BF16, 1, TP_ENCDEC_PROMPT, 1500, 8, 8, 64, False, 0, None)}
+# the range of torch.profiler that case (g) puts around each GELU MLP
+TP_ENCDEC_MLP_RANGE = "whisper_rank::gelu_mlp"
 # Zamba2-7B's shared attention at a 2048-token prompt: D = 112, G = 1
 K8_D112 = ("d112_zamba", BF16, 1, 2048, 2048, 32, 32, 112, True, 0, None)
 K8_CASES = (
@@ -2412,8 +2439,11 @@ K8_CASES = (
     ("f32_d112", F32, 2, 515, 515, 8, 2, 112, True, 0, None),
     ("g7_internvl", BF16, 1, 1456, 1456, 14, 2, 64, True, 0, None),
     ("g6_window_mixtral", BF16, 1, 6000, 6000, 48, 8, 128, True, 4096, None),
-    ("encoder_whisper", BF16, 1, 1500, 1500, 8, 8, 64, False, 0, None),
+    K8_TP_WHISPER["encoder"],
     ("cross_whisper", BF16, 2, 64, 1500, 8, 8, 64, False, 0, None),
+    # a Whisper-base rank's decoder and cross attention at its prompt (case (g))
+    K8_TP_WHISPER["decoder"],
+    K8_TP_WHISPER["cross"],
     # examples/train_lm.py's attention (lm_100m: 12 heads over 4, D = 64),
     # where training launches the FMA forward
     ("train_f32_d64", F32, 4, 192, 192, 12, 4, 64, True, 0, None),
@@ -2666,6 +2696,12 @@ def phase_k8() -> dict:
                                   max_abs_err=errs[case[0]]["max_abs_err"],
                                   heads=f"{case[5]} q / {case[6]} kv heads, a tensor-parallel "
                                         f"rank of {arch}")
+    for part, case in K8_TP_WHISPER.items():
+        rows[f"tp_{TP_ENCDEC_ARCH}_{part}"] = dict(
+            k8_times(*k8_operands(case, gen), causal=case[8]),
+            max_abs_err=errs[case[0]]["max_abs_err"],
+            heads=f"{case[5]} q / {case[6]} kv heads whole (head_dim mode, gathered), a "
+                  f"tensor-parallel rank of {TP_ENCDEC_ARCH}'s {part}")
     for row in rows.values():
         emit(dict(phase="serve", case="k8_times", **row))
     return rows
@@ -2718,12 +2754,14 @@ def fma_p_bf16_checks(q, k, v, got, want, causal: bool, window: int) -> dict:
                 p_bf16_mean_err_to_unrounded=to_unrounded)
 
 
-def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> dict:
-    """K8's times at a shape (causal, p float32) in the inputs' dtype,
-    beside the plain version, SDPA (the library call, timed only: a loop
-    of calls between two events, and its kernels' device time under the
-    profiler) and the bound at the peak of the inputs' type; with
-    ``errs`` and ``routes`` (phase_k8's), the largest error of the route."""
+def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None,
+             causal: bool = True) -> dict:
+    """K8's times at a shape (causal unless told, p float32) in the
+    inputs' dtype, beside the plain version, SDPA (the library call, timed
+    only: a loop of calls between two events, and its kernels' device
+    time under the profiler) and the bound at the peak of the inputs'
+    type; with ``errs`` and ``routes`` (phase_k8's), the largest error of
+    the route."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -2731,21 +2769,23 @@ def k8_times(q, k, v, errs: dict | None = None, routes: dict | None = None) -> d
     route = fa.flash_attention_route(q.dtype, d, True)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
-    lib_err = float((lib_out.float() - fa.flash_attention(q, k, v).float()).abs().max())
-    flops, nbytes = fa.forward_cost(q, k, v, True, 0, False)
+    lib_out = sdpa(qh, kh, vh, is_causal=causal, enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib_out.float() - fa.flash_attention(q, k, v, causal=causal).float())
+                    .abs().max())
+    flops, nbytes = fa.forward_cost(q, k, v, causal, 0, False)
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
-    prof = device_breakdown(lambda: [sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20)
+    prof = device_breakdown(lambda: [sdpa(qh, kh, vh, is_causal=causal, enable_gqa=True)
                                      for _ in range(20)])
     extra = {}
     if route == "fma":
-        extra["fma_plan"] = fma_plan_held((b, s, t, h, kv, d, True, 0))
+        extra["fma_plan"] = fma_plan_held((b, s, t, h, kv, d, causal, 0))
     return dict(
-        shape=[b, s, t, h, kv, d], causal=True, dtype=str(q.dtype).removeprefix("torch."),
-        route=route, ms=ms, device_ms=graph_ms(lambda: fa.flash_attention(q, k, v), 20),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
-        library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+        shape=[b, s, t, h, kv, d], causal=causal, dtype=str(q.dtype).removeprefix("torch."),
+        route=route, ms=ms,
+        device_ms=graph_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), 5),
+        library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal, enable_gqa=True), 20),
         library_device_ms=(sum(prof["device_ms"].values()) / 20 if prof["device_ms"] else None),
         bound_ms=bound_ms, bound_by=bound_by,
         bound_peak=("bf16 tensor cores, 989 TFLOP/s" if bf16 else "float32 FMA, 67 TFLOP/s")
@@ -4177,7 +4217,8 @@ def counted_params(cfg, device):
                        device=device)
 
 
-def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> dict:
+def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int,
+               ranges: tuple = ()) -> dict:
     """One step, counted by ``repro_torch.roofline.cost.CostCounter`` on
     meta and on the card.  ``build(device)`` returns ``(step, params)``:
     ``step()`` runs the step once.  On the card one uncounted step first
@@ -4188,7 +4229,11 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
     step added to the card's allocated memory at its peak.  Beside it the
     kernel time by kind (K8, the kernels under ``aten::bmm``: an MoE's
     expert products in a prefill or train step; the rest) and K8's
-    launches by route in the counted step, counted from zero."""
+    launches by route in the counted step, counted from zero; with
+    ``ranges``, the device time of the kernels launched inside each
+    ``record_function`` range of those names (``device_ms_by_range``, the
+    host-side range's; its device-side annotation, whose time is its span,
+    stays out of the kernel time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -4217,13 +4262,24 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
     del out
     peak = torch.cuda.max_memory_allocated()
     events = prof.key_averages()
+    # a record_function range also shows on the device as an annotation
+    # whose "self" time is its span, idle gaps included: not a kernel's
     device_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key not in ranges) / 1e3
     k8_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and "flash_attention" in e.key) / 1e3
     bmm_ms = sum(getattr(e, "device_time_total", 0.0) for e in events
                  if e.key == "aten::bmm") / 1e3
+    # device-to-device copies: a fake world's collectives copy their input
+    # into each rank's slot of the output on the card
+    dtod_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                  if e.key.startswith("Memcpy DtoD")) / 1e3
+    by_range = {name: sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
+                          if e.name == name
+                          and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+                for name in ranges}
     roof = roofline_report(flops=float(on_card.flops), bytes_accessed=float(on_card.bytes),
                            collective_bytes=0.0, n_chips=1,
                            model_flops=model_flops(params, cfg, n_tokens, train=train),
@@ -4247,8 +4303,9 @@ def count_step(label: str, build, dev, cfg, *, train: bool, n_tokens: int) -> di
                modelled_peak_temp_bytes=on_card.peak_temp_bytes,
                meta_peak_temp_bytes=on_meta.peak_temp_bytes,
                max_memory_allocated_bytes=peak, allocated_before_step_bytes=held,
-               device_ms_by_kind=dict(k8=k8_ms, bmm=bmm_ms, other=device_ms - k8_ms - bmm_ms),
-               k8_launches=k8_launches,
+               device_ms_by_kind=dict(k8=k8_ms, bmm=bmm_ms, other=device_ms - k8_ms - bmm_ms,
+                                      of_other_dtod_copies=dtod_ms),
+               device_ms_by_range=by_range, k8_launches=k8_launches,
                kernels=on_card.kernels, hw=roof["hw"], compute_dtype=roof["compute_dtype"])
     emit(res)
     del step, params
@@ -4323,7 +4380,7 @@ def tp_rank_prefills(dev) -> dict:
     from repro_torch.launch.mesh import fake_world
     from repro_torch.models.model import prefill
 
-    out = {**moe_rank_prefills(dev), **hybrid_rank_prefill(dev)}
+    out = {**moe_rank_prefills(dev), **hybrid_rank_prefill(dev), **encdec_rank_prefill(dev)}
     for arch, case in K8_TP_CASES.items():
         if arch in TP_MOE_ARCHS or arch == TP_HYBRID_ARCH:
             continue
@@ -4459,6 +4516,137 @@ def hybrid_rank_prefill(dev) -> dict:
     return {arch: launches}
 
 
+def counted_frames(device, cfg) -> torch.Tensor:
+    """An encdec's frame embeddings (1, enc_len, d) in the activation
+    dtype: seeded on the card, shape and dtype alone on meta."""
+    shape, dt = (1, cfg.enc_len, cfg.d_model), cfg.act_dtype()
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dt, device="meta")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return torch.randn(shape, generator=gen, device=device).to(dt)
+
+
+@contextlib.contextmanager
+def gelu_mlp_ranged(name: str):
+    """Every GELU MLP of ``repro_torch.models.blocks`` run inside the
+    ``torch.profiler`` range ``name``, inside the block."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import blocks
+
+    plain = blocks.gelu_mlp
+
+    def ranged(*args, **kwargs):
+        with record_function(name):
+            return plain(*args, **kwargs)
+
+    blocks.gelu_mlp = ranged
+    try:
+        yield
+    finally:
+        blocks.gelu_mlp = plain
+
+
+@contextlib.contextmanager
+def k8_calls_by_mask(calls: dict):
+    """Every flash attention the models call (``repro_torch.models.
+    attention.flash_attention``, K8's wrapper) counted in ``calls`` by
+    (query rows, keys, causal), inside the block."""
+    from repro_torch.models import attention
+
+    plain = attention.flash_attention
+
+    def counted(q, k, v, *, causal=True, **kwargs):
+        key = (q.shape[1], k.shape[1], causal)
+        calls[key] = calls.get(key, 0) + 1
+        return plain(q, k, v, causal=causal, **kwargs)
+
+    attention.flash_attention = counted
+    try:
+        yield calls
+    finally:
+        attention.flash_attention = plain
+
+
+def encdec_rank_prefill(dev) -> dict:
+    """Case (g): Whisper-base at full width and depth (6 encoder and 6
+    decoder layers), one rank's prefill of its 1,500 frames and a prompt
+    of TP_ENCDEC_PROMPT tokens on 16 "model" ranks of a fake world
+    (head_dim mode: its 4 of each head's 64 columns, q, k and v gathered
+    to whole heads; 128 of 2,048 ``ff`` columns; a sixteenth of the
+    padded vocab), counted on meta and on the card by :func:`count_step`
+    (its kernel time by kind: K8, the GELU MLP inside
+    TP_ENCDEC_MLP_RANGE, the rest; the bound and share; the modelled
+    peak), K8 launched 18 times at whole heads in the counted prefill, 6
+    by each of K8_TP_WHISPER's attentions in one more prefill, whose
+    logits must be finite.  Returns the launches by K8_TP_WHISPER's
+    rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.rules import make_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.model import prefill
+
+    cfg = get_config(TP_ENCDEC_ARCH)
+    rules = {**make_rules(cfg, job="prefill"), "batch": "data"}
+    t0 = time.perf_counter()
+    with fake_world(mesh_shape=(1, TP_RANKS)) as mesh:
+        def build(device):
+            model = tp_rank_model(cfg, mesh, rules, device)
+            batch = {"tokens": counted_tokens(device, (1, TP_ENCDEC_PROMPT), cfg.vocab),
+                     "frames": counted_frames(device, cfg)}
+            return (lambda: prefill(model, batch, cfg, TP_ENCDEC_PROMPT)), model
+
+        model = tp_rank_model(cfg, mesh, rules, "meta")
+        sp = model.split
+        want = ("head_dim", cfg.n_heads, cfg.n_kv_heads, cfg.d_ff // TP_RANKS,
+                cfg.vocab_padded // TP_RANKS, cfg.head_dim // TP_RANKS)
+        got = (sp.attn, sp.heads, sp.kv_heads, sp.ff, sp.vocab,
+               model.dec_blocks[0].xattn.wq.shape[2])
+        check(got == want, f"{TP_ENCDEC_ARCH}: a rank's split is not {want}: {got}")
+        with gelu_mlp_ranged(TP_ENCDEC_MLP_RANGE):
+            res = count_step(f"encdec_rank_prefill_{TP_ENCDEC_ARCH}", build, dev, cfg,
+                             train=False, n_tokens=TP_ENCDEC_PROMPT, ranges=(TP_ENCDEC_MLP_RANGE,))
+        res["share_of_model"] = tp_share(cfg, rules, mesh)
+        step, _ = build(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with k8_calls_by_mask({}) as calls:
+            logits, cache = step()
+        torch.cuda.synchronize()
+        again = ops.launch_counts_by_route()["flash_attention"]["mma"]
+        del step, cache
+    by_part = {part: calls.get((case[3], case[4], case[8]), 0)
+               for part, case in K8_TP_WHISPER.items()}
+    launches = res["k8_launches"]["mma"]
+    by_kind = res["device_ms_by_kind"]
+    mlp_ms = res["device_ms_by_range"][TP_ENCDEC_MLP_RANGE]
+    layers = cfg.n_enc_layers + 2 * cfg.n_layers
+    emit(dict(phase="dryrun", case=f"encdec_rank_prefill_{TP_ENCDEC_ARCH}_summary",
+              encoder_layers=cfg.n_enc_layers, decoder_layers=cfg.n_layers,
+              frames=cfg.enc_len, tokens=TP_ENCDEC_PROMPT, head_dim_columns=got[5],
+              ff_columns=sp.ff, vocab_rows=sp.vocab, k8_launches=launches,
+              k8_launches_by_attention=by_part, k8_launches_again=again,
+              device_ms_by_kind=dict(k8=by_kind["k8"], gelu_mlp=mlp_ms,
+                                     other=res["device_ms"] - by_kind["k8"] - mlp_ms,
+                                     of_other_dtod_copies=by_kind["of_other_dtod_copies"]),
+              bound_ms=res["bound_ms"], device_ms=res["device_ms"], share=res["share"],
+              flops=res["flops"], meta_flops=res["meta_flops"], bytes=res["bytes"],
+              meta_bytes=res["meta_bytes"],
+              modelled_peak_live_bytes=res["modelled_peak_live_bytes"],
+              card_peak_live_bytes=res["card_peak_live_bytes"],
+              logits_shape=list(logits.shape), logits_finite=bool(logits.isfinite().all()),
+              share_of_model=res["share_of_model"], wall_s=time.perf_counter() - t0))
+    check(launches == layers and again == layers,
+          f"{TP_ENCDEC_ARCH}: K8 launched {launches} and {again} times in a rank's prefill of "
+          f"{cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers, not {layers}")
+    check(by_part == {"encoder": cfg.n_enc_layers, "decoder": cfg.n_layers,
+                      "cross": cfg.n_layers},
+          f"{TP_ENCDEC_ARCH}: K8's launches by attention {by_part}")
+    check(bool(logits.isfinite().all()), f"{TP_ENCDEC_ARCH}: a rank's logits are not finite")
+    return {f"{TP_ENCDEC_ARCH}_{part}": n for part, n in by_part.items()}
+
+
 def counted_cases(dev) -> dict:
     """Case (b): the counter against the card on the steps the smoke runs
     at full width: Qwen3-8B's 1974-token prefill and one decode step after
@@ -4552,7 +4740,7 @@ def counted_cases(dev) -> dict:
 
 def k8_counted_terms(k8_rows: dict, k8_bwd_rows: dict) -> dict:
     """Case (c): K8's operations as the counter records them (on meta, at
-    each K8 row's shape of the kernels line: causal, p float32) equal to
+    each K8 row's shape and mask of the kernels line, p float32) equal to
     the row's ``flops`` and ``bytes``."""
     from repro_torch.roofline.cost import CostCounter
 
@@ -4567,7 +4755,7 @@ def k8_counted_terms(k8_rows: dict, k8_bwd_rows: dict) -> dict:
     for key, row in k8_rows.items():
         q, k, v = operands(row["shape"], getattr(torch, row["dtype"]))
         with CostCounter(device="meta") as c:
-            fa.flash_attention(q, k, v)
+            fa.flash_attention(q, k, v, causal=row["causal"])
         got = c.kernels["flash_attention"]
         out[f"forward_{key}"] = dict(counted=[got["flops"], got["bytes"]],
                                      line=[row["flops"], row["bytes"]])
@@ -4627,32 +4815,38 @@ DIST_NOISE_SHARE = 1e-6
 # the SMOKE configs of the sharded steps, by how a rank computes: a dense
 # one (tensor parallel over "model"), the two MoE modes (expert parallel;
 # tensor parallel inside the experts), the hybrid (its Mamba blocks and
-# shared attention tensor parallel) and a family still replicated over
-# "model" (every leaf gathered whole) that launches K8 (InternVL2's
-# dense stack over its patches)
+# shared attention tensor parallel), the vlm (its dense blocks over its
+# patches and tokens) and the encdec (its encoder, decoder and cross
+# attention, its GELU MLPs); no family computes replicated over "model"
 DIST_ARCHS = {"qwen3_8b": "tensor parallel over model",
               "granite_moe_1b_a400m": "expert parallel over model",
               "mixtral_8x22b": "tensor parallel inside experts over model",
               "zamba2_7b": "tensor parallel over model",
-              "internvl2_1b": "replicated over model"}
+              "internvl2_1b": "tensor parallel over model",
+              "whisper_base": "tensor parallel over model"}
 # the route each config's step took: the dimension of a leaf that its
 # route puts on "model": an MoE's experts' w_gate (E, d, ff), 0 expert
 # parallel and 2 tensor parallel inside the experts; a Mamba block's w_x
-# (d, d_inner), 1 (its inner columns)
+# (d, d_inner), 1 (its inner columns); a dense MLP's w_gate and a GELU
+# MLP's w_up (d, ff), 1 (its ff columns)
 DIST_ROUTE_DIMS = {"granite_moe_1b_a400m": ("blocks.0.moe.w_gate", 0),
                    "mixtral_8x22b": ("blocks.0.moe.w_gate", 2),
-                   "zamba2_7b": ("blocks.0.w_x", 1)}
+                   "zamba2_7b": ("blocks.0.w_x", 1),
+                   "internvl2_1b": ("blocks.0.mlp.w_gate", 1),
+                   "whisper_base": ("dec_blocks.0.mlp.w_up", 1)}
 
 
 def dist_batch(cfg, dev) -> dict:
     """Phase 8c's batch: tokens = targets = 3 (4 x 32), and a vlm's seeded
-    patch embeddings (4, n_patches, d) float32."""
+    patch embeddings (4, n_patches, d) or an encdec's seeded frame
+    embeddings (4, enc_len, d), float32."""
     tokens = torch.zeros((4, 32), dtype=torch.int32, device=dev) + 3
     batch = {"tokens": tokens, "targets": tokens}
-    if cfg.family == "vlm":
+    extra = {"vlm": ("patches", cfg.n_patches), "encdec": ("frames", cfg.enc_len)}
+    if cfg.family in extra:
+        name, length = extra[cfg.family]
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        batch["patches"] = torch.randn((4, cfg.n_patches, cfg.d_model), generator=gen,
-                                       device=dev)
+        batch[name] = torch.randn((4, length, cfg.d_model), generator=gen, device=dev)
     return batch
 
 
@@ -4704,7 +4898,8 @@ def dist_run(dev, cfg, batch: dict, sharded: bool) -> dict:
         losses.append(float(m["loss"]))
     params[4] = full_params(state)
     leaves = [n for n in ("embed", "blocks.0.attn.wq", "blocks.0.moe.w_gate", "blocks.0.w_x",
-                          "final_norm") if n in state["params"]]
+                          "blocks.0.mlp.w_gate", "dec_blocks.0.mlp.w_up", "final_norm")
+              if n in state["params"]]
     axis = mesh2.mesh_dim_names.index("model")
     return dict(losses=losses, params=params, plan=[plan.pods, plan.data, plan.model],
                 placements={n: [str(x) for x in state["params"][n].placements] for n in leaves},
@@ -4848,9 +5043,10 @@ def phase_distributed(dev) -> dict:
     computes = {a: sharded_compute(runs[a][0]) for a in DIST_ARCHS}
     check(computes == DIST_ARCHS, f"distributed: the configs' routes {computes}, not "
                                   f"{DIST_ARCHS}")
-    # the route the MoE and hybrid steps took: their experts' w_gate split
-    # over "model" on the expert dimension (expert parallel) or on ff
-    # (inside the experts), a Mamba block's w_x on its inner columns
+    # the route the MoE, hybrid, vlm and encdec steps took: their experts'
+    # w_gate split over "model" on the expert dimension (expert parallel) or
+    # on ff (inside the experts), a Mamba block's w_x on its inner columns,
+    # a dense or GELU MLP's ff columns
     taken = {a: (leaf, runs[a][3]["model_dims"][leaf])
              for a, (leaf, _) in DIST_ROUTE_DIMS.items()}
     check(taken == DIST_ROUTE_DIMS, f"distributed: the steps' leaves split over model on "

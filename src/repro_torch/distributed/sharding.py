@@ -18,12 +18,10 @@ the rules place state: :func:`logical_constraint` and
 return their input itself.  :func:`rank_rows` and :func:`place_rows`
 take a rank's rows of a batch and place a step's outputs for the sharded
 steps, and :class:`BatchShard` tells an MoE's dispatch where the rank's
-rows lie.  :class:`ModelSplit` is a dense, MoE, SSM or hybrid model's
-tensor parallelism over ``"model"`` (Megatron's f and g, the
-vocab-parallel lookup and logsumexp, the head_dim gather, RoPE's
-exchange, the experts' gather, the gated norm's mean square summed both
-ways), which the vlm and encdec families' sharded steps, replicated over
-``"model"``, do not use.
+rows lie.  :class:`ModelSplit` is a model's tensor parallelism over
+``"model"``, in every family (Megatron's f and g, the vocab-parallel
+lookup and logsumexp, the head_dim gather, RoPE's exchange, the experts'
+gather, the gated norm's mean square summed both ways).
 
 **The solver mesh.**  JAX places a sharded array on a ``Mesh`` and lets GSPMD split the work.
 PyTorch has no such array, so the port's mesh is a plain tuple of
@@ -441,7 +439,8 @@ class ModelSplit:
     leaves) takes its gradient summed over the group (:meth:`enter` too);
     the norms of the residual stream see a replicated input and need
     nothing.  ``attn`` is the attention's mode, from the rules' placing
-    of ``wq`` (a hybrid's shared block's): ``"heads"`` (this rank's q
+    of ``wq`` (a hybrid's shared block's, an encdec's first decoder
+    block's, which its encoder and cross attention share): ``"heads"`` (this rank's q
     heads and the kv heads they read), ``"head_dim"`` (this rank's columns
     of every head), ``"replicated"`` (whole heads on every rank: neither
     divides the axis, or the attention batch layout) or ``"none"`` (a
@@ -641,10 +640,10 @@ class AttnBatchSplit:
     the batch of attention is split over one more mesh axis than the
     batch (``rules["attn_batch"]`` is ``rules["batch"]`` plus ``axis``).
 
-    Outside attention the step is replicated over ``"model"``, or for a
-    tensor-parallel model tensor parallel with the attention's output whole
-    on every rank (:func:`repro_torch.training.step.make_sharded_train_step`),
-    so the layout means: each rank of ``axis`` takes its share of the
+    Outside attention the step is tensor parallel with the attention's
+    output whole on every rank
+    (:func:`repro_torch.training.step.make_sharded_train_step`), so the
+    layout means: each rank of ``axis`` takes its share of the
     rank's rows (:meth:`enter`), runs the attention on them, and the
     outputs are gathered over ``axis`` (:meth:`exit`): one all-gather of
     the attention's output a layer, the reference's one activation

@@ -28,39 +28,36 @@ step: :func:`~repro_torch.training.step.make_sharded_train_step`
 (gradients all-reduced over the batch axes, AdamW on the shards) and
 :mod:`repro_torch.serving.sharded` for prefill and decode (the outputs
 kept as the reference's ``out_shardings`` place them), on the rank's
-rows.  The dense, MoE, SSM and hybrid families' ranks are tensor
-parallel over ``"model"``, as GSPMD splits the reference's: their leaves
-gathered over the batch axes alone, their share computed (heads mode:
-its q heads; head_dim mode in decode: its columns of q, k, v and the
-cache; head_dim mode in train and prefill, yi_34b's: q, k and v gathered
-to whole heads, attention replicated over ``"model"``, item 14.5), the
-MLP and the logits split, partial sums all-reduced; an MoE rank's experts
-are its own (Granite-MoE, expert parallel: the experts' outputs
-gathered) or its ``ff`` columns of every expert (Mixtral: their partial
-sums all-reduced), and its dispatch groups the global batch's; a Mamba
-block's rank its ``inner`` columns and SSM heads (the gated norm's mean
-square all-reduced, the conv window's new columns gathered), Zamba2's
-shared block as the dense family's.  The vlm and encdec families' ranks
-gather every leaf and, for decode, the cache's ``"model"`` shard whole
-and run the one-device step, replicated over ``"model"`` (item 14.4).
-The
-rank's rows follow the batch rule (``long_500k``'s batch of 1 is
-replicated).  With the attention batch layout (``train_4k`` on
+rows.  Every family's rank is tensor parallel over ``"model"``, as
+GSPMD splits the reference's: its leaves gathered over the batch axes
+alone, its share computed (heads mode: its q heads; head_dim mode in
+decode: its columns of q, k, v and the caches; head_dim mode in train
+and prefill, yi_34b's, InternVL2's and Whisper's: q, k and v gathered to
+whole heads, attention replicated over ``"model"``, item 14.5), the MLP
+and the logits split, partial sums all-reduced; Whisper's cross
+attention as its self-attention, the encoder's output entering the
+decoder through one f, its GELU MLP's ``b_down`` added after the sum;
+an MoE rank's experts are its own (Granite-MoE, expert parallel: the
+experts' outputs gathered) or its ``ff`` columns of every expert
+(Mixtral: their partial sums all-reduced), and its dispatch groups the
+global batch's; a Mamba block's rank its ``inner`` columns and SSM heads
+(the gated norm's mean square all-reduced, the conv window's new columns
+gathered), Zamba2's shared block and InternVL2's blocks as the dense
+family's.  The rank's rows follow the batch rule (``long_500k``'s batch
+of 1 is replicated).  With the attention batch layout (``train_4k`` on
 ``single_pod`` for yi_34b, internvl2_1b and whisper_base) each
-``"model"`` rank runs attention on its 1/16 of the rows and the output is
-all-gathered (``models/blocks.py:attn_forward``).
+``"model"`` rank runs self-attention on its 1/16 of the rows and the
+output is all-gathered (``models/blocks.py:attn_forward``).
 
 The result keeps the reference's keys, per rank: ``n_chips``,
 ``collectives`` (result bytes by kind, from the counter), ``roofline``
 (``roofline_report(n_chips=...)``) and ``memory`` (``argument_size_b``
 the local shards and the rank's rows, ``temp_size_b`` with the leaves
 the rank gathers).  ``"compute"`` says how a rank computes:
-``"tensor parallel over model"`` (dense, SSM, hybrid), ``"expert parallel
-over model"`` (Granite-MoE), ``"tensor parallel inside experts over
-model"`` (Mixtral), with ``"attention"`` naming the attention's mode
-(none for Mamba2, which has no attention), or ``"replicated over
-model"`` (vlm, encdec: FLOPs the one-device step's on the rank's rows,
-about 16x the reference's share).
+``"tensor parallel over model"`` (dense, vlm, SSM, hybrid, encdec),
+``"expert parallel over model"`` (Granite-MoE) or ``"tensor parallel
+inside experts over model"`` (Mixtral), with ``"attention"`` naming the
+attention's mode (none for Mamba2, which has no attention).
 
 Usage (the CPU suffices; nothing runs on a card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -104,7 +101,6 @@ from repro_torch.models.model import (
     model_flops,
     param_logical_axes,
     prefill,
-    tensor_parallel,
 )
 from repro_torch.optim.adamw import adamw
 from repro_torch.roofline.analysis import HardwareSpec, roofline_report, spec_for_card
@@ -125,12 +121,9 @@ MESHES = ("single_card",) + SHARDED_MESHES
 
 def sharded_compute(cfg) -> str:
     """The result's ``"compute"`` of a cell of ``cfg`` on a production
-    mesh: a :func:`~repro_torch.models.model.tensor_parallel` model's
-    rank computes its share (an MoE's experts by its ``moe_parallel``:
-    its experts, or its ``ff`` columns of every expert), a vlm's or an
-    encdec's rank its whole step on its rows."""
-    if not tensor_parallel(cfg):
-        return "replicated over model"
+    mesh: every rank computes its share over ``"model"`` (an MoE's
+    experts by its ``moe_parallel``: its experts, or its ``ff`` columns
+    of every expert)."""
     if cfg.family == "moe":
         return ("expert parallel over model" if cfg.moe_parallel == "ep"
                 else "tensor parallel inside experts over model")
@@ -138,8 +131,8 @@ def sharded_compute(cfg) -> str:
 
 
 def attention_mode(shape, rules) -> str:
-    """How a tensor-parallel rank's attention splits under ``rules`` (the
-    result's ``"attention"``): over its q heads, over head_dim (decode),
+    """How a rank's attention splits under ``rules`` (the result's
+    ``"attention"``): over its q heads, over head_dim (decode),
     replicated over ``"model"`` with q, k and v gathered whole (head_dim
     rules in train and prefill), on its share of the rows (the attention
     batch layout), or replicated (neither heads nor head_dim on the
@@ -335,7 +328,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single_card", *,
     }
     if mesh_name != "single_card":
         res["compute"] = sharded_compute(cfg)
-        if tensor_parallel(cfg) and not cfg.is_attention_free:
+        if not cfg.is_attention_free:
             res["attention"] = attention_mode(shape, rules)
     return res
 

@@ -14,8 +14,8 @@ stands: the attention batch layout at the attention's boundary
 without active rules and a mesh returns its input unchanged, so every
 one-device path keeps its bits.  The others (``lc``) are dropped: the
 port places state, not activations
-(:func:`repro_torch.training.step.make_sharded_train_step`), and a dense,
-MoE or Mamba block under tensor parallelism (``tp``, a
+(:func:`repro_torch.training.step.make_sharded_train_step`), and a block
+of any family under tensor parallelism (``tp``, a
 :class:`~repro_torch.distributed.sharding.ModelSplit`) computes the
 rank's share of what GSPMD splits under them; an MoE block on a mesh
 also takes the rank's place in the batch (``shard``), since its
@@ -334,10 +334,30 @@ def _rope_decode(q: torch.Tensor, k: torch.Tensor, pos_vec: torch.Tensor, cfg: M
                  for x, part in ((q, partner[:, :, :h]), (k, partner[:, :, h:])))
 
 
+def _decode_columns(tp):
+    """The split whose ``head_dim`` columns a decode step's attention
+    holds (None where it computes whole heads); raises where the split
+    puts q heads on ``"model"``, which no decode rule does."""
+    cols = tp if _partial(tp) else None
+    if cols is not None and cols.attn != "head_dim":
+        raise NotImplementedError("a decode step with q heads on \"model\": the decode "
+                                  "rules place head_dim there")
+    return cols
+
+
+def _decode_attention(q, cache_k, cache_v, pos_vec, cfg: ModelConfig, cols):
+    """:func:`~repro_torch.models.attention.decode_attention` at the whole
+    head's scale, the float32 scores summed over ``"model"`` where ``cols``
+    holds a rank's columns."""
+    return attn_lib.decode_attention(q, cache_k, cache_v, pos_vec, head_dim=cfg.head_dim,
+                                     reduce_scores=None if cols is None else cols.reduce)
+
+
 def attn_decode(x: torch.Tensor, p: Attention, cfg: ModelConfig, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, pos, *, tp=None) -> torch.Tensor:
+                cache_v: torch.Tensor, pos, *, tp=None, use_rope: bool = True) -> torch.Tensor:
     """One-token step; cache_k/v (B, S, KV, dh) are updated in place at
-    each sequence's position; pos: () or (B,).
+    each sequence's position; pos: () or (B,).  ``use_rope=False`` is
+    Whisper's decoder step (no rotation).
 
     Under tensor parallelism ``tp`` in head_dim mode (the decode rules'),
     the rank's share: q, k and v are its columns of every head, the cache
@@ -345,19 +365,15 @@ def attn_decode(x: torch.Tensor, p: Attention, cfg: ModelConfig, cache_k: torch.
     float32 scores are summed over ``"model"``, RoPE takes the paired
     columns from the rank that holds them, the scale is the whole head's,
     and the output is the partial sum of ``wo``'s rows."""
-    cols = tp if _partial(tp) else None
-    if cols is not None and cols.attn != "head_dim":
-        raise NotImplementedError("a decode step with q heads on \"model\": the decode "
-                                  "rules place head_dim there")
+    cols = _decode_columns(tp)
     b = x.shape[0]
     q, k, v = _qkv(x, p, cfg, cols=cols)
     pos_vec = pos_vector(pos, b, x.device)
-    q, k = _rope_decode(q, k, pos_vec, cfg, cols)
+    if use_rope:
+        q, k = _rope_decode(q, k, pos_vec, cfg, cols)
     _cache_row_write(cache_k, k, pos_vec)
     _cache_row_write(cache_v, v, pos_vec)
-    o = attn_lib.decode_attention(q, cache_k, cache_v, pos_vec, head_dim=cfg.head_dim,
-                                  reduce_scores=None if cols is None else cols.reduce)
-    return _out(o, p)
+    return _out(_decode_attention(q, cache_k, cache_v, pos_vec, cfg, cols), p)
 
 
 # --------------------------------------------------------------------------
@@ -426,16 +442,21 @@ def _dense_block(x: torch.Tensor, p: DenseBlock, cfg: ModelConfig, tp, attention
     return x + g(swiglu_mlp(f(rms_norm(x, p.ln2, cfg.norm_eps)), p.mlp)), kvc
 
 
-def _attention_half(x: torch.Tensor, p, cfg: ModelConfig, tp, attention):
+def _attention_half(x: torch.Tensor, p, cfg: ModelConfig, tp, attention, norm=None):
     """``x`` plus the attention of its norm, and the attention's kv: a
-    sequential block's first half (dense or MoE).  ``attention(h)``
-    returns ``(out, kv)``, under a split attention a partial sum, which
-    enters through f and leaves through g.  The norm's output is not held
-    past the attention."""
+    sequential block's first half (dense, MoE, or with ``norm`` a
+    Whisper block's LayerNorm in place of ``rms_norm`` with ``p.ln1``).
+    ``attention(h)`` returns ``(out, kv)``, under a split attention a
+    partial sum, which enters through f and leaves through g.  The norm's
+    output is not held past the attention."""
+    if norm is None:
+        def norm(h):
+            return rms_norm(h, p.ln1, cfg.norm_eps)
+
     if _partial(tp):
-        a, kvc = attention(tp.enter(rms_norm(x, p.ln1, cfg.norm_eps)))
+        a, kvc = attention(tp.enter(norm(x)))
         return x + tp.exit(a), kvc
-    a, kvc = attention(rms_norm(x, p.ln1, cfg.norm_eps))
+    a, kvc = attention(norm(x))
     return x + a, kvc
 
 
@@ -653,55 +674,107 @@ def _ln(x: torch.Tensor, p: LayerNorm, cfg: ModelConfig) -> torch.Tensor:
     return layer_norm(x, p.scale, p.bias, cfg.norm_eps)
 
 
+def _gelu_half(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig, tp) -> torch.Tensor:
+    """``x`` plus the GELU MLP of its LayerNorm: a Whisper block's last
+    half.  Under tensor parallelism ``tp`` the MLP is Megatron's, f at its
+    entry, ``w_up``/``b_up`` column- and ``w_down`` row-parallel, g before
+    ``b_down`` (:func:`~repro_torch.models.layers.gelu_mlp`)."""
+    h = _ln(x, p.ln2, cfg)
+    if tp is None:
+        return x + gelu_mlp(h, p.mlp)
+    return x + gelu_mlp(tp.enter(h), p.mlp, exit=tp.exit)
+
+
 def encoder_block_forward(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig,
-                          positions: torch.Tensor) -> torch.Tensor:
+                          positions: torch.Tensor, *, tp=None) -> torch.Tensor:
     """Bidirectional self-attention without RoPE (K8, non-causal), then the
-    GELU MLP."""
-    a, _ = attn_forward(_ln(x, p.ln1, cfg), p.attn, cfg, positions=positions, causal=False,
-                        use_rope=False)
-    x = x + a
-    return x + gelu_mlp(_ln(x, p.ln2, cfg), p.mlp)
+    GELU MLP; under tensor parallelism ``tp`` the rank's share, the
+    attention as :func:`dense_block_forward`'s."""
+    x, _ = _attention_half(x, p, cfg, tp, lambda h: attn_forward(
+        h, p.attn, cfg, positions=positions, causal=False, use_rope=False, tp=tp),
+        norm=lambda h: _ln(h, p.ln1, cfg))
+    return _gelu_half(x, p, cfg, tp)
+
+
+def cross_source(enc_out: torch.Tensor, tp=None) -> torch.Tensor:
+    """The encoder's output as every decoder layer's cross K/V projection
+    reads it.  Under tensor parallelism ``tp`` whose attention is split,
+    each layer's projection is column-parallel and gives ``enc_out`` a
+    rank's share of its gradient: ``enc_out`` enters through one f here,
+    where it leaves the encoder, whose backward sums the layers' shares
+    over ``"model"`` once (an f at each layer's projection as well would
+    sum them ``count`` times)."""
+    return tp.enter(enc_out) if _partial(tp) else enc_out
+
+
+def encdec_cross_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor, *, tp=None):
+    """The cross K/V (B, T, KV, dh) of ``enc_out`` (:func:`cross_source`'s
+    output).  Under tensor parallelism ``tp`` whose attention is split the
+    rank's: in heads mode its kv heads, whole; in head_dim mode its columns
+    of every kv head, gathered to whole heads."""
+    if not _partial(tp):
+        return _project(enc_out, p.wk), _project(enc_out, p.wv)
+    leaves = _split_leaves(p, tp)
+    k, v = _project(enc_out, leaves.wk), _project(enc_out, leaves.wv)
+    if tp.attn == "head_dim":
+        k, v = tp.gather_columns(k), tp.gather_columns(v)
+    return k, v
 
 
 def cross_attn(x: torch.Tensor, p: Attention, cfg: ModelConfig, enc_k: torch.Tensor,
-               enc_v: torch.Tensor) -> torch.Tensor:
+               enc_v: torch.Tensor, *, tp=None) -> torch.Tensor:
     """Cross attention over precomputed encoder K/V (B, T, KV, dh): K8,
-    non-causal, S decoder rows against T encoder keys."""
-    o = attn_lib.flash_attention(_project(x, p.wq), enc_k, enc_v, causal=False)
+    non-causal, S decoder rows against T encoder keys.  Under tensor
+    parallelism ``tp`` whose attention is split (``x`` after f, ``enc_k``
+    and ``enc_v`` :func:`encdec_cross_kv`'s), the rank's partial sum of
+    ``wo``'s rows: in heads mode its q heads over the kv heads they read;
+    in head_dim mode q gathered to whole heads, the attention on every
+    head and the rank's columns of its output kept for ``wo``."""
+    head_dim = _partial(tp) and tp.attn == "head_dim"
+    q = _project(x, p.wq)
+    if head_dim:
+        q = tp.gather_columns(q)
+    o = attn_lib.flash_attention(q, enc_k, enc_v, causal=False)
+    if head_dim:
+        o = tp.head_dim_shard(o)
     return _out(o, p)
 
 
-def encdec_cross_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor):
-    return _project(enc_out, p.wk), _project(enc_out, p.wv)
-
-
 def decoder_block_forward(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig,
-                          positions: torch.Tensor, enc_out: torch.Tensor):
-    """Causal self-attention (no RoPE), cross attention over ``enc_out``,
-    the GELU MLP.  Returns (out, (k, v)) of the self-attention."""
-    a, kvc = attn_forward(_ln(x, p.ln1, cfg), p.attn, cfg, positions=positions, causal=True,
-                          use_rope=False)
-    x = x + a
-    xk, xv = encdec_cross_kv(p.xattn, cfg, enc_out)
-    x = x + cross_attn(_ln(x, p.ln_x, cfg), p.xattn, cfg, xk, xv)
-    return x + gelu_mlp(_ln(x, p.ln2, cfg), p.mlp), kvc
+                          positions: torch.Tensor, enc_out: torch.Tensor, *, tp=None):
+    """Causal self-attention (no RoPE), cross attention over ``enc_out``
+    (:func:`cross_source`'s output), the GELU MLP.  Returns (out, (k, v))
+    of the self-attention.  Under tensor parallelism ``tp`` the rank's
+    share: each attention's input enters through f and its partial sum
+    leaves through g, the self-attention's k/v and the cross K/V are its
+    heads' or (head_dim mode) whole heads."""
+    x, kvc = _attention_half(x, p, cfg, tp, lambda h: attn_forward(
+        h, p.attn, cfg, positions=positions, causal=True, use_rope=False, tp=tp),
+        norm=lambda h: _ln(h, p.ln1, cfg))
+    xk, xv = encdec_cross_kv(p.xattn, cfg, enc_out, tp=tp)
+    x, _ = _attention_half(x, p, cfg, tp, lambda h: (
+        cross_attn(h, p.xattn, cfg, xk, xv, tp=tp), None), norm=lambda h: _ln(h, p.ln_x, cfg))
+    return _gelu_half(x, p, cfg, tp), kvc
 
 
 def decoder_block_decode(x: torch.Tensor, p: EncDecBlock, cfg: ModelConfig,
                          cache_k: torch.Tensor, cache_v: torch.Tensor, xk: torch.Tensor,
-                         xv: torch.Tensor, pos) -> torch.Tensor:
+                         xv: torch.Tensor, pos, *, tp=None) -> torch.Tensor:
     """One decoder token: the self cache written in place at each
     sequence's position (no RoPE, no qk-norm, as the reference's step),
-    then cross attention over every encoder row."""
+    then cross attention over every encoder row.  Under tensor
+    parallelism ``tp`` in head_dim mode (the decode rules') the rank's
+    share: q, k and v its columns of every head, both caches its columns,
+    each attention's float32 scores summed over ``"model"`` at the whole
+    head's scale, each output a partial sum of ``wo``'s rows (g)."""
+    x, _ = _attention_half(x, p, cfg, tp, lambda h: (
+        attn_decode(h, p.attn, cfg, cache_k, cache_v, pos, tp=tp, use_rope=False), None),
+        norm=lambda h: _ln(h, p.ln1, cfg))
+    cols = _decode_columns(tp)
     b = x.shape[0]
-    hx = _ln(x, p.ln1, cfg)
-    q, k, v = _project(hx, p.attn.wq), _project(hx, p.attn.wk), _project(hx, p.attn.wv)
-    pos_vec = pos_vector(pos, b, x.device)
-    _cache_row_write(cache_k, k, pos_vec)
-    _cache_row_write(cache_v, v, pos_vec)
-    x = x + _out(attn_lib.decode_attention(q, cache_k, cache_v, pos_vec), p.attn)
-
-    qx = _project(_ln(x, p.ln_x, cfg), p.xattn.wq)
+    # every encoder row: the last valid key is row T - 1
     last = torch.full((b,), xk.shape[1] - 1, dtype=torch.int64, device=x.device)
-    x = x + _out(attn_lib.decode_attention(qx, xk, xv, last), p.xattn)
-    return x + gelu_mlp(_ln(x, p.ln2, cfg), p.mlp)
+    x, _ = _attention_half(x, p, cfg, tp, lambda h: (_out(_decode_attention(
+        _project(h, p.xattn.wq), xk, xv, last, cfg, cols), p.xattn), None),
+        norm=lambda h: _ln(h, p.ln_x, cfg))
+    return _gelu_half(x, p, cfg, tp)

@@ -84,12 +84,18 @@ def swiglu_mlp(x: torch.Tensor, p) -> torch.Tensor:
     return h @ p.w_down
 
 
-def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+def gelu_mlp(x: torch.Tensor, p, exit=None) -> torch.Tensor:
     """Whisper-style MLP: w_down(gelu(w_up x + b_up)) + b_down, GELU's tanh
-    form in float32."""
+    form in float32.  Under tensor parallelism ``x`` has entered through
+    f, ``w_up`` and ``b_up`` are the rank's ``ff`` columns, ``w_down`` its
+    rows, and ``exit`` (Megatron's g) sums the partial products over the
+    ranks before ``b_down``, which is whole on every rank, is added once."""
     h = x @ p.w_up + p.b_up.to(x.dtype)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ p.w_down + p.b_down.to(x.dtype)
+    y = h @ p.w_down
+    if exit is not None:
+        y = exit(y)
+    return y + p.b_down.to(x.dtype)
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -65,8 +65,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import check_chunk
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the families whose sharded steps are tensor parallel over "model"
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the subtrees the reference stacks on a leading layer axis; here each
 # layer is its own module, named ``blocks.{i}`` and so on
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -219,16 +217,20 @@ def cache_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
 def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
     """The rank's :class:`~repro_torch.distributed.sharding.ModelSplit`
     from how the rules placed the leaves on the mesh (``wq``'s dimension
-    on ``"model"``, a hybrid's shared block's, gives the attention's mode,
-    ``wk``'s whether kv heads are split, an MoE's ``w_gate``'s whether its
-    experts or their ``ff`` columns are, a Mamba block's ``w_x``'s whether
-    its ``inner`` columns are) and its local shards' sizes; None on a mesh
-    without a ``"model"`` axis.  A model without attention (Mamba2) has
-    the mode ``"none"``.  A split the port cannot follow raises
-    :class:`NotImplementedError`: ``inner`` on the axis while the SSM heads
-    do not divide it (a rank's columns would cut across heads), or a
-    rank's heads that neither hold whole groups of B and C nor lie in
-    one."""
+    on ``"model"``, a hybrid's shared block's or an encdec's first decoder
+    block's, gives the attention's mode, ``wk``'s whether kv heads are
+    split, an MoE's ``w_gate``'s whether its experts or their ``ff``
+    columns are, a Mamba block's ``w_x``'s whether its ``inner`` columns
+    are) and its local shards' sizes; None on a mesh without a ``"model"``
+    axis.  A model without attention (Mamba2) has the mode ``"none"``.  A
+    vlm's blocks are dense blocks and need no field of their own; an
+    encdec's ``ff`` is read from its GELU MLP's ``w_up``.  A split the
+    port cannot follow raises :class:`NotImplementedError`: an encdec
+    whose encoder self-attention, decoder self-attention and cross
+    attention the rules place differently, ``inner`` on the axis while
+    the SSM heads do not divide it (a rank's columns would cut across
+    heads), or a rank's heads that neither hold whole groups of B and C
+    nor lie in one."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed.sharding import ModelSplit
@@ -245,11 +247,21 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
 
     family = cfg.family
     count, index = mesh.size(axis), mesh.get_local_rank("model")
-    block = "shared_attn" if family == "hybrid" else "blocks.0"
+    block = {"hybrid": "shared_attn", "encdec": "dec_blocks.0"}.get(family, "blocks.0")
     attn, q_per_kv, ff = "none", 0, 0
     heads, kv_heads, kv_first, sliced = 0, 0, 0, False
     if not cfg.is_attention_free:
         wq, wk = f"{block}.attn.wq", f"{block}.attn.wk"
+        if family == "encdec":
+            # one split serves the three attentions: the rules must place
+            # them alike
+            attns = ("enc_blocks.0.attn", "dec_blocks.0.attn", "dec_blocks.0.xattn")
+            for w in ("wq", "wk", "wv", "wo"):
+                dims = {f"{a}.{w}": (model_dim(f"{a}.{w}"), tuple(local[f"{a}.{w}"].shape))
+                        for a in attns}
+                if len(set(dims.values())) > 1:
+                    raise NotImplementedError(f"an encdec whose attentions the rules place "
+                                              f"differently over \"model\": {dims}")
         attn = {1: "heads", 2: "head_dim", None: "replicated"}[model_dim(wq)]
         heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
         q_per_kv = heads // kv_heads
@@ -276,7 +288,7 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
             # the last ranks' shares short or empty
             expert_first = min(index * -(-cfg.n_experts // count), cfg.n_experts)
     elif not cfg.is_attention_free:
-        ff = local[f"{block}.mlp.w_gate"].shape[1]
+        ff = local[f"{block}.mlp.{'w_up' if family == 'encdec' else 'w_gate'}"].shape[1]
     ssm, ssm_heads, ssm_first = "none", 0, 0
     if family in ("ssm", "hybrid"):
         ssm = "heads" if model_dim("blocks.0.w_x") == 1 else "replicated"
@@ -300,33 +312,24 @@ def _model_split(cfg: ModelConfig, sharded: dict, local: dict):
                       ssm_heads=ssm_heads, ssm_first=ssm_first)
 
 
-def tensor_parallel(cfg: ModelConfig) -> bool:
-    """Whether the sharded steps of ``cfg`` split its compute over
-    ``"model"`` (:class:`~repro_torch.distributed.sharding.ModelSplit`):
-    the dense, MoE, SSM and hybrid families' do; the vlm and encdec
-    families' compute is replicated there."""
-    return family_of(cfg) in TENSOR_PARALLEL_FAMILIES
-
-
 def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None = None,
                   batch_axes=()) -> LanguageModel:
     """A model whose parameters are the DTensors of ``sharded`` (keyed by
-    state-dict name) gathered whole: a collective over their mesh, which
-    every member rank calls.  A model that is :func:`tensor_parallel`
-    gathers each leaf over every mesh axis but ``"model"`` and keeps its
-    ``"model"`` shard, and its ``split`` says how the rank computes its
-    share (:func:`_model_split`).  ``batch_axes`` are the mesh axes the
-    step splits its batch over; the model's ``batch_shard`` is the rank's
-    place among them (None where there is one shard), which an MoE's
-    dispatch reads.  ``model`` (one from an earlier call) is reused; a
-    new one is built on the shards' device, trainable, holding nothing
+    state-dict name), each gathered over every mesh axis but ``"model"``
+    (whole on a mesh without one): a collective over their mesh, which
+    every member rank calls.  Each leaf keeps its ``"model"`` shard, and
+    the model's ``split`` says how the rank computes its share
+    (:func:`_model_split`), in every family.  ``batch_axes`` are the mesh
+    axes the step splits its batch over; the model's ``batch_shard`` is
+    the rank's place among them (None where there is one shard), which an
+    MoE's dispatch reads.  ``model`` (one from an earlier call) is reused;
+    a new one is built on the shards' device, trainable, holding nothing
     until its leaves are gathered, and a counter of the step
     (:mod:`repro_torch.roofline.cost`) does not count the building."""
     from torch.distributed.tensor import Replicate
 
     from repro_torch.distributed.sharding import batch_shard
 
-    split = tensor_parallel(cfg)
     if model is None:
         dev = next(iter(sharded.values())).to_local().device
         with uncounted():
@@ -337,14 +340,11 @@ def gather_params(cfg: ModelConfig, sharded: dict, model: LanguageModel | None =
     local = {}
     for n, p in model.named_parameters():
         leaf = sharded[n]
-        if split:
-            keep = [pl if a == "model" else Replicate()
-                    for a, pl in zip(leaf.device_mesh.mesh_dim_names, leaf.placements)]
-            local[n] = leaf.redistribute(leaf.device_mesh, keep).to_local()
-        else:
-            local[n] = leaf.full_tensor()
+        keep = [pl if a == "model" else Replicate()
+                for a, pl in zip(leaf.device_mesh.mesh_dim_names, leaf.placements)]
+        local[n] = leaf.redistribute(leaf.device_mesh, keep).to_local()
         p.data = local[n]
-    model.split = _model_split(cfg, sharded, local) if split else None
+    model.split = _model_split(cfg, sharded, local)
     model.batch_shard = batch_shard(next(iter(sharded.values())).device_mesh, batch_axes)
     return model
 
@@ -426,8 +426,11 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
     hand-written backward on the card.  The aux loss is the MoE's
     load-balancing loss summed over layers (zero for the other families),
     on a mesh the rank's share of the global batch's.  Under tensor
-    parallelism (``params.split``, the dense, MoE, SSM and hybrid
-    families) the logits are the rank's vocab columns.
+    parallelism (``params.split``) the logits are the rank's vocab
+    columns (a vlm's of the text positions: the patches meet the
+    vocab-parallel lookup's sum, whole), and an encdec's encoder output
+    enters the decoder through one f
+    (:func:`~repro_torch.models.blocks.cross_source`).
     """
     family = family_of(cfg)
     dev = _device_of(params)
@@ -473,12 +476,13 @@ def forward_train(params: LanguageModel, batch: dict, cfg: ModelConfig
         h = frames + sinusoid_positions(t, cfg.d_model, dev)[None].to(x.dtype)
         epos = torch.arange(t, device=dev).expand(bsz, t)
         for p in params.enc_blocks:
-            h = _remat(lambda c, p=p: B.encoder_block_forward(c, p, cfg, epos), cfg)(h)
-        enc_out = rms_norm(h, params.enc_final_norm, cfg.norm_eps)
+            h = _remat(lambda c, p=p: B.encoder_block_forward(c, p, cfg, epos, tp=split),
+                       cfg)(h)
+        enc_out = B.cross_source(rms_norm(h, params.enc_final_norm, cfg.norm_eps), split)
         x = x + sinusoid_positions(s_text, cfg.d_model, dev)[None].to(x.dtype)
         for p in params.dec_blocks:
-            x = _remat(lambda c, e, p=p: B.decoder_block_forward(c, p, cfg, positions, e)[0],
-                       cfg)(x, enc_out)
+            x = _remat(lambda c, e, p=p: B.decoder_block_forward(c, p, cfg, positions, e,
+                                                                 tp=split)[0], cfg)(x, enc_out)
     if family == "vlm":
         x = x[:, -s_text:, :]
     return _logits(params, cfg, x), aux
@@ -624,14 +628,15 @@ def prefill_into(params: LanguageModel, tokens, cfg: ModelConfig, cache: dict,
         h = h + sinusoid_positions(t, cfg.d_model, dev)[None].to(x.dtype)
         epos = torch.arange(t, device=dev).expand(bsz, t)
         for p in params.enc_blocks:
-            h = B.encoder_block_forward(h, p, cfg, epos)
-        enc_out = rms_norm(h, params.enc_final_norm, cfg.norm_eps)
+            h = B.encoder_block_forward(h, p, cfg, epos, tp=split)
+        enc_out = B.cross_source(rms_norm(h, params.enc_final_norm, cfg.norm_eps), split)
         x = x + sinusoid_positions(s, cfg.d_model, dev)[None].to(x.dtype)
         for i, p in enumerate(params.dec_blocks):
-            x, (k, v) = B.decoder_block_forward(x, p, cfg, positions, enc_out)
+            x, (k, v) = B.decoder_block_forward(x, p, cfg, positions, enc_out, tp=split)
             put_kv(i, k, v)
-            cache["xk"][i, rows], cache["xv"][i, rows] = B.encdec_cross_kv(p.xattn, cfg,
-                                                                           enc_out)
+            for name, new in zip(("xk", "xv"), B.encdec_cross_kv(p.xattn, cfg, enc_out,
+                                                                 tp=split)):
+                cache[name][i, rows] = new if split is None else split.cache_columns(new)
     return _logits(params, cfg, x[:, -1:, :])[:, 0, :]
 
 
@@ -641,41 +646,44 @@ def prefill(params: LanguageModel, batch: dict, cfg: ModelConfig, max_seq: int):
     ``batch["tokens"]`` (B, S), with ``batch["patches"]`` for a vlm and
     ``batch["frames"]`` for an encdec.  Returns (last-token logits
     (B, vocab_padded), cache padded to ``max_seq``).  Under tensor
-    parallelism (``params.split``, the dense, MoE, SSM and hybrid
-    families) the logits are the rank's vocab columns and the cache its
-    share in the decode rules' layout (:func:`_split_prefill_cache`).
+    parallelism (``params.split``) the logits are the rank's vocab
+    columns and the cache its share in the decode rules' layout
+    (:func:`_split_prefill_cache`).
     """
     tokens = batch["tokens"]
     split, dev = params.split, _device_of(params)
-    send = None
+    sends = {}
     if split is None:
         cache = init_decode_cache(cfg, len(tokens), max_seq, device=dev)
     else:
-        cache, send = _split_prefill_cache(split, cfg, len(tokens), max_seq, dev)
+        cache, sends = _split_prefill_cache(split, cfg, len(tokens), max_seq, dev)
     logits = prefill_into(params, tokens, cfg, cache, patches=batch.get("patches"),
                           frames=batch.get("frames"))
-    if send is not None:
-        cache.update(zip(("k", "v"), split.heads_to_head_dim(send, cfg.n_kv_heads)))
+    for names, send in sends.items():
+        cache.update(zip(names, split.heads_to_head_dim(send, cfg.n_kv_heads)))
     return logits, cache
 
 
 def _split_prefill_cache(split, cfg: ModelConfig, batch: int, max_seq: int, dev):
     """A tensor-parallel rank's prefill cache and, in heads mode, the
-    buffer that one all-to-all sends on (None otherwise).  The decode
-    rules' layout of K/V (one row a layer, a hybrid's one a
-    shared-attention application) is every kv head and the rank's
+    buffers that all-to-alls send on, keyed by the leaves they hold (none
+    otherwise).  The decode rules' layout of K/V (one row a layer, a
+    hybrid's one a shared-attention application; an encdec's cross K/V
+    too, ``enc_len`` positions) is every kv head and the rank's
     ``head_dim`` columns (its whole heads where the axis does not divide
     ``head_dim``).  In heads mode the rank holds only its kv heads, whole:
-    its cache is a view (rows, B, max_seq, its kv heads, ranks, columns)
-    of the buffer (ranks, 2, rows, B, max_seq, its kv heads, columns),
+    its cache is a view (rows, B, positions, its kv heads, ranks, columns)
+    of a buffer (ranks, 2, rows, B, positions, its kv heads, columns),
     which :meth:`~repro_torch.distributed.sharding.ModelSplit.heads_to_head_dim`
-    turns into the decode layout; in head_dim mode (k/v gathered whole)
-    and with replicated attention the rank writes its columns.  An SSM or
-    hybrid rank's ``ssm`` state is its SSM heads' (all of them where its
-    Mamba blocks compute replicated) and its ``conv`` window whole, as the
-    rules place them.  Every row is written by :func:`prefill_into`."""
+    turns into the decode layout in one all-to-all, ``k``/``v`` and
+    ``xk``/``xv`` each a buffer of their own (their positions differ); in
+    head_dim mode (k/v gathered whole) and with replicated attention the
+    rank writes its columns.  An SSM or hybrid rank's ``ssm`` state is
+    its SSM heads' (all of them where its Mamba blocks compute replicated)
+    and its ``conv`` window whole, as the rules place them.  Every row is
+    written by :func:`prefill_into`."""
     dt = cfg.act_dtype()
-    cache, send = {}, None
+    cache, sends = {}, {}
     if cfg.family in ("ssm", "hybrid"):
         heads = split.ssm_heads if split.ssm_partial else cfg.ssm_heads
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
@@ -684,20 +692,25 @@ def _split_prefill_cache(split, cfg: ModelConfig, batch: int, max_seq: int, dev)
         cache["ssm"] = torch.empty((cfg.n_layers, batch, heads, cfg.ssm_head_dim, cfg.ssm_state),
                                    dtype=torch.float32, device=dev)
     if cfg.family == "ssm":
-        return cache, send
+        return cache, sends
     rows = hybrid_groups(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
     kv, dh, m = cfg.n_kv_heads, cfg.head_dim, split.count
     c = dh // m if split.shards_head_dim else dh
+    leaves = {("k", "v"): max_seq}
+    if cfg.family == "encdec":
+        leaves[("xk", "xv")] = cfg.enc_len
     if split.attn != "heads":
-        cache.update({n: torch.empty((rows, batch, max_seq, kv, c), dtype=dt, device=dev)
-                      for n in ("k", "v")})
-        return cache, send
+        cache.update({n: torch.empty((rows, batch, length, kv, c), dtype=dt, device=dev)
+                      for names, length in leaves.items() for n in names})
+        return cache, sends
     if not split.shards_head_dim:
         raise NotImplementedError(f"a heads-mode prefill whose cache keeps whole heads: "
                                   f"head_dim {dh} over {m} ranks")
-    send = torch.empty((m, 2, rows, batch, max_seq, split.kv_heads, c), dtype=dt, device=dev)
-    cache.update(k=send[:, 0].movedim(0, -2), v=send[:, 1].movedim(0, -2))
-    return cache, send
+    for names, length in leaves.items():
+        send = torch.empty((m, 2, rows, batch, length, split.kv_heads, c), dtype=dt, device=dev)
+        cache.update(zip(names, (send[:, 0].movedim(0, -2), send[:, 1].movedim(0, -2))))
+        sends[names] = send
+    return cache, sends
 
 
 @torch.inference_mode()
@@ -745,7 +758,7 @@ def decode_step(params: LanguageModel, token, pos, cache: dict, cfg: ModelConfig
         x = x + sinusoid_position_at(pos_vec, cfg.d_model)[:, None, :].to(x.dtype)
         for i, p in enumerate(params.dec_blocks):
             x = B.decoder_block_decode(x, p, cfg, cache["k"][i], cache["v"][i], cache["xk"][i],
-                                       cache["xv"][i], pos_vec)
+                                       cache["xv"][i], pos_vec, tp=split)
     return _logits(params, cfg, x)[:, 0, :], cache
 
 

@@ -15,26 +15,27 @@ and its hand-written backward on the card.
 Parameters and AdamW moments live as DTensors placed by
 ``param_specs(param_logical_axes(cfg), rules)`` (:func:`shard_train_state`).
 Each rank takes its rows of the batch, split over the mesh's batch axes
-(every axis but ``"model"``).  The dense, MoE, SSM and hybrid families
-run tensor parallel over ``"model"``, as GSPMD splits the reference's
-step under its rules: each leaf is gathered over the batch axes alone
-and keeps its ``"model"`` shard (its q heads or head_dim columns, ``ff``
-columns, an MoE's experts or their ``ff`` columns, a Mamba block's
+(every axis but ``"model"``).  Every family runs tensor parallel over
+``"model"``, as GSPMD splits the reference's step under its rules: each
+leaf is gathered over the batch axes alone and keeps its ``"model"``
+shard (its q heads or head_dim columns, ``ff`` columns and a GELU MLP's
+``b_up``, an MoE's experts or their ``ff`` columns, a Mamba block's
 ``inner`` columns, vocab rows:
 :func:`~repro_torch.models.model.gather_params`), and the rank computes
 its share, Megatron's regions meeting in all-reduces over ``"model"``
 (:class:`~repro_torch.distributed.sharding.ModelSplit`), the loss
-vocab-parallel.  A leaf replicated over ``"model"`` that a rank uses in
-part (a Mamba block's ``w_bc``, B/C conv, ``w_dt``, ``dt_bias``,
-``a_log``, ``d_skip``) has its gradient summed there in the backward,
-so it is whole and equal on every rank.  An MoE dispatches the
-reference's groups of the global batch (:mod:`repro_torch.models.moe`),
-and its aux loss is the global batch's.  The vlm and encdec families
-gather every leaf whole and run the one-device forward and backward,
-replicated over ``"model"`` but inside attention under the attention
-batch layout of the active rules
-(:func:`repro_torch.distributed.sharding.attn_batch_split`).  The
-gradients, whole or a rank's ``"model"`` shards, are averaged over the
+vocab-parallel; inside attention, under the attention batch layout of
+the active rules, the rank's share of the rows
+(:func:`repro_torch.distributed.sharding.attn_batch_split`).  A leaf
+replicated over ``"model"`` that a rank uses in part (a Mamba block's
+``w_bc``, B/C conv, ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip``) has its
+gradient summed there in the backward, and one used after a region's g
+or before its f (the norms, a GELU MLP's ``b_down``, an encdec's
+``enc_final_norm``, whose output enters the decoder's cross K/V
+projections through one f) takes it whole, so each is whole and equal
+on every rank.  An MoE dispatches the reference's groups of the global
+batch (:mod:`repro_torch.models.moe`), and its aux loss is the global
+batch's.  The gradients, whole or a rank's ``"model"`` shards, are averaged over the
 batch axes (weighted by each rank's token count) with ``all_reduce``;
 AdamW's global-norm clip is taken over the whole averaged gradients, a
 sharded leaf's sum of squares summed over ``"model"`` and a replicated
@@ -216,9 +217,8 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh):
     dispatch groups, capacity and aux loss are the global batch's, as the
     reference's: each rank's aux loss is its share, taken at ``1 / w`` of
     its weight ``w`` in the loss, so that the token weights leave the
-    global aux loss and its gradient whole.  A dense, MoE, SSM or hybrid
-    model's step is tensor parallel over ``"model"`` (the module's
-    docstring)."""
+    global aux loss and its gradient whole.  The step is tensor parallel
+    over ``"model"`` (the module's docstring)."""
     batch_axes = [a for a in mesh.mesh_dim_names if a != "model"]
     groups = [mesh.get_group(a) for a in batch_axes]
     model = None            # the model the step runs, built at the first call

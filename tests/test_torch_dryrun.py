@@ -252,14 +252,15 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
     its leaves), and, wherever the layout leaves the rules as they were, a
     rank's FLOPs against the one-device step's at the rank's rows
     (``global_batch`` over the batch rule's axes; AdamW adds no
-    products): equal for the families whose compute is replicated over
-    "model"; for the dense family, tensor parallel, the products' share
-    of them over the model axis (every product splits: the projections
-    and ``wo`` over head_dim at SMOKE's 4 heads, the MLP over ``ff``, the
-    logits over the vocab) and K8's whole, its q, k and v gathered (head
-    mode would split it too); for the MoE family the same, but the
-    router whole and the experts' products the rank's
-    (:func:`moe_expert_flops`).  The SSM and hybrid families' SMOKE
+    products): for the dense, vlm and encdec families, tensor parallel,
+    the products' share of them over the model axis (every product
+    splits: the projections and ``wo`` over head_dim at SMOKE's 4 heads,
+    Whisper's cross attention's too, the MLP over ``ff``, the logits over
+    the vocab) and K8's whole, its q, k and v gathered (head mode would
+    split it too); in decode the attention over each cache (Whisper's
+    self and cross caches) keeps half its product whole, below; for the
+    MoE family the same, but the router whole and the experts' products
+    the rank's (:func:`moe_expert_flops`).  The SSM and hybrid families' SMOKE
     configs are tensor parallel too, but the rules put their 128 ``inner``
     columns on the 16 "model" ranks and not their 8 SSM heads, so the
     split refuses them, naming the counts (their ranks are traced on a
@@ -279,15 +280,12 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
                        "reason": reason}
         return
     assert res["status"] == "ok", res.get("traceback")
-    dense = cfg.family in ("dense", "moe")
-    assert REF_KEYS | {"host_s", "kernels", "compute"} | ({"attention"} if dense else set()) \
-        == set(res)
+    assert REF_KEYS | {"host_s", "kernels", "compute", "attention"} == set(res)
     assert res["n_chips"] == res["roofline"]["n_chips"] == N_CHIPS[mesh]
-    assert res["compute"] == {"dense": "tensor parallel over model",
-                              "moe": {"ep": "expert parallel over model",
+    assert res["compute"] == {"moe": {"ep": "expert parallel over model",
                                       "tp": "tensor parallel inside experts over model"}.get(
                                           cfg.moe_parallel)}.get(cfg.family,
-                                                                 "replicated over model")
+                                                                 "tensor parallel over model")
     coll = res["collectives"]
     assert jax_roofline_keys() <= set(res["roofline"])
     assert coll["all-gather"] > 0 and coll["total"] == sum(
@@ -297,56 +295,28 @@ def test_sharded_cell_at_smoke_size(mesh, arch, shape):
     spec = SHAPES[shape]
     if dryrun.cell_rules(cfg, spec, mesh, True) == dryrun.cell_rules(cfg, spec, mesh, False):
         flops, k8 = one_device_flops(arch, shape, rank_batch(arch, shape, mesh))
-        if dense:
-            model = AXIS_SIZES["model"]
-            heads = res["attention"] == "heads"
-            assert res["attention"] in ("head_dim",
-                                        "replicated over model (head_dim: q, k, v gathered)")
-            # decode's attention over the cache, 4 B H D S a layer: the scores
-            # contract a rank's one head_dim column, an elementwise product
-            # and a sum (in the reference's count too), so only the values'
-            # product, half of it, stays a product
-            attn = 0
-            if spec.kind == "decode":
-                attn = (4 * rank_batch(arch, shape, mesh) * cfg.n_heads * cfg.head_dim
-                        * spec.seq_len * cfg.n_layers)
-                assert cfg.head_dim == model
-            whole = mine = 0
-            if cfg.family == "moe":
-                whole, one, mine = moe_expert_flops(cfg, spec, mesh, rank_batch(arch, shape, mesh))
-                flops -= one
-            assert (flops - k8 - attn - whole) % model == 0
-            flops = ((flops - k8 - attn - whole) // model + attn // 2 // model
-                     + (k8 // model if heads else k8) + whole + mine)
+        model = AXIS_SIZES["model"]
+        heads = res["attention"] == "heads"
+        assert res["attention"] in ("head_dim",
+                                    "replicated over model (head_dim: q, k, v gathered)")
+        # decode's attention over the cache, 4 B H D S a layer: the scores
+        # contract a rank's one head_dim column, an elementwise product
+        # and a sum (in the reference's count too), so only the values'
+        # product, half of it, stays a product
+        attn = 0
+        if spec.kind == "decode":
+            keys = spec.seq_len + (cfg.enc_len if cfg.family == "encdec" else 0)
+            attn = (4 * rank_batch(arch, shape, mesh) * cfg.n_heads * cfg.head_dim
+                    * keys * cfg.n_layers)
+            assert cfg.head_dim == model
+        whole = mine = 0
+        if cfg.family == "moe":
+            whole, one, mine = moe_expert_flops(cfg, spec, mesh, rank_batch(arch, shape, mesh))
+            flops -= one
+        assert (flops - k8 - attn - whole) % model == 0
+        flops = ((flops - k8 - attn - whole) // model + attn // 2 // model
+                 + (k8 // model if heads else k8) + whole + mine)
         assert res["cost"]["flops"] == flops
-
-
-def _gathers(shape, itemsize: int, spec, mesh_names) -> tuple[int, int]:
-    """DTensor's all-gathers of a leaf whole, their number and result
-    bytes: one per sharded mesh axis, the last mesh axis first, each
-    result the leaf's share still split over the axes not yet gathered."""
-    full = math.prod(shape) * itemsize
-    left = [a for entry in spec for a in rule_axes(entry)]
-    calls = total = 0
-    for axis in reversed(mesh_names):
-        if axis in left:
-            left.remove(axis)
-            calls += 1
-            total += full // math.prod(AXIS_SIZES[a] for a in left)
-    return calls, total
-
-
-def _param_gathers(cfg, rules, mesh_names) -> tuple[int, int, int]:
-    """The parameters' all-gathers (number, result bytes) and their whole
-    bytes."""
-    params = tmodel.init_params(cfg, None, device="meta")
-    axes = tmodel.param_logical_axes(cfg)
-    calls = gathered = whole = 0
-    for name, p in params.named_parameters():
-        spec = sharding.logical_spec(axes[name], rules)
-        n, b = _gathers(p.shape, p.element_size(), spec, mesh_names)
-        calls, gathered, whole = calls + n, gathered + b, whole + p.numel() * p.element_size()
-    return calls, gathered, whole
 
 
 def _tp_param_gathers(cfg, rules) -> tuple[int, int, int]:
@@ -421,16 +391,16 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
     each layer adds three all-gathers of the attention's output rows (the
     forward's, the one of block remat's recompute, and the one of the
     input slice's gradient) and an all-reduce of each attention weight's
-    gradient over "model".  yi_34b's step is tensor parallel (the dense
-    family): without the layout its attention is in head_dim mode, so
-    each layer also all-gathers q, k and v (the forward's and remat's
-    recompute) and all-reduces the attention's partial sums (g, and g
-    again in the recompute) and its input's gradient (f), which the
-    layout, whose attention is replicated over "model", does not; the
-    step all-reduces each gradient as a rank holds it, the attention's
-    weights whole under the layout and 1/16 without."""
+    gradient over "model".  Both steps are tensor parallel (InternVL2's
+    blocks are dense blocks): without the layout the attention is in
+    head_dim mode, so each layer also all-gathers q, k and v (the
+    forward's and remat's recompute) and all-reduces the attention's
+    partial sums (g, and g again in the recompute) and its input's
+    gradient (f), which the layout, whose attention is replicated over
+    "model", does not; the step all-reduces each gradient as a rank holds
+    it, the attention's weights whole under the layout and 1/16
+    without."""
     cfg = get_smoke_config(arch)
-    dense = cfg.family == "dense"
     spec = SHAPES["train_4k"]
     runs, params = {}, {}
     for layout in (False, True):
@@ -438,8 +408,7 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
         with mesh_lib.fake_world() as mesh:
             counter, _ = dryrun.trace_sharded_cell(cfg, spec, mesh, rules)
         runs[layout] = counter
-        params[layout] = (_tp_param_gathers(cfg, rules) if dense
-                          else _param_gathers(cfg, rules, ("data", "model")))
+        params[layout] = _tp_param_gathers(cfg, rules)
     assert rules["attn_batch"] == ("data", "model")
     base, lay = runs[False], runs[True]
     assert set(base.kernels) == set(lay.kernels) == {
@@ -458,7 +427,7 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
     qkv = rows * spec.seq_len * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim * act
     for layout, c in runs.items():
         n, b, _ = params[layout]
-        tp_gathers = 0 if layout or not dense else 2 * n_l
+        tp_gathers = 0 if layout else 2 * n_l
         assert c.by_op["all_gather_into_tensor"][0] == n + extra * layout + 3 * tp_gathers
         assert c.collective_bytes["all-gather"] == (
             b + extra * layout * resid + tp_gathers * qkv)
@@ -468,12 +437,6 @@ def test_attention_batch_layout_splits_attention_over_model(arch):
     # the step's own all-reduces are torch.distributed's in place (allreduce_),
     # the layout's functional (all_reduce), as are tensor parallelism's
     assert lay.by_op["allreduce_"][0] == base.by_op["allreduce_"][0]
-    if not dense:
-        assert "all_reduce" not in base.by_op
-        assert lay.by_op["all_reduce"][0] == n_l * len(weights)
-        assert (lay.collective_bytes["all-reduce"] - base.collective_bytes["all-reduce"]
-                == attn_bytes)
-        return
     assert not cfg.qk_norm
     assert lay.by_op["all_reduce"][0] == base.by_op["all_reduce"][0] + n_l * (len(weights) - 3)
     assert (lay.collective_bytes["all-reduce"] - base.collective_bytes["all-reduce"]

@@ -270,24 +270,26 @@ def test_tensor_parallel_train_steps_match_one_device_and_reference(tp_run, refe
 
 
 # the dimension of each cache leaf that the decode rules put on "model"
-# (where it divides): the K/V cache's head_dim, the SSD state's SSM heads;
-# the conv window is replicated there
-CACHE_MODEL_DIMS = {"k": 4, "v": 4, "ssm": 2}
+# (where it divides): the K/V and cross K/V caches' head_dim, the SSD
+# state's SSM heads; the conv window is replicated there
+CACHE_MODEL_DIMS = {"k": 4, "v": 4, "xk": 4, "xv": 4, "ssm": 2}
 
 
-def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4)) -> None:
-    """A sharded prefill and greedy decode on ``mesh`` (``worker.tp_serve``)
-    against the port's one-device steps and the reference's: the logits
-    gathered and every cache leaf, after the prefill and after the last
-    decode step, within TOL, each rank's cache shard its rows and its
-    share on CACHE_MODEL_DIMS, the greedy tokens equal."""
+def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4),
+                 extra: dict | None = None) -> None:
+    """A sharded prefill and greedy decode on ``mesh`` (``worker.tp_serve``,
+    ``extra`` a vlm's patches or an encdec's frames) against the port's
+    one-device steps and the reference's: the logits gathered and every
+    cache leaf, after the prefill and after the last decode step, within
+    TOL, each rank's cache shard its rows and its share on
+    CACHE_MODEL_DIMS, the greedy tokens equal."""
     cfg = get_smoke_config(arch)
     jcfg, jp, tree = references[arch]
-    prompts = worker.tp_batches(cfg.vocab)["prompts"]
+    batch = {"tokens": worker.tp_batches(cfg.vocab)["prompts"], **(extra or {})}
     model = lm_params_from_arrays(tree, cfg, "cpu")
-    logits, cache = tmodel.prefill(model, {"tokens": prompts}, cfg, worker.TP_MAX_SEQ)
-    jlogits, jcache = jmodel.prefill(jp, {"tokens": jnp.asarray(prompts.numpy())}, jcfg,
-                                     max_seq=worker.TP_MAX_SEQ)
+    logits, cache = tmodel.prefill(model, batch, cfg, worker.TP_MAX_SEQ)
+    jlogits, jcache = jmodel.prefill(jp, {k: jnp.asarray(x.numpy()) for k, x in batch.items()},
+                                     jcfg, max_seq=worker.TP_MAX_SEQ)
     for want in (logits, jlogits):
         assert _rel(got["prefill_logits"], want) <= TOL
     assert set(got["cache"]) == set(cache) == set(jcache)
@@ -304,7 +306,7 @@ def hold_serving(got: dict, references, arch: str, mesh: tuple = (2, 4)) -> None
     for i in range(worker.TP_DECODES):
         assert torch.equal(got["tokens"][i], token)
         assert np.array_equal(np.asarray(jtoken), token.numpy())
-        pos = worker.TP_PROMPT + i
+        pos = worker.decode_start(cfg) + i
         logits, cache = tmodel.decode_step(model, token, pos, cache, cfg)
         jlogits, jcache = jmodel.decode_step(jp, jtoken, jnp.asarray(pos, jnp.int32), jcache,
                                              jcfg)
@@ -399,9 +401,10 @@ _REFERENCE_PROG = textwrap.dedent("""
             p_specs = tree(param_specs(param_logical_axes(cfg), rules))
             cache = param_specs(cache_logical_axes(cfg), dec)
             if kind == "prefill":
+                rows = {k: P("data", *([None] * (len(v.shape) - 1))) for k, v in specs.items()}
                 lowered = jax.jit(
                     lambda p, bt: prefill(p, bt, cfg, max_seq=s),
-                    in_shardings=(p_specs, tree({"tokens": P("data", None)})),
+                    in_shardings=(p_specs, tree(rows)),
                     out_shardings=tree((P("data", "model"), cache))).lower(params, specs)
             else:
                 lowered = jax.jit(
@@ -484,7 +487,8 @@ def _ssm_products(cfg, kind: str) -> tuple[int, int]:
     return sum(x // m for x in port), sum(port)
 
 
-@pytest.mark.parametrize("arch", worker.TP_ARCHS + worker.EP_ARCHS + worker.SSM_ARCHS)
+@pytest.mark.parametrize("arch", worker.TP_ARCHS + worker.EP_ARCHS + worker.SSM_ARCHS
+                         + worker.ENCDEC_ARCHS)
 def test_per_rank_flops_match_the_references_spmd_program(arch):
     """Prefill and decode of the SMOKE config (4 rows, 64 positions) on the
     (2, 4) mesh: the port's counter on rank 0 of a fake (2, 4) world
@@ -505,7 +509,15 @@ def test_per_rank_flops_match_the_references_spmd_program(arch):
     (2 of the 8 SSM heads) computes the reference's share but for B and
     C, which GSPMD splits over "model" and a port rank computes whole
     (:func:`_ssm_products`, each with both counts); Zamba2's shared
-    attention (its kv heads on "model") is the dense family's."""
+    attention (its kv heads on "model") is the dense family's.  InternVL2's
+    blocks are dense blocks (its 2 kv heads off "model": the K/V
+    projection as qwen3_8b's; its 64 positions are 8 patches and 56
+    tokens).  A Whisper rank (its one of 4 q heads and kv heads in every
+    attention) computes GSPMD's share of every product, its encoder's,
+    decoder's and cross attention's projections, GELU MLP and logits: the
+    attention's terms are the encoder's T x T pairs, the decoder's causal
+    S x S and its cross attention's S x T (T = 32 frames), a layer each,
+    K8 counting the causal mask's pairs and the reference whole blocks."""
     cfg = get_smoke_config(arch)
     ref = _reference_flops(arch)
     rows, heads = REF_B // 2, cfg.n_heads // 4
@@ -528,12 +540,17 @@ def test_per_rank_flops_match_the_references_spmd_program(arch):
             assert k8 == 0 and counter.flops + extra == ref["decode"], (
                 arch, counter.flops, ref["decode"], extra)
             continue
-        block = 4 * rows * heads * cfg.head_dim * REF_S * REF_S * n_attn
+        pairs, k8_pairs = REF_S * REF_S * n_attn, n_attn * (REF_S * (REF_S + 1) // 2)
+        if cfg.family == "encdec":
+            t = cfg.enc_len
+            cross = t * t * cfg.n_enc_layers + REF_S * t * cfg.n_layers
+            pairs, k8_pairs = pairs + cross, k8_pairs + cross
+        block = 4 * rows * heads * cfg.head_dim * pairs
         kv_local = 1
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             extra = 2 * cfg.n_layers * 2 * rows * REF_S * cfg.d_model * cfg.head_dim * (
                 cfg.n_kv_heads - kv_local)
-        assert k8 == 4 * rows * heads * cfg.head_dim * n_attn * (REF_S * (REF_S + 1) // 2)
+        assert k8 == 4 * rows * heads * cfg.head_dim * k8_pairs
         assert counter.flops - k8 + extra == ref["prefill"] - block, (
             arch, counter.flops - k8, ref["prefill"] - block, extra)
 
@@ -545,7 +562,11 @@ def test_a_rank_holds_its_share_of_every_leaf():
     kv_heads off "model"; the rank reads kv head 0), a quarter of ff and
     of the vocab; head_dim mode a quarter of every head's columns; an
     MoE's experts or their ff columns; a Mamba block's quarter of inner
-    and the leaves replicated over "model" whole."""
+    and the leaves replicated over "model" whole; InternVL2's blocks as
+    the dense family's, and Whisper's encoder self-attention, decoder
+    self-attention and cross attention alike, a quarter of its GELU MLP's
+    ff (``w_up``, ``b_up``, ``w_down``), ``b_down`` and the LayerNorms
+    whole, in prefill and decode."""
     from repro_torch.distributed.elastic import reshard_state
 
     cfg = get_smoke_config("qwen3_8b")
@@ -625,24 +646,58 @@ def test_a_rank_holds_its_share_of_every_leaf():
             assert split.attn == "head_dim"
             assert attn.wq.shape == (d, cfg.n_heads, cfg.head_dim // 4)
         assert model.shared_attn.mlp.w_gate.shape == (d, cfg.d_ff // 4) == (d, split.ff)
+    # InternVL2: 4 q heads over 2 kv heads, so in heads mode a rank's one q
+    # head reads a sliced kv head (wk whole); Whisper: 4 q and 4 kv heads, a
+    # rank's one of each, in all three attentions
+    for arch, job in (("internvl2_1b", "prefill"), ("internvl2_1b", "decode"),
+                      ("whisper_base", "prefill"), ("whisper_base", "decode")):
+        cfg = get_smoke_config(arch)
+        params = dict(tmodel.init_params(cfg, None, device="meta").named_parameters())
+        rules = {**make_rules(cfg, job=job, model_axis=4), "batch": "data"}
+        with fake_world(mesh_shape=(2, 4)) as mesh:
+            model = tmodel.gather_params(cfg, reshard_state(
+                params, tmodel.param_logical_axes(cfg), mesh, rules))
+        split, vlm = model.split, cfg.family == "vlm"
+        d, h, kv, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+        if job == "prefill":
+            kv_l = kv if vlm else kv // 4
+            assert (split.attn, split.heads, split.kv_heads, split.kv_sliced) == ("heads", 1, 1,
+                                                                                vlm)
+            want = {"wq": (d, 1, dh), "wk": (d, kv_l, dh), "wv": (d, kv_l, dh), "wo": (1, dh, d)}
+        else:
+            assert split.attn == "head_dim"
+            want = {"wq": (d, h, dh // 4), "wk": (d, kv, dh // 4), "wv": (d, kv, dh // 4),
+                    "wo": (h, dh // 4, d)}
+        attns = ([model.blocks[0].attn] if vlm else
+                 [model.enc_blocks[0].attn, model.dec_blocks[-1].attn, model.dec_blocks[-1].xattn])
+        for attn in attns:
+            assert {n: tuple(x.shape) for n, x in attn.named_parameters()} == want
+        assert split.ff == f // 4 and model.embed.shape == (cfg.vocab_padded // 4, d)
+        if vlm:
+            assert model.blocks[0].mlp.w_gate.shape == (d, f // 4)
+            continue
+        for block in (model.enc_blocks[0], model.dec_blocks[-1]):
+            assert {n: tuple(x.shape) for n, x in block.mlp.named_parameters()} == {
+                "w_up": (d, f // 4), "b_up": (f // 4,), "w_down": (f // 4, d), "b_down": (d,)}
+            assert block.ln1.scale.shape == block.ln2.bias.shape == (d,)
+        assert model.dec_blocks[0].ln_x.bias.shape == model.enc_final_norm.shape == (d,)
 
 
 def test_one_device_paths_have_no_split():
     """A model from init_params has no split and no batch shard, and its
-    MoE and Mamba blocks run with neither (the one-device arithmetic:
-    every leaf whole, no collective); gather_params gives a split to a
-    dense, MoE, SSM or hybrid model (tensor_parallel), none to a vlm's or
-    an encdec's, whose compute stays replicated over "model"."""
+    MoE, Mamba and Whisper blocks run with neither (the one-device
+    arithmetic: every leaf whole, no collective); gather_params gives a
+    split to a model of every family on a mesh with a "model" axis (a
+    vlm's too: its wq is the rank's share)."""
     from repro_torch.distributed.elastic import reshard_state
     from repro_torch.models import ssm as tssm
+    from repro_torch.models.layers import gelu_mlp, layer_norm
 
-    for arch in ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m", "zamba2_7b"):
+    archs = ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m", "zamba2_7b", "internvl2_1b",
+             "whisper_base")
+    for arch in archs:
         model = tmodel.init_params(get_smoke_config(arch), None, device="meta")
         assert model.split is None and model.batch_shard is None
-    archs = ("qwen3_8b", "mixtral_8x22b", "mamba2_370m", "zamba2_7b", "internvl2_1b",
-             "whisper_base")
-    assert [a for a in archs if tmodel.tensor_parallel(get_smoke_config(a))] == [
-        "qwen3_8b", "mixtral_8x22b", "mamba2_370m", "zamba2_7b"]
     cfg = get_smoke_config("granite_moe_1b_a400m")
     model = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
@@ -679,11 +734,37 @@ def test_one_device_paths_have_no_split():
         y, want_conv, want_state = tssm.mamba2_decode(hn[:, :1], p, ssm, conv, state)
         assert torch.equal(step, x[:, :1] + y) and torch.equal(new_conv, want_conv)
         assert torch.equal(new_state, want_state) and new_conv.shape == conv.shape
+    # Whisper's blocks without a split: the GELU MLP's b_down added once to
+    # the one-device product, the cross attention over the one-device K/V
+    enc = get_smoke_config("whisper_base")
+    model = tmodel.init_params(enc, torch.Generator().manual_seed(0), device="cpu")
+    p = model.dec_blocks[0]
+    with torch.no_grad():
+        p.mlp.b_down.normal_(generator=torch.Generator().manual_seed(4))
+        x = torch.randn((2, 8, enc.d_model), generator=torch.Generator().manual_seed(1))
+        e = torch.randn((2, enc.enc_len, enc.d_model), generator=torch.Generator().manual_seed(2))
+        h = layer_norm(x, p.ln2.scale, p.ln2.bias, enc.norm_eps)
+        u = torch.nn.functional.gelu((h @ p.mlp.w_up + p.mlp.b_up).float(), approximate="tanh")
+        assert torch.equal(gelu_mlp(h, p.mlp), u @ p.mlp.w_down + p.mlp.b_down)
+        assert tblocks.cross_source(e) is e
+        xk, xv = tblocks.encdec_cross_kv(p.xattn, enc, e)
+        assert torch.equal(xk, tblocks._project(e, p.xattn.wk))
+        out, (k, v) = tblocks.decoder_block_forward(x, p, enc, torch.arange(8).expand(2, 8), e)
+        assert out.shape == x.shape and k.shape == (2, 8, enc.n_kv_heads, enc.head_dim)
+    # every family splits over "model": InternVL2's rank holds its q head of wq
     vlm = get_smoke_config("internvl2_1b")
     params = dict(tmodel.init_params(vlm, None, device="meta").named_parameters())
+    axes = tmodel.param_logical_axes(vlm)
     rules = {**make_rules(vlm, model_axis=4), "batch": "data"}
     with fake_world(mesh_shape=(2, 4)) as mesh:
-        sharded = reshard_state(params, tmodel.param_logical_axes(vlm), mesh, rules)
-        model = tmodel.gather_params(vlm, sharded)
-    assert model.split is None
-    assert model.blocks[0].attn.wq.shape == (vlm.d_model, vlm.n_heads, vlm.head_dim)
+        model = tmodel.gather_params(vlm, reshard_state(params, axes, mesh, rules))
+    assert (model.split.attn, model.split.count) == ("heads", 4)
+    assert model.blocks[0].attn.wq.shape == (vlm.d_model, vlm.n_heads // 4, vlm.head_dim)
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        params = dict(tmodel.init_params(cfg, None, device="meta").named_parameters())
+        rules = {**make_rules(cfg, model_axis=4), "batch": "data"}
+        with fake_world(mesh_shape=(2, 4)) as mesh:
+            split = tmodel.gather_params(cfg, reshard_state(
+                params, tmodel.param_logical_axes(cfg), mesh, rules)).split
+        assert split is not None and split.count == 4, arch

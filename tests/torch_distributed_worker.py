@@ -9,7 +9,9 @@ tensor-parallel steps (run by tests/test_torch_tensor_parallel.py;
 family's (run by tests/test_torch_expert_parallel.py;
 :func:`expert_parallel_main`), or with ``ssm_parallel`` of the SSM and
 hybrid families' (run by tests/test_torch_ssm_parallel.py;
-:func:`ssm_parallel_main`).
+:func:`ssm_parallel_main`), or with ``encdec_parallel`` of the vlm and
+encdec families' (run by tests/test_torch_encdec_parallel.py;
+:func:`encdec_parallel_main`).
 
 Two AdamW steps of the SMOKE Qwen3-8B on the (2, 4) ("data", "model")
 mesh, then ``plan_mesh(4)``, a re-shard to (2, 2) under
@@ -264,21 +266,30 @@ def tp_train(cfg, params: dict, mesh, rules, batch: dict, steps: int = TP_STEPS)
             "grads_steps": grads}
 
 
-def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor, model_axis: int = 4) -> dict:
-    """A sharded prefill (heads mode, the cache out by the decode rules)
-    and TP_DECODES greedy decode steps (head_dim mode) on a mesh of
-    ``model_axis`` "model" ranks: the logits gathered whole, the cache
-    after the prefill and after the last decode step gathered whole, the
-    tokens."""
+def decode_start(cfg) -> int:
+    """The first decode position after a TP_PROMPT-token prompt: a vlm's
+    positions count its patches."""
+    return TP_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+
+def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor, model_axis: int = 4,
+             extra: dict | None = None, head_dim_mode: bool = False) -> dict:
+    """A sharded prefill (heads mode, or with ``head_dim_mode`` forced
+    head_dim mode; the cache out by the decode rules) and TP_DECODES
+    greedy decode steps (head_dim mode) on a mesh of ``model_axis``
+    "model" ranks, ``extra`` a vlm's patches or an encdec's frames: the
+    logits gathered whole, the cache after the prefill and after the last
+    decode step gathered whole, the tokens."""
     from repro_torch.distributed.elastic import reshard_state
 
-    pre = tp_rules(cfg, "prefill", model_axis=model_axis)
+    pre = tp_rules(cfg, "prefill", head_dim_mode, model_axis=model_axis)
     dec = tp_rules(cfg, "decode", model_axis=model_axis)
     named = {n: p.detach() for n, p in _model(cfg, params).named_parameters()}
     axes = tmodel.param_logical_axes(cfg)
     with mesh_context(mesh), use_rules(pre):
         step = make_sharded_prefill(cfg, mesh, pre, dec, TP_MAX_SEQ)
-        logits, cache = step(reshard_state(named, axes, mesh, pre), {"tokens": prompts})
+        logits, cache = step(reshard_state(named, axes, mesh, pre),
+                             {"tokens": prompts, **(extra or {})})
     out = {"prefill_logits": logits.full_tensor(),
            "cache": {n: c.full_tensor() for n, c in cache.items()},
            "cache_local": {n: tuple(c.to_local().shape) for n, c in cache.items()},
@@ -289,7 +300,7 @@ def tp_serve(cfg, params: dict, mesh, prompts: torch.Tensor, model_axis: int = 4
         step = make_sharded_decode_step(cfg, mesh, dec)
         for i in range(TP_DECODES):
             out["tokens"].append(token)
-            logits, cache = step(sharded, token, torch.tensor(TP_PROMPT + i), cache)
+            logits, cache = step(sharded, token, torch.tensor(decode_start(cfg) + i), cache)
             whole = logits.full_tensor()
             out["decode_logits"].append(whole)
             token = whole.argmax(-1)[:, None].to(torch.int32)
@@ -499,6 +510,165 @@ def ssm_parallel_main(rank: int, out_dir: str) -> None:
         torch.save(results, Path(out_dir) / "ssm_rank0.pt")
 
 
+# ------------------------------------------------ vlm and encdec tensor parallelism
+
+ENCDEC_ARCHS = ("internvl2_1b", "whisper_base")
+# (mesh, attention mode of train and prefill): (2, 4) in heads mode
+# (InternVL2 1 q head a rank over a sliced kv head, Whisper 1 q and 1 kv
+# head), the same mesh in forced head_dim mode (the production route of
+# both models: q, k and v gathered to whole heads), and (4, 2) in heads
+# mode (2 q heads and 1 or 2 kv heads a rank); decode 4 or 8 of head_dim's
+# 16 columns
+ENCDEC_CASES = (((2, 4), "heads"), ((2, 4), "head_dim"), ((4, 2), "heads"))
+# the leaves replicated over "model", used after a region's g or before
+# its f, whose gradients must come out whole and equal on every "model"
+# rank, by family (suffixes of their names)
+ENCDEC_WHOLE_LEAVES = {
+    "vlm": (".ln1", ".ln2", "final_norm"),
+    "encdec": tuple(f".{ln}.{w}" for ln in ("ln1", "ln2", "ln_x") for w in ("scale", "bias"))
+    + (".mlp.b_down", "enc_final_norm", "final_norm")}
+# Whisper's b_down leaves drawn at this scale (seeded) for the planted fault
+# that adds them before g: at the reference's zeros the fault changes
+# nothing
+B_DOWN_SCALE = 0.1
+
+
+def encdec_inputs(cfg, rows: int = 4) -> dict:
+    """A vlm's seeded patch embeddings (rows, n_patches, d) or an encdec's
+    frame embeddings (rows, enc_len, d), float32, the same for the train
+    batch and the prompts."""
+    rng = np.random.default_rng(SEED + 4)
+    name, length = (("patches", cfg.n_patches) if cfg.family == "vlm"
+                    else ("frames", cfg.enc_len))
+    return {name: torch.from_numpy(rng.standard_normal((rows, length, cfg.d_model))
+                                   .astype(np.float32))}
+
+
+def encdec_train_batch(cfg) -> dict:
+    """The tensor-parallel cases' seeded train batch with
+    :func:`encdec_inputs`."""
+    return {**tp_batches(cfg.vocab)["train"], **encdec_inputs(cfg)}
+
+
+def with_b_down(params: dict) -> dict:
+    """``params`` with every ``mlp.b_down`` drawn seeded, N(0,
+    B_DOWN_SCALE^2)."""
+    rng = np.random.default_rng(SEED + 5)
+    return {n: torch.from_numpy((rng.standard_normal(tuple(p.shape)) * B_DOWN_SCALE)
+                                .astype(np.float32)) if n.endswith("mlp.b_down") else p
+            for n, p in params.items()}
+
+
+# the planted faults of Whisper's split: b_down added to each rank's
+# partial sum before g (so ``count`` times), the cross K/V projections' f
+# left out (the encoder's output takes a rank's share of their gradient),
+# and that f at each layer's projection as well as at the encoder's exit
+# (the shares summed ``count`` times)
+ENCDEC_FAULTS = ("b_down_before_g", "cross_f_left_out", "cross_f_doubled")
+
+
+def encdec_faults() -> dict:
+    """Each of ENCDEC_FAULTS as (the function of
+    ``repro_torch.models.blocks`` it replaces, the broken one)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import gelu_mlp
+
+    cross_kv, cross_source = blocks.encdec_cross_kv, blocks.cross_source
+
+    def b_down_before_g(x, p, exit=None):
+        y = gelu_mlp(x, p)
+        return y if exit is None else exit(y)
+
+    def doubled(p, cfg, enc_out, *, tp=None):
+        return cross_kv(p, cfg, cross_source(enc_out, tp), tp=tp)
+
+    return {"b_down_before_g": ("gelu_mlp", b_down_before_g),
+            "cross_f_left_out": ("cross_source", lambda enc_out, tp=None: enc_out),
+            "cross_f_doubled": ("encdec_cross_kv", doubled)}
+
+
+def encdec_fault_grads(cfg, params: dict, mesh, rules, batch: dict) -> dict:
+    """One sharded train step of Whisper on ``mesh`` under each planted
+    fault of ENCDEC_FAULTS, its step-1 gradients gathered whole: at
+    ``with_b_down(params)`` for ``b_down_before_g`` (the correct step's
+    beside it, ``b_down_ok``), at ``params`` for the cross K/V
+    projections' f."""
+    from repro_torch.models import blocks
+
+    out = {"b_down_ok": tp_train(cfg, with_b_down(params), mesh, rules, batch,
+                                 steps=1)["grads_1"]}
+    for name, (attr, broken) in encdec_faults().items():
+        saved = getattr(blocks, attr)
+        setattr(blocks, attr, broken)
+        try:
+            at = with_b_down(params) if name == "b_down_before_g" else params
+            out[name] = tp_train(cfg, at, mesh, rules, batch, steps=1)["grads_1"]
+        finally:
+            setattr(blocks, attr, saved)
+    return out
+
+
+def held_model(cfg, sharded: dict, mesh, named: dict) -> dict:
+    """The local shapes of every leaf as a rank's model holds them
+    (``gather_params`` over "data") and its split's attention fields; for
+    a vlm also its first block's input on its rows of the train batch
+    (the patches, then the vocab-parallel lookup of the tokens) and the
+    one-device input from the whole table ``named["embed"]``."""
+    from repro_torch.distributed.sharding import rank_rows
+
+    model = tmodel.gather_params(cfg, sharded, batch_axes=("data",))
+    sp = model.split
+    out = {"shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+           "split": {k: getattr(sp, k) for k in ("attn", "heads", "kv_heads", "kv_sliced",
+                                                   "ff", "vocab", "count", "index")}}
+    if cfg.family == "vlm":
+        rows = {k: rank_rows(x, mesh, ("data",)) for k, x in encdec_train_batch(cfg).items()}
+        tokens = rows["tokens"].long()
+        with torch.no_grad():
+            out["vlm_input"] = torch.cat([rows["patches"], tmodel._embed(model, tokens)], 1)
+        out["vlm_input_one_device"] = torch.cat([rows["patches"], named["embed"][tokens]], 1)
+    return out
+
+
+def encdec_parallel_main(rank: int, out_dir: str) -> None:
+    """Each arch of ENCDEC_ARCHS from the parameters the test wrote
+    (OUT_DIR/params_<arch>.pt, the reference's converted) in each case of
+    ENCDEC_CASES: TP_STEPS train steps on the seeded batch with its
+    patches or frames, the spread over "model" of the step-1 gradients of
+    the leaves replicated there, the leaves a rank holds, then the
+    prefill and decode steps; on (2, 4) in heads mode Whisper's step-1
+    gradients under each planted fault.  Rank 0 writes
+    OUT_DIR/encdec_rank0.pt, keyed by (mesh, mode, arch)."""
+    from repro_torch.distributed.elastic import reshard_state
+
+    results = {}
+    for shape, mode in ENCDEC_CASES:
+        mesh = make_debug_mesh(shape, ("data", "model"))
+        m = shape[1]
+        for arch in ENCDEC_ARCHS:
+            cfg = get_smoke_config(arch)
+            params = torch.load(Path(out_dir) / f"params_{arch}.pt", weights_only=True)
+            rules = tp_rules(cfg, "train", mode == "head_dim", model_axis=m)
+            train = tp_train(cfg, params, mesh, rules, encdec_train_batch(cfg))
+            named = {n: p.detach() for n, p in _model(cfg, params).named_parameters()}
+            with mesh_context(mesh):
+                held = held_model(cfg, reshard_state(named, tmodel.param_logical_axes(cfg),
+                                                     mesh, rules), mesh, named)
+            results[shape, mode, arch] = {
+                "train": train, "held": held,
+                "whole_grad_spread": spread_over_model(train["grads_1"], mesh,
+                                                       ENCDEC_WHOLE_LEAVES[cfg.family]),
+                **tp_serve(cfg, params, mesh, tp_batches(cfg.vocab)["prompts"], model_axis=m,
+                           extra=encdec_inputs(cfg), head_dim_mode=mode == "head_dim")}
+    cfg = get_smoke_config("whisper_base")
+    mesh = make_debug_mesh((2, 4), ("data", "model"))
+    results["faults"] = encdec_fault_grads(
+        cfg, torch.load(Path(out_dir) / "params_whisper_base.pt", weights_only=True), mesh,
+        tp_rules(cfg, "train"), encdec_train_batch(cfg))
+    if rank == 0:
+        torch.save(results, Path(out_dir) / "encdec_rank0.pt")
+
+
 def main(rank: int, world: int, store_file: str, out_dir: str, mode: str = "") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world), rank=rank,
@@ -507,7 +677,8 @@ def main(rank: int, world: int, store_file: str, out_dir: str, mode: str = "") -
         if mode:
             {"tensor_parallel": tensor_parallel_main,
              "expert_parallel": expert_parallel_main,
-             "ssm_parallel": ssm_parallel_main}[mode](rank, out_dir)
+             "ssm_parallel": ssm_parallel_main,
+             "encdec_parallel": encdec_parallel_main}[mode](rank, out_dir)
             dist.barrier()
             return
         cfg = get_smoke_config("qwen3_8b")
